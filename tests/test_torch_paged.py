@@ -1,0 +1,339 @@
+"""PyTorch port vs the JAX package: paged attention, paged KV append, the
+split combine and rotary embedding (plain versions of csrc/paged_attention.cu
+and csrc/paged_append.cu).
+
+Inputs are made with numpy from a seed and handed to both packages; the JAX
+side runs as its own tests run it (CPU, Pallas interpret mode).
+
+Paged attention is held to the 2x rule of utils/testing.py against the
+JAX package's own oracle (ops/reference.py's attention_ref over the pages
+gathered and dequantized in jnp): the port's max error against that float32
+oracle must be at most twice the JAX kernel's own error against it, plus
+1e-5, for O and LSE alike. Appended pools must equal the JAX package's bit
+for bit on every row outside the trash page.
+"""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from xf_flash_attention_cutlass_tpu.ops import combine as jcombine
+from xf_flash_attention_cutlass_tpu.ops import paged as jpaged
+from xf_flash_attention_cutlass_tpu.ops import paged_append as jappend
+from xf_flash_attention_cutlass_tpu.ops import rotary as jrotary
+from xf_flash_attention_cutlass_tpu.ops.reference import (
+    attention_ref,
+    attn_bias_from_alibi_slopes,
+    construct_local_mask,
+)
+from xf_flash_attention_cutlass_tpu.quant.kv import quantize_kv as j_quantize_kv
+from xf_flash_attention_cutlass_tpu_torch.models.llama import params_from_jax
+from xf_flash_attention_cutlass_tpu_torch.ops import combine, paged, paged_append, rotary
+from xf_flash_attention_cutlass_tpu_torch.utils.testing import (
+    alibi_slopes_ref,
+    assert_close_2ref,
+    max_err,
+    paged_attention_oracle,
+)
+
+
+def _t(a) -> torch.Tensor:
+    return params_from_jax(np.asarray(a))
+
+
+def _bits(t: torch.Tensor) -> np.ndarray:
+    if t.dtype == torch.float8_e4m3fn:
+        return t.view(torch.uint8).numpy()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy()
+    if t.dtype == torch.float32:
+        return t.view(torch.int32).numpy()
+    return t.numpy()
+
+
+def _jbits(a) -> np.ndarray:
+    return _bits(_t(a))
+
+
+# ---- paged attention --------------------------------------------------------
+
+def _paged_case(seed, *, kv, b=3, sq=1, h=4, h_k=2, d=32, page=16, n_pages=12,
+                max_pages=4, layers=None, dead_row=True):
+    """Pools, block tables and lengths as numpy/jax arrays. kv: "bf16" | "f32"
+    | "int8" | "fp8_e4m3". The last row has kv_len 0 and a trash table."""
+    rng = np.random.default_rng(seed)
+    lead = () if layers is None else (layers,)
+    shape = lead + (n_pages + 1, h_k, page, d)
+    kf = rng.standard_normal(shape).astype(np.float32)
+    vf = rng.standard_normal(shape).astype(np.float32)
+    qdt = jnp.float32 if kv == "f32" else jnp.bfloat16
+    q = jnp.asarray(rng.standard_normal((b, sq, h, d)), qdt)
+    if kv in ("int8", "fp8_e4m3"):
+        kq, ks = j_quantize_kv(jnp.asarray(kf), kv)
+        vq, vs = j_quantize_kv(jnp.asarray(vf), kv)
+        pools = dict(k=kq, v=vq, ks=ks[..., 0], vs=vs[..., 0])
+    else:
+        pools = dict(k=jnp.asarray(kf, qdt), v=jnp.asarray(vf, qdt), ks=None, vs=None)
+    bt = np.stack([rng.permutation(n_pages)[:max_pages] for _ in range(b)]).astype(np.int32)
+    lens = rng.integers(sq, max_pages * page + 1, size=b).astype(np.int32)
+    if dead_row:
+        lens[-1] = 0
+        bt[-1] = n_pages
+    return q, pools, jnp.asarray(bt), jnp.asarray(lens)
+
+
+@functools.partial(jax.jit, static_argnames=("layer", "causal", "window", "softcap"))
+def _jax_oracle(q, pools, bt, lens, layer, causal=True, window=(-1, -1), softcap=0.0,
+                alibi_slopes=None, cache_leftpad=None):
+    """The JAX package's float32 oracle, independent of the port: the pages
+    each row names gathered in logical order to (b, T, h_k, d) and
+    dequantized, keys past kv_len (or before the left pad) masked, then
+    attention_ref for O and a logsumexp of the same masked, biased scores
+    for LSE (b, h, sq). Compiled as one program: eagerly, each jnp op
+    would compile on its own for every new shape."""
+    pick = (lambda a: a) if layer is None else (lambda a: a[layer])
+
+    def dense(pool):  # (pages, h_k, page, ...) -> (b, T, h_k, ...)
+        g = jnp.swapaxes(pick(pool)[bt], 2, 3)  # (b, max_pages, page, h_k, ...)
+        return g.reshape(g.shape[0], -1, *g.shape[3:]).astype(jnp.float32)
+
+    k, v = dense(pools["k"]), dense(pools["v"])
+    if pools["ks"] is not None:
+        k, v = k * dense(pools["ks"])[..., None], v * dense(pools["vs"])[..., None]
+    b, sq, h, d = q.shape
+    T = k.shape[1]
+    col = jnp.arange(T)[None, :]
+    key_mask = col < lens[:, None]
+    if cache_leftpad is not None:
+        key_mask = key_mask & (col >= cache_leftpad[:, None])
+    bias = None
+    if alibi_slopes is not None:  # the exact |qpos - kpos| bias of every row
+        bias = attn_bias_from_alibi_slopes(alibi_slopes, sq, T, None, key_mask,
+                                           causal=False, key_leftpad=cache_leftpad)
+    q32 = q.astype(jnp.float32)
+    out, _ = attention_ref(q32, k, v, None, key_mask, bias, causal=causal, window_size=window,
+                           softcap=softcap, key_leftpad=cache_leftpad)
+    s = jnp.einsum("bthd,bshd->bhts", q32 / np.sqrt(d), jnp.repeat(k, h // k.shape[2], axis=2))
+    if softcap > 0:
+        s = jnp.tanh(s / softcap) * softcap
+    s = jnp.where(key_mask[:, None, None, :], s, -jnp.inf)
+    if causal:
+        window = (window[0], 0)
+    if window[0] >= 0 or window[1] >= 0:
+        local = construct_local_mask(sq, T, window, None, key_mask, key_leftpad=cache_leftpad)
+        s = jnp.where(local, -jnp.inf, s)
+    if bias is not None:
+        s = s + bias
+    return out, jax.nn.logsumexp(s, axis=-1)
+
+
+def _check_2x(q, pools, bt, lens, layer=None, **kw):
+    sc_j = {} if pools["ks"] is None else dict(k_scales=pools["ks"], v_scales=pools["vs"])
+    sc_t = {} if pools["ks"] is None else dict(k_scales=_t(pools["ks"]),
+                                               v_scales=_t(pools["vs"]))
+    jl = {} if layer is None else dict(layer_idx=jnp.int32(layer))
+    tl = {} if layer is None else dict(layer_idx=layer)
+    jo, jlse = jpaged.paged_attention(q, pools["k"], pools["v"], bt, lens, **sc_j, **jl, **kw)
+    tkw = dict(kw)
+    if "alibi_slopes" in tkw:
+        tkw["alibi_slopes"] = _t(tkw["alibi_slopes"])
+    if "cache_leftpad" in tkw:
+        tkw["cache_leftpad"] = _t(tkw["cache_leftpad"])
+    to, tlse = paged.paged_attention(_t(q), _t(pools["k"]), _t(pools["v"]), _t(bt), _t(lens),
+                                     **sc_t, **tl, **tkw)
+    okw = {k: v for k, v in kw.items() if k != "num_splits"}
+    ro, rlse = (_t(a) for a in _jax_oracle(q, pools, bt, lens, layer, **okw))
+    jo, jlse = _t(jo), _t(jlse)
+    assert to.shape == jo.shape and to.dtype == jo.dtype and tlse.shape == jlse.shape
+    live = np.asarray(lens) > 0
+    if not live.all():  # kv_len 0 rows: O = 0, LSE = -inf, no NaN
+        assert torch.all(to[~live] == 0) and torch.all(torch.isneginf(tlse[~live]))
+    assert torch.isfinite(to).all()
+    assert_close_2ref(to, ro, jo)
+    finite = torch.isfinite(rlse)
+    assert torch.equal(torch.isfinite(tlse), finite)
+    assert_close_2ref(tlse[finite], rlse[finite], jlse[finite])
+    if to.dtype == torch.float32:  # same f32 arithmetic: a few ulps from JAX's
+        ulp = torch.finfo(torch.float32).eps
+        assert max_err(to, jo) <= 8 * ulp * float(jo.abs().max())
+        assert max_err(tlse[finite], jlse[finite]) <= 8 * ulp * float(jlse[finite].abs().max())
+    return to, tlse, jo, jlse
+
+
+@pytest.mark.parametrize(
+    "kv,sq,page,num_splits",
+    [
+        ("bf16", 1, 16, 1),
+        ("bf16", 5, 32, 3),
+        ("int8", 1, 32, 3),
+        ("int8", 5, 16, 1),
+        ("fp8_e4m3", 1, 16, 3),
+        ("fp8_e4m3", 5, 32, 1),
+        ("f32", 3, 16, 0),
+    ],
+)
+def test_paged_attention_2x_rule(kv, sq, page, num_splits):
+    q, pools, bt, lens = _paged_case(10 + sq + page, kv=kv, sq=sq, page=page,
+                                     max_pages=64 // page + 1)
+    _check_2x(q, pools, bt, lens, num_splits=num_splits)
+
+
+@pytest.mark.parametrize("kv", ["bf16", "fp8_e4m3"])
+def test_paged_attention_layer_idx(kv):
+    q, pools, bt, lens = _paged_case(20, kv=kv, sq=2, layers=3)
+    _check_2x(q, pools, bt, lens, layer=2, num_splits=2)
+
+
+@pytest.mark.parametrize(
+    "extra",
+    [
+        dict(window=(7, 0)),
+        dict(softcap=5.0),
+        dict(alibi="per-head"),
+        dict(causal=False, window=(6, 2), cache_leftpad=True),
+    ],
+)
+def test_paged_attention_plain_extras(extra):
+    """Window, softcap, ALiBi and leftpad exist on the plain path only (the
+    CUDA kernel raises for them); they still follow the JAX semantics."""
+    q, pools, bt, lens = _paged_case(30, kv="f32", b=2, sq=4, h=4, h_k=1, dead_row=False)
+    kw = dict(extra)
+    if kw.pop("alibi", None):
+        kw["alibi_slopes"] = jnp.asarray(alibi_slopes_ref(4))
+    if kw.pop("cache_leftpad", None):
+        kw["cache_leftpad"] = jnp.asarray([3, 0], jnp.int32)
+    _check_2x(q, pools, bt, lens, num_splits=1, **kw)
+
+
+@pytest.mark.parametrize("kv,causal", [("bf16", True), ("fp8_e4m3", True), ("int8", False)])
+def test_paged_attention_oracle_matches_jax(kv, causal):
+    """The dense oracle that the kernel is held against on the card
+    (utils/testing.py) agrees with the JAX package's: in f32 to f32
+    rounding, and in the working dtype to within bf16 rounding."""
+    q, pools, bt, lens = _paged_case(70, kv=kv, sq=3, max_pages=5)
+    sc = {} if pools["ks"] is None else dict(k_scales=_t(pools["ks"]), v_scales=_t(pools["vs"]))
+    args = (_t(q), _t(pools["k"]), _t(pools["v"]), _t(bt), _t(lens))
+    o32, l32 = paged_attention_oracle(*args, causal=causal, **sc)
+    olp, llp = paged_attention_oracle(*args, causal=causal, upcast=False, **sc)
+    ro, rlse = (_t(a) for a in _jax_oracle(q, pools, bt, lens, None, causal=causal))
+    assert o32.dtype == torch.float32 and olp.dtype == args[0].dtype
+    assert max_err(o32, ro) <= 1e-5
+    assert torch.equal(torch.isneginf(l32), torch.isneginf(rlse))
+    finite = torch.isfinite(rlse)
+    assert max_err(l32[finite], rlse[finite]) <= 1e-5
+    assert 0 < max_err(olp, ro) <= 0.05 and max_err(llp[finite], rlse[finite]) <= 0.05
+    dead = ~torch.from_numpy(np.asarray(lens) > 0)
+    assert torch.all(olp[dead] == 0) and torch.all(torch.isneginf(llp[dead]))
+
+
+def test_num_splits_heuristic_matches_jax():
+    for n_work in (1, 7, 64, 100, 132, 200):
+        for blocks in (1, 4, 16, 100):
+            for max_splits in (1, 8, 128):
+                assert paged.num_splits_heuristic(n_work, 132, blocks, max_splits) == \
+                    jpaged.num_splits_heuristic(n_work, 132, blocks, max_splits)
+    # decode at the Llama-8B batch: 8 rows x 8 KV heads leave SMs idle
+    assert paged.resolve_num_splits(0, 8, 8, 4, 16) > 1
+    assert paged.resolve_num_splits(3, 8, 8, 4, 16) == 3
+
+
+# ---- paged append -----------------------------------------------------------
+
+def _append_case(seed, *, qdt, b, sq, page, h_k=2, d=128, n_pages=10, layers=2):
+    rng = np.random.default_rng(seed)
+    shape = (layers, n_pages + 1, h_k, page, d)
+    quant = qdt in ("int8", "fp8_e4m3")
+    jdt = {"int8": jnp.int8, "fp8_e4m3": jnp.float8_e4m3fn, "bf16": jnp.bfloat16}[qdt]
+    pools = dict(k=jnp.zeros(shape, jdt), v=jnp.zeros(shape, jdt))
+    if quant:
+        pools["ks"] = jnp.zeros(shape[:-1], jnp.float32)
+        pools["vs"] = jnp.zeros(shape[:-1], jnp.float32)
+    perm = rng.permutation(n_pages)
+    per = n_pages // b
+    bt = np.full((b, 4), n_pages, np.int32)  # trash tail
+    for i in range(b):
+        bt[i, :per] = perm[i * per:(i + 1) * per]
+    kn = (rng.standard_normal((b, sq, h_k, d)) * 3).astype(np.float32)
+    vn = rng.standard_normal((b, sq, h_k, d)).astype(np.float32)
+    kn[0, 0, 0] = 0.0  # amax 0: scale 1
+    return pools, bt, jnp.asarray(kn, jnp.bfloat16), jnp.asarray(vn, jnp.bfloat16)
+
+
+def _check_append(pools, bt, kn, vn, positions, mode, n_pages):
+    quant = "ks" in pools
+    jsc = dict(k_scales=pools["ks"], v_scales=pools["vs"]) if quant else {}
+    # compiled, as the JAX engine runs it (see quant/kv.py of the port)
+    j_append = jax.jit(functools.partial(jappend.paged_append, mode=mode))
+    jout = j_append(pools["k"], pools["v"], kn, vn, jnp.asarray(bt), jnp.asarray(positions),
+                    layer_idx=jnp.int32(1), **jsc)
+    tp = {k: _t(v) for k, v in pools.items()}
+    tsc = dict(k_scales=tp["ks"], v_scales=tp["vs"]) if quant else {}
+    tout = paged_append.paged_append(tp["k"], tp["v"], _t(kn), _t(vn), _t(bt),
+                                     _t(positions), layer_idx=1, **tsc)
+    assert tout[0] is tp["k"]  # updated in place, returned as given
+    for got, want in zip(tout, jout):
+        np.testing.assert_array_equal(_bits(got[:, :n_pages]), _jbits(want[:, :n_pages]))
+    assert torch.count_nonzero(tout[0][1, :n_pages].float()) > 0
+
+
+@pytest.mark.parametrize("qdt", ["int8", "fp8_e4m3", "bf16"])
+def test_paged_append_decode_unaligned_bit_exact(qdt):
+    """sq = 1 at scattered positions, page 128: the JAX decode kernel."""
+    pools, bt, kn, vn = _append_case(40, qdt=qdt, b=3, sq=1, page=128, n_pages=9)
+    _check_append(pools, bt, kn, vn, np.asarray([5, 200, 383], np.int32), "decode", 9)
+
+
+@pytest.mark.parametrize("qdt", ["int8", "fp8_e4m3"])
+def test_paged_append_chunk_bit_exact(qdt):
+    """A 128-token chunk for two lanes at page-aligned positions: the JAX
+    prefill kernel."""
+    pools, bt, kn, vn = _append_case(41, qdt=qdt, b=2, sq=128, page=128, n_pages=8)
+    _check_append(pools, bt, kn, vn, np.asarray([0, 128], np.int32), "auto", 8)
+
+
+def test_paged_append_verify_style_and_small_page_bit_exact():
+    """sq > 1 at unaligned positions (the JAX per-token verify path), and a
+    page-16 int8 pool (the JAX scatter fallback): one port kernel for both."""
+    pools, bt, kn, vn = _append_case(42, qdt="fp8_e4m3", b=2, sq=3, page=128, n_pages=8)
+    _check_append(pools, bt, kn, vn, np.asarray([126, 300], np.int32), "decode", 8)
+    pools, bt, kn, vn = _append_case(43, qdt="int8", b=2, sq=5, page=16, d=32, n_pages=8)
+    _check_append(pools, bt, kn, vn, np.asarray([14, 33], np.int32), "decode", 8)
+
+
+# ---- combine and rotary ------------------------------------------------------
+
+def test_combine_partials_and_merge_two_match_jax():
+    rng = np.random.default_rng(50)
+    o = rng.standard_normal((3, 2, 5, 8)).astype(np.float32)
+    lse = rng.standard_normal((3, 2, 5)).astype(np.float32) * 4
+    lse[0, 0, 0] = -np.inf  # one empty split
+    lse[:, 1, 2] = -np.inf  # all splits empty
+    jo, jl = jcombine.combine_partials(jnp.asarray(o), jnp.asarray(lse))
+    to, tl = combine.combine_partials(torch.from_numpy(o), torch.from_numpy(lse))
+    np.testing.assert_allclose(to.numpy(), np.asarray(jo), rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-6, atol=1e-6)
+    assert torch.all(to[1, 2] == 0) and torch.isneginf(tl[1, 2])
+    jo, jl = jcombine.merge_two(*(jnp.asarray(a) for a in (o[0], lse[0], o[1], lse[1])))
+    to, tl = combine.merge_two(*(torch.from_numpy(a) for a in (o[0], lse[0], o[1], lse[1])))
+    np.testing.assert_allclose(to.numpy(), np.asarray(jo), rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("interleaved", [False, True])
+def test_apply_rotary_matches_jax(interleaved):
+    rng = np.random.default_rng(60)
+    x = rng.standard_normal((2, 5, 3, 16)).astype(np.float32)
+    pos = rng.integers(0, 70, (2, 5)).astype(np.int32)
+    jc, js = jrotary.rotary_frequencies(12, 64, 10000.0)  # rotary_dim < head_dim
+    tc, ts = rotary.rotary_frequencies(12, 64, 10000.0)
+    np.testing.assert_allclose(tc.numpy(), np.asarray(jc), rtol=0, atol=2e-6)
+    np.testing.assert_allclose(ts.numpy(), np.asarray(js), rtol=0, atol=2e-6)
+    want = jrotary.apply_rotary(jnp.asarray(x), jc, js, jnp.asarray(pos), interleaved)
+    got = rotary.apply_rotary(torch.from_numpy(x), _t(jc), _t(js), torch.from_numpy(pos),
+                              interleaved)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=1e-6)
+    np.testing.assert_array_equal(got[..., 12:].numpy(), x[..., 12:])  # tail untouched

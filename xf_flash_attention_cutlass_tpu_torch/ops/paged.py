@@ -1,0 +1,331 @@
+"""Paged split-KV attention over a block-table KV pool.
+
+``paged_attention`` attends new query tokens (b, sq, h, d) over the pages
+that each batch entry's block table names, causal from the bottom right:
+query token t of sq sits at position kv_len - sq + t. Pools are
+(num_pages, h_k, page, d), or (L, num_pages, h_k, page, d) with
+``layer_idx``; int8 / fp8-e4m3 pools carry f32 per-token scales
+(num_pages, h_k, page), applied to the score plane (K) and to P (V).
+
+CUDA tensors run the hand-written kernel csrc/paged_attention.cu, which
+writes f32 split-KV partials (O, LSE) that ``combine_partials`` merges in
+plain torch. CPU tensors run ``paged_attention_ref``, the plain version,
+with the kernel's numerics. Window, softcap, ALiBi and cache_leftpad are
+implemented by the plain version only; on CUDA they raise.
+
+The layout is the JAX package's logical contract with its TPU padding
+removed: pools are stored tight, and the kernel reads any page size.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from xf_flash_attention_cutlass_tpu_torch import _build
+from xf_flash_attention_cutlass_tpu_torch.ops.combine import combine_partials
+from xf_flash_attention_cutlass_tpu_torch.quant.kv import QUANT_DTYPES
+from xf_flash_attention_cutlass_tpu_torch.utils import cdiv, is_cuda
+
+NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
+M_FLOOR = -1e30  # running-max floor: exp(NEG_INF - M_FLOOR) == 0
+NUM_SMS = 132  # H100 SXM: the cores of the split heuristic
+MAX_SPLITS = 128
+
+
+def num_splits_heuristic(
+    n_work: int, num_cores: int, max_n_blocks: int, max_splits: int
+) -> int:
+    """Occupancy split search: if `n_work` blocks already fill >= 80% of
+    the cores, don't split; otherwise take the SMALLEST split count whose
+    wave efficiency (work / ceil(work / cores) / cores) is >= 85% of the
+    best achievable, skipping splits that don't shrink the per-split block
+    count."""
+    if n_work >= 0.8 * num_cores:
+        return 1
+    max_splits = max(1, min(max_splits, num_cores, max_n_blocks))
+
+    def eff(s):
+        waves = n_work * s / num_cores
+        return waves / math.ceil(waves)
+
+    best = 0.0
+    effs = []
+    for s in range(1, max_splits + 1):
+        if s > 1 and math.ceil(max_n_blocks / s) == math.ceil(max_n_blocks / (s - 1)):
+            effs.append(0.0)  # same per-split work as s-1: no point
+            continue
+        e = eff(s)
+        effs.append(e)
+        best = max(best, e)
+    for s in range(1, max_splits + 1):
+        if effs[s - 1] >= 0.85 * best:
+            return s
+    return 1
+
+
+def kernel_row_tile(rows: int) -> int:
+    """Query rows per block of csrc/paged_attention.cu (one of its two
+    instances; the launcher is told which)."""
+    return 16 if rows <= 16 else 32
+
+
+def resolve_num_splits(num_splits: int, b: int, h_k: int, rows: int, max_pages: int) -> int:
+    """Explicit num_splits wins; 0 asks the heuristic, with the kernel's
+    blocks (b * h_k * row tiles) as work and the H100's SMs as cores."""
+    if num_splits <= 0:
+        n_work = b * h_k * cdiv(rows, kernel_row_tile(rows))
+        num_splits = num_splits_heuristic(n_work, NUM_SMS, max_pages, MAX_SPLITS)
+    return max(1, min(num_splits, max_pages))
+
+
+def _layer(x: Optional[torch.Tensor], layer_idx) -> Optional[torch.Tensor]:
+    return x if x is None or layer_idx is None else x[int(layer_idx)]
+
+
+def _squeeze_scales(s: Optional[torch.Tensor], pool: torch.Tensor):
+    if s is not None and s.dim() == pool.dim():  # trailing (..., 1) of quantize_kv
+        s = s[..., 0]
+    return s
+
+
+def _gather(pool: torch.Tensor, block_tables: torch.Tensor) -> torch.Tensor:
+    """(pages, h_k, page, ...) gathered per batch row -> (b, h_k, T, ...)
+    with T = max_pages * page keys in logical order."""
+    g = pool[block_tables.long()]  # (b, max_pages, h_k, page, ...)
+    g = g.transpose(1, 2)  # (b, h_k, max_pages, page, ...)
+    return g.reshape(g.shape[0], g.shape[1], g.shape[2] * g.shape[3], *g.shape[4:])
+
+
+def paged_attention_ref(
+    q: torch.Tensor,  # (b, sq, h, d)
+    k_pool: torch.Tensor,  # (num_pages, h_k, page, d): one layer
+    v_pool: torch.Tensor,
+    block_tables: torch.Tensor,  # (b, max_pages)
+    kv_lens: torch.Tensor,  # (b,)
+    *,
+    softmax_scale: Optional[float] = None,
+    causal: bool = True,
+    window: Tuple[int, int] = (-1, -1),
+    softcap: float = 0.0,
+    alibi_slopes: Optional[torch.Tensor] = None,  # (b, h) or (h,)
+    cache_leftpad: Optional[torch.Tensor] = None,  # (b,)
+    num_splits: int = 1,
+    k_scales: Optional[torch.Tensor] = None,  # (num_pages, h_k, page)
+    v_scales: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of paged attention, with the kernel's arithmetic.
+    Returns (O (b, sq, h, d) in q's dtype, LSE (b, h, sq) f32).
+
+    The softmax scale is folded into q in f32 and rounded to q's dtype,
+    scores are f32, P times the V scale is rounded to q's dtype (to the
+    pool's dtype for unquantized pools) before the PV product, sums are f32;
+    split partials are merged by combine_partials.
+    """
+    b, sq, h, d = q.shape
+    _, h_k, page, _ = k_pool.shape
+    if h % h_k:
+        raise ValueError(f"q heads {h} not a multiple of kv heads {h_k}")
+    g = h // h_k
+    rows = sq * g
+    scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)
+    kv_quant = k_scales is not None
+    dt = q.dtype
+
+    # decode swap: (b, sq, h_k, g, d) -> (b, h_k, sq*g, d), row = t*g + gi
+    qf = (q.float() * scale).to(dt).float()
+    qg = qf.reshape(b, sq, h_k, g, d).permute(0, 2, 1, 3, 4).reshape(b, h_k, rows, d)
+
+    kg = _gather(k_pool, block_tables).float()  # (b, h_k, T, d)
+    vg = _gather(v_pool, block_tables).float()
+    T = kg.shape[2]
+    ks = vs = None
+    if kv_quant:
+        ks = _gather(k_scales, block_tables).float()  # (b, h_k, T)
+        vs = _gather(v_scales, block_tables).float()
+
+    s = qg @ kg.transpose(-1, -2)  # (b, h_k, rows, T) f32
+    if kv_quant:  # K scale on the score plane
+        s = s * ks[:, :, None, :]
+    if softcap > 0.0:
+        s = torch.tanh(s / softcap) * softcap
+
+    dev = q.device
+    kcol = torch.arange(T, device=dev)[None, None, None, :]
+    lens = kv_lens.to(device=dev, dtype=torch.long)[:, None, None, None]
+    t_of_row = torch.arange(rows, device=dev) // g
+    qpos = lens - sq + t_of_row[None, None, :, None]  # (b, 1, rows, 1)
+    wl, wr = window
+    if causal:
+        wr = 0
+    keep = kcol < lens
+    if causal or wr >= 0:
+        keep = keep & (kcol <= qpos + max(wr, 0))
+    if wl >= 0:
+        keep = keep & (kcol >= qpos - wl)
+    leftpad = None
+    if cache_leftpad is not None:
+        leftpad = cache_leftpad.to(device=dev, dtype=torch.long)[:, None, None, None]
+        keep = keep & (kcol >= leftpad)
+    if alibi_slopes is not None:
+        slopes = alibi_slopes.to(device=dev, dtype=torch.float32)
+        if slopes.dim() == 1:
+            slopes = slopes[None].expand(b, h)
+        row_slope = slopes.reshape(b, h_k, g)[:, :, torch.arange(rows, device=dev) % g]
+        kcol_eff, qpos_eff = kcol, qpos
+        if leftpad is not None:
+            kcol_eff = torch.where(kcol >= leftpad, kcol - leftpad, torch.full_like(kcol, 2**30))
+            qpos_eff = qpos - leftpad
+        s = s - row_slope[..., None] * (qpos_eff - kcol_eff).abs().float()
+
+    # each row's live pages cut into num_splits equal runs, as the kernel does
+    n_live = ((lens + page - 1) // page).clamp_max(block_tables.shape[1])
+    pps = (n_live + num_splits - 1) // num_splits
+    o_parts, lse_parts = [], []
+    for sp in range(num_splits):
+        in_split = (kcol >= sp * pps * page) & (kcol < (sp + 1) * pps * page)
+        s_sp = torch.where(keep & in_split, s, torch.full_like(s, NEG_INF))
+        m = s_sp.amax(dim=-1, keepdim=True).clamp_min(M_FLOOR)
+        p = torch.exp(s_sp - m)
+        l_sum = p.sum(dim=-1, keepdim=True)
+        if kv_quant:
+            pv = (p * vs[:, :, None, :]).to(dt).float()
+        else:
+            pv = p.to(v_pool.dtype).float()
+        o = pv @ vg
+        empty = l_sum <= 0
+        l_safe = torch.where(empty, 1.0, l_sum)
+        o = torch.where(empty, torch.zeros_like(o), o / l_safe)
+        lse = torch.where(empty, torch.full_like(m, -torch.inf), m + torch.log(l_safe))
+        o_parts.append(o)
+        lse_parts.append(lse[..., 0])
+    if num_splits > 1:
+        o, lse = combine_partials(torch.stack(o_parts), torch.stack(lse_parts))
+    else:
+        o, lse = o_parts[0], lse_parts[0]
+    return _unswap(o, lse, b, sq, h_k, g, d, dt)
+
+
+def _unswap(o, lse, b, sq, h_k, g, d, out_dtype):
+    """(b, h_k, sq*g, d) rows back to (b, sq, h, d); LSE to (b, h, sq)."""
+    o = o.reshape(b, h_k, sq, g, d).permute(0, 2, 1, 3, 4).reshape(b, sq, h_k * g, d)
+    lse = lse.reshape(b, h_k, sq, g).permute(0, 1, 3, 2).reshape(b, h_k * g, sq)
+    return o.to(out_dtype), lse
+
+
+_lib_handle = None
+
+
+def _lib():
+    global _lib_handle
+    if _lib_handle is None:
+        lib = _build.load("paged_attention")
+        lib.xfa_paged_attention.restype = ctypes.c_int
+        lib.xfa_paged_attention.argtypes = (
+            [ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 6
+            + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+        )
+        _lib_handle = lib
+    return _lib_handle
+
+
+def _paged_attention_cuda(q, k_pool, v_pool, block_tables, kv_lens, scale, causal,
+                          num_splits, k_scales, v_scales):
+    b, sq, h, d = q.shape
+    _, h_k, page, _ = k_pool.shape
+    g = h // h_k
+    rows = sq * g
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"the CUDA paged-attention kernel takes bf16 queries, got {q.dtype}")
+    kv_quant = k_scales is not None
+    if kv_quant != (k_pool.dtype in QUANT_DTYPES):
+        raise ValueError(f"{k_pool.dtype} pools {'need' if not kv_quant else 'take no'} scales")
+    if k_pool.dtype not in (torch.bfloat16, *QUANT_DTYPES) or v_pool.dtype != k_pool.dtype:
+        raise TypeError(
+            f"the CUDA paged-attention kernel takes bf16/int8/fp8 pools, got {k_pool.dtype}"
+        )
+    if d not in (64, 128):
+        raise ValueError(f"the CUDA paged-attention kernel takes head_dim 64 or 128, got {d}")
+    for t in (k_pool, v_pool) + ((k_scales, v_scales) if kv_quant else ()):
+        if not t.is_contiguous():
+            raise ValueError("pools and scales must be contiguous")
+    if kv_quant and (k_scales.dtype != torch.float32 or v_scales.dtype != torch.float32):
+        raise TypeError("scale pools must be float32")
+    # softmax scale folded into q in f32, rounded to q's dtype (as on the TPU)
+    qs = (q.float() * scale).to(q.dtype).contiguous()
+    bt = block_tables.to(torch.int32).contiguous()
+    lens = kv_lens.to(torch.int32).contiguous()
+    o_part = torch.empty((num_splits, b, h_k, rows, d), dtype=torch.float32, device=q.device)
+    lse_part = torch.empty((num_splits, b, h_k, rows), dtype=torch.float32, device=q.device)
+    rc = _lib().xfa_paged_attention(
+        qs.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), _build.dtype_code(k_pool.dtype),
+        _build.ptr(k_scales), _build.ptr(v_scales), bt.data_ptr(), lens.data_ptr(),
+        o_part.data_ptr(), lse_part.data_ptr(),
+        b, sq, h_k, g, d, page, bt.shape[1], num_splits, int(causal), kernel_row_tile(rows),
+        _build.stream_handle(),
+    )
+    _build.check(rc, "paged_attention")
+    _build.LAUNCHES["paged_attention.decode" if sq == 1 else "paged_attention.prefill"] += 1
+    if num_splits > 1:
+        o, lse = combine_partials(o_part, lse_part)
+    else:
+        o, lse = o_part[0], lse_part[0]
+    return _unswap(o, lse, b, sq, h_k, g, d, q.dtype)
+
+
+def paged_attention(
+    q: torch.Tensor,  # (b, sq, h, d) — new query tokens
+    k_pool: torch.Tensor,  # (num_pages, h_k, page, d) or (L, ...) with layer_idx
+    v_pool: torch.Tensor,
+    block_tables: torch.Tensor,  # (b, max_pages) int
+    kv_lens: torch.Tensor,  # (b,) int — total visible keys (incl. new)
+    *,
+    softmax_scale: Optional[float] = None,
+    causal: bool = True,
+    window: Tuple[int, int] = (-1, -1),
+    softcap: float = 0.0,
+    alibi_slopes: Optional[torch.Tensor] = None,
+    cache_leftpad: Optional[torch.Tensor] = None,
+    num_splits: int = 0,  # 0: num_splits_heuristic over the H100's SMs
+    k_scales: Optional[torch.Tensor] = None,  # (L?, num_pages, h_k, page[, 1]) f32
+    v_scales: Optional[torch.Tensor] = None,
+    layer_idx: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Paged-KV attention over new query tokens. Returns (O, LSE):
+    O (b, sq, h, d) in q.dtype, LSE (b, h, sq) f32 natural log. Pools are
+    stored tight, so their page dimension is the page size."""
+    if layer_idx is not None and k_pool.dim() != 5:
+        raise ValueError(
+            f"layer_idx given but k_pool is not (L, pages, h_k, page, d): {tuple(k_pool.shape)}"
+        )
+    k_pool, v_pool = _layer(k_pool, layer_idx), _layer(v_pool, layer_idx)
+    k_scales = _squeeze_scales(_layer(k_scales, layer_idx), k_pool)
+    v_scales = _squeeze_scales(_layer(v_scales, layer_idx), v_pool)
+    b, sq, h, d = q.shape
+    h_k = k_pool.shape[1]
+    if h % h_k:
+        raise ValueError(f"q heads {h} not a multiple of kv heads {h_k}")
+    splits = resolve_num_splits(num_splits, b, h_k, sq * (h // h_k), block_tables.shape[1])
+    scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)
+    if is_cuda(q, k_pool, v_pool, block_tables, kv_lens):
+        extras = dict(window=tuple(window) != (-1, -1), softcap=softcap > 0.0,
+                      alibi_slopes=alibi_slopes is not None,
+                      cache_leftpad=cache_leftpad is not None)
+        unsupported = [k for k, on in extras.items() if on]
+        if unsupported:
+            raise NotImplementedError(
+                f"the CUDA paged-attention kernel does not take {unsupported}; "
+                "only the plain version (CPU tensors) does"
+            )
+        return _paged_attention_cuda(q, k_pool, v_pool, block_tables, kv_lens, scale,
+                                     causal, splits, k_scales, v_scales)
+    _build.PLAIN_CALLS["paged_attention"] += 1
+    return paged_attention_ref(
+        q, k_pool, v_pool, block_tables, kv_lens, softmax_scale=scale, causal=causal,
+        window=window, softcap=softcap, alibi_slopes=alibi_slopes,
+        cache_leftpad=cache_leftpad, num_splits=splits, k_scales=k_scales,
+        v_scales=v_scales,
+    )
