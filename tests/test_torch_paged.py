@@ -304,6 +304,45 @@ def test_paged_append_verify_style_and_small_page_bit_exact():
     _check_append(pools, bt, kn, vn, np.asarray([14, 33], np.int32), "decode", 8)
 
 
+@pytest.mark.parametrize("qdt", ["int8", "fp8_e4m3"])
+def test_paged_append_page32_scale_planes_match_jax_k6(qdt, monkeypatch):
+    """Quantized prefill into page-32 pools: the JAX package routes it through
+    _prefill_append_padded, whose _scale_write_kernel (K6) writes whole
+    128-lane per-page scale planes; the port's one append kernel writes each
+    token's scale into its page's plane row by row. Two 64-token rows at
+    page-aligned positions: the same live pool bytes, and the same scales in
+    the live columns [0, 32) of JAX's planes."""
+    routed = []
+    padded = jappend._prefill_append_padded
+    monkeypatch.setattr(jappend, "_prefill_append_padded",
+                        lambda *a, **k: routed.append(1) or padded(*a, **k))
+    rng = np.random.default_rng(44)
+    b, sq, h_k, d, page, n_pages, layers = 2, 64, 2, 128, 32, 8, 2
+    jdt = {"int8": jnp.int8, "fp8_e4m3": jnp.float8_e4m3fn}[qdt]
+    shape = (layers, n_pages + 1, h_k, page, d)
+    bt = np.full((b, 4), n_pages, np.int32)  # trash tail
+    bt[:, :3] = rng.permutation(n_pages)[:6].reshape(b, 3)
+    kn = jnp.asarray(rng.standard_normal((b, sq, h_k, d)) * 3, jnp.bfloat16)
+    vn = jnp.asarray(rng.standard_normal((b, sq, h_k, d)), jnp.bfloat16)
+    pos = np.asarray([32, 0], np.int32)
+    jout = jax.jit(jappend.paged_append)(
+        jnp.zeros(shape, jdt), jnp.zeros(shape, jdt), kn, vn, jnp.asarray(bt), jnp.asarray(pos),
+        k_scales=jnp.zeros(shape[:-2] + (128,), jnp.float32),
+        v_scales=jnp.zeros(shape[:-2] + (128,), jnp.float32), layer_idx=jnp.int32(1))
+    assert routed  # the JAX append took the K6 route
+    tdt = {"int8": torch.int8, "fp8_e4m3": torch.float8_e4m3fn}[qdt]
+    tpools = (torch.zeros(shape, dtype=tdt), torch.zeros(shape, dtype=tdt),
+              torch.zeros(shape[:-1]), torch.zeros(shape[:-1]))
+    tout = paged_append.paged_append(tpools[0], tpools[1], _t(kn), _t(vn), _t(bt), _t(pos),
+                                     k_scales=tpools[2], v_scales=tpools[3], layer_idx=1)
+    live = np.concatenate([bt[0, 1:3], bt[1, :2]])  # the pages the two rows wrote
+    for got, want in zip(tout[:2], jout[:2]):
+        np.testing.assert_array_equal(_bits(got[1, live]), _jbits(want[1, live]))
+    for got, want in zip(tout[2:], jout[2:]):
+        np.testing.assert_array_equal(_bits(got[1, live]), _jbits(want[1, live, :, :page]))
+    assert torch.count_nonzero(tout[0][1, live].float()) > 0
+
+
 # ---- combine and rotary ------------------------------------------------------
 
 def test_combine_partials_and_merge_two_match_jax():

@@ -170,8 +170,7 @@ def test_engine_rejects_what_the_slice_does_not_serve(jax_params):
     params = params_from_jax(_numpy_tree(jax_params))
     cfg = LlamaConfig(**TINY)
     base = dict(max_batch=2, page_size=16, num_pages=16, max_seq=256, prefill_chunk=32)
-    for extra in (dict(prefill_chunk=None), dict(speculate_k=2), dict(multi_step=2),
-                  dict(top_k=5), dict(top_p=0.9)):
+    for extra in (dict(speculate_k=2), dict(multi_step=2), dict(top_k=5), dict(top_p=0.9)):
         with pytest.raises(NotImplementedError):
             DecodeEngine(params, cfg, EngineConfig(**{**base, **extra}), device="cpu")
     with pytest.raises(NotImplementedError):

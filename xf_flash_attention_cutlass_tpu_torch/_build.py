@@ -30,7 +30,7 @@ CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "build")
 
 # every kernel source; each becomes lib<name>-<hash>.so
-SOURCES = ("paged_attention", "paged_append", "qmm")
+SOURCES = ("paged_attention", "paged_append", "qmm", "flash_fwd", "flash_bwd")
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -131,6 +131,7 @@ DTYPE_CODES = {
     torch.bfloat16: 0,
     torch.int8: 1,
     torch.float8_e4m3fn: 2,
+    torch.float16: 3,
 }
 
 # Launch counts of every kernel wrapper, by route, and calls of the plain

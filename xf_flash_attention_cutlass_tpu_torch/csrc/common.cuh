@@ -12,6 +12,7 @@ enum XfaDtype : int {
   XFA_BF16 = 0,
   XFA_I8 = 1,
   XFA_FP8_E4M3 = 2,
+  XFA_F16 = 3,
 };
 
 // fp8-e4m3 travels as its raw byte; conversions go through cuda_fp8.h

@@ -1,15 +1,18 @@
-"""LLaMA-style decoder stack, decode side: the config, random init, norms,
-projections and the MLP the serving engine runs, plus INT8 weight
-quantization and the conversion of the JAX package's parameters.
+"""LLaMA-style decoder stack: the config, random init, norms, projections,
+the MLP, the full causal ``forward`` and the training ``loss_fn``, plus
+INT8 weight quantization and the conversion of the JAX package's parameters.
 
 Parameters are a plain dict with the JAX package's structure: ``embed``
 (vocab, dim), ``layers`` holding (L, ...) stacks, ``final_norm`` and
 ``lm_head`` (dim, vocab). A quantized projection is a ``(w_q, scale)`` tuple,
-a decode-packed one ``(w, None)``; the engine adds the layer index to read
-one layer of a stack in place.
+a decode-packed one ``(w, None)``; ``layer_view`` adds the layer index so the
+matmul reads one layer of a stack in place.
 
-The full causal ``forward`` waits for the dense flash kernel (K7); the
-engine serves prefill through its chunked paged path instead.
+``forward`` runs attention through the differentiable dense flash attention
+(``ops/flash.py``: K7 forward, K9/K10 backward on CUDA, or K11 with
+``fused=True``), so ``loss_fn`` has a gradient through the kernels; padded
+batches are masked with ``kv_lens`` (the same mask the JAX package builds
+from segment ids).
 """
 
 from __future__ import annotations
@@ -22,6 +25,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from xf_flash_attention_cutlass_tpu_torch.ops.flash import flash_attention
+from xf_flash_attention_cutlass_tpu_torch.ops.rotary import apply_rotary, rotary_frequencies
 from xf_flash_attention_cutlass_tpu_torch.quant.linear import quantize_weight, quantized_matmul
 
 PROJ_NAMES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
@@ -97,8 +102,9 @@ def init_params(generator: torch.Generator, cfg: LlamaConfig,
 
 
 def layer_view(layers: Dict[str, Any], l: int) -> Dict[str, Any]:
-    """One layer's params: plain stacks sliced (views), projection tuples
-    given the layer index so the matmul reads the stack in place."""
+    """One layer's params: plain stacks (or lists of per-layer views)
+    indexed, projection tuples given the layer index so the matmul reads the
+    stack in place."""
     out = {}
     for name, v in layers.items():
         out[name] = (v[0], v[1], l) if isinstance(v, tuple) else v[l]
@@ -129,6 +135,78 @@ def mlp_block(layer: Dict[str, Any], x: torch.Tensor, cfg: LlamaConfig) -> torch
     gate = _proj(h, layer["w_gate"])
     up = _proj(h, layer["w_up"])
     return x + _proj(F.silu(gate) * up, layer["w_down"])
+
+
+def attn_qkv(layer: Dict[str, Any], x: torch.Tensor, cfg: LlamaConfig, cos, sin, positions):
+    """norm -> q/k/v projections -> rotary, (b, s, heads, head_dim) each;
+    shared by the full forward and the engine's prefill and decode."""
+    b, s, _ = x.shape
+    hd = cfg.head_dim
+    h = rms_norm(x, layer["attn_norm"], cfg.rms_eps)
+    q = _proj(h, layer["wq"]).reshape(b, s, cfg.n_heads, hd)
+    k = _proj(h, layer["wk"]).reshape(b, s, cfg.n_kv_heads, hd)
+    v = _proj(h, layer["wv"]).reshape(b, s, cfg.n_kv_heads, hd)
+    q = apply_rotary(q, cos, sin, positions, cfg.rotary_interleaved)
+    k = apply_rotary(k, cos, sin, positions, cfg.rotary_interleaved)
+    return q, k, v
+
+
+def attention_block(
+    layer: Dict[str, Any],
+    x: torch.Tensor,  # (b, s, dim)
+    cfg: LlamaConfig,
+    cos: torch.Tensor,
+    sin: torch.Tensor,
+    positions: torch.Tensor,  # (b, s)
+    kv_lens: Optional[torch.Tensor] = None,  # (b,) mask for padded batches
+    fused: Optional[bool] = None,  # the attention backward's schedule (ops/flash_bwd.py)
+) -> torch.Tensor:
+    b, s, _ = x.shape
+    q, k, v = attn_qkv(layer, x, cfg, cos, sin, positions)
+    # padded batches: keys at or past kv_lens are masked. The JAX package
+    # builds the same mask from segment ids, because its custom VJP takes no
+    # kv_lens; here the kernels take kv_lens and skip the masked key tiles.
+    o, _ = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                           causal=True, kv_lens=kv_lens, fused=fused)
+    o = o.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.head_dim)
+    return x + _proj(o, layer["wo"])
+
+
+def forward(
+    params: Dict[str, Any],
+    tokens: torch.Tensor,  # (b, s) int
+    cfg: LlamaConfig,
+    positions: Optional[torch.Tensor] = None,  # (b, s) int
+    kv_lens: Optional[torch.Tensor] = None,  # (b,) mask for padded batches
+    fused: Optional[bool] = None,  # the attention backward's schedule (ops/flash_bwd.py)
+) -> torch.Tensor:
+    """Full causal forward; returns logits (b, s, vocab) f32."""
+    b, s = tokens.shape
+    x = params["embed"][tokens]
+    if positions is None:
+        positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
+    cos, sin = rotary_frequencies(cfg.head_dim, cfg.max_seq_len, cfg.rope_base,
+                                  device=x.device)
+    # every plain (L, ...) stack split once into per-layer views: the backward
+    # of one unbind stacks the layers' gradients in one copy, where indexing
+    # the stack in each layer costs a zero-filled stack-sized gradient a layer
+    layers = {n: v if isinstance(v, tuple) else list(v.unbind(0))
+              for n, v in params["layers"].items()}
+    for l in range(cfg.n_layers):
+        layer = layer_view(layers, l)
+        x = attention_block(layer, x, cfg, cos, sin, positions, kv_lens, fused)
+        x = mlp_block(layer, x, cfg)
+    x = rms_norm(x, params["final_norm"], cfg.rms_eps)
+    return _proj(x, params["lm_head"]).float()
+
+
+def loss_fn(params: Dict[str, Any], tokens: torch.Tensor, cfg: LlamaConfig,
+            fused: Optional[bool] = None) -> torch.Tensor:
+    """Next-token cross entropy, the mean over (b, s - 1) positions."""
+    logits = forward(params, tokens[:, :-1], cfg, fused=fused)
+    targets = tokens[:, 1:].long()
+    logp = torch.log_softmax(logits, dim=-1)
+    return -logp.gather(-1, targets[..., None])[..., 0].mean()
 
 
 def pack_params_for_decode(params: Dict[str, Any]) -> Dict[str, Any]:

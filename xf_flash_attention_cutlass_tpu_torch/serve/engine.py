@@ -1,12 +1,16 @@
-"""Continuous-batching decode engine over the paged KV cache, with chunked
-prefill, on one device.
+"""Continuous-batching decode engine over the paged KV cache, with bucketed
+or chunked prefill, on one device.
 
 Host-side scheduling (admission, per-step page growth, retirement, OOM
 preemption) follows the JAX package's serve/engine.py step for step, and the
 page allocator is the same C++ one, so for the same requests both engines
-assign the same pages. Each engine step runs at most one prefill chunk
-(``prefill_chunk_core``) and then one batched decode step (``decode_core``,
-the L = 1 case of ``verify_core``), each a Python loop over the layers.
+assign the same pages. With ``prefill_chunk`` unset (the default), each
+engine step admits whole prompts while slots are free: ``prefill_core`` runs
+dense causal flash attention (K7) over the prompt padded to a power-of-two
+bucket and appends the bucket's KV at position 0. With ``prefill_chunk``
+set, each step runs at most one prefill chunk (``prefill_chunk_core``). Then
+comes one batched decode step (``decode_core``, the L = 1 case of
+``verify_core``). Each core is a Python loop over the layers.
 
 KV pools are ``(L, num_pages + 1, h_k, page, d)`` — the extra page is the
 trash page that inactive batch rows and padded chunk tails write to — with
@@ -19,15 +23,16 @@ the cache after the upcoming step. A decode step consumes the previously
 sampled token, appends its KV at position seq_len - 1 and attends over
 seq_len keys.
 
-What this slice does not serve raises NotImplementedError: bucketed
-(whole-prompt) prefill, speculative decoding, multi-step windows, shared
-prefixes, sampling (temperature, top-k, top-p), meshes and MoE models.
+What the port does not serve yet raises NotImplementedError: speculative
+decoding, multi-step windows, shared prefixes, sampling (temperature,
+top-k, top-p), meshes and MoE models.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import time
 from collections import deque
 from typing import Dict, List, Optional
 
@@ -37,14 +42,16 @@ import torch
 from xf_flash_attention_cutlass_tpu_torch.models.llama import (
     LlamaConfig,
     _proj,
+    attn_qkv,
     layer_view,
     mlp_block,
     pack_params_for_decode,
     rms_norm,
 )
+from xf_flash_attention_cutlass_tpu_torch.ops.flash_fwd import flash_fwd
 from xf_flash_attention_cutlass_tpu_torch.ops.paged import paged_attention
 from xf_flash_attention_cutlass_tpu_torch.ops.paged_append import paged_append
-from xf_flash_attention_cutlass_tpu_torch.ops.rotary import apply_rotary, rotary_frequencies
+from xf_flash_attention_cutlass_tpu_torch.ops.rotary import rotary_frequencies
 from xf_flash_attention_cutlass_tpu_torch.quant.kv import resolve_quant
 from xf_flash_attention_cutlass_tpu_torch.serve.allocator import PagePool
 from xf_flash_attention_cutlass_tpu_torch.utils import cdiv, resolve_device
@@ -54,9 +61,10 @@ logger = logging.getLogger(__name__)
 
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
-    """The JAX package's EngineConfig, field for field. This slice serves
-    prefill_chunk set, speculate_k <= 1, multi_step <= 1 and no top_k /
-    top_p; DecodeEngine raises NotImplementedError for the rest."""
+    """The JAX package's EngineConfig, field for field. The port serves
+    bucketed prefill (prefill_chunk None or 0) and chunked prefill,
+    speculate_k <= 1, multi_step <= 1 and no top_k / top_p; DecodeEngine
+    raises NotImplementedError for the rest."""
 
     max_batch: int = 8
     page_size: int = 256
@@ -108,19 +116,6 @@ def sample_tokens(logits: torch.Tensor) -> torch.Tensor:
     return torch.argmax(logits, dim=-1)
 
 
-def _attn_qkv(layer, x, cfg: LlamaConfig, cos, sin, positions):
-    """norm -> qkv proj -> rotary; shared by prefill and decode."""
-    b, s, _ = x.shape
-    hd = cfg.head_dim
-    h = rms_norm(x, layer["attn_norm"], cfg.rms_eps)
-    q = _proj(h, layer["wq"]).reshape(b, s, cfg.n_heads, hd)
-    k = _proj(h, layer["wk"]).reshape(b, s, cfg.n_kv_heads, hd)
-    v = _proj(h, layer["wv"]).reshape(b, s, cfg.n_kv_heads, hd)
-    q = apply_rotary(q, cos, sin, positions, cfg.rotary_interleaved)
-    k = apply_rotary(k, cos, sin, positions, cfg.rotary_interleaved)
-    return q, k, v
-
-
 def _attention_layers(params, x, pools, bt, kv_lens, append_pos, positions, cfg):
     """The layer loop shared by verify/decode and chunked prefill: per
     layer, append the new tokens' KV into the pools in place, then attend
@@ -132,7 +127,7 @@ def _attention_layers(params, x, pools, bt, kv_lens, append_pos, positions, cfg)
     scales = dict(k_scales=pools["k_s"], v_scales=pools["v_s"]) if quant else {}
     for l in range(pools["k"].shape[0]):
         layer = layer_view(params["layers"], l)
-        q, k_new, v_new = _attn_qkv(layer, x, cfg, cos, sin, positions)
+        q, k_new, v_new = attn_qkv(layer, x, cfg, cos, sin, positions)
         paged_append(pools["k"], pools["v"], k_new, v_new, bt, append_pos, layer_idx=l, **scales)
         o, _ = paged_attention(q, pools["k"], pools["v"], bt, kv_lens, causal=True,
                                layer_idx=l, **scales)
@@ -171,6 +166,40 @@ def decode_core(params, tokens, pools, block_tables, kv_lens, cfg: LlamaConfig):
     return sample_tokens(logits), logits
 
 
+def prefill_core(
+    params,
+    tokens: torch.Tensor,  # (1, S) — the prompt padded to its bucket S
+    true_len: int,
+    pools: Dict[str, torch.Tensor],
+    bt_row: torch.Tensor,  # (1, cdiv(S, page)) — the prompt's pages, then trash
+    cfg: LlamaConfig,
+):
+    """Prefill one request: per layer, dense causal flash attention over
+    the bucket with kv_lens = [true_len], and the whole bucket's KV appended
+    at position 0 (in place; the padded tail lands past the prompt or on
+    the trash page, where nothing attends to it). Returns (first_token,
+    logits of the last prompt token (vocab,) f32)."""
+    s = tokens.shape[1]
+    dev = tokens.device
+    x = params["embed"][tokens.clamp(0, cfg.vocab_size - 1)]
+    positions = torch.arange(s, device=dev)[None]
+    cos, sin = rotary_frequencies(cfg.head_dim, cfg.max_seq_len, cfg.rope_base, device=dev)
+    kv_lens = torch.tensor([true_len], dtype=torch.int32, device=dev)
+    zero = torch.zeros((1,), dtype=torch.int32, device=dev)
+    scales = dict(k_scales=pools["k_s"], v_scales=pools["v_s"]) if "k_s" in pools else {}
+    for l in range(pools["k"].shape[0]):
+        layer = layer_view(params["layers"], l)
+        q, k_new, v_new = attn_qkv(layer, x, cfg, cos, sin, positions)
+        o, _ = flash_fwd(q.transpose(1, 2), k_new.transpose(1, 2), v_new.transpose(1, 2),
+                         causal=True, kv_lens=kv_lens)
+        paged_append(pools["k"], pools["v"], k_new, v_new, bt_row, zero, layer_idx=l, **scales)
+        x = x + _proj(o.transpose(1, 2).reshape(1, s, cfg.n_heads * cfg.head_dim), layer["wo"])
+        x = mlp_block(layer, x, cfg)
+    x = rms_norm(x, params["final_norm"], cfg.rms_eps)
+    logits = _proj(x[:, max(true_len - 1, 0)], params["lm_head"]).float()[0]
+    return sample_tokens(logits), logits
+
+
 def prefill_chunk_core(
     params,
     tokens: torch.Tensor,  # (P, C) — one fixed-size chunk per prompt lane
@@ -205,7 +234,8 @@ def _to_device(tree, device):
 
 
 class DecodeEngine:
-    """Continuous batching: admit, chunked prefill, batched decode, retire."""
+    """Continuous batching: admit, bucketed or chunked prefill, batched
+    decode, retire."""
 
     def __init__(
         self,
@@ -228,6 +258,7 @@ class DecodeEngine:
         self.trash_page = ecfg.num_pages
         if (
             ecfg.kv_quant
+            and ecfg.prefill_chunk
             and ecfg.page_size % 128 == 0
             and ecfg.prefill_chunk % 128
         ):
@@ -262,6 +293,9 @@ class DecodeEngine:
         # tokens emitted by requests that were later preempted (a preempted
         # request requeues with prompt + generated and its remaining budget)
         self._preempt_emitted: Dict[int, List[int]] = {}
+        # host clock (time.perf_counter) at which each request's first token
+        # was read back from the device: the end of its time to first token
+        self.first_token_at: Dict[int, float] = {}
         self.stats: Dict[str, int] = dict(
             steps=0, decode_steps=0, spec_steps=0, prefill_chunks=0,
             tokens_emitted=0, drafts_proposed=0, drafts_accepted=0,
@@ -288,6 +322,43 @@ class DecodeEngine:
     # ---- internals -------------------------------------------------------
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
+
+    def _bucket(self, n: int) -> int:
+        """The padded prefill length of an n-token prompt: the smallest
+        power of two >= n, at least 32, at most max_seq (as the JAX engine)."""
+        b = 32
+        while b < n:
+            b *= 2
+        return min(b, self.ecfg.max_seq)
+
+    def _admit_one(self) -> bool:
+        """Admit the queue's head and prefill its whole prompt (bucketed);
+        False when the allocator has no room for it."""
+        rid, prompt, max_new = self.queue[0]
+        slot = self.pool.admit(rid, len(prompt), len(prompt) + max_new)
+        if slot < 0:
+            return False
+        self.queue.popleft()
+        bucket = self._bucket(len(prompt))
+        tokens = np.zeros((1, bucket), np.int64)
+        tokens[0, : len(prompt)] = prompt
+        page = self.ecfg.page_size
+        n_pages = cdiv(len(prompt), page)
+        bt, _, _ = self.pool.build_block_tables(self.ecfg.max_pages_per_seq)
+        bt_row = np.full((1, cdiv(bucket, page)), self.trash_page, np.int32)
+        bt_row[0, :n_pages] = bt[slot, :n_pages]
+        first, _ = prefill_core(self.params, self._tensor(tokens), len(prompt), self.pools,
+                                self._tensor(bt_row), self.cfg)
+        self._activate(slot, rid, prompt, int(first), max_new)
+        return True
+
+    def _activate(self, slot: int, rid: int, prompt: List[int], first: int, max_new: int):
+        """A request whose prefill emitted its first token starts decoding."""
+        self.first_token_at.setdefault(rid, time.perf_counter())
+        self.active[slot] = dict(id=rid, prompt=prompt, last_token=first, generated=[first],
+                                 max_new=max_new)
+        self.stats["requests_admitted"] += 1
+        self.stats["tokens_emitted"] += 1  # prefill emits the first token
 
     def _start_chunked_prefill(self, lane: int) -> bool:
         rid, prompt, max_new = self.queue[0]
@@ -337,14 +408,9 @@ class DecodeEngine:
                 continue
             if first_tokens is None:
                 first_tokens = sample_tokens(logits).cpu().numpy()
-            first = int(first_tokens[lane])
-            self.active[st["slot"]] = dict(
-                id=st["id"], prompt=st["prompt"], last_token=first,
-                generated=[first], max_new=st["max_new"],
-            )
+            self._activate(st["slot"], st["id"], st["prompt"], int(first_tokens[lane]),
+                           st["max_new"])
             self._prefills[lane] = None
-            self.stats["requests_admitted"] += 1
-            self.stats["tokens_emitted"] += 1  # prefill emits the 1st token
 
     def _preempt(self, slot: int) -> None:
         """OOM on page growth: requeue the request with its full context so
@@ -359,20 +425,29 @@ class DecodeEngine:
         self.stats["preemptions"] += 1
 
     def step(self) -> Dict[int, List[int]]:
-        """Admit, run at most one prefill chunk per lane, retire finished
-        requests, then one batched decode step. Returns tokens emitted."""
-        for lane in range(self.ecfg.prefill_lanes):
-            if not self.queue:
-                break
-            busy = sum(st is not None for st in self._prefills)
-            if self._prefills[lane] is not None or (
-                len(self.active) + busy >= self.ecfg.max_batch
-            ):
-                continue
-            if not self._start_chunked_prefill(lane):
-                break
-        if any(st is not None for st in self._prefills):
-            self._advance_chunked_prefill()
+        """Admit and prefill, retire finished requests, then one batched
+        decode step. Returns tokens emitted.
+
+        With ecfg.prefill_chunk set, at most one prefill chunk per lane runs
+        before the decode batch; otherwise whole prompts are prefilled at
+        admission."""
+        if self.ecfg.prefill_chunk:
+            for lane in range(self.ecfg.prefill_lanes):
+                if not self.queue:
+                    break
+                busy = sum(st is not None for st in self._prefills)
+                if self._prefills[lane] is not None or (
+                    len(self.active) + busy >= self.ecfg.max_batch
+                ):
+                    continue
+                if not self._start_chunked_prefill(lane):
+                    break
+            if any(st is not None for st in self._prefills):
+                self._advance_chunked_prefill()
+        else:
+            while self.queue and len(self.active) < self.ecfg.max_batch:
+                if not self._admit_one():
+                    break
         emitted: Dict[int, List[int]] = {}
         for slot in list(self.active):
             st = self.active[slot]
@@ -440,11 +515,9 @@ class DecodeEngine:
 
 
 def _check_served(params, ecfg: EngineConfig, mesh) -> None:
-    """Raise NotImplementedError for what this slice of the port does not
-    serve; nothing is silently served another way."""
+    """Raise NotImplementedError for what the port does not serve yet;
+    nothing is silently served another way."""
     missing = []
-    if not ecfg.prefill_chunk:
-        missing.append("bucketed prefill (prefill_chunk=None needs the dense flash kernel)")
     if ecfg.speculate_k > 1:
         missing.append("speculative decoding (speculate_k > 1)")
     if ecfg.multi_step > 1:
