@@ -17,7 +17,16 @@ Phases, each of which raises (exit code != 0) when it fails:
    training shapes under the 2x rule, K9/K10/K11 at the training shape under
    the 3x rule. Shapes off the paths (ragged matmuls, page 16 and 32,
    head_dim 64, unaligned lengths, window, softcap, segment ids, GQA 4:1)
-   are checked too, untimed.
+   are checked too, untimed. K1, K7 and K9-K11 at the main paths' shapes are
+   also timed in the instantiation that carries the options, with ALiBi of
+   slope 0. The API's options at the `api` path's shapes: K7 with ALiBi and
+   dropout and with per-row slopes and explicit positions over the packed
+   serving prompts, K8 (the probability plane) on the dense case and on the
+   packed plane, entry by entry against its plain version (its dropout
+   signs equal, 0 mismatches), K9/K10/K11 with ALiBi and dropout (3x rule
+   against the oracle's gradients, the mask taken from K8's signs) and over
+   the packed prompts, K1 with each of window, softcap, ALiBi and leftpad,
+   and the realized drop fraction within 0.01 of p.
 3. Train: Llama-8B widths, all 32 layers, bf16, one 1024-token batch from
    the seed, three plain SGD steps through K7 forward and K9/K10 backward
    and one through K11; every loss finite and below the one before.
@@ -27,10 +36,20 @@ Phases, each of which raises (exit code != 0) when it fails:
    against the plain versions on the CPU (2 layers), then 8 greedy requests
    with 256-token chunked prefill, the same 8 requests with bucketed
    prefill (K7), and a profiled decode window.
-   Each main path (training, chunked and bucketed serving) runs with the
-   launch counters cleared just before and read just after, to show that
-   every kernel of the path ran and no plain version did.
-5. Print the seconds of each phase, the `kernels` JSON line, the card's
+5. Drive the public API (`api.py`) at Llama-8B attention width: dense
+   attention with ALiBi, dropout and the probability plane, and its
+   gradient; packed varlen over the serving prompts with per-sequence ALiBi,
+   its gradient and the plane of a subset; paged varlen over a bf16 page-256
+   cache of those prompts; KV-cache decode with a rotary append on that
+   cache, and on a dense cache with softcap, window, ALiBi and leftpad.
+   Its K1 outputs are held against K1's plain version and the oracle on the
+   same inputs. Then each step is called again, warm: host-clock times over
+   five calls, device time from a profiler trace, and the device time of the
+   copies of the caller's caches into K1's page layout. Each main path
+   (training, chunked and bucketed serving, the API) runs with the launch
+   counters cleared just before and read just after, to show that every
+   kernel of the path ran and no plain version did.
+6. Print the seconds of each phase, the `kernels` JSON line, the card's
    name and power limit, and, last,
    {"ok": true, "device": {...}}.
 
@@ -236,8 +255,11 @@ def check_paged_attention(gen, timer, checks, kv_dtype, phase, cfg):
     def library():
         return F.scaled_dot_product_attention(qt, kg, vg, attn_mask=mask)
 
+    zero = torch.zeros(h, device="cuda")  # ALiBi of slope 0: the options' kernel, same result
     return dict(
         ms=timer.ms(kernel), plain_ms=timer.ms(plain, PLAIN_REPS),
+        ms_general=timer.ms(lambda: paged_attention(q, kp, vp, bt, lens, layer_idx=1,
+                                                    alibi_slopes=zero, **sc)),
         library_ms=timer.ms(library), bound=bound(by, ops), err=plain_err, tol=tol,
     )
 
@@ -546,23 +568,27 @@ def visible_pairs(b, h, sq, sk, kw) -> int:
     return h * int(attention_mask(b, sq, sk, "cuda", **mask_kw).expand(b, 1, sq, sk).sum())
 
 
-def check_flash_fwd(gen, checks, name, b, h, h_k, sq, sk, d, opts):
-    """K7 against its plain version and the dense f32 oracle
-    (utils/testing.py) under the 2x rule: twice the low-precision oracle's
-    error plus 1e-5, for O and for LSE; rows that see no key give O = 0 and
-    LSE = -inf. Returns the inputs and the case's error and tolerance."""
+def check_flash_fwd_inputs(checks, name, q, k, v, kw, oracle_kw=None):
+    """K7 on given inputs and options against its plain version and the
+    dense f32 oracle (utils/testing.py) under the 2x rule: twice the
+    low-precision oracle's error plus 1e-5, for O and for LSE; rows that see
+    no key give O = 0 and LSE = -inf. oracle_kw: the oracle's options where
+    they differ from the kernel's (the dropout mask). Returns (error,
+    tolerance)."""
     from xf_flash_attention_cutlass_tpu_torch.ops.flash_fwd import flash_fwd, flash_fwd_ref
     from xf_flash_attention_cutlass_tpu_torch.utils.testing import flash_attention_oracle
 
-    (q, k, v, _), kw = flash_case(gen, b, h, h_k, sq, sk, d, opts)
+    oracle_kw = kw if oracle_kw is None else oracle_kw
     o, lse = flash_fwd(q, k, v, **kw)
     o_plain, lse_plain = flash_fwd_ref(q, k, v, **kw)
-    o32, l32 = flash_attention_oracle(q, k, v, **kw)
-    olp, llp = flash_attention_oracle(q, k, v, upcast=False, **kw)
+    plain_err = max_err(o, o_plain)
+    del o_plain  # the planes of the plain version and the oracles are large
+    o32, l32 = flash_attention_oracle(q, k, v, **oracle_kw)
+    err = max_err(o, o32)
+    olp, llp = flash_attention_oracle(q, k, v, upcast=False, **oracle_kw)
     torch.cuda.synchronize()
     live = torch.isfinite(l32)
     tol, ltol = 2 * max_err(olp, o32) + 1e-5, 2 * max_err(llp[live], l32[live]) + 1e-5
-    err, plain_err = max_err(o, o32), max_err(o, o_plain)
     lerr, lplain = max_err(lse[live], l32[live]), max_err(lse[live], lse_plain[live])
     empty_ok = bool((o[~live] == 0).all() and torch.isneginf(lse[~live]).all())
     ok = (bool(torch.isfinite(o).all()) and empty_ok and err <= tol and plain_err <= tol
@@ -570,7 +596,54 @@ def check_flash_fwd(gen, checks, name, b, h, h_k, sq, sk, d, opts):
     checks.add(f"flash_fwd.{name}", ok, max_abs_err=plain_err, tolerance=tol,
                err_vs_f32_oracle=err, lse_err=lplain, lse_err_vs_f32_oracle=lerr,
                lse_tolerance=ltol, empty_rows=int((~live).sum()), empty_rows_ok=empty_ok)
-    return (q, k, v), kw, plain_err, tol
+    return plain_err, tol
+
+
+def check_flash_bwd_inputs(checks, name, tensors, kw, oracle_kw=None):
+    """K9 + K10 (two-pass) and K11 (fused) on given inputs and options
+    against the plain version and the gradients of the dense oracle under
+    the 3x rule: three times the low-precision oracle's error plus 1e-4, for
+    dq, dk and dv (oracle_kw: the oracle's options where they differ, the
+    dropout mask). The residuals O and LSE come from the plain forward.
+    Returns them and the worst (error, tolerance) of each route."""
+    from xf_flash_attention_cutlass_tpu_torch.ops.flash_bwd import flash_bwd, flash_bwd_ref
+    from xf_flash_attention_cutlass_tpu_torch.ops.flash_fwd import flash_fwd_ref
+    from xf_flash_attention_cutlass_tpu_torch.utils.testing import flash_attention_oracle
+
+    q, k, v, do = tensors
+    oracle_kw = kw if oracle_kw is None else oracle_kw
+    o, lse = flash_fwd_ref(q, k, v, **kw)
+
+    def oracle_grads(upcast):
+        xs = [(t.float() if upcast else t).detach().requires_grad_(True) for t in (q, k, v)]
+        out, _ = flash_attention_oracle(*xs, upcast=upcast, **oracle_kw)
+        return torch.autograd.grad((out.float() * do.float()).sum(), xs)
+
+    g32, glp = oracle_grads(True), oracle_grads(False)
+    plain = flash_bwd_ref(q, k, v, o, lse, do, **kw)
+    worst = {}
+    for route, fused in (("two_pass", None), ("fused", True)):
+        got = flash_bwd(q, k, v, o, lse, do, fused=fused, **kw)
+        torch.cuda.synchronize()
+        res = {}
+        for gname, x, x32, xlp, xp in zip(("dq", "dk", "dv"), got, g32, glp, plain):
+            gtol = 3 * max_err(xlp, x32) + 1e-4
+            res[gname] = (max_err(x, xp), max_err(x, x32), gtol)
+        checks.add(f"flash_bwd.{route}.{name}", all(bool(torch.isfinite(x).all()) for x in got)
+                   and all(pe <= t and e <= t for pe, e, t in res.values()),
+                   **{f"{g}_err": r[0] for g, r in res.items()},
+                   **{f"{g}_err_vs_f32_oracle": r[1] for g, r in res.items()},
+                   **{f"{g}_tolerance": r[2] for g, r in res.items()})
+        worst[route] = max(((r[0], r[2]) for r in res.values()), key=lambda t: t[0] / t[1])
+    return o, lse, worst
+
+
+def check_flash_fwd(gen, checks, name, b, h, h_k, sq, sk, d, opts):
+    """K7 on flash_case's inputs (check_flash_fwd_inputs). Returns the
+    inputs and the case's error and tolerance."""
+    (q, k, v, _), kw = flash_case(gen, b, h, h_k, sq, sk, d, opts)
+    err, tol = check_flash_fwd_inputs(checks, name, q, k, v, kw)
+    return (q, k, v), kw, err, tol
 
 
 def time_flash_fwd(timer, q, k, v, kw, err, tol):
@@ -585,8 +658,10 @@ def time_flash_fwd(timer, q, k, v, kw, err, tol):
     o, lse = flash_fwd(q, k, v, **kw)
     by = nbytes(q, k, v, o, lse, kw.get("kv_lens"))
     ops = 4 * d * visible_pairs(b, h, sq, k.shape[2], kw)
+    zero = torch.zeros(h, device="cuda")  # ALiBi of slope 0: the options' kernel, same result
     return dict(
         ms=timer.ms(lambda: flash_fwd(q, k, v, **kw)),
+        ms_general=timer.ms(lambda: flash_fwd(q, k, v, alibi_slopes=zero, **kw)),
         plain_ms=timer.ms(lambda: flash_fwd_ref(q, k, v, **kw), PLAIN_REPS),
         library_ms=timer.ms(lambda: F.scaled_dot_product_attention(q, kx, vx, is_causal=True)),
         bound=bound(by, ops), err=err, tol=tol,
@@ -594,40 +669,11 @@ def time_flash_fwd(timer, q, k, v, kw, err, tol):
 
 
 def check_flash_bwd(gen, checks, name, b, h, h_k, sq, sk, d, opts):
-    """K9 + K10 (two-pass) and K11 (fused) against the plain version and the
-    gradients of the dense oracle under the 3x rule: three times the
-    low-precision oracle's error plus 1e-4, for dq, dk and dv. The residuals
-    O and LSE come from the plain forward. Returns the inputs, the residuals
-    and the worst (error, tolerance) of each route."""
-    from xf_flash_attention_cutlass_tpu_torch.ops.flash_bwd import flash_bwd, flash_bwd_ref
-    from xf_flash_attention_cutlass_tpu_torch.ops.flash_fwd import flash_fwd_ref
-    from xf_flash_attention_cutlass_tpu_torch.utils.testing import flash_attention_oracle
-
+    """K9 + K10 and K11 on flash_case's inputs (check_flash_bwd_inputs).
+    Returns the inputs, the residuals and the worst (error, tolerance) of
+    each route."""
     (q, k, v, do), kw = flash_case(gen, b, h, h_k, sq, sk, d, opts)
-    o, lse = flash_fwd_ref(q, k, v, **kw)
-
-    def oracle_grads(upcast):
-        xs = [(t.float() if upcast else t).detach().requires_grad_(True) for t in (q, k, v)]
-        out, _ = flash_attention_oracle(*xs, upcast=upcast, **kw)
-        return torch.autograd.grad((out.float() * do.float()).sum(), xs)
-
-    g32, glp = oracle_grads(True), oracle_grads(False)
-    plain = flash_bwd_ref(q, k, v, o, lse, do, **kw)
-    worst = {}
-    for route, fused in (("two_pass", None), ("fused", True)):
-        got = flash_bwd(q, k, v, o, lse, do, fused=fused, **kw)
-        torch.cuda.synchronize()
-        res = {}
-        for gname, x, x32, xlp, xp in zip(("dq", "dk", "dv"), got, g32, glp, plain):
-            tol = 3 * max_err(xlp, x32) + 1e-4
-            res[gname] = (max_err(x, xp), max_err(x, x32), tol)
-        ok = all(bool(torch.isfinite(x).all()) for x in got) and all(
-            pe <= tol and e <= tol for pe, e, tol in res.values())
-        checks.add(f"flash_bwd.{route}.{name}", ok,
-                   **{f"{g}_err": r[0] for g, r in res.items()},
-                   **{f"{g}_err_vs_f32_oracle": r[1] for g, r in res.items()},
-                   **{f"{g}_tolerance": r[2] for g, r in res.items()})
-        worst[route] = max(((r[0], r[2]) for r in res.values()), key=lambda t: t[0] / t[1])
+    o, lse, worst = check_flash_bwd_inputs(checks, name, (q, k, v, do), kw)
     return (q, k, v, o, lse, do), kw, worst
 
 
@@ -642,11 +688,14 @@ def time_flash_bwd(timer, tensors, kw, worst):
 
     q, k, v, o, lse, do = tensors
     b, h, sq, d = q.shape
-    run = FlashBwdLaunch(q, k, v, o, lse, do, scale=1.0 / math.sqrt(d),
-                         causal=kw.get("causal", False), window=kw.get("window", (-1, -1)),
-                         softcap=kw.get("softcap", 0.0), kv_lens=kw.get("kv_lens"),
-                         q_segment_ids=kw.get("q_segment_ids"),
-                         kv_segment_ids=kw.get("kv_segment_ids"))
+    launch_kw = dict(scale=1.0 / math.sqrt(d), causal=kw.get("causal", False),
+                     window=kw.get("window", (-1, -1)), softcap=kw.get("softcap", 0.0),
+                     kv_lens=kw.get("kv_lens"), q_segment_ids=kw.get("q_segment_ids"),
+                     kv_segment_ids=kw.get("kv_segment_ids"))
+    run = FlashBwdLaunch(q, k, v, o, lse, do, **launch_kw)
+    # ALiBi of slope 0: the options' kernels on the same work, same result
+    run_general = FlashBwdLaunch(q, k, v, o, lse, do, alibi_slopes=torch.zeros(h, device="cuda"),
+                                 **launch_kw)
     pair_ops = 2 * d * visible_pairs(b, h, sq, k.shape[2], kw)
     plain_ms = timer.ms(lambda: flash_bwd_ref(q, k, v, o, lse, do, **kw), PLAIN_REPS)
     g = h // k.shape[1]
@@ -667,10 +716,12 @@ def time_flash_bwd(timer, tensors, kw, worst):
     dq, (dk, dv) = run.dq(), run.dkv()
     out = {}
     for key, fn, n_prod, outs, route in (
-            ("flash_bwd.dq", run.dq, 3, (dq,), "two_pass"),
-            ("flash_bwd.dkv", run.dkv, 4, (dk, dv), "two_pass"),
-            ("flash_bwd.fused", run.fused, 5, (dq, dk, dv), "fused")):
-        out[key] = dict(ms=timer.ms(fn), plain_ms=plain_ms, library_ms=library_ms,
+            ("flash_bwd.dq", "dq", 3, (dq,), "two_pass"),
+            ("flash_bwd.dkv", "dkv", 4, (dk, dv), "two_pass"),
+            ("flash_bwd.fused", "fused", 5, (dq, dk, dv), "fused")):
+        out[key] = dict(ms=timer.ms(getattr(run, fn)),
+                        ms_general=timer.ms(getattr(run_general, fn)),
+                        plain_ms=plain_ms, library_ms=library_ms,
                         library_fwd_bwd_ms=library_fwd_bwd_ms,
                         bound=bound(ins + nbytes(*outs), n_prod * pair_ops),
                         err=worst[route][0], tol=worst[route][1])
@@ -693,7 +744,8 @@ def check_flash(gen, timer, checks, cfg):
     """K7 at the bucketed-prefill shapes (Llama-8B heads, one prompt whose
     kv_len is 70 % of its bucket; bucket 1024 timed, 256, 512 and 2048 not)
     and at the training shape (s = 1024, causal, no kv_lens), K9, K10 and
-    K11 at the training shape, and the shapes off those paths, untimed. Returns the timed results by launch-counter name."""
+    K11 at the training shape, and the shapes off those paths, untimed.
+    Returns the timed results by launch-counter name."""
     h, h_k, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     measured = {}
     for bucket in (256, 512, 1024, 2048):
@@ -712,6 +764,503 @@ def check_flash(gen, timer, checks, cfg):
         check_flash_fwd(gen, checks, f"other.{name}", *shape, opts)
         check_flash_bwd(gen, checks, f"other.{name}", *shape, opts)
     return measured
+
+
+# ---- phase 2: the API's options (K7, K9-K11 with ALiBi, positions, dropout; K8; K1) --
+
+API_P, API_SEED = 0.1, 1234  # the api path's dropout rate and seed
+API_S = 2048  # flash_attn_func's sequence length on the api path
+
+
+def serving_prompt_lens(seed):
+    """The 8 prompt lengths serve() draws (221-1306 tokens, 5119 in all at
+    seed 0)."""
+    return [int(n) for n in np.random.default_rng(seed).integers(200, 1501, 8)]
+
+
+def fitting_tail(lens):
+    """The first index i with sum(lens[i:]) <= API_S and i < len(lens): the
+    longest run of prompts from the end that packs into API_S tokens."""
+    return min(i for i in range(len(lens)) if sum(lens[i:]) <= API_S)
+
+
+def dense_probs(q, k, slopes, upcast):
+    """Causal softmax probabilities with ALiBi (h,) slopes, written apart from
+    the kernels: f32 throughout, or with q times the scale, K and the scores
+    rounded to q's dtype (the low-precision oracle)."""
+    b, h, sq, d = q.shape
+    dt = torch.float32 if upcast else q.dtype
+    kx = k.to(dt).repeat_interleave(h // k.shape[1], dim=1)
+    sc = ((q.to(dt) / math.sqrt(d)).to(dt) @ kx.transpose(-1, -2)).float()
+    i = torch.arange(sq, device=q.device)[:, None]
+    j = torch.arange(k.shape[2], device=q.device)[None]
+    sc = sc - slopes[None, :, None, None] * (i - j).abs().float()
+    return torch.softmax(sc.masked_fill(j > i, -torch.inf), dim=-1)
+
+
+PROBS_RTOL, PROBS_ATOL = 1e-4, 1e-6  # K8 against its plain version, entry by entry
+
+
+def check_probs(checks, name, q, k, lse, kw):
+    """K8 on given inputs and options against its plain version, entry by
+    entry: |K8 - plain| <= 1e-4 |plain| + 1e-6, signs included (an entry the
+    dropout dropped is negative in both), the sign bits equal everywhere
+    (0 mismatches), and the rows of |K8| that see a key summing to 1 within
+    1e-3 (K8 writes P before the 1 / (1 - p) of dropout). Returns (K8's
+    plane, its largest distance from the plain version, the sign
+    mismatches)."""
+    from xf_flash_attention_cutlass_tpu_torch.ops.flash_fwd import (
+        attention_probs,
+        attention_probs_ref,
+    )
+
+    probs = attention_probs(q, k, lse, **kw)
+    plain = attention_probs_ref(q, k, lse, **kw)
+    torch.cuda.synchronize()
+    diff = (probs - plain).abs()
+    err = float(diff.max())
+    excess = float((diff - PROBS_RTOL * plain.abs()).max())
+    del diff
+    mismatches = int((torch.signbit(probs) != torch.signbit(plain)).sum())
+    del plain
+    live = torch.isfinite(lse)
+    sums = probs.abs().sum(-1)[live]
+    sums_err = max_err(sums, torch.ones_like(sums))
+    checks.add(f"flash_probs[{name}]", bool(torch.isfinite(probs).all()) and excess <= PROBS_ATOL
+               and mismatches == 0 and sums_err <= 1e-3, max_abs_err=err,
+               excess_over_relative_tolerance=excess, tolerance=PROBS_ATOL,
+               relative_tolerance=PROBS_RTOL, sign_mismatches=mismatches,
+               row_sum_err=sums_err, row_sum_tolerance=1e-3,
+               criterion="|K8 - plain| <= 1e-4 |plain| + 1e-6 on every entry")
+    return probs, err, mismatches
+
+
+def check_api_dense(gen, timer, checks, cfg):
+    """K7, K8 and K9/K10/K11 at flash_attn_func's api-path shape (b = 1,
+    2048 tokens, causal, ALiBi slopes of alibi_slopes_ref, dropout 0.1): K7
+    under the 2x rule against its plain version and the oracle given K8's
+    mask; K8 entry by entry against its plain version (check_probs), and
+    |K8| under the 2x rule against f32 and low-precision probabilities; the
+    realized drop fraction within 0.01 of p; K9+K10 and K11 under the 3x
+    rule. Returns K8's timed result, with K7's and K9/K10/K11's times at
+    this shape and these options."""
+    from xf_flash_attention_cutlass_tpu_torch.ops.flash_bwd import FlashBwdLaunch
+    from xf_flash_attention_cutlass_tpu_torch.ops.flash_fwd import (
+        attention_mask,
+        attention_probs,
+        attention_probs_ref,
+        flash_fwd,
+    )
+    from xf_flash_attention_cutlass_tpu_torch.utils.testing import alibi_slopes_ref
+
+    h, h_k, d, s = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, API_S
+    q, k, v, do = (torch.randn(sh, generator=gen, device="cuda").bfloat16()
+                   for sh in ((1, h, s, d), (1, h_k, s, d), (1, h_k, s, d), (1, h, s, d)))
+    slopes = torch.from_numpy(alibi_slopes_ref(h)).cuda()
+    kw = dict(causal=True, alibi_slopes=slopes, dropout_p=API_P, dropout_seed=API_SEED)
+    o, lse = flash_fwd(q, k, v, **kw)
+    probs, pplain, mismatches = check_probs(checks, "api_s2048_alibi_dropout", q, k, lse, kw)
+    visible = attention_mask(1, s, s, "cuda", causal=True).expand(1, h, s, s)
+    dropped = torch.signbit(probs) & visible
+    fraction = float(dropped.sum()) / float(visible.sum())
+    checks.add("dropout.realized_fraction[api_s2048]", abs(fraction - API_P) < 0.01,
+               max_abs_err=abs(fraction - API_P), tolerance=0.01, fraction=fraction, p=API_P)
+    p32, plp = dense_probs(q, k, slopes, True), dense_probs(q, k, slopes, False)
+    ptol = 2 * max_err(plp, p32) + 1e-5
+    perr = max_err(probs.abs(), p32)
+    del plp, p32
+    checks.add("flash_probs.vs_f32_oracle[api_s2048_alibi_dropout]",
+               perr <= ptol, max_abs_err=perr, tolerance=ptol)
+    okw = dict(causal=True, alibi_slopes=slopes, dropout_mask=~dropped, dropout_p=API_P)
+    check_flash_fwd_inputs(checks, "api_s2048_alibi_dropout", q, k, v, kw, okw)
+    check_flash_bwd_inputs(checks, "api_s2048_alibi_dropout", (q, k, v, do), kw, okw)
+    pairs = h * int(visible[0, 0].sum())
+    out = dict(ms=timer.ms(lambda: attention_probs(q, k, lse, **kw)),
+               plain_ms=timer.ms(lambda: attention_probs_ref(q, k, lse, **kw), PLAIN_REPS),
+               library_ms=None, bound=bound(nbytes(q, k, lse, probs), 2 * d * pairs),
+               # |plain| <= 1: the entrywise tolerance is at most this
+               err=pplain, tol=PROBS_RTOL + PROBS_ATOL, sign_mismatches=mismatches,
+               drop_fraction=fraction,
+               flash_fwd_ms=timer.ms(lambda: flash_fwd(q, k, v, **kw)))
+    run = FlashBwdLaunch(q, k, v, o, lse, do, scale=1.0 / math.sqrt(d), causal=True,
+                         window=(-1, -1), softcap=0.0, kv_lens=None, q_segment_ids=None,
+                         kv_segment_ids=None, alibi_slopes=slopes, dropout_p=API_P,
+                         dropout_seed=API_SEED)
+    out.update(flash_bwd_dq_ms=timer.ms(run.dq), flash_bwd_dkv_ms=timer.ms(run.dkv),
+               flash_bwd_fused_ms=timer.ms(run.fused))
+    return out
+
+
+def packed_case(gen, cfg, lens):
+    """Packed q (1, h, T, d), k, v, dO (1, h_k, T, d) bf16 of the sequences
+    of `lens` (self-attention, T = sum), and the kernel options the varlen
+    entry builds from per-sequence (len(lens), h) ALiBi slopes."""
+    from xf_flash_attention_cutlass_tpu_torch.ops.varlen import (
+        _packed_positions,
+        _row_slopes_from_segments,
+    )
+
+    h, h_k, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    T = sum(lens)
+    cu = torch.tensor(np.cumsum([0] + list(lens)), dtype=torch.int32, device="cuda")
+    q, k, v, do = (torch.randn(sh, generator=gen, device="cuda").bfloat16()
+                   for sh in ((1, h, T, d), (1, h_k, T, d), (1, h_k, T, d), (1, h, T, d)))
+    slopes = torch.rand((len(lens), h), generator=gen, device="cuda") * 0.1
+    qseg, kseg, qpos, kpos = _packed_positions(cu, cu, T, T)
+    kw = dict(causal=True, q_segment_ids=qseg[None], kv_segment_ids=kseg[None],
+              q_positions=qpos[None], kv_positions=kpos[None],
+              alibi_row_slopes=_row_slopes_from_segments(slopes, qseg))
+    return (q, k, v, do), kw
+
+
+def check_api_packed(gen, timer, checks, cfg, lens):
+    """The packed varlen route's kernels at the api path's shapes, with
+    per-row ALiBi slopes, explicit positions and segment ids: K7 over the
+    packed serving prompts under the 2x rule, timed with and without the
+    tile tables that skip the tile pairs of different prompts (the results
+    must be equal); K9+K10 and K11 over the same tokens under the 3x rule;
+    K8 over the prompts at the end of the list that fit in 2048 tokens,
+    entry by entry against its plain version (check_probs)."""
+    from xf_flash_attention_cutlass_tpu_torch.ops.flash_fwd import (
+        Extras,
+        _flash_fwd_cuda,
+        flash_fwd,
+    )
+
+    (q, k, v, do), kw = packed_case(gen, cfg, lens)
+    b, h, T, d = q.shape
+    err, tol = check_flash_fwd_inputs(checks, f"api_packed_T{T}", q, k, v, kw)
+    ex = Extras(b, h, T, T, q.device, **{n: x for n, x in kw.items() if n != "causal"})
+    ex.struct.qtiles = ex.struct.ktiles = None  # walk every key tile below kv_len
+
+    def walk_all():
+        return _flash_fwd_cuda(q, k, v, 1.0 / math.sqrt(d), True, (-1, -1), 0.0, None,
+                               kw["q_segment_ids"], kw["kv_segment_ids"], ex)
+
+    same = max_err(walk_all()[0], flash_fwd(q, k, v, **kw)[0])
+    checks.add(f"flash_fwd.api_packed_T{T}.tile_skip_same_result", same == 0.0,
+               max_abs_err=same, tolerance=0.0)
+    out = dict(T=T, ms=timer.ms(lambda: flash_fwd(q, k, v, **kw)),
+               ms_without_tile_skip=timer.ms(walk_all), err=err, tol=tol)
+    check_flash_bwd_inputs(checks, f"api_packed_T{T}", (q, k, v, do), kw)
+    del q, k, v, do
+    tail = lens[fitting_tail(lens):]
+    (q, k, v, _), kw = packed_case(gen, cfg, tail)
+    _, lse = flash_fwd(q, k, v, **kw)
+    check_probs(checks, f"api_packed_T{sum(tail)}", q, k, lse, kw)
+    return out
+
+
+def check_paged_extras(gen, timer, checks, cfg):
+    """K1 at the second kvcache call of the api path (b = 8 decode over a
+    dense (8, 4096, 8, 128) bf16 cache viewed as page-256 pages) with each
+    of window (1024, 0), softcap 30, ALiBi and cache_leftpad, and all four:
+    the 2x rule against its plain version and paged_attention_oracle. The
+    all-four case is timed beside the option-free one."""
+    from xf_flash_attention_cutlass_tpu_torch.ops.kvcache import dense_cache_as_paged
+    from xf_flash_attention_cutlass_tpu_torch.ops.paged import (
+        paged_attention,
+        paged_attention_ref,
+        resolve_num_splits,
+    )
+    from xf_flash_attention_cutlass_tpu_torch.utils.testing import (
+        alibi_slopes_ref,
+        paged_attention_oracle,
+    )
+
+    h, h_k, d, b, sk = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 8, 4096
+    kd, vd = (torch.randn((b, sk, h_k, d), generator=gen, device="cuda").bfloat16()
+              for _ in range(2))
+    kp, pages = dense_cache_as_paged(kd, 256)
+    vp, _ = dense_cache_as_paged(vd, 256)
+    del kd, vd
+    bt = (torch.arange(b, dtype=torch.int32, device="cuda")[:, None] * pages
+          + torch.arange(pages, dtype=torch.int32, device="cuda")[None])
+    lens_t = torch.randint(1024, sk + 1, (b,), generator=gen, device="cuda").int()
+    q = torch.randn((b, 1, h, d), generator=gen, device="cuda").bfloat16()
+    full = dict(window=(1024, 0), softcap=30.0,
+                alibi_slopes=torch.from_numpy(alibi_slopes_ref(h)).cuda(),
+                cache_leftpad=torch.randint(0, 300, (b,), generator=gen, device="cuda").int())
+    splits = resolve_num_splits(0, b, h_k, h // h_k, pages)
+    for name, opts in [(n, {n: x}) for n, x in full.items()] + [("all", full)]:
+        o, _ = paged_attention(q, kp, vp, bt, lens_t, **opts)
+        o_plain, _ = paged_attention_ref(q, kp, vp, bt, lens_t, num_splits=splits, **opts)
+        o32, _ = paged_attention_oracle(q, kp, vp, bt, lens_t, **opts)
+        olp, _ = paged_attention_oracle(q, kp, vp, bt, lens_t, upcast=False, **opts)
+        torch.cuda.synchronize()
+        tol = 2 * max_err(olp, o32) + 1e-5
+        err, plain_err = max_err(o, o32), max_err(o, o_plain)
+        checks.add(f"paged_attention.decode.options[{name}]",
+                   bool(torch.isfinite(o).all()) and err <= tol and plain_err <= tol,
+                   max_abs_err=plain_err, tolerance=tol, err_vs_f32_oracle=err,
+                   num_splits=splits)
+    return dict(ms_all_options=timer.ms(lambda: paged_attention(q, kp, vp, bt, lens_t, **full)),
+                ms_no_options=timer.ms(lambda: paged_attention(q, kp, vp, bt, lens_t)))
+
+
+def api_path(gen, cfg, seed):
+    """The public API at Llama-8B attention width (32 / 8 heads, d = 128,
+    bf16, inputs from the seeded generator), through the wrappers a user
+    calls:
+    (a) flash_attn_func, b = 1, 2048 tokens, causal, ALiBi, dropout 0.1,
+        return_attn_probs, and the gradient of sum(out * w);
+    (b) packed flash_attn_varlen_func over the 8 serving prompts, causal,
+        (8, 32) ALiBi slopes, its gradient, and return_attn_probs over the
+        prompts at the end of the list that fit in 2048 tokens;
+    (c) paged flash_attn_varlen_func over a bf16 page-256 cache holding the
+        8 prompts' keys, for the last 256 tokens of each (all of a shorter
+        one), causal;
+    (d) flash_attn_with_kvcache: one decode token per prompt with a NeoX
+        rotary append (dim 128, base 500000) on that cache; then a decode on
+        a dense (8, 4096, 8, 128) cache with softcap 30, window (1024, 0),
+        ALiBi and cache_leftpad.
+    Returns the outputs the checks after the path read, the seconds of each
+    step's first (cold) call on the host clock, each step's call, and the
+    copies of the caller's caches into K1's page layout that the K1 steps
+    make, so that time_api_steps can time them again warm. Calling a step
+    again repeats its work: (d) appends the same token at the same place."""
+    import xf_flash_attention_cutlass_tpu_torch as xfa
+    from xf_flash_attention_cutlass_tpu_torch.ops.kvcache import (
+        DEFAULT_PAGE,
+        dense_cache_as_paged,
+    )
+    from xf_flash_attention_cutlass_tpu_torch.ops.rotary import rotary_frequencies
+    from xf_flash_attention_cutlass_tpu_torch.utils.testing import alibi_slopes_ref
+
+    h, h_k, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    secs, res, calls = {}, {}, {}
+
+    def randn(*sh):
+        return torch.randn(sh, generator=gen, device="cuda").bfloat16()
+
+    def first_call(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs[name], calls[name] = time.perf_counter() - t0, fn
+        return out
+
+    xa = [randn(1, API_S, h, d).requires_grad_(True), randn(1, API_S, h_k, d).requires_grad_(True),
+          randn(1, API_S, h_k, d).requires_grad_(True)]
+    wa = randn(1, API_S, h, d)
+    slopes = torch.from_numpy(alibi_slopes_ref(h)).cuda()
+
+    def dense():
+        out, _, s_dmask = xfa.flash_attn_func(*xa, dropout_p=API_P, causal=True,
+                                              alibi_slopes=slopes, return_attn_probs=True,
+                                              dropout_seed=API_SEED)
+        grads = torch.autograd.grad((out.float() * wa.float()).sum(), xa)
+        return dict(out=out.detach(), s_dmask=s_dmask, grads=grads)
+
+    res["dense"] = first_call("dense", dense)
+
+    lens = serving_prompt_lens(seed)
+    T, nb = sum(lens), len(lens)
+    cu = torch.tensor(np.cumsum([0] + lens), dtype=torch.int32, device="cuda")
+    xb = [randn(T, h, d).requires_grad_(True), randn(T, h_k, d).requires_grad_(True),
+          randn(T, h_k, d).requires_grad_(True)]
+    wb = randn(T, h, d)
+    slopes_b = torch.rand((nb, h), generator=gen, device="cuda") * 0.1
+    vkw = dict(max_seqlen_q=max(lens), max_seqlen_k=max(lens), causal=True)
+    q, k, v = (t.detach() for t in xb)
+    i_n = fitting_tail(lens)
+    t0_n, cu_n = int(cu[i_n]), cu[i_n:] - cu[i_n]
+
+    def packed():
+        out = xfa.flash_attn_varlen_func(*xb, cu, cu, alibi_slopes=slopes_b, **vkw)
+        grads = torch.autograd.grad((out.float() * wb.float()).sum(), xb)
+        out_n, _, probs_n = xfa.flash_attn_varlen_func(
+            q[t0_n:], k[t0_n:], v[t0_n:], cu_n, cu_n, alibi_slopes=slopes_b[i_n:],
+            return_attn_probs=True, **vkw)
+        return dict(out=out.detach(), grads=grads, out_n=out_n, probs_n=probs_n, start=t0_n,
+                    cu_n=cu_n)
+
+    res["packed"] = first_call("packed", packed)
+
+    page, q_len = 256, 256
+    pages_of = [-(-(n_ + 1) // page) for n_ in lens]  # room for (d)'s appended token
+    perm = torch.randperm(sum(pages_of) + 1, generator=gen, device="cuda").int()
+    bt = torch.full((nb, max(pages_of)), int(perm[-1]), dtype=torch.int32, device="cuda")
+    k_cache = torch.zeros((len(perm), page, h_k, d), dtype=torch.bfloat16, device="cuda")
+    v_cache = torch.zeros_like(k_cache)
+    q_rows, used = [], 0
+    for i, n_ in enumerate(lens):
+        bt[i, :pages_of[i]] = perm[used:used + pages_of[i]]
+        used += pages_of[i]
+        pos = torch.arange(n_, device="cuda")
+        rows = int(cu[i]) + pos
+        k_cache[bt[i, pos // page].long(), pos % page] = k[rows]
+        v_cache[bt[i, pos // page].long(), pos % page] = v[rows]
+        q_rows.append(rows[-min(q_len, n_):])
+    q_c = q[torch.cat(q_rows)]
+    q_lens = [min(q_len, n_) for n_ in lens]
+    cu_q = torch.tensor(np.cumsum([0] + q_lens), dtype=torch.int32, device="cuda")
+
+    def paged_varlen():
+        return xfa.flash_attn_varlen_func(q_c, k_cache, v_cache, cu_q, cu, max_seqlen_q=q_len,
+                                          max_seqlen_k=max(lens), causal=True, block_table=bt)
+
+    res["paged"] = dict(out=first_call("paged_varlen", paged_varlen), q=q_c, q_lens=q_lens,
+                        bt=bt)
+
+    lens_t = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    cos, sin = rotary_frequencies(d, 4096, base=500000.0, device="cuda")
+    qd, kn, vn = randn(nb, 1, h, d), randn(nb, 1, h_k, d), randn(nb, 1, h_k, d)
+
+    def kvcache_paged():
+        return xfa.flash_attn_with_kvcache(
+            qd, k_cache, v_cache, k=kn, v=vn, rotary_cos=cos, rotary_sin=sin,
+            cache_seqlens=lens_t, block_table=bt, causal=True, rotary_interleaved=False)
+
+    out_d1, kc, vc = first_call("kvcache_paged_append", kvcache_paged)
+    res["kvcache_paged"] = dict(out=out_d1, q=qd, k_new=kn, v_new=vn, cos=cos, sin=sin,
+                                lens=lens_t, k_cache=kc, v_cache=vc, bt=bt,
+                                in_place=kc is k_cache and vc is v_cache)
+
+    kd, vd = randn(nb, 4096, h_k, d), randn(nb, 4096, h_k, d)
+    seqlens = torch.randint(1024, 4097, (nb,), generator=gen, device="cuda").int()
+    leftpad = torch.randint(0, 300, (nb,), generator=gen, device="cuda").int()
+    dkw = dict(causal=True, window_size=(1024, 0), softcap=30.0, alibi_slopes=slopes,
+               cache_leftpad=leftpad)
+
+    def kvcache_dense():
+        return xfa.flash_attn_with_kvcache(qd, kd, vd, cache_seqlens=seqlens, **dkw)[0]
+
+    res["kvcache_dense"] = dict(out=first_call("kvcache_dense_options", kvcache_dense), q=qd,
+                                k=kd, v=vd, lens=seqlens, kw=dkw)
+    res["lens"] = lens
+    copies = {  # what (c) and (d) copy on every call before K1 reads the keys
+        "paged_varlen": lambda: (k_cache.transpose(1, 2).contiguous(),
+                                 v_cache.transpose(1, 2).contiguous()),
+        "kvcache_paged_append": lambda: (k_cache.transpose(1, 2).contiguous(),
+                                         v_cache.transpose(1, 2).contiguous()),
+        "kvcache_dense_options": lambda: (dense_cache_as_paged(kd, DEFAULT_PAGE),
+                                          dense_cache_as_paged(vd, DEFAULT_PAGE)),
+    }
+    return res, secs, calls, copies
+
+
+def time_api_steps(calls, copies, reps=5):
+    """Each api step called again, warm: its host-clock ms over `reps`
+    synchronized calls (least, median, largest) and its device ms per call
+    from a profiler trace (`profiled`, two calls), with the device's busy
+    share of the median call; for the K1 steps, the device ms of the copy of
+    the caller's caches into K1's page layout that the step makes, and its
+    share of the step's device time."""
+    out = {}
+    for name, fn in calls.items():
+        ms = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+        prof = profiled(fn, 2)
+        dev = prof["device_ms_per_step"] if prof else None
+        p50 = percentile(ms, 50)
+        out[name] = dict(host_ms=dict(min=min(ms), p50=p50, max=max(ms)), device_ms=dev,
+                         busy_share=dev / p50 if dev else None,
+                         top=prof["top"][:4] if prof else None)
+        if name in copies:
+            cprof = profiled(copies[name], 2)
+            copy_ms = cprof["device_ms_per_step"] if cprof else None
+            out[name].update(layout_copy_device_ms=copy_ms,
+                             layout_copy_share=copy_ms / dev if copy_ms and dev else None)
+    return out
+
+
+def check_api_outputs(checks, res, cfg):
+    """What the api path returned: finite values of the expected shapes; the
+    realized drop fraction of (a)'s plane within 0.01 of p; (b)'s subset
+    agreeing with the whole packed run within one bf16 rounding of the
+    largest magnitude (the subset starts at another tile offset), its
+    plane's rows summing to 1 within 1e-3 and its entries between two
+    prompts 0; (c) and (d) under the 2x rule against K1's plain version and
+    paged_attention_oracle on the same inputs; (d)'s append rotated and
+    written in place into the caller's cache, bit for bit."""
+    from xf_flash_attention_cutlass_tpu_torch.ops.kvcache import dense_cache_as_paged
+    from xf_flash_attention_cutlass_tpu_torch.ops.paged import (
+        paged_attention_ref,
+        resolve_num_splits,
+    )
+    from xf_flash_attention_cutlass_tpu_torch.ops.rotary import apply_rotary
+    from xf_flash_attention_cutlass_tpu_torch.utils.testing import paged_attention_oracle
+
+    def finite(*ts):
+        return all(bool(torch.isfinite(t).all()) for t in ts)
+
+    def oracle_check(name, out, q, k_pool, v_pool, bt, lens, pick=None, **kw):
+        """K1's output under the 2x rule against both its plain version (with
+        the kernel's splits) and paged_attention_oracle, on the same inputs."""
+        b, sq, h, _ = q.shape
+        splits = resolve_num_splits(0, b, k_pool.shape[1], sq * (h // k_pool.shape[1]),
+                                    bt.shape[1])
+        o_plain, _ = paged_attention_ref(q, k_pool, v_pool, bt, lens, num_splits=splits, **kw)
+        o32, _ = paged_attention_oracle(q, k_pool, v_pool, bt, lens, **kw)
+        olp, _ = paged_attention_oracle(q, k_pool, v_pool, bt, lens, upcast=False, **kw)
+        if pick is not None:
+            o_plain, o32, olp = pick(o_plain), pick(o32), pick(olp)
+        tol, err = 2 * max_err(olp, o32) + 1e-5, max_err(out, o32)
+        plain_err = max_err(out, o_plain)
+        checks.add(name, finite(out) and err <= tol and plain_err <= tol, max_abs_err=plain_err,
+                   tolerance=tol, err_vs_f32_oracle=err, num_splits=splits)
+
+    h = cfg.n_heads
+    a = res["dense"]
+    fraction = float(torch.signbit(a["s_dmask"]).sum()) / (API_S * (API_S + 1) // 2 * h)
+    checks.add("api.flash_attn_func", finite(a["out"], *a["grads"])
+               and tuple(a["s_dmask"].shape) == (1, h, API_S, API_S)
+               and abs(fraction - API_P) < 0.01, drop_fraction=fraction, p=API_P)
+    b = res["packed"]
+    sub_err = max_err(b["out_n"], b["out"][b["start"]:])
+    sub_tol = 2 ** -7 * float(b["out"][b["start"]:].abs().max())
+    sums = b["probs_n"].sum(-1)
+    sums_err = max_err(sums, torch.ones_like(sums))
+    n_tok = b["probs_n"].shape[-1]
+    seg = torch.searchsorted(b["cu_n"].long(), torch.arange(n_tok, device="cuda"), right=True)
+    across = float(b["probs_n"][:, seg[:, None] != seg[None, :]].abs().max())
+    checks.add("api.flash_attn_varlen_func.packed", finite(b["out"], *b["grads"], b["probs_n"])
+               and sub_err <= sub_tol and sums_err <= 1e-3 and across == 0.0,
+               subset_err=sub_err, subset_tolerance=sub_tol, row_sum_err=sums_err,
+               row_sum_tolerance=1e-3, subset_prompts=len(b["cu_n"]) - 1,
+               max_across_prompts=across)
+
+    c, dd = res["paged"], res["kvcache_paged"]
+    k_pool, v_pool = dd["k_cache"].transpose(1, 2), dd["v_cache"].transpose(1, 2)
+    lens = torch.tensor(res["lens"], dtype=torch.int32, device="cuda")
+    qr = c["q"].new_zeros((len(c["q_lens"]), 256, *c["q"].shape[1:]))  # right-aligned
+    off = 0
+    for i, n_ in enumerate(c["q_lens"]):
+        qr[i, 256 - n_:] = c["q"][off:off + n_]
+        off += n_
+
+    def packed_rows(o):
+        return torch.cat([o[i, 256 - n_:] for i, n_ in enumerate(c["q_lens"])])
+
+    # (c) ran before (d)'s append, which no key of (c)'s queries sees
+    oracle_check("api.flash_attn_varlen_func.paged", c["out"], qr, k_pool, v_pool, c["bt"],
+                 lens, pick=packed_rows)
+    pos = dd["lens"].long()
+    k_rot = apply_rotary(dd["k_new"], dd["cos"], dd["sin"], pos[:, None], False)
+    pe = dd["bt"].long().gather(1, (pos // 256)[:, None])[:, 0]
+    appended = bool(torch.equal(dd["k_cache"][pe, pos % 256], k_rot[:, 0])
+                    and torch.equal(dd["v_cache"][pe, pos % 256], dd["v_new"][:, 0]))
+    checks.add("api.flash_attn_with_kvcache.append_in_place", appended and dd["in_place"],
+               append_bit_equal=appended, in_place=dd["in_place"])
+    q_rot = apply_rotary(dd["q"], dd["cos"], dd["sin"], pos[:, None], False)
+    oracle_check("api.flash_attn_with_kvcache.paged_rotary", dd["out"], q_rot, k_pool, v_pool,
+                 dd["bt"], dd["lens"] + 1)
+    e = res["kvcache_dense"]
+    kp, pages = dense_cache_as_paged(e["k"], 256)
+    vp, _ = dense_cache_as_paged(e["v"], 256)
+    bt = (torch.arange(e["k"].shape[0], device="cuda")[:, None] * pages
+          + torch.arange(pages, device="cuda")[None]).int()
+    kw = e["kw"]
+    oracle_check("api.flash_attn_with_kvcache.dense_options", e["out"], e["q"], kp, vp, bt,
+                 e["lens"], window=kw["window_size"], softcap=kw["softcap"],
+                 alibi_slopes=kw["alibi_slopes"], cache_leftpad=kw["cache_leftpad"])
 
 
 # ---- phase 3: training ----------------------------------------------------------
@@ -961,6 +1510,7 @@ KERNELS = {  # launch-counter name: (source, TPU kernel it replaces)
     "qmm.stacked.bm64": (_PKG + "qmm.cu", _TPU + "quant/linear.py:70"),
     "qmm.single.bm16": (_PKG + "qmm.cu", _TPU + "quant/linear.py:48"),
     "flash_fwd": (_PKG + "flash_fwd.cu", _TPU + "ops/flash_fwd.py:100"),
+    "flash_probs": (_PKG + "flash_probs.cu", _TPU + "ops/flash_fwd.py:379"),
     "flash_bwd.dq": (_PKG + "flash_bwd.cu", _TPU + "ops/flash_bwd.py:228"),
     "flash_bwd.dkv": (_PKG + "flash_bwd.cu", _TPU + "ops/flash_bwd.py:284"),
     "flash_bwd.fused": (_PKG + "flash_bwd.cu", _TPU + "ops/flash_bwd.py:156"),
@@ -974,6 +1524,8 @@ PATHS = {
                        "paged_append.decode", "qmm.stacked.bm16", "qmm.stacked.bm64",
                        "qmm.single.bm16"],
     "train": ["flash_fwd", "flash_bwd.dq", "flash_bwd.dkv", "flash_bwd.fused"],
+    "api": ["flash_fwd", "flash_probs", "flash_bwd.dq", "flash_bwd.dkv",
+            "paged_attention.decode", "paged_attention.prefill"],
 }
 
 
@@ -1073,10 +1625,25 @@ def main():
     report["page32_append"] = check_page32_append(gen, timer, checks, cfg)
     measured.update(check_flash(gen, timer, checks, cfg))
     report["sdpa_fwd_bwd_ms"] = measured["flash_bwd.fused"]["library_fwd_bwd_ms"]
+    # the option-free kernels against the options' kernels (ALiBi of slope
+    # 0, same result) on the same work: what the second instantiation saves
+    report["general_instantiation"] = {
+        n: dict(ms=r["ms"], ms_general=r["ms_general"], ratio=r["ms_general"] / r["ms"])
+        for n, r in measured.items() if "ms_general" in r}
+    print(json.dumps({"general_instantiation": report["general_instantiation"]}), flush=True)
+    mark("kernels")
+    # the API's options, at the api path's shapes
+    measured["flash_probs"] = check_api_dense(gen, timer, checks, cfg)
+    report["api_kernels"] = dict(
+        flash_probs=measured["flash_probs"],
+        flash_fwd_packed=check_api_packed(gen, timer, checks, cfg,
+                                          serving_prompt_lens(args.seed)),
+        paged_attention_options=check_paged_extras(gen, timer, checks, cfg))
+    print(json.dumps({"api_kernels": report["api_kernels"]}), flush=True)
     checks.raise_on_failure("kernel comparison")
     del timer
     torch.cuda.empty_cache()
-    mark("kernels")
+    mark("api_kernels")
     paths = {}
 
     # 3. training: Llama-8B widths and all 32 layers in bf16, plain SGD
@@ -1130,9 +1697,21 @@ def main():
     report["decode_profile"] = prof
     print(json.dumps({"decode_profile": prof}), flush=True)
     del eng
+    torch.cuda.empty_cache()
     mark("decode_profile")
 
-    # 5. the kernels line, the card, the result
+    # 5. the public API at Llama-8B attention width
+    (res, api_s, calls, copies), paths["api"] = drive("api", lambda: api_path(gen, cfg, args.seed))
+    check_api_outputs(checks, res, cfg)
+    del res
+    checks.raise_on_failure("api")
+    report["api"] = dict(first_call_s=api_s, launches=paths["api"],
+                         warm=time_api_steps(calls, copies))
+    print(json.dumps({"api": report["api"]}), flush=True)
+    del calls, copies
+    mark("api")
+
+    # 6. the kernels line, the card, the result
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         r = measured[name]

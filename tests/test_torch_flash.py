@@ -38,7 +38,7 @@ from xf_flash_attention_cutlass_tpu.ops.reference import attention_ref, construc
 from xf_flash_attention_cutlass_tpu_torch.models.llama import params_from_jax
 from xf_flash_attention_cutlass_tpu_torch.ops.flash import flash_attention
 from xf_flash_attention_cutlass_tpu_torch.ops.flash_bwd import flash_bwd
-from xf_flash_attention_cutlass_tpu_torch.ops.flash_fwd import flash_fwd
+from xf_flash_attention_cutlass_tpu_torch.ops.flash_fwd import dropout_keep_mask, flash_fwd
 from xf_flash_attention_cutlass_tpu_torch.utils.testing import (
     assert_close_2ref,
     flash_attention_oracle,
@@ -242,14 +242,28 @@ def test_flash_attention_oracle_matches_jax(name, b, h, h_k, sq, sk, opts):
 
 
 def test_not_ported_options_raise():
-    q = torch.zeros((1, 2, 4, 16))
-    for kw in (dict(alibi_slopes=torch.ones(2)), dict(dropout_p=0.1),
-               dict(q_positions=torch.zeros((1, 4), dtype=torch.int32),
-                    kv_positions=torch.zeros((1, 4), dtype=torch.int32))):
-        with pytest.raises(NotImplementedError):
-            flash_fwd(q, q, q, **kw)
-        with pytest.raises(NotImplementedError):
-            flash_attention(q, q, q, **kw)
+    """The options the first dense slice left out (ALiBi, explicit
+    positions, dropout) now run: ALiBi and positions match the JAX kernel
+    in f32 within 8 ulps; dropout, whose mask the JAX package draws from
+    another generator, matches the dense oracle given the port's mask."""
+    rng = np.random.default_rng(6)
+    b, h, s, d = 1, 2, 48, 16
+    q, k, v = (rng.standard_normal((b, h, s, d)).astype(np.float32) for _ in range(3))
+    pos = (np.arange(s)[None] % 30).astype(np.int32)  # two packed sequences
+    seg = (np.arange(s)[None] >= 30).astype(np.int32)
+    ulp = torch.finfo(torch.float32).eps
+    for kw in (dict(alibi_slopes=np.asarray([0.5, 0.25], np.float32), causal=True),
+               dict(q_positions=pos, kv_positions=pos, q_segment_ids=seg, kv_segment_ids=seg,
+                    causal=True)):
+        jo, jl = j_flash_fwd(*(jnp.asarray(a) for a in (q, k, v)), **_jax_kw(kw))
+        to, tl = flash_fwd(*(torch.from_numpy(a) for a in (q, k, v)), **_port_kw(kw))
+        assert max_err(to, _t(jo)) <= 8 * ulp * float(np.abs(np.asarray(jo)).max())
+        assert max_err(tl, _t(jl)) <= 8 * ulp * float(np.abs(np.asarray(jl)).max())
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    o, _ = flash_attention(tq, tk, tv, causal=True, dropout_p=0.1, dropout_seed=2)
+    keep = dropout_keep_mask(2, 0.1, b, h, s, s, "cpu")
+    o32, _ = flash_attention_oracle(tq, tk, tv, causal=True, dropout_mask=keep, dropout_p=0.1)
+    assert max_err(o, o32) <= 1e-5
 
 
 def test_malformed_inputs_raise():

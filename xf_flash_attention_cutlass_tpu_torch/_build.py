@@ -30,7 +30,7 @@ CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "build")
 
 # every kernel source; each becomes lib<name>-<hash>.so
-SOURCES = ("paged_attention", "paged_append", "qmm", "flash_fwd", "flash_bwd")
+SOURCES = ("paged_attention", "paged_append", "qmm", "flash_fwd", "flash_probs", "flash_bwd")
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",

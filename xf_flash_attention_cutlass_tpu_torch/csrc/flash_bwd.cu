@@ -22,6 +22,13 @@
 // works on S^T = K Q^T, so the P^T and dS^T accumulators are the A operands of
 // the dV and dK products straight from registers.
 //
+// ALiBi (per head or per row), explicit positions with their tile tables and
+// dropout live in the kExtra instantiations only, as in K7: S loses the bias
+// slope * |qpos - kpos| after the softcap, and an entry the dropout dropped
+// (flash_common.cuh's Philox, keyed by batch, q head, row and key, so it
+// replays the forward's mask) has dV's P and dS's dP zeroed, the kept ones
+// scaled by 1 / (1 - p). K10 and K11 key each group member by its own q head.
+//
 // Bound on an H100: operations (2.5x the forward's: five tile products per
 // live tile pair in K11, seven over K9 and K10). Like K7 this first version
 // feeds mma.sync from shared memory with synchronous copies.
@@ -42,6 +49,7 @@ struct BwdArgs {
   const int32_t *kv_lens, *qseg, *kseg;
   int b, h, h_k, sq, sk, wl, wr;
   float scale, softcap;
+  XfaExtras ex;
 };
 
 template <int D>
@@ -53,12 +61,12 @@ template <int D, bool kFused>
 constexpr int dkv_smem_bytes() {
   return 2 * (2 * kBK * (D + kPad) + 2 * kBQT * (D + kPad) + 2 * D * (kBQT + kPad) +
               (kFused ? kBQT * (kBK + kPad) + D * (kBK + kPad) : 0)) +
-         2 * kBQT * 4;
+         3 * kBQT * 4;
 }
 
 // ---- K9: dQ -------------------------------------------------------------------
 
-template <typename T, int D>
+template <typename T, int D, bool kExtra>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(BwdArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int LD = D + kPad, LDT = kBK + kPad;
@@ -78,17 +86,21 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(BwdArgs a) {
   const T* dob = static_cast<const T*>(a.dout) + bh * a.sq * D;
   const T* kb = static_cast<const T*>(a.k) + bhk * a.sk * D;
   const T* vb = static_cast<const T*>(a.v) + bhk * a.sk * D;
-  const Mask mask = make_mask(ib, a.sq, a.sk, a.wl, a.wr, a.kv_lens, a.qseg, a.kseg);
+  Mask mask = make_mask(ib, a.sq, a.sk, a.wl, a.wr, a.kv_lens, a.qseg, a.kseg, a.ex);
+  if constexpr (!kExtra) mask.qpos = mask.kpos = nullptr;
 
   const int row = q0 + warp * 16 + (lane >> 2);  // and row + 8
   const int col = (lane & 3) * 2;
-  float lse_r[2], delta_r[2];
+  float lse_r[2], delta_r[2], slope[2] = {0.f, 0.f};
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int qi = min(row + 8 * r, a.sq - 1);
     lse_r[r] = safe_lse(static_cast<const float*>(a.lse)[bh * a.sq + qi]);
     delta_r[r] = static_cast<const float*>(a.delta)[bh * a.sq + qi];
+    if constexpr (kExtra) slope[r] = alibi_slope(a.ex, ib, ih, a.h, a.sq, qi);
   }
+  const bool dropout = kExtra && a.ex.drop_thresh != 0;
+  const float drop_scale = kExtra ? a.ex.drop_scale : 1.f;
 
   copy_rows<T, D, kBQ>(qs, LD, qb, q0, a.sq);
   copy_rows<T, D, kBQ>(dos, LD, dob, q0, a.sq);
@@ -100,6 +112,9 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(BwdArgs a) {
   int k_lo, k_hi;
   mask.key_range(q0, min(q0 + kBQ, a.sq), k_lo, k_hi);
   for (int k0 = (k_lo / kBK) * kBK; k0 < k_hi; k0 += kBK) {
+    if constexpr (kExtra) {
+      if (!tiles_meet(a.ex, mask, ib, q0, k0)) continue;  // uniform over the block
+    }
     __syncthreads();
     copy_rows<T, D, kBK>(ks, LD, kb, k0, a.sk);
     copy_rows<T, D, kBK>(vs, LD, vb, k0, a.sk);
@@ -128,12 +143,23 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(BwdArgs a) {
 #pragma unroll
     for (int j = 0; j < kBK / 8; ++j) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        const bool keep = mask.keep(row + 8 * r, k0 + j * 8 + col + (e & 1));
-        float p;
-        recompute_p_ds(s[j][e], dp[j][e], lse_r[r], delta_r[r], keep, a.scale, a.softcap, p,
-                       s[j][e]);  // s now holds dS
+      for (int r = 0; r < 2; ++r) {
+        const int qi = row + 8 * r, kj = k0 + j * 8 + col;
+        float z[2] = {drop_scale, drop_scale};
+        if (dropout) {
+          bool keep0, keep1;
+          dropout_keep2(a.ex, ib, ih, qi, kj, keep0, keep1);
+          z[0] = keep0 ? drop_scale : 0.f;
+          z[1] = keep1 ? drop_scale : 0.f;
+        }
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int e = 2 * r + c;
+          const float bias = kExtra ? slope[r] * mask.dist(qi, kj + c) : 0.f;
+          float p;
+          recompute_p_ds(s[j][e], dp[j][e], lse_r[r], delta_r[r], mask.keep(qi, kj + c),
+                         a.scale, a.softcap, bias, z[c], p, s[j][e]);  // s now holds dS
+        }
       }
     }
     // dQ += dS K, dS rounded to K's dtype
@@ -164,7 +190,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(BwdArgs a) {
 
 // ---- K10 / K11: dK, dV (and dQ by atomics) -------------------------------------
 
-template <typename T, int D, bool kFused>
+template <typename T, int D, bool kFused, bool kExtra>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(BwdArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int LD = D + kPad, LDQ = kBQT + kPad, LDK = kBK + kPad;
@@ -178,6 +204,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(BwdArgs a) {
   T* kt = dss + (kFused ? kBQT * LDK : 0);  // K11: K^T (D, kBK), B of dQ
   float* lse_s = reinterpret_cast<float*>(kt + (kFused ? D * LDK : 0));
   float* delta_s = lse_s + kBQT;
+  float* slope_s = delta_s + kBQT;  // ALiBi slope of each query row of the tile
 
   const int ik = blockIdx.x, ihk = blockIdx.y, ib = blockIdx.z;
   const int group = a.h / a.h_k;
@@ -186,7 +213,10 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(BwdArgs a) {
   const size_t bhk = static_cast<size_t>(ib) * a.h_k + ihk;
   const T* kb = static_cast<const T*>(a.k) + bhk * a.sk * D;
   const T* vb = static_cast<const T*>(a.v) + bhk * a.sk * D;
-  const Mask mask = make_mask(ib, a.sq, a.sk, a.wl, a.wr, a.kv_lens, a.qseg, a.kseg);
+  Mask mask = make_mask(ib, a.sq, a.sk, a.wl, a.wr, a.kv_lens, a.qseg, a.kseg, a.ex);
+  if constexpr (!kExtra) mask.qpos = mask.kpos = nullptr;
+  const bool dropout = kExtra && a.ex.drop_thresh != 0;
+  const float drop_scale = kExtra ? a.ex.drop_scale : 1.f;
 
   const int krow = k0 + warp * 16 + (lane >> 2);  // this thread's keys: krow, krow + 8
   const int col = (lane & 3) * 2;                 // its query columns in an n-tile
@@ -211,6 +241,9 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(BwdArgs a) {
     const float* lseb = static_cast<const float*>(a.lse) + bh * a.sq;
     const float* deltab = static_cast<const float*>(a.delta) + bh * a.sq;
     for (int q0 = (q_lo / kBQT) * kBQT; q0 < q_hi; q0 += kBQT) {
+      if constexpr (kExtra) {
+        if (!tiles_meet(a.ex, mask, ib, q0, k0)) continue;  // uniform over the block
+      }
       __syncthreads();  // the previous q tile (and dS) are consumed
       copy_rows<T, D, kBQT>(qs, LD, qb, q0, a.sq);
       copy_rows<T, D, kBQT>(dos, LD, dob, q0, a.sq);
@@ -220,6 +253,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(BwdArgs a) {
         const bool live = q0 + i < a.sq;
         lse_s[i] = live ? safe_lse(lseb[q0 + i]) : 3.0e38f;
         delta_s[i] = live ? deltab[q0 + i] : 0.f;
+        if constexpr (kExtra) slope_s[i] = alibi_slope(a.ex, ib, ih, a.h, a.sq, q0 + i);
       }
       __syncthreads();
 
@@ -248,8 +282,13 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(BwdArgs a) {
         for (int e = 0; e < 4; ++e) {
           const int qc = j * 8 + col + (e & 1);  // query column within the tile
           const int kj = krow + (e >> 1) * 8;
-          recompute_p_ds(st[j][e], dpt[j][e], lse_s[qc], delta_s[qc],
-                         mask.keep(q0 + qc, kj), a.scale, a.softcap, st[j][e], dpt[j][e]);
+          float bias = 0.f, z = drop_scale;
+          if constexpr (kExtra) {
+            bias = slope_s[qc] * mask.dist(q0 + qc, kj);
+            if (dropout && q0 + qc < a.sq && !dropout_keep(a.ex, ib, ih, q0 + qc, kj)) z = 0.f;
+          }
+          recompute_p_ds(st[j][e], dpt[j][e], lse_s[qc], delta_s[qc], mask.keep(q0 + qc, kj),
+                         a.scale, a.softcap, bias, z, st[j][e], dpt[j][e]);
         }
       }
       // dV += P^T dO (P rounded to dO's dtype), dK += dS^T Q (dS to Q's dtype)
@@ -337,22 +376,30 @@ cudaError_t run(Kernel kernel, dim3 grid, int smem, cudaStream_t stream, const B
 template <typename T, int D>
 cudaError_t launch_dq(const BwdArgs& a, cudaStream_t stream) {
   dim3 grid((a.sq + kBQ - 1) / kBQ, a.h, a.b);
-  return run(flash_bwd_dq_kernel<T, D>, grid, dq_smem_bytes<D>(), stream, a);
+  if (has_extras(a.ex))
+    return run(flash_bwd_dq_kernel<T, D, true>, grid, dq_smem_bytes<D>(), stream, a);
+  return run(flash_bwd_dq_kernel<T, D, false>, grid, dq_smem_bytes<D>(), stream, a);
+}
+
+template <typename T, int D, bool kFused>
+cudaError_t launch_dkv_x(const BwdArgs& a, cudaStream_t stream) {
+  dim3 grid((a.sk + kBK - 1) / kBK, a.h_k, a.b);
+  constexpr int smem = dkv_smem_bytes<D, kFused>();
+  if (has_extras(a.ex))
+    return run(flash_bwd_dkv_kernel<T, D, kFused, true>, grid, smem, stream, a);
+  return run(flash_bwd_dkv_kernel<T, D, kFused, false>, grid, smem, stream, a);
 }
 
 template <typename T, int D>
 cudaError_t launch_dkv(const BwdArgs& a, bool fused, cudaStream_t stream) {
-  dim3 grid((a.sk + kBK - 1) / kBK, a.h_k, a.b);
-  if (fused)
-    return run(flash_bwd_dkv_kernel<T, D, true>, grid, dkv_smem_bytes<D, true>(), stream, a);
-  return run(flash_bwd_dkv_kernel<T, D, false>, grid, dkv_smem_bytes<D, false>(), stream, a);
+  return fused ? launch_dkv_x<T, D, true>(a, stream) : launch_dkv_x<T, D, false>(a, stream);
 }
 
 BwdArgs make_args(const void* q, const void* k, const void* v, const void* dout,
                   const void* lse, const void* delta, void* dq, void* dk, void* dv,
                   void* dq_acc, const void* kv_lens, const void* q_seg, const void* kv_seg,
                   int b, int h, int h_k, int sq, int sk, int wl, int wr, float scale,
-                  float softcap) {
+                  float softcap, const XfaExtras& ex) {
   BwdArgs a;
   a.q = q;
   a.k = k;
@@ -376,12 +423,16 @@ BwdArgs make_args(const void* q, const void* k, const void* v, const void* dout,
   a.wr = wr;
   a.scale = scale;
   a.softcap = softcap;
+  a.ex = ex;
   return a;
 }
 
-bool valid(int dtype, int d, int h, int h_k, const void* q_seg, const void* kv_seg) {
+bool valid(int dtype, int d, int h, int h_k, const void* q_seg, const void* kv_seg,
+           const XfaExtras* ex) {
   return (dtype == XFA_BF16 || dtype == XFA_F16) && (d == 64 || d == 128) && h_k > 0 &&
-         h % h_k == 0 && (q_seg == nullptr) == (kv_seg == nullptr);
+         h % h_k == 0 && (q_seg == nullptr) == (kv_seg == nullptr) && ex != nullptr &&
+         (ex->qpos == nullptr) == (ex->kpos == nullptr) &&
+         (ex->qtiles == nullptr) == (ex->ktiles == nullptr);
 }
 
 }  // namespace
@@ -389,18 +440,20 @@ bool valid(int dtype, int d, int h, int h_k, const void* q_seg, const void* kv_s
 // Arguments of both entry points: q, dout (b, h, sq, d); k, v (b, h_k, sk, d);
 // all contiguous bf16 (XFA_BF16) or fp16 (XFA_F16), d 64 or 128, q NOT
 // pre-scaled; lse, delta (b, h, sq) f32; kv_lens (b,), q_seg (b, sq), kv_seg
-// (b, sk) int32 or null; wl / wr the window (< 0 unbounded).
+// (b, sk) int32 or null; wl / wr the window (< 0 unbounded); extras (ALiBi,
+// positions, tile tables, dropout; flash_common.cuh) in host memory.
 
 // K9: writes dq (b, h, sq, d) in the input dtype.
 extern "C" int xfa_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                                 const void* lse, const void* delta, void* dq,
                                 const void* kv_lens, const void* q_seg, const void* kv_seg,
                                 int dtype, int b, int h, int h_k, int sq, int sk, int d, int wl,
-                                int wr, float scale, float softcap, void* stream) {
-  if (!valid(dtype, d, h, h_k, q_seg, kv_seg)) return cudaErrorInvalidValue;
+                                int wr, float scale, float softcap, const flash::XfaExtras* extras,
+                                void* stream) {
+  if (!valid(dtype, d, h, h_k, q_seg, kv_seg, extras)) return cudaErrorInvalidValue;
   if (b * h * sq == 0) return cudaSuccess;
   const BwdArgs a = make_args(q, k, v, dout, lse, delta, dq, nullptr, nullptr, nullptr, kv_lens,
-                              q_seg, kv_seg, b, h, h_k, sq, sk, wl, wr, scale, softcap);
+                              q_seg, kv_seg, b, h, h_k, sq, sk, wl, wr, scale, softcap, *extras);
   auto st = static_cast<cudaStream_t>(stream);
   if (dtype == XFA_BF16)
     return d == 128 ? launch_dq<__nv_bfloat16, 128>(a, st) : launch_dq<__nv_bfloat16, 64>(a, st);
@@ -415,12 +468,12 @@ extern "C" int xfa_flash_bwd_dkv(const void* q, const void* k, const void* v, co
                                  void* dq_acc, const void* kv_lens, const void* q_seg,
                                  const void* kv_seg, int dtype, int b, int h, int h_k, int sq,
                                  int sk, int d, int wl, int wr, float scale, float softcap,
-                                 int fused, void* stream) {
-  if (!valid(dtype, d, h, h_k, q_seg, kv_seg)) return cudaErrorInvalidValue;
+                                 const flash::XfaExtras* extras, int fused, void* stream) {
+  if (!valid(dtype, d, h, h_k, q_seg, kv_seg, extras)) return cudaErrorInvalidValue;
   if (fused && dq_acc == nullptr) return cudaErrorInvalidValue;
   if (b * h_k * sk == 0) return cudaSuccess;
   const BwdArgs a = make_args(q, k, v, dout, lse, delta, nullptr, dk, dv, dq_acc, kv_lens,
-                              q_seg, kv_seg, b, h, h_k, sq, sk, wl, wr, scale, softcap);
+                              q_seg, kv_seg, b, h, h_k, sq, sk, wl, wr, scale, softcap, *extras);
   auto st = static_cast<cudaStream_t>(stream);
   const bool f = fused != 0;
   if (dtype == XFA_BF16)

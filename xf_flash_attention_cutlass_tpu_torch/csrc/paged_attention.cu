@@ -30,6 +30,16 @@
 // wrapper, and P is rounded to bf16 (q's dtype) after the V scale and before
 // the PV product. Keys past the causal limit, the split or kv_len are never
 // loaded. Rows with kv_len = 0 (inactive slots) give O = 0 and LSE = -inf.
+//
+// The kExtra instantiation adds what the API passes (the option-free one is
+// the serving path's, unchanged): a window (wl, wr) from query position
+// kv_len - sq + t, non-causal included; the tanh softcap on the K-scaled
+// score; ALiBi, the score of row t * group + g losing slope[b, kv_head * group
+// + g] * |qpos - kcol| after the softcap, distances counted from the leftpad;
+// and cache_leftpad, which masks the keys before it. As the TPU kernel folds
+// the window start into its loop bound, the pages before the first key any
+// row can see (window start, leftpad) are left out of the split runs, and a
+// block starts at its first row's earliest key, so they are never loaded.
 #include <mma.h>
 
 #include "common.cuh"
@@ -130,7 +140,7 @@ struct TileRegs {
   }
 };
 
-template <typename KV, int D, int RT>
+template <typename KV, int D, int RT, bool kExtra>
 __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
     const __nv_bfloat16* __restrict__ q,  // (b, sq, h, D), pre-scaled
     const KV* __restrict__ k_pool,        // (pages, h_k, page, D): one layer
@@ -141,7 +151,10 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
     const int32_t* __restrict__ kv_lens,       // (b,)
     float* __restrict__ o_part,                // (splits, b, h_k, R, D)
     float* __restrict__ lse_part,              // (splits, b, h_k, R)
-    int b, int sq, int h_k, int group, int page, int max_pages, bool causal) {
+    const float* __restrict__ alibi,           // (b, h) or null
+    const int32_t* __restrict__ leftpad,       // (b,) or null
+    int b, int sq, int h_k, int group, int page, int max_pages, int wl, int wr,
+    float softcap) {
   using L = Smem<D, RT>;
   constexpr int LDQ = L::LDQ, LDS = L::LDS, LDP = L::LDP, LDO = L::LDO;
 
@@ -167,14 +180,24 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
 
   const int kv_len = kv_lens[ib];
   const int n_live = min((kv_len + page - 1) / page, max_pages);
-  const int pages_per_split = (n_live + gridDim.z - 1) / gridDim.z;
-  const int lo = split * pages_per_split;
+  int lp = 0, first_page = 0;  // leftpad; the first page any row can see
+  if constexpr (kExtra) {
+    lp = leftpad != nullptr ? max(0, leftpad[ib]) : 0;
+    const int first_key = wl >= 0 ? max(lp, kv_len - sq - wl) : lp;
+    first_page = min(max(first_key, 0) / page, n_live);
+  }
+  const int pages_per_split = (n_live - first_page + gridDim.z - 1) / gridDim.z;
+  const int lo = first_page + split * pages_per_split;
   const int hi = min(lo + pages_per_split, n_live);
-  const int kstart = lo * page;
+  int kstart = lo * page;
+  if constexpr (kExtra) {  // the tile's first row sees no key before these
+    const int t_first = min(r0 / group, sq - 1);
+    kstart = max(kstart, wl >= 0 ? max(lp, kv_len - sq + t_first - wl) : lp);
+  }
   int kend = min(hi * page, kv_len);
-  if (causal) {  // the tile's last row sees no key past its position
+  if (wr >= 0) {  // the tile's last row sees no key past its position + wr
     const int t_last = min((min(r0 + RT, R) - 1) / group, sq - 1);
-    kend = min(kend, kv_len - sq + t_last + 1);
+    kend = min(kend, kv_len - sq + t_last + 1 + wr);
   }
 
   // Q tile (zeros past the last real row), stats and accumulator
@@ -227,14 +250,24 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
     for (int r = warp; r < RT; r += kWarps) {
       const int t = min((r0 + r) / group, sq - 1);
       const int qpos = kv_len - sq + t;
+      float slope = 0.f;
+      if constexpr (kExtra) {
+        if (alibi != nullptr) slope = alibi[ib * h_k * group + kvh * group + (r0 + r) % group];
+      }
       float sv[TK / 32];
       float rmax = NEG_INF;
 #pragma unroll
       for (int u = 0; u < TK / 32; ++u) {
         const int c = lane + 32 * u;
         const int kcol = k0 + c;
-        const bool keep = kcol < kend && (!causal || kcol <= qpos);
-        sv[u] = keep ? ss[r * LDS + c] * ksc[c] : NEG_INF;
+        bool keep = kcol < kend && (wr < 0 || kcol <= qpos + wr);
+        float x = ss[r * LDS + c] * ksc[c];
+        if constexpr (kExtra) {
+          keep = keep && (wl < 0 || kcol >= qpos - wl) && kcol >= lp;
+          if (softcap > 0.f) x = tanhf(x / softcap) * softcap;
+          x -= slope * fabsf(static_cast<float>((qpos - lp) - (kcol - lp)));
+        }
+        sv[u] = keep ? x : NEG_INF;
         rmax = fmaxf(rmax, sv[u]);
       }
       for (int o = 16; o > 0; o >>= 1) rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, o));
@@ -297,13 +330,22 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
   }
 }
 
-template <typename KV, int D, int RT>
-cudaError_t launch(const void* q, const void* kp, const void* vp, const float* ksc,
-                   const float* vsc, const int32_t* bt, const int32_t* lens, float* o, float* lse,
-                   int b, int sq, int h_k, int group, int page, int max_pages, int n_splits,
-                   bool causal, cudaStream_t stream) {
+// The launch arguments past the template choices.
+struct Args {
+  const void *q, *kp, *vp;
+  const float *ksc, *vsc;
+  const int32_t *bt, *lens;
+  float *o, *lse;
+  const float* alibi;
+  const int32_t* leftpad;
+  int b, sq, h_k, group, page, max_pages, n_splits, wl, wr;
+  float softcap;
+};
+
+template <typename KV, int D, int RT, bool kExtra>
+cudaError_t launch(const Args& a, cudaStream_t stream) {
   constexpr int smem = Smem<D, RT>::bytes;
-  auto kernel = paged_attention_kernel<KV, D, RT>;
+  auto kernel = paged_attention_kernel<KV, D, RT, kExtra>;
   // raise the dynamic shared-memory limit once per instantiation (one
   // device), not on every launch: it is a CUDA API call on the decode path
   static bool smem_limit_set = false;
@@ -313,46 +355,32 @@ cudaError_t launch(const void* q, const void* kp, const void* vp, const float* k
     if (err != cudaSuccess) return err;
     smem_limit_set = true;
   }
-  const int R = group * sq;
-  dim3 grid((R + RT - 1) / RT, b * h_k, n_splits);
+  const int R = a.group * a.sq;
+  dim3 grid((R + RT - 1) / RT, a.b * a.h_k, a.n_splits);
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const KV*>(kp),
-      static_cast<const KV*>(vp), ksc, vsc, bt, lens, o, lse, b, sq, h_k, group, page, max_pages,
-      causal);
+      static_cast<const __nv_bfloat16*>(a.q), static_cast<const KV*>(a.kp),
+      static_cast<const KV*>(a.vp), a.ksc, a.vsc, a.bt, a.lens, a.o, a.lse, a.alibi, a.leftpad,
+      a.b, a.sq, a.h_k, a.group, a.page, a.max_pages, a.wl, a.wr, a.softcap);
   return cudaGetLastError();
 }
 
-template <typename KV, int D>
-cudaError_t dispatch_rt(int row_tile, const void* q, const void* kp, const void* vp,
-                        const float* ksc, const float* vsc, const int32_t* bt,
-                        const int32_t* lens, float* o, float* lse, int b, int sq, int h_k,
-                        int group, int page, int max_pages, int n_splits, bool causal,
-                        cudaStream_t st) {
-  switch (row_tile) {
-    case 16:
-      return launch<KV, D, 16>(q, kp, vp, ksc, vsc, bt, lens, o, lse, b, sq, h_k, group, page,
-                               max_pages, n_splits, causal, st);
-    case 32:
-      return launch<KV, D, 32>(q, kp, vp, ksc, vsc, bt, lens, o, lse, b, sq, h_k, group, page,
-                               max_pages, n_splits, causal, st);
-    default:
-      return cudaErrorInvalidValue;
-  }
+// The option-free kernel unless a window start, a right window beyond the
+// causal one, softcap, ALiBi or leftpad asks for the general one.
+template <typename KV, int D, int RT>
+cudaError_t launch_x(const Args& a, cudaStream_t st) {
+  const bool extra = a.wl >= 0 || a.wr > 0 || a.softcap > 0.f || a.alibi != nullptr ||
+                     a.leftpad != nullptr;
+  return extra ? launch<KV, D, RT, true>(a, st) : launch<KV, D, RT, false>(a, st);
 }
 
 template <typename KV>
-cudaError_t dispatch_d(int d, int row_tile, const void* q, const void* kp, const void* vp,
-                       const float* ksc, const float* vsc, const int32_t* bt,
-                       const int32_t* lens, float* o, float* lse, int b, int sq, int h_k,
-                       int group, int page, int max_pages, int n_splits, bool causal,
-                       cudaStream_t st) {
+cudaError_t dispatch_d(int d, int row_tile, const Args& a, cudaStream_t st) {
+  if (row_tile != 16 && row_tile != 32) return cudaErrorInvalidValue;
   switch (d) {
     case 64:
-      return dispatch_rt<KV, 64>(row_tile, q, kp, vp, ksc, vsc, bt, lens, o, lse, b, sq, h_k,
-                                 group, page, max_pages, n_splits, causal, st);
+      return row_tile == 16 ? launch_x<KV, 64, 16>(a, st) : launch_x<KV, 64, 32>(a, st);
     case 128:
-      return dispatch_rt<KV, 128>(row_tile, q, kp, vp, ksc, vsc, bt, lens, o, lse, b, sq, h_k,
-                                  group, page, max_pages, n_splits, causal, st);
+      return row_tile == 16 ? launch_x<KV, 128, 16>(a, st) : launch_x<KV, 128, 32>(a, st);
     default:
       return cudaErrorInvalidValue;
   }
@@ -364,32 +392,32 @@ cudaError_t dispatch_d(int d, int row_tile, const void* q, const void* kp, const
 // scales (pages, h_k, page) f32 or null; o_part (n_splits, b, h_k, group *
 // sq, d) f32; lse_part (n_splits, b, h_k, group * sq) f32. row_tile (16 or
 // 32) is the query rows per block, chosen by the caller (ops/paged.py).
+// wl / wr: the window, < 0 unbounded (causal is wr = 0); softcap 0 is none;
+// alibi (b, h_k * group) f32 and leftpad (b,) int32 may be null.
 extern "C" int xfa_paged_attention(const void* q, const void* k_pool, const void* v_pool,
                                    int kv_dtype, const void* k_scales, const void* v_scales,
                                    const void* block_tables, const void* kv_lens, void* o_part,
                                    void* lse_part, int b, int sq, int h_k, int group, int d,
-                                   int page, int max_pages, int n_splits, int causal,
+                                   int page, int max_pages, int n_splits, int wl, int wr,
+                                   float softcap, const void* alibi, const void* leftpad,
                                    int row_tile, void* stream) {
   if (b * sq == 0) return cudaSuccess;
-  auto* ksc = static_cast<const float*>(k_scales);
-  auto* vsc = static_cast<const float*>(v_scales);
-  auto* bt = static_cast<const int32_t*>(block_tables);
-  auto* lens = static_cast<const int32_t*>(kv_lens);
-  auto* o = static_cast<float*>(o_part);
-  auto* lse = static_cast<float*>(lse_part);
+  const bool quant = kv_dtype != XFA_BF16;
+  const Args a{q, k_pool, v_pool,
+               quant ? static_cast<const float*>(k_scales) : nullptr,
+               quant ? static_cast<const float*>(v_scales) : nullptr,
+               static_cast<const int32_t*>(block_tables), static_cast<const int32_t*>(kv_lens),
+               static_cast<float*>(o_part), static_cast<float*>(lse_part),
+               static_cast<const float*>(alibi), static_cast<const int32_t*>(leftpad),
+               b, sq, h_k, group, page, max_pages, n_splits, wl, wr, softcap};
   auto st = static_cast<cudaStream_t>(stream);
   switch (kv_dtype) {
     case XFA_BF16:
-      return dispatch_d<__nv_bfloat16>(d, row_tile, q, k_pool, v_pool, nullptr, nullptr, bt,
-                                       lens, o, lse, b, sq, h_k, group, page, max_pages,
-                                       n_splits, causal != 0, st);
+      return dispatch_d<__nv_bfloat16>(d, row_tile, a, st);
     case XFA_I8:
-      return dispatch_d<int8_t>(d, row_tile, q, k_pool, v_pool, ksc, vsc, bt, lens, o, lse, b,
-                                sq, h_k, group, page, max_pages, n_splits, causal != 0, st);
+      return dispatch_d<int8_t>(d, row_tile, a, st);
     case XFA_FP8_E4M3:
-      return dispatch_d<fp8e4m3_t>(d, row_tile, q, k_pool, v_pool, ksc, vsc, bt, lens, o, lse,
-                                   b, sq, h_k, group, page, max_pages, n_splits, causal != 0,
-                                   st);
+      return dispatch_d<fp8e4m3_t>(d, row_tile, a, st);
     default:
       return cudaErrorInvalidValue;
   }

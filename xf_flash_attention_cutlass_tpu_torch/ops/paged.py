@@ -7,11 +7,19 @@ query token t of sq sits at position kv_len - sq + t. Pools are
 ``layer_idx``; int8 / fp8-e4m3 pools carry f32 per-token scales
 (num_pages, h_k, page), applied to the score plane (K) and to P (V).
 
+Options, as in the JAX package: a window (left, right) from query position
+kv_len - sq + t, with causal as a right window of 0; the tanh softcap on the
+K-scaled score; ALiBi slopes (h,) or (b, h), row t * group + g of KV head
+kvh taking the slope of q head kvh * group + g and losing slope * |qpos -
+kcol| after the softcap, both positions counted from the leftpad; and
+``cache_leftpad`` (b,), which masks the keys before it.
+
 CUDA tensors run the hand-written kernel csrc/paged_attention.cu, which
 writes f32 split-KV partials (O, LSE) that ``combine_partials`` merges in
-plain torch. CPU tensors run ``paged_attention_ref``, the plain version,
-with the kernel's numerics. Window, softcap, ALiBi and cache_leftpad are
-implemented by the plain version only; on CUDA they raise.
+plain torch; it takes bf16 queries. CPU tensors run ``paged_attention_ref``,
+the plain version, with the kernel's numerics. Both cut the pages from the
+first one any row can see (window start, leftpad) to the last live one into
+``num_splits`` equal runs.
 
 The layout is the JAX package's logical contract with its TPU padding
 removed: pools are stored tight, and the kernel reads any page size.
@@ -181,12 +189,14 @@ def paged_attention_ref(
             qpos_eff = qpos - leftpad
         s = s - row_slope[..., None] * (qpos_eff - kcol_eff).abs().float()
 
-    # each row's live pages cut into num_splits equal runs, as the kernel does
+    # each row's visible pages cut into num_splits equal runs, as the kernel does
     n_live = ((lens + page - 1) // page).clamp_max(block_tables.shape[1])
-    pps = (n_live + num_splits - 1) // num_splits
+    first = first_page(lens, sq, page, wl, cache_leftpad, n_live)
+    pps = (n_live - first + num_splits - 1) // num_splits
     o_parts, lse_parts = [], []
     for sp in range(num_splits):
-        in_split = (kcol >= sp * pps * page) & (kcol < (sp + 1) * pps * page)
+        lo = (first + sp * pps) * page
+        in_split = (kcol >= lo) & (kcol < lo + pps * page)
         s_sp = torch.where(keep & in_split, s, torch.full_like(s, NEG_INF))
         m = s_sp.amax(dim=-1, keepdim=True).clamp_min(M_FLOOR)
         p = torch.exp(s_sp - m)
@@ -209,6 +219,18 @@ def paged_attention_ref(
     return _unswap(o, lse, b, sq, h_k, g, d, dt)
 
 
+def first_page(lens, sq, page, wl, cache_leftpad, n_live):
+    """The first page any query row of each batch entry can see: the one of
+    the first row's window start or of the leftpad (0 without either)."""
+    first_key = torch.zeros_like(lens)
+    if cache_leftpad is not None:
+        first_key = cache_leftpad.to(device=lens.device, dtype=torch.long).reshape(lens.shape)
+        first_key = first_key.clamp_min(0)
+    if wl >= 0:
+        first_key = torch.maximum(first_key, lens - sq - wl)
+    return torch.minimum(first_key.clamp_min(0) // page, n_live)
+
+
 def _unswap(o, lse, b, sq, h_k, g, d, out_dtype):
     """(b, h_k, sq*g, d) rows back to (b, sq, h, d); LSE to (b, h, sq)."""
     o = o.reshape(b, h_k, sq, g, d).permute(0, 2, 1, 3, 4).reshape(b, sq, h_k * g, d)
@@ -226,20 +248,21 @@ def _lib():
         lib.xfa_paged_attention.restype = ctypes.c_int
         lib.xfa_paged_attention.argtypes = (
             [ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 6
-            + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+            + [ctypes.c_int] * 10 + [ctypes.c_float] + [ctypes.c_void_p] * 2
+            + [ctypes.c_int, ctypes.c_void_p]
         )
         _lib_handle = lib
     return _lib_handle
 
 
-def _paged_attention_cuda(q, k_pool, v_pool, block_tables, kv_lens, scale, causal,
-                          num_splits, k_scales, v_scales):
+def _paged_attention_cuda(q, k_pool, v_pool, block_tables, kv_lens, scale, causal, window,
+                          softcap, alibi_slopes, cache_leftpad, num_splits, k_scales, v_scales):
     b, sq, h, d = q.shape
     _, h_k, page, _ = k_pool.shape
     g = h // h_k
     rows = sq * g
     if q.dtype != torch.bfloat16:
-        raise TypeError(f"the CUDA paged-attention kernel takes bf16 queries, got {q.dtype}")
+        raise TypeError(f"the CUDA paged-attention kernel (K1) takes bf16 queries, got {q.dtype}")
     kv_quant = k_scales is not None
     if kv_quant != (k_pool.dtype in QUANT_DTYPES):
         raise ValueError(f"{k_pool.dtype} pools {'need' if not kv_quant else 'take no'} scales")
@@ -258,14 +281,19 @@ def _paged_attention_cuda(q, k_pool, v_pool, block_tables, kv_lens, scale, causa
     qs = (q.float() * scale).to(q.dtype).contiguous()
     bt = block_tables.to(torch.int32).contiguous()
     lens = kv_lens.to(torch.int32).contiguous()
+    wl, wr = int(window[0]), (0 if causal else int(window[1]))
+    slopes = None
+    if alibi_slopes is not None:
+        slopes = alibi_slopes.to(device=q.device, dtype=torch.float32).expand(b, h).contiguous()
+    leftpad = None if cache_leftpad is None else cache_leftpad.to(torch.int32).contiguous()
     o_part = torch.empty((num_splits, b, h_k, rows, d), dtype=torch.float32, device=q.device)
     lse_part = torch.empty((num_splits, b, h_k, rows), dtype=torch.float32, device=q.device)
     rc = _lib().xfa_paged_attention(
         qs.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), _build.dtype_code(k_pool.dtype),
         _build.ptr(k_scales), _build.ptr(v_scales), bt.data_ptr(), lens.data_ptr(),
         o_part.data_ptr(), lse_part.data_ptr(),
-        b, sq, h_k, g, d, page, bt.shape[1], num_splits, int(causal), kernel_row_tile(rows),
-        _build.stream_handle(),
+        b, sq, h_k, g, d, page, bt.shape[1], num_splits, wl, wr, float(softcap),
+        _build.ptr(slopes), _build.ptr(leftpad), kernel_row_tile(rows), _build.stream_handle(),
     )
     _build.check(rc, "paged_attention")
     _build.LAUNCHES["paged_attention.decode" if sq == 1 else "paged_attention.prefill"] += 1
@@ -308,20 +336,17 @@ def paged_attention(
     h_k = k_pool.shape[1]
     if h % h_k:
         raise ValueError(f"q heads {h} not a multiple of kv heads {h_k}")
+    if alibi_slopes is not None and tuple(alibi_slopes.shape) not in ((h,), (b, h)):
+        raise ValueError(f"alibi_slopes must be ({h},) or ({b}, {h}), "
+                         f"got {tuple(alibi_slopes.shape)}")
+    if cache_leftpad is not None and tuple(cache_leftpad.shape) != (b,):
+        raise ValueError(f"cache_leftpad must be ({b},), got {tuple(cache_leftpad.shape)}")
     splits = resolve_num_splits(num_splits, b, h_k, sq * (h // h_k), block_tables.shape[1])
     scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)
-    if is_cuda(q, k_pool, v_pool, block_tables, kv_lens):
-        extras = dict(window=tuple(window) != (-1, -1), softcap=softcap > 0.0,
-                      alibi_slopes=alibi_slopes is not None,
-                      cache_leftpad=cache_leftpad is not None)
-        unsupported = [k for k, on in extras.items() if on]
-        if unsupported:
-            raise NotImplementedError(
-                f"the CUDA paged-attention kernel does not take {unsupported}; "
-                "only the plain version (CPU tensors) does"
-            )
+    if is_cuda(q, k_pool, v_pool, block_tables, kv_lens, alibi_slopes, cache_leftpad):
         return _paged_attention_cuda(q, k_pool, v_pool, block_tables, kv_lens, scale,
-                                     causal, splits, k_scales, v_scales)
+                                     causal, window, softcap, alibi_slopes, cache_leftpad,
+                                     splits, k_scales, v_scales)
     _build.PLAIN_CALLS["paged_attention"] += 1
     return paged_attention_ref(
         q, k_pool, v_pool, block_tables, kv_lens, softmax_scale=scale, causal=causal,
