@@ -5,7 +5,12 @@
 Phases, each of which raises (exit code != 0) when it fails:
 
 1. Build every CUDA kernel from xf_flash_attention_cutlass_tpu_torch/csrc
-   (one nvcc per source, in parallel) and print the seconds it took.
+   (one nvcc per source, in parallel) and print the seconds it took, then
+   what the build made of K7 (`flash_fwd_build`): each instantiation's
+   registers and spill bytes from -Xptxas -v, and the HGMMA (wgmma),
+   UTMALDG (TMA load) and HMMA (mma.sync) counts of its SASS; it fails
+   unless HGMMA and UTMALDG are above 0, HMMA is 0 and the option-free
+   instantiations spill nothing.
 2. Hold each kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it (Llama-8B widths), and time the kernel,
    the plain version and, where one exists, a PyTorch library call that
@@ -14,13 +19,19 @@ Phases, each of which raises (exit code != 0) when it fails:
    appending a whole bucket at position 0 through a trash-tailed block-table
    row, K7 at every bucket. The dense flash kernels are also held against a
    dense f32 oracle (utils/testing.py): K7 at the bucketed-prefill and
-   training shapes under the 2x rule, K9/K10/K11 at the training shape under
-   the 3x rule. Shapes off the paths (ragged matmuls, page 16 and 32,
+   training shapes and at s = 2048 causal under the 2x rule (bucket 1024,
+   the training shape and s = 2048 timed), K9/K10/K11 at the training shape
+   under the 3x rule. Shapes off the paths (ragged matmuls, page 16 and 32,
    head_dim 64, unaligned lengths, window, softcap, segment ids, GQA 4:1)
-   are checked too, untimed. K1, K7 and K9-K11 at the main paths' shapes are
-   also timed in the instantiation that carries the options, with ALiBi of
-   slope 0. The API's options at the `api` path's shapes: K7 with ALiBi and
-   dropout and with per-row slopes and explicit positions over the packed
+   are checked too, untimed; K7 also where its tiling can break it
+   (FLASH_FWD_TILING: sq = 1, sk below one tile, kv_lens and window edges
+   inside a tile, fp16 at d = 64), and on (b, s, h, d) views, bit for bit
+   against contiguous copies and launching its kernel alone (a profiler
+   trace); one Llama-8B attention_block launches nothing between
+   attn_qkv's kernels and K7's. K1, K7 and K9-K11 at the main paths' shapes
+   are also timed in the instantiation that carries the options, with
+   ALiBi of slope 0. The API's options at the `api` path's shapes: K7 with
+   ALiBi and dropout and with per-row slopes and explicit positions over the packed
    serving prompts, K8 (the probability plane) on the dense case and on the
    packed plane, entry by entry against its plain version (its dropout
    signs equal, 0 mismatches), K9/K10/K11 with ALiBi and dropout (3x rule
@@ -64,6 +75,8 @@ import dataclasses
 import json
 import math
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -543,12 +556,14 @@ def check_page32_append(gen, timer, checks, cfg):
 # ---- phase 2: dense flash attention (K7, K9, K10, K11) ------------------------
 
 def flash_case(gen, b, h, h_k, sq, sk, d, opts):
-    """bf16 q, k, v, dO (BHSD) and the mask keywords: opts may hold causal,
-    window, softcap, kv_lens (a list) and segments (True: two segments per
-    row, and one query row whose segment no key has)."""
-    q, k, v, do = (torch.randn(s, generator=gen, device="cuda").bfloat16()
+    """q, k, v, dO (BHSD) in opts' dtype (bf16 by default) and the mask
+    keywords: opts may hold causal, window, softcap, kv_lens (a list) and
+    segments (True: two segments per row, and one query row whose segment no
+    key has)."""
+    dt = opts.get("dtype", torch.bfloat16)
+    q, k, v, do = (torch.randn(s, generator=gen, device="cuda").to(dt)
                    for s in ((b, h, sq, d), (b, h_k, sk, d), (b, h_k, sk, d), (b, h, sq, d)))
-    kw = {n: x for n, x in opts.items() if n not in ("kv_lens", "segments")}
+    kw = {n: x for n, x in opts.items() if n not in ("kv_lens", "segments", "dtype")}
     if "kv_lens" in opts:
         kw["kv_lens"] = torch.tensor(opts["kv_lens"], dtype=torch.int32, device="cuda")
     if opts.get("segments"):
@@ -740,12 +755,105 @@ FLASH_OFF_PATH = [  # (name, b, h, h_k, sq, sk, d, options): untimed
 ]
 
 
+# K7 where its tiling can break it (64-row blocks, 64-key tiles, the
+# per-entry mask on boundary tiles only): untimed, forward only
+FLASH_FWD_TILING = [  # (name, b, h, h_k, sq, sk, d, options)
+    ("sq1_sk50", 1, 8, 2, 1, 50, 128, dict()),
+    ("sq1_causal_sk700", 1, 32, 8, 1, 700, 128, dict(causal=True)),
+    ("sk_below_tile_40x33_causal", 2, 4, 2, 40, 33, 128, dict(causal=True)),
+    ("ragged_300x1000_causal", 1, 8, 2, 300, 1000, 128, dict(causal=True)),
+    ("ragged_1000x300", 1, 8, 2, 1000, 300, 128, dict()),
+    ("kv_lens_in_tile", 2, 8, 2, 256, 256, 128, dict(causal=True, kv_lens=[100, 37])),
+    ("window_edge_in_tile", 1, 8, 2, 512, 512, 128, dict(window=(100, 30))),
+    ("window_left_causal_in_tile", 1, 8, 2, 384, 384, 128, dict(causal=True, window=(77, -1))),
+    ("gqa_4_1_bucket256", 1, 32, 8, 256, 256, 128, dict(causal=True)),
+    ("segments_ragged", 2, 8, 2, 200, 200, 128, dict(causal=True, segments=True)),
+    ("softcap_ragged", 1, 8, 2, 130, 190, 128, dict(causal=True, softcap=30.0)),
+    ("fp16_d64", 2, 8, 2, 300, 300, 64, dict(causal=True, dtype=torch.float16)),
+    ("fp16_d64_window", 1, 8, 2, 333, 333, 64, dict(window=(64, 64), dtype=torch.float16)),
+    ("fp16_d128_kv_lens", 1, 8, 2, 200, 200, 128,
+     dict(causal=True, kv_lens=[150], dtype=torch.float16)),
+    ("bf16_d64_gqa", 1, 16, 4, 700, 700, 64, dict(causal=True)),
+]
+
+
+def check_flash_fwd_tiling(gen, checks, cfg):
+    """K7 on FLASH_FWD_TILING under the 2x rule; then q, k, v as the (b, s, h, d)
+    views the model passes, at the training shape, against contiguous
+    copies of them, bit for bit, and the kernels one K7 call on those views
+    launches (a profiler trace): flash_fwd_kernel alone, no copy and no
+    scale pass. Returns the names of the kernels of that call."""
+    from xf_flash_attention_cutlass_tpu_torch.ops.flash_fwd import flash_fwd
+
+    for name, *shape, opts in FLASH_FWD_TILING:
+        check_flash_fwd(gen, checks, f"tiling.{name}", *shape, opts)
+    h, h_k, d, s = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 1024
+    views = [torch.randn(sh, generator=gen, device="cuda").bfloat16().transpose(1, 2)
+             for sh in ((1, s, h, d), (1, s, h_k, d), (1, s, h_k, d))]
+    kw = dict(causal=True, kv_lens=torch.tensor([900], dtype=torch.int32, device="cuda"))
+    o1, l1 = flash_fwd(*views, **kw)
+    o2, l2 = flash_fwd(*(t.contiguous() for t in views), **kw)
+    checks.add("flash_fwd.bshd_views_same_result",
+               bool(torch.equal(o1, o2) and torch.equal(l1, l2)),
+               max_abs_err=max_err(o1, o2), tolerance=0.0)
+    names = kernel_names(lambda: flash_fwd(*views, **kw))
+    checks.add("flash_fwd.bshd_views_launch_no_copy",
+               len(names) == 1 and "flash_fwd_kernel" in names[0], kernels=names)
+    return names
+
+
+def check_attention_block_launches(gen, checks, cfg):
+    """One attention_block of Llama-8B (one layer, 1024 tokens, random
+    weights) under a profiler trace, against attn_qkv alone on the same
+    inputs: the block's kernels must be attn_qkv's (norm, projections,
+    rotary), then flash_fwd_kernel, with nothing between, so K7's wrapper
+    neither copies nor scales q, k and v on the model path. Returns the
+    block's kernel names."""
+    from xf_flash_attention_cutlass_tpu_torch.models.llama import (
+        attention_block,
+        attn_qkv,
+        init_params,
+        layer_view,
+    )
+    from xf_flash_attention_cutlass_tpu_torch.ops.rotary import rotary_frequencies
+
+    c1 = dataclasses.replace(cfg, n_layers=1)
+    layer = layer_view(init_params(gen, c1)["layers"], 0)
+    x = torch.randn((1, 1024, cfg.dim), generator=gen, device="cuda").bfloat16()
+    cos, sin = rotary_frequencies(cfg.head_dim, cfg.max_seq_len, cfg.rope_base, device="cuda")
+    pos = torch.arange(1024, device="cuda")[None]
+    with torch.no_grad():
+        attention_block(layer, x, cfg, cos, sin, pos)  # warm-up
+        prep = kernel_names(lambda: attn_qkv(layer, x, cfg, cos, sin, pos))
+        block = kernel_names(lambda: attention_block(layer, x, cfg, cos, sin, pos))
+    n = len(prep)
+    ok = block[:n] == prep and len(block) > n and "flash_fwd_kernel" in block[n]
+    checks.add("flash_fwd.attention_block_nothing_before_k7", ok, qkv_kernels=n,
+               next_kernel=block[n] if len(block) > n else None)
+    return block
+
+
+def kernel_names(fn):
+    """The CUDA kernels one call of fn launches, in order (profiler trace)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return [e.name[:120] for e in sorted(events, key=lambda e: e.time_range.start)]
+
+
 def check_flash(gen, timer, checks, cfg):
     """K7 at the bucketed-prefill shapes (Llama-8B heads, one prompt whose
-    kv_len is 70 % of its bucket; bucket 1024 timed, 256, 512 and 2048 not)
-    and at the training shape (s = 1024, causal, no kv_lens), K9, K10 and
-    K11 at the training shape, and the shapes off those paths, untimed.
-    Returns the timed results by launch-counter name."""
+    kv_len is 70 % of its bucket; bucket 1024 timed, 256, 512 and 2048 not),
+    at the training shape (s = 1024, causal, no kv_lens) and at s = 2048
+    causal, both timed too, K9, K10 and K11 at the training shape, and the
+    shapes off those paths, untimed. Returns the timed results by
+    launch-counter name; K7's other timed shapes are under its
+    `other_shapes`."""
     h, h_k, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     measured = {}
     for bucket in (256, 512, 1024, 2048):
@@ -755,7 +863,12 @@ def check_flash(gen, timer, checks, cfg):
         if bucket == 1024:
             measured["flash_fwd"] = time_flash_fwd(timer, *x, kw, err, tol)
         del x
-    check_flash_fwd(gen, checks, "train_s1024", 1, h, h_k, 1024, 1024, d, dict(causal=True))
+    other = measured["flash_fwd"]["other_shapes"] = {}
+    for name, s in (("train_s1024", 1024), ("causal_s2048", 2048)):
+        x, kw, err, tol = check_flash_fwd(gen, checks, name, 1, h, h_k, s, s, d,
+                                          dict(causal=True))
+        other[name] = time_flash_fwd(timer, *x, kw, err, tol)
+        del x
     tensors, kw, worst = check_flash_bwd(gen, checks, "train_s1024", 1, h, h_k, 1024, 1024, d,
                                          dict(causal=True))
     measured.update(time_flash_bwd(timer, tensors, kw, worst))
@@ -1497,6 +1610,60 @@ def profile_decode(eng, cfg, seed, n_steps=3):
     return prof
 
 
+# ---- what the build made of K7 -----------------------------------------------
+
+_K7_NAME = re.compile(r"flash_fwd_kernelI(\w+?)Li(\d+)ELb([01])E")
+
+
+def k7_instantiation(mangled):
+    """'bf16_d128_plain' for a mangled flash_fwd_kernel name (the
+    option-free instantiation is 'plain', the other 'options'), else None."""
+    m = _K7_NAME.search(mangled)
+    if m is None:
+        return None
+    dtype = "bf16" if "bfloat16" in m.group(1) else "f16"
+    return f"{dtype}_d{m.group(2)}_{'options' if m.group(3) == '1' else 'plain'}"
+
+
+def k7_build_report(checks, lib_path):
+    """Registers and spill bytes of every K7 instantiation, from the
+    -Xptxas -v lines of the build log (build/flash_fwd.log), and the counts
+    of HGMMA (wgmma), UTMALDG (TMA loads) and HMMA (mma.sync) instructions in
+    `cuobjdump -sass` of the library. Checks HGMMA > 0, UTMALDG > 0, HMMA = 0
+    and no spill in the option-free instantiations."""
+    from xf_flash_attention_cutlass_tpu_torch import _build
+
+    with open(os.path.join(_build.BUILD_DIR, "flash_fwd.log")) as f:
+        log = f.read()
+    inst, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties for )(\w+)", line)
+        if m:
+            cur = k7_instantiation(m.group(1))
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            inst.setdefault(cur, {})["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            inst.setdefault(cur, {})["registers"] = int(m.group(1))
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    counts = {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HGMMA", "UTMALDG", "HMMA")}
+    report = dict(instantiations=inst, sass=counts)
+    print(json.dumps({"flash_fwd_build": report}), flush=True)
+    checks.add("flash_fwd.sass_wgmma_tma_no_mma_sync",
+               counts["HGMMA"] > 0 and counts["UTMALDG"] > 0 and counts["HMMA"] == 0, **counts)
+    plain = {n: r for n, r in inst.items() if n.endswith("_plain")}
+    checks.add("flash_fwd.option_free_no_spills",
+               len(plain) == 4 and all(r.get("spill_bytes") == 0 for r in plain.values()),
+               spill_bytes={n: r.get("spill_bytes") for n, r in plain.items()})
+    return report
+
+
 # ---- main ---------------------------------------------------------------------
 
 _PKG = "xf_flash_attention_cutlass_tpu_torch/csrc/"
@@ -1584,16 +1751,17 @@ def main():
 
     # 1. build
     t0 = time.perf_counter()
-    _build.build_all()
+    libs = _build.build_all()
     report["build_s"] = time.perf_counter() - t0
     mark("build")
     print(f"build: {report['build_s']:.1f} s for {len(_build.SOURCES)} kernel sources", flush=True)
+    checks = Checks()
+    report["flash_fwd_build"] = k7_build_report(checks, libs["flash_fwd"])
 
     # 2. kernels against their plain versions, at the main paths' shapes
     cfg = LlamaConfig.llama8b()
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     timer = Timer()
-    checks = Checks()
     measured = {}
     for kv_dtype in (torch.float8_e4m3fn, torch.int8, torch.bfloat16):
         for phase in ("decode", "prefill"):
@@ -1624,12 +1792,16 @@ def main():
     check_bucket_append(gen, checks, cfg)
     report["page32_append"] = check_page32_append(gen, timer, checks, cfg)
     measured.update(check_flash(gen, timer, checks, cfg))
+    report["flash_fwd_bshd_kernels"] = check_flash_fwd_tiling(gen, checks, cfg)
+    report["attention_block_kernels"] = check_attention_block_launches(gen, checks, cfg)
     report["sdpa_fwd_bwd_ms"] = measured["flash_bwd.fused"]["library_fwd_bwd_ms"]
     # the option-free kernels against the options' kernels (ALiBi of slope
     # 0, same result) on the same work: what the second instantiation saves
+    timed = dict(measured)
+    timed.update({f"flash_fwd.{n}": r for n, r in measured["flash_fwd"]["other_shapes"].items()})
     report["general_instantiation"] = {
         n: dict(ms=r["ms"], ms_general=r["ms_general"], ratio=r["ms_general"] / r["ms"])
-        for n, r in measured.items() if "ms_general" in r}
+        for n, r in timed.items() if "ms_general" in r}
     print(json.dumps({"general_instantiation": report["general_instantiation"]}), flush=True)
     mark("kernels")
     # the API's options, at the api path's shapes
@@ -1722,6 +1894,12 @@ def main():
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
             bound_by=r["bound"][1], library_ms=r["library_ms"],
         ))
+        if "other_shapes" in r:  # K7 at the training shape and at s = 2048
+            kernels[-1]["other_shapes"] = {
+                shape: dict(ms=o["ms"], plain_ms=o["plain_ms"], bound_ms=o["bound"][0],
+                            bound_by=o["bound"][1], library_ms=o["library_ms"],
+                            max_abs_err=o["err"], tolerance=o["tol"])
+                for shape, o in r["other_shapes"].items()}
     report["kernels"], report["checks"] = kernels, checks.cases
     report["phase_s"], report["total_s"] = phase_s, time.perf_counter() - t_start
     print(json.dumps({"phase_s": phase_s}), flush=True)

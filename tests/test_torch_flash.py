@@ -38,7 +38,12 @@ from xf_flash_attention_cutlass_tpu.ops.reference import attention_ref, construc
 from xf_flash_attention_cutlass_tpu_torch.models.llama import params_from_jax
 from xf_flash_attention_cutlass_tpu_torch.ops.flash import flash_attention
 from xf_flash_attention_cutlass_tpu_torch.ops.flash_bwd import flash_bwd
-from xf_flash_attention_cutlass_tpu_torch.ops.flash_fwd import dropout_keep_mask, flash_fwd
+from xf_flash_attention_cutlass_tpu_torch.ops.flash_fwd import (
+    dropout_keep_mask,
+    flash_fwd,
+    fwd_block_order,
+    tma_strides,
+)
 from xf_flash_attention_cutlass_tpu_torch.utils.testing import (
     assert_close_2ref,
     flash_attention_oracle,
@@ -280,3 +285,47 @@ def test_malformed_inputs_raise():
     o, lse = flash_fwd(q, kv, kv)
     with pytest.raises(ValueError):
         flash_bwd(q, kv, kv, o, lse[:, :, :5], o)
+
+
+# ---- K7's host-side choices (csrc/flash_fwd.cu decodes the same order) ------
+
+@pytest.mark.parametrize("n_qt,h,b", [(1, 1, 1), (8, 32, 1), (3, 4, 2), (16, 8, 3)])
+def test_fwd_block_order_visits_every_block_once_heaviest_first(n_qt, h, b):
+    """Every (q tile, head, batch) exactly once; the q tiles never rise, so
+    under a causal mask the blocks with the most keys start first; the heads
+    of one q tile launch together (a GQA group's K/V stays in L2)."""
+    order = fwd_block_order(n_qt, h, b)
+    assert len(order) == n_qt * h * b
+    assert set(order) == {(iq, ih, ib) for iq in range(n_qt) for ih in range(h)
+                          for ib in range(b)}
+    tiles = [iq for iq, _, _ in order]
+    assert tiles == sorted(tiles, reverse=True) and tiles[0] == n_qt - 1
+    assert [ih for _, ih, _ in order[:h]] == list(range(h))
+
+
+def test_tma_strides_take_model_views_without_a_copy():
+    """The (b, s, h, d) views the model hands K7 qualify for the tensor maps
+    as they are; a last dimension that is not contiguous, or a row stride
+    that is not a 16-byte multiple, asks for a copy; an extent-1 dimension
+    gets a valid stride whatever it had."""
+    x = torch.zeros((2, 40, 8, 64), dtype=torch.bfloat16)  # (b, s, h, d)
+    view = x.transpose(1, 2)
+    assert tma_strides(view) == [40 * 8 * 64, 64, 8 * 64]
+    assert tma_strides(x.permute(0, 2, 3, 1)) is None  # d not contiguous
+    odd = torch.zeros((1, 2, 5, 68), dtype=torch.bfloat16)[..., :64]  # rows 136 bytes apart
+    assert tma_strides(odd) is None
+    one = torch.zeros((1, 8, 40, 64), dtype=torch.bfloat16)
+    st = tma_strides(one.as_strided(one.shape, (3, 40 * 64, 64, 1)))
+    assert st == [one.numel(), 40 * 64, 64]
+
+
+def test_flash_fwd_on_transposed_views_equals_contiguous():
+    """The plain version gives the same bits on (b, s, h, d) views as on
+    contiguous copies, as K7 must on the card."""
+    rng = np.random.default_rng(7)
+    q, k, v = (torch.from_numpy(rng.standard_normal(sh, dtype=np.float32)).bfloat16()
+               for sh in ((1, 70, 4, 64), (1, 70, 2, 64), (1, 70, 2, 64)))
+    views = [t.transpose(1, 2) for t in (q, k, v)]
+    o1, l1 = flash_fwd(*views, causal=True, kv_lens=torch.tensor([50]))
+    o2, l2 = flash_fwd(*(t.contiguous() for t in views), causal=True, kv_lens=torch.tensor([50]))
+    assert torch.equal(o1, o2) and torch.equal(l1, l2)

@@ -26,7 +26,10 @@ csrc/flash_probs.cu (K8) (bf16 or fp16, head_dim 64 or 128); CPU tensors run
 ``flash_fwd_ref`` and ``attention_probs_ref``, the plain versions, with the
 kernels' numerics: the softmax scale folded into q in f32 and rounded to q's
 dtype, f32 scores, the tanh softcap on the scaled scores, P rounded to V's
-dtype for the PV product, f32 sums.
+dtype for the PV product, f32 sums. K7 applies the scale to q itself and
+reads q, k and v through their strides (TMA tensor maps), so the (b, s, h, d)
+views the model passes are not copied; ``fwd_block_order`` is the order in
+which it runs its blocks.
 """
 
 from __future__ import annotations
@@ -336,28 +339,65 @@ def _lib(name="flash_fwd"):
         lib = _build.load(name)
         fn = getattr(lib, f"xfa_{name}")
         fn.restype = ctypes.c_int
-        n_ptrs = {"flash_fwd": 8, "flash_probs": 6}[name]  # the tensors before the dtype
-        fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 9
-                       + [ctypes.c_float, ctypes.POINTER(XfaExtras), ctypes.c_void_p])
+        if name == "flash_fwd":  # 8 tensors, 9 ints, softcap, scale, the strides
+            fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
+                           + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
+                              ctypes.POINTER(XfaExtras), ctypes.c_void_p])
+        else:  # 6 tensors, 9 ints, softcap
+            fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
+                           + [ctypes.c_float, ctypes.POINTER(XfaExtras), ctypes.c_void_p])
         _lib_handles[name] = lib
     return _lib_handles[name]
 
 
+# ---- K7's host-side layout rules ------------------------------------------------
+
+def fwd_block_order(n_qt: int, h: int, b: int):
+    """(q tile, head, batch) of K7's blocks in launch order, as the kernel
+    decodes blockIdx.x: every (batch, head) at the last q tile first, then
+    the tile before it, so under a causal mask the blocks with the most keys
+    start first and the short ones fill the tail."""
+    nbh = b * h
+    return [(n_qt - 1 - i // nbh, i % nbh % h, i % nbh // h) for i in range(n_qt * nbh)]
+
+
+def tma_strides(t: torch.Tensor):
+    """The (batch, head, row) element strides by which K7's tensor maps read
+    a (b, heads, s, d) 16-bit tensor, or None when TMA cannot: the last
+    dimension must be contiguous, the base and the strides 16-byte
+    multiples. A dimension of extent 1 is never stepped, so its stride is
+    replaced by a valid one."""
+    if t.stride(-1) != 1 or t.data_ptr() % 16:
+        return None
+    out = []
+    for n, st in zip(t.shape[:3], t.stride()[:3]):
+        st = t.numel() if n == 1 else st
+        if (st * t.element_size()) % 16:
+            return None
+        out.append(st)
+    return out
+
+
 def _flash_fwd_cuda(q, k, v, scale, causal, window, softcap, kv_lens, q_seg, kv_seg, ex):
+    """K7 on CUDA tensors. q, k and v are read through their strides where
+    TMA can (tma_strides) and copied otherwise; q is not pre-scaled (the
+    kernel scales it); O takes q's memory layout."""
     check_cuda_dtypes("flash forward (K7)", q, k, v)
     b, h, sq, d = q.shape
     h_k, sk = k.shape[1], k.shape[2]
     wl, wr = resolve_window(causal, window)
-    # softmax scale folded into q in f32, rounded to q's dtype (as on the TPU)
-    qs = (q.float() * scale).to(q.dtype).contiguous()
-    k, v = k.contiguous(), v.contiguous()
+    q, k, v = (t if tma_strides(t) is not None else t.clone(memory_format=torch.contiguous_format)
+               for t in (q, k, v))
+    o = torch.empty_like(q)  # q's layout: (b, s, h, d) views give a (b, s, h, d) O
+    strides = (ctypes.c_int64 * 12)(*tma_strides(q), *tma_strides(k), *tma_strides(v),
+                                    *o.stride()[:3])
     lens, qseg, kseg = int32_or_none(kv_lens), int32_or_none(q_seg), int32_or_none(kv_seg)
-    o = torch.empty_like(qs)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     rc = _lib().xfa_flash_fwd(
-        qs.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
         _build.ptr(lens), _build.ptr(qseg), _build.ptr(kseg), _build.dtype_code(q.dtype),
-        b, h, h_k, sq, sk, d, wl, wr, float(softcap), ex.ref(), _build.stream_handle(),
+        b, h, h_k, sq, sk, d, wl, wr, float(softcap), float(scale),
+        ctypes.cast(strides, ctypes.c_void_p), ex.ref(), _build.stream_handle(),
     )
     _build.check(rc, "flash_fwd")
     _build.LAUNCHES["flash_fwd"] += 1
