@@ -10,14 +10,21 @@ Phases, each of which raises (exit code != 0) when it fails:
    registers and spill bytes from -Xptxas -v, and the HGMMA (wgmma),
    UTMALDG (TMA load) and HMMA (mma.sync) counts of its SASS; it fails
    unless HGMMA and UTMALDG are above 0, HMMA is 0 and the option-free
-   instantiations spill nothing.
+   instantiations spill nothing. The same for K3/K4 (`qmm_build`), per
+   instantiation: it fails unless each wgmma instantiation holds HGMMA and
+   UTMALDG and no HMMA, and the WMMA ones (decode, ragged) keep their HMMA.
 2. Hold each kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it (Llama-8B widths), and time the kernel,
    the plain version and, where one exists, a PyTorch library call that
    computes the same function (a yardstick only; the port never calls it).
    Bucketed prefill's shapes are all covered: K3 at m = 256-2048, K5
    appending a whole bucket at position 0 through a trash-tailed block-table
-   row, K7 at every bucket. The dense flash kernels are also held against a
+   row, K7 at every bucket. K3/K4's wgmma kernel (m > 16) is checked for
+   bf16 weights without scale, int8 and fp8, stacked and single, at m = 17,
+   64, 100, 255, 256 and 2048 on Llama-8B shapes, its weight conversion bit
+   for bit on every byte value, and it is timed at m = 256 and 2048 beside
+   the WMMA kernel on the same shapes; `qmm_host_us` is the host's time for
+   one launch of each. The dense flash kernels are also held against a
    dense f32 oracle (utils/testing.py): K7 at the bucketed-prefill and
    training shapes and at s = 2048 causal under the 2x rule (bucket 1024,
    the training shape and s = 2048 timed), K9/K10/K11 at the training shape
@@ -46,7 +53,9 @@ Phases, each of which raises (exit code != 0) when it fails:
    first a reference check of the chunk, decode and bucketed prefill cores
    against the plain versions on the CPU (2 layers), then 8 greedy requests
    with 256-token chunked prefill, the same 8 requests with bucketed
-   prefill (K7), and a profiled decode window.
+   prefill (K7), one bucketed admission of the largest prompt timed and
+   profiled (`admission_profile`: device time by kernel, K3's share), and a
+   profiled decode window.
 5. Drive the public API (`api.py`) at Llama-8B attention width: dense
    attention with ALiBi, dropout and the probability plane, and its
    gradient; packed varlen over the serving prompts with per-sequence ALiBi,
@@ -331,12 +340,15 @@ def check_paged_append(gen, timer, checks, kv_dtype, phase, cfg):
                 bound=bound(by, 0), err=0.0 if equal else float("nan"), tol=0.0)
 
 
-def check_qmm(gen, timer, checks, w_dtype, m, shapes, stacked, timed=True):
+def check_qmm(gen, timer, checks, w_dtype, m, shapes, stacked, timed=True, kind=None):
     """K3 (stacked, layer_idx) / K4 (one weight) over `shapes` at m rows.
     2x rule against the f32 product, with the plain version (f32 product
     rounded to bf16) as the low-precision oracle. Times (when `timed`) are
-    summed over the shapes: one layer's projections, or the lm_head."""
+    summed over the shapes: one layer's projections, or the lm_head. `kind`
+    names the kernel of csrc/qmm.cu to run ('bm64': the WMMA kernel, timed
+    beside the wgmma kernel on the same shapes); by default the route's."""
     from xf_flash_attention_cutlass_tpu_torch.quant.linear import (
+        _qmm_cuda,
         quantize_weight,
         quantized_matmul,
         quantized_matmul_ref,
@@ -352,7 +364,10 @@ def check_qmm(gen, timer, checks, w_dtype, m, shapes, stacked, timed=True):
             wq, s = quantize_weight(w, w_dtype)
         del w
         x = torch.randn((m, K), generator=gen, device="cuda").bfloat16()
-        if stacked:
+        if kind is not None:
+            def kernel():
+                return _qmm_cuda(x, wq, s, "qmm.stacked" if stacked else "qmm.single", kind)
+        elif stacked:
             wst = torch.stack([torch.zeros_like(wq), wq])
             sst = None if s is None else torch.stack([torch.zeros_like(s), s])
 
@@ -371,7 +386,7 @@ def check_qmm(gen, timer, checks, w_dtype, m, shapes, stacked, timed=True):
             y32 = y32 * s
         err, lp = max_err(y, y32), max_err(plain(), y32)
         tol = 2 * lp + 1e-5
-        route = "qmm.stacked" if stacked else "qmm.single"
+        route = ("qmm.stacked" if stacked else "qmm.single") + (f".{kind}" if kind else "")
         checks.add(f"{route}[m={m},K={K},N={N},{str(w_dtype).split('.')[-1]}]", err <= tol,
                    max_abs_err=err, tolerance=tol)
         if err / tol >= worst[0] / worst[1]:
@@ -391,12 +406,62 @@ def check_qmm(gen, timer, checks, w_dtype, m, shapes, stacked, timed=True):
                 bound=bound(tot["bytes"], tot["ops"]), err=worst[0], tol=worst[1])
 
 
+QMM_PREFILL_M = (17, 64, 100, 255, 256, 2048)  # ragged widths, a chunk, the largest bucket
+
+
+def qmm_host_us(gen, calls=200):
+    """Host time of one K3 launch at m = 256 (one 4096 x 4096 int8 layer of
+    a stack), the calls queued behind a spin of the card so that only the
+    host's work is timed: the wgmma route (two tensor maps encoded, the
+    shared-memory limit set) beside the WMMA kernel (neither)."""
+    from xf_flash_attention_cutlass_tpu_torch.quant.linear import _qmm_cuda, quantize_weight
+
+    wq, s = quantize_weight(torch.randn((4096, 4096), generator=gen, device="cuda"))
+    x = torch.randn((256, 4096), generator=gen, device="cuda").bfloat16()
+    out = {}
+    for kind in ("wgmma", "bm64"):
+        _qmm_cuda(x, wq, s, "qmm.stacked", kind)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(40 * SLEEP_CYCLES)  # about 0.1 s: longer than the host's loop
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            _qmm_cuda(x, wq, s, "qmm.stacked", kind)
+        out[kind] = 1e6 * (time.perf_counter() - t0) / calls
+        torch.cuda.synchronize()
+    return out
+
+
+def check_qmm_conversion(checks):
+    """The wgmma kernel's weight conversion, bit for bit: x = I (256 x 256)
+    times a 256 x 256 int8 / e4m3 weight holding every byte value in every
+    column (e4m3's two NaN codes excepted), with no scale, gives the weight
+    itself, since every int8 and e4m3 value is a bf16 value (e4m3's
+    subnormals included)."""
+    from xf_flash_attention_cutlass_tpu_torch.quant.linear import qmm_route, quantized_matmul
+
+    x = torch.eye(256, device="cuda", dtype=torch.bfloat16)
+    codes = torch.arange(256, device="cuda", dtype=torch.int32)
+    w_bytes = torch.stack([(codes + 37 * n) % 256 for n in range(256)], dim=1).to(torch.uint8)
+    for w_dtype in (torch.int8, torch.float8_e4m3fn):
+        w = w_bytes.view(w_dtype)
+        if w_dtype == torch.float8_e4m3fn:  # 0x7f and 0xff are NaN
+            w = torch.where((w_bytes & 0x7F) == 0x7F, torch.zeros_like(w_bytes), w_bytes
+                            ).view(w_dtype)
+        route = qmm_route(256, 256, 256, w_dtype, x.data_ptr(), w.data_ptr())
+        y = quantized_matmul(x, w, None)
+        want = w.float().bfloat16()
+        # by value: e4m3's -0 comes out +0, a sum of +0 products
+        equal = route == "wgmma" and torch.equal(y.float(), want.float())
+        checks.add(f"qmm.conversion_exact[{str(w_dtype).split('.')[-1]}]", equal, route=route,
+                   mismatches=int((y.float() != want.float()).sum()))
+
+
 def check_other_shapes(gen, checks):
     """Shapes off the serving path that the kernels also take, checked but
-    not timed: qmm at ragged m, K and N (unaligned rows take the kernel's
-    element-wise loads), paged attention at page 16 and head_dim 64 with
-    several row tiles, split runs and non-causal rows, and appends of
-    several tokens at unaligned positions."""
+    not timed: qmm at ragged m, K and N (rows TMA cannot load take the WMMA
+    kernel and its element-wise loads), paged attention at page 16 and
+    head_dim 64 with several row tiles, split runs and non-causal rows, and
+    appends of several tokens at unaligned positions."""
     from xf_flash_attention_cutlass_tpu_torch.ops.paged import paged_attention
     from xf_flash_attention_cutlass_tpu_torch.ops.paged_append import (
         paged_append,
@@ -828,22 +893,32 @@ def check_attention_block_launches(gen, checks, cfg):
         block = kernel_names(lambda: attention_block(layer, x, cfg, cos, sin, pos))
     n = len(prep)
     ok = block[:n] == prep and len(block) > n and "flash_fwd_kernel" in block[n]
+    diff = next((i for i, (a, b) in enumerate(zip(prep, block)) if a != b), None)
     checks.add("flash_fwd.attention_block_nothing_before_k7", ok, qkv_kernels=n,
-               next_kernel=block[n] if len(block) > n else None)
+               next_kernel=block[n] if len(block) > n else None, first_difference=diff)
     return block
 
 
 def kernel_names(fn):
-    """The CUDA kernels one call of fn launches, in order (profiler trace)."""
+    """The CUDA kernels one call of fn launches, in order (profiler trace).
+    fn runs twice in the trace, a spin of the card between, and the kernels
+    after the spin are returned: a trace has been seen to miss a kernel of
+    the first call after the profiler starts."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
+        torch.cuda._sleep(1000)
+        fn()
         torch.cuda.synchronize()
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    return [e.name[:120] for e in sorted(events, key=lambda e: e.time_range.start)]
+    names = [e.name[:120] for e in sorted(events, key=lambda e: e.time_range.start)]
+    spins = [i for i, n in enumerate(names) if "spin_kernel" in n]
+    if not spins:
+        raise RuntimeError("kernel_names: the spin between the two calls is not in the trace")
+    return names[spins[-1] + 1:]
 
 
 def check_flash(gen, timer, checks, cfg):
@@ -1568,10 +1643,11 @@ def percentile(xs, p):
     return float(np.percentile(np.asarray(xs), p)) if xs else None
 
 
-def profiled(fn, n_steps=1):
+def profiled(fn, n_steps=1, groups=None):
     """Run fn n_steps times under torch.profiler; the kernels' summed device
     time per step and the ten largest, or None where the trace holds no
-    device time."""
+    device time. `groups` ({label: name substring}) adds each group's
+    summed device time per step."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1586,12 +1662,17 @@ def profiled(fn, n_steps=1):
     if total_us <= 0:
         return None
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
-    return dict(
+    out = dict(
         steps=n_steps, device_ms_per_step=total_us / 1e3 / n_steps,
         host_s=time.perf_counter() - t0,  # the profiled steps, the trace and its parse
         top=[dict(kernel=e.key[:90], ms_per_step=e.self_device_time_total / 1e3 / n_steps,
                   calls_per_step=e.count / n_steps) for e in top],
     )
+    if groups:
+        out["groups_ms_per_step"] = {
+            label: sum(e.self_device_time_total for e in kernels if sub in e.key) / 1e3 / n_steps
+            for label, sub in groups.items()}
+    return out
 
 
 def profile_decode(eng, cfg, seed, n_steps=3):
@@ -1610,7 +1691,114 @@ def profile_decode(eng, cfg, seed, n_steps=3):
     return prof
 
 
-# ---- what the build made of K7 -----------------------------------------------
+def profile_admission(eng, cfg, seed):
+    """One bucketed admission of the largest prompt of `serve` (1306 tokens
+    at seed 0, bucket 2048) with one new token, so the step is the prefill
+    alone: its CUDA-event time unprofiled, then its device time by kernel
+    from a profiler trace of a second admission, with K3's share (every
+    qmm kernel, the split-K reduction included)."""
+    n = int(np.random.default_rng(seed).integers(200, 1501, 8).max())
+    rng = np.random.default_rng(seed + 3)
+
+    def admit():
+        eng.add_request(2000 + len(eng.results), rng.integers(0, cfg.vocab_size, n).tolist(), 1)
+        eng.step()
+        if eng.has_work():
+            raise RuntimeError("admission profile: the request did not finish in one step")
+
+    admit()  # warm: the bucket's first call
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    admit()
+    end.record()
+    end.synchronize()
+    prof = profiled(admit, groups=dict(k3="qmm", k7="flash_fwd"))
+    out = dict(prompt_tokens=n, bucket=eng._bucket(n), step_ms=start.elapsed_time(end))
+    if prof is not None:
+        out.update(prof, k3_share=prof["groups_ms_per_step"]["k3"] / prof["device_ms_per_step"],
+                   busy_share=prof["device_ms_per_step"] / out["step_ms"])
+    return out
+
+
+# ---- what the build made of K7 and K3 ----------------------------------------
+
+def ptxas_usage(log_name, instantiation):
+    """{instantiation: {registers, spill_bytes}} from the -Xptxas -v lines
+    of build/<log_name>.log; `instantiation` names a mangled kernel, or
+    None for kernels not reported."""
+    from xf_flash_attention_cutlass_tpu_torch import _build
+
+    with open(os.path.join(_build.BUILD_DIR, f"{log_name}.log")) as f:
+        log = f.read()
+    inst, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties for )(\w+)", line)
+        if m:
+            cur = instantiation(m.group(1))
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            inst.setdefault(cur, {})["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            inst.setdefault(cur, {})["registers"] = int(m.group(1))
+    return inst
+
+
+SASS_OPS = ("HGMMA", "UTMALDG", "HMMA")
+
+
+def sass_by_function(lib_path):
+    """{mangled kernel name: {op: count}} of the HGMMA (wgmma), UTMALDG (TMA
+    load) and HMMA (mma.sync) instructions in `cuobjdump -sass` of a
+    library."""
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    parts = re.split(r"Function : (\S+)", sass)
+    return {name: {op: len(re.findall(rf"\b{op}\b", body)) for op in SASS_OPS}
+            for name, body in zip(parts[1::2], parts[2::2])}
+
+
+def qmm_instantiation(mangled):
+    """'wgmma128_int8', 'bm16_fp8', 'bm64_bf16', ... (the kernel, its tile
+    width or height, the weight type) for a mangled qmm kernel name, else
+    None (the split-K reduction)."""
+    types = "(a|9fp8e4m3_t|13__nv_bfloat16)"
+    m = (re.search(rf"qmm_wgmma_kernelI{types}Li(\d+)E", mangled)
+         or re.search(rf"qmm_kernelILi(\d+)E{types}E", mangled))
+    if m is None:
+        return None
+    wgmma = "wgmma" in m.group(0)
+    dtype, tile = (m.group(1), m.group(2)) if wgmma else (m.group(2), m.group(1))
+    dtype = {"a": "int8", "9fp8e4m3_t": "fp8", "13__nv_bfloat16": "bf16"}[dtype]
+    return f"{'wgmma' if wgmma else 'bm'}{tile}_{dtype}"
+
+
+def qmm_build_report(checks, lib_path):
+    """Registers and spill bytes of every qmm instantiation (build/qmm.log)
+    and the SASS counts of each. Checks that each wgmma instantiation holds
+    HGMMA and UTMALDG and no HMMA, and that the WMMA ones keep their HMMA."""
+    inst = ptxas_usage("qmm", qmm_instantiation)
+    for name, counts in sass_by_function(lib_path).items():
+        label = qmm_instantiation(name)
+        if label is not None:
+            inst.setdefault(label, {}).update(counts)
+    print(json.dumps({"qmm_build": inst}), flush=True)
+    wgmma = {n: r for n, r in inst.items() if n.startswith("wgmma")}
+    wmma = {n: r for n, r in inst.items() if n.startswith("bm")}
+    checks.add("qmm.wgmma_sass_wgmma_tma_no_mma_sync",
+               len(wgmma) == 6 and all(r.get("HGMMA", 0) > 0 and r.get("UTMALDG", 0) > 0
+                                       and r.get("HMMA", 1) == 0 for r in wgmma.values()),
+               sass={n: {op: r.get(op) for op in SASS_OPS} for n, r in wgmma.items()})
+    checks.add("qmm.wmma_sass_keeps_mma_sync",
+               len(wmma) == 6 and all(r.get("HMMA", 0) > 0 for r in wmma.values()),
+               hmma={n: r.get("HMMA") for n, r in wmma.items()})
+    return inst
+
 
 _K7_NAME = re.compile(r"flash_fwd_kernelI(\w+?)Li(\d+)ELb([01])E")
 
@@ -1631,28 +1819,8 @@ def k7_build_report(checks, lib_path):
     of HGMMA (wgmma), UTMALDG (TMA loads) and HMMA (mma.sync) instructions in
     `cuobjdump -sass` of the library. Checks HGMMA > 0, UTMALDG > 0, HMMA = 0
     and no spill in the option-free instantiations."""
-    from xf_flash_attention_cutlass_tpu_torch import _build
-
-    with open(os.path.join(_build.BUILD_DIR, "flash_fwd.log")) as f:
-        log = f.read()
-    inst, cur = {}, None
-    for line in log.splitlines():
-        m = re.search(r"(?:Compiling entry function '|Function properties for )(\w+)", line)
-        if m:
-            cur = k7_instantiation(m.group(1))
-            continue
-        if cur is None:
-            continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-        if m:
-            inst.setdefault(cur, {})["spill_bytes"] = int(m.group(1)) + int(m.group(2))
-        m = re.search(r"Used (\d+) registers", line)
-        if m:
-            inst.setdefault(cur, {})["registers"] = int(m.group(1))
-    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    sass = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True, text=True,
-                          timeout=300, check=True).stdout
-    counts = {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HGMMA", "UTMALDG", "HMMA")}
+    inst = ptxas_usage("flash_fwd", k7_instantiation)
+    counts = {op: sum(c[op] for c in sass_by_function(lib_path).values()) for op in SASS_OPS}
     report = dict(instantiations=inst, sass=counts)
     print(json.dumps({"flash_fwd_build": report}), flush=True)
     checks.add("flash_fwd.sass_wgmma_tma_no_mma_sync",
@@ -1674,8 +1842,10 @@ KERNELS = {  # launch-counter name: (source, TPU kernel it replaces)
     "paged_append.decode": (_PKG + "paged_append.cu", _TPU + "ops/paged_append.py:68"),
     "paged_append.prefill": (_PKG + "paged_append.cu", _TPU + "ops/paged_append.py:166"),
     "qmm.stacked.bm16": (_PKG + "qmm.cu", _TPU + "quant/linear.py:70"),
+    "qmm.stacked.wgmma": (_PKG + "qmm.cu", _TPU + "quant/linear.py:70"),
     "qmm.stacked.bm64": (_PKG + "qmm.cu", _TPU + "quant/linear.py:70"),
     "qmm.single.bm16": (_PKG + "qmm.cu", _TPU + "quant/linear.py:48"),
+    "qmm.single.wgmma": (_PKG + "qmm.cu", _TPU + "quant/linear.py:48"),
     "flash_fwd": (_PKG + "flash_fwd.cu", _TPU + "ops/flash_fwd.py:100"),
     "flash_probs": (_PKG + "flash_probs.cu", _TPU + "ops/flash_fwd.py:379"),
     "flash_bwd.dq": (_PKG + "flash_bwd.cu", _TPU + "ops/flash_bwd.py:228"),
@@ -1686,9 +1856,9 @@ KERNELS = {  # launch-counter name: (source, TPU kernel it replaces)
 PATHS = {
     "serve_chunked": ["paged_attention.decode", "paged_attention.prefill",
                       "paged_append.decode", "paged_append.prefill", "qmm.stacked.bm16",
-                      "qmm.stacked.bm64", "qmm.single.bm16"],
+                      "qmm.stacked.wgmma", "qmm.single.bm16"],
     "serve_bucketed": ["flash_fwd", "paged_append.prefill", "paged_attention.decode",
-                       "paged_append.decode", "qmm.stacked.bm16", "qmm.stacked.bm64",
+                       "paged_append.decode", "qmm.stacked.bm16", "qmm.stacked.wgmma",
                        "qmm.single.bm16"],
     "train": ["flash_fwd", "flash_bwd.dq", "flash_bwd.dkv", "flash_bwd.fused"],
     "api": ["flash_fwd", "flash_probs", "flash_bwd.dq", "flash_bwd.dkv",
@@ -1757,6 +1927,7 @@ def main():
     print(f"build: {report['build_s']:.1f} s for {len(_build.SOURCES)} kernel sources", flush=True)
     checks = Checks()
     report["flash_fwd_build"] = k7_build_report(checks, libs["flash_fwd"])
+    report["qmm_build"] = qmm_build_report(checks, libs["qmm"])
 
     # 2. kernels against their plain versions, at the main paths' shapes
     cfg = LlamaConfig.llama8b()
@@ -1775,19 +1946,36 @@ def main():
     layer_shapes = [(d, cfg.n_heads * hd), (d, cfg.n_kv_heads * hd), (d, cfg.n_kv_heads * hd),
                     (cfg.n_heads * hd, d), (d, cfg.ffn_dim), (d, cfg.ffn_dim), (cfg.ffn_dim, d)]
     distinct = sorted(set(layer_shapes))
-    for w_dtype in (torch.int8, torch.float8_e4m3fn, torch.bfloat16):
-        for m in (8, 256):
-            if w_dtype == torch.int8:  # timed: one layer's seven projections
-                r = check_qmm(gen, timer, checks, w_dtype, m, layer_shapes, True)
-                measured[f"qmm.stacked.bm{16 if m <= 16 else 64}"] = r
-            else:
-                check_qmm(gen, timer, checks, w_dtype, m, distinct, True)
-    for m in (512, 1024, 2048):  # bucketed prefill: m = the bucket, untimed
+    # K3 at decode width (m = 8, the WMMA kernel); one layer's projections timed
+    measured["qmm.stacked.bm16"] = check_qmm(gen, timer, checks, torch.int8, 8, layer_shapes,
+                                             True)
+    for w_dtype in (torch.float8_e4m3fn, torch.bfloat16):
+        check_qmm(gen, timer, checks, w_dtype, 8, distinct, True, timed=False)
+    # K3 at prefill widths: the wgmma kernel at m = 256 (a chunk) and 2048 (the
+    # largest bucket), timed beside the WMMA kernel on the same shapes
+    for kind, name in ((None, "qmm.stacked.wgmma"), ("bm64", "qmm.stacked.bm64")):
+        r256, r2048 = (check_qmm(gen, timer, checks, torch.int8, m, layer_shapes, True,
+                                 kind=kind) for m in (256, 2048))
+        measured[name] = dict(r256, other_shapes={"m2048": r2048})
+    # and checked, untimed: bf16 without scale, int8 and fp8, stacked and
+    # single, at ragged and prefill widths, and the buckets between
+    for w_dtype in (torch.bfloat16, torch.int8, torch.float8_e4m3fn):
+        for stacked in (True, False):
+            for m in QMM_PREFILL_M:
+                if not (w_dtype == torch.int8 and stacked and m in (256, 2048)):  # timed above
+                    check_qmm(gen, timer, checks, w_dtype, m, distinct, stacked, timed=False)
+    for m in (512, 1024):
         check_qmm(gen, timer, checks, torch.int8, m, layer_shapes, True, timed=False)
-    for m in (1, 8, 256):  # the int8 lm_head: m=1 after a chunk, 8 per decode step
-        r = check_qmm(gen, timer, checks, torch.int8, m, [(d, cfg.vocab_size)], False)
-        if m == 8:
-            measured["qmm.single.bm16"] = r
+    check_qmm_conversion(checks)
+    report["qmm_host_us"] = qmm_host_us(gen)
+    print(json.dumps({"qmm_host_us": report["qmm_host_us"]}), flush=True)
+    # the int8 lm_head (K4): m = 1 after a chunk, 8 per decode step, 256 at
+    # prefill width (the wgmma kernel)
+    for m in (1, 8, 256):
+        r = check_qmm(gen, timer, checks, torch.int8, m, [(d, cfg.vocab_size)], False,
+                      timed=m > 1)
+        if m > 1:
+            measured["qmm.single.bm16" if m == 8 else "qmm.single.wgmma"] = r
     check_other_shapes(gen, checks)
     check_bucket_append(gen, checks, cfg)
     report["page32_append"] = check_page32_append(gen, timer, checks, cfg)
@@ -1862,6 +2050,8 @@ def main():
     report["serving_bucketed"] = bucketed
     print(json.dumps({"serving_bucketed": bucketed}), flush=True)
     mark("serve_bucketed")
+    report["admission_profile"] = profile_admission(eng, cfg, args.seed)
+    print(json.dumps({"admission_profile": report["admission_profile"]}), flush=True)
     prof = profile_decode(eng, cfg, args.seed)
     if prof is not None:  # device busy share of a decode-only step
         prof["busy_share_of_p50_step"] = (prof["device_ms_per_step"]

@@ -113,12 +113,15 @@ def _close_f32(got: torch.Tensor, want, k: int):
     np.testing.assert_allclose(got.float().numpy(), want, rtol=0, atol=tol)
 
 
+@pytest.mark.parametrize("m", [8, 64, 200])
 @pytest.mark.parametrize("stacked", [False, True])
 @pytest.mark.parametrize("dt", [torch.int8, torch.float8_e4m3fn])
-def test_quantized_matmul_matches_jax(dt, stacked):
+def test_quantized_matmul_matches_jax(dt, stacked, m):
     """k and n are 128-aligned so the JAX stacked path runs its Pallas
-    kernel (interpret mode), not its slice fallback."""
-    m, k, n = 8, 256, 128
+    kernel (interpret mode), not its slice fallback. m = 8 is a decode width
+    (the WMMA kernel on the card), 64 and 200 prefill widths (the wgmma
+    kernel)."""
+    k, n = 256, 128
     jdt = jnp.int8 if dt == torch.int8 else jnp.float8_e4m3fn
     x, w = _mm_inputs(2, m, k, n, layers=2 if stacked else None)
     if stacked:
@@ -164,9 +167,16 @@ def test_quantized_linear_module_matches_jax():
     assert dict(tl.named_buffers()).keys() == {"w_q", "scale", "bias"}
 
 
+# Llama-8B's projections (K, N): q, k, v, o, gate, up, down, and the lm_head
+LLAMA8B_KN = [(4096, 4096), (4096, 1024), (4096, 1024), (4096, 4096), (4096, 14336),
+              (4096, 14336), (14336, 4096), (4096, 128256)]
+
+
 def test_qmm_splits_cover_k_exactly():
     """The split-K plan of csrc/qmm.cu: every k-tile in exactly one split,
-    no empty split, more blocks for small-m decode shapes."""
+    no empty split, more blocks for small-m decode shapes. The wgmma
+    kernel's plan at prefill widths also keeps its blocks (one an SM) in one
+    wave whenever it splits."""
     for m, k, n in [(8, 4096, 1024), (8, 14336, 4096), (256, 4096, 14336),
                     (8, 4096, 128256), (5, 200, 300), (1, 64, 64)]:
         splits, per = linear.qmm_splits(m, n, k)
@@ -174,3 +184,39 @@ def test_qmm_splits_cover_k_exactly():
         assert splits >= 1 and (splits - 1) * per < n_kt <= splits * per
     assert linear.qmm_splits(8, 1024, 4096)[0] > 1
     assert linear.qmm_splits(8, 128256, 4096)[0] == 1
+    for m in (256, 2048):
+        for k, n in LLAMA8B_KN[:7]:
+            splits, per = linear.qmm_splits(m, n, k, "wgmma")
+            n_kt = -(-k // 64)
+            assert splits >= 1 and (splits - 1) * per < n_kt <= splits * per
+            blocks = -(-m // linear.qmm_wgmma_rows(m)) * -(-n // 128)
+            assert splits == 1 or blocks * splits <= 132
+    assert linear.qmm_splits(256, 1024, 4096, "wgmma")[0] > 1  # k/v: 8 tiles alone
+
+
+def _stack_ptrs(layers, k, n, w_dtype, base=1 << 20):
+    """Addresses of each layer of an aligned (layers, k, n) stack."""
+    return [base + layer * k * n * w_dtype.itemsize for layer in range(layers)]
+
+
+@pytest.mark.parametrize("w_dtype", [torch.int8, torch.float8_e4m3fn, torch.bfloat16])
+def test_qmm_route(w_dtype):
+    """Decode widths take the WMMA bm16 kernel; prefill widths take the
+    wgmma kernel when TMA can load both operands (every Llama-8B shape,
+    stacked at any layer or single), else the WMMA bm64 kernel (the ragged
+    shapes chip_smoke.py checks, and a misaligned x)."""
+    x_ptr = 1 << 21
+    for m in (1, 8, 16):
+        for k, n in LLAMA8B_KN:
+            assert linear.qmm_route(m, k, n, w_dtype, x_ptr, x_ptr) == "bm16"
+    for m in (17, 64, 256, 2048):
+        for k, n in LLAMA8B_KN:
+            for w_ptr in _stack_ptrs(32, k, n, w_dtype) + [x_ptr]:  # stacked, single
+                assert linear.qmm_route(m, k, n, w_dtype, x_ptr, w_ptr) == "wgmma"
+        assert linear.qmm_route(m, 4096, 4096, w_dtype, x_ptr + 8, x_ptr) == "bm64"
+        assert linear.qmm_route(m, 4096, 4096, w_dtype, x_ptr, x_ptr + 4) == "bm64"
+    # chip_smoke.py's ragged shapes: x rows of 8200 bytes, N = 300 / 136 / 1000 / 130
+    for m, k, n in [(100, 4100, 1000), (17, 256, 130), (17, 200, 300), (100, 203, 136)]:
+        assert linear.qmm_route(m, k, n, w_dtype, x_ptr, x_ptr) == "bm64"
+    assert linear.qmm_route(100, 4096, 1000, torch.bfloat16, x_ptr, x_ptr) == "wgmma"
+    assert linear.qmm_route(100, 4096, 1000, torch.int8, x_ptr, x_ptr) == "bm64"

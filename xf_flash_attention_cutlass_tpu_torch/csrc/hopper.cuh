@@ -17,6 +17,19 @@
 //     16 * 128 * kk bytes in.
 // (PTX ISA, "Matrix Descriptor Format" and "Shared Memory Matrix Layout";
 // CUTLASS cute/arch/mma_sm90_desc.hpp.)
+// Within the 128-byte row r of a 1024-byte aligned sub-tile, the 16-byte
+// chunk c sits at chunk c ^ (r % 8): so `ldmatrix` reads 8 rows of one
+// logical chunk from 8 distinct bank groups, and a tile of bytes (int8 or
+// fp8, 128 per row) swizzles the same way.
+//
+// Products: `ss` reads A and B K-major from shared memory, `rs` A from
+// registers and B K-major, `rs_tb` A from registers and B MN-major.
+//
+// Tensor maps: `make_map` encodes a map of any rank, element type and
+// swizzle; a byte map (CU_TENSOR_MAP_DATA_TYPE_UINT8, which carries int8 and
+// fp8 bits alike) with 128-element box rows swizzles like a 16-bit map with
+// 64-element ones. `make_map_4d` is the 16-bit, 128-byte swizzled rank-4
+// case.
 //
 // The host encodes tensor maps with cuTensorMapEncodeTiled, reached through
 // cudaGetDriverEntryPoint(ByVersion), so a library built with this header
@@ -87,6 +100,39 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
       : "memory");
+}
+
+// One box of a rank-2 tensor map (coordinates innermost first).
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// Four 8 x 8 matrices of 16-bit elements from shared memory, transposed
+// (ldmatrix .trans): lane i names row i % 8 of matrix i / 8; lane l receives
+// in r[j] elements (2 (l % 4), l / 4) and (2 (l % 4) + 1, l / 4) of matrix j,
+// the first in the low half.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(row)));
+}
+
+// Hands registers between warpgroups (setmaxnreg): a warpgroup that only
+// issues TMA lowers its per-thread count so the warpgroups that hold the
+// wgmma accumulators can raise theirs. Every thread of the warpgroup runs
+// it; N is a multiple of 8 in [24, 256].
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
 // Orders this thread's generic-proxy writes to shared memory before later
@@ -225,6 +271,35 @@ struct Wgmma<__nv_bfloat16, 128> {
           "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
   }
+  // D (64 x 128) (+)= A B: A in registers (the mma.sync m16n8k16 A layout in
+  // each warp's 16 rows), B K-major in shared memory (descriptor)
+  __device__ __forceinline__ static void rs(float (&d)[64], const uint32_t (&a)[4],
+                                            uint64_t desc_b, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+  }
   // D (64 x 128) (+)= A B: A in registers (four 32-bit words a thread, the
   // mma.sync m16n8k16 A layout in each warp's 16 rows), B MN-major in shared
   // memory (transposed: its N index contiguous)
@@ -253,6 +328,58 @@ struct Wgmma<__nv_bfloat16, 128> {
           "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
           "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
           "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<__nv_bfloat16, 256> {
+  // D (64 x 256) (+)= A B: A in registers (the mma.sync m16n8k16 A layout in
+  // each warp's 16 rows), B K-major in shared memory (descriptor)
+  __device__ __forceinline__ static void rs(float (&d)[128], const uint32_t (&a)[4],
+                                            uint64_t desc_b, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+          "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+          "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+          "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+          "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+          "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+          "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+          "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+          "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+          "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+          "+f"(d[126]), "+f"(d[127])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
   }
 };
@@ -389,22 +516,32 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A rank-4 map of 16-bit elements over a tensor of extents dims (innermost
-// first; dims[0] contiguous) and byte strides strides[0..2] of dims 1-3,
-// read in boxes of box0 x box1 x 1 x 1 with the 128-byte swizzle (box0 * 2
-// <= 128) and zero fill past the extents.
+// A map of `rank` (1-5) dimensions of `dtype` over a tensor of extents dims
+// (innermost first; dims[0] contiguous) and byte strides strides[0..rank-2]
+// of dims 1.., read in boxes of box[0..rank-1] with the given swizzle (the
+// 128-byte swizzle wants box[0] * element size <= 128) and zero fill past
+// the extents. The base must be 16-byte aligned and the strides multiples
+// of 16.
+inline cudaError_t make_map(CUtensorMap* map, CUtensorMapDataType dtype, int rank,
+                            const void* base, const uint64_t* dims, const uint64_t* strides,
+                            const uint32_t* box, CUtensorMapSwizzle swizzle) {
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
+  CUresult r = encode(map, dtype, rank, const_cast<void*>(base), dims, strides, box, elem,
+                      CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A rank-4 map of 16-bit elements, read in boxes of box0 x box1 x 1 x 1
+// with the 128-byte swizzle (box0 * 2 <= 128).
 inline cudaError_t make_map_4d(CUtensorMap* map, bool f16, const void* base,
                                const uint64_t dims[4], const uint64_t strides[3], uint32_t box0,
                                uint32_t box1) {
-  EncodeTiledFn encode = encode_tiled();
-  if (encode == nullptr) return cudaErrorNotSupported;
-  const cuuint32_t box[4] = {box0, box1, 1, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  CUresult r = encode(map, f16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                      4, const_cast<void*>(base), dims, strides, box, elem,
-                      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+  const uint32_t box[4] = {box0, box1, 1, 1};
+  return make_map(map, f16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                  4, base, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 }  // namespace hopper

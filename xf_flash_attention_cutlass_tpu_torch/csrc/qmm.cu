@@ -5,31 +5,69 @@
 // bf16 stack with has_scale=False) and `_qmm_kernel` (:48, one (K, N) weight,
 // the quantized lm_head). The wrapper selects layer l by pointer offset into
 // the stack, so no per-layer copy is made; the plain (K, N) weight is the
-// L = 1 case of the same entry point.
+// L = 1 case of the same entry points. Like the TPU kernels, every kernel
+// here converts the weights to bf16 in fast memory and runs a bf16 product
+// with f32 sums (exact: every int8 and every e4m3 value is a bf16 value), so
+// device memory only ever sees one byte per weight; the per-output-channel
+// scale is applied after the f32 sum and the result rounded to bf16 once.
 //
-// Bound on an H100 at the main path's shapes (Llama-8B, int8 weights):
-// decode (m = 8) reads every weight byte once and does 2 flops per byte
-// per row, so it is bound by bytes: 218 MB of int8 weights per layer is
-// 65 us at 3.35 TB/s. A 256-token prefill chunk does 2*256 flops per
-// weight; at 989 TFLOP/s (bf16) that is 113 us per layer against 65 us of
-// weight traffic, so the chunk is bound by operations.
-// Design: tensor cores through WMMA (bf16 in, f32 accumulate). Tiles of x
-// (BM x 64, bf16) and W (64 x 128) are staged in shared memory, the next
-// tile's loads held in registers while the current one is multiplied; the int8 /
-// fp8 weight tile is converted to bf16 as it is stored there (exact: every
-// int8 and every e4m3 value is a bf16 value), so device memory only ever
-// sees one byte per weight. The per-output-channel scale is applied in the
-// epilogue, after the f32 sum, as the TPU kernel does. Small m uses
-// BM = 16 so that decode does not stream the weights through 64-row tiles
-// of zeros, and few output tiles are split over K (grid.z) to put enough
-// blocks on the 132 SMs; split partials are summed by a second kernel,
-// in a fixed order, before the scale.
+// Two kernels, chosen by quant/linear.py::qmm_route:
+//
+// 1. qmm_wgmma_kernel, for m > 16 with TMA-legal operands (16-byte aligned
+//    bases, row strides multiples of 16 bytes: every Llama-8B shape). Bound
+//    on an H100 at Llama-8B widths: operations. A 256-row prefill chunk does
+//    2 * 256 operations per one-byte weight, 111.7 GFLOP a layer: 0.113 ms at
+//    989 TFLOP/s against 0.065 ms of weight bytes; m = 2048 is 0.90 ms of
+//    operations. So the tensor cores must run near their rate, which only
+//    wgmma reaches, and the weight conversion must hide behind the products
+//    without adding traffic to shared memory, which wgmma already fills.
+//    - It computes y^T = W^T x^T, as CUTLASS's mixed-input Hopper GEMMs do:
+//      the weights are wgmma's A operand, converted to bf16 in registers,
+//      and x is the B operand, K-major in shared memory; the tokens are
+//      wgmma's N (128, or 256 above 128 rows). A block owns 128 weight
+//      columns (64 per consumer warpgroup) x BT tokens.
+//    - A producer warpgroup issues TMA loads into a ring of 4 stages with
+//      full and empty mbarriers: per 64-deep k-tile the x tile (BT x 64
+//      bf16) and the raw weight tile (64 x 128 bytes), both 128-byte
+//      swizzled. TMA zero-fills rows and columns past M, N and K. The
+//      producer gives most of its registers to the consumers (setmaxnreg).
+//    - Each consumer warp reads its 16 weight columns of a k-tile with
+//      `ldmatrix .trans`, treating pairs of bytes as 16-bit elements, and
+//      converts them into the A fragments with a few bit operations and one
+//      bf16x2 subtraction (int8) or product (e4m3) per pair; a bf16 stack
+//      (no scale) needs no conversion. The A fragments are double-buffered:
+//      one k-tile converts while the other's products run, and a warpgroup
+//      waits only for the previous k-tile's products. The warpgroups never
+//      wait for each other, and the weights never pass through shared memory
+//      as bf16.
+//    - The epilogue scales the f32 sums per column and stores bf16 pairs
+//      (adjacent weight columns of one token) straight from the accumulator
+//      layout; tokens past M and columns past N are masked.
+//    - Blocks walk the token tiles fastest, so the blocks that share a
+//      weight tile run together and read it from L2. Few output tiles (the
+//      k and v projections at m = 256 make 8) are split over K to fill the
+//      132 SMs.
+//    Measured on an H100 (PERF.md): bf16 weights through shared memory (an
+//    earlier design of this kernel, converting into a swizzled tile that
+//    both warpgroups shared) ran int8 1.5x slower than the bf16 stack.
+// 2. qmm_kernel, the WMMA (mma.sync) kernel: m <= 16 (decode, BM = 16, so
+//    decode does not stream the weights through 64-row tiles of zeros) and
+//    m > 16 with operands TMA cannot take (BM = 64, element-wise loads at
+//    the ragged edge). Decode (m = 8) reads every weight byte once and does
+//    2 flops per byte per row: bound by bytes, 218 MB of int8 weights a layer
+//    is 65 us at 3.35 TB/s. Tiles of x (BM x 64) and W (64 x 128) are staged
+//    in shared memory through registers, the next tile's loads in flight
+//    while the current one is multiplied; few output tiles are split over K.
+//
+// Split partials (f32) of either kernel are summed by qmm_reduce_kernel in
+// split order, so the result is deterministic, before the scale.
 #include <mma.h>
 
 #include <algorithm>
 #include <type_traits>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 using namespace nvcuda;
 
@@ -262,6 +300,291 @@ cudaError_t dispatch_w(int w_dtype, const void* x, const void* w, const float* s
   }
 }
 
+// ---- the wgmma kernel (m > 16, TMA-legal operands): y^T = W^T x^T ------------
+
+namespace wg {
+
+using namespace hopper;
+
+constexpr int BN = 128;  // weight columns per block: 64 per consumer warpgroup
+constexpr int BK = 64;   // k per stage: one 128-byte swizzled row of x
+constexpr int kStages = 4;
+constexpr int kSubBytes = BK * 128;  // one 64-column sub-tile of bf16 weights
+constexpr int kConsumers = 256;
+// and a producer warpgroup: ptxas budgets a wgmma kernel's registers by
+// warpgroup, so a lone producer warp costs as much (with 288 threads the
+// 256-token tile got 168 registers, spilled, and ptxas serialized its
+// wgmma); the producer hands most of its registers to the consumers
+// (setmaxnreg).
+constexpr int kThreads = kConsumers + 128;
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;
+static_assert(128 * kProducerRegs + kConsumers * kConsumerRegs <= 65536, "register file");
+
+// Shared memory of one stage, from a 1024-byte aligned base: the x tile (BT
+// tokens x BK, bf16, K-major: BT rows of 128 bytes, 128-byte swizzled), then
+// the weight tile (BK rows of k x BN columns, 128-byte swizzled): int8 / fp8
+// bytes in one tile of 128-byte rows, bf16 in two 64-column sub-tiles
+// kSubBytes apart (warpgroup g reads sub-tile g).
+template <typename TW, int BT>
+struct Layout {
+  static constexpr bool kQuant = sizeof(TW) == 1;
+  static constexpr int kXBytes = BT * BK * 2;
+  static constexpr int kWBytes = BN * BK * static_cast<int>(sizeof(TW));
+  static constexpr int kStageBytes = kXBytes + kWBytes;  // a multiple of 1024
+  static constexpr int kBarOffset = kStages * kStageBytes;
+  static constexpr int kBytes = kBarOffset + 8 * 2 * kStages + 1024;  // + alignment slack
+  static_assert(kBytes <= 232448, "the ring must fit in shared memory");
+};
+
+// Packed conversions of the bytes 0 and 2 of a word into a bf16 pair (the
+// first in the low half), exact for every weight: every int8 and every
+// e4m3 value is a bf16 value.
+
+// int8: a = 128 + the low 7 bits (bf16 0x4300 | bits), c = 128, or 256 where
+// the sign bit is set, and x = a - c.
+__device__ __forceinline__ uint32_t bf16x2_from_bytes02(int8_t, uint32_t v) {
+  const uint32_t a = (v & 0x007F007Fu) | 0x43004300u;
+  const uint32_t c = (v & 0x00800080u) | 0x43004300u;
+  uint32_t d;
+  asm("sub.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(c));
+  return d;
+}
+
+// e4m3 (s eeee mmm): the fields moved into a bf16 (s, exponent e, mantissa
+// m << 4), which is the value times 2^-120, then one bf16 product by 2^120
+// (0x7B80), exact for the subnormal e = 0 too.
+__device__ __forceinline__ uint32_t bf16x2_from_bytes02(fp8e4m3_t, uint32_t v) {
+  const uint32_t b = ((v & 0x007F007Fu) << 4) | ((v & 0x00800080u) << 8);
+  uint32_t d;
+  asm("mul.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(b), "r"(0x7B807B80u));
+  return d;
+}
+
+// The A fragments of one stage for warp w of warpgroup g: the warp's 16
+// weight columns x BK, as BK / 16 sets of four registers in the mma.sync
+// m16n8k16 A layout (row r = lane / 4, k = 2 (lane % 4), per hopper.cuh).
+// int8 / fp8: ldmatrix .trans treats each 128-byte row of k as 64 16-bit
+// elements; a lane gets the bytes of columns 2r, 2r + 1 at k and k + 1,
+// and bytes 0, 2 and 1, 3 of that word are the A pairs of column 2r and
+// 2r + 1. So A row r holds column 2r, A row r + 8 column 2r + 1 (kPairs).
+// bf16: ldmatrix .trans gives the A fragments as they are; A row r holds
+// column r and row r + 8 column r + 8.
+template <typename TW>
+constexpr bool kPairs = sizeof(TW) == 1;
+
+template <typename TW>
+__device__ __forceinline__ void load_a(const unsigned char* wt, int g, int w, int lane,
+                                       uint32_t (&a)[BK / 16][4]) {
+  if constexpr (kPairs<TW>) {
+    const int c = 4 * g + w;  // the warp's 16-byte chunk of each row
+#pragma unroll
+    for (int k2 = 0; k2 < BK / 32; ++k2) {
+      const int k = 32 * k2 + lane;  // lane l names row l of the 32 rows
+      uint32_t r[4];
+      ldmatrix_x4_trans(r, wt + k * 128 + ((c ^ (k & 7)) << 4));
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {  // the k16 slices 2 k2 and 2 k2 + 1
+        a[2 * k2 + h][0] = bf16x2_from_bytes02(TW{}, r[2 * h]);
+        a[2 * k2 + h][1] = bf16x2_from_bytes02(TW{}, r[2 * h] >> 8);
+        a[2 * k2 + h][2] = bf16x2_from_bytes02(TW{}, r[2 * h + 1]);
+        a[2 * k2 + h][3] = bf16x2_from_bytes02(TW{}, r[2 * h + 1] >> 8);
+      }
+    }
+  } else {
+    const int j = lane >> 3;  // matrix j: columns 8 (j % 2) .., k 8 (j / 2) ..
+    const int c = 2 * w + (j & 1);
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const int k = 16 * kk + 8 * (j >> 1) + (lane & 7);
+      ldmatrix_x4_trans(a[kk], wt + g * kSubBytes + k * 128 + ((c ^ (k & 7)) << 4));
+    }
+  }
+}
+
+template <typename TW, int BT>
+__global__ void __launch_bounds__(kThreads, 1)
+    qmm_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
+                     const __grid_constant__ CUtensorMap tm_w,
+                     const float* __restrict__ scale,  // (N,) or null
+                     __nv_bfloat16* __restrict__ y,    // (M, N), written when splits == 1
+                     float* __restrict__ partial,      // (splits, M, N), when splits > 1
+                     int M, int N, int K, int kt_per_split) {
+  using L = Layout<TW, BT>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBarOffset);
+  uint64_t* empty = full + kStages;
+  auto x_tile = [&](int st) { return smem + st * L::kStageBytes; };
+  auto w_tile = [&](int st) { return smem + st * L::kStageBytes + L::kXBytes; };
+
+  const int m0 = blockIdx.x * BT;  // tokens fastest: blocks sharing a weight tile run together
+  const int n0 = blockIdx.y * BN;
+  const int n_kt = (K + BK - 1) / BK;
+  const int kt0 = blockIdx.z * kt_per_split;
+  const int kt1 = min(n_kt, kt0 + kt_per_split);
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(&full[st], 1);
+      mbar_init(&empty[st], 2);  // one arrival per consumer warpgroup
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {  // the producer warpgroup; one lane issues
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == kConsumers) {
+      for (int kt = kt0; kt < kt1; ++kt) {
+        const int it = kt - kt0, st = it % kStages;
+        mbar_wait(&empty[st], ((it / kStages) & 1) ^ 1);
+        mbar_arrive_expect_tx(&full[st], L::kStageBytes);
+        tma_load_2d(x_tile(st), &tm_x, &full[st], kt * BK, m0);
+        if constexpr (L::kQuant) {
+          tma_load_2d(w_tile(st), &tm_w, &full[st], n0, kt * BK);
+        } else {
+          tma_load_2d(w_tile(st), &tm_w, &full[st], n0, kt * BK);
+          tma_load_2d(w_tile(st) + kSubBytes, &tm_w, &full[st], n0 + 64, kt * BK);
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- the consumer warpgroups: g owns weight columns n0 + 64 g .. + 63 ----
+  setmaxnreg_inc<kConsumerRegs>();
+  const int tid = threadIdx.x;
+  const int g = tid >> 7, w = (tid >> 5) & 3, lane = tid & 31;
+  float acc[BT / 2];
+#pragma unroll
+  for (int i = 0; i < BT / 2; ++i) acc[i] = 0.f;
+  uint32_t a[2][BK / 16][4];  // the A fragments of two stages: one converts while
+                              // the products of the other run
+
+  // one k-tile; its A fragments go to a[P], with P a compile-time parity
+  auto step = [&](auto parity, int kt) {
+    constexpr int P = decltype(parity)::value;
+    const int it = kt - kt0, st = it % kStages;
+    mbar_wait(&full[st], (it / kStages) & 1);
+    load_a<TW>(w_tile(st), g, w, lane, a[P]);
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      Wgmma<__nv_bfloat16, BT>::rs(acc, a[P][kk], desc_sw128(x_tile(st) + kk * 32, 16, 1024),
+                                   1);
+    wgmma_commit();
+    wgmma_wait<1>();  // the previous k-tile's products are done: its stage and
+                      // its A registers are free
+    fence_regs(acc);
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) fence_regs(a[1 - P][kk]);
+    if (it > 0 && (tid & 127) == 0) mbar_arrive(&empty[(it - 1) % kStages]);
+  };
+  int kt = kt0;
+  for (; kt + 1 < kt1; kt += 2) {
+    step(std::integral_constant<int, 0>{}, kt);
+    step(std::integral_constant<int, 1>{}, kt + 1);
+  }
+  if (kt < kt1) step(std::integral_constant<int, 0>{}, kt);
+  wgmma_wait<0>();
+  fence_regs(acc);
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) {
+    fence_regs(a[0][kk]);
+    fence_regs(a[1][kk]);
+  }
+
+  // epilogue from the accumulator layout (hopper.cuh): warp w holds A rows
+  // lane / 4 and + 8 (weight columns n_lo, n_hi, per load_a) and, in
+  // 8-token group j, tokens 8 j + 2 (lane % 4) and + 1. N is a multiple of
+  // 8 here, so the pair (n_lo, n_lo + 1) is whole or past N.
+  const int r = lane >> 2;
+  const int n_lo = n0 + 64 * g + 16 * w + (kPairs<TW> ? 2 * r : r);
+  const int n_hi = n_lo + (kPairs<TW> ? 1 : 8);
+  float s_lo = 1.f, s_hi = 1.f;
+  if (partial == nullptr && scale != nullptr) {
+    if (n_lo < N) s_lo = scale[n_lo];
+    if (n_hi < N) s_hi = scale[n_hi];
+  }
+  const int tok = m0 + 2 * (lane & 3);
+#pragma unroll
+  for (int j = 0; j < BT / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int gm = tok + 8 * j + e;
+      if (gm >= M) continue;
+      const float v_lo = acc[4 * j + e], v_hi = acc[4 * j + 2 + e];
+      if (partial != nullptr) {
+        float* row = partial + (static_cast<size_t>(blockIdx.z) * M + gm) * N;
+        if constexpr (kPairs<TW>) {
+          if (n_lo < N) *reinterpret_cast<float2*>(row + n_lo) = make_float2(v_lo, v_hi);
+        } else {
+          if (n_lo < N) row[n_lo] = v_lo;
+          if (n_hi < N) row[n_hi] = v_hi;
+        }
+      } else {
+        __nv_bfloat16* row = y + static_cast<size_t>(gm) * N;
+        if constexpr (kPairs<TW>) {
+          if (n_lo < N)
+            *reinterpret_cast<__nv_bfloat162*>(row + n_lo) =
+                __floats2bfloat162_rn(v_lo * s_lo, v_hi * s_hi);
+        } else {
+          if (n_lo < N) row[n_lo] = to_bf16(v_lo * s_lo);
+          if (n_hi < N) row[n_hi] = to_bf16(v_hi * s_hi);
+        }
+      }
+    }
+  }
+}
+
+template <typename TW, int BT>
+cudaError_t launch(const void* x, const void* w, const float* scale, void* y, float* partial,
+                   int M, int N, int K, int splits, int kt_per_split, cudaStream_t stream) {
+  using L = Layout<TW, BT>;
+  CUtensorMap tm_x, tm_w;
+  const uint64_t x_dims[2] = {static_cast<uint64_t>(K), static_cast<uint64_t>(M)};
+  const uint64_t x_strides[1] = {static_cast<uint64_t>(K) * 2};
+  const uint32_t x_box[2] = {BK, BT};
+  cudaError_t err = make_map(&tm_x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, x_dims, x_strides,
+                             x_box, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err != cudaSuccess) return err;
+  const uint64_t w_dims[2] = {static_cast<uint64_t>(N), static_cast<uint64_t>(K)};
+  const uint64_t w_strides[1] = {static_cast<uint64_t>(N) * sizeof(TW)};
+  const uint32_t w_box[2] = {128 / sizeof(TW), BK};  // 128-byte rows
+  const CUtensorMapDataType w_type =
+      L::kQuant ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  err = make_map(&tm_w, w_type, 2, w, w_dims, w_strides, w_box, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(qmm_wgmma_kernel<TW, BT>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
+  if (err != cudaSuccess) return err;
+  dim3 grid((M + BT - 1) / BT, (N + BN - 1) / BN, splits);
+  qmm_wgmma_kernel<TW, BT><<<grid, kThreads, L::kBytes, stream>>>(
+      tm_x, tm_w, scale, static_cast<__nv_bfloat16*>(y), splits > 1 ? partial : nullptr, M, N,
+      K, kt_per_split);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  const size_t mn = static_cast<size_t>(M) * N;
+  const int blocks = static_cast<int>(std::min<size_t>((mn + 255) / 256, 4096));
+  qmm_reduce_kernel<<<blocks, 256, 0, stream>>>(partial, scale, static_cast<__nv_bfloat16*>(y),
+                                                splits, M, N);
+  return cudaGetLastError();
+}
+
+template <typename TW>
+cudaError_t launch_bt(int bt, const void* x, const void* w, const float* scale, void* y,
+                      float* partial, int M, int N, int K, int splits, int kt_per_split,
+                      cudaStream_t stream) {
+  if (bt == 128)
+    return launch<TW, 128>(x, w, scale, y, partial, M, N, K, splits, kt_per_split, stream);
+  if (bt == 256)
+    return launch<TW, 256>(x, w, scale, y, partial, M, N, K, splits, kt_per_split, stream);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace wg
+
 }  // namespace
 
 // x: (M, K) bf16; w: (K, N) of w_dtype; scale: (N,) f32 or null; y: (M, N)
@@ -282,6 +605,33 @@ extern "C" int xfa_qmm(const void* x, const void* w, int w_dtype, const void* sc
     case 64:
       return dispatch_w<64>(w_dtype, x, w, s, y, p, M, N, K, splits, kt_per_split, vec_x != 0,
                             vec_w != 0, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// The wgmma kernel: as xfa_qmm, for M > 16 with x contiguous (row stride K
+// elements) and w of row stride N elements, both 16-byte aligned, K * 2 and
+// N * sizeof(w) multiples of 16 (quant/linear.py::qmm_route); tiles of bt
+// tokens (bt: 128 or 256) x 128 weight columns, splits over K as the caller
+// plans them (qmm_splits).
+extern "C" int xfa_qmm_wgmma(const void* x, const void* w, int w_dtype, const void* scale,
+                             void* y, void* partial, int M, int N, int K, int splits,
+                             int kt_per_split, int bt, void* stream) {
+  if (M == 0 || N == 0) return cudaSuccess;
+  if (splits < 1 || (splits > 1 && partial == nullptr) || N % 8 != 0 || K % 8 != 0)
+    return cudaErrorInvalidValue;
+  auto* s = static_cast<const float*>(scale);
+  auto* p = static_cast<float*>(partial);
+  auto st = static_cast<cudaStream_t>(stream);
+  switch (w_dtype) {
+    case XFA_I8:
+      return wg::launch_bt<int8_t>(bt, x, w, s, y, p, M, N, K, splits, kt_per_split, st);
+    case XFA_FP8_E4M3:
+      return wg::launch_bt<fp8e4m3_t>(bt, x, w, s, y, p, M, N, K, splits, kt_per_split, st);
+    case XFA_BF16:
+      return wg::launch_bt<__nv_bfloat16>(bt, x, w, s, y, p, M, N, K, splits, kt_per_split,
+                                          st);
     default:
       return cudaErrorInvalidValue;
   }

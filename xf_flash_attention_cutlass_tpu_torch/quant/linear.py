@@ -2,10 +2,13 @@
 
 Weights are stored int8 (or fp8-e4m3) with one fp32 scale per output
 channel; activations stay bf16 (f32 in the CPU tests). On CUDA the product
-runs in the hand-written kernel csrc/qmm.cu, which dequantizes each weight
-tile in shared memory right before the tensor-core product, so device memory
-only ever sees one byte per weight. On the CPU the plain version
-`quantized_matmul_ref` computes the same function.
+runs in the hand-written kernels of csrc/qmm.cu, which convert each weight
+tile to bf16 on chip right before the tensor-core product, so device memory
+only ever sees one byte per weight: the wgmma kernel (weights converted in
+registers) for m > 16 rows with TMA-legal operands, the WMMA kernel (in
+shared memory) for decode (m <= 16) and for ragged operands (`qmm_route`).
+On the CPU the plain version `quantized_matmul_ref` computes the same
+function.
 """
 
 from __future__ import annotations
@@ -22,8 +25,9 @@ from xf_flash_attention_cutlass_tpu_torch.utils import cdiv, is_cuda
 
 _WEIGHT_QMAX = {torch.int8: 127.0, torch.float8_e4m3fn: 448.0}
 
-# tile geometry of csrc/qmm.cu, for the split-K choice
-_BN, _BK = 128, 64
+# tile geometry (rows, columns, depth) of each route of csrc/qmm.cu, for the
+# split-K plan; the wgmma kernel's rows (tokens) are qmm_wgmma_rows(m)
+_TILES = {"bm16": (16, 128, 64), "bm64": (64, 128, 64), "wgmma": (None, 128, 64)}
 _NUM_SMS = 132  # H100 SXM
 
 
@@ -70,29 +74,62 @@ def _lib():
             + [ctypes.c_int] * 8
             + [ctypes.c_void_p]
         )
+        lib.xfa_qmm_wgmma.restype = ctypes.c_int
+        lib.xfa_qmm_wgmma.argtypes = (
+            [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+             ctypes.c_void_p, ctypes.c_void_p]
+            + [ctypes.c_int] * 6
+            + [ctypes.c_void_p]
+        )
         _lib_handle = lib
     return _lib_handle
 
 
-def qmm_tile_rows(m: int) -> int:
-    """Rows of x per block of csrc/qmm.cu (one of its two template
-    instances; the launcher is told which)."""
-    return 16 if m <= 16 else 64
+def qmm_route(m: int, k: int, n: int, w_dtype: torch.dtype, x_ptr: int = 0,
+              w_ptr: int = 0) -> str:
+    """The kernel of csrc/qmm.cu that computes (m, k) bf16 x (k, n) weights
+    of w_dtype, with x contiguous at address x_ptr and the weight rows
+    contiguous at w_ptr: 'bm16' (WMMA, 16-row tiles) for decode widths
+    (m <= 16); 'wgmma' for m > 16 when TMA can load both operands (bases
+    16-byte aligned, row strides k * 2 and n * element size multiples of 16
+    bytes); 'bm64' (WMMA, 64-row tiles, element-wise loads at the edges) for
+    m > 16 otherwise. A route chosen by shape: no route falls back to
+    another when a kernel fails."""
+    if m <= 16:
+        return "bm16"
+    legal = (x_ptr % 16 == 0 and w_ptr % 16 == 0 and (k * 2) % 16 == 0
+             and (n * w_dtype.itemsize) % 16 == 0)
+    return "wgmma" if legal else "bm64"
 
 
-def qmm_splits(m: int, n: int, k: int) -> Tuple[int, int]:
-    """(splits over K, k-tiles per split) of csrc/qmm.cu: split only when
-    the output tiles alone leave the SMs without two blocks each, and keep
-    at least 4 k-tiles per split."""
-    blocks = cdiv(n, _BN) * cdiv(m, qmm_tile_rows(m))
-    n_kt = cdiv(k, _BK)
-    splits = max(1, min(cdiv(2 * _NUM_SMS, blocks), n_kt // 4, 16))
+def qmm_wgmma_rows(m: int) -> int:
+    """Rows (tokens) of the wgmma kernel's output tile at m rows: its wgmma
+    N, 128 or 256."""
+    return 256 if m > 128 else 128
+
+
+def qmm_splits(m: int, n: int, k: int, route: Optional[str] = None) -> Tuple[int, int]:
+    """(splits over K, k-tiles per split) of csrc/qmm.cu's kernel `route`
+    (by default the route of aligned int8 operands): split only when the
+    output tiles leave SMs idle, and keep at least 4 k-tiles per split. The
+    WMMA kernels aim at two blocks an SM; the wgmma kernel holds an SM
+    alone (its registers), so its splits keep every block in one wave."""
+    route = route or qmm_route(m, k, n, torch.int8)
+    rows, cols, depth = _TILES[route]
+    rows = rows or qmm_wgmma_rows(m)
+    blocks = cdiv(n, cols) * cdiv(m, rows)
+    n_kt = cdiv(k, depth)
+    want = _NUM_SMS // blocks if route == "wgmma" else cdiv(2 * _NUM_SMS, blocks)
+    splits = max(1, min(want, n_kt // 4, 16))
     kt_per = cdiv(n_kt, splits)
     return cdiv(n_kt, kt_per), kt_per
 
 
 def _qmm_cuda(x: torch.Tensor, w: torch.Tensor, scale: Optional[torch.Tensor],
-              route: str) -> torch.Tensor:
+              route: str, kind: Optional[str] = None) -> torch.Tensor:
+    """Launch csrc/qmm.cu's kernel `kind` (by default `qmm_route`'s choice;
+    chip_smoke.py names 'bm64' to time the WMMA kernel beside the wgmma one
+    on the same shapes)."""
     if x.dtype != torch.bfloat16:
         raise TypeError(f"the CUDA qmm kernel takes bf16 activations, got {x.dtype}")
     if w.dtype not in (torch.int8, torch.float8_e4m3fn, torch.bfloat16):
@@ -105,21 +142,22 @@ def _qmm_cuda(x: torch.Tensor, w: torch.Tensor, scale: Optional[torch.Tensor],
     x2 = x.reshape(-1, d_in).contiguous()
     m = x2.shape[0]
     y = torch.empty((m, d_out), dtype=x.dtype, device=x.device)
-    bm = qmm_tile_rows(m)
-    splits, kt_per = qmm_splits(m, d_out, d_in)
+    kind = kind or qmm_route(m, d_in, d_out, w.dtype, x2.data_ptr(), w.data_ptr())
+    splits, kt_per = qmm_splits(m, d_out, d_in, kind)
     partial = (
         torch.empty((splits, m, d_out), dtype=torch.float32, device=x.device)
         if splits > 1 else None
     )
-    vec_x = int(d_in % 8 == 0 and x2.data_ptr() % 16 == 0)
-    vec_w = int((d_out * w.element_size()) % 16 == 0 and w.data_ptr() % 16 == 0)
-    rc = _lib().xfa_qmm(
-        x2.data_ptr(), w.data_ptr(), _build.dtype_code(w.dtype), _build.ptr(scale),
-        y.data_ptr(), _build.ptr(partial), m, d_out, d_in, splits, kt_per,
-        vec_x, vec_w, bm, _build.stream_handle(),
-    )
+    args = (x2.data_ptr(), w.data_ptr(), _build.dtype_code(w.dtype), _build.ptr(scale),
+            y.data_ptr(), _build.ptr(partial), m, d_out, d_in, splits, kt_per)
+    if kind == "wgmma":
+        rc = _lib().xfa_qmm_wgmma(*args, qmm_wgmma_rows(m), _build.stream_handle())
+    else:
+        vec_x = int(d_in % 8 == 0 and x2.data_ptr() % 16 == 0)
+        vec_w = int((d_out * w.element_size()) % 16 == 0 and w.data_ptr() % 16 == 0)
+        rc = _lib().xfa_qmm(*args, vec_x, vec_w, _TILES[kind][0], _build.stream_handle())
     _build.check(rc, "qmm")
-    _build.LAUNCHES[f"{route}.bm{bm}"] += 1
+    _build.LAUNCHES[f"{route}.{kind}"] += 1
     return y.reshape(*x.shape[:-1], d_out)
 
 
