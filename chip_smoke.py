@@ -13,6 +13,10 @@ Phases, each of which raises (exit code != 0) when it fails:
    instantiations spill nothing. The same for K3/K4 (`qmm_build`), per
    instantiation: it fails unless each wgmma instantiation holds HGMMA and
    UTMALDG and no HMMA, and the WMMA ones (decode, ragged) keep their HMMA.
+   The same for K9-K11 (`flash_bwd_build`), per instantiation, with any
+   ptxas line saying wgmma was serialized: it fails unless every K10/K11
+   instantiation holds HGMMA and UTMALDG and no HMMA, the option-free ones
+   spill nothing, and K9 keeps its HMMA (mma.sync).
 2. Hold each kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it (Llama-8B widths), and time the kernel,
    the plain version and, where one exists, a PyTorch library call that
@@ -28,13 +32,18 @@ Phases, each of which raises (exit code != 0) when it fails:
    dense f32 oracle (utils/testing.py): K7 at the bucketed-prefill and
    training shapes and at s = 2048 causal under the 2x rule (bucket 1024,
    the training shape and s = 2048 timed), K9/K10/K11 at the training shape
-   under the 3x rule. Shapes off the paths (ragged matmuls, page 16 and 32,
+   under the 3x rule, K10 run twice bit for bit, K11's dK/dV equal to K10's
+   and its dQ against K9's. Shapes off the paths (ragged matmuls, page 16 and 32,
    head_dim 64, unaligned lengths, window, softcap, segment ids, GQA 4:1)
    are checked too, untimed; K7 also where its tiling can break it
    (FLASH_FWD_TILING: sq = 1, sk below one tile, kv_lens and window edges
    inside a tile, fp16 at d = 64), and on (b, s, h, d) views, bit for bit
    against contiguous copies and launching its kernel alone (a profiler
-   trace); one Llama-8B attention_block launches nothing between
+   trace); K9-K11 where their tiling can break them (FLASH_BWD_TILING, then
+   positions with per-row ALiBi over packed prompts and ALiBi with dropout,
+   both routes), and on the model's (b, s, h, d) views (no copy of q, k, v
+   or dO, outputs in their layout, the same bits as contiguous copies); one
+   Llama-8B attention_block launches nothing between
    attn_qkv's kernels and K7's. K1, K7 and K9-K11 at the main paths' shapes
    are also timed in the instantiation that carries the options, with
    ALiBi of slope 0. The API's options at the `api` path's shapes: K7 with
@@ -757,6 +766,40 @@ def check_flash_bwd(gen, checks, name, b, h, h_k, sq, sk, d, opts):
     return (q, k, v, o, lse, do), kw, worst
 
 
+def bwd_launch_kw(kw, d):
+    """FlashBwdLaunch's keywords for flash_case's mask keywords (no options)."""
+    return dict(scale=1.0 / math.sqrt(d), causal=kw.get("causal", False),
+                window=kw.get("window", (-1, -1)), softcap=kw.get("softcap", 0.0),
+                kv_lens=kw.get("kv_lens"), q_segment_ids=kw.get("q_segment_ids"),
+                kv_segment_ids=kw.get("kv_segment_ids"))
+
+
+def check_flash_bwd_repeat(checks, tensors, kw, name):
+    """K10 twice on the same inputs gives the same dK and dV bit for bit (no
+    atomics: the warpgroups' sums are added in a fixed order); K11's dK and
+    dV equal K10's bit for bit (the same products); K11's dQ, summed by f32
+    atomics in a changing order, agrees with K9's within two bf16 ulps of the
+    largest |dQ| (the atomics' order, and K9's exp against K11's exp2 in the
+    recompute)."""
+    from xf_flash_attention_cutlass_tpu_torch.ops.flash_bwd import FlashBwdLaunch
+
+    q, k, v, o, lse, do = tensors
+    run = FlashBwdLaunch(q, k, v, o, lse, do, **bwd_launch_kw(kw, q.shape[-1]))
+    (dk1, dv1), (dk2, dv2) = run.dkv(), run.dkv()
+    dq9 = run.dq()
+    dq11, dk11, dv11 = run.fused()
+    torch.cuda.synchronize()
+    same = bool(torch.equal(dk1, dk2) and torch.equal(dv1, dv2))
+    checks.add(f"flash_bwd.dkv_bit_reproducible[{name}]", same,
+               max_abs_err=max(max_err(dk1, dk2), max_err(dv1, dv2)), tolerance=0.0)
+    same11 = bool(torch.equal(dk11, dk1) and torch.equal(dv11, dv1))
+    checks.add(f"flash_bwd.fused_dkv_equals_dkv[{name}]", same11,
+               max_abs_err=max(max_err(dk11, dk1), max_err(dv11, dv1)), tolerance=0.0)
+    err, tol = max_err(dq11, dq9), float(dq9.float().abs().max()) / 128
+    checks.add(f"flash_bwd.fused_dq_vs_dq[{name}]", err <= tol, max_abs_err=err, tolerance=tol,
+               criterion="two bf16 ulps of the largest |dQ|")
+
+
 def time_flash_bwd(timer, tensors, kw, worst):
     """Times of K9, K10 and K11 (each launched alone on prepared inputs),
     the plain backward and SDPA's backward (autograd through a causal SDPA
@@ -768,10 +811,7 @@ def time_flash_bwd(timer, tensors, kw, worst):
 
     q, k, v, o, lse, do = tensors
     b, h, sq, d = q.shape
-    launch_kw = dict(scale=1.0 / math.sqrt(d), causal=kw.get("causal", False),
-                     window=kw.get("window", (-1, -1)), softcap=kw.get("softcap", 0.0),
-                     kv_lens=kw.get("kv_lens"), q_segment_ids=kw.get("q_segment_ids"),
-                     kv_segment_ids=kw.get("kv_segment_ids"))
+    launch_kw = bwd_launch_kw(kw, d)
     run = FlashBwdLaunch(q, k, v, o, lse, do, **launch_kw)
     # ALiBi of slope 0: the options' kernels on the same work, same result
     run_general = FlashBwdLaunch(q, k, v, o, lse, do, alibi_slopes=torch.zeros(h, device="cuda"),
@@ -867,6 +907,90 @@ def check_flash_fwd_tiling(gen, checks, cfg):
     return names
 
 
+# K10/K11 (and K9) where the backward's tiling can break it (64-key blocks,
+# 64-row q tiles from a TMA ring, the per-entry mask on boundary pairs only):
+# untimed, both routes under the 3x rule
+FLASH_BWD_TILING = [  # (name, b, h, h_k, sq, sk, d, options)
+    ("sq1_causal_sk700", 1, 8, 2, 1, 700, 128, dict(causal=True)),
+    ("sk_below_tile_40x33_causal", 2, 4, 2, 40, 33, 128, dict(causal=True)),
+    ("sk_below_tile_100x20", 1, 4, 2, 100, 20, 128, dict()),
+    ("ragged_300x1000_causal", 1, 8, 2, 300, 1000, 128, dict(causal=True)),
+    ("ragged_1000x300", 1, 8, 2, 1000, 300, 128, dict()),
+    ("kv_lens_in_tile", 2, 8, 2, 256, 256, 128, dict(causal=True, kv_lens=[100, 37])),
+    ("window_edge_in_tile", 1, 8, 2, 512, 512, 128, dict(window=(100, 30))),
+    ("window_left_causal_in_tile", 1, 8, 2, 384, 384, 128, dict(causal=True, window=(77, -1))),
+    ("gqa_4_1_s512", 1, 32, 8, 512, 512, 128, dict(causal=True)),
+    ("segments_ragged", 2, 8, 2, 200, 200, 128, dict(causal=True, segments=True)),
+    ("softcap_ragged", 1, 8, 2, 130, 190, 128, dict(causal=True, softcap=30.0)),
+    ("fp16_d64", 2, 8, 2, 300, 300, 64, dict(causal=True, dtype=torch.float16)),
+    ("fp16_d128_kv_lens", 1, 8, 2, 200, 200, 128,
+     dict(causal=True, kv_lens=[150], dtype=torch.float16)),
+    ("bf16_d64_gqa", 1, 16, 4, 700, 700, 64, dict(causal=True)),
+]
+BWD_TILING_PACKED = (37, 100, 64, 130)  # prompt lengths of the positions case
+BWD_TILING_DROPOUT = (1, 8, 2, 300, 300, 128)  # (b, h, h_k, sq, sk, d), ALiBi + dropout
+
+
+def check_flash_bwd_tiling(gen, checks, cfg):
+    """K9 + K10 and K11 on FLASH_BWD_TILING under the 3x rule, then with the
+    options (check_flash_bwd_options)."""
+    for name, *shape, opts in FLASH_BWD_TILING:
+        check_flash_bwd(gen, checks, f"tiling.{name}", *shape, opts)
+    check_flash_bwd_options(gen, checks, cfg)
+
+
+def check_flash_bwd_options(gen, checks, cfg):
+    """K9 + K10 and K11 in the options' instantiation under the 3x rule: with
+    explicit positions, segment ids and per-row ALiBi over packed prompts,
+    and with ALiBi and dropout (the oracle given the port's dropout mask)."""
+    from xf_flash_attention_cutlass_tpu_torch.ops.flash_fwd import dropout_keep_mask
+    from xf_flash_attention_cutlass_tpu_torch.utils.testing import alibi_slopes_ref
+
+    tensors, kw = packed_case(gen, cfg, BWD_TILING_PACKED)
+    check_flash_bwd_inputs(checks, "tiling.packed_positions_row_alibi", tensors, kw)
+    b, h, h_k, sq, sk, d = BWD_TILING_DROPOUT
+    (q, k, v, do), _ = flash_case(gen, b, h, h_k, sq, sk, d, {})
+    slopes = torch.from_numpy(alibi_slopes_ref(h)).cuda()
+    kw = dict(causal=True, alibi_slopes=slopes, dropout_p=API_P, dropout_seed=API_SEED)
+    okw = dict(causal=True, alibi_slopes=slopes, dropout_p=API_P,
+               dropout_mask=dropout_keep_mask(API_SEED, API_P, b, h, sq, sk, "cuda"))
+    check_flash_bwd_inputs(checks, "tiling.alibi_dropout", (q, k, v, do), kw, okw)
+
+
+def check_flash_bwd_views(gen, checks, cfg):
+    """q, k, v and dO as the (b, s, h, d) views the model passes, at the
+    training shape: FlashBwdLaunch reads them as they are (no copy) and
+    writes dq, dk, dv in their memory layout; K9 and K10 give the same bits
+    as on contiguous copies, and K11 the same dK, dV bits and its dQ within
+    check_flash_bwd_repeat's bound."""
+    from xf_flash_attention_cutlass_tpu_torch.ops.flash_bwd import FlashBwdLaunch
+    from xf_flash_attention_cutlass_tpu_torch.ops.flash_fwd import flash_fwd_ref
+
+    h, h_k, d, s = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 1024
+    views = [torch.randn((1, s, n, d), generator=gen, device="cuda").bfloat16().transpose(1, 2)
+             for n in (h, h_k, h_k, h)]
+    q, k, v, do = views
+    kw = dict(causal=True)
+    o, lse = flash_fwd_ref(q, k, v, **kw)
+    run = FlashBwdLaunch(q, k, v, o, lse, do, **bwd_launch_kw(kw, d))
+    got = (run.dq(), *run.dkv(), *run.fused())
+    no_copy = all(a.data_ptr() == b.data_ptr() for a, b in zip((run.q, run.k, run.v, run.do),
+                                                                 views))
+    layout = (got[0].stride() == q.stride() and got[1].stride() == k.stride()
+              and got[2].stride() == v.stride() and got[3].stride() == q.stride())
+    checks.add("flash_bwd.bshd_views_no_copy", no_copy and layout, no_copy=no_copy,
+               outputs_in_input_layout=layout)
+    flat = [t.contiguous() for t in views]
+    run_c = FlashBwdLaunch(*flat[:3], o, lse, flat[3], **bwd_launch_kw(kw, d))
+    want = (run_c.dq(), *run_c.dkv(), *run_c.fused())
+    torch.cuda.synchronize()
+    exact = all(torch.equal(a, b) for i, (a, b) in enumerate(zip(got, want)) if i != 3)
+    err, tol = max_err(got[3], want[3]), float(want[0].float().abs().max()) / 128
+    checks.add("flash_bwd.bshd_views_same_result", exact and err <= tol,
+               max_abs_err=max(max_err(a, b) for a, b in zip(got, want)), bit_equal_k9_k10=exact,
+               fused_dq_err=err, fused_dq_tolerance=tol)
+
+
 def check_attention_block_launches(gen, checks, cfg):
     """One attention_block of Llama-8B (one layer, 1024 tokens, random
     weights) under a profiler trace, against attn_qkv alone on the same
@@ -947,6 +1071,7 @@ def check_flash(gen, timer, checks, cfg):
     tensors, kw, worst = check_flash_bwd(gen, checks, "train_s1024", 1, h, h_k, 1024, 1024, d,
                                          dict(causal=True))
     measured.update(time_flash_bwd(timer, tensors, kw, worst))
+    check_flash_bwd_repeat(checks, tensors, kw, "train_s1024")
     del tensors
     for name, *shape, opts in FLASH_OFF_PATH:
         check_flash_fwd(gen, checks, f"other.{name}", *shape, opts)
@@ -1832,6 +1957,52 @@ def k7_build_report(checks, lib_path):
     return report
 
 
+_BWD_NAME = re.compile(r"flash_bwd_(dkv|dq)_kernelI(\w+?)Li(\d+)E(?:Lb([01])E)?Lb([01])E")
+
+
+def bwd_instantiation(mangled):
+    """'dkv_bf16_d128_plain', 'fused_f16_d64_options', 'dq_bf16_d128_plain',
+    ... for a mangled K9-K11 kernel name, else None."""
+    m = _BWD_NAME.search(mangled)
+    if m is None:
+        return None
+    kind = "dq" if m.group(1) == "dq" else ("fused" if m.group(4) == "1" else "dkv")
+    dtype = "bf16" if "bfloat16" in m.group(2) else "f16"
+    return f"{kind}_{dtype}_d{m.group(3)}_{'options' if m.group(5) == '1' else 'plain'}"
+
+
+def flash_bwd_build_report(checks, lib_path):
+    """Registers and spill bytes of every K9-K11 instantiation
+    (build/flash_bwd.log) and the SASS counts of each, with any ptxas line
+    that says wgmma was serialized. Checks that every K10/K11 instantiation
+    holds HGMMA and UTMALDG and no HMMA, that the option-free ones spill
+    nothing, and that K9 keeps its HMMA (mma.sync)."""
+    from xf_flash_attention_cutlass_tpu_torch import _build
+
+    inst = ptxas_usage("flash_bwd", bwd_instantiation)
+    for name, counts in sass_by_function(lib_path).items():
+        label = bwd_instantiation(name)
+        if label is not None:
+            inst.setdefault(label, {}).update(counts)
+    with open(os.path.join(_build.BUILD_DIR, "flash_bwd.log")) as f:
+        serialized = [ln.strip() for ln in f if "serialized" in ln]
+    print(json.dumps({"flash_bwd_build": dict(instantiations=inst, serialized=serialized)}),
+          flush=True)
+    dkv = {n: r for n, r in inst.items() if not n.startswith("dq")}
+    dq = {n: r for n, r in inst.items() if n.startswith("dq")}
+    checks.add("flash_bwd.dkv_sass_wgmma_tma_no_mma_sync",
+               len(dkv) == 16 and all(r.get("HGMMA", 0) > 0 and r.get("UTMALDG", 0) > 0
+                                      and r.get("HMMA", 1) == 0 for r in dkv.values()),
+               sass={n: {op: r.get(op) for op in SASS_OPS} for n, r in dkv.items()})
+    plain = {n: r.get("spill_bytes") for n, r in dkv.items() if n.endswith("_plain")}
+    checks.add("flash_bwd.dkv_option_free_no_spills",
+               len(plain) == 8 and all(b == 0 for b in plain.values()), spill_bytes=plain)
+    checks.add("flash_bwd.dq_keeps_mma_sync",
+               len(dq) == 8 and all(r.get("HMMA", 0) > 0 for r in dq.values()),
+               hmma={n: r.get("HMMA") for n, r in dq.items()})
+    return dict(instantiations=inst, serialized=serialized)
+
+
 # ---- main ---------------------------------------------------------------------
 
 _PKG = "xf_flash_attention_cutlass_tpu_torch/csrc/"
@@ -1928,6 +2099,7 @@ def main():
     checks = Checks()
     report["flash_fwd_build"] = k7_build_report(checks, libs["flash_fwd"])
     report["qmm_build"] = qmm_build_report(checks, libs["qmm"])
+    report["flash_bwd_build"] = flash_bwd_build_report(checks, libs["flash_bwd"])
 
     # 2. kernels against their plain versions, at the main paths' shapes
     cfg = LlamaConfig.llama8b()
@@ -1981,6 +2153,8 @@ def main():
     report["page32_append"] = check_page32_append(gen, timer, checks, cfg)
     measured.update(check_flash(gen, timer, checks, cfg))
     report["flash_fwd_bshd_kernels"] = check_flash_fwd_tiling(gen, checks, cfg)
+    check_flash_bwd_tiling(gen, checks, cfg)
+    check_flash_bwd_views(gen, checks, cfg)
     report["attention_block_kernels"] = check_attention_block_launches(gen, checks, cfg)
     report["sdpa_fwd_bwd_ms"] = measured["flash_bwd.fused"]["library_fwd_bwd_ms"]
     # the option-free kernels against the options' kernels (ALiBi of slope

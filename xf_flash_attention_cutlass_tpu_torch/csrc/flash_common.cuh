@@ -16,12 +16,14 @@
 // So a C tile pair (n-tiles 2i and 2i+1) is exactly the A fragment of k-chunk
 // i: scores and probabilities feed the next product from registers.
 //
-// Shared-memory tiles are stored so that every fragment pair is one aligned
-// 32-bit word: an A operand row-major over its k index, a B operand n-major
-// ("k contiguous"). Where a tensor is the B operand along its rows (V in P.V,
-// K in dS.K, Q and dO in the dK/dV products), the copy into shared memory
+// Shared-memory tiles of the mma.sync kernels (K8, K9) are stored so that
+// every fragment pair is one aligned 32-bit word: an A operand row-major over
+// its k index, a B operand n-major ("k contiguous"). Where a tensor is the B
+// operand along its rows (K in K9's dS K), the copy into shared memory
 // transposes it. Row strides carry 8 elements of padding, which spreads the
-// fragment loads of one warp over all 32 banks.
+// fragment loads of one warp over all 32 banks. K7, K10 and K11 take their
+// tiles by TMA and multiply with wgmma (hopper.cuh) and use only the mask,
+// dropout and recompute pieces here.
 #pragma once
 
 #include <math.h>
@@ -111,32 +113,53 @@ __device__ __forceinline__ void c_to_a(uint32_t a[4], const float c0[4], const f
   a[3] = Mma<T>::pack(c1[2], c1[3]);
 }
 
-// Copy rows [row0, row0 + R) of a (n_rows, D) row-major tensor into dst
-// (row stride ld), zero-filling rows past n_rows. 16-byte loads.
+// Copy rows [row0, row0 + R) of a (n_rows, D) tensor with row stride src_ld
+// (elements, a multiple of 8; the last dimension contiguous) into dst (row
+// stride ld), zero-filling rows past n_rows. 16-byte loads, all of a thread's
+// issued before its first store: with a runtime stride the compiler does not
+// batch them itself (K9 ran about a fifth slower with a load-store loop, on an
+// H100).
 template <typename T, int D, int R>
-__device__ __forceinline__ void copy_rows(T* dst, int ld, const T* src, int row0, int n_rows) {
-  constexpr int kVec = 8;  // elements per 16 bytes
-  for (int i = threadIdx.x; i < R * (D / kVec); i += kThreads) {
-    const int r = i / (D / kVec), c = (i % (D / kVec)) * kVec;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (row0 + r < n_rows)
-      val = *reinterpret_cast<const uint4*>(src + static_cast<size_t>(row0 + r) * D + c);
-    *reinterpret_cast<uint4*>(dst + r * ld + c) = val;
+__device__ __forceinline__ void load_rows(uint4 (&val)[R * D / 8 / kThreads], const T* src,
+                                          int row0, int n_rows, int64_t src_ld, int& r0, int& c) {
+  constexpr int kPerRow = D / 8, kStep = kThreads / kPerRow;
+  static_assert(kThreads % kPerRow == 0 && R % kStep == 0, "whole rows per pass");
+  r0 = threadIdx.x / kPerRow;
+  c = (threadIdx.x % kPerRow) * 8;
+  const T* s = src + (row0 + r0) * src_ld + c;
+#pragma unroll
+  for (int k = 0; k < R / kStep; ++k) {
+    val[k] = make_uint4(0, 0, 0, 0);
+    if (row0 + r0 + k * kStep < n_rows)
+      val[k] = *reinterpret_cast<const uint4*>(s + k * kStep * src_ld);
   }
+}
+
+template <typename T, int D, int R>
+__device__ __forceinline__ void copy_rows(T* dst, int ld, const T* src, int row0, int n_rows,
+                                          int64_t src_ld = D) {
+  constexpr int kStep = kThreads / (D / 8);
+  uint4 val[R / kStep];
+  int r0, c;
+  load_rows<T, D, R>(val, src, row0, n_rows, src_ld, r0, c);
+#pragma unroll
+  for (int k = 0; k < R / kStep; ++k)
+    *reinterpret_cast<uint4*>(dst + (r0 + k * kStep) * ld + c) = val[k];
 }
 
 // The same rows stored transposed: element (r, c) goes to dst[c * ld + r].
 template <typename T, int D, int R>
-__device__ __forceinline__ void copy_rows_t(T* dst, int ld, const T* src, int row0, int n_rows) {
-  constexpr int kVec = 8;
-  for (int i = threadIdx.x; i < R * (D / kVec); i += kThreads) {
-    const int r = i / (D / kVec), c = (i % (D / kVec)) * kVec;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (row0 + r < n_rows)
-      val = *reinterpret_cast<const uint4*>(src + static_cast<size_t>(row0 + r) * D + c);
-    const T* e = reinterpret_cast<const T*>(&val);
+__device__ __forceinline__ void copy_rows_t(T* dst, int ld, const T* src, int row0, int n_rows,
+                                            int64_t src_ld = D) {
+  constexpr int kStep = kThreads / (D / 8);
+  uint4 val[R / kStep];
+  int r0, c;
+  load_rows<T, D, R>(val, src, row0, n_rows, src_ld, r0, c);
 #pragma unroll
-    for (int j = 0; j < kVec; ++j) dst[(c + j) * ld + r] = e[j];
+  for (int k = 0; k < R / kStep; ++k) {
+    const T* e = reinterpret_cast<const T*>(&val[k]);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) dst[(c + j) * ld + r0 + k * kStep] = e[j];
   }
 }
 
@@ -301,6 +324,32 @@ __device__ __forceinline__ bool tiles_meet(const XfaExtras& ex, const Mask& m, i
   if (m.wr >= 0 && kt[0] > qt[1] + m.wr) return false;
   if (m.wl >= 0 && kt[1] < qt[0] - m.wl) return false;
   return kt[2] <= qt[3] && kt[3] >= qt[2];  // segment ranges overlap
+}
+
+// Whether every entry of (query rows [r0, r0 + 64), keys [k0, k0 + 64)) that
+// a valid row holds is visible: then the tile pair needs no per-entry mask
+// (K7, K10, K11). With explicit positions or segment ids only the tile
+// tables can tell, so without them (or outside kExtra) such a pair is a
+// boundary pair.
+template <bool kExtra>
+__device__ __forceinline__ bool tile_interior(const Mask& m, const XfaExtras& ex, int ib, int r0,
+                                              int k0) {
+  if (k0 + kTile > m.kv_len) return false;
+  if (m.qseg != nullptr || m.qpos != nullptr) {
+    if (!kExtra || ex.qtiles == nullptr) return false;
+    const int nqt = (m.sq + kTile - 1) / kTile, nkt = (m.sk + kTile - 1) / kTile;
+    const int32_t* qt = ex.qtiles + (static_cast<size_t>(ib) * nqt + r0 / kTile) * 4;
+    const int32_t* kt = ex.ktiles + (static_cast<size_t>(ib) * nkt + k0 / kTile) * 4;
+    if (m.qseg != nullptr && !(qt[2] == qt[3] && kt[2] == kt[3] && qt[2] == kt[2])) return false;
+    if (m.qpos != nullptr) {
+      if (m.wr >= 0 && kt[1] > qt[0] + m.wr) return false;
+      if (m.wl >= 0 && kt[0] < qt[1] - m.wl) return false;
+      return true;
+    }
+  }
+  if (m.wr >= 0 && k0 + kTile - 1 > r0 + m.offset + m.wr) return false;
+  if (m.wl >= 0 && k0 < r0 + kTile - 1 + m.offset - m.wl) return false;
+  return true;
 }
 
 // The ALiBi slope of query row qi of (ib, ih), or 0 without ALiBi.

@@ -100,29 +100,6 @@ struct FwdParams {
   float softcap, scale;
 };
 
-// Whether every entry of (rows [r0, r0 + 64), keys [k0, k0 + kBK)) that a
-// valid row holds is visible: then the tile needs no per-entry mask.
-template <bool kExtra>
-__device__ __forceinline__ bool interior(const Mask& m, const XfaExtras& ex, int ib, int r0,
-                                         int k0) {
-  if (k0 + kBK > m.kv_len) return false;
-  if (m.qseg != nullptr || m.qpos != nullptr) {
-    if (!kExtra || ex.qtiles == nullptr) return false;
-    const int nqt = (m.sq + kTile - 1) / kTile, nkt = (m.sk + kTile - 1) / kTile;
-    const int32_t* qt = ex.qtiles + (static_cast<size_t>(ib) * nqt + r0 / kTile) * 4;
-    const int32_t* kt = ex.ktiles + (static_cast<size_t>(ib) * nkt + k0 / kTile) * 4;
-    if (m.qseg != nullptr && !(qt[2] == qt[3] && kt[2] == kt[3] && qt[2] == kt[2])) return false;
-    if (m.qpos != nullptr) {
-      if (m.wr >= 0 && kt[1] > qt[0] + m.wr) return false;
-      if (m.wl >= 0 && kt[0] < qt[1] - m.wl) return false;
-      return true;
-    }
-  }
-  if (m.wr >= 0 && k0 + kBK - 1 > r0 + m.offset + m.wr) return false;
-  if (m.wl >= 0 && k0 < r0 + kBQ - 1 + m.offset - m.wl) return false;
-  return true;
-}
-
 template <typename T, int D, bool kExtra>
 __global__ void __launch_bounds__(kThreadsFwd, 2)
     flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
@@ -264,7 +241,7 @@ __global__ void __launch_bounds__(kThreadsFwd, 2)
                   mask.dist(row + 8 * ((i >> 1) & 1), k0 + (i >> 2) * 8 + col + (i & 1));
       }
     }
-    if (!interior<kExtra>(mask, ex, ib, q0, k0)) {
+    if (!tile_interior<kExtra>(mask, ex, ib, q0, k0)) {
 #pragma unroll
       for (int i = 0; i < kBK / 2; ++i)
         if (!mask.keep(row + 8 * ((i >> 1) & 1), k0 + (i >> 2) * 8 + col + (i & 1)))

@@ -19,8 +19,11 @@ CUDA tensors run csrc/flash_bwd.cu: by default the two-pass split, K9
 (dQ) then K10 (dK/dV); ``fused=True`` runs K11, one pass whose dQ is summed
 with f32 atomics into a buffer the wrapper allocates and then casts (atomics
 sum in an order that changes from run to run). ``fused=None`` means two-pass,
-as in the JAX package. CPU tensors run ``flash_bwd_ref``, the plain version,
-for either value of ``fused``: both schedules compute the same function.
+as in the JAX package. The kernels read q, k, v and dO through their strides
+where the tensor maps can (the model's (b, s, h, d) views need no copy) and
+write dq, dk and dv in q's and k's memory layout. CPU tensors run
+``flash_bwd_ref``, the plain version, for either value of ``fused``: both
+schedules compute the same function.
 """
 
 from __future__ import annotations
@@ -44,6 +47,7 @@ from xf_flash_attention_cutlass_tpu_torch.ops.flash_fwd import (
     expand_kv,
     int32_or_none,
     resolve_window,
+    tma_operands,
 )
 from xf_flash_attention_cutlass_tpu_torch.utils import is_cuda
 
@@ -108,13 +112,22 @@ def _lib():
         common = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + [ctypes.c_float] * 2
                   + [ctypes.POINTER(XfaExtras)])
         lib.xfa_flash_bwd_dq.restype = ctypes.c_int
-        lib.xfa_flash_bwd_dq.argtypes = [ctypes.c_void_p] * 7 + common + [ctypes.c_void_p]
+        lib.xfa_flash_bwd_dq.argtypes = [ctypes.c_void_p] * 7 + common + [ctypes.c_void_p] * 2
         lib.xfa_flash_bwd_dkv.restype = ctypes.c_int
         lib.xfa_flash_bwd_dkv.argtypes = (
-            [ctypes.c_void_p] * 9 + common + [ctypes.c_int, ctypes.c_void_p]
+            [ctypes.c_void_p] * 9 + common + [ctypes.c_int] + [ctypes.c_void_p] * 2
         )
         _lib_handle = lib
     return _lib_handle
+
+
+def bwd_block_order(n_kt: int, h_k: int, b: int):
+    """(key tile, kv head, batch) of K10/K11's blocks in launch order, as the
+    kernel decodes blockIdx.x: every (batch, kv head) at key tile 0 first,
+    then tile 1, so under a causal mask the blocks with the most query rows
+    start first and the short ones fill the tail."""
+    nbh = b * h_k
+    return [(i // nbh, i % nbh % h_k, i % nbh // h_k) for i in range(n_kt * nbh)]
 
 
 class FlashBwdLaunch:
@@ -131,7 +144,7 @@ class FlashBwdLaunch:
         b, h, sq, d = q.shape
         h_k, sk = k.shape[1], k.shape[2]
         wl, wr = resolve_window(causal, window)
-        self.q, self.k, self.v, self.do = (t.contiguous() for t in (q, k, v, do))
+        (self.q, self.k, self.v, self.do), self.in_strides = tma_operands(q, k, v, do)
         # Delta = rowsum(dO * O): a cheap reduction left to plain torch, as
         # the JAX package leaves it to XLA
         self.delta = (do.float() * o.float()).sum(dim=-1).contiguous()
@@ -149,9 +162,17 @@ class FlashBwdLaunch:
                      b, h, h_k, sq, sk, d, wl, wr, float(scale), float(softcap),
                      self.extras.ref())
 
+    def _strides(self, dq, dk, dv):
+        """The strides argument: q, k, v, dO, then the outputs dq (or K11's
+        f32 buffer), dk, dv, each (batch, head, row) in elements."""
+        outs = [s for t in (dq, dk, dv) for s in t.stride()[:3]]
+        return (ctypes.c_int64 * 21)(*self.in_strides, *outs)
+
     def dq(self) -> torch.Tensor:
-        dq = torch.empty_like(self.q)
+        dq = torch.empty_like(self.q)  # q's memory layout
+        strides = self._strides(dq, self.k, self.v)
         rc = _lib().xfa_flash_bwd_dq(*self.ins, dq.data_ptr(), *self.tail,
+                                     ctypes.cast(strides, ctypes.c_void_p),
                                      _build.stream_handle())
         _build.check(rc, "flash_bwd (dq)")
         _build.LAUNCHES["flash_bwd.dq"] += 1
@@ -159,17 +180,21 @@ class FlashBwdLaunch:
 
     def dkv(self) -> Tuple[torch.Tensor, torch.Tensor]:
         dk, dv = torch.empty_like(self.k), torch.empty_like(self.v)
+        strides = self._strides(self.q, dk, dv)
         rc = _lib().xfa_flash_bwd_dkv(*self.ins, dk.data_ptr(), dv.data_ptr(), None,
-                                      *self.tail, 0, _build.stream_handle())
+                                      *self.tail, 0, ctypes.cast(strides, ctypes.c_void_p),
+                                      _build.stream_handle())
         _build.check(rc, "flash_bwd (dkv)")
         _build.LAUNCHES["flash_bwd.dkv"] += 1
         return dk, dv
 
     def fused(self) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         dk, dv = torch.empty_like(self.k), torch.empty_like(self.v)
-        dq_acc = torch.zeros(self.q.shape, dtype=torch.float32, device=self.q.device)
+        dq_acc = torch.zeros_like(self.q, dtype=torch.float32)  # q's memory layout
+        strides = self._strides(dq_acc, dk, dv)
         rc = _lib().xfa_flash_bwd_dkv(*self.ins, dk.data_ptr(), dv.data_ptr(),
                                       dq_acc.data_ptr(), *self.tail, 1,
+                                      ctypes.cast(strides, ctypes.c_void_p),
                                       _build.stream_handle())
         _build.check(rc, "flash_bwd (fused)")
         _build.LAUNCHES["flash_bwd.fused"] += 1

@@ -378,6 +378,16 @@ def tma_strides(t: torch.Tensor):
     return out
 
 
+def tma_operands(*tensors):
+    """The tensors as the tensor maps of K7 and K9-K11 read them: each one
+    itself where ``tma_strides`` takes it (the model's (b, s, h, d) views
+    do), else a contiguous copy; and their (batch, head, row) element
+    strides, flat."""
+    out = [t if tma_strides(t) is not None else t.clone(memory_format=torch.contiguous_format)
+           for t in tensors]
+    return out, [st for t in out for st in tma_strides(t)]
+
+
 def _flash_fwd_cuda(q, k, v, scale, causal, window, softcap, kv_lens, q_seg, kv_seg, ex):
     """K7 on CUDA tensors. q, k and v are read through their strides where
     TMA can (tma_strides) and copied otherwise; q is not pre-scaled (the
@@ -386,11 +396,9 @@ def _flash_fwd_cuda(q, k, v, scale, causal, window, softcap, kv_lens, q_seg, kv_
     b, h, sq, d = q.shape
     h_k, sk = k.shape[1], k.shape[2]
     wl, wr = resolve_window(causal, window)
-    q, k, v = (t if tma_strides(t) is not None else t.clone(memory_format=torch.contiguous_format)
-               for t in (q, k, v))
+    (q, k, v), in_strides = tma_operands(q, k, v)
     o = torch.empty_like(q)  # q's layout: (b, s, h, d) views give a (b, s, h, d) O
-    strides = (ctypes.c_int64 * 12)(*tma_strides(q), *tma_strides(k), *tma_strides(v),
-                                    *o.stride()[:3])
+    strides = (ctypes.c_int64 * 12)(*in_strides, *o.stride()[:3])
     lens, qseg, kseg = int32_or_none(kv_lens), int32_or_none(q_seg), int32_or_none(kv_seg)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     rc = _lib().xfa_flash_fwd(
