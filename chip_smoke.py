@@ -14,46 +14,46 @@ Phases, each of which raises (exit code != 0) when it fails:
    instantiation: it fails unless each wgmma instantiation holds HGMMA and
    UTMALDG and no HMMA, and the WMMA ones (decode, ragged) keep their HMMA.
    The same for K9-K11 (`flash_bwd_build`), per instantiation, with any
-   ptxas line saying wgmma was serialized: it fails unless every K10/K11
-   instantiation holds HGMMA and UTMALDG and no HMMA, the option-free ones
-   spill nothing, and K9 keeps its HMMA (mma.sync).
+   ptxas line saying wgmma was serialized: it fails unless every K9, K10
+   and K11 instantiation holds HGMMA and UTMALDG and no HMMA and the
+   option-free ones spill nothing.
 2. Hold each kernel against its plain PyTorch version on the card, at the
-   shapes the main paths give it (Llama-8B widths), and time the kernel,
-   the plain version and, where one exists, a PyTorch library call that
-   computes the same function (a yardstick only; the port never calls it).
-   Bucketed prefill's shapes are all covered: K3 at m = 256-2048, K5
-   appending a whole bucket at position 0 through a trash-tailed block-table
-   row, K7 at every bucket. K3/K4's wgmma kernel (m > 16) is checked for
-   bf16 weights without scale, int8 and fp8, stacked and single, at m = 17,
-   64, 100, 255, 256 and 2048 on Llama-8B shapes, its weight conversion bit
-   for bit on every byte value, and it is timed at m = 256 and 2048 beside
-   the WMMA kernel on the same shapes; `qmm_host_us` is the host's time for
-   one launch of each. The dense flash kernels are also held against a
-   dense f32 oracle (utils/testing.py): K7 at the bucketed-prefill and
-   training shapes and at s = 2048 causal under the 2x rule (bucket 1024,
-   the training shape and s = 2048 timed), K9/K10/K11 at the training shape
-   under the 3x rule, K10 run twice bit for bit, K11's dK/dV equal to K10's
-   and its dQ against K9's. Shapes off the paths (ragged matmuls, page 16 and 32,
-   head_dim 64, unaligned lengths, window, softcap, segment ids, GQA 4:1)
-   are checked too, untimed; K7 also where its tiling can break it
+   shapes the main paths give it (Llama-8B widths), and time the kernel, the
+   plain version and, where one exists, a PyTorch library call that computes
+   the same function (a yardstick only; the port never calls it). Bucketed
+   prefill's shapes are all covered: K3 at m = 256-2048, K5 appending a whole
+   bucket at position 0 through a trash-tailed block-table row, K7 at every
+   bucket. K3/K4's wgmma kernel (m > 16) is checked for bf16 weights without
+   scale, int8 and fp8, stacked and single, at m = 17, 64, 100, 255, 256 and
+   2048 on Llama-8B shapes, its weight conversion bit for bit on every byte
+   value, and it is timed at m = 256 and 2048 beside the WMMA kernel on the
+   same shapes; `qmm_host_us` is the host's time for one launch of each. The
+   dense flash kernels are also held against a dense f32 oracle
+   (utils/testing.py): K7 at the bucketed-prefill and training shapes and at
+   s = 2048 causal under the 2x rule (bucket 1024, the training shape and
+   s = 2048 timed), K9/K10/K11 at the training shape under the 3x rule, K9 and
+   K10 each run twice bit for bit, K11's dK/dV equal to K10's and its dQ
+   against K9's. Shapes off the paths (ragged matmuls, page 16 and 32,
+   head_dim 64, unaligned lengths, window, softcap, segment ids, GQA 4:1) are
+   checked too, untimed; K7 also where its tiling can break it
    (FLASH_FWD_TILING: sq = 1, sk below one tile, kv_lens and window edges
    inside a tile, fp16 at d = 64), and on (b, s, h, d) views, bit for bit
    against contiguous copies and launching its kernel alone (a profiler
    trace); K9-K11 where their tiling can break them (FLASH_BWD_TILING, then
    positions with per-row ALiBi over packed prompts and ALiBi with dropout,
-   both routes), and on the model's (b, s, h, d) views (no copy of q, k, v
-   or dO, outputs in their layout, the same bits as contiguous copies); one
-   Llama-8B attention_block launches nothing between
-   attn_qkv's kernels and K7's. K1, K7 and K9-K11 at the main paths' shapes
-   are also timed in the instantiation that carries the options, with
-   ALiBi of slope 0. The API's options at the `api` path's shapes: K7 with
-   ALiBi and dropout and with per-row slopes and explicit positions over the packed
-   serving prompts, K8 (the probability plane) on the dense case and on the
-   packed plane, entry by entry against its plain version (its dropout
-   signs equal, 0 mismatches), K9/K10/K11 with ALiBi and dropout (3x rule
-   against the oracle's gradients, the mask taken from K8's signs) and over
-   the packed prompts, K1 with each of window, softcap, ALiBi and leftpad,
-   and the realized drop fraction within 0.01 of p.
+   both routes), and on the model's (b, s, h, d) views (no copy of q, k, v or
+   dO, outputs in their layout, the same bits as contiguous copies); one
+   Llama-8B attention_block launches nothing between attn_qkv's kernels and
+   K7's. K1, K7 and K9-K11 at the main paths' shapes are also timed in the
+   instantiation that carries the options, with ALiBi of slope 0. The API's
+   options at the `api` path's shapes: K7 with ALiBi and dropout and with
+   per-row slopes and explicit positions over the packed serving prompts, K8
+   (the probability plane) on the dense case and on the packed plane, entry by
+   entry against its plain version (its dropout signs equal, 0 mismatches),
+   K9/K10/K11 with ALiBi and dropout (3x rule against the oracle's gradients,
+   the mask taken from K8's signs) and over the packed prompts, K1 with each
+   of window, softcap, ALiBi and leftpad, and the realized drop fraction
+   within 0.01 of p.
 3. Train: Llama-8B widths, all 32 layers, bf16, one 1024-token batch from
    the seed, three plain SGD steps through K7 forward and K9/K10 backward
    and one through K11; every loss finite and below the one before.
@@ -775,8 +775,9 @@ def bwd_launch_kw(kw, d):
 
 
 def check_flash_bwd_repeat(checks, tensors, kw, name):
-    """K10 twice on the same inputs gives the same dK and dV bit for bit (no
-    atomics: the warpgroups' sums are added in a fixed order); K11's dK and
+    """K9 twice on the same inputs gives the same dQ bit for bit (no atomics:
+    a block sums its rows' dQ in registers); K10 twice the same dK and dV
+    (the warpgroups' sums are added in a fixed order); K11's dK and
     dV equal K10's bit for bit (the same products); K11's dQ, summed by f32
     atomics in a changing order, agrees with K9's within two bf16 ulps of the
     largest |dQ| (the atomics' order, and K9's exp against K11's exp2 in the
@@ -786,9 +787,11 @@ def check_flash_bwd_repeat(checks, tensors, kw, name):
     q, k, v, o, lse, do = tensors
     run = FlashBwdLaunch(q, k, v, o, lse, do, **bwd_launch_kw(kw, q.shape[-1]))
     (dk1, dv1), (dk2, dv2) = run.dkv(), run.dkv()
-    dq9 = run.dq()
+    dq9, dq9_again = run.dq(), run.dq()
     dq11, dk11, dv11 = run.fused()
     torch.cuda.synchronize()
+    checks.add(f"flash_bwd.dq_bit_reproducible[{name}]", bool(torch.equal(dq9, dq9_again)),
+               max_abs_err=max_err(dq9, dq9_again), tolerance=0.0)
     same = bool(torch.equal(dk1, dk2) and torch.equal(dv1, dv2))
     checks.add(f"flash_bwd.dkv_bit_reproducible[{name}]", same,
                max_abs_err=max(max_err(dk1, dk2), max_err(dv1, dv2)), tolerance=0.0)
@@ -1974,9 +1977,9 @@ def bwd_instantiation(mangled):
 def flash_bwd_build_report(checks, lib_path):
     """Registers and spill bytes of every K9-K11 instantiation
     (build/flash_bwd.log) and the SASS counts of each, with any ptxas line
-    that says wgmma was serialized. Checks that every K10/K11 instantiation
-    holds HGMMA and UTMALDG and no HMMA, that the option-free ones spill
-    nothing, and that K9 keeps its HMMA (mma.sync)."""
+    that says wgmma was serialized. Checks that every K9, K10 and K11
+    instantiation holds HGMMA and UTMALDG and no HMMA (mma.sync), and that
+    the option-free ones spill nothing."""
     from xf_flash_attention_cutlass_tpu_torch import _build
 
     inst = ptxas_usage("flash_bwd", bwd_instantiation)
@@ -1997,9 +2000,13 @@ def flash_bwd_build_report(checks, lib_path):
     plain = {n: r.get("spill_bytes") for n, r in dkv.items() if n.endswith("_plain")}
     checks.add("flash_bwd.dkv_option_free_no_spills",
                len(plain) == 8 and all(b == 0 for b in plain.values()), spill_bytes=plain)
-    checks.add("flash_bwd.dq_keeps_mma_sync",
-               len(dq) == 8 and all(r.get("HMMA", 0) > 0 for r in dq.values()),
-               hmma={n: r.get("HMMA") for n, r in dq.items()})
+    checks.add("flash_bwd.dq_sass_wgmma_tma_no_mma_sync",
+               len(dq) == 8 and all(r.get("HGMMA", 0) > 0 and r.get("UTMALDG", 0) > 0
+                                    and r.get("HMMA", 1) == 0 for r in dq.values()),
+               sass={n: {op: r.get(op) for op in SASS_OPS} for n, r in dq.items()})
+    plain = {n: r.get("spill_bytes") for n, r in dq.items() if n.endswith("_plain")}
+    checks.add("flash_bwd.dq_option_free_no_spills",
+               len(plain) == 4 and all(b == 0 for b in plain.values()), spill_bytes=plain)
     return dict(instantiations=inst, serialized=serialized)
 
 

@@ -1,21 +1,22 @@
-"""Staged bring-up and timing of K10/K11 (the dK/dV backward and its fused
-one-pass form) on one H100.
+"""Staged bring-up and timing of the dense backward kernels K9 (dQ), K10
+(dK/dV) and K11 (one pass) on one H100.
 
     python3 flash_bwd_bringup.py [--seed N]
 
 Builds csrc/flash_bwd.cu alone, prints its `flash_bwd_build` line
 (registers, spills, SASS counts and any ptxas line saying wgmma was
-serialized), then checks the kernels stage by stage with chip_smoke.py's
-checks under the 3x rule, both routes (K9 + K10, and K11) each time, and
-prints the failed checks of each stage:
+serialized) and K9's part of it (`k9_build`), then checks the kernels stage
+by stage with chip_smoke.py's checks under the 3x rule, both routes (K9 +
+K10, and K11) each time, and prints the failed checks of each stage and
+K9's worst dQ error against its tolerance:
 (a) option-free shapes, small then the training shape; (b) the options'
 instantiation (ALiBi with dropout, explicit positions with per-row ALiBi);
-(c) K10 twice bit for bit, K11's dK/dV against K10's and its dQ against
-K9's; (d) the backward tiling cases and the model's (b, s, h, d) views. Last,
-it times K9, K10 and K11 at the training shape and with ALiBi and dropout
-at the api path's shape. A descriptor or layout mistake shows as wrong
-numbers, not a fault, so a change to the kernels is run here before
-chip_smoke.py. Needs a CUDA device.
+(c) the backward tiling cases and the model's (b, s, h, d) views; (d) K9
+and K10 each twice bit for bit, K11's dK/dV against K10's and its dQ
+against K9's. Last, it times K9, K10 and K11 at the training shape and with
+ALiBi and dropout at the api path's shape. A descriptor or layout mistake
+shows as wrong numbers, not a fault, so a change to the kernels is run here
+before chip_smoke.py. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -39,12 +40,16 @@ SMALL = [("small_64x64", 1, 2, 2, 64, 64, 128, dict()),
 
 
 def stage(checks, name, fn):
-    """Run fn, then print the failures of each route among the checks it added."""
+    """Run fn, then print the failures among the checks it added and K9's
+    worst dQ error (two-pass route) as a share of its tolerance."""
     n0 = len(checks.cases)
     fn()
     new = checks.cases[n0:]
     failed = [c["case"] for c in new if not c["ok"]]
-    print(json.dumps({"stage": name, "cases": len(new), "failed": failed}), flush=True)
+    dq = [(c["dq_err"] / c["dq_tolerance"], c["case"]) for c in new
+          if c["case"].startswith("flash_bwd.two_pass.")]
+    print(json.dumps({"stage": name, "cases": len(new), "failed": failed,
+                      "k9_worst_err_share": max(dq) if dq else None}), flush=True)
     return not failed
 
 
@@ -72,7 +77,9 @@ def bring_up(seed, cfg):
     lib = _build.build_all()["flash_bwd"]
     print(json.dumps({"build_s": time.perf_counter() - t0}), flush=True)
     checks = cs.Checks()
-    cs.flash_bwd_build_report(checks, lib)
+    inst = cs.flash_bwd_build_report(checks, lib)["instantiations"]
+    print(json.dumps({"k9_build": {n: r for n, r in inst.items() if n.startswith("dq_")}}),
+          flush=True)
     gen = torch.Generator(device="cuda").manual_seed(seed)
     h, h_k, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     train = {}
@@ -95,7 +102,7 @@ def bring_up(seed, cfg):
     ok = True
     for name, fn in (("a_option_free", plain),
                      ("b_options", lambda: cs.check_flash_bwd_options(gen, checks, cfg)),
-                     ("c_repeat_and_fused", repeat), ("d_tiling_and_views", tiling)):
+                     ("c_tiling_and_views", tiling), ("d_repeat_and_fused", repeat)):
         ok = stage(checks, name, fn) and ok
     timer = cs.Timer()
     tensors, kw, worst = train["x"]

@@ -10,8 +10,8 @@
 // JAX package leaves it to XLA. P is rounded to dO's dtype for dV, dS to Q's
 // for dK and to K's for dQ, as the plain version does. Then
 //   K9:  one block per (batch, q head, 64-row q tile), a loop over the key
-//        tiles its rows see; dQ += dS K sums in f32 registers (no atomics).
-//        mma.sync fed from padded shared memory by synchronous copies.
+//        tiles its rows see; dQ += dS K sums in f32 registers (no atomics,
+//        so K9 is bit-reproducible).
 //   K10: one block per (batch, kv head, 64-key tile), a loop over the GQA
 //        group's q heads and the 64-row q tiles that see its keys;
 //        dV += P^T dO and dK += dS^T Q sum in f32 registers, so the GQA head
@@ -19,6 +19,28 @@
 //   K11: K10's block and loop, plus dQ: the tile's dS K is added to an f32 dQ
 //        buffer with atomics, whose order changes from run to run, so dQ of
 //        K11 is not bit-reproducible; it agrees with K9 to f32 rounding.
+//
+// K9 on Hopper (hopper.cuh), on K7's skeleton (flash_fwd.cu):
+// - A producer warpgroup (one lane; it gives its registers to the consumer,
+//   setmaxnreg) TMA-loads the block's Q and dO tiles once, then the K and
+//   V tiles of every live key tile into a ring of kStagesDq stages with full
+//   and empty mbarriers (128-byte swizzle; the tensor maps take the caller's
+//   strides, and TMA zero-fills rows past sq and sk; rows past sq take
+//   LSE = +huge, so they give P = 0).
+// - One consumer warpgroup owns the 64 query rows, with their LSE, Delta and
+//   ALiBi slope in registers. Per key tile: S = Q K^T and dP = dO V^T by
+//   wgmma (M = 64 queries, N = 64 keys, both operands K-major), P and dS per
+//   entry in the accumulator layout (rows are queries, as in K7, so the
+//   mask, ALiBi distance and dropout apply with row = first row + 16 warp +
+//   lane / 4), then dQ += dS K by wgmma with dS repacked from the
+//   accumulators as the A registers and K read as an MN-major B operand
+//   straight from the ring stage: K is never transposed by a copy. The
+//   per-entry mask runs on boundary tiles only; in the options'
+//   instantiation from a rolled loop, and lanes pair up on each Philox call
+//   (dropout_bits_q). Two blocks fit on an SM, so one block's recompute
+//   overlaps the other's products.
+// - Blocks run heaviest first: the last q tiles of every (batch, head)
+//   launch first, K7's order (ops/flash_fwd.py fwd_block_order).
 //
 // K10 and K11 on Hopper (hopper.cuh):
 // - The K and V tiles of the block's 64 keys are TMA-loaded once and stay in
@@ -63,8 +85,8 @@
 // replays the forward's mask) has dV's P and dS's dP zeroed, the kept ones
 // scaled by 1 / (1 - p). K10 and K11 key each group member by its own q head.
 //
-// Bound on an H100: operations (four 64 x 64 x d products per live tile pair
-// in K10, five in K11, three in K9, against two tiles of Q and dO read).
+// Bound on an H100: operations (three 64 x 64 x d products per live tile
+// pair in K9, four in K10, five in K11, against two 64 x d tiles read a pair).
 #include <type_traits>
 
 #include "flash_common.cuh"
@@ -92,140 +114,316 @@ struct BwdArgs {
   XfaExtras ex;
 };
 
-template <int D>
-constexpr int dq_smem_bytes() {
-  return 2 * (2 * kBQ * (D + kPad) + 2 * kBK * (D + kPad) + D * (kBK + kPad));
-}
+using namespace hopper;
 
-// ---- K9: dQ -------------------------------------------------------------------
+constexpr float kLog2e = 1.4426950408889634f;
 
-template <typename T, int D, bool kExtra>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(BwdArgs a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int LD = D + kPad, LDT = kBK + kPad;
-  T* qs = reinterpret_cast<T*>(smem);
-  T* dos = qs + kBQ * LD;
-  T* ks = dos + kBQ * LD;
-  T* vs = ks + kBK * LD;
-  T* kt = vs + kBK * LD;  // K^T: (D, kBK)
+// What the kernels read besides the tensor maps (q, k, v, dO).
+struct BwdParams {
+  const float* lse;    // (b, h, sq)
+  const float* delta;  // (b, h, sq)
+  void* dq;            // K9: dq in T; K11: the f32 buffer dQ is added into
+  void* dk;
+  void* dv;
+  int64_t dq_s[3], dk_s[3], dv_s[3];  // element strides (batch, head, row)
+  const int32_t* kv_lens;
+  const int32_t* qseg;
+  const int32_t* kseg;
+  int b, h, h_k, sq, sk, wl, wr;
+  float scale, softcap;
+};
 
-  const int iq = blockIdx.x, ih = blockIdx.y, ib = blockIdx.z;
-  const int ihk = ih / (a.h / a.h_k);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int q0 = iq * kBQ;
-  const size_t bh = static_cast<size_t>(ib) * a.h + ih;
-  auto base = [&](const void* t, Operand o, int head) {
-    return static_cast<const T*>(t) + ib * a.st[o][0] + head * a.st[o][1];
-  };
-  const T* qb = base(a.q, kQ, ih);
-  const T* dob = base(a.dout, kDO, ih);
-  const T* kb = base(a.k, kK, ihk);
-  const T* vb = base(a.v, kV, ihk);
-  Mask mask = make_mask(ib, a.sq, a.sk, a.wl, a.wr, a.kv_lens, a.qseg, a.kseg, a.ex);
-  if constexpr (!kExtra) mask.qpos = mask.kpos = nullptr;
-
-  const int row = q0 + warp * 16 + (lane >> 2);  // and row + 8
-  const int col = (lane & 3) * 2;
-  float lse_r[2], delta_r[2], slope[2] = {0.f, 0.f};
+// rows krow, krow + 8 of a 64 x D accumulator (wgmma layout) as T pairs
+template <typename T, int D>
+__device__ __forceinline__ void store_rows(T* base, int64_t row_stride, const float (&x)[D / 2],
+                                           int krow, int n_rows, int col) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int qi = min(row + 8 * r, a.sq - 1);
-    lse_r[r] = safe_lse(static_cast<const float*>(a.lse)[bh * a.sq + qi]);
-    delta_r[r] = static_cast<const float*>(a.delta)[bh * a.sq + qi];
-    if constexpr (kExtra) slope[r] = alibi_slope(a.ex, ib, ih, a.h, a.sq, qi);
-  }
-  const bool dropout = kExtra && a.ex.drop_thresh != 0;
-  const float drop_scale = kExtra ? a.ex.drop_scale : 1.f;
-
-  copy_rows<T, D, kBQ>(qs, LD, qb, q0, a.sq, a.st[kQ][2]);
-  copy_rows<T, D, kBQ>(dos, LD, dob, q0, a.sq, a.st[kDO][2]);
-
-  float acc[D / 8][4];
+    const int kj = krow + 8 * r;
+    if (kj >= n_rows) continue;
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<uint32_t*>(base + kj * row_stride + n * 8 + col) =
+          Mma<T>::pack(x[4 * n + 2 * r], x[4 * n + 2 * r + 1]);
+  }
+}
 
+// ---- K9: dQ on Hopper ---------------------------------------------------------
+
+constexpr int kStagesDq = 2;          // K/V ring depth
+constexpr int kDqThreads = 128 + 128;  // the consumer warpgroup, then the producer warpgroup
+// Two blocks an SM. ptxas budgets registers by warpgroup: with a lone
+// producer warp it left the consumer 168 registers and d = 128 spilled, so
+// the producer warpgroup hands its registers to the consumer (setmaxnreg).
+constexpr int kDqProducerRegs = 40, kDqConsumerRegs = 216;
+static_assert(2 * 128 * (kDqProducerRegs + kDqConsumerRegs) <= 65536, "register file");
+
+// Shared memory of a K9 block, from a 1024-byte aligned base: the Q and the
+// dO tile (D / 64 sub-tiles of 64 rows x 64 columns each), the ring of (K
+// tile, V tile) stages (the same shape), then the barriers.
+template <int D>
+struct DqLayout {
+  static constexpr int kSub = D / 64;
+  static constexpr int kTileBytes = 64 * D * 2;
+  static constexpr int kRingOffset = 2 * kTileBytes;
+  static constexpr int kStageBytes = 2 * kTileBytes;
+  static constexpr int kBarOffset = kRingOffset + kStagesDq * kStageBytes;
+  static constexpr int kBytes = kBarOffset + 8 * (1 + 2 * kStagesDq) + 1024;  // + alignment
+  static_assert(2 * kBytes <= 232448, "two blocks an SM");
+};
+
+// Dropout bits of a thread's 32 entries in the accumulator layout (bit i:
+// entry i, query row0 + 8 ((i >> 1) & 1), key k0 + 8 (i >> 2) + col + (i & 1),
+// was dropped). Lanes lane and lane ^ 1 need the same 16 Philox calls (their
+// keys share each group of four), so each makes the 8 of one of the two rows
+// and they trade the packed drop bits.
+__device__ __forceinline__ uint32_t dropout_bits_q(const XfaExtras& ex, int ib, int ih, int row0,
+                                                   int k0, int col, int lane) {
+  const int mine = lane & 1;  // this lane's calls are row row0 + 8 mine's
+  uint32_t made = 0;          // bit 4 j + w: word w of the call of key group j dropped
+#pragma unroll 1
+  for (int j = 0; j < kBK / 8; ++j) {
+    const uint4 w = dropout_words(ex, ib, ih, row0 + 8 * mine, k0 + 8 * j + (col & 4));
+    made |= ((w.x >= ex.drop_thresh ? 0u : 1u) | (w.y >= ex.drop_thresh ? 0u : 2u) |
+             (w.z >= ex.drop_thresh ? 0u : 4u) | (w.w >= ex.drop_thresh ? 0u : 8u))
+            << (4 * j);
+  }
+  const uint32_t other = __shfl_xor_sync(0xffffffffu, made, 1);
+  uint32_t dropped = 0;
+#pragma unroll
+  for (int i = 0; i < kBK / 2; ++i) {
+    const uint32_t src = ((i >> 1) & 1) == mine ? made : other;
+    dropped |= ((src >> (4 * (i >> 2) + (col & 2) + (i & 1))) & 1u) << i;
+  }
+  return dropped;
+}
+
+template <typename T, int D, bool kExtra>
+__global__ void __launch_bounds__(kDqThreads, 2)
+    flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
+                        const __grid_constant__ CUtensorMap tm_k,
+                        const __grid_constant__ CUtensorMap tm_v,
+                        const __grid_constant__ CUtensorMap tm_do, const BwdParams p,
+                        const XfaExtras ex) {
+  using L = DqLayout<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::kBarOffset);
+  uint64_t* q_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + kStagesDq;
+  unsigned char* q_tile = smem;
+  unsigned char* do_tile = smem + L::kTileBytes;
+  auto k_tile = [&](int st) { return smem + L::kRingOffset + st * L::kStageBytes; };
+  auto v_tile = [&](int st) { return k_tile(st) + L::kTileBytes; };
+
+  // heaviest first: the last q tiles of every (batch, head) launch first
+  const int nbh = p.b * p.h;
+  const int n_qt = (p.sq + kBQ - 1) / kBQ;
+  const int iq = n_qt - 1 - static_cast<int>(blockIdx.x) / nbh;
+  const int ih = static_cast<int>(blockIdx.x) % nbh % p.h;
+  const int ib = static_cast<int>(blockIdx.x) % nbh / p.h;
+  const int ihk = ih / (p.h / p.h_k);
+  const int q0 = iq * kBQ;
+  Mask mask = make_mask(ib, p.sq, p.sk, p.wl, p.wr, p.kv_lens, p.qseg, p.kseg, ex);
+  if constexpr (!kExtra) mask.qpos = mask.kpos = nullptr;
+
+  // the key tiles the rows can see; with tile tables, those whose positions
+  // and segments can meet the rows', numbered alike by producer and consumers
   int k_lo, k_hi;
-  mask.key_range(q0, min(q0 + kBQ, a.sq), k_lo, k_hi);
-  for (int k0 = (k_lo / kBK) * kBK; k0 < k_hi; k0 += kBK) {
-    if constexpr (kExtra) {
-      if (!tiles_meet(a.ex, mask, ib, q0, k0)) continue;  // uniform over the block
-    }
-    __syncthreads();
-    copy_rows<T, D, kBK>(ks, LD, kb, k0, a.sk, a.st[kK][2]);
-    copy_rows<T, D, kBK>(vs, LD, vb, k0, a.sk, a.st[kV][2]);
-    copy_rows_t<T, D, kBK>(kt, LDT, kb, k0, a.sk, a.st[kK][2]);
-    __syncthreads();
+  mask.key_range(q0, min(q0 + kBQ, p.sq), k_lo, k_hi);
+  const int k_first = (k_lo / kBK) * kBK;
+  auto needs = [&](int k0) {
+    if constexpr (kExtra) return tiles_meet(ex, mask, ib, q0, k0);
+    return true;
+  };
 
-    float s[kBK / 8][4], dp[kBK / 8][4];
-#pragma unroll
-    for (int j = 0; j < kBK / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t qf[4], df[4];
-      load_a(qf, qs + warp * 16 * LD + kk * 16, LD, lane);
-      load_a(df, dos + warp * 16 * LD + kk * 16, LD, lane);
-#pragma unroll
-      for (int j = 0; j < kBK / 8; ++j) {
-        uint32_t bf[2];
-        load_b(bf, ks + j * 8 * LD + kk * 16, LD, lane);
-        Mma<T>::run(s[j], qf, bf);
-        load_b(bf, vs + j * 8 * LD + kk * 16, LD, lane);
-        Mma<T>::run(dp[j], df, bf);
-      }
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int st = 0; st < kStagesDq; ++st) {
+      mbar_init(&full[st], 1);
+      mbar_init(&empty[st], 1);
     }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {  // the producer warpgroup; one lane issues
+    setmaxnreg_dec<kDqProducerRegs>();
+    if (threadIdx.x == 128) {
+      mbar_arrive_expect_tx(q_full, 2 * L::kTileBytes);
 #pragma unroll
-    for (int j = 0; j < kBK / 8; ++j) {
+      for (int s = 0; s < L::kSub; ++s) {
+        tma_load_4d(q_tile + s * kBQ * 128, &tm_q, q_full, s * 64, q0, ih, ib);
+        tma_load_4d(do_tile + s * kBQ * 128, &tm_do, q_full, s * 64, q0, ih, ib);
+      }
+      int it = 0;
+      for (int k0 = k_first; k0 < k_hi; k0 += kBK) {
+        if (!needs(k0)) continue;
+        const int st = it % kStagesDq;
+        const uint32_t phase = (it / kStagesDq) & 1;
+        ++it;
+        mbar_wait(&empty[st], phase ^ 1);
+        mbar_arrive_expect_tx(&full[st], L::kStageBytes);
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int qi = row + 8 * r, kj = k0 + j * 8 + col;
-        float z[2] = {drop_scale, drop_scale};
-        if (dropout) {
-          bool keep0, keep1;
-          dropout_keep2(a.ex, ib, ih, qi, kj, keep0, keep1);
-          z[0] = keep0 ? drop_scale : 0.f;
-          z[1] = keep1 ? drop_scale : 0.f;
-        }
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const int e = 2 * r + c;
-          const float bias = kExtra ? slope[r] * mask.dist(qi, kj + c) : 0.f;
-          float p;
-          recompute_p_ds(s[j][e], dp[j][e], lse_r[r], delta_r[r], mask.keep(qi, kj + c),
-                         a.scale, a.softcap, bias, z[c], p, s[j][e]);  // s now holds dS
+        for (int s = 0; s < L::kSub; ++s) {
+          tma_load_4d(k_tile(st) + s * kBK * 128, &tm_k, &full[st], s * 64, k0, ihk, ib);
+          tma_load_4d(v_tile(st) + s * kBK * 128, &tm_v, &full[st], s * 64, k0, ihk, ib);
         }
       }
     }
-    // dQ += dS K, dS rounded to K's dtype
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      uint32_t af[4];
-      c_to_a<T>(af, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        uint32_t bf[2];
-        load_b(bf, kt + n * 8 * LDT + kk * 16, LDT, lane);
-        Mma<T>::run(acc[n], af, bf);
-      }
-    }
+    return;
   }
 
-  T* dqb = static_cast<T*>(a.dq) + ib * a.st[kDQ][0] + ih * a.st[kDQ][1];
+  // ---- the consumer warpgroup: rows row, row + 8 of each warp's 16 ----
+  setmaxnreg_inc<kDqConsumerRegs>();
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int row = q0 + warp * 16 + (lane >> 2);
+  const int col = (lane & 3) * 2;  // its key columns in an 8-column group
+  const size_t bh = static_cast<size_t>(ib) * p.h + ih;
+  const bool dropout = kExtra && ex.drop_thresh != 0;
+  const float drop_scale = kExtra ? ex.drop_scale : 1.f;
+  const bool general = kExtra || p.softcap > 0.f;  // else no softcap, ALiBi or dropout
+  const bool alibi = kExtra && (ex.alibi != nullptr || ex.row_slopes != nullptr);
+  const float scale_log2 = p.scale * kLog2e;
+  // per row: LSE (rows past sq: +huge, so P = 0), Delta, ALiBi slope, position
+  float lse_r[2], lse2[2], delta_r[2], slope[2] = {0.f, 0.f}, qpos_f[2] = {0.f, 0.f};
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int qi = row + 8 * r;
-    if (qi >= a.sq) continue;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<uint32_t*>(dqb + qi * a.st[kDQ][2] + n * 8 + col) =
-          Mma<T>::pack(acc[n][2 * r], acc[n][2 * r + 1]);
+    const bool live = qi < p.sq;
+    lse_r[r] = live ? safe_lse(p.lse[bh * p.sq + qi]) : 3.0e38f;
+    lse2[r] = lse_r[r] * kLog2e;
+    delta_r[r] = live ? p.delta[bh * p.sq + qi] : 0.f;
+    if constexpr (kExtra) {
+      slope[r] = alibi_slope(ex, ib, ih, p.h, p.sq, qi);
+      qpos_f[r] = static_cast<float>(mask.qp(qi));  // as Mask::dist reads it
+    }
   }
+
+  float acc[D / 2];  // dQ (64 rows x D): 8-column group n holds [4n .. 4n+3]
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float s[kBK / 2], dp[kBK / 2];  // S then P, dP then dS: (64 rows x 64 keys)
+#pragma unroll
+  for (int i = 0; i < kBK / 2; ++i) s[i] = dp[i] = 0.f;
+
+  mbar_wait(q_full, 0);
+  int it = 0;
+  for (int k0 = k_first; k0 < k_hi; k0 += kBK) {
+    if (!needs(k0)) continue;
+    const int st = it % kStagesDq;
+    const uint32_t phase = (it / kStagesDq) & 1;
+    ++it;
+    mbar_wait(&full[st], phase);
+    const unsigned char* kt = k_tile(st);
+    const unsigned char* vt = v_tile(st);
+
+    // S = Q K^T and dP = dO V^T, both operands K-major
+    fence_regs(s);
+    fence_regs(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int off = (kk / 4) * 64 * 128 + (kk % 4) * 32;
+      Wgmma<T, kBK>::ss(s, desc_sw128(q_tile + off, 16, 1024), desc_sw128(kt + off, 16, 1024),
+                        kk > 0);
+    }
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int off = (kk / 4) * 64 * 128 + (kk % 4) * 32;
+      Wgmma<T, kBK>::ss(dp, desc_sw128(do_tile + off, 16, 1024), desc_sw128(vt + off, 16, 1024),
+                        kk > 0);
+    }
+    wgmma_commit();
+
+    // P and dS per entry: element i is query row + 8 ((i >> 1) & 1), key
+    // k0 + 8 (i >> 2) + col + (i & 1); the mask on boundary tiles only
+    const bool inner = tile_interior<kExtra>(mask, ex, ib, q0, k0);
+    if (!general) {
+      wgmma_wait<1>();  // S is ready; dP may still run
+      fence_regs(s);
+#pragma unroll
+      for (int i = 0; i < kBK / 2; ++i) {
+        const int r = (i >> 1) & 1;
+        float pv = exp2f(fmaf(s[i], scale_log2, -lse2[r]));
+        if (!inner && !mask.keep(row + 8 * r, k0 + 8 * (i >> 2) + col + (i & 1))) pv = 0.f;
+        s[i] = pv;
+      }
+      wgmma_wait<0>();
+      fence_regs(dp);
+#pragma unroll
+      for (int i = 0; i < kBK / 2; ++i) dp[i] = s[i] * (dp[i] - delta_r[(i >> 1) & 1]) * p.scale;
+    } else {
+      // flash_common.cuh's recompute_p_ds in two halves around the dP
+      // product: bit i says entry i is masked, and dropped (rolled loops, to
+      // keep the registers for the accumulators; made while the products
+      // run); then from S alone P times the softcap's derivative and the
+      // scale; then dS = that (dP z - Delta)
+      uint32_t masked = 0, dropped = 0;
+      if (!inner) {
+#pragma unroll 1
+        for (int i = 0; i < kBK / 2; ++i)
+          if (!mask.keep(row + 8 * ((i >> 1) & 1), k0 + 8 * (i >> 2) + col + (i & 1)))
+            masked |= 1u << i;
+      }
+      if (dropout) dropped = dropout_bits_q(ex, ib, ih, row, k0, col, lane);
+      wgmma_wait<1>();
+      fence_regs(s);
+#pragma unroll
+      for (int i = 0; i < kBK / 2; ++i) {
+        const int r = (i >> 1) & 1;
+        float x = s[i] * p.scale, g = p.scale;
+        if (p.softcap > 0.f) {
+          const float th = tanhf(x / p.softcap);
+          x = th * p.softcap;
+          g *= 1.f - th * th;
+        }
+        if (alibi) {
+          const float kpos = static_cast<float>(mask.kp(k0 + 8 * (i >> 2) + col + (i & 1)));
+          x -= slope[r] * fabsf(qpos_f[r] - kpos);
+        }
+        s[i] = (masked >> i) & 1 ? 0.f : exp2f((x - lse_r[r]) * kLog2e) * g;
+      }
+      wgmma_wait<0>();
+      fence_regs(dp);
+#pragma unroll
+      for (int i = 0; i < kBK / 2; ++i) {
+        const float z = (dropped >> i) & 1 ? 0.f : drop_scale;
+        dp[i] = s[i] * (dp[i] * z - delta_r[(i >> 1) & 1]);
+      }
+    }
+
+    // dQ += dS K: dS rounded to K's dtype as the A registers, K read
+    // MN-major from the stage (its rows are the product's k index)
+    uint32_t sa[kBK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+#pragma unroll
+      for (int w = 0; w < 4; ++w)
+        sa[kk][w] = Mma<T>::pack(dp[8 * kk + 2 * w], dp[8 * kk + 2 * w + 1]);
+    }
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk)
+      Wgmma<T, D>::rs_tb(acc, sa[kk], desc_sw128(kt + kk * 16 * 128, kBK * 128, 1024), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) fence_regs(sa[kk]);
+    if (tid == 0) mbar_arrive(&empty[st]);  // the warpgroup is done with the stage
+  }
+
+  // epilogue: dQ in T through dq's strides; rows past sq are not stored
+  store_rows<T, D>(static_cast<T*>(p.dq) + ib * p.dq_s[0] + ih * p.dq_s[1], p.dq_s[2], acc, row,
+                   p.sq, col);
 }
 
 // ---- K10 / K11: dK, dV (and dQ by atomics) on Hopper ---------------------------
-
-using namespace hopper;
 
 // Two consumer warpgroups a block: on an H100, blocks of one (the same grid)
 // took 1.5x as long at the training shape and 1.7x with ALiBi and dropout at
@@ -236,7 +434,6 @@ constexpr int kDkvThreads = 128 * (kWG + 1);  // the consumers, then the produce
 // the producer hands its registers to the consumers (setmaxnreg), as in qmm.cu
 constexpr int kProducerRegs = 40, kConsumerRegs = 232;
 static_assert(128 * kProducerRegs + 128 * kWG * kConsumerRegs <= 65536, "register file");
-constexpr float kLog2e = 1.4426950408889634f;
 
 // Shared memory of a K10/K11 block, from a 1024-byte aligned base: the K and
 // the V tile (D / 64 sub-tiles of 64 keys x 64 columns each), the ring of
@@ -259,35 +456,6 @@ struct DkvLayout {
   static_assert(kStagesBwd * kStageBytes >= 2 * kBK * D * 4, "the epilogue's sums fit");
   static_assert(kBytes <= 232448, "shared memory of one block");
 };
-
-struct DkvParams {
-  const float* lse;    // (b, h, sq)
-  const float* delta;  // (b, h, sq)
-  void* dk;
-  void* dv;
-  float* dq_acc;  // K11
-  int64_t dk_s[3], dv_s[3], dq_s[3];  // element strides (batch, head, row)
-  const int32_t* kv_lens;
-  const int32_t* qseg;
-  const int32_t* kseg;
-  int b, h, h_k, sq, sk, wl, wr;
-  float scale, softcap;
-};
-
-// rows krow, krow + 8 of a 64 x D accumulator (wgmma layout) as T pairs
-template <typename T, int D>
-__device__ __forceinline__ void store_rows(T* base, int64_t row_stride, const float (&x)[D / 2],
-                                           int krow, int n_rows, int col) {
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int kj = krow + 8 * r;
-    if (kj >= n_rows) continue;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<uint32_t*>(base + kj * row_stride + n * 8 + col) =
-          Mma<T>::pack(x[4 * n + 2 * r], x[4 * n + 2 * r + 1]);
-  }
-}
 
 // Dropout bits of a thread's 32 entries in the accumulator layout (bit i:
 // entry i, key krow + 8 ((i >> 1) & 1), query q0 + 8 (i >> 2) + col + (i & 1),
@@ -323,7 +491,7 @@ __global__ void __launch_bounds__(kDkvThreads, 1)
     flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
                          const __grid_constant__ CUtensorMap tm_k,
                          const __grid_constant__ CUtensorMap tm_v,
-                         const __grid_constant__ CUtensorMap tm_do, const DkvParams p,
+                         const __grid_constant__ CUtensorMap tm_do, const BwdParams p,
                          const XfaExtras ex) {
   using L = DkvLayout<D>;
   extern __shared__ unsigned char smem_raw[];
@@ -437,7 +605,7 @@ __global__ void __launch_bounds__(kDkvThreads, 1)
   const int col = (lane & 3) * 2;                 // its query columns in an 8-column group
   const bool dropout = kExtra && ex.drop_thresh != 0;
   const float drop_scale = kExtra ? ex.drop_scale : 1.f;
-  const bool general = kExtra || p.softcap > 0.f;  // else exp2 and no bias
+  const bool general = kExtra || p.softcap > 0.f;  // else no softcap, ALiBi or dropout
   const bool alibi = kExtra && (ex.alibi != nullptr || ex.row_slopes != nullptr);
   // the positions of this thread's keys, for the ALiBi distance
   const float kpos_f[2] = {static_cast<float>(mask.kp(krow)),
@@ -593,7 +761,7 @@ __global__ void __launch_bounds__(kDkvThreads, 1)
         // dQ (64 queries x D) = dS K, 64 columns at a time (the accumulators of
         // all D columns beside dK and dV spilled): A = the dS^T tile, B = a
         // 64-column sub-tile of K, both MN-major; then added to the f32 buffer
-        float* dqb = p.dq_acc + ib * p.dq_s[0] + ih * p.dq_s[1];
+        float* dqb = static_cast<float*>(p.dq) + ib * p.dq_s[0] + ih * p.dq_s[1];
 #pragma unroll
         for (int half = 0; half < D / 64; ++half) {
           float dq[32];
@@ -648,28 +816,15 @@ __global__ void __launch_bounds__(kDkvThreads, 1)
 
 // ---- launches ----------------------------------------------------------------
 
+// The tensor maps of q, k, v and dO over the caller's strides: 64 x 64
+// boxes, 128-byte swizzle. A side with no row (sq = 0 for K10/K11, sk = 0
+// for K9) is never loaded, and its maps take the other side's valid extents.
 template <typename T, int D>
-cudaError_t launch_dq(const BwdArgs& a, cudaStream_t stream) {
-  dim3 grid((a.sq + kBQ - 1) / kBQ, a.h, a.b);
-  auto* kernel = has_extras(a.ex) ? &flash_bwd_dq_kernel<T, D, true>
-                                  : &flash_bwd_dq_kernel<T, D, false>;
-  constexpr int smem = dq_smem_bytes<D>();
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<grid, kThreads, smem, stream>>>(a);
-  return cudaGetLastError();
-}
-
-template <typename T, int D, bool kFused>
-cudaError_t launch_dkv(const BwdArgs& a, float* dq_acc, void* dk, void* dv,
-                       cudaStream_t stream) {
-  using L = DkvLayout<D>;
+cudaError_t make_maps(const BwdArgs& a, CUtensorMap (&maps)[4]) {
   const bool f16 = std::is_same<T, __half>::value;
-  CUtensorMap maps[4];
-  // q, k, v, dO; with no query row (sq = 0) no pair is loaded, and the q and
-  // dO maps take k's valid extents
-  const Operand ops[4] = {a.sq > 0 ? kQ : kK, kK, kV, a.sq > 0 ? kDO : kK};
+  const bool q_rows = a.sq > 0, k_rows = a.sk > 0;
+  const Operand ops[4] = {q_rows ? kQ : kK, k_rows ? kK : kQ, k_rows ? kV : kQ,
+                          q_rows ? kDO : kK};
   const void* bases[kOperands] = {a.q, a.k, a.v, a.dout};
   for (int i = 0; i < 4; ++i) {
     const Operand o = ops[i];
@@ -683,16 +838,22 @@ cudaError_t launch_dkv(const BwdArgs& a, float* dq_acc, void* dk, void* dv,
     cudaError_t err = make_map_4d(&maps[i], f16, bases[o], dims, bytes, 64, 64);
     if (err != cudaSuccess) return err;
   }
-  DkvParams prm{};
+  return cudaSuccess;
+}
+
+// The kernels' parameters; dq is K9's output or K11's f32 buffer, with its
+// strides at the dq slot.
+BwdParams make_params(const BwdArgs& a, void* dq, void* dk, void* dv) {
+  BwdParams prm{};
   prm.lse = static_cast<const float*>(a.lse);
   prm.delta = static_cast<const float*>(a.delta);
+  prm.dq = dq;
   prm.dk = dk;
   prm.dv = dv;
-  prm.dq_acc = dq_acc;
   for (int j = 0; j < 3; ++j) {
+    prm.dq_s[j] = a.st[kDQ][j];
     prm.dk_s[j] = a.st[kDK][j];
     prm.dv_s[j] = a.st[kDV][j];
-    prm.dq_s[j] = a.st[kDQ][j];
   }
   prm.kv_lens = a.kv_lens;
   prm.qseg = a.qseg;
@@ -706,10 +867,36 @@ cudaError_t launch_dkv(const BwdArgs& a, float* dq_acc, void* dk, void* dv,
   prm.wr = a.wr;
   prm.scale = a.scale;
   prm.softcap = a.softcap;
+  return prm;
+}
+
+template <typename T, int D>
+cudaError_t launch_dq(const BwdArgs& a, cudaStream_t stream) {
+  using L = DqLayout<D>;
+  CUtensorMap maps[4];
+  cudaError_t err = make_maps<T, D>(a, maps);
+  if (err != cudaSuccess) return err;
+  const BwdParams prm = make_params(a, a.dq, nullptr, nullptr);
+  auto* kernel = has_extras(a.ex) ? &flash_bwd_dq_kernel<T, D, true>
+                                  : &flash_bwd_dq_kernel<T, D, false>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
+  if (err != cudaSuccess) return err;
+  const unsigned grid = static_cast<unsigned>((a.sq + kBQ - 1) / kBQ) * a.h * a.b;
+  kernel<<<grid, kDqThreads, L::kBytes, stream>>>(maps[0], maps[1], maps[2], maps[3], prm, a.ex);
+  return cudaGetLastError();
+}
+
+template <typename T, int D, bool kFused>
+cudaError_t launch_dkv(const BwdArgs& a, float* dq_acc, void* dk, void* dv,
+                       cudaStream_t stream) {
+  using L = DkvLayout<D>;
+  CUtensorMap maps[4];
+  cudaError_t err = make_maps<T, D>(a, maps);
+  if (err != cudaSuccess) return err;
+  const BwdParams prm = make_params(a, dq_acc, dk, dv);
   auto* kernel = has_extras(a.ex) ? &flash_bwd_dkv_kernel<T, D, kFused, true>
                                   : &flash_bwd_dkv_kernel<T, D, kFused, false>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
   if (err != cudaSuccess) return err;
   const unsigned grid = static_cast<unsigned>((a.sk + kBK - 1) / kBK) * a.h_k * a.b;
   kernel<<<grid, kDkvThreads, L::kBytes, stream>>>(maps[0], maps[1], maps[2], maps[3], prm, a.ex);

@@ -1,29 +1,29 @@
 // Shared pieces of the dense flash-attention kernels (flash_fwd.cu: K7,
 // flash_probs.cu: K8, flash_bwd.cu: K9/K10/K11): the warp-level tensor-core
-// product, fragment loads from shared memory, tile copies, the mask and ALiBi
-// distance of one (query, key) pair, the tile skip for explicit positions and
-// segment ids, the counter-based dropout mask and the elementwise recompute
-// of the backward.
+// product, fragment loads from shared memory and tile copies (K8), the mask
+// and ALiBi distance of one (query, key) pair, the tile skip for explicit
+// positions and segment ids, the counter-based dropout mask and the
+// elementwise recompute of the backward.
 //
-// Products use mma.sync.m16n8k16 (bf16 or fp16 inputs, f32 sums). Fragment
-// layouts (PTX ISA, "Matrix fragments for mma.m16n8k16"), with g = lane / 4 and
-// t = 2 * (lane % 4):
+// K8's products use mma.sync.m16n8k16 (bf16 or fp16 inputs, f32 sums).
+// Fragment layouts (PTX ISA, "Matrix fragments for mma.m16n8k16"), with g =
+// lane / 4 and t = 2 * (lane % 4):
 //   A 16x16, row-major: reg0 (g, t..t+1), reg1 (g+8, t..t+1), reg2 (g, t+8..t+9),
 //     reg3 (g+8, t+8..t+9);
 //   B 16x8 (k x n): reg0 (k = t..t+1, n = g), reg1 (k = t+8..t+9, n = g);
 //   C 16x8 f32: c0, c1 at (g, t), (g, t+1); c2, c3 at (g+8, t), (g+8, t+1).
 // Each register holds two consecutive k elements, the lower k in the low half.
-// So a C tile pair (n-tiles 2i and 2i+1) is exactly the A fragment of k-chunk
-// i: scores and probabilities feed the next product from registers.
+// The wgmma accumulators of K7 and K9-K11 (hopper.cuh) hold the same C layout
+// in each warp's 16 rows, so a pair of 8-column groups is the A fragment of
+// one 16-deep slice: scores and probabilities feed the next product from
+// registers.
 //
-// Shared-memory tiles of the mma.sync kernels (K8, K9) are stored so that
-// every fragment pair is one aligned 32-bit word: an A operand row-major over
-// its k index, a B operand n-major ("k contiguous"). Where a tensor is the B
-// operand along its rows (K in K9's dS K), the copy into shared memory
-// transposes it. Row strides carry 8 elements of padding, which spreads the
-// fragment loads of one warp over all 32 banks. K7, K10 and K11 take their
-// tiles by TMA and multiply with wgmma (hopper.cuh) and use only the mask,
-// dropout and recompute pieces here.
+// K8's shared-memory tiles are stored so that every fragment pair is one
+// aligned 32-bit word: an A operand row-major over its k index, a B operand
+// n-major ("k contiguous"). Row strides carry 8 elements of padding, which
+// spreads the fragment loads of one warp over all 32 banks. K7 and K9-K11
+// take their tiles by TMA and multiply with wgmma (hopper.cuh) and use only
+// the mask, dropout and recompute pieces here.
 #pragma once
 
 #include <math.h>
@@ -104,63 +104,26 @@ __device__ __forceinline__ void load_b(uint32_t b[2], const T* p, int ld, int la
   b[1] = ld32(p + g * ld + t + 8);
 }
 
-// The A fragment of k-chunk i from two f32 C tiles (n-tiles 2i, 2i+1).
-template <typename T>
-__device__ __forceinline__ void c_to_a(uint32_t a[4], const float c0[4], const float c1[4]) {
-  a[0] = Mma<T>::pack(c0[0], c0[1]);
-  a[1] = Mma<T>::pack(c0[2], c0[3]);
-  a[2] = Mma<T>::pack(c1[0], c1[1]);
-  a[3] = Mma<T>::pack(c1[2], c1[3]);
-}
-
-// Copy rows [row0, row0 + R) of a (n_rows, D) tensor with row stride src_ld
-// (elements, a multiple of 8; the last dimension contiguous) into dst (row
-// stride ld), zero-filling rows past n_rows. 16-byte loads, all of a thread's
-// issued before its first store: with a runtime stride the compiler does not
-// batch them itself (K9 ran about a fifth slower with a load-store loop, on an
-// H100).
+// Copy rows [row0, row0 + R) of a (n_rows, D) tensor with contiguous rows
+// into dst (row stride ld), zero-filling rows past n_rows. 16-byte loads,
+// all of a thread's issued before its first store (K8 gained 9.5 % from
+// that on an H100, PERF.md).
 template <typename T, int D, int R>
-__device__ __forceinline__ void load_rows(uint4 (&val)[R * D / 8 / kThreads], const T* src,
-                                          int row0, int n_rows, int64_t src_ld, int& r0, int& c) {
+__device__ __forceinline__ void copy_rows(T* dst, int ld, const T* src, int row0, int n_rows) {
   constexpr int kPerRow = D / 8, kStep = kThreads / kPerRow;
   static_assert(kThreads % kPerRow == 0 && R % kStep == 0, "whole rows per pass");
-  r0 = threadIdx.x / kPerRow;
-  c = (threadIdx.x % kPerRow) * 8;
-  const T* s = src + (row0 + r0) * src_ld + c;
+  const int r0 = threadIdx.x / kPerRow, c = (threadIdx.x % kPerRow) * 8;
+  const T* s = src + (row0 + r0) * D + c;
+  uint4 val[R / kStep];
 #pragma unroll
   for (int k = 0; k < R / kStep; ++k) {
     val[k] = make_uint4(0, 0, 0, 0);
     if (row0 + r0 + k * kStep < n_rows)
-      val[k] = *reinterpret_cast<const uint4*>(s + k * kStep * src_ld);
+      val[k] = *reinterpret_cast<const uint4*>(s + k * kStep * D);
   }
-}
-
-template <typename T, int D, int R>
-__device__ __forceinline__ void copy_rows(T* dst, int ld, const T* src, int row0, int n_rows,
-                                          int64_t src_ld = D) {
-  constexpr int kStep = kThreads / (D / 8);
-  uint4 val[R / kStep];
-  int r0, c;
-  load_rows<T, D, R>(val, src, row0, n_rows, src_ld, r0, c);
 #pragma unroll
   for (int k = 0; k < R / kStep; ++k)
     *reinterpret_cast<uint4*>(dst + (r0 + k * kStep) * ld + c) = val[k];
-}
-
-// The same rows stored transposed: element (r, c) goes to dst[c * ld + r].
-template <typename T, int D, int R>
-__device__ __forceinline__ void copy_rows_t(T* dst, int ld, const T* src, int row0, int n_rows,
-                                            int64_t src_ld = D) {
-  constexpr int kStep = kThreads / (D / 8);
-  uint4 val[R / kStep];
-  int r0, c;
-  load_rows<T, D, R>(val, src, row0, n_rows, src_ld, r0, c);
-#pragma unroll
-  for (int k = 0; k < R / kStep; ++k) {
-    const T* e = reinterpret_cast<const T*>(&val[k]);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) dst[(c + j) * ld + r0 + k * kStep] = e[j];
-  }
 }
 
 // Options beyond the masks, shared by K7, K8 and K9-K11 (XfaExtras in

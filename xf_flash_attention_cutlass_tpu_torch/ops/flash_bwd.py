@@ -21,7 +21,9 @@ with f32 atomics into a buffer the wrapper allocates and then casts (atomics
 sum in an order that changes from run to run). ``fused=None`` means two-pass,
 as in the JAX package. The kernels read q, k, v and dO through their strides
 where the tensor maps can (the model's (b, s, h, d) views need no copy) and
-write dq, dk and dv in q's and k's memory layout. CPU tensors run
+write dq, dk and dv in q's and k's memory layout. K9's blocks launch in
+K7's order (ops/flash_fwd.py ``fwd_block_order``), K10/K11's in
+``bwd_block_order``: heaviest first under a causal mask. CPU tensors run
 ``flash_bwd_ref``, the plain version, for either value of ``fused``: both
 schedules compute the same function.
 """
