@@ -16,14 +16,23 @@ Phases, each of which raises (exit code != 0) when it fails:
    The same for K9-K11 (`flash_bwd_build`), per instantiation, with any
    ptxas line saying wgmma was serialized: it fails unless every K9, K10
    and K11 instantiation holds HGMMA and UTMALDG and no HMMA and the
-   option-free ones spill nothing.
+   option-free ones spill nothing. The same for K1 (`paged_build`): it
+   fails unless the six instantiations of its Hopper kernel hold HGMMA and
+   UTMALDG, no HMMA and no spill, and the 24 WMMA ones keep their HMMA.
 2. Hold each kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it (Llama-8B widths), and time the kernel, the
    plain version and, where one exists, a PyTorch library call that computes
    the same function (a yardstick only; the port never calls it). Bucketed
    prefill's shapes are all covered: K3 at m = 256-2048, K5 appending a whole
    bucket at position 0 through a trash-tailed block-table row, K7 at every
-   bucket. K3/K4's wgmma kernel (m > 16) is checked for bf16 weights without
+   bucket. K1's chunk (the Hopper kernel) and decode (the WMMA kernel) at
+   fp8, int8 and bf16 each launch the route paged_plan names; the chunk is
+   also timed through the WMMA kernel, and K1's library yardstick is SDPA
+   over the live keys (the 4096 keys of every page beside it); the route
+   cases (PAGED_ROUTE_CASES: pages 12-256, d 64 and 128, splits,
+   non-causal, a stacked layer, ragged row tiles, an option and an odd
+   page on the WMMA kernel) hold both routes to their plain version and
+   the oracle. K3/K4's wgmma kernel (m > 16) is checked for bf16 weights without
    scale, int8 and fp8, stacked and single, at m = 17, 64, 100, 255, 256 and
    2048 on Llama-8B shapes, its weight conversion bit for bit on every byte
    value, and it is timed at m = 256 and 2048 beside the WMMA kernel on the
@@ -64,7 +73,9 @@ Phases, each of which raises (exit code != 0) when it fails:
    with 256-token chunked prefill, the same 8 requests with bucketed
    prefill (K7), one bucketed admission of the largest prompt timed and
    profiled (`admission_profile`: device time by kernel, K3's share), and a
-   profiled decode window.
+   profiled decode window. After the chunked run, the chunked prefill of
+   the same prompts is profiled by kernel (`chunked_prefill_profile`, K1's
+   share on each route).
 5. Drive the public API (`api.py`) at Llama-8B attention width: dense
    attention with ALiBi, dropout and the probability plane, and its
    gradient; packed varlen over the serving prompts with per-sequence ALiBi,
@@ -203,17 +214,47 @@ def kv_pools(gen, kv_dtype, layers, pages, h_k, page, d):
     return kp, vp, ks, vs
 
 
+def sdpa_over_pages(q, kp, vp, ks, vs, bt, lens, T):
+    """The library yardstick of K1: SDPA over the first T keys of each
+    block-table row, gathered, dequantized and expanded over the GQA group
+    (bf16), with the bottom-right causal mask and kv_len; rows that see no
+    key are unmasked (SDPA gives NaN on them; they are not compared)."""
+    b, sq, h, d = q.shape
+    h_k, page = kp.shape[1], kp.shape[2]
+    pages = (T + page - 1) // page
+    idx = bt[:, :pages].long()
+
+    def dense(pool, scales):
+        x = pool[idx].transpose(1, 2).reshape(b, h_k, pages * page, d)[:, :, :T].float()
+        if scales is not None:
+            x = x * scales[idx].transpose(1, 2).reshape(b, h_k, pages * page, 1)[:, :, :T]
+        return x.bfloat16().repeat_interleave(h // h_k, dim=1)
+
+    kg, vg = dense(kp, ks), dense(vp, vs)
+    kcol = torch.arange(T, device=q.device)
+    qpos = lens.long()[:, None] - sq + torch.arange(sq, device=q.device)[None]  # (b, sq)
+    mask = (kcol[None, None] <= qpos[..., None]) & (kcol[None, None] < lens.long()[:, None, None])
+    mask = mask[:, None]  # (b, 1, sq, T)
+    mask[lens == 0] = True
+    qt = q.transpose(1, 2)
+    return lambda: F.scaled_dot_product_attention(qt, kg, vg, attn_mask=mask)
+
+
 def check_paged_attention(gen, timer, checks, kv_dtype, phase, cfg):
     """K1 at the engine's shapes: decode b=8, sq=1 over kv_lens of the
-    serving prompts, or one 256-token chunk at b=1. The tolerance is the 2x
-    rule's: twice the error of the dense oracle in the working dtype against
-    the dense float32 oracle (utils/testing.py), plus 1e-5. Both the
-    kernel's distance from its plain version and its error against the f32
-    oracle must stay within it."""
+    serving prompts (the WMMA kernel), or one 256-token chunk at b=1 (the
+    Hopper kernel; also timed through the WMMA kernel on the same inputs).
+    The tolerance is the 2x rule's: twice the error of the dense oracle in
+    the working dtype against the dense float32 oracle (utils/testing.py),
+    plus 1e-5. Both the kernel's distance from its plain version and its
+    error against the f32 oracle must stay within it, and the call must
+    launch the route paged_plan names."""
+    from xf_flash_attention_cutlass_tpu_torch import _build
     from xf_flash_attention_cutlass_tpu_torch.ops.paged import (
+        _paged_attention_cuda,
         paged_attention,
         paged_attention_ref,
-        resolve_num_splits,
+        paged_plan,
     )
     from xf_flash_attention_cutlass_tpu_torch.utils.testing import paged_attention_oracle
 
@@ -236,12 +277,15 @@ def check_paged_attention(gen, timer, checks, kv_dtype, phase, cfg):
     def kernel():
         return paged_attention(q, kp, vp, bt, lens, layer_idx=1, **sc)
 
-    splits = resolve_num_splits(0, b, h_k, sq * (h // h_k), max_pages)
+    route, splits = paged_plan(q.shape, kp.shape, kp.dtype, max_pages)
+    label = f"paged_attention.{'prefill.wgmma' if route == 'wgmma' else phase}"
 
     def plain():
         return paged_attention_ref(q, kp[1], vp[1], bt, lens, num_splits=splits, **sc1)
 
+    n0 = _build.LAUNCHES[label]
     o, lse = kernel()
+    launched = _build.LAUNCHES[label] - n0 == 1
     o_plain, lse_plain = plain()
     o32, l32 = paged_attention_oracle(q, kp[1], vp[1], bt, lens, **sc1)
     olp, llp = paged_attention_oracle(q, kp[1], vp[1], bt, lens, upcast=False, **sc1)
@@ -254,11 +298,11 @@ def check_paged_attention(gen, timer, checks, kv_dtype, phase, cfg):
     dead_ok = bool((o[~live] == 0).all()) and bool(torch.isneginf(lse[~live]).all())
     tol, ltol = 2 * lp_err + 1e-5, 2 * llp_err + 1e-5
     ok = (bool(torch.isfinite(o).all()) and dead_ok and plain_err <= tol and err <= tol
-          and lse_plain_err <= ltol and lerr <= ltol)
+          and lse_plain_err <= ltol and lerr <= ltol and launched)
     name = f"paged_attention.{phase}[{str(kv_dtype).split('.')[-1]}]"
     checks.add(name, ok, max_abs_err=plain_err, tolerance=tol, err_vs_f32_oracle=err,
                lse_err=lse_plain_err, lse_err_vs_f32_oracle=lerr, lse_tolerance=ltol,
-               dead_rows_ok=dead_ok, num_splits=splits)
+               dead_rows_ok=dead_ok, num_splits=splits, route=route, launched=launched)
 
     # bound: q, the live K/V rows (and scales) and the block tables read once,
     # O and LSE written once; 4 * d operations per (query head, visible key)
@@ -267,32 +311,26 @@ def check_paged_attention(gen, timer, checks, kv_dtype, phase, cfg):
     kv_row = 2 * d * kp.element_size() + (8 if ks is not None else 0)  # K, V, scales
     by = nbytes(q, bt, lens, o, lse) + sum(lens_l) * h_k * kv_row
     ops = 4 * d * h * visible
-    # library yardstick: SDPA over the gathered, dequantized, head-expanded KV
-    T = max_pages * page
-    kg = kp[1][bt.long()].transpose(1, 2).reshape(b, h_k, T, d).float()
-    vg = vp[1][bt.long()].transpose(1, 2).reshape(b, h_k, T, d).float()
-    if ks is not None:
-        kg = kg * ks[1][bt.long()].transpose(1, 2).reshape(b, h_k, T, 1)
-        vg = vg * vs[1][bt.long()].transpose(1, 2).reshape(b, h_k, T, 1)
-    kg = kg.bfloat16().repeat_interleave(h // h_k, dim=1)
-    vg = vg.bfloat16().repeat_interleave(h // h_k, dim=1)
-    kcol = torch.arange(T, device="cuda")
-    qpos = lens.long()[:, None] - sq + torch.arange(sq, device="cuda")[None]  # (b, sq)
-    mask = (kcol[None, None] <= qpos[..., None]) & (kcol[None, None] < lens.long()[:, None, None])
-    mask = mask[:, None]  # (b, 1, sq, T)
-    mask[~live] = True  # SDPA gives NaN on fully masked rows; dead rows are not compared
-    qt = q.transpose(1, 2)
-
-    def library():
-        return F.scaled_dot_product_attention(qt, kg, vg, attn_mask=mask)
-
+    # library yardstick: SDPA over the live keys (the largest kv_len rounded
+    # up to a page); beside it, the earlier yardstick over every page of the
+    # table (max_pages * page keys), which did up to 4x the work
+    ksl, vsl = (None, None) if ks is None else (ks[1], vs[1])
+    t_live = (max(lens_l) + page - 1) // page * page
+    library = sdpa_over_pages(q, kp[1], vp[1], ksl, vsl, bt, lens, t_live)
+    library_all = sdpa_over_pages(q, kp[1], vp[1], ksl, vsl, bt, lens, max_pages * page)
     zero = torch.zeros(h, device="cuda")  # ALiBi of slope 0: the options' kernel, same result
-    return dict(
+    out = dict(
         ms=timer.ms(kernel), plain_ms=timer.ms(plain, PLAIN_REPS),
         ms_general=timer.ms(lambda: paged_attention(q, kp, vp, bt, lens, layer_idx=1,
                                                     alibi_slopes=zero, **sc)),
-        library_ms=timer.ms(library), bound=bound(by, ops), err=plain_err, tol=tol,
+        library_ms=timer.ms(library), library_ms_all_pages=timer.ms(library_all),
+        library_keys=t_live, bound=bound(by, ops), err=plain_err, tol=tol, route=route,
     )
+    if route == "wgmma":  # the first version on the same inputs
+        out["wmma_ms"] = timer.ms(lambda: _paged_attention_cuda(
+            q, kp, vp, 1, bt, lens, 1.0 / math.sqrt(d), True, (-1, -1), 0.0, None, None, splits,
+            ks, vs, "wmma"))
+    return out
 
 
 def check_paged_append(gen, timer, checks, kv_dtype, phase, cfg):
@@ -542,6 +580,79 @@ def check_other_shapes(gen, checks):
                     for a, w in zip(pools, ref))
         checks.add(f"other.paged_append[{str(kv_dtype).split('.')[-1]},page={page},sq={sq}]",
                    equal, max_abs_err=0.0 if equal else float("nan"), tolerance=0.0)
+
+
+# K1's routes off the engine's shapes: (kv dtype, h, h_k, d, page, b, sq,
+# causal, num_splits, layers, options, route the call must take). The
+# Hopper kernel at page 16, 24 (8-key TMA boxes), 32, 64 and 256, d = 64 and
+# 128, one split and several (0: the heuristic), causal and not, a layer of
+# a stacked pool, rows not a multiple of 64 and one row tile of 17 rows; the
+# WMMA kernel where the route sends it: an option, an odd page, decode.
+PAGED_ROUTE_CASES = [
+    (torch.float8_e4m3fn, 8, 2, 64, 16, 3, 40, True, 2, 1, {}, "wgmma"),
+    (torch.int8, 8, 2, 128, 32, 2, 24, True, 1, 2, {}, "wgmma"),
+    (torch.bfloat16, 8, 2, 128, 64, 2, 20, False, 3, 1, {}, "wgmma"),
+    (torch.bfloat16, 8, 2, 64, 256, 2, 33, True, 0, 2, {}, "wgmma"),
+    (torch.float8_e4m3fn, 4, 4, 128, 256, 2, 17, False, 2, 1, {}, "wgmma"),
+    (torch.int8, 8, 2, 128, 24, 2, 30, True, 1, 1, {}, "wgmma"),
+    (torch.bfloat16, 32, 8, 128, 16, 2, 8, True, 4, 1, {}, "wgmma"),
+    (torch.float8_e4m3fn, 8, 2, 128, 64, 2, 100, True, 0, 1, {}, "wgmma"),
+    (torch.bfloat16, 8, 2, 128, 64, 2, 20, True, 1, 1, dict(softcap=20.0), "wmma"),
+    (torch.int8, 8, 2, 64, 12, 2, 20, True, 1, 1, {}, "wmma"),
+    (torch.float8_e4m3fn, 32, 8, 128, 32, 3, 1, True, 0, 1, {}, "wmma"),
+]
+
+
+def check_paged_route_shapes(gen, checks):
+    """K1 on PAGED_ROUTE_CASES, untimed: each call must launch the route
+    paged_plan names, and pass the 2x rule against both its plain version
+    and the f32 oracle, with every row of the last batch entry dead (kv_len
+    0: O = 0, LSE = -inf)."""
+    from xf_flash_attention_cutlass_tpu_torch import _build
+    from xf_flash_attention_cutlass_tpu_torch.ops.paged import (
+        paged_attention,
+        paged_attention_ref,
+        paged_plan,
+    )
+    from xf_flash_attention_cutlass_tpu_torch.utils.testing import paged_attention_oracle
+
+    n_pages, max_pages = 40, 12
+    for kv_dtype, h, h_k, d, page, b, sq, causal, splits, layers, opts, want in PAGED_ROUTE_CASES:
+        kp, vp, ks, vs = kv_pools(gen, kv_dtype, layers, n_pages, h_k, page, d)
+        layer = layers - 1
+        sc = {} if ks is None else dict(k_scales=ks, v_scales=vs)
+        sc1 = {} if ks is None else dict(k_scales=ks[layer], v_scales=vs[layer])
+        bt = torch.stack([torch.randperm(n_pages, generator=gen, device="cuda")[:max_pages]
+                          for _ in range(b)]).int()
+        lens = torch.randint(sq, max_pages * page + 1, (b,), generator=gen, device="cuda").int()
+        lens[-1] = 0
+        bt[-1] = n_pages
+        q = torch.randn((b, sq, h, d), generator=gen, device="cuda").bfloat16()
+        kw = dict(causal=causal, **opts)
+        route, n_splits = paged_plan(q.shape, kp.shape, kv_dtype, max_pages, splits, **kw)
+        label = ("paged_attention.prefill.wgmma" if route == "wgmma" else
+                 "paged_attention.decode" if sq == 1 else "paged_attention.prefill.wmma")
+        n0 = _build.LAUNCHES[label]
+        o, lse = paged_attention(q, kp, vp, bt, lens, num_splits=splits, layer_idx=layer, **kw,
+                                 **sc)
+        launched = _build.LAUNCHES[label] - n0 == 1
+        o_plain, _ = paged_attention_ref(q, kp[layer], vp[layer], bt, lens, num_splits=n_splits,
+                                         **kw, **sc1)
+        o32, _ = paged_attention_oracle(q, kp[layer], vp[layer], bt, lens, **kw, **sc1)
+        olp, _ = paged_attention_oracle(q, kp[layer], vp[layer], bt, lens, upcast=False, **kw,
+                                        **sc1)
+        live = lens > 0
+        err, plain_err = max_err(o, o32), max_err(o, o_plain)
+        tol = 2 * max_err(olp, o32) + 1e-5
+        dead_ok = bool((o[~live] == 0).all()) and bool(torch.isneginf(lse[~live]).all())
+        finite = bool(torch.isfinite(o).all()) and bool(torch.isfinite(lse[live]).all())
+        ok = (route == want and launched and err <= tol and plain_err <= tol and dead_ok
+              and finite)
+        checks.add(f"route.paged_attention[{route},{str(kv_dtype).split('.')[-1]},h={h}/{h_k},"
+                   f"d={d},page={page},b={b},sq={sq},causal={causal},splits={n_splits},"
+                   f"layer={layer}{',' + ','.join(opts) if opts else ''}]", ok,
+                   max_abs_err=plain_err, err_vs_f32_oracle=err, tolerance=tol,
+                   dead_rows_ok=dead_ok, route=route, expected_route=want, launched=launched)
 
 
 def check_bucket_append(gen, checks, cfg):
@@ -1497,10 +1608,7 @@ def check_api_outputs(checks, res, cfg):
     paged_attention_oracle on the same inputs; (d)'s append rotated and
     written in place into the caller's cache, bit for bit."""
     from xf_flash_attention_cutlass_tpu_torch.ops.kvcache import dense_cache_as_paged
-    from xf_flash_attention_cutlass_tpu_torch.ops.paged import (
-        paged_attention_ref,
-        resolve_num_splits,
-    )
+    from xf_flash_attention_cutlass_tpu_torch.ops.paged import paged_attention_ref, paged_plan
     from xf_flash_attention_cutlass_tpu_torch.ops.rotary import apply_rotary
     from xf_flash_attention_cutlass_tpu_torch.utils.testing import paged_attention_oracle
 
@@ -1510,9 +1618,7 @@ def check_api_outputs(checks, res, cfg):
     def oracle_check(name, out, q, k_pool, v_pool, bt, lens, pick=None, **kw):
         """K1's output under the 2x rule against both its plain version (with
         the kernel's splits) and paged_attention_oracle, on the same inputs."""
-        b, sq, h, _ = q.shape
-        splits = resolve_num_splits(0, b, k_pool.shape[1], sq * (h // k_pool.shape[1]),
-                                    bt.shape[1])
+        _, splits = paged_plan(q.shape, k_pool.shape, k_pool.dtype, bt.shape[1], **kw)
         o_plain, _ = paged_attention_ref(q, k_pool, v_pool, bt, lens, num_splits=splits, **kw)
         o32, _ = paged_attention_oracle(q, k_pool, v_pool, bt, lens, **kw)
         olp, _ = paged_attention_oracle(q, k_pool, v_pool, bt, lens, upcast=False, **kw)
@@ -1819,6 +1925,25 @@ def profile_decode(eng, cfg, seed, n_steps=3):
     return prof
 
 
+def profile_chunked_prefill(eng, cfg, seed):
+    """The chunked prefill of serve's 8 prompts once more (the same tokens,
+    one new token each) under a profiler trace: the device time by kernel
+    and K1's on each route (its chunks take the Hopper kernel, the requests
+    decoding beside them the WMMA one), with K3's."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(200, 1501, 8)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist() for n in lens]
+
+    def run():
+        for i, prompt in enumerate(prompts):
+            eng.add_request(3000 + i, prompt, 1)
+        eng.run()
+
+    prof = profiled(run, groups=dict(k1_wgmma="paged_wgmma_kernel",
+                                     k1_wmma="paged_attention_kernel", k3="qmm"))
+    return None if prof is None else dict(prof, prompt_tokens=int(lens.sum()))
+
+
 def profile_admission(eng, cfg, seed):
     """One bucketed admission of the largest prompt of `serve` (1306 tokens
     at seed 0, bucket 2048) with one new token, so the step is the prefill
@@ -2010,13 +2135,56 @@ def flash_bwd_build_report(checks, lib_path):
     return dict(instantiations=inst, serialized=serialized)
 
 
+_K1_TYPES = {"a": "int8", "9fp8e4m3_t": "fp8", "13__nv_bfloat16": "bf16"}
+_K1_NAME = re.compile(r"paged_(wgmma|attention)_kernelI(a|9fp8e4m3_t|13__nv_bfloat16)Li(\d+)E"
+                      r"(?:Li(\d+)ELb([01])E)?")
+
+
+def k1_instantiation(mangled):
+    """'wgmma_fp8_d128' for a mangled Hopper K1 kernel name,
+    'wmma_int8_d64_rt32_options' for a WMMA one, else None."""
+    m = _K1_NAME.search(mangled)
+    if m is None:
+        return None
+    name = f"{'wgmma' if m.group(1) == 'wgmma' else 'wmma'}_{_K1_TYPES[m.group(2)]}_d{m.group(3)}"
+    if m.group(4) is not None:
+        name += f"_rt{m.group(4)}_{'options' if m.group(5) == '1' else 'plain'}"
+    return name
+
+
+def paged_build_report(checks, lib_path):
+    """Registers and spill bytes of every K1 instantiation
+    (build/paged_attention.log) and the SASS counts of each. Checks that the
+    six Hopper instantiations hold HGMMA and UTMALDG, no HMMA and no spill,
+    and that the 24 WMMA ones keep their HMMA."""
+    inst = ptxas_usage("paged_attention", k1_instantiation)
+    for name, counts in sass_by_function(lib_path).items():
+        label = k1_instantiation(name)
+        if label is not None:
+            inst.setdefault(label, {}).update(counts)
+    print(json.dumps({"paged_build": inst}), flush=True)
+    wgmma = {n: r for n, r in inst.items() if n.startswith("wgmma")}
+    wmma = {n: r for n, r in inst.items() if n.startswith("wmma")}
+    checks.add("paged_attention.wgmma_sass_wgmma_tma_no_mma_sync",
+               len(wgmma) == 6 and all(r.get("HGMMA", 0) > 0 and r.get("UTMALDG", 0) > 0
+                                       and r.get("HMMA", 1) == 0 for r in wgmma.values()),
+               sass={n: {op: r.get(op) for op in SASS_OPS} for n, r in wgmma.items()})
+    checks.add("paged_attention.wgmma_no_spills",
+               len(wgmma) == 6 and all(r.get("spill_bytes") == 0 for r in wgmma.values()),
+               spill_bytes={n: r.get("spill_bytes") for n, r in wgmma.items()})
+    checks.add("paged_attention.wmma_sass_keeps_mma_sync",
+               len(wmma) == 24 and all(r.get("HMMA", 0) > 0 for r in wmma.values()),
+               hmma={n: r.get("HMMA") for n, r in wmma.items()})
+    return inst
+
+
 # ---- main ---------------------------------------------------------------------
 
 _PKG = "xf_flash_attention_cutlass_tpu_torch/csrc/"
 _TPU = "xf_flash_attention_cutlass_tpu/"
 KERNELS = {  # launch-counter name: (source, TPU kernel it replaces)
     "paged_attention.decode": (_PKG + "paged_attention.cu", _TPU + "ops/paged.py:97"),
-    "paged_attention.prefill": (_PKG + "paged_attention.cu", _TPU + "ops/paged.py:97"),
+    "paged_attention.prefill.wgmma": (_PKG + "paged_attention.cu", _TPU + "ops/paged.py:97"),
     "paged_append.decode": (_PKG + "paged_append.cu", _TPU + "ops/paged_append.py:68"),
     "paged_append.prefill": (_PKG + "paged_append.cu", _TPU + "ops/paged_append.py:166"),
     "qmm.stacked.bm16": (_PKG + "qmm.cu", _TPU + "quant/linear.py:70"),
@@ -2032,7 +2200,7 @@ KERNELS = {  # launch-counter name: (source, TPU kernel it replaces)
 }
 # the kernels each main path must launch (and it may call no plain version)
 PATHS = {
-    "serve_chunked": ["paged_attention.decode", "paged_attention.prefill",
+    "serve_chunked": ["paged_attention.decode", "paged_attention.prefill.wgmma",
                       "paged_append.decode", "paged_append.prefill", "qmm.stacked.bm16",
                       "qmm.stacked.wgmma", "qmm.single.bm16"],
     "serve_bucketed": ["flash_fwd", "paged_append.prefill", "paged_attention.decode",
@@ -2040,7 +2208,7 @@ PATHS = {
                        "qmm.single.bm16"],
     "train": ["flash_fwd", "flash_bwd.dq", "flash_bwd.dkv", "flash_bwd.fused"],
     "api": ["flash_fwd", "flash_probs", "flash_bwd.dq", "flash_bwd.dkv",
-            "paged_attention.decode", "paged_attention.prefill"],
+            "paged_attention.decode", "paged_attention.prefill.wgmma"],
 }
 
 
@@ -2107,6 +2275,7 @@ def main():
     report["flash_fwd_build"] = k7_build_report(checks, libs["flash_fwd"])
     report["qmm_build"] = qmm_build_report(checks, libs["qmm"])
     report["flash_bwd_build"] = flash_bwd_build_report(checks, libs["flash_bwd"])
+    report["paged_build"] = paged_build_report(checks, libs["paged_attention"])
 
     # 2. kernels against their plain versions, at the main paths' shapes
     cfg = LlamaConfig.llama8b()
@@ -2117,7 +2286,8 @@ def main():
         for phase in ("decode", "prefill"):
             r = check_paged_attention(gen, timer, checks, kv_dtype, phase, cfg)
             if kv_dtype == torch.float8_e4m3fn:
-                measured[f"paged_attention.{phase}"] = r
+                measured["paged_attention.decode" if phase == "decode"
+                         else "paged_attention.prefill.wgmma"] = r
             r = check_paged_append(gen, timer, checks, kv_dtype, phase, cfg)
             if kv_dtype == torch.float8_e4m3fn:
                 measured[f"paged_append.{phase}"] = r
@@ -2156,6 +2326,7 @@ def main():
         if m > 1:
             measured["qmm.single.bm16" if m == 8 else "qmm.single.wgmma"] = r
     check_other_shapes(gen, checks)
+    check_paged_route_shapes(gen, checks)
     check_bucket_append(gen, checks, cfg)
     report["page32_append"] = check_page32_append(gen, timer, checks, cfg)
     measured.update(check_flash(gen, timer, checks, cfg))
@@ -2218,6 +2389,8 @@ def main():
     serving["launches"] = paths["serve_chunked"]
     report["serving"] = serving
     print(json.dumps({"serving": serving}), flush=True)
+    report["chunked_prefill_profile"] = profile_chunked_prefill(eng, cfg, args.seed)
+    print(json.dumps({"chunked_prefill_profile": report["chunked_prefill_profile"]}), flush=True)
     del eng
     torch.cuda.empty_cache()
     mark("serve_chunked")
@@ -2265,6 +2438,9 @@ def main():
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
             bound_by=r["bound"][1], library_ms=r["library_ms"],
         ))
+        for extra in ("wmma_ms", "library_ms_all_pages"):  # K1: the WMMA kernel, SDPA on all pages
+            if extra in r:
+                kernels[-1][extra] = r[extra]
         if "other_shapes" in r:  # K7 at the training shape and at s = 2048
             kernels[-1]["other_shapes"] = {
                 shape: dict(ms=o["ms"], plain_ms=o["plain_ms"], bound_ms=o["bound"][0],

@@ -241,6 +241,72 @@ def test_num_splits_heuristic_matches_jax():
     assert paged.resolve_num_splits(3, 8, 8, 4, 16) == 3
 
 
+@pytest.mark.parametrize(
+    "rows,page,d,kv,options,route",
+    [
+        (4, 256, 128, torch.float8_e4m3fn, False, "wmma"),  # decode: sq = 1, group 4
+        (16, 256, 128, torch.int8, False, "wmma"),  # verify: 4 tokens x group 4
+        (17, 256, 128, torch.bfloat16, False, "wgmma"),  # one row past the decode tile
+        (1024, 256, 128, torch.float8_e4m3fn, False, "wgmma"),  # a 256-token chunk
+        (1024, 16, 64, torch.int8, False, "wgmma"),  # page 16, d = 64
+        (1024, 24, 128, torch.bfloat16, False, "wgmma"),  # 8-key TMA boxes
+        (1024, 256, 128, torch.float8_e4m3fn, True, "wmma"),  # an option
+        (1024, 12, 128, torch.bfloat16, False, "wmma"),  # a page of no whole box
+        (1024, 256, 96, torch.bfloat16, False, "wmma"),  # d = 96
+        (1024, 256, 128, torch.float16, False, "wmma"),  # no Hopper kernel for fp16 pools
+    ],
+)
+def test_paged_route(rows, page, d, kv, options, route):
+    """paged_route is a pure function of the shapes, the pool dtype and the
+    options; the Hopper kernel's row tile (64) is the split heuristic's unit
+    on its route, the WMMA kernel's (16 or 32) on the other."""
+    assert paged.paged_route(rows, page, d, kv, options) == route
+    assert paged.route_row_tile(route, rows) == (64 if route == "wgmma" else
+                                                 paged.kernel_row_tile(rows))
+
+
+@pytest.mark.parametrize(
+    "kw,options",
+    [
+        (dict(causal=True), False),
+        (dict(causal=False), False),  # non-causal is option-free
+        (dict(causal=False, window=(-1, 0)), False),  # a right window of 0: causal
+        (dict(causal=True, window=(7, 0)), True),
+        (dict(causal=False, window=(-1, 3)), True),
+        (dict(causal=True, softcap=5.0), True),
+        (dict(causal=True, alibi_slopes=torch.ones(4)), True),
+        (dict(causal=True, cache_leftpad=torch.zeros(2, dtype=torch.int32)), True),
+    ],
+)
+def test_paged_plan_options_and_splits(kw, options):
+    """paged_plan: a chunk of 40 tokens at group 2 (80 rows) takes the
+    Hopper kernel unless an option asks for the WMMA kernel's general
+    instantiation, and the heuristic counts blocks of the route's row tile."""
+    full = dict(causal=True, window=(-1, -1), softcap=0.0, alibi_slopes=None,
+                cache_leftpad=None)
+    full.update(kw)
+    assert paged.has_options(**full) == options
+    route, splits = paged.paged_plan((2, 40, 4, 64), (3, 9, 2, 16, 64), torch.float8_e4m3fn,
+                                     12, 0, **kw)
+    assert route == ("wmma" if options else "wgmma")
+    tile = 64 if route == "wgmma" else 32
+    assert splits == paged.resolve_num_splits(0, 2, 2, 80, 12, tile)
+    assert splits == paged.num_splits_heuristic(2 * 2 * -(-80 // tile), paged.NUM_SMS, 12,
+                                                paged.MAX_SPLITS)
+
+
+def test_paged_attention_wgmma_shape_2x_rule():
+    """The shapes the Hopper route takes on the card: 40 new tokens at group
+    2 (80 rows, a second row tile of 16), page 16, fp8 pools of two layers,
+    a dead row, the heuristic's splits; the plain version against the JAX
+    kernel under the 2x rule."""
+    q, pools, bt, lens = _paged_case(80, kv="fp8_e4m3", b=2, sq=40, h=4, h_k=2, d=64,
+                                     page=16, n_pages=8, max_pages=6, layers=2)
+    route, _ = paged.paged_plan(q.shape, pools["k"].shape, torch.float8_e4m3fn, bt.shape[1])
+    assert route == "wgmma"
+    _check_2x(q, pools, bt, lens, layer=1, num_splits=0)
+
+
 # ---- paged append -----------------------------------------------------------
 
 def _append_case(seed, *, qdt, b, sq, page, h_k=2, d=128, n_pages=10, layers=2):

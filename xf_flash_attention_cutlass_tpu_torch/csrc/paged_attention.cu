@@ -14,25 +14,55 @@
 // below the ~295 flops per byte the card needs to be compute bound: bytes
 // bound. A 256-token prefill chunk does 4 * 256 * group flops per key:
 // operations bound (tensor cores).
-// Design: one block per (row tile, batch entry, KV head, split). A row tile
-// holds RT query rows of ONE KV head, ordered token-major with the GQA group
-// inside (row = t * group + g), so every K/V tile fetched is used by all
-// heads of its group. Each batch entry's LIVE pages are cut into n_splits
-// equal runs, so every split of a row has work whatever the table width.
-// The block walks the keys of its split in tiles of 64: each key's page
-// comes from the block table, the next tile's K, V and scales are loaded
-// into registers while the current tile is computed (one tile of
-// prefetch), K and V are converted to bf16 in shared memory (exact for
-// int8 and e4m3), S = Q K^T
-// and O += P V run on the tensor cores (WMMA, f32 accumulate), and an online
-// softmax in f32 keeps the running max m, the sum l and the accumulator O
-// in shared memory. As on the TPU the softmax scale is folded into q by the
-// wrapper, and P is rounded to bf16 (q's dtype) after the V scale and before
-// the PV product. Keys past the causal limit, the split or kv_len are never
-// loaded. Rows with kv_len = 0 (inactive slots) give O = 0 and LSE = -inf.
 //
-// The kExtra instantiation adds what the API passes (the option-free one is
-// the serving path's, unchanged): a window (wl, wr) from query position
+// Two kernels, chosen by ops/paged.py::paged_route (a pure function of the
+// shapes, the pool dtype and the options):
+//
+// `paged_wgmma_kernel` (the Hopper route: more than 16 query rows a KV head,
+// d 64 or 128, pages of a multiple of 8 keys, no option). One block owns one
+// (split, batch entry, KV head, 64-row tile) of the rows t * group + g
+// (token-major, the GQA group inside), so at Llama-8B's group of 4 the 16
+// tokens' 64 rows share every K/V tile fetched; blocks launch heaviest first
+// (the last row tiles see the most keys). A producer warpgroup walks the
+// split's live 64-key tiles, reading each key's page from the block table,
+// and fills a 2-stage ring of bf16 K/V tiles, 128-byte swizzled for wgmma:
+// bf16 pools by TMA straight into the ring, one box per page run of the tile;
+// int8 / fp8 pools by TMA byte boxes into a 2-stage staging ring that the
+// warpgroup converts to bf16 into the ring (exact for int8 and e4m3), with
+// the tile's 64 K and V scales beside it. The tensor maps span every layer's
+// pages, so `layer_idx` is a page coordinate. Keys past the split, kv_len or
+// the causal limit are never loaded (rows of a tile past them are zero). One
+// consumer warpgroup writes the 64 rows' Q into shared memory, multiplied by
+// the softmax scale inside the kernel (f32 product rounded to bf16), and per
+// tile runs S = Q K^T (wgmma, both operands K-major in shared memory), the K scale
+// per column, the mask on boundary tiles only (the diagonal, the split and
+// kv_len edges), the online softmax in registers with exp2, P times the V
+// scale rounded to bf16, and O += P V (wgmma, P from registers, V MN-major
+// from the ring, so V is never transposed). With one split it writes O in
+// the caller's (b, sq, h, d) bf16 layout and LSE (b, h, sq); with more, f32
+// partials (splits, b, sq, h, d) and (splits, b, sq, h) for combine_partials.
+// The producer hands its registers to the consumer (setmaxnreg); two blocks
+// an SM, one for int8 / fp8 pools at d = 128 (shared memory).
+//
+// `paged_attention_kernel` (the first version on WMMA: decode, speculative
+// verify rows <= 16, the options, odd pages): one block per (row tile,
+// batch entry, KV head, split), a row tile holding RT (16 or 32) query rows
+// of ONE KV head, ordered token-major with the GQA group inside. Each batch
+// entry's LIVE pages are cut into n_splits equal runs, so every split of a
+// row has work whatever the table width. The block walks the keys of its
+// split in tiles of 64: each key's page comes from the block table, the next
+// tile's K, V and scales are loaded into registers while the current tile is
+// computed (one tile of prefetch), K and V are converted to bf16 in shared
+// memory (exact for int8 and e4m3), S = Q K^T and O += P V run on the tensor
+// cores (WMMA, f32 accumulate), and an online softmax in f32 keeps the
+// running max m, the sum l and the accumulator O in shared memory. As on the
+// TPU the softmax scale is folded into q by the wrapper, and P is rounded to
+// bf16 (q's dtype) after the V scale and before the PV product. Keys past the
+// causal limit, the split or kv_len are never loaded. Rows with kv_len = 0
+// (inactive slots) give O = 0 and LSE = -inf.
+//
+// Its kExtra instantiation adds what the API passes (the option-free one is
+// the decode path's): a window (wl, wr) from query position
 // kv_len - sq + t, non-causal included; the tanh softcap on the K-scaled
 // score; ALiBi, the score of row t * group + g losing slope[b, kv_head * group
 // + g] * |qpos - kcol| after the softcap, distances counted from the leftpad;
@@ -41,8 +71,10 @@
 // row can see (window start, leftpad) are left out of the split runs, and a
 // block starts at its first row's earliest key, so they are never loaded.
 #include <mma.h>
+#include <string.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 using namespace nvcuda;
 
@@ -386,6 +418,479 @@ cudaError_t dispatch_d(int d, int row_tile, const Args& a, cudaStream_t st) {
   }
 }
 
+
+// ---- the Hopper route: paged_wgmma_kernel ---------------------------------------
+
+namespace wg {
+
+using namespace hopper;
+
+constexpr int kBQ = 64;     // query rows per block: one consumer warpgroup
+constexpr int kBK = 64;     // keys per tile
+constexpr int kStages = 2;  // bf16 K/V ring
+constexpr int kRaw = 2;     // byte staging ring of int8 / fp8 pools
+constexpr int kThreadsWg = 128 + 128;  // the consumer warpgroup, then the producer warpgroup
+// 128 registers a thread at launch (two blocks an SM where shared memory
+// allows): the producer, which only issues TMA and converts bytes, hands
+// registers to the consumer, which holds S (32 f32), P (16 words) and O
+// (D / 2 f32).
+constexpr int kProducerRegs = 56, kConsumerRegs = 200;
+static_assert(2 * 128 * (kProducerRegs + kConsumerRegs) <= 65536, "register file");
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Shared memory of one block, from a 1024-byte aligned base: the Q tile and
+// the ring of (K tile, V tile) stages, each tile D / 64 sub-tiles of 64 rows
+// x 64 bf16 columns (128-byte swizzled); for int8 / fp8 pools the staging
+// ring of (K bytes, V bytes) tiles (64 rows of D bytes, unswizzled) and each
+// bf16 stage's 64 K and 64 V scales; then the barriers. Two blocks fit an SM
+// except for int8 / fp8 pools at d = 128 (116.8 KB, one block).
+template <typename KV, int D>
+struct Layout {
+  static constexpr bool kQuant = sizeof(KV) == 1;
+  static constexpr int kTileBytes = kBK * D * 2;
+  static constexpr int kStageBytes = 2 * kTileBytes;
+  static constexpr int kRingOffset = kBQ * D * 2;  // after the Q tile
+  static constexpr int kRawTileBytes = kBK * D;
+  static constexpr int kRawOffset = kRingOffset + kStages * kStageBytes;
+  static constexpr int kScaleOffset = kRawOffset + (kQuant ? kRaw * 2 * kRawTileBytes : 0);
+  static constexpr int kBarOffset = kScaleOffset + (kQuant ? kStages * 2 * kBK * 4 : 0);
+  static constexpr int kBytes = kBarOffset + 8 * (2 * kStages + kRaw) + 1024;  // + alignment
+  static_assert(kBytes <= 232448, "one block an SM");
+};
+
+struct Params {
+  const __nv_bfloat16* q;    // (b, sq, h, D), not pre-scaled
+  int64_t q_sb, q_st, q_sh;  // its (batch, token, head) strides in elements
+  const float* k_scales;     // (L * pages, h_k, page) or null (bf16 pools)
+  const float* v_scales;
+  const int32_t* bt;    // (b, max_pages)
+  const int32_t* lens;  // (b,)
+  void* o;              // one split: (b, sq, h, D) bf16; more: (splits, b, sq, h, D) f32
+  float* lse;           // one split: (b, h, sq); more: (splits, b, sq, h)
+  int b, sq, h_k, group, page, max_pages, n_splits, n_rt;
+  int page0;     // the layer's first page in the tensor maps
+  int box_rows;  // keys per TMA box: the largest of 64, 32, 16, 8 dividing page
+  int causal;
+  float scale;
+};
+
+// 16 pool bytes -> 16 bf16 values, as two 16-byte words in order
+template <typename KV>
+__device__ __forceinline__ void bytes_to_bf16(const uint4& raw, uint4& lo, uint4& hi) {
+  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+  uint32_t out[8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    out[2 * i] = bf16x2_from_bytes02(KV{}, __byte_perm(w[i], 0, 0x4140));      // bytes 0, 1
+    out[2 * i + 1] = bf16x2_from_bytes02(KV{}, __byte_perm(w[i], 0, 0x4342));  // bytes 2, 3
+  }
+  lo = make_uint4(out[0], out[1], out[2], out[3]);
+  hi = make_uint4(out[4], out[5], out[6], out[7]);
+}
+
+// One staged byte tile (64 rows of D bytes) into a swizzled bf16 tile; rows
+// from `live` on are written as zeros. pt: the thread of the producer
+// warpgroup.
+template <typename KV, int D>
+__device__ __forceinline__ void convert_tile(const unsigned char* raw, unsigned char* tile,
+                                             int live, int pt) {
+  constexpr int kChunks = kBK * D / 16;  // 16-byte chunks of the byte tile
+  static_assert(kChunks % 128 == 0, "whole passes of the warpgroup");
+#pragma unroll
+  for (int it = 0; it < kChunks / 128; ++it) {
+    const int c = pt + it * 128;
+    const int j = c / (D / 16), dcol = (c % (D / 16)) * 16;
+    uint4 bytes = make_uint4(0, 0, 0, 0), lo, hi;
+    if (j < live) bytes = *reinterpret_cast<const uint4*>(raw + j * D + dcol);
+    bytes_to_bf16<KV>(bytes, lo, hi);
+    // 16-byte chunk c16 of row j of sub-tile dcol / 64 sits at chunk c16 ^ (j % 8)
+    unsigned char* row = tile + (dcol / 64) * kBK * 128 + j * 128;
+    const int c16 = (dcol % 64) / 8;
+    *reinterpret_cast<uint4*>(row + ((c16 ^ (j & 7)) << 4)) = lo;
+    *reinterpret_cast<uint4*>(row + (((c16 + 1) ^ (j & 7)) << 4)) = hi;
+  }
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  uint32_t r;
+  memcpy(&r, &v, 4);
+  return r;
+}
+
+// a bf16 pair times the softmax scale: f32 products rounded to bf16
+__device__ __forceinline__ uint32_t scaled_pair(uint32_t w, float scale) {
+  __nv_bfloat162 v;
+  memcpy(&v, &w, 4);
+  const float2 f = __bfloat1622float2(v);
+  return pack_bf16(f.x * scale, f.y * scale);
+}
+
+template <typename KV, int D>
+__global__ void __launch_bounds__(kThreadsWg, 2)
+    paged_wgmma_kernel(const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v, const Params p) {
+  using L = Layout<KV, D>;
+  constexpr bool kQuant = L::kQuant;
+  constexpr int kSub = D / 64;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::kBarOffset);
+  uint64_t* full = bars;
+  uint64_t* empty = bars + kStages;
+  uint64_t* raw_full = bars + 2 * kStages;
+  unsigned char* q_tile = smem;
+  auto k_tile = [&](int st) { return smem + L::kRingOffset + st * L::kStageBytes; };
+  auto v_tile = [&](int st) { return k_tile(st) + L::kTileBytes; };
+  auto raw_k = [&](int rs) { return smem + L::kRawOffset + rs * 2 * L::kRawTileBytes; };
+  auto raw_v = [&](int rs) { return raw_k(rs) + L::kRawTileBytes; };
+  auto scales = [&](int st) {  // 64 K scales, then 64 V scales
+    return reinterpret_cast<float*>(smem + L::kScaleOffset) + st * 2 * kBK;
+  };
+
+  // heaviest first: every (split, batch entry, KV head) at the last row
+  // tile, then at the tile before it
+  const int n_other = p.n_splits * p.b * p.h_k;
+  const int rt = p.n_rt - 1 - static_cast<int>(blockIdx.x) / n_other;
+  const int rest = static_cast<int>(blockIdx.x) % n_other;
+  const int kvh = rest % p.h_k, ib = rest / p.h_k % p.b, split = rest / (p.h_k * p.b);
+  const int R = p.group * p.sq;  // query rows of one KV head
+  const int r0 = rt * kBQ;
+  const int h = p.h_k * p.group;
+
+  // the split's keys: its run of the live pages, cut at kv_len and at the
+  // causal limit of the block's last row
+  const int kv_len = p.lens[ib];
+  const int n_live = min((kv_len + p.page - 1) / p.page, p.max_pages);
+  const int pps = (n_live + p.n_splits - 1) / p.n_splits;
+  const int kstart = split * pps * p.page;
+  int kend = min(min(split * pps + pps, n_live) * p.page, kv_len);
+  const int t_first = min(r0 / p.group, p.sq - 1);
+  const int t_last = min((min(r0 + kBQ, R) - 1) / p.group, p.sq - 1);
+  if (p.causal) kend = min(kend, kv_len - p.sq + t_last + 1);
+  const int n_tiles = kend > kstart ? (kend - kstart + kBK - 1) / kBK : 0;
+  const int32_t* bt_row = p.bt + static_cast<size_t>(ib) * p.max_pages;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(&full[st], 1);
+      mbar_init(&empty[st], 1);
+    }
+    if constexpr (kQuant) {
+      for (int rs = 0; rs < kRaw; ++rs) mbar_init(&raw_full[rs], 1);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {  // ---- the producer warpgroup ----
+    setmaxnreg_dec<kProducerRegs>();
+    const int pt = threadIdx.x - 128;
+    const int B = p.box_rows;
+    // the TMA boxes of tile i below kend: K to dk, V to dv, reported to bar
+    auto issue = [&](int i, unsigned char* dk, unsigned char* dv, uint64_t* bar) {
+      const int k0 = kstart + i * kBK;
+      const int nb = min(kBK / B, (kend - k0 + B - 1) / B);
+      mbar_arrive_expect_tx(bar, nb * B * D * static_cast<int>(sizeof(KV)) * 2);
+      for (int j = 0; j < nb; ++j) {
+        const int key = k0 + j * B;
+        const int pg = p.page0 + bt_row[key / p.page], row = key % p.page;
+        if constexpr (kQuant) {
+          tma_load_4d(dk + j * B * D, &tm_k, bar, 0, row, kvh, pg);
+          tma_load_4d(dv + j * B * D, &tm_v, bar, 0, row, kvh, pg);
+        } else {
+#pragma unroll
+          for (int s = 0; s < kSub; ++s) {
+            tma_load_4d(dk + s * kBK * 128 + j * B * 128, &tm_k, bar, s * 64, row, kvh, pg);
+            tma_load_4d(dv + s * kBK * 128 + j * B * 128, &tm_v, bar, s * 64, row, kvh, pg);
+          }
+        }
+      }
+    };
+    if constexpr (!kQuant) {  // one lane: TMA straight into the ring
+      if (pt == 0) {
+        for (int i = 0; i < n_tiles; ++i) {
+          const int st = i % kStages;
+          mbar_wait(&empty[st], ((i / kStages) & 1) ^ 1);
+          issue(i, k_tile(st), v_tile(st), &full[st]);
+        }
+      }
+    } else {  // bytes staged by TMA, converted to bf16 into the ring by all
+      if (pt == 0) {
+        for (int i = 0; i < min(kRaw, n_tiles); ++i) issue(i, raw_k(i), raw_v(i), &raw_full[i]);
+      }
+      float ks = 0.f, vs = 0.f;  // thread pt < 64: the scales of key pt of the next tile
+      auto load_scales = [&](int i) {
+        const int key = kstart + i * kBK + pt;
+        ks = vs = 0.f;
+        if (pt < kBK && key < kend) {
+          const size_t so =
+              (static_cast<size_t>(p.page0 + bt_row[key / p.page]) * p.h_k + kvh) * p.page +
+              key % p.page;
+          ks = p.k_scales[so];
+          vs = p.v_scales[so];
+        }
+      };
+      if (n_tiles > 0) load_scales(0);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int st = i % kStages, rs = i % kRaw;
+        mbar_wait(&raw_full[rs], (i / kRaw) & 1);
+        mbar_wait(&empty[st], ((i / kStages) & 1) ^ 1);
+        const int live = kend - (kstart + i * kBK);
+        convert_tile<KV, D>(raw_k(rs), k_tile(st), live, pt);
+        convert_tile<KV, D>(raw_v(rs), v_tile(st), live, pt);
+        if (pt < kBK) {
+          scales(st)[pt] = ks;
+          scales(st)[kBK + pt] = vs;
+        }
+        fence_proxy_async();  // the bf16 tiles are read by wgmma (the async proxy)
+        named_barrier_sync(2, 128);
+        if (pt == 0) {
+          mbar_arrive(&full[st]);
+          if (i + kRaw < n_tiles) issue(i + kRaw, raw_k(rs), raw_v(rs), &raw_full[rs]);
+        }
+        if (i + 1 < n_tiles) load_scales(i + 1);
+      }
+    }
+    return;
+  }
+
+  // ---- the consumer warpgroup: rows row, row + 8 of each warp's 16 ----
+  setmaxnreg_inc<kConsumerRegs>();
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int row = r0 + warp * 16 + (lane >> 2);
+  const int col = (lane & 3) * 2;  // its key (and O) columns in an 8-column group
+
+  // the Q tile times the softmax scale (f32 products rounded to bf16) into
+  // shared memory, 128-byte swizzled as a TMA box would write it; rows past
+  // R are zero. (With Q held as wgmma's A registers instead, ptxas gave
+  // those registers to P at d = 64, measured on the card: the second key
+  // tile's S read P.)
+  for (int c = tid; c < kBQ * (D / 8); c += 128) {
+    const int r = c / (D / 8), ch = c % (D / 8);  // row, 16-byte chunk
+    const int gr = r0 + r;
+    uint4 w = make_uint4(0, 0, 0, 0);
+    if (gr < R) {
+      const int t = gr / p.group, head = kvh * p.group + gr % p.group;
+      w = *reinterpret_cast<const uint4*>(p.q + ib * p.q_sb + t * p.q_st + head * p.q_sh +
+                                          ch * 8);
+      w = make_uint4(scaled_pair(w.x, p.scale), scaled_pair(w.y, p.scale),
+                     scaled_pair(w.z, p.scale), scaled_pair(w.w, p.scale));
+    }
+    *reinterpret_cast<uint4*>(q_tile + (ch / 8) * kBQ * 128 + r * 128 +
+                              (((ch % 8) ^ (r & 7)) << 4)) = w;
+  }
+  fence_proxy_async();
+  named_barrier_sync(1, 128);
+  int qpos[2];  // the rows' positions: their causal limits
+#pragma unroll
+  for (int r = 0; r < 2; ++r) qpos[r] = kv_len - p.sq + min((row + 8 * r) / p.group, p.sq - 1);
+  const int q_first = kv_len - p.sq + t_first;  // tiles ending at or before it need no mask
+
+  float acc[D / 2];  // O: 8-column group n holds acc[4n .. 4n+3]
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float s[kBK / 2];  // S, then P, of one key tile
+#pragma unroll
+  for (int i = 0; i < kBK / 2; ++i) s[i] = 0.f;
+  float m_row[2] = {M_FLOOR, M_FLOOR};
+  float l_row[2] = {0.f, 0.f};  // this thread's part of the row sums
+  for (int i = 0; i < n_tiles; ++i) {
+    const int k0 = kstart + i * kBK;
+    const int st = i % kStages;
+    mbar_wait(&full[st], (i / kStages) & 1);
+    if constexpr (!kQuant) {
+      if (k0 + kBK > kend) {  // V rows past kend were not loaded: zero them (0 x NaN)
+        const int live = kend - k0;
+#pragma unroll
+        for (int sub = 0; sub < kSub; ++sub) {
+          uint4* vt = reinterpret_cast<uint4*>(v_tile(st) + sub * kBK * 128);
+          for (int x = live * 8 + tid; x < kBK * 8; x += 128) vt[x] = make_uint4(0, 0, 0, 0);
+        }
+        fence_proxy_async();
+        named_barrier_sync(1, 128);
+      }
+    }
+    // S = Q K^T
+    fence_regs(s);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint64_t da = desc_sw128(q_tile + (kk / 4) * kBQ * 128 + (kk % 4) * 32, 16, 1024);
+      const uint64_t db = desc_sw128(k_tile(st) + (kk / 4) * kBK * 128 + (kk % 4) * 32, 16, 1024);
+      Wgmma<__nv_bfloat16, kBK>::ss(s, da, db, kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+
+    // the K scale per column, and the mask on boundary tiles only
+    const float* sc = scales(st);
+    if constexpr (kQuant) {
+#pragma unroll
+      for (int j = 0; j < kBK / 8; ++j) {
+        const float2 kscl = *reinterpret_cast<const float2*>(sc + j * 8 + col);
+        s[4 * j] *= kscl.x;
+        s[4 * j + 1] *= kscl.y;
+        s[4 * j + 2] *= kscl.x;
+        s[4 * j + 3] *= kscl.y;
+      }
+    }
+    if (k0 + kBK > kend || (p.causal && k0 + kBK - 1 > q_first)) {
+#pragma unroll
+      for (int e = 0; e < kBK / 2; ++e) {
+        const int kcol = k0 + (e >> 2) * 8 + col + (e & 1);
+        if (kcol >= kend || (p.causal && kcol > qpos[(e >> 1) & 1])) s[e] = NEG_INF;
+      }
+    }
+
+    // the online-softmax update of both rows
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = NEG_INF;
+#pragma unroll
+      for (int j = 0; j < kBK / 8; ++j)
+        mx = fmaxf(mx, fmaxf(s[4 * j + 2 * r], s[4 * j + 2 * r + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m_row[r], mx);
+      const float corr = exp2f((m_row[r] - m_new) * kLog2e);  // exactly 1 when m holds
+      const float m_l2 = m_new * kLog2e;
+      m_row[r] = m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < kBK / 8; ++j) {
+        s[4 * j + 2 * r] = exp2f(fmaf(s[4 * j + 2 * r], kLog2e, -m_l2));
+        s[4 * j + 2 * r + 1] = exp2f(fmaf(s[4 * j + 2 * r + 1], kLog2e, -m_l2));
+        sum += s[4 * j + 2 * r] + s[4 * j + 2 * r + 1];
+      }
+      l_row[r] = l_row[r] * corr + sum;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        acc[4 * n + 2 * r] *= corr;
+        acc[4 * n + 2 * r + 1] *= corr;
+      }
+    }
+
+    // O += P V: P times the V scale, rounded to bf16, packed as the A operand
+    uint32_t pa[kBK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+#pragma unroll
+      for (int w = 0; w < 4; ++w) {
+        const int e = 8 * kk + 2 * w;  // entries e, e + 1: key columns 8 (e >> 2) + col, + 1
+        float v0 = s[e], v1 = s[e + 1];
+        if constexpr (kQuant) {
+          const float2 vscl = *reinterpret_cast<const float2*>(sc + kBK + (e >> 2) * 8 + col);
+          v0 *= vscl.x;
+          v1 *= vscl.y;
+        }
+        pa[kk][w] = pack_bf16(v0, v1);
+      }
+    }
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      const uint64_t db = desc_sw128(v_tile(st) + kk * 16 * 128, kBK * 128, 1024);
+      Wgmma<__nv_bfloat16, D>::rs_tb(acc, pa[kk], db, 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) fence_regs(pa[kk]);
+    if (tid == 0) mbar_arrive(&empty[st]);  // the warpgroup is done with the stage
+  }
+
+  // epilogue: the four threads of a row hold parts of its sum; rows that saw
+  // no key give O = 0 and LSE = -inf
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float l = l_row[r];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const int gr = row + 8 * r;
+    if (gr >= R) continue;
+    const int t = gr / p.group, head = kvh * p.group + gr % p.group;
+    const bool no_key = l <= 0.f;
+    const float inv = no_key ? 0.f : 1.f / l;
+    const float lse = no_key ? -INFINITY : m_row[r] + logf(l);
+    if (p.n_splits == 1) {
+      __nv_bfloat16* orow =
+          static_cast<__nv_bfloat16*>(p.o) + ((static_cast<size_t>(ib) * p.sq + t) * h + head) * D;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+        *reinterpret_cast<uint32_t*>(orow + n * 8 + col) =
+            pack_bf16(acc[4 * n + 2 * r] * inv, acc[4 * n + 2 * r + 1] * inv);
+      if ((lane & 3) == 0) p.lse[(static_cast<size_t>(ib) * h + head) * p.sq + t] = lse;
+    } else {
+      const size_t ri = ((static_cast<size_t>(split) * p.b + ib) * p.sq + t) * h + head;
+      float* orow = static_cast<float*>(p.o) + ri * D;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+        *reinterpret_cast<float2*>(orow + n * 8 + col) =
+            make_float2(acc[4 * n + 2 * r] * inv, acc[4 * n + 2 * r + 1] * inv);
+      if ((lane & 3) == 0) p.lse[ri] = lse;
+    }
+  }
+}
+
+// keys per TMA box: the largest of 64, 32, 16, 8 that divides the page, or 0
+inline int box_rows(int page) {
+  for (int b = 64; b >= 8; b /= 2)
+    if (page % b == 0) return b;
+  return 0;
+}
+
+template <typename KV, int D>
+cudaError_t launch(const void* k_pool, const void* v_pool, int n_pool_pages, const Params& prm,
+                   cudaStream_t stream) {
+  using L = Layout<KV, D>;
+  constexpr uint64_t es = sizeof(KV);
+  CUtensorMap maps[2];
+  const void* bases[2] = {k_pool, v_pool};
+  // (d, page, h_k, L * pages) over every layer: the layer is a page coordinate
+  const uint64_t dims[4] = {static_cast<uint64_t>(D), static_cast<uint64_t>(prm.page),
+                            static_cast<uint64_t>(prm.h_k), static_cast<uint64_t>(n_pool_pages)};
+  const uint64_t strides[3] = {D * es, static_cast<uint64_t>(prm.page) * D * es,
+                               static_cast<uint64_t>(prm.h_k) * prm.page * D * es};
+  // byte pools: boxes of whole D-byte rows, unswizzled (staged); bf16 pools:
+  // 64-column boxes, 128-byte swizzled (the ring wgmma reads)
+  const uint32_t box[4] = {L::kQuant ? static_cast<uint32_t>(D) : 64u,
+                           static_cast<uint32_t>(prm.box_rows), 1, 1};
+  for (int i = 0; i < 2; ++i) {
+    cudaError_t err =
+        L::kQuant ? make_map(&maps[i], CU_TENSOR_MAP_DATA_TYPE_UINT8, 4, bases[i], dims, strides,
+                             box, CU_TENSOR_MAP_SWIZZLE_NONE)
+                  : make_map(&maps[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, bases[i], dims,
+                             strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+    if (err != cudaSuccess) return err;
+  }
+  auto* kernel = &paged_wgmma_kernel<KV, D>;
+  static bool smem_limit_set = false;  // once per instantiation, as for the WMMA kernel
+  if (!smem_limit_set) {
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
+    if (err != cudaSuccess) return err;
+    smem_limit_set = true;
+  }
+  const unsigned grid = static_cast<unsigned>(prm.n_rt) * prm.n_splits * prm.b * prm.h_k;
+  kernel<<<grid, kThreadsWg, L::kBytes, stream>>>(maps[0], maps[1], prm);
+  return cudaGetLastError();
+}
+
+template <typename KV>
+cudaError_t launch_d(int d, const void* kp, const void* vp, int n_pool_pages, const Params& prm,
+                     cudaStream_t stream) {
+  if (d == 128) return launch<KV, 128>(kp, vp, n_pool_pages, prm, stream);
+  if (d == 64) return launch<KV, 64>(kp, vp, n_pool_pages, prm, stream);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace wg
+
 }  // namespace
 
 // q (b, sq, h_k * group, d) bf16; pools (pages, h_k, page, d) of kv_dtype;
@@ -418,6 +923,65 @@ extern "C" int xfa_paged_attention(const void* q, const void* k_pool, const void
       return dispatch_d<int8_t>(d, row_tile, a, st);
     case XFA_FP8_E4M3:
       return dispatch_d<fp8e4m3_t>(d, row_tile, a, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// The Hopper route (ops/paged.py::paged_route): q (b, sq, h_k * group, d)
+// bf16 read through its (batch, token, head) element strides (last dimension
+// contiguous, strides multiples of 8, base 16-byte aligned), not pre-scaled
+// (the kernel multiplies it by `scale`); pools (n_layers, pool_pages, h_k,
+// page, d) of kv_dtype with page % 8 == 0, read at layer `layer`; scales
+// (n_layers, pool_pages, h_k, page) f32 or null (bf16 pools); causal 1 is a
+// right window of 0, 0 none.
+// One split writes o (b, sq, h, d) bf16 and lse (b, h, sq); more write f32
+// partials o (n_splits, b, sq, h, d) and lse (n_splits, b, sq, h).
+extern "C" int xfa_paged_attention_wgmma(const void* q, int64_t q_sb, int64_t q_st,
+                                         int64_t q_sh, const void* k_pool, const void* v_pool,
+                                         int kv_dtype, const void* k_scales,
+                                         const void* v_scales, const void* block_tables,
+                                         const void* kv_lens, void* o, void* lse, int b, int sq,
+                                         int h_k, int group, int d, int page, int max_pages,
+                                         int n_layers, int pool_pages, int layer, int n_splits,
+                                         int causal, float scale, void* stream) {
+  if (b * sq == 0) return cudaSuccess;
+  const int box = wg::box_rows(page);
+  if (box == 0 || n_splits < 1 || group < 1) return cudaErrorInvalidValue;
+  const bool quant = kv_dtype != XFA_BF16;
+  if (quant && (k_scales == nullptr || v_scales == nullptr)) return cudaErrorInvalidValue;
+  wg::Params prm{};
+  prm.q = static_cast<const __nv_bfloat16*>(q);
+  prm.q_sb = q_sb;
+  prm.q_st = q_st;
+  prm.q_sh = q_sh;
+  prm.k_scales = quant ? static_cast<const float*>(k_scales) : nullptr;
+  prm.v_scales = quant ? static_cast<const float*>(v_scales) : nullptr;
+  prm.bt = static_cast<const int32_t*>(block_tables);
+  prm.lens = static_cast<const int32_t*>(kv_lens);
+  prm.o = o;
+  prm.lse = static_cast<float*>(lse);
+  prm.b = b;
+  prm.sq = sq;
+  prm.h_k = h_k;
+  prm.group = group;
+  prm.page = page;
+  prm.max_pages = max_pages;
+  prm.n_splits = n_splits;
+  prm.n_rt = (group * sq + wg::kBQ - 1) / wg::kBQ;
+  prm.page0 = layer * pool_pages;
+  prm.box_rows = box;
+  prm.causal = causal;
+  prm.scale = scale;
+  const int n_pool_pages = n_layers * pool_pages;
+  auto st = static_cast<cudaStream_t>(stream);
+  switch (kv_dtype) {
+    case XFA_BF16:
+      return wg::launch_d<__nv_bfloat16>(d, k_pool, v_pool, n_pool_pages, prm, st);
+    case XFA_I8:
+      return wg::launch_d<int8_t>(d, k_pool, v_pool, n_pool_pages, prm, st);
+    case XFA_FP8_E4M3:
+      return wg::launch_d<fp8e4m3_t>(d, k_pool, v_pool, n_pool_pages, prm, st);
     default:
       return cudaErrorInvalidValue;
   }

@@ -14,12 +14,17 @@ kvh taking the slope of q head kvh * group + g and losing slope * |qpos -
 kcol| after the softcap, both positions counted from the leftpad; and
 ``cache_leftpad`` (b,), which masks the keys before it.
 
-CUDA tensors run the hand-written kernel csrc/paged_attention.cu, which
-writes f32 split-KV partials (O, LSE) that ``combine_partials`` merges in
-plain torch; it takes bf16 queries. CPU tensors run ``paged_attention_ref``,
-the plain version, with the kernel's numerics. Both cut the pages from the
-first one any row can see (window start, leftpad) to the last live one into
-``num_splits`` equal runs.
+CUDA tensors run one of the two hand-written kernels of
+csrc/paged_attention.cu, as ``paged_route`` picks from the shapes, the pool
+dtype and the options: the Hopper kernel ("wgmma", 64 query rows a block,
+more than 16 rows a KV head: prefill chunks and paged varlen), which scales
+q itself and writes O and LSE in the caller's layout, or the first version
+on WMMA ("wmma": decode, speculative verify, the options, odd pages). Split
+runs give f32 partials (O, LSE) that ``combine_partials`` merges in plain
+torch. Both take bf16 queries. CPU tensors run ``paged_attention_ref``, the
+plain version, with the kernels' numerics. All cut the pages from the first
+one any row can see (window start, leftpad) to the last live one into
+``num_splits`` equal runs, the number the route's row tile gives.
 
 The layout is the JAX package's logical contract with its TPU padding
 removed: pools are stored tight, and the kernel reads any page size.
@@ -76,18 +81,68 @@ def num_splits_heuristic(
 
 
 def kernel_row_tile(rows: int) -> int:
-    """Query rows per block of csrc/paged_attention.cu (one of its two
-    instances; the launcher is told which)."""
+    """Query rows per block of the WMMA kernel of csrc/paged_attention.cu
+    (one of its two instances; the launcher is told which)."""
     return 16 if rows <= 16 else 32
 
 
-def resolve_num_splits(num_splits: int, b: int, h_k: int, rows: int, max_pages: int) -> int:
+WGMMA_ROWS = 64  # query rows per block of the Hopper kernel: one warpgroup's
+
+
+def has_options(causal: bool, window: Tuple[int, int], softcap: float, alibi_slopes,
+                cache_leftpad) -> bool:
+    """Whether a call needs the WMMA kernel's general instantiation: a window
+    start, a right window beyond the causal one, softcap, ALiBi or leftpad
+    (non-causal attention is option-free)."""
+    wr = 0 if causal else window[1]
+    return (window[0] >= 0 or wr > 0 or softcap > 0.0 or alibi_slopes is not None
+            or cache_leftpad is not None)
+
+
+def paged_route(rows: int, page: int, d: int, kv_dtype: torch.dtype, options: bool) -> str:
+    """The kernel of csrc/paged_attention.cu that takes a call, a pure
+    function of its shapes, pool dtype and options: "wgmma" (the Hopper
+    kernel) when more than 16 query rows share a KV head (rows = sq *
+    group), d is 64 or 128, the page is whole TMA boxes (a multiple of 8
+    keys), the pools are bf16, int8 or fp8 and no option asks for the
+    general kernel; else "wmma" (the first version: decode, speculative
+    verify, the options, odd pages)."""
+    if (rows > 16 and d in (64, 128) and page % 8 == 0 and not options
+            and kv_dtype in (torch.bfloat16, *QUANT_DTYPES)):
+        return "wgmma"
+    return "wmma"
+
+
+def route_row_tile(route: str, rows: int) -> int:
+    """Query rows per block of the route's kernel."""
+    return WGMMA_ROWS if route == "wgmma" else kernel_row_tile(rows)
+
+
+def resolve_num_splits(num_splits: int, b: int, h_k: int, rows: int, max_pages: int,
+                       row_tile: Optional[int] = None) -> int:
     """Explicit num_splits wins; 0 asks the heuristic, with the kernel's
-    blocks (b * h_k * row tiles) as work and the H100's SMs as cores."""
+    blocks (b * h_k * row tiles of `row_tile` rows, the WMMA kernel's by
+    default) as work and the H100's SMs as cores."""
     if num_splits <= 0:
-        n_work = b * h_k * cdiv(rows, kernel_row_tile(rows))
+        tile = kernel_row_tile(rows) if row_tile is None else row_tile
+        n_work = b * h_k * cdiv(rows, tile)
         num_splits = num_splits_heuristic(n_work, NUM_SMS, max_pages, MAX_SPLITS)
     return max(1, min(num_splits, max_pages))
+
+
+def paged_plan(q_shape, k_pool_shape, kv_dtype: torch.dtype, max_pages: int, num_splits: int = 0,
+               causal: bool = True, window: Tuple[int, int] = (-1, -1), softcap: float = 0.0,
+               alibi_slopes=None, cache_leftpad=None) -> Tuple[str, int]:
+    """(route, splits) of a paged_attention call: the kernel paged_route
+    picks and the split count resolve_num_splits gives for its row tile.
+    k_pool_shape is (pages, h_k, page, d), or (L, ...) with a layer axis."""
+    b, sq, h, d = q_shape
+    h_k, page = k_pool_shape[-3], k_pool_shape[-2]
+    rows = sq * (h // h_k)
+    route = paged_route(rows, page, d, kv_dtype,
+                        has_options(causal, window, softcap, alibi_slopes, cache_leftpad))
+    return route, resolve_num_splits(num_splits, b, h_k, rows, max_pages,
+                                     route_row_tile(route, rows))
 
 
 def _layer(x: Optional[torch.Tensor], layer_idx) -> Optional[torch.Tensor]:
@@ -251,16 +306,16 @@ def _lib():
             + [ctypes.c_int] * 10 + [ctypes.c_float] + [ctypes.c_void_p] * 2
             + [ctypes.c_int, ctypes.c_void_p]
         )
+        lib.xfa_paged_attention_wgmma.restype = ctypes.c_int
+        lib.xfa_paged_attention_wgmma.argtypes = (
+            [ctypes.c_void_p] + [ctypes.c_int64] * 3 + [ctypes.c_void_p] * 2 + [ctypes.c_int]
+            + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 12 + [ctypes.c_float, ctypes.c_void_p]
+        )
         _lib_handle = lib
     return _lib_handle
 
 
-def _paged_attention_cuda(q, k_pool, v_pool, block_tables, kv_lens, scale, causal, window,
-                          softcap, alibi_slopes, cache_leftpad, num_splits, k_scales, v_scales):
-    b, sq, h, d = q.shape
-    _, h_k, page, _ = k_pool.shape
-    g = h // h_k
-    rows = sq * g
+def _check_cuda_inputs(q, k_pool, v_pool, k_scales, v_scales):
     if q.dtype != torch.bfloat16:
         raise TypeError(f"the CUDA paged-attention kernel (K1) takes bf16 queries, got {q.dtype}")
     kv_quant = k_scales is not None
@@ -270,6 +325,7 @@ def _paged_attention_cuda(q, k_pool, v_pool, block_tables, kv_lens, scale, causa
         raise TypeError(
             f"the CUDA paged-attention kernel takes bf16/int8/fp8 pools, got {k_pool.dtype}"
         )
+    d = q.shape[-1]
     if d not in (64, 128):
         raise ValueError(f"the CUDA paged-attention kernel takes head_dim 64 or 128, got {d}")
     for t in (k_pool, v_pool) + ((k_scales, v_scales) if kv_quant else ()):
@@ -277,6 +333,25 @@ def _paged_attention_cuda(q, k_pool, v_pool, block_tables, kv_lens, scale, causa
             raise ValueError("pools and scales must be contiguous")
     if kv_quant and (k_scales.dtype != torch.float32 or v_scales.dtype != torch.float32):
         raise TypeError("scale pools must be float32")
+
+
+def _paged_attention_cuda(q, k_pool, v_pool, layer_idx, block_tables, kv_lens, scale, causal,
+                          window, softcap, alibi_slopes, cache_leftpad, num_splits, k_scales,
+                          v_scales, route):
+    """K1 on CUDA tensors through the kernel `route` names (paged_route's
+    choice; chip_smoke.py also forces "wmma" to time the first version on
+    the same shapes). Pools and scales as paged_attention takes them, with
+    layer_idx not yet applied."""
+    if route == "wgmma":
+        return _paged_wgmma_cuda(q, k_pool, v_pool, layer_idx, block_tables, kv_lens, scale,
+                                 causal or window[1] == 0, num_splits, k_scales, v_scales)
+    k_pool, v_pool = _layer(k_pool, layer_idx), _layer(v_pool, layer_idx)
+    k_scales, v_scales = _layer(k_scales, layer_idx), _layer(v_scales, layer_idx)
+    b, sq, h, d = q.shape
+    _, h_k, page, _ = k_pool.shape
+    g = h // h_k
+    rows = sq * g
+    _check_cuda_inputs(q, k_pool, v_pool, k_scales, v_scales)
     # softmax scale folded into q in f32, rounded to q's dtype (as on the TPU)
     qs = (q.float() * scale).to(q.dtype).contiguous()
     bt = block_tables.to(torch.int32).contiguous()
@@ -296,12 +371,55 @@ def _paged_attention_cuda(q, k_pool, v_pool, block_tables, kv_lens, scale, causa
         _build.ptr(slopes), _build.ptr(leftpad), kernel_row_tile(rows), _build.stream_handle(),
     )
     _build.check(rc, "paged_attention")
-    _build.LAUNCHES["paged_attention.decode" if sq == 1 else "paged_attention.prefill"] += 1
+    _build.LAUNCHES["paged_attention.decode" if sq == 1 else "paged_attention.prefill.wmma"] += 1
     if num_splits > 1:
         o, lse = combine_partials(o_part, lse_part)
     else:
         o, lse = o_part[0], lse_part[0]
     return _unswap(o, lse, b, sq, h_k, g, d, q.dtype)
+
+
+def _paged_wgmma_cuda(q, k_pool, v_pool, layer_idx, block_tables, kv_lens, scale, causal,
+                      num_splits, k_scales, v_scales):
+    """The Hopper kernel. q is read through its strides and scaled inside
+    the kernel; the pools' tensor maps span every layer, so layer_idx is a
+    page coordinate; one split gives O (b, sq, h, d) and LSE (b, h, sq) as
+    they are, more give f32 partials in that layout for combine_partials."""
+    if layer_idx is None:  # one layer: a leading layer axis of 1, no copy
+        k_pool, v_pool = k_pool[None], v_pool[None]
+        k_scales = None if k_scales is None else k_scales[None]
+        v_scales = None if v_scales is None else v_scales[None]
+    _check_cuda_inputs(q, k_pool, v_pool, k_scales, v_scales)
+    n_layers, pool_pages, h_k, page, d = k_pool.shape
+    layer = 0 if layer_idx is None else int(layer_idx)
+    if not 0 <= layer < n_layers:
+        raise IndexError(f"layer_idx {layer} out of range for {n_layers} layers")
+    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
+        raise ValueError("the Hopper paged-attention kernel reads pools at 16-byte aligned bases")
+    b, sq, h, _ = q.shape
+    if q.stride(-1) != 1 or q.data_ptr() % 16 or any(st % 8 for st in q.stride()[:3]):
+        q = q.clone(memory_format=torch.contiguous_format)  # the kernel reads 16-byte rows
+    bt = block_tables.to(torch.int32).contiguous()
+    lens = kv_lens.to(torch.int32).contiguous()
+    if num_splits == 1:
+        o = torch.empty((b, sq, h, d), dtype=torch.bfloat16, device=q.device)
+        lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    else:
+        o = torch.empty((num_splits, b, sq, h, d), dtype=torch.float32, device=q.device)
+        lse = torch.empty((num_splits, b, sq, h), dtype=torch.float32, device=q.device)
+    rc = _lib().xfa_paged_attention_wgmma(
+        q.data_ptr(), *q.stride()[:3], k_pool.data_ptr(), v_pool.data_ptr(),
+        _build.dtype_code(k_pool.dtype), _build.ptr(k_scales), _build.ptr(v_scales),
+        bt.data_ptr(), lens.data_ptr(), o.data_ptr(), lse.data_ptr(),
+        b, sq, h_k, h // h_k, d, page, bt.shape[1], n_layers, pool_pages, layer, num_splits,
+        int(causal), float(scale), _build.stream_handle(),
+    )
+    _build.check(rc, "paged_attention (wgmma)")
+    _build.LAUNCHES["paged_attention.prefill.wgmma"] += 1
+    if num_splits > 1:
+        o, lse = combine_partials(o, lse)
+        return o.to(q.dtype), lse.transpose(1, 2).contiguous()
+    return o, lse
 
 
 def paged_attention(
@@ -329,11 +447,10 @@ def paged_attention(
         raise ValueError(
             f"layer_idx given but k_pool is not (L, pages, h_k, page, d): {tuple(k_pool.shape)}"
         )
-    k_pool, v_pool = _layer(k_pool, layer_idx), _layer(v_pool, layer_idx)
-    k_scales = _squeeze_scales(_layer(k_scales, layer_idx), k_pool)
-    v_scales = _squeeze_scales(_layer(v_scales, layer_idx), v_pool)
+    k_scales = _squeeze_scales(k_scales, k_pool)
+    v_scales = _squeeze_scales(v_scales, v_pool)
     b, sq, h, d = q.shape
-    h_k = k_pool.shape[1]
+    h_k = k_pool.shape[-3]
     if h % h_k:
         raise ValueError(f"q heads {h} not a multiple of kv heads {h_k}")
     if alibi_slopes is not None and tuple(alibi_slopes.shape) not in ((h,), (b, h)):
@@ -341,16 +458,17 @@ def paged_attention(
                          f"got {tuple(alibi_slopes.shape)}")
     if cache_leftpad is not None and tuple(cache_leftpad.shape) != (b,):
         raise ValueError(f"cache_leftpad must be ({b},), got {tuple(cache_leftpad.shape)}")
-    splits = resolve_num_splits(num_splits, b, h_k, sq * (h // h_k), block_tables.shape[1])
+    route, splits = paged_plan(q.shape, k_pool.shape, k_pool.dtype, block_tables.shape[1],
+                               num_splits, causal, window, softcap, alibi_slopes, cache_leftpad)
     scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)
     if is_cuda(q, k_pool, v_pool, block_tables, kv_lens, alibi_slopes, cache_leftpad):
-        return _paged_attention_cuda(q, k_pool, v_pool, block_tables, kv_lens, scale,
+        return _paged_attention_cuda(q, k_pool, v_pool, layer_idx, block_tables, kv_lens, scale,
                                      causal, window, softcap, alibi_slopes, cache_leftpad,
-                                     splits, k_scales, v_scales)
+                                     splits, k_scales, v_scales, route)
     _build.PLAIN_CALLS["paged_attention"] += 1
     return paged_attention_ref(
-        q, k_pool, v_pool, block_tables, kv_lens, softmax_scale=scale, causal=causal,
-        window=window, softcap=softcap, alibi_slopes=alibi_slopes,
-        cache_leftpad=cache_leftpad, num_splits=splits, k_scales=k_scales,
-        v_scales=v_scales,
+        q, _layer(k_pool, layer_idx), _layer(v_pool, layer_idx), block_tables, kv_lens,
+        softmax_scale=scale, causal=causal, window=window, softcap=softcap,
+        alibi_slopes=alibi_slopes, cache_leftpad=cache_leftpad, num_splits=splits,
+        k_scales=_layer(k_scales, layer_idx), v_scales=_layer(v_scales, layer_idx),
     )
