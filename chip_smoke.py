@@ -17,22 +17,29 @@ Phases, each of which raises (exit code != 0) when it fails:
    ptxas line saying wgmma was serialized: it fails unless every K9, K10
    and K11 instantiation holds HGMMA and UTMALDG and no HMMA and the
    option-free ones spill nothing. The same for K1 (`paged_build`): it
-   fails unless the six instantiations of its Hopper kernel hold HGMMA and
-   UTMALDG, no HMMA and no spill, and the 24 WMMA ones keep their HMMA.
+   fails unless the six instantiations of its Hopper chunk kernel hold
+   HGMMA and UTMALDG, no HMMA and no spill, the twelve of its decode kernel
+   HMMA (mma.sync) and UTMALDG and no spill, the two of its combine kernel
+   no spill, and the 24 WMMA ones keep their HMMA; and unless the CUDA
+   occupancy calculator gives every decode instantiation the resident
+   blocks an SM that the decode route's split heuristic counts.
 2. Hold each kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it (Llama-8B widths), and time the kernel, the
    plain version and, where one exists, a PyTorch library call that computes
    the same function (a yardstick only; the port never calls it). Bucketed
    prefill's shapes are all covered: K3 at m = 256-2048, K5 appending a whole
    bucket at position 0 through a trash-tailed block-table row, K7 at every
-   bucket. K1's chunk (the Hopper kernel) and decode (the WMMA kernel) at
-   fp8, int8 and bf16 each launch the route paged_plan names; the chunk is
-   also timed through the WMMA kernel, and K1's library yardstick is SDPA
-   over the live keys (the 4096 keys of every page beside it); the route
-   cases (PAGED_ROUTE_CASES: pages 12-256, d 64 and 128, splits,
-   non-causal, a stacked layer, ragged row tiles, an option and an odd
-   page on the WMMA kernel) hold both routes to their plain version and
-   the oracle. K3/K4's wgmma kernel (m > 16) is checked for bf16 weights without
+   bucket. K1's chunk (the Hopper chunk kernel) and decode (the decode
+   kernel and its combine) at fp8, int8 and bf16 each launch the route
+   paged_plan names; both are also timed through the WMMA kernel, decode
+   through the chunk kernel forced onto its rows too, and K1's library
+   yardstick is SDPA over the live keys (the 4096 keys of every page beside
+   it); the combine kernel is held against combine_partials on the decode's
+   partials; the route cases (PAGED_ROUTE_CASES: pages 12-256, d 64 and
+   128, splits, non-causal, a stacked layer, ragged row tiles, decode at
+   groups 1-8 and sq 1-4 with kv_len < 64 and more splits than live tiles,
+   an option and an odd page on the WMMA kernel) hold every route to its
+   plain version and the oracle. K3/K4's wgmma kernel (m > 16) is checked for bf16 weights without
    scale, int8 and fp8, stacked and single, at m = 17, 64, 100, 255, 256 and
    2048 on Llama-8B shapes, its weight conversion bit for bit on every byte
    value, and it is timed at m = 256 and 2048 beside the WMMA kernel on the
@@ -61,8 +68,9 @@ Phases, each of which raises (exit code != 0) when it fails:
    entry against its plain version (its dropout signs equal, 0 mismatches),
    K9/K10/K11 with ALiBi and dropout (3x rule against the oracle's gradients,
    the mask taken from K8's signs) and over the packed prompts, K1 with each
-   of window, softcap, ALiBi and leftpad, and the realized drop fraction
-   within 0.01 of p.
+   of window, softcap, ALiBi and leftpad (the WMMA kernel,
+   `paged_attention.decode.wmma`), and the realized drop fraction within
+   0.01 of p.
 3. Train: Llama-8B widths, all 32 layers, bf16, one 1024-token batch from
    the seed, three plain SGD steps through K7 forward and K9/K10 backward
    and one through K11; every loss finite and below the one before.
@@ -73,9 +81,11 @@ Phases, each of which raises (exit code != 0) when it fails:
    with 256-token chunked prefill, the same 8 requests with bucketed
    prefill (K7), one bucketed admission of the largest prompt timed and
    profiled (`admission_profile`: device time by kernel, K3's share), and a
-   profiled decode window. After the chunked run, the chunked prefill of
-   the same prompts is profiled by kernel (`chunked_prefill_profile`, K1's
-   share on each route).
+   profiled decode window (`decode_profile`: device time and kernel
+   launches a step, K1's by route). After the chunked run, the chunked
+   prefill of the same prompts is profiled by kernel
+   (`chunked_prefill_profile`, K1's share on each route). Both serving
+   runs decode through the decode kernel and never the WMMA one.
 5. Drive the public API (`api.py`) at Llama-8B attention width: dense
    attention with ALiBi, dropout and the probability plane, and its
    gradient; packed varlen over the serving prompts with per-sequence ALiBi,
@@ -240,6 +250,73 @@ def sdpa_over_pages(q, kp, vp, ks, vs, bt, lens, T):
     return lambda: F.scaled_dot_product_attention(qt, kg, vg, attn_mask=mask)
 
 
+def paged_inputs(gen, kv_dtype, phase, cfg, kv_range=(200, 1533)):
+    """K1's inputs at the engine's shapes: two layers of page-256 pools of
+    64 pages (+ a trash page), 16-page block tables, q (b, sq, h, d) bf16.
+    Decode: b = 8, sq = 1, kv_lens drawn from kv_range, the last slot
+    inactive (kv_len 0 on the trash page); prefill: one 256-token chunk at
+    kv_len 1024. Returns (q, k_pool, v_pool, k_scales, v_scales, bt, lens)."""
+    h, h_k, d, page, max_pages = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 256, 16
+    b, sq = (8, 1) if phase == "decode" else (1, 256)
+    n_pages = 64
+    kp, vp, ks, vs = kv_pools(gen, kv_dtype, 2, n_pages, h_k, page, d)
+    bt = torch.stack([torch.randperm(n_pages, generator=gen, device="cuda")[:max_pages]
+                      for _ in range(b)]).int()
+    if phase == "decode":
+        lens = torch.randint(*kv_range, (b,), generator=gen, device="cuda").int()
+        lens[-1] = 0  # an inactive slot: trash page, O = 0, LSE = -inf
+        bt[-1] = n_pages
+    else:
+        lens = torch.tensor([1024], dtype=torch.int32, device="cuda")  # 4th chunk
+    q = torch.randn((b, sq, h, d), generator=gen, device="cuda").bfloat16()
+    return q, kp, vp, ks, vs, bt, lens
+
+
+def sdpa_over_live_keys(q, kp, vp, ks, vs, bt, lens):
+    """(T, SDPA over the first T keys): K1's library yardstick, T the largest
+    kv_len rounded up to a page. Pools and scales of one layer."""
+    page = kp.shape[-2]
+    t_live = (int(lens.max()) + page - 1) // page * page
+    return t_live, sdpa_over_pages(q, kp, vp, ks, vs, bt, lens, t_live)
+
+
+def k1_bound(q, kp, ks, bt, lens, first_keys=None):
+    """K1's (bound_ms, bound_by) on these inputs: q, the block tables and the
+    K/V rows (and scales) any row sees read once, O (bf16) and LSE written
+    once; 4 * d operations per (query head, visible key). Rows see the keys
+    from first_keys (the window start or leftpad; 0 by default) up to their
+    causal limit."""
+    b, sq, h, d = q.shape
+    lens_l = [int(x) for x in lens.tolist()]
+    firsts = [0] * b if first_keys is None else [max(0, int(x)) for x in first_keys.tolist()]
+    visible = sum(max(0, min(n, n - sq + t + 1) - f) for n, f in zip(lens_l, firsts)
+                  for t in range(sq))
+    kv_row = 2 * d * kp.element_size() + (8 if ks is not None else 0)  # K, V, scales
+    out_bytes = q.numel() * 2 + b * h * sq * 4
+    read = sum(max(0, n - f) for n, f in zip(lens_l, firsts))
+    by = nbytes(q, bt, lens) + out_bytes + read * kp.shape[-3] * kv_row
+    return bound(by, 4 * d * h * visible)
+
+
+def forced_route(route, q, kp, vp, ks, vs, bt, lens):
+    """(splits, call) of K1 through the kernel `route` names on inputs of
+    layer 1 (option-free, causal), with the split count paged_plan gives
+    the decode route or, for another route forced onto the same rows, the
+    heuristic over that kernel's row tile."""
+    from xf_flash_attention_cutlass_tpu_torch.ops import paged
+
+    b, sq, h, d = q.shape
+    h_k = kp.shape[-3]
+    route_now, splits = paged.paged_plan(q.shape, kp.shape, kp.dtype, bt.shape[1])
+    if route != route_now:
+        rows = sq * (h // h_k)
+        splits = paged.resolve_num_splits(0, b, h_k, rows, bt.shape[1],
+                                          paged.route_row_tile(route, rows))
+    return splits, lambda: paged._paged_attention_cuda(
+        q, kp, vp, 1, bt, lens, 1.0 / math.sqrt(d), True, (-1, -1), 0.0, None, None, splits,
+        ks, vs, route)
+
+
 def check_paged_attention(gen, timer, checks, kv_dtype, phase, cfg):
     """K1 at the engine's shapes: decode b=8, sq=1 over kv_lens of the
     serving prompts (the WMMA kernel), or one 256-token chunk at b=1 (the
@@ -251,26 +328,16 @@ def check_paged_attention(gen, timer, checks, kv_dtype, phase, cfg):
     launch the route paged_plan names."""
     from xf_flash_attention_cutlass_tpu_torch import _build
     from xf_flash_attention_cutlass_tpu_torch.ops.paged import (
-        _paged_attention_cuda,
         paged_attention,
         paged_attention_ref,
         paged_plan,
+        route_label,
     )
     from xf_flash_attention_cutlass_tpu_torch.utils.testing import paged_attention_oracle
 
     h, h_k, d, page, max_pages = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 256, 16
-    b, sq = (8, 1) if phase == "decode" else (1, 256)
-    n_pages = 64
-    kp, vp, ks, vs = kv_pools(gen, kv_dtype, 2, n_pages, h_k, page, d)
-    bt = torch.stack([torch.randperm(n_pages, generator=gen, device="cuda")[:max_pages]
-                      for _ in range(b)]).int()
-    if phase == "decode":
-        lens = torch.randint(200, 1533, (b,), generator=gen, device="cuda").int()
-        lens[-1] = 0  # an inactive slot: trash page, O = 0, LSE = -inf
-        bt[-1] = n_pages
-    else:
-        lens = torch.tensor([1024], dtype=torch.int32, device="cuda")  # 4th chunk
-    q = torch.randn((b, sq, h, d), generator=gen, device="cuda").bfloat16()
+    q, kp, vp, ks, vs, bt, lens = paged_inputs(gen, kv_dtype, phase, cfg)
+    b, sq = q.shape[:2]
     sc = {} if ks is None else dict(k_scales=ks, v_scales=vs)
     sc1 = {} if ks is None else dict(k_scales=ks[1], v_scales=vs[1])
 
@@ -278,7 +345,7 @@ def check_paged_attention(gen, timer, checks, kv_dtype, phase, cfg):
         return paged_attention(q, kp, vp, bt, lens, layer_idx=1, **sc)
 
     route, splits = paged_plan(q.shape, kp.shape, kp.dtype, max_pages)
-    label = f"paged_attention.{'prefill.wgmma' if route == 'wgmma' else phase}"
+    label = route_label(route, sq * (h // h_k))
 
     def plain():
         return paged_attention_ref(q, kp[1], vp[1], bt, lens, num_splits=splits, **sc1)
@@ -304,19 +371,11 @@ def check_paged_attention(gen, timer, checks, kv_dtype, phase, cfg):
                lse_err=lse_plain_err, lse_err_vs_f32_oracle=lerr, lse_tolerance=ltol,
                dead_rows_ok=dead_ok, num_splits=splits, route=route, launched=launched)
 
-    # bound: q, the live K/V rows (and scales) and the block tables read once,
-    # O and LSE written once; 4 * d operations per (query head, visible key)
-    lens_l = [int(x) for x in lens.tolist()]
-    visible = sum(sum(max(0, min(n, n - sq + t + 1)) for t in range(sq)) for n in lens_l)
-    kv_row = 2 * d * kp.element_size() + (8 if ks is not None else 0)  # K, V, scales
-    by = nbytes(q, bt, lens, o, lse) + sum(lens_l) * h_k * kv_row
-    ops = 4 * d * h * visible
     # library yardstick: SDPA over the live keys (the largest kv_len rounded
     # up to a page); beside it, the earlier yardstick over every page of the
     # table (max_pages * page keys), which did up to 4x the work
     ksl, vsl = (None, None) if ks is None else (ks[1], vs[1])
-    t_live = (max(lens_l) + page - 1) // page * page
-    library = sdpa_over_pages(q, kp[1], vp[1], ksl, vsl, bt, lens, t_live)
+    t_live, library = sdpa_over_live_keys(q, kp[1], vp[1], ksl, vsl, bt, lens)
     library_all = sdpa_over_pages(q, kp[1], vp[1], ksl, vsl, bt, lens, max_pages * page)
     zero = torch.zeros(h, device="cuda")  # ALiBi of slope 0: the options' kernel, same result
     out = dict(
@@ -324,12 +383,13 @@ def check_paged_attention(gen, timer, checks, kv_dtype, phase, cfg):
         ms_general=timer.ms(lambda: paged_attention(q, kp, vp, bt, lens, layer_idx=1,
                                                     alibi_slopes=zero, **sc)),
         library_ms=timer.ms(library), library_ms_all_pages=timer.ms(library_all),
-        library_keys=t_live, bound=bound(by, ops), err=plain_err, tol=tol, route=route,
+        library_keys=t_live, bound=k1_bound(q, kp, ks, bt, lens), err=plain_err, tol=tol,
+        route=route, splits=splits,
     )
-    if route == "wgmma":  # the first version on the same inputs
-        out["wmma_ms"] = timer.ms(lambda: _paged_attention_cuda(
-            q, kp, vp, 1, bt, lens, 1.0 / math.sqrt(d), True, (-1, -1), 0.0, None, None, splits,
-            ks, vs, "wmma"))
+    # the first version on the same inputs; at decode also the Hopper chunk
+    # kernel forced onto the rows (a 64-row tile of group * sq live rows)
+    for other in ("wmma",) + (("wgmma",) if route == "decode" else ()):
+        out[f"{other}_ms"] = timer.ms(forced_route(other, q, kp, vp, ks, vs, bt, lens)[1])
     return out
 
 
@@ -583,23 +643,34 @@ def check_other_shapes(gen, checks):
 
 
 # K1's routes off the engine's shapes: (kv dtype, h, h_k, d, page, b, sq,
-# causal, num_splits, layers, options, route the call must take). The
-# Hopper kernel at page 16, 24 (8-key TMA boxes), 32, 64 and 256, d = 64 and
-# 128, one split and several (0: the heuristic), causal and not, a layer of
-# a stacked pool, rows not a multiple of 64 and one row tile of 17 rows; the
-# WMMA kernel where the route sends it: an option, an odd page, decode.
+# causal, num_splits, layers, options, route the call must take, largest
+# kv_len or None for the table's). The Hopper chunk kernel at page 16, 24
+# (8-key TMA boxes), 32, 64 and 256, d = 64 and 128, one split and several
+# (0: the heuristic), causal and not, a layer of a stacked pool, rows not a
+# multiple of 64 and one row tile of 17 rows; the decode kernel at groups 1,
+# 4 and 8, sq 1-4 (4-16 rows), pages 16-256, d 64 and 128, splits 1, 3, the
+# heuristic's and more than the live tiles, a stacked layer, kv_len < 64 and
+# non-causal rows; the WMMA kernel where the route sends it: an option and
+# an odd page, at chunk and at decode sizes.
 PAGED_ROUTE_CASES = [
-    (torch.float8_e4m3fn, 8, 2, 64, 16, 3, 40, True, 2, 1, {}, "wgmma"),
-    (torch.int8, 8, 2, 128, 32, 2, 24, True, 1, 2, {}, "wgmma"),
-    (torch.bfloat16, 8, 2, 128, 64, 2, 20, False, 3, 1, {}, "wgmma"),
-    (torch.bfloat16, 8, 2, 64, 256, 2, 33, True, 0, 2, {}, "wgmma"),
-    (torch.float8_e4m3fn, 4, 4, 128, 256, 2, 17, False, 2, 1, {}, "wgmma"),
-    (torch.int8, 8, 2, 128, 24, 2, 30, True, 1, 1, {}, "wgmma"),
-    (torch.bfloat16, 32, 8, 128, 16, 2, 8, True, 4, 1, {}, "wgmma"),
-    (torch.float8_e4m3fn, 8, 2, 128, 64, 2, 100, True, 0, 1, {}, "wgmma"),
-    (torch.bfloat16, 8, 2, 128, 64, 2, 20, True, 1, 1, dict(softcap=20.0), "wmma"),
-    (torch.int8, 8, 2, 64, 12, 2, 20, True, 1, 1, {}, "wmma"),
-    (torch.float8_e4m3fn, 32, 8, 128, 32, 3, 1, True, 0, 1, {}, "wmma"),
+    (torch.float8_e4m3fn, 8, 2, 64, 16, 3, 40, True, 2, 1, {}, "wgmma", None),
+    (torch.int8, 8, 2, 128, 32, 2, 24, True, 1, 2, {}, "wgmma", None),
+    (torch.bfloat16, 8, 2, 128, 64, 2, 20, False, 3, 1, {}, "wgmma", None),
+    (torch.bfloat16, 8, 2, 64, 256, 2, 33, True, 0, 2, {}, "wgmma", None),
+    (torch.float8_e4m3fn, 4, 4, 128, 256, 2, 17, False, 2, 1, {}, "wgmma", None),
+    (torch.int8, 8, 2, 128, 24, 2, 30, True, 1, 1, {}, "wgmma", None),
+    (torch.bfloat16, 32, 8, 128, 16, 2, 8, True, 4, 1, {}, "wgmma", None),
+    (torch.float8_e4m3fn, 8, 2, 128, 64, 2, 100, True, 0, 1, {}, "wgmma", None),
+    (torch.bfloat16, 8, 2, 128, 64, 2, 20, True, 1, 1, dict(softcap=20.0), "wmma", None),
+    (torch.int8, 8, 2, 64, 12, 2, 20, True, 1, 1, {}, "wmma", None),
+    (torch.float8_e4m3fn, 32, 8, 128, 32, 3, 1, True, 0, 1, {}, "decode", None),
+    (torch.bfloat16, 8, 8, 64, 16, 3, 2, True, 3, 2, {}, "decode", None),
+    (torch.int8, 16, 2, 128, 64, 2, 2, True, 1, 1, {}, "decode", None),
+    (torch.float8_e4m3fn, 8, 2, 64, 256, 3, 4, True, 20, 2, {}, "decode", 200),
+    (torch.bfloat16, 32, 8, 128, 256, 2, 1, False, 3, 1, {}, "decode", 60),
+    (torch.int8, 8, 2, 128, 16, 3, 3, True, 0, 1, {}, "decode", None),
+    (torch.float8_e4m3fn, 32, 8, 128, 32, 3, 1, True, 0, 1, dict(softcap=20.0), "wmma", None),
+    (torch.bfloat16, 8, 2, 64, 12, 2, 1, True, 1, 1, {}, "wmma", None),
 ]
 
 
@@ -613,25 +684,27 @@ def check_paged_route_shapes(gen, checks):
         paged_attention,
         paged_attention_ref,
         paged_plan,
+        route_label,
     )
     from xf_flash_attention_cutlass_tpu_torch.utils.testing import paged_attention_oracle
 
     n_pages, max_pages = 40, 12
-    for kv_dtype, h, h_k, d, page, b, sq, causal, splits, layers, opts, want in PAGED_ROUTE_CASES:
+    for (kv_dtype, h, h_k, d, page, b, sq, causal, splits, layers, opts, want,
+         max_len) in PAGED_ROUTE_CASES:
         kp, vp, ks, vs = kv_pools(gen, kv_dtype, layers, n_pages, h_k, page, d)
         layer = layers - 1
         sc = {} if ks is None else dict(k_scales=ks, v_scales=vs)
         sc1 = {} if ks is None else dict(k_scales=ks[layer], v_scales=vs[layer])
         bt = torch.stack([torch.randperm(n_pages, generator=gen, device="cuda")[:max_pages]
                           for _ in range(b)]).int()
-        lens = torch.randint(sq, max_pages * page + 1, (b,), generator=gen, device="cuda").int()
+        lens = torch.randint(sq, (max_len or max_pages * page) + 1, (b,), generator=gen,
+                             device="cuda").int()
         lens[-1] = 0
         bt[-1] = n_pages
         q = torch.randn((b, sq, h, d), generator=gen, device="cuda").bfloat16()
         kw = dict(causal=causal, **opts)
         route, n_splits = paged_plan(q.shape, kp.shape, kv_dtype, max_pages, splits, **kw)
-        label = ("paged_attention.prefill.wgmma" if route == "wgmma" else
-                 "paged_attention.decode" if sq == 1 else "paged_attention.prefill.wmma")
+        label = route_label(route, sq * (h // h_k))
         n0 = _build.LAUNCHES[label]
         o, lse = paged_attention(q, kp, vp, bt, lens, num_splits=splits, layer_idx=layer, **kw,
                                  **sc)
@@ -650,9 +723,50 @@ def check_paged_route_shapes(gen, checks):
               and finite)
         checks.add(f"route.paged_attention[{route},{str(kv_dtype).split('.')[-1]},h={h}/{h_k},"
                    f"d={d},page={page},b={b},sq={sq},causal={causal},splits={n_splits},"
-                   f"layer={layer}{',' + ','.join(opts) if opts else ''}]", ok,
+                   f"layer={layer}{',' + ','.join(opts) if opts else ''}"
+                   f"{'' if max_len is None else f',max_len={max_len}'}]", ok,
                    max_abs_err=plain_err, err_vs_f32_oracle=err, tolerance=tol,
                    dead_rows_ok=dead_ok, route=route, expected_route=want, launched=launched)
+
+
+def check_paged_combine(gen, timer, checks, cfg, n_splits):
+    """The combine kernel against its plain version (combine_partials, then
+    O in bf16 and LSE moved to (b, h, sq)) on f32 partials of K1 decode's
+    caller layout at the engine's shape (b = 8, sq = 1, 32 heads, d = 128)
+    and split count, with an empty partial and a row whose partials are all
+    empty. Tolerance: O within one bf16 rounding of the f32 merge
+    (2^-8 |O| + 1e-6 an element), LSE within 1e-5 + 1e-6 |LSE|; the empty
+    row gives O = 0 and LSE = -inf."""
+    from xf_flash_attention_cutlass_tpu_torch.ops.combine import combine_partials
+    from xf_flash_attention_cutlass_tpu_torch.ops.paged import combine_splits, combine_splits_ref
+
+    b, sq, h, d = 8, 1, cfg.n_heads, cfg.head_dim
+    o_part = torch.randn((n_splits, b, sq, h, d), generator=gen, device="cuda")
+    lse_part = 4 * torch.randn((n_splits, b, sq, h), generator=gen, device="cuda")
+    lse_part[0, 0, 0, 0] = -math.inf  # an empty split
+    lse_part[:, -1] = -math.inf  # an inactive slot: every split empty
+    o, lse = combine_splits(o_part, lse_part, torch.bfloat16)
+    o_plain, lse_plain = combine_splits_ref(o_part, lse_part, torch.bfloat16)
+    o32, _ = combine_partials(o_part, lse_part)
+    torch.cuda.synchronize()
+    o_excess = float(((o.float() - o32).abs() - 2.0 ** -8 * o32.abs()).max())
+    finite = torch.isfinite(lse_plain)
+    lse_excess = float(((lse[finite] - lse_plain[finite]).abs()
+                        - 1e-6 * lse_plain[finite].abs()).max())
+    empty_ok = bool((o[-1] == 0).all()) and bool(torch.isneginf(lse[-1]).all())
+    same_empty = torch.equal(torch.isfinite(lse), finite)
+    ok = o_excess <= 1e-6 and lse_excess <= 1e-5 and empty_ok and same_empty
+    err = max_err(o, o_plain)
+    checks.add(f"paged_attention.combine[splits={n_splits}]", ok, max_abs_err=err,
+               o_excess_over_one_bf16_rounding=o_excess, lse_excess=lse_excess,
+               empty_rows_ok=empty_ok)
+    # bound: the partials read once, O (bf16) and LSE written once
+    by = nbytes(o_part, lse_part) + b * sq * h * (2 * d + 4)
+    return dict(ms=timer.ms(lambda: combine_splits(o_part, lse_part, torch.bfloat16)),
+                plain_ms=timer.ms(lambda: combine_splits_ref(o_part, lse_part, torch.bfloat16),
+                                  PLAIN_REPS),
+                library_ms=None, bound=bound(by, 0), err=err,
+                tol=float(2.0 ** -7 * o32.abs().max()), splits=n_splits)
 
 
 def check_bucket_append(gen, checks, cfg):
@@ -1382,13 +1496,18 @@ def check_paged_extras(gen, timer, checks, cfg):
     """K1 at the second kvcache call of the api path (b = 8 decode over a
     dense (8, 4096, 8, 128) bf16 cache viewed as page-256 pages) with each
     of window (1024, 0), softcap 30, ALiBi and cache_leftpad, and all four:
-    the 2x rule against its plain version and paged_attention_oracle. The
-    all-four case is timed beside the option-free one."""
+    each call must launch the WMMA kernel (`paged_attention.decode.wmma`,
+    the route of the options) and pass the 2x rule against its plain
+    version and paged_attention_oracle. The all-four case is timed (with
+    its plain version and bound: the row of `paged_attention.decode.wmma`
+    in the kernels line) beside the option-free call, which takes the
+    decode kernel."""
+    from xf_flash_attention_cutlass_tpu_torch import _build
     from xf_flash_attention_cutlass_tpu_torch.ops.kvcache import dense_cache_as_paged
     from xf_flash_attention_cutlass_tpu_torch.ops.paged import (
         paged_attention,
         paged_attention_ref,
-        resolve_num_splits,
+        paged_plan,
     )
     from xf_flash_attention_cutlass_tpu_torch.utils.testing import (
         alibi_slopes_ref,
@@ -1408,9 +1527,11 @@ def check_paged_extras(gen, timer, checks, cfg):
     full = dict(window=(1024, 0), softcap=30.0,
                 alibi_slopes=torch.from_numpy(alibi_slopes_ref(h)).cuda(),
                 cache_leftpad=torch.randint(0, 300, (b,), generator=gen, device="cuda").int())
-    splits = resolve_num_splits(0, b, h_k, h // h_k, pages)
     for name, opts in [(n, {n: x}) for n, x in full.items()] + [("all", full)]:
+        route, splits = paged_plan(q.shape, kp.shape, kp.dtype, pages, **opts)
+        n0 = _build.LAUNCHES["paged_attention.decode.wmma"]
         o, _ = paged_attention(q, kp, vp, bt, lens_t, **opts)
+        launched = _build.LAUNCHES["paged_attention.decode.wmma"] - n0 == 1
         o_plain, _ = paged_attention_ref(q, kp, vp, bt, lens_t, num_splits=splits, **opts)
         o32, _ = paged_attention_oracle(q, kp, vp, bt, lens_t, **opts)
         olp, _ = paged_attention_oracle(q, kp, vp, bt, lens_t, upcast=False, **opts)
@@ -1418,10 +1539,16 @@ def check_paged_extras(gen, timer, checks, cfg):
         tol = 2 * max_err(olp, o32) + 1e-5
         err, plain_err = max_err(o, o32), max_err(o, o_plain)
         checks.add(f"paged_attention.decode.options[{name}]",
-                   bool(torch.isfinite(o).all()) and err <= tol and plain_err <= tol,
+                   bool(torch.isfinite(o).all()) and err <= tol and plain_err <= tol
+                   and launched and route == "wmma",
                    max_abs_err=plain_err, tolerance=tol, err_vs_f32_oracle=err,
-                   num_splits=splits)
-    return dict(ms_all_options=timer.ms(lambda: paged_attention(q, kp, vp, bt, lens_t, **full)),
+                   num_splits=splits, route=route, launched=launched)
+    ms = timer.ms(lambda: paged_attention(q, kp, vp, bt, lens_t, **full))
+    first = torch.maximum(full["cache_leftpad"], lens_t - 1 - full["window"][0])
+    return dict(ms=ms, ms_all_options=ms, err=plain_err, tol=tol,
+                plain_ms=timer.ms(lambda: paged_attention_ref(
+                    q, kp, vp, bt, lens_t, num_splits=splits, **full), PLAIN_REPS),
+                bound=k1_bound(q, kp, None, bt, lens_t, first), library_ms=None,
                 ms_no_options=timer.ms(lambda: paged_attention(q, kp, vp, bt, lens_t)))
 
 
@@ -1879,9 +2006,10 @@ def percentile(xs, p):
 
 def profiled(fn, n_steps=1, groups=None):
     """Run fn n_steps times under torch.profiler; the kernels' summed device
-    time per step and the ten largest, or None where the trace holds no
-    device time. `groups` ({label: name substring}) adds each group's
-    summed device time per step."""
+    time and launches per step (every kernel's, not the ten largest) and
+    the ten largest, or None where the trace holds no device time. `groups`
+    ({label: name substring}) adds each group's summed device time per
+    step."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1898,6 +2026,7 @@ def profiled(fn, n_steps=1, groups=None):
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
     out = dict(
         steps=n_steps, device_ms_per_step=total_us / 1e3 / n_steps,
+        launches_per_step=sum(e.count for e in kernels) / n_steps,  # every kernel's
         host_s=time.perf_counter() - t0,  # the profiled steps, the trace and its parse
         top=[dict(kernel=e.key[:90], ms_per_step=e.self_device_time_total / 1e3 / n_steps,
                   calls_per_step=e.count / n_steps) for e in top],
@@ -1907,6 +2036,11 @@ def profiled(fn, n_steps=1, groups=None):
             label: sum(e.self_device_time_total for e in kernels if sub in e.key) / 1e3 / n_steps
             for label, sub in groups.items()}
     return out
+
+
+# K1's kernels by route in a profiler trace
+K1_GROUPS = dict(k1_decode="paged_decode_kernel", k1_combine="paged_combine_kernel",
+                 k1_wgmma="paged_wgmma_kernel", k1_wmma="paged_attention_kernel")
 
 
 def profile_decode(eng, cfg, seed, n_steps=3):
@@ -1920,7 +2054,7 @@ def profile_decode(eng, cfg, seed, n_steps=3):
     eng.step()  # admit and prefill every request, and the first decode
     if len(eng.active) != n:
         raise RuntimeError(f"decode profile: {len(eng.active)} of {n} requests active")
-    prof = profiled(eng.step, n_steps)
+    prof = profiled(eng.step, n_steps, groups=K1_GROUPS)
     eng.run()
     return prof
 
@@ -1928,8 +2062,9 @@ def profile_decode(eng, cfg, seed, n_steps=3):
 def profile_chunked_prefill(eng, cfg, seed):
     """The chunked prefill of serve's 8 prompts once more (the same tokens,
     one new token each) under a profiler trace: the device time by kernel
-    and K1's on each route (its chunks take the Hopper kernel, the requests
-    decoding beside them the WMMA one), with K3's."""
+    and K1's on each route (its chunks take the Hopper chunk kernel, the
+    requests decoding beside them the decode kernel and its combine), with
+    K3's."""
     rng = np.random.default_rng(seed)
     lens = rng.integers(200, 1501, 8)
     prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist() for n in lens]
@@ -1939,8 +2074,7 @@ def profile_chunked_prefill(eng, cfg, seed):
             eng.add_request(3000 + i, prompt, 1)
         eng.run()
 
-    prof = profiled(run, groups=dict(k1_wgmma="paged_wgmma_kernel",
-                                     k1_wmma="paged_attention_kernel", k3="qmm"))
+    prof = profiled(run, groups=dict(K1_GROUPS, k3="qmm"))
     return None if prof is None else dict(prof, prompt_tokens=int(lens.sum()))
 
 
@@ -2136,18 +2270,27 @@ def flash_bwd_build_report(checks, lib_path):
 
 
 _K1_TYPES = {"a": "int8", "9fp8e4m3_t": "fp8", "13__nv_bfloat16": "bf16"}
-_K1_NAME = re.compile(r"paged_(wgmma|attention)_kernelI(a|9fp8e4m3_t|13__nv_bfloat16)Li(\d+)E"
-                      r"(?:Li(\d+)ELb([01])E)?")
+_K1_NAME = re.compile(r"paged_(wgmma|attention|decode)_kernelI(a|9fp8e4m3_t|13__nv_bfloat16)"
+                      r"Li(\d+)E(?:Li(\d+)E(?:Lb([01])E)?)?")
+_K1_COMBINE = re.compile(r"paged_combine_kernelILi(\d+)E")
 
 
 def k1_instantiation(mangled):
-    """'wgmma_fp8_d128' for a mangled Hopper K1 kernel name,
-    'wmma_int8_d64_rt32_options' for a WMMA one, else None."""
+    """'wgmma_fp8_d128' for a mangled Hopper K1 chunk kernel name,
+    'decode_int8_d64_n8' for a decode one (n: its 8 or 16 query rows),
+    'wmma_int8_d64_rt32_options' for a WMMA one, 'combine_d128' for the
+    combine kernel, else None."""
+    m = _K1_COMBINE.search(mangled)
+    if m is not None:
+        return f"combine_d{m.group(1)}"
     m = _K1_NAME.search(mangled)
     if m is None:
         return None
-    name = f"{'wgmma' if m.group(1) == 'wgmma' else 'wmma'}_{_K1_TYPES[m.group(2)]}_d{m.group(3)}"
-    if m.group(4) is not None:
+    name = f"{'wmma' if m.group(1) == 'attention' else m.group(1)}_{_K1_TYPES[m.group(2)]}" \
+           f"_d{m.group(3)}"
+    if m.group(1) == "decode":
+        name += f"_n{8 * int(m.group(4))}"
+    elif m.group(5) is not None:
         name += f"_rt{m.group(4)}_{'options' if m.group(5) == '1' else 'plain'}"
     return name
 
@@ -2155,16 +2298,19 @@ def k1_instantiation(mangled):
 def paged_build_report(checks, lib_path):
     """Registers and spill bytes of every K1 instantiation
     (build/paged_attention.log) and the SASS counts of each. Checks that the
-    six Hopper instantiations hold HGMMA and UTMALDG, no HMMA and no spill,
-    and that the 24 WMMA ones keep their HMMA."""
+    six Hopper chunk instantiations hold HGMMA and UTMALDG, no HMMA and no
+    spill, that the twelve decode ones hold HMMA (mma.sync) and UTMALDG and
+    spill nothing, that the two combine ones spill nothing, and that the 24
+    WMMA ones keep their HMMA."""
     inst = ptxas_usage("paged_attention", k1_instantiation)
     for name, counts in sass_by_function(lib_path).items():
         label = k1_instantiation(name)
         if label is not None:
             inst.setdefault(label, {}).update(counts)
     print(json.dumps({"paged_build": inst}), flush=True)
-    wgmma = {n: r for n, r in inst.items() if n.startswith("wgmma")}
-    wmma = {n: r for n, r in inst.items() if n.startswith("wmma")}
+    kinds = {k: {n: r for n, r in inst.items() if n.startswith(k)}
+             for k in ("wgmma", "wmma", "decode", "combine")}
+    wgmma, decode = kinds["wgmma"], kinds["decode"]
     checks.add("paged_attention.wgmma_sass_wgmma_tma_no_mma_sync",
                len(wgmma) == 6 and all(r.get("HGMMA", 0) > 0 and r.get("UTMALDG", 0) > 0
                                        and r.get("HMMA", 1) == 0 for r in wgmma.values()),
@@ -2172,9 +2318,27 @@ def paged_build_report(checks, lib_path):
     checks.add("paged_attention.wgmma_no_spills",
                len(wgmma) == 6 and all(r.get("spill_bytes") == 0 for r in wgmma.values()),
                spill_bytes={n: r.get("spill_bytes") for n, r in wgmma.items()})
+    checks.add("paged_attention.decode_sass_mma_sync_tma",
+               len(decode) == 12 and all(r.get("HMMA", 0) > 0 and r.get("UTMALDG", 0) > 0
+                                         for r in decode.values()),
+               sass={n: {op: r.get(op) for op in SASS_OPS} for n, r in decode.items()})
+    spills = {n: r.get("spill_bytes") for k in ("decode", "combine") for n, r in kinds[k].items()}
+    checks.add("paged_attention.decode_and_combine_no_spills",
+               len(spills) == 14 and all(b == 0 for b in spills.values()), spill_bytes=spills)
     checks.add("paged_attention.wmma_sass_keeps_mma_sync",
-               len(wmma) == 24 and all(r.get("HMMA", 0) > 0 for r in wmma.values()),
-               hmma={n: r.get("HMMA") for n, r in wmma.items()})
+               len(kinds["wmma"]) == 24 and all(r.get("HMMA", 0) > 0
+                                                for r in kinds["wmma"].values()),
+               hmma={n: r.get("HMMA") for n, r in kinds["wmma"].items()})
+    # the decode route's split heuristic counts DECODE_BLOCKS_PER_SM blocks an
+    # SM: the occupancy calculator must agree for every instantiation
+    from xf_flash_attention_cutlass_tpu_torch.ops import paged
+
+    occ = {f"{str(dt).split('.')[-1]}_d{d}_n{n}": paged.decode_blocks_per_sm(dt, d, n)
+           for dt in (torch.float8_e4m3fn, torch.int8, torch.bfloat16) for d in (64, 128)
+           for n in (8, 16)}
+    checks.add("paged_attention.decode_resident_blocks",
+               all(v == paged.DECODE_BLOCKS_PER_SM for v in occ.values()),
+               blocks_per_sm=occ, expected=paged.DECODE_BLOCKS_PER_SM)
     return inst
 
 
@@ -2184,6 +2348,8 @@ _PKG = "xf_flash_attention_cutlass_tpu_torch/csrc/"
 _TPU = "xf_flash_attention_cutlass_tpu/"
 KERNELS = {  # launch-counter name: (source, TPU kernel it replaces)
     "paged_attention.decode": (_PKG + "paged_attention.cu", _TPU + "ops/paged.py:97"),
+    "paged_attention.combine": (_PKG + "paged_attention.cu", _TPU + "ops/paged.py:97"),
+    "paged_attention.decode.wmma": (_PKG + "paged_attention.cu", _TPU + "ops/paged.py:97"),
     "paged_attention.prefill.wgmma": (_PKG + "paged_attention.cu", _TPU + "ops/paged.py:97"),
     "paged_append.decode": (_PKG + "paged_append.cu", _TPU + "ops/paged_append.py:68"),
     "paged_append.prefill": (_PKG + "paged_append.cu", _TPU + "ops/paged_append.py:166"),
@@ -2198,18 +2364,24 @@ KERNELS = {  # launch-counter name: (source, TPU kernel it replaces)
     "flash_bwd.dkv": (_PKG + "flash_bwd.cu", _TPU + "ops/flash_bwd.py:284"),
     "flash_bwd.fused": (_PKG + "flash_bwd.cu", _TPU + "ops/flash_bwd.py:156"),
 }
-# the kernels each main path must launch (and it may call no plain version)
+# the kernels each main path must launch (and it may call no plain version);
+# the engine's decode splits (paged_plan: 4 at b = 8) run the combine kernel
 PATHS = {
-    "serve_chunked": ["paged_attention.decode", "paged_attention.prefill.wgmma",
-                      "paged_append.decode", "paged_append.prefill", "qmm.stacked.bm16",
-                      "qmm.stacked.wgmma", "qmm.single.bm16"],
+    "serve_chunked": ["paged_attention.decode", "paged_attention.combine",
+                      "paged_attention.prefill.wgmma", "paged_append.decode",
+                      "paged_append.prefill", "qmm.stacked.bm16", "qmm.stacked.wgmma",
+                      "qmm.single.bm16"],
     "serve_bucketed": ["flash_fwd", "paged_append.prefill", "paged_attention.decode",
-                       "paged_append.decode", "qmm.stacked.bm16", "qmm.stacked.wgmma",
-                       "qmm.single.bm16"],
+                       "paged_attention.combine", "paged_append.decode", "qmm.stacked.bm16",
+                       "qmm.stacked.wgmma", "qmm.single.bm16"],
     "train": ["flash_fwd", "flash_bwd.dq", "flash_bwd.dkv", "flash_bwd.fused"],
     "api": ["flash_fwd", "flash_probs", "flash_bwd.dq", "flash_bwd.dkv",
-            "paged_attention.decode", "paged_attention.prefill.wgmma"],
+            "paged_attention.decode", "paged_attention.decode.wmma",
+            "paged_attention.prefill.wgmma"],
 }
+# kernels a main path must not launch: serving decodes on the decode kernel
+NOT_ON_PATH = {"serve_chunked": ["paged_attention.decode.wmma"],
+               "serve_bucketed": ["paged_attention.decode.wmma"]}
 
 
 def nvidia_smi() -> str:
@@ -2236,6 +2408,9 @@ def drive(path, fn):
     missing = [k for k in PATHS[path] if launches.get(k, 0) == 0]
     if missing:
         raise RuntimeError(f"{path}: kernels of the path never launched: {missing}")
+    stray = [k for k in NOT_ON_PATH.get(path, ()) if launches.get(k, 0)]
+    if stray:
+        raise RuntimeError(f"{path}: kernels off the path launched: {stray}")
     if any(plain_calls.values()):
         raise RuntimeError(f"{path}: plain versions ran on the path: {plain_calls}")
     return result, launches
@@ -2325,6 +2500,8 @@ def main():
                       timed=m > 1)
         if m > 1:
             measured["qmm.single.bm16" if m == 8 else "qmm.single.wgmma"] = r
+    measured["paged_attention.combine"] = check_paged_combine(
+        gen, timer, checks, cfg, measured["paged_attention.decode"]["splits"])
     check_other_shapes(gen, checks)
     check_paged_route_shapes(gen, checks)
     check_bucket_append(gen, checks, cfg)
@@ -2346,11 +2523,12 @@ def main():
     mark("kernels")
     # the API's options, at the api path's shapes
     measured["flash_probs"] = check_api_dense(gen, timer, checks, cfg)
+    measured["paged_attention.decode.wmma"] = check_paged_extras(gen, timer, checks, cfg)
     report["api_kernels"] = dict(
         flash_probs=measured["flash_probs"],
         flash_fwd_packed=check_api_packed(gen, timer, checks, cfg,
                                           serving_prompt_lens(args.seed)),
-        paged_attention_options=check_paged_extras(gen, timer, checks, cfg))
+        paged_attention_options=measured["paged_attention.decode.wmma"])
     print(json.dumps({"api_kernels": report["api_kernels"]}), flush=True)
     checks.raise_on_failure("kernel comparison")
     del timer
@@ -2438,7 +2616,9 @@ def main():
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
             bound_by=r["bound"][1], library_ms=r["library_ms"],
         ))
-        for extra in ("wmma_ms", "library_ms_all_pages"):  # K1: the WMMA kernel, SDPA on all pages
+        # K1: the WMMA kernel and the Hopper chunk kernel on the same inputs, SDPA
+        # over every page of the table, the split count
+        for extra in ("wmma_ms", "wgmma_ms", "library_ms_all_pages", "splits"):
             if extra in r:
                 kernels[-1][extra] = r[extra]
         if "other_shapes" in r:  # K7 at the training shape and at s = 2048

@@ -6,8 +6,10 @@ Serves chip_smoke.py's 8 serving prompts (seed 0: 5119 tokens, Llama-8B at
 full width and depth, random weights, INT8 weights, FP8 paged KV, 256-token
 chunks) with one new token each, once to warm up and once under a profiler
 trace (chip_smoke.py's `profiled`), and prints the device time of the
-prefill, K1's on each of its routes (the Hopper kernel `paged_wgmma_kernel`,
-the WMMA kernel `paged_attention_kernel`), K3's, and K1's kernels with their
+prefill, K1's on each of its routes (the Hopper chunk kernel
+`paged_wgmma_kernel`, the decode kernel `paged_decode_kernel` and its
+combine `paged_combine_kernel`, the WMMA kernel `paged_attention_kernel`;
+a tree without a kernel shows 0 for it), K3's, and K1's kernels with their
 calls. TREE (default: this checkout) is the root of a checkout of the
 repository, so that a parent tree unpacked beside this one is measured the
 same way in the same call. Needs a CUDA device.
@@ -52,7 +54,9 @@ def main():
         eng.run()
 
     run()  # warm
-    prof = cs.profiled(run, groups=dict(k1_wgmma="paged_wgmma_kernel",
+    prof = cs.profiled(run, groups=dict(k1_decode="paged_decode_kernel",
+                                        k1_combine="paged_combine_kernel",
+                                        k1_wgmma="paged_wgmma_kernel",
                                         k1_wmma="paged_attention_kernel", k3="qmm"))
     if prof is None:
         sys.exit("chunked_prefill_profile.py: the trace holds no device time")

@@ -244,8 +244,8 @@ def test_num_splits_heuristic_matches_jax():
 @pytest.mark.parametrize(
     "rows,page,d,kv,options,route",
     [
-        (4, 256, 128, torch.float8_e4m3fn, False, "wmma"),  # decode: sq = 1, group 4
-        (16, 256, 128, torch.int8, False, "wmma"),  # verify: 4 tokens x group 4
+        (4, 256, 128, torch.float8_e4m3fn, False, "decode"),  # decode: sq = 1, group 4
+        (16, 256, 128, torch.int8, False, "decode"),  # verify: 4 tokens x group 4
         (17, 256, 128, torch.bfloat16, False, "wgmma"),  # one row past the decode tile
         (1024, 256, 128, torch.float8_e4m3fn, False, "wgmma"),  # a 256-token chunk
         (1024, 16, 64, torch.int8, False, "wgmma"),  # page 16, d = 64
@@ -259,10 +259,116 @@ def test_num_splits_heuristic_matches_jax():
 def test_paged_route(rows, page, d, kv, options, route):
     """paged_route is a pure function of the shapes, the pool dtype and the
     options; the Hopper kernel's row tile (64) is the split heuristic's unit
-    on its route, the WMMA kernel's (16 or 32) on the other."""
+    on its route, the decode kernel's (16) and the WMMA kernel's (16 or 32)
+    on the others."""
     assert paged.paged_route(rows, page, d, kv, options) == route
     assert paged.route_row_tile(route, rows) == (64 if route == "wgmma" else
                                                  paged.kernel_row_tile(rows))
+
+
+@pytest.mark.parametrize(
+    "rows,page,d,kv,options,route,label",
+    [
+        (1, 256, 128, torch.bfloat16, False, "decode", "paged_attention.decode"),  # MHA decode
+        (4, 16, 64, torch.float8_e4m3fn, False, "decode", "paged_attention.decode"),
+        (8, 32, 128, torch.int8, False, "decode", "paged_attention.decode"),  # group 8
+        (16, 64, 64, torch.bfloat16, False, "decode", "paged_attention.decode"),  # verify
+        (17, 256, 128, torch.float8_e4m3fn, False, "wgmma", "paged_attention.prefill.wgmma"),
+        (4, 256, 128, torch.float8_e4m3fn, True, "wmma", "paged_attention.decode.wmma"),
+        (4, 12, 128, torch.bfloat16, False, "wmma", "paged_attention.decode.wmma"),  # odd page
+        (40, 12, 128, torch.bfloat16, False, "wmma", "paged_attention.prefill.wmma"),
+    ],
+)
+def test_paged_route_decode(rows, page, d, kv, options, route, label):
+    """The decode kernel takes every option-free call of at most 16 query
+    rows a KV head on TMA-legal pages; an option or an odd page sends such a
+    call to the WMMA kernel, counted as `paged_attention.decode.wmma`."""
+    assert paged.paged_route(rows, page, d, kv, options) == route
+    assert paged.route_label(route, rows) == label
+    assert paged.route_row_tile(route, rows) == {"decode": 16, "wgmma": 64}.get(
+        route, paged.kernel_row_tile(rows))
+
+
+@pytest.mark.parametrize(
+    "kv_len,n_splits,max_keys",
+    [
+        (261, 4, 4096),  # the decode profile's kv_len at the engine's split count
+        (1533, 4, 4096),
+        (100, 5, 4096),  # more splits than live tiles
+        (37, 3, 4096),  # kv_len < 64
+        (0, 4, 4096),  # a dead slot
+        (5000, 3, 4096),  # kv_len past the table
+        (640, 1, 4096),  # one split, whole tiles
+        (129, 2, 192),  # a table of three tiles
+    ],
+)
+def test_decode_split_keys_cover_live_keys_once(kv_len, n_splits, max_keys):
+    """The decode kernel's split cut (decode_split_keys): every live key in
+    exactly one split, in order, each split a run of whole 64-key tiles
+    (the last one cut at the live keys), the splits past the live tiles
+    empty."""
+    runs = paged.decode_split_keys(kv_len, n_splits, max_keys)
+    live = min(kv_len, max_keys)
+    assert len(runs) == n_splits
+    covered = [k for lo, hi in runs for k in range(lo, hi)]
+    assert covered == list(range(live))
+    tiles = -(-live // 64)
+    per = -(-tiles // n_splits) * 64
+    for s, (lo, hi) in enumerate(runs):
+        assert lo % 64 == 0 or lo == hi == live
+        assert hi - lo == max(0, min(per, live - s * per))
+    assert sum(hi > lo for lo, hi in runs) == min(n_splits, -(-tiles // max(1, per // 64)))
+
+
+@pytest.mark.parametrize("b,sq,page,max_pages", [(8, 1, 256, 16), (8, 4, 256, 16),
+                                                  (1, 1, 256, 16), (8, 1, 32, 128)])
+def test_decode_route_splits_for_engine_shapes(b, sq, page, max_pages):
+    """The decode route's split count at the engine's shapes (Llama-8B
+    32 / 8 heads, d = 128, fp8 pools, max_seq 4096): the unchanged
+    heuristic over b * h_k blocks, the H100's SMs times the kernel's
+    resident blocks as cores and the table's width in 64-key tiles."""
+    route, splits = paged.paged_plan((b, sq, 32, 128), (32, 257, 8, page, 128),
+                                     torch.float8_e4m3fn, max_pages)
+    assert route == "decode"
+    tiles = max_pages * page // 64
+    assert splits == paged.num_splits_heuristic(b * 8, 132 * 2, tiles, paged.MAX_SPLITS)
+    assert splits == jpaged.num_splits_heuristic(b * 8, 132 * 2, tiles, 128)
+    assert 1 <= splits <= tiles
+    if b == 8:  # 64 blocks on 264 resident slots: split
+        assert splits > 1
+    assert paged.paged_plan((b, sq, 32, 128), (32, 257, 8, page, 128), torch.float8_e4m3fn,
+                            max_pages, 7)[1] == 7  # an explicit num_splits wins
+
+
+def test_combine_splits_ref_matches_combine_partials():
+    """The combine kernel's plain version (CPU tensors): combine_partials on
+    the caller's (splits, b, sq, h, d) layout, O in the requested dtype and
+    LSE moved to (b, h, sq); an empty split contributes nothing, a row whose
+    splits are all empty gives O = 0 and LSE = -inf."""
+    rng = np.random.default_rng(51)
+    o = torch.from_numpy(rng.standard_normal((3, 2, 2, 4, 8)).astype(np.float32))
+    lse = torch.from_numpy(rng.standard_normal((3, 2, 2, 4)).astype(np.float32) * 4)
+    lse[0, 0, 0, 0] = -np.inf
+    lse[:, 1, 1, 2] = -np.inf
+    to, tl = paged.combine_splits(o, lse, torch.bfloat16)
+    ro, rl = combine.combine_partials(o, lse)
+    assert to.shape == (2, 2, 4, 8) and to.dtype == torch.bfloat16 and tl.shape == (2, 4, 2)
+    assert torch.equal(to, ro.to(torch.bfloat16))
+    assert torch.equal(tl, rl.transpose(1, 2))
+    assert torch.all(to[1, 1, 2] == 0) and torch.isneginf(tl[1, 2, 1])
+    want = sum(torch.exp(lse[s, 0, 0, 0] - rl[0, 0, 0]) * o[s, 0, 0, 0] for s in (1, 2))
+    assert torch.allclose(ro[0, 0, 0], want, rtol=1e-6, atol=1e-6)
+
+
+def test_paged_attention_decode_route_2x_rule():
+    """The decode route's plain version (64-key tile splits) against the JAX
+    kernel under the 2x rule: 2 new tokens at group 4 (8 rows), d = 64, page
+    16, int8 pools of two layers, a dead row, the heuristic's splits."""
+    q, pools, bt, lens = _paged_case(90, kv="int8", b=2, sq=2, h=8, h_k=2, d=64, page=16,
+                                     n_pages=10, max_pages=9, layers=2)
+    route, splits = paged.paged_plan(q.shape, pools["k"].shape, torch.int8, bt.shape[1])
+    assert route == "decode" and splits > 1
+    _check_2x(q, pools, bt, lens, layer=1, num_splits=0)
 
 
 @pytest.mark.parametrize(

@@ -124,6 +124,48 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* 
                : "r"(smem_addr(row)));
 }
 
+// The same without the transpose: lane l receives in r[j] elements
+// (l / 4, 2 (l % 4)) and (l / 4, 2 (l % 4) + 1) of matrix j.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(row)));
+}
+
+// An 8 x 8 matrix of 16-bit elements held by a warp in the mma.sync
+// fragment layout (lane l: elements (l / 4, 2 (l % 4)) and (l / 4,
+// 2 (l % 4) + 1), the first in the low half) transposed in registers.
+__device__ __forceinline__ uint32_t movmatrix_trans(uint32_t x) {
+  uint32_t y;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n" : "=r"(y) : "r"(x));
+  return y;
+}
+
+// D (16 x 8, f32) += A (16 x 16, bf16) B (16 x 8, bf16), mma.sync m16n8k16:
+// lane l holds A's (g, 2t..2t+1), (g + 8, 2t..), (g, 2t + 8..), (g + 8,
+// 2t + 8..) in a[0..3], B's (2t..2t+1, g) and (2t + 8.., g) in b[0..1] and
+// D's (g, 2t..2t+1), (g + 8, 2t..2t+1) in d[0..3], g = l / 4, t = l % 4.
+__device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4],
+                                               const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// `bytes` contiguous bytes from global to shared memory by the bulk copy
+// engine (no tensor map), reported to `bar` as transaction bytes; both
+// addresses 16-byte aligned, bytes a multiple of 16.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes),
+      "r"(smem_addr(bar))
+      : "memory");
+}
+
 // Hands registers between warpgroups (setmaxnreg): a warpgroup that only
 // issues TMA lowers its per-thread count so the warpgroups that hold the
 // wgmma accumulators can raise theirs. Every thread of the warpgroup runs

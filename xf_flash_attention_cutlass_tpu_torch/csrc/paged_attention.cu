@@ -5,8 +5,9 @@
 // the pages of a block table, causal from the bottom right (query token t of
 // sq sits at position kv_len - sq + t), int8 / fp8-e4m3 / bf16 pools with the
 // per-token K scale on the score plane and the V scale on P, split-KV f32
-// partials (O, LSE) with LSE = -inf for rows that saw no key. The partials
-// are merged by combine_partials in plain torch, as on the TPU.
+// partials (O, LSE) with LSE = -inf for rows that saw no key, merged by
+// `paged_combine_kernel` (the decode and Hopper chunk routes) or by
+// combine_partials in plain torch (the WMMA route), as on the TPU.
 //
 // Bound on an H100 (3.35 TB/s, 989 TFLOP/s bf16): decode (sq = 1, b = 8,
 // Llama-8B GQA 32/8 heads, d = 128, fp8 pools) reads each live key and
@@ -15,8 +16,33 @@
 // bound. A 256-token prefill chunk does 4 * 256 * group flops per key:
 // operations bound (tensor cores).
 //
-// Two kernels, chosen by ops/paged.py::paged_route (a pure function of the
+// Three kernels, chosen by ops/paged.py::paged_route (a pure function of the
 // shapes, the pool dtype and the options):
+//
+// `paged_decode_kernel` (the decode route: at most 16 query rows a KV head,
+// sq * group: decode and short verify; d 64 or 128, pages of a multiple of
+// 8 keys, no option). Decode is bound by bytes and by latency: a step reads
+// each live K/V byte once for 4 * group flops, and the work of one call is a
+// few MB, so the design keeps many bytes in flight and few passes around
+// them. One block owns one (split, batch entry, KV head): all of the GQA
+// group's rows, so each K/V byte is read once for the group. Each entry's
+// live keys are cut into n_splits runs of whole 64-key tiles (not pages),
+// so short contexts still fill the card; splits past the live tiles write
+// an empty partial. A producer warp streams the split's tiles into an
+// mbarrier ring as raw pool bytes (TMA boxes, one per page run of a
+// tile, swizzled; the scales of the run by bulk copy beside them), as many
+// stages as leave exactly two blocks an SM. Four
+// consumer warps each take 16 keys of every tile with mma.sync m16n8k16:
+// S^T = K Q^T (the keys as M, the rows as N = 8 or 16; K by ldmatrix and
+// converted to bf16 in registers, exact for int8 and e4m3; Q times the
+// softmax scale in registers), the K scale, the mask on boundary tiles, an
+// exp2 online softmax per warp, P times the V scale rounded to bf16 and
+// moved to B fragments by movmatrix, O^T += V^T P^T (V by ldmatrix .trans,
+// its keys past kv_len zeroed in registers). No block-wide barrier per
+// tile: the warps' (m, l, O) are merged once at the end through shared
+// memory, and O (b, sq, h, d) bf16 and LSE (b, h, sq), or f32 partials in
+// that layout, are written in the caller's layout. `paged_combine_kernel`
+// merges partials (one warp per row) into O bf16 and LSE (b, h, sq).
 //
 // `paged_wgmma_kernel` (the Hopper route: more than 16 query rows a KV head,
 // d 64 or 128, pages of a multiple of 8 keys, no option). One block owns one
@@ -40,12 +66,12 @@
 // scale rounded to bf16, and O += P V (wgmma, P from registers, V MN-major
 // from the ring, so V is never transposed). With one split it writes O in
 // the caller's (b, sq, h, d) bf16 layout and LSE (b, h, sq); with more, f32
-// partials (splits, b, sq, h, d) and (splits, b, sq, h) for combine_partials.
+// partials (splits, b, sq, h, d) and (splits, b, sq, h) for the combine kernel.
 // The producer hands its registers to the consumer (setmaxnreg); two blocks
 // an SM, one for int8 / fp8 pools at d = 128 (shared memory).
 //
-// `paged_attention_kernel` (the first version on WMMA: decode, speculative
-// verify rows <= 16, the options, odd pages): one block per (row tile,
+// `paged_attention_kernel` (the first version on WMMA: the options and odd
+// pages, at any row count): one block per (row tile,
 // batch entry, KV head, split), a row tile holding RT (16 or 32) query rows
 // of ONE KV head, ordered token-major with the GQA group inside. Each batch
 // entry's LIVE pages are cut into n_splits equal runs, so every split of a
@@ -891,6 +917,547 @@ cudaError_t launch_d(int d, const void* kp, const void* vp, int n_pool_pages, co
 
 }  // namespace wg
 
+// ---- the decode route: paged_decode_kernel and paged_combine_kernel -------------
+
+namespace dec {
+
+using namespace hopper;
+using wg::pack_bf16;
+
+constexpr int kTK = 64;     // keys per tile
+constexpr int kWarps = 4;   // consumer warps: 16 keys of every tile each
+constexpr int kThreadsDec = 32 * kWarps + 32;  // the consumers, then the producer warp
+constexpr int kBlocksPerSm = 2;  // ops/paged.py's DECODE_BLOCKS_PER_SM
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Shared memory of one block, from a 1024-byte aligned base: the ring of
+// (K tile, V tile) stages as the pool stores them (64 key rows of D values
+// each, raw bytes for int8 / fp8), each tile kSub sub-tiles of 64 rows x kW
+// bytes (kW = 128: the 128-byte swizzle; 64 for 64-byte rows: the 64-byte
+// swizzle), then each stage's 64 K and 64 V scales (int8 / fp8), then the
+// barriers. The ring takes as many stages as half of an SM's 228 KB holds
+// (3 to 13), so that exactly two blocks are resident whatever the
+// instantiation (the split heuristic counts them) and a long split keeps
+// that many tiles in flight. After the loop the ring holds the warps' merge.
+template <typename KV, int D>
+struct Layout {
+  static constexpr bool kQuant = sizeof(KV) == 1;
+  static constexpr int kRowBytes = D * static_cast<int>(sizeof(KV));
+  static constexpr int kW = kRowBytes >= 128 ? 128 : 64;
+  static constexpr int kSub = kRowBytes / kW;
+  static constexpr int kTileBytes = kTK * kRowBytes;
+  static constexpr int kStageBytes = 2 * kTileBytes;
+  static constexpr int kSmSmem = 233472;  // an SM's shared memory, 1 KB a block reserved
+  static constexpr int kStages =
+      (kSmSmem / kBlocksPerSm - 2048) / (kStageBytes + (kQuant ? 2 * kTK * 4 : 0) + 16);
+  static constexpr int kScaleOffset = kStages * kStageBytes;
+  static constexpr int kBarOffset = kScaleOffset + (kQuant ? kStages * 2 * kTK * 4 : 0);
+  static constexpr int kBytes = kBarOffset + 8 * 2 * kStages + 1024;  // + alignment
+  static constexpr int kLdr = D + 8;  // f32 row of the merge buffer
+  static_assert(kWarps * 16 * kLdr * 4 + 2 * kWarps * 16 * 4 <= kScaleOffset, "merge in ring");
+  static_assert(kBlocksPerSm * (kBytes + 1024) <= kSmSmem &&
+                    (kBlocksPerSm + 1) * (kBytes + 1024) > kSmSmem,
+                "exactly two blocks an SM");
+};
+
+// byte offset of the 16-byte chunk cb (counted along the whole row) of key
+// row j in a tile, as the swizzled TMA boxes wrote it: chunk c of a 128-byte
+// row at c ^ (j % 8), of a 64-byte row at c ^ (j / 2 % 4), so the 8 rows of
+// one ldmatrix matrix hit 8 distinct bank groups
+template <int W>
+__device__ __forceinline__ int tile_off(int j, int cb) {
+  constexpr int kC = W / 16;
+  const int x = W == 128 ? (j & 7) : ((j >> 1) & 3);
+  return (cb / kC) * kTK * W + j * W + (((cb % kC) ^ x) << 4);
+}
+
+template <typename KV>
+__device__ __forceinline__ uint32_t lo02(uint32_t w) { return bf16x2_from_bytes02(KV{}, w); }
+template <typename KV>
+__device__ __forceinline__ uint32_t hi13(uint32_t w) { return bf16x2_from_bytes02(KV{}, w >> 8); }
+
+// q[i] times the softmax scale, f32 product rounded to bf16
+__device__ __forceinline__ float scaled(const __nv_bfloat16* q, int i, float scale) {
+  return __bfloat162float(q[i]) * scale;
+}
+
+// One block owns one (split, batch entry, KV head) and its R = sq * group
+// <= 16 query rows t * group + g; NT = 1 for R <= 8, else 2 (8 rows each).
+// Warp w of the four consumer warps takes keys 16w..16w+15 of every tile,
+// with the keys as mma.sync's M: S^T = K Q^T (K from the ring by ldmatrix,
+// Q as B fragments in registers), then O^T += V^T P^T (V by ldmatrix
+// .trans, P^T from the S^T accumulators by movmatrix). Int8 / fp8 K and V
+// become bf16 in registers, a byte pair at a time; the d order this gives
+// (bytes 0, 2 then 1, 3 of each word) is the same in Q's fragments, and in
+// O^T's rows the epilogue undoes it. Each warp keeps its own running max,
+// sum and O^T; they are merged once at the end through shared memory.
+template <typename KV, int D, int NT>
+__global__ void __launch_bounds__(kThreadsDec, kBlocksPerSm)
+    paged_decode_kernel(const __grid_constant__ CUtensorMap tm_k,
+                        const __grid_constant__ CUtensorMap tm_v, const wg::Params p) {
+  using L = Layout<KV, D>;
+  constexpr bool kQuant = L::kQuant;
+  constexpr int kW = L::kW, kS = L::kStages;
+  constexpr int kMT = D / 16;  // m-tiles of O^T
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBarOffset);
+  uint64_t* empty = full + kS;
+  auto k_tile = [&](int st) { return smem + st * L::kStageBytes; };
+  auto v_tile = [&](int st) { return k_tile(st) + L::kTileBytes; };
+  auto scales = [&](int st) {  // 64 K scales, then 64 V scales
+    return reinterpret_cast<float*>(smem + L::kScaleOffset) + st * 2 * kTK;
+  };
+
+  const int kvh = blockIdx.x % p.h_k, ib = blockIdx.x / p.h_k % p.b;
+  const int split = blockIdx.x / (p.h_k * p.b);
+  const int R = p.group * p.sq;
+  const int h = p.h_k * p.group;
+
+  // the split's keys: a run of whole 64-key tiles of the live keys
+  // (ops/paged.py::decode_split_keys); the last row's causal limit is kv_len
+  const int kv_len = p.lens[ib];
+  const int live = min(kv_len, p.max_pages * p.page);
+  const int n_live_tiles = (live + kTK - 1) / kTK;
+  const int tps = (n_live_tiles + p.n_splits - 1) / p.n_splits;
+  const int kstart = min(split * tps * kTK, live);
+  const int kend = min(kstart + tps * kTK, live);
+  const int n_tiles = (kend - kstart + kTK - 1) / kTK;
+  const int32_t* bt_row = p.bt + static_cast<size_t>(ib) * p.max_pages;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kS; ++st) {
+      mbar_init(&full[st], 1);
+      mbar_init(&empty[st], kWarps);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (warp == kWarps) {  // ---- the producer warp: one lane issues every copy ----
+    if (lane == 0) {
+      const int B = p.box_rows;
+      constexpr int kBoxCols = kW / static_cast<int>(sizeof(KV));
+      for (int i = 0; i < n_tiles; ++i) {
+        const int st = i % kS;
+        mbar_wait(&empty[st], ((i / kS) & 1) ^ 1);
+        const int k0 = kstart + i * kTK;
+        const int nb = min(kTK / B, (kend - k0 + B - 1) / B);
+        mbar_arrive_expect_tx(&full[st], nb * B * (2 * L::kRowBytes + (kQuant ? 8 : 0)));
+        for (int j = 0; j < nb; ++j) {
+          const int key = k0 + j * B;
+          const int pg = p.page0 + bt_row[key / p.page], row = key % p.page;
+#pragma unroll
+          for (int s = 0; s < L::kSub; ++s) {
+            tma_load_4d(k_tile(st) + s * kTK * kW + j * B * kW, &tm_k, &full[st], s * kBoxCols,
+                        row, kvh, pg);
+            tma_load_4d(v_tile(st) + s * kTK * kW + j * B * kW, &tm_v, &full[st], s * kBoxCols,
+                        row, kvh, pg);
+          }
+          if constexpr (kQuant) {
+            const size_t so = (static_cast<size_t>(pg) * p.h_k + kvh) * p.page + row;
+            bulk_load(scales(st) + j * B, p.k_scales + so, B * 4, &full[st]);
+            bulk_load(scales(st) + kTK + j * B, p.v_scales + so, B * 4, &full[st]);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- the consumer warps ----
+  const int g = lane >> 2, c = lane & 3;
+  const int kw = 16 * warp;  // the warp's keys in every tile
+
+  // Q's B fragments, times the softmax scale (f32 products rounded to bf16):
+  // k-step kk of bf16 K reads d 16kk + 2c, +1 and 16kk + 8 + 2c, +1; of
+  // byte K, d 16kk + 4c, +2 and 16kk + 4c + 1, +3. Rows past R are zero.
+  uint32_t qb[kMT][NT][2];
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    const int r = 8 * n + g;
+    const __nv_bfloat16* qrow = nullptr;
+    if (r < R)
+      qrow = p.q + ib * p.q_sb + (r / p.group) * p.q_st + (kvh * p.group + r % p.group) * p.q_sh;
+#pragma unroll
+    for (int kk = 0; kk < kMT; ++kk) {
+      if (qrow == nullptr) {
+        qb[kk][n][0] = qb[kk][n][1] = 0u;
+      } else if constexpr (kQuant) {
+        const int e = 16 * kk + 4 * c;
+        qb[kk][n][0] = pack_bf16(scaled(qrow, e, p.scale), scaled(qrow, e + 2, p.scale));
+        qb[kk][n][1] = pack_bf16(scaled(qrow, e + 1, p.scale), scaled(qrow, e + 3, p.scale));
+      } else {
+        const int e = 16 * kk + 2 * c;
+        qb[kk][n][0] = pack_bf16(scaled(qrow, e, p.scale), scaled(qrow, e + 1, p.scale));
+        qb[kk][n][1] = pack_bf16(scaled(qrow, e + 8, p.scale), scaled(qrow, e + 9, p.scale));
+      }
+    }
+  }
+  // the causal limit of this thread's S^T columns: rows 8n + 2c + e
+  int qpos[NT][2];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      qpos[n][e] = kv_len - p.sq + min((8 * n + 2 * c + e) / p.group, p.sq - 1);
+  const int q_first = kv_len - p.sq;  // tiles ending at or before it need no causal mask
+
+  float acc[kMT][NT][4];  // O^T: m-tile (16 d) x n-tile (8 rows)
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[mt][n][j] = 0.f;
+  float m_r[NT][2], l_r[NT][2];  // running max and this thread's part of the sum
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      m_r[n][e] = M_FLOOR;
+      l_r[n][e] = 0.f;
+    }
+
+  for (int i = 0; i < n_tiles; ++i) {
+    const int st = i % kS;
+    const int k0 = kstart + i * kTK;
+    mbar_wait(&full[st], (i / kS) & 1);
+    const unsigned char* kt = k_tile(st);
+    const unsigned char* vt = v_tile(st);
+
+    // S^T = K Q^T over the warp's 16 keys: s[n][0..1] key g, [2..3] key g + 8
+    float s[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[n][j] = 0.f;
+#pragma unroll
+    for (int kx = 0; kx < L::kRowBytes / 32; ++kx) {
+      uint32_t r[4];
+      ldmatrix_x4(r, kt + tile_off<kW>(kw + (lane & 7) + ((lane >> 3) & 1) * 8,
+                                       2 * kx + (lane >> 4)));
+      if constexpr (kQuant) {
+        const uint32_t a0[4] = {lo02<KV>(r[0]), lo02<KV>(r[1]), hi13<KV>(r[0]), hi13<KV>(r[1])};
+        const uint32_t a1[4] = {lo02<KV>(r[2]), lo02<KV>(r[3]), hi13<KV>(r[2]), hi13<KV>(r[3])};
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          mma_bf16_16816(s[n], a0, qb[2 * kx][n]);
+          mma_bf16_16816(s[n], a1, qb[2 * kx + 1][n]);
+        }
+      } else {
+#pragma unroll
+        for (int n = 0; n < NT; ++n) mma_bf16_16816(s[n], r, qb[kx][n]);
+      }
+    }
+
+    // the K scale per key; keys past kend or the row's causal limit masked
+    const int key0 = k0 + kw + g, key8 = key0 + 8;
+    float ks0 = 1.f, ks8 = 1.f, vs0 = 1.f, vs8 = 1.f;
+    if constexpr (kQuant) {
+      const float* sc = scales(st);
+      ks0 = sc[kw + g];
+      ks8 = sc[kw + g + 8];
+      vs0 = sc[kTK + kw + g];
+      vs8 = sc[kTK + kw + g + 8];
+    }
+    const bool boundary = k0 + kTK > kend || (p.causal && k0 + kTK - 1 > q_first);
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        s[n][e] *= ks0;
+        s[n][2 + e] *= ks8;
+        if (boundary) {
+          if (key0 >= kend || (p.causal && key0 > qpos[n][e])) s[n][e] = NEG_INF;
+          if (key8 >= kend || (p.causal && key8 > qpos[n][e])) s[n][2 + e] = NEG_INF;
+        }
+      }
+
+    // the online-softmax update of each row; P times the V scale (0 past
+    // kend, where the scale was not loaded), rounded to bf16, as P^T's B
+    // fragments
+    uint32_t pb[NT][2];
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      float pv[4];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float mx = fmaxf(s[n][e], s[n][2 + e]);
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 8));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 16));
+        const float m_new = fmaxf(m_r[n][e], mx);
+        const float corr = exp2f((m_r[n][e] - m_new) * kLog2e);  // exactly 1 when m holds
+        const float m_l2 = m_new * kLog2e;
+        m_r[n][e] = m_new;
+        const float p0 = exp2f(fmaf(s[n][e], kLog2e, -m_l2));
+        const float p8 = exp2f(fmaf(s[n][2 + e], kLog2e, -m_l2));
+        l_r[n][e] = l_r[n][e] * corr + p0 + p8;
+#pragma unroll
+        for (int mt = 0; mt < kMT; ++mt) {
+          acc[mt][n][e] *= corr;
+          acc[mt][n][2 + e] *= corr;
+        }
+        pv[e] = key0 < kend ? p0 * vs0 : 0.f;
+        pv[2 + e] = key8 < kend ? p8 * vs8 : 0.f;
+      }
+      pb[n][0] = movmatrix_trans(pack_bf16(pv[0], pv[1]));
+      pb[n][1] = movmatrix_trans(pack_bf16(pv[2], pv[3]));
+    }
+
+    // O^T += V^T P^T; on a boundary tile the V of keys past kend (stale or
+    // unloaded bytes, maybe NaN) is zeroed in registers
+    const int n_live = kend - k0 - kw;  // of the warp's 16 keys
+    const uint32_t mask_lo = (2 * c < n_live ? 0x0000FFFFu : 0u) |
+                             (2 * c + 1 < n_live ? 0xFFFF0000u : 0u);
+    const uint32_t mask_hi = (2 * c + 8 < n_live ? 0x0000FFFFu : 0u) |
+                             (2 * c + 9 < n_live ? 0xFFFF0000u : 0u);
+#pragma unroll
+    for (int q2 = 0; q2 < L::kRowBytes / 32; ++q2) {
+      uint32_t r[4];
+      ldmatrix_x4_trans(r, vt + tile_off<kW>(kw + (lane & 7) + ((lane >> 4) & 1) * 8,
+                                             2 * q2 + ((lane >> 3) & 1)));
+      if (n_live < 16) {
+        r[0] &= mask_lo;
+        r[1] &= mask_lo;
+        r[2] &= mask_hi;
+        r[3] &= mask_hi;
+      }
+      if constexpr (kQuant) {
+        const uint32_t a0[4] = {lo02<KV>(r[0]), lo02<KV>(r[1]), lo02<KV>(r[2]), lo02<KV>(r[3])};
+        const uint32_t a1[4] = {hi13<KV>(r[0]), hi13<KV>(r[1]), hi13<KV>(r[2]), hi13<KV>(r[3])};
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          mma_bf16_16816(acc[2 * q2][n], a0, pb[n]);
+          mma_bf16_16816(acc[2 * q2 + 1][n], a1, pb[n]);
+        }
+      } else {
+#pragma unroll
+        for (int n = 0; n < NT; ++n) mma_bf16_16816(acc[q2][n], r, pb[n]);
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[st]);  // the warp is done with the stage
+  }
+
+  // ---- the merge of the four warps, through the drained ring ----
+  // O^T row (m-tile mt, fragment row g or g + 8) -> d
+  auto d_of = [&](int mt, int hi) {
+    if constexpr (kQuant) return 32 * (mt / 2) + 16 * hi + 2 * g + (mt & 1);
+    else return 16 * mt + 8 * hi + g;
+  };
+  float* red = reinterpret_cast<float*>(smem);  // [warp][row][kLdr]
+  float* m_s = red + kWarps * 16 * L::kLdr;     // [warp][row]
+  float* l_s = m_s + kWarps * 16;
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float l = l_r[n][e];
+      l += __shfl_xor_sync(0xffffffffu, l, 4);
+      l += __shfl_xor_sync(0xffffffffu, l, 8);
+      l += __shfl_xor_sync(0xffffffffu, l, 16);
+      l_r[n][e] = l;
+    }
+  named_barrier_sync(1, 32 * kWarps);  // every warp is past the ring
+  if (g == 0) {
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        m_s[warp * 16 + 8 * n + 2 * c + e] = m_r[n][e];
+        l_s[warp * 16 + 8 * n + 2 * c + e] = l_r[n][e];
+      }
+  }
+  named_barrier_sync(1, 32 * kWarps);
+  // each warp's O^T times exp(m_w - M) / L, M and L over the four warps
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int row = 8 * n + 2 * c + e;
+      float M = m_s[row];
+#pragma unroll
+      for (int w = 1; w < kWarps; ++w) M = fmaxf(M, m_s[w * 16 + row]);
+      float Lsum = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w)
+        Lsum += exp2f((m_s[w * 16 + row] - M) * kLog2e) * l_s[w * 16 + row];
+      const float f = Lsum > 0.f ? exp2f((m_r[n][e] - M) * kLog2e) / Lsum : 0.f;
+      float* out = red + (warp * 16 + row) * L::kLdr;
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt) {
+        out[d_of(mt, 0)] = acc[mt][n][e] * f;
+        out[d_of(mt, 1)] = acc[mt][n][2 + e] * f;
+      }
+    }
+  named_barrier_sync(1, 32 * kWarps);
+
+  // the sum over the warps, in the caller's layout: one split writes O
+  // (b, sq, h, D) bf16 and LSE (b, h, sq); more write f32 partials
+  // (splits, b, sq, h, D) and (splits, b, sq, h). Rows that saw no key give
+  // O = 0 and LSE = -inf.
+  const int tid = threadIdx.x;
+  for (int x = tid; x < R * (D / 4); x += 32 * kWarps) {
+    const int row = x / (D / 4), d4 = (x % (D / 4)) * 4;
+    float4 o = *reinterpret_cast<const float4*>(red + row * L::kLdr + d4);
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) {
+      const float4 y = *reinterpret_cast<const float4*>(red + (w * 16 + row) * L::kLdr + d4);
+      o.x += y.x;
+      o.y += y.y;
+      o.z += y.z;
+      o.w += y.w;
+    }
+    const int t = row / p.group, head = kvh * p.group + row % p.group;
+    const size_t ri = (static_cast<size_t>(ib) * p.sq + t) * h + head;
+    if (p.n_splits == 1) {
+      *reinterpret_cast<uint2*>(static_cast<__nv_bfloat16*>(p.o) + ri * D + d4) =
+          make_uint2(pack_bf16(o.x, o.y), pack_bf16(o.z, o.w));
+    } else {
+      const size_t pi = static_cast<size_t>(split) * p.b * p.sq * h + ri;
+      *reinterpret_cast<float4*>(static_cast<float*>(p.o) + pi * D + d4) = o;
+    }
+  }
+  if (tid < R) {
+    float M = m_s[tid];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) M = fmaxf(M, m_s[w * 16 + tid]);
+    float Lsum = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w)
+      Lsum += exp2f((m_s[w * 16 + tid] - M) * kLog2e) * l_s[w * 16 + tid];
+    const float lse = Lsum > 0.f ? M + logf(Lsum) : -INFINITY;
+    const int t = tid / p.group, head = kvh * p.group + tid % p.group;
+    if (p.n_splits == 1)
+      p.lse[(static_cast<size_t>(ib) * h + head) * p.sq + t] = lse;
+    else
+      p.lse[(static_cast<size_t>(split) * p.b * p.sq + static_cast<size_t>(ib) * p.sq + t) * h +
+            head] = lse;
+  }
+}
+
+template <typename KV, int D, int NT>
+cudaError_t prepare() {
+  // raise the dynamic shared-memory limit once per instantiation (one device)
+  static cudaError_t err = cudaFuncSetAttribute(paged_decode_kernel<KV, D, NT>,
+                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                Layout<KV, D>::kBytes);
+  return err;
+}
+
+template <typename KV, int D, int NT>
+cudaError_t launch(const void* k_pool, const void* v_pool, int n_pool_pages,
+                   const wg::Params& prm, cudaStream_t stream) {
+  using L = Layout<KV, D>;
+  constexpr uint64_t es = sizeof(KV);
+  CUtensorMap maps[2];
+  const void* bases[2] = {k_pool, v_pool};
+  // (d, page, h_k, L * pages) over every layer: the layer is a page coordinate
+  const uint64_t dims[4] = {static_cast<uint64_t>(D), static_cast<uint64_t>(prm.page),
+                            static_cast<uint64_t>(prm.h_k), static_cast<uint64_t>(n_pool_pages)};
+  const uint64_t strides[3] = {D * es, static_cast<uint64_t>(prm.page) * D * es,
+                               static_cast<uint64_t>(prm.h_k) * prm.page * D * es};
+  const uint32_t box[4] = {static_cast<uint32_t>(L::kW / es),
+                           static_cast<uint32_t>(prm.box_rows), 1, 1};
+  const CUtensorMapSwizzle swizzle =
+      L::kW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
+  for (int i = 0; i < 2; ++i) {
+    cudaError_t err = make_map(
+        &maps[i], L::kQuant ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+        4, bases[i], dims, strides, box, swizzle);
+    if (err != cudaSuccess) return err;
+  }
+  cudaError_t err = prepare<KV, D, NT>();
+  if (err != cudaSuccess) return err;
+  const unsigned grid = static_cast<unsigned>(prm.n_splits) * prm.b * prm.h_k;
+  paged_decode_kernel<KV, D, NT><<<grid, kThreadsDec, L::kBytes, stream>>>(maps[0], maps[1], prm);
+  return cudaGetLastError();
+}
+
+template <typename KV, int NT>
+cudaError_t launch_d(int d, const void* kp, const void* vp, int n_pool_pages,
+                     const wg::Params& prm, cudaStream_t stream) {
+  if (d == 128) return launch<KV, 128, NT>(kp, vp, n_pool_pages, prm, stream);
+  if (d == 64) return launch<KV, 64, NT>(kp, vp, n_pool_pages, prm, stream);
+  return cudaErrorInvalidValue;
+}
+
+template <typename KV>
+cudaError_t launch_rows(int d, const void* kp, const void* vp, int n_pool_pages,
+                        const wg::Params& prm, cudaStream_t stream) {
+  const int rows = prm.sq * prm.group;
+  if (rows > 16) return cudaErrorInvalidValue;
+  return rows <= 8 ? launch_d<KV, 1>(d, kp, vp, n_pool_pages, prm, stream)
+                   : launch_d<KV, 2>(d, kp, vp, n_pool_pages, prm, stream);
+}
+
+template <typename KV, int D, int NT>
+int blocks_per_sm() {
+  int n = -1;
+  if (prepare<KV, D, NT>() != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, paged_decode_kernel<KV, D, NT>,
+                                                    kThreadsDec, Layout<KV, D>::kBytes) !=
+          cudaSuccess)
+    return -1;
+  return n;
+}
+
+// The merge of split partials: one warp per (batch entry, token, head) row,
+// the splits' weights exp(LSE_s - max) in split order, O in bf16.
+template <int D>
+__global__ void __launch_bounds__(128) paged_combine_kernel(
+    const float* __restrict__ o_part,    // (splits, b, sq, h, D)
+    const float* __restrict__ lse_part,  // (splits, b, sq, h)
+    __nv_bfloat16* __restrict__ o,       // (b, sq, h, D)
+    float* __restrict__ lse,             // (b, h, sq)
+    int n_splits, int b, int sq, int h) {
+  constexpr int V = D / 32;  // columns a lane
+  const int rows = b * sq * h;
+  const int r = blockIdx.x * 4 + (threadIdx.x >> 5), lane = threadIdx.x & 31;
+  if (r >= rows) return;
+  float m = -INFINITY;
+  for (int s = lane; s < n_splits; s += 32)
+    m = fmaxf(m, lse_part[static_cast<size_t>(s) * rows + r]);
+  for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+  const float m_safe = isfinite(m) ? m : 0.f;
+  float sumw = 0.f, acc[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) acc[j] = 0.f;
+  for (int s = 0; s < n_splits; ++s) {
+    const float ls = lse_part[static_cast<size_t>(s) * rows + r];
+    if (!isfinite(ls)) continue;  // an empty partial
+    const float w = expf(ls - m_safe);
+    sumw += w;
+    const float* src = o_part + (static_cast<size_t>(s) * rows + r) * D + lane * V;
+    if constexpr (V == 4) {
+      const float4 x = *reinterpret_cast<const float4*>(src);
+      acc[0] += w * x.x;
+      acc[1] += w * x.y;
+      acc[2] += w * x.z;
+      acc[3] += w * x.w;
+    } else {
+      const float2 x = *reinterpret_cast<const float2*>(src);
+      acc[0] += w * x.x;
+      acc[1] += w * x.y;
+    }
+  }
+  const bool has = sumw > 0.f;
+  const float inv = has ? 1.f / sumw : 0.f;
+  __nv_bfloat16* dst = o + static_cast<size_t>(r) * D + lane * V;
+#pragma unroll
+  for (int j = 0; j < V; j += 2)
+    *reinterpret_cast<uint32_t*>(dst + j) = pack_bf16(acc[j] * inv, acc[j + 1] * inv);
+  if (lane == 0) {
+    const int head = r % h, t = r / h % sq, ib = r / (h * sq);
+    lse[(static_cast<size_t>(ib) * h + head) * sq + t] = has ? m_safe + logf(sumw) : -INFINITY;
+  }
+}
+
+}  // namespace dec
+
 }  // namespace
 
 // q (b, sq, h_k * group, d) bf16; pools (pages, h_k, page, d) of kv_dtype;
@@ -928,6 +1495,46 @@ extern "C" int xfa_paged_attention(const void* q, const void* k_pool, const void
   }
 }
 
+namespace {
+
+// The launch parameters of the Hopper and decode routes, or an error.
+cudaError_t hopper_params(wg::Params* prm, const void* q, int64_t q_sb, int64_t q_st,
+                          int64_t q_sh, int kv_dtype, const void* k_scales, const void* v_scales,
+                          const void* block_tables, const void* kv_lens, void* o, void* lse,
+                          int b, int sq, int h_k, int group, int page, int max_pages,
+                          int pool_pages, int layer, int n_splits, int causal, float scale) {
+  const int box = wg::box_rows(page);
+  if (box == 0 || n_splits < 1 || group < 1) return cudaErrorInvalidValue;
+  const bool quant = kv_dtype != XFA_BF16;
+  if (quant && (k_scales == nullptr || v_scales == nullptr)) return cudaErrorInvalidValue;
+  *prm = wg::Params{};
+  prm->q = static_cast<const __nv_bfloat16*>(q);
+  prm->q_sb = q_sb;
+  prm->q_st = q_st;
+  prm->q_sh = q_sh;
+  prm->k_scales = quant ? static_cast<const float*>(k_scales) : nullptr;
+  prm->v_scales = quant ? static_cast<const float*>(v_scales) : nullptr;
+  prm->bt = static_cast<const int32_t*>(block_tables);
+  prm->lens = static_cast<const int32_t*>(kv_lens);
+  prm->o = o;
+  prm->lse = static_cast<float*>(lse);
+  prm->b = b;
+  prm->sq = sq;
+  prm->h_k = h_k;
+  prm->group = group;
+  prm->page = page;
+  prm->max_pages = max_pages;
+  prm->n_splits = n_splits;
+  prm->n_rt = (group * sq + wg::kBQ - 1) / wg::kBQ;
+  prm->page0 = layer * pool_pages;
+  prm->box_rows = box;
+  prm->causal = causal;
+  prm->scale = scale;
+  return cudaSuccess;
+}
+
+}  // namespace
+
 // The Hopper route (ops/paged.py::paged_route): q (b, sq, h_k * group, d)
 // bf16 read through its (batch, token, head) element strides (last dimension
 // contiguous, strides multiples of 8, base 16-byte aligned), not pre-scaled
@@ -946,33 +1553,11 @@ extern "C" int xfa_paged_attention_wgmma(const void* q, int64_t q_sb, int64_t q_
                                          int n_layers, int pool_pages, int layer, int n_splits,
                                          int causal, float scale, void* stream) {
   if (b * sq == 0) return cudaSuccess;
-  const int box = wg::box_rows(page);
-  if (box == 0 || n_splits < 1 || group < 1) return cudaErrorInvalidValue;
-  const bool quant = kv_dtype != XFA_BF16;
-  if (quant && (k_scales == nullptr || v_scales == nullptr)) return cudaErrorInvalidValue;
-  wg::Params prm{};
-  prm.q = static_cast<const __nv_bfloat16*>(q);
-  prm.q_sb = q_sb;
-  prm.q_st = q_st;
-  prm.q_sh = q_sh;
-  prm.k_scales = quant ? static_cast<const float*>(k_scales) : nullptr;
-  prm.v_scales = quant ? static_cast<const float*>(v_scales) : nullptr;
-  prm.bt = static_cast<const int32_t*>(block_tables);
-  prm.lens = static_cast<const int32_t*>(kv_lens);
-  prm.o = o;
-  prm.lse = static_cast<float*>(lse);
-  prm.b = b;
-  prm.sq = sq;
-  prm.h_k = h_k;
-  prm.group = group;
-  prm.page = page;
-  prm.max_pages = max_pages;
-  prm.n_splits = n_splits;
-  prm.n_rt = (group * sq + wg::kBQ - 1) / wg::kBQ;
-  prm.page0 = layer * pool_pages;
-  prm.box_rows = box;
-  prm.causal = causal;
-  prm.scale = scale;
+  wg::Params prm;
+  cudaError_t err = hopper_params(&prm, q, q_sb, q_st, q_sh, kv_dtype, k_scales, v_scales,
+                                  block_tables, kv_lens, o, lse, b, sq, h_k, group, page,
+                                  max_pages, pool_pages, layer, n_splits, causal, scale);
+  if (err != cudaSuccess) return err;
   const int n_pool_pages = n_layers * pool_pages;
   auto st = static_cast<cudaStream_t>(stream);
   switch (kv_dtype) {
@@ -985,4 +1570,81 @@ extern "C" int xfa_paged_attention_wgmma(const void* q, int64_t q_sb, int64_t q_
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+// The decode route (ops/paged.py::paged_route: sq * group <= 16 rows, d 64
+// or 128, page % 8 == 0, no option): the arguments of
+// xfa_paged_attention_wgmma. Each batch entry's live keys are cut into
+// n_splits runs of whole 64-key tiles; splits past them write empty
+// partials (O = 0, LSE = -inf).
+extern "C" int xfa_paged_decode(const void* q, int64_t q_sb, int64_t q_st, int64_t q_sh,
+                                const void* k_pool, const void* v_pool, int kv_dtype,
+                                const void* k_scales, const void* v_scales,
+                                const void* block_tables, const void* kv_lens, void* o, void* lse,
+                                int b, int sq, int h_k, int group, int d, int page, int max_pages,
+                                int n_layers, int pool_pages, int layer, int n_splits, int causal,
+                                float scale, void* stream) {
+  if (b * sq == 0) return cudaSuccess;
+  wg::Params prm;
+  cudaError_t err = hopper_params(&prm, q, q_sb, q_st, q_sh, kv_dtype, k_scales, v_scales,
+                                  block_tables, kv_lens, o, lse, b, sq, h_k, group, page,
+                                  max_pages, pool_pages, layer, n_splits, causal, scale);
+  if (err != cudaSuccess) return err;
+  const int n_pool_pages = n_layers * pool_pages;
+  auto st = static_cast<cudaStream_t>(stream);
+  switch (kv_dtype) {
+    case XFA_BF16:
+      return dec::launch_rows<__nv_bfloat16>(d, k_pool, v_pool, n_pool_pages, prm, st);
+    case XFA_I8:
+      return dec::launch_rows<int8_t>(d, k_pool, v_pool, n_pool_pages, prm, st);
+    case XFA_FP8_E4M3:
+      return dec::launch_rows<fp8e4m3_t>(d, k_pool, v_pool, n_pool_pages, prm, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// Resident blocks an SM of the decode kernel's (kv_dtype, d, rows <= 8 or
+// not) instantiation, by the CUDA occupancy calculator; -1 on an error.
+// ops/paged.py's DECODE_BLOCKS_PER_SM must equal it (chip_smoke.py checks).
+extern "C" int xfa_paged_decode_blocks_per_sm(int kv_dtype, int d, int rows) {
+  const bool wide = rows > 8;
+#define XFA_DEC_OCC(KV)                                                                    \
+  return d == 128 ? (wide ? dec::blocks_per_sm<KV, 128, 2>() : dec::blocks_per_sm<KV, 128, 1>()) \
+                  : (wide ? dec::blocks_per_sm<KV, 64, 2>() : dec::blocks_per_sm<KV, 64, 1>())
+  if (d != 64 && d != 128) return -1;
+  switch (kv_dtype) {
+    case XFA_BF16:
+      XFA_DEC_OCC(__nv_bfloat16);
+    case XFA_I8:
+      XFA_DEC_OCC(int8_t);
+    case XFA_FP8_E4M3:
+      XFA_DEC_OCC(fp8e4m3_t);
+    default:
+      return -1;
+  }
+#undef XFA_DEC_OCC
+}
+
+// The merge of f32 split partials o_part (n_splits, b, sq, h, d) and
+// lse_part (n_splits, b, sq, h) into o (b, sq, h, d) bf16 and lse (b, h, sq):
+// ops/paged.py::combine_splits_ref's arithmetic.
+extern "C" int xfa_paged_combine(const void* o_part, const void* lse_part, void* o, void* lse,
+                                 int n_splits, int b, int sq, int h, int d, void* stream) {
+  const int rows = b * sq * h;
+  if (rows == 0) return cudaSuccess;
+  if (n_splits < 1) return cudaErrorInvalidValue;
+  const unsigned grid = static_cast<unsigned>((rows + 3) / 4);
+  auto st = static_cast<cudaStream_t>(stream);
+  const auto* op = static_cast<const float*>(o_part);
+  const auto* lp = static_cast<const float*>(lse_part);
+  auto* oo = static_cast<__nv_bfloat16*>(o);
+  auto* lo = static_cast<float*>(lse);
+  if (d == 128)
+    dec::paged_combine_kernel<128><<<grid, 128, 0, st>>>(op, lp, oo, lo, n_splits, b, sq, h);
+  else if (d == 64)
+    dec::paged_combine_kernel<64><<<grid, 128, 0, st>>>(op, lp, oo, lo, n_splits, b, sq, h);
+  else
+    return cudaErrorInvalidValue;
+  return cudaGetLastError();
 }

@@ -14,17 +14,22 @@ kvh taking the slope of q head kvh * group + g and losing slope * |qpos -
 kcol| after the softcap, both positions counted from the leftpad; and
 ``cache_leftpad`` (b,), which masks the keys before it.
 
-CUDA tensors run one of the two hand-written kernels of
+CUDA tensors run one of the three hand-written kernels of
 csrc/paged_attention.cu, as ``paged_route`` picks from the shapes, the pool
-dtype and the options: the Hopper kernel ("wgmma", 64 query rows a block,
-more than 16 rows a KV head: prefill chunks and paged varlen), which scales
-q itself and writes O and LSE in the caller's layout, or the first version
-on WMMA ("wmma": decode, speculative verify, the options, odd pages). Split
-runs give f32 partials (O, LSE) that ``combine_partials`` merges in plain
-torch. Both take bf16 queries. CPU tensors run ``paged_attention_ref``, the
-plain version, with the kernels' numerics. All cut the pages from the first
-one any row can see (window start, leftpad) to the last live one into
-``num_splits`` equal runs, the number the route's row tile gives.
+dtype and the options: the decode kernel ("decode", at most 16 query rows a
+KV head: decode and short verify), the Hopper chunk kernel ("wgmma", 64
+query rows a block, more than 16 rows a KV head: prefill chunks and paged
+varlen), both of which scale q themselves and write O and LSE in the
+caller's layout, or the first version on WMMA ("wmma": the options, odd
+pages). Split runs give f32 partials (O, LSE); the first two routes merge
+them with the combine kernel (``combine_splits``), the WMMA route with
+``combine_partials`` in plain torch. All take bf16 queries. CPU tensors run
+``paged_attention_ref``, the plain version, with the kernels' numerics.
+The decode route cuts each entry's live keys into ``num_splits`` runs of
+whole 64-key tiles (``decode_split_keys``); the others cut the pages from
+the first one any row can see (window start, leftpad) to the last live one
+into ``num_splits`` equal runs. The split count comes from the route's
+blocks (``paged_plan``).
 
 The layout is the JAX package's logical contract with its TPU padding
 removed: pools are stored tight, and the kernel reads any page size.
@@ -47,6 +52,9 @@ NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 M_FLOOR = -1e30  # running-max floor: exp(NEG_INF - M_FLOOR) == 0
 NUM_SMS = 132  # H100 SXM: the cores of the split heuristic
 MAX_SPLITS = 128
+DECODE_ROWS = 16  # query rows a KV head up to which the decode kernel takes a call
+DECODE_TILE = 64  # keys per tile of the decode kernel: its unit of splits
+DECODE_BLOCKS_PER_SM = 2  # the decode kernel's resident blocks (csrc: kBlocksPerSm)
 
 
 def num_splits_heuristic(
@@ -101,48 +109,84 @@ def has_options(causal: bool, window: Tuple[int, int], softcap: float, alibi_slo
 
 def paged_route(rows: int, page: int, d: int, kv_dtype: torch.dtype, options: bool) -> str:
     """The kernel of csrc/paged_attention.cu that takes a call, a pure
-    function of its shapes, pool dtype and options: "wgmma" (the Hopper
-    kernel) when more than 16 query rows share a KV head (rows = sq *
-    group), d is 64 or 128, the page is whole TMA boxes (a multiple of 8
-    keys), the pools are bf16, int8 or fp8 and no option asks for the
-    general kernel; else "wmma" (the first version: decode, speculative
-    verify, the options, odd pages)."""
-    if (rows > 16 and d in (64, 128) and page % 8 == 0 and not options
+    function of its shapes, pool dtype and options. With d 64 or 128, a page
+    of whole TMA boxes (a multiple of 8 keys), bf16, int8 or fp8 pools and
+    no option asking for the general kernel: "decode" (the decode kernel)
+    when at most 16 query rows share a KV head (rows = sq * group: decode
+    and short verify), else "wgmma" (the Hopper chunk kernel). Anything else
+    takes "wmma" (the first version: the options, odd pages)."""
+    if (d in (64, 128) and page % 8 == 0 and not options
             and kv_dtype in (torch.bfloat16, *QUANT_DTYPES)):
-        return "wgmma"
+        return "decode" if rows <= DECODE_ROWS else "wgmma"
     return "wmma"
 
 
 def route_row_tile(route: str, rows: int) -> int:
     """Query rows per block of the route's kernel."""
-    return WGMMA_ROWS if route == "wgmma" else kernel_row_tile(rows)
+    if route == "wgmma":
+        return WGMMA_ROWS
+    return DECODE_ROWS if route == "decode" else kernel_row_tile(rows)
 
 
-def resolve_num_splits(num_splits: int, b: int, h_k: int, rows: int, max_pages: int,
-                       row_tile: Optional[int] = None) -> int:
-    """Explicit num_splits wins; 0 asks the heuristic, with the kernel's
-    blocks (b * h_k * row tiles of `row_tile` rows, the WMMA kernel's by
-    default) as work and the H100's SMs as cores."""
+def route_label(route: str, rows: int) -> str:
+    """The launch counter (_build.LAUNCHES) of the route's kernel; the WMMA
+    kernel counts decode-sized calls (<= 16 rows a KV head) apart."""
+    if route == "decode":
+        return "paged_attention.decode"
+    if route == "wgmma":
+        return "paged_attention.prefill.wgmma"
+    return "paged_attention.decode.wmma" if rows <= DECODE_ROWS else "paged_attention.prefill.wmma"
+
+
+def resolve_num_splits(num_splits: int, b: int, h_k: int, rows: int, max_blocks: int,
+                       row_tile: Optional[int] = None, num_cores: int = NUM_SMS) -> int:
+    """Explicit num_splits wins, at most one split per key block; 0 asks the
+    heuristic, with the kernel's blocks (b * h_k * row tiles of `row_tile`
+    rows, the WMMA kernel's by default) as work, `num_cores` (the H100's
+    SMs by default) as cores and `max_blocks` (the table's width in the
+    route's split unit: pages, or 64-key tiles on the decode route) as the
+    most splits."""
     if num_splits <= 0:
         tile = kernel_row_tile(rows) if row_tile is None else row_tile
         n_work = b * h_k * cdiv(rows, tile)
-        num_splits = num_splits_heuristic(n_work, NUM_SMS, max_pages, MAX_SPLITS)
-    return max(1, min(num_splits, max_pages))
+        num_splits = num_splits_heuristic(n_work, num_cores, max_blocks, MAX_SPLITS)
+    return max(1, min(num_splits, max_blocks))
 
 
 def paged_plan(q_shape, k_pool_shape, kv_dtype: torch.dtype, max_pages: int, num_splits: int = 0,
                causal: bool = True, window: Tuple[int, int] = (-1, -1), softcap: float = 0.0,
                alibi_slopes=None, cache_leftpad=None) -> Tuple[str, int]:
     """(route, splits) of a paged_attention call: the kernel paged_route
-    picks and the split count resolve_num_splits gives for its row tile.
-    k_pool_shape is (pages, h_k, page, d), or (L, ...) with a layer axis."""
+    picks and the split count resolve_num_splits gives for its blocks. On
+    the decode route the cores are the H100's SMs times the decode kernel's
+    resident blocks and the splits' unit is a 64-key tile; elsewhere the
+    SMs and pages. k_pool_shape is (pages, h_k, page, d), or (L, ...) with a
+    layer axis."""
     b, sq, h, d = q_shape
     h_k, page = k_pool_shape[-3], k_pool_shape[-2]
     rows = sq * (h // h_k)
     route = paged_route(rows, page, d, kv_dtype,
                         has_options(causal, window, softcap, alibi_slopes, cache_leftpad))
+    if route == "decode":
+        return route, resolve_num_splits(num_splits, b, h_k, rows,
+                                         cdiv(max_pages * page, DECODE_TILE), DECODE_ROWS,
+                                         NUM_SMS * DECODE_BLOCKS_PER_SM)
     return route, resolve_num_splits(num_splits, b, h_k, rows, max_pages,
                                      route_row_tile(route, rows))
+
+
+def decode_split_keys(kv_len: int, n_splits: int, max_keys: int):
+    """The decode kernel's cut of one batch entry's keys: [(lo, hi)] for
+    each split, the live keys (kv_len, at most the table's max_keys) cut
+    into n_splits runs of whole 64-key tiles; splits past the live tiles are
+    empty (lo == hi)."""
+    live = min(kv_len, max_keys)
+    per = cdiv(cdiv(live, DECODE_TILE), n_splits) * DECODE_TILE
+    out = []
+    for s in range(n_splits):
+        lo = min(s * per, live)
+        out.append((lo, min(lo + per, live)))
+    return out
 
 
 def _layer(x: Optional[torch.Tensor], layer_idx) -> Optional[torch.Tensor]:
@@ -244,14 +288,17 @@ def paged_attention_ref(
             qpos_eff = qpos - leftpad
         s = s - row_slope[..., None] * (qpos_eff - kcol_eff).abs().float()
 
-    # each row's visible pages cut into num_splits equal runs, as the kernel does
-    n_live = ((lens + page - 1) // page).clamp_max(block_tables.shape[1])
-    first = first_page(lens, sq, page, wl, cache_leftpad, n_live)
+    # each row's visible pages (64-key tiles on the decode route) cut into
+    # num_splits equal runs, as the route's kernel does
+    options = has_options(causal, window, softcap, alibi_slopes, cache_leftpad)
+    unit = DECODE_TILE if paged_route(rows, page, d, k_pool.dtype, options) == "decode" else page
+    n_live = (lens.clamp_max(T) + unit - 1) // unit
+    first = first_page(lens, sq, unit, wl, cache_leftpad, n_live)
     pps = (n_live - first + num_splits - 1) // num_splits
     o_parts, lse_parts = [], []
     for sp in range(num_splits):
-        lo = (first + sp * pps) * page
-        in_split = (kcol >= lo) & (kcol < lo + pps * page)
+        lo = (first + sp * pps) * unit
+        in_split = (kcol >= lo) & (kcol < lo + pps * unit)
         s_sp = torch.where(keep & in_split, s, torch.full_like(s, NEG_INF))
         m = s_sp.amax(dim=-1, keepdim=True).clamp_min(M_FLOOR)
         p = torch.exp(s_sp - m)
@@ -275,8 +322,9 @@ def paged_attention_ref(
 
 
 def first_page(lens, sq, page, wl, cache_leftpad, n_live):
-    """The first page any query row of each batch entry can see: the one of
-    the first row's window start or of the leftpad (0 without either)."""
+    """The first page (of `page` keys: a split unit) any query row of each
+    batch entry can see: the one of the first row's window start or of the
+    leftpad (0 without either)."""
     first_key = torch.zeros_like(lens)
     if cache_leftpad is not None:
         first_key = cache_leftpad.to(device=lens.device, dtype=torch.long).reshape(lens.shape)
@@ -293,6 +341,42 @@ def _unswap(o, lse, b, sq, h_k, g, d, out_dtype):
     return o.to(out_dtype), lse
 
 
+def combine_splits_ref(o_part: torch.Tensor, lse_part: torch.Tensor,
+                       out_dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the combine kernel: f32 split partials in the
+    caller's layout, O (splits, b, sq, h, d) and LSE (splits, b, sq, h),
+    merged by combine_partials into O (b, sq, h, d) in out_dtype and LSE
+    (b, h, sq) f32."""
+    o, lse = combine_partials(o_part, lse_part)
+    return o.to(out_dtype), lse.transpose(1, 2).contiguous()
+
+
+def combine_splits(o_part: torch.Tensor, lse_part: torch.Tensor,
+                   out_dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The split merge of the decode and Hopper chunk routes: on CUDA
+    tensors the combine kernel (one launch, bf16 out), on CPU tensors its
+    plain version, combine_splits_ref."""
+    if not is_cuda(o_part, lse_part):
+        _build.PLAIN_CALLS["paged_attention.combine"] += 1
+        return combine_splits_ref(o_part, lse_part, out_dtype)
+    n_splits, b, sq, h, d = o_part.shape
+    if out_dtype != torch.bfloat16 or d not in (64, 128):
+        raise ValueError(f"the combine kernel writes bf16 O of head_dim 64 or 128, got "
+                         f"{out_dtype}, {d}")
+    if (o_part.dtype != torch.float32 or lse_part.dtype != torch.float32
+            or not o_part.is_contiguous() or not lse_part.is_contiguous()
+            or tuple(lse_part.shape) != (n_splits, b, sq, h)):
+        raise ValueError("the combine kernel takes contiguous f32 partials (splits, b, sq, h, d) "
+                         "and (splits, b, sq, h)")
+    o = torch.empty((b, sq, h, d), dtype=out_dtype, device=o_part.device)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=o_part.device)
+    rc = _lib().xfa_paged_combine(o_part.data_ptr(), lse_part.data_ptr(), o.data_ptr(),
+                                  lse.data_ptr(), n_splits, b, sq, h, d, _build.stream_handle())
+    _build.check(rc, "paged_attention (combine)")
+    _build.LAUNCHES["paged_attention.combine"] += 1
+    return o, lse
+
+
 _lib_handle = None
 
 
@@ -306,13 +390,26 @@ def _lib():
             + [ctypes.c_int] * 10 + [ctypes.c_float] + [ctypes.c_void_p] * 2
             + [ctypes.c_int, ctypes.c_void_p]
         )
-        lib.xfa_paged_attention_wgmma.restype = ctypes.c_int
-        lib.xfa_paged_attention_wgmma.argtypes = (
-            [ctypes.c_void_p] + [ctypes.c_int64] * 3 + [ctypes.c_void_p] * 2 + [ctypes.c_int]
-            + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 12 + [ctypes.c_float, ctypes.c_void_p]
-        )
+        for fn in (lib.xfa_paged_attention_wgmma, lib.xfa_paged_decode):
+            fn.restype = ctypes.c_int
+            fn.argtypes = (
+                [ctypes.c_void_p] + [ctypes.c_int64] * 3 + [ctypes.c_void_p] * 2
+                + [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 12
+                + [ctypes.c_float, ctypes.c_void_p]
+            )
+        lib.xfa_paged_decode_blocks_per_sm.restype = ctypes.c_int
+        lib.xfa_paged_decode_blocks_per_sm.argtypes = [ctypes.c_int] * 3
+        lib.xfa_paged_combine.restype = ctypes.c_int
+        lib.xfa_paged_combine.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
+            ctypes.c_void_p]
         _lib_handle = lib
     return _lib_handle
+
+
+def decode_blocks_per_sm(kv_dtype: torch.dtype, d: int, rows: int) -> int:
+    """Resident blocks an SM of the decode kernel's instantiation for these
+    pools and rows, by the CUDA occupancy calculator (on the card)."""
+    return _lib().xfa_paged_decode_blocks_per_sm(_build.dtype_code(kv_dtype), d, rows)
 
 
 def _check_cuda_inputs(q, k_pool, v_pool, k_scales, v_scales):
@@ -339,12 +436,12 @@ def _paged_attention_cuda(q, k_pool, v_pool, layer_idx, block_tables, kv_lens, s
                           window, softcap, alibi_slopes, cache_leftpad, num_splits, k_scales,
                           v_scales, route):
     """K1 on CUDA tensors through the kernel `route` names (paged_route's
-    choice; chip_smoke.py also forces "wmma" to time the first version on
-    the same shapes). Pools and scales as paged_attention takes them, with
-    layer_idx not yet applied."""
-    if route == "wgmma":
-        return _paged_wgmma_cuda(q, k_pool, v_pool, layer_idx, block_tables, kv_lens, scale,
-                                 causal or window[1] == 0, num_splits, k_scales, v_scales)
+    choice; paged_bringup.py and chip_smoke.py also force another route to
+    time it on the same shapes). Pools and scales as paged_attention takes
+    them, with layer_idx not yet applied."""
+    if route in ("decode", "wgmma"):
+        return _paged_hopper_cuda(q, k_pool, v_pool, layer_idx, block_tables, kv_lens, scale,
+                                  causal or window[1] == 0, num_splits, k_scales, v_scales, route)
     k_pool, v_pool = _layer(k_pool, layer_idx), _layer(v_pool, layer_idx)
     k_scales, v_scales = _layer(k_scales, layer_idx), _layer(v_scales, layer_idx)
     b, sq, h, d = q.shape
@@ -371,7 +468,7 @@ def _paged_attention_cuda(q, k_pool, v_pool, layer_idx, block_tables, kv_lens, s
         _build.ptr(slopes), _build.ptr(leftpad), kernel_row_tile(rows), _build.stream_handle(),
     )
     _build.check(rc, "paged_attention")
-    _build.LAUNCHES["paged_attention.decode" if sq == 1 else "paged_attention.prefill.wmma"] += 1
+    _build.LAUNCHES[route_label("wmma", rows)] += 1
     if num_splits > 1:
         o, lse = combine_partials(o_part, lse_part)
     else:
@@ -379,12 +476,13 @@ def _paged_attention_cuda(q, k_pool, v_pool, layer_idx, block_tables, kv_lens, s
     return _unswap(o, lse, b, sq, h_k, g, d, q.dtype)
 
 
-def _paged_wgmma_cuda(q, k_pool, v_pool, layer_idx, block_tables, kv_lens, scale, causal,
-                      num_splits, k_scales, v_scales):
-    """The Hopper kernel. q is read through its strides and scaled inside
-    the kernel; the pools' tensor maps span every layer, so layer_idx is a
-    page coordinate; one split gives O (b, sq, h, d) and LSE (b, h, sq) as
-    they are, more give f32 partials in that layout for combine_partials."""
+def _paged_hopper_cuda(q, k_pool, v_pool, layer_idx, block_tables, kv_lens, scale, causal,
+                       num_splits, k_scales, v_scales, route):
+    """The decode kernel (route "decode") or the Hopper chunk kernel
+    ("wgmma"). q is read through its strides and scaled inside the kernel;
+    the pools' tensor maps span every layer, so layer_idx is a page
+    coordinate; one split gives O (b, sq, h, d) and LSE (b, h, sq) as they
+    are, more give f32 partials in that layout for the combine kernel."""
     if layer_idx is None:  # one layer: a leading layer axis of 1, no copy
         k_pool, v_pool = k_pool[None], v_pool[None]
         k_scales = None if k_scales is None else k_scales[None]
@@ -394,8 +492,9 @@ def _paged_wgmma_cuda(q, k_pool, v_pool, layer_idx, block_tables, kv_lens, scale
     layer = 0 if layer_idx is None else int(layer_idx)
     if not 0 <= layer < n_layers:
         raise IndexError(f"layer_idx {layer} out of range for {n_layers} layers")
-    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
-        raise ValueError("the Hopper paged-attention kernel reads pools at 16-byte aligned bases")
+    if any(t.data_ptr() % 16 for t in (k_pool, v_pool, k_scales, v_scales) if t is not None):
+        raise ValueError("the Hopper paged-attention kernels read pools and scales at 16-byte "
+                         "aligned bases")
     b, sq, h, _ = q.shape
     if q.stride(-1) != 1 or q.data_ptr() % 16 or any(st % 8 for st in q.stride()[:3]):
         q = q.clone(memory_format=torch.contiguous_format)  # the kernel reads 16-byte rows
@@ -407,18 +506,18 @@ def _paged_wgmma_cuda(q, k_pool, v_pool, layer_idx, block_tables, kv_lens, scale
     else:
         o = torch.empty((num_splits, b, sq, h, d), dtype=torch.float32, device=q.device)
         lse = torch.empty((num_splits, b, sq, h), dtype=torch.float32, device=q.device)
-    rc = _lib().xfa_paged_attention_wgmma(
+    fn = _lib().xfa_paged_decode if route == "decode" else _lib().xfa_paged_attention_wgmma
+    rc = fn(
         q.data_ptr(), *q.stride()[:3], k_pool.data_ptr(), v_pool.data_ptr(),
         _build.dtype_code(k_pool.dtype), _build.ptr(k_scales), _build.ptr(v_scales),
         bt.data_ptr(), lens.data_ptr(), o.data_ptr(), lse.data_ptr(),
         b, sq, h_k, h // h_k, d, page, bt.shape[1], n_layers, pool_pages, layer, num_splits,
         int(causal), float(scale), _build.stream_handle(),
     )
-    _build.check(rc, "paged_attention (wgmma)")
-    _build.LAUNCHES["paged_attention.prefill.wgmma"] += 1
+    _build.check(rc, f"paged_attention ({route})")
+    _build.LAUNCHES[route_label(route, sq * (h // h_k))] += 1
     if num_splits > 1:
-        o, lse = combine_partials(o, lse)
-        return o.to(q.dtype), lse.transpose(1, 2).contiguous()
+        return combine_splits(o, lse, q.dtype)
     return o, lse
 
 
