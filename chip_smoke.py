@@ -12,7 +12,10 @@ Phases, each of which raises (exit code != 0) when it fails:
    unless HGMMA and UTMALDG are above 0, HMMA is 0 and the option-free
    instantiations spill nothing. The same for K3/K4 (`qmm_build`), per
    instantiation: it fails unless each wgmma instantiation holds HGMMA and
-   UTMALDG and no HMMA, and the WMMA ones (decode, ragged) keep their HMMA.
+   UTMALDG and no HMMA, each decode one HMMA (mma.sync) and UTMALDG, no
+   HGMMA and no spill, and the WMMA ones (ragged operands) keep their HMMA;
+   and unless the occupancy calculator gives every decode instantiation the
+   resident blocks an SM that its split plan counts.
    The same for K9-K11 (`flash_bwd_build`), per instantiation, with any
    ptxas line saying wgmma was serialized: it fails unless every K9, K10
    and K11 instantiation holds HGMMA and UTMALDG and no HMMA and the
@@ -39,11 +42,17 @@ Phases, each of which raises (exit code != 0) when it fails:
    128, splits, non-causal, a stacked layer, ragged row tiles, decode at
    groups 1-8 and sq 1-4 with kv_len < 64 and more splits than live tiles,
    an option and an odd page on the WMMA kernel) hold every route to its
-   plain version and the oracle. K3/K4's wgmma kernel (m > 16) is checked for bf16 weights without
-   scale, int8 and fp8, stacked and single, at m = 17, 64, 100, 255, 256 and
-   2048 on Llama-8B shapes, its weight conversion bit for bit on every byte
-   value, and it is timed at m = 256 and 2048 beside the WMMA kernel on the
-   same shapes; `qmm_host_us` is the host's time for one launch of each. The
+   plain version and the oracle. K3/K4's decode kernel (m <= 16) is checked
+   for bf16 weights without scale, int8 and fp8, stacked and single, at
+   m = 1, 8 and 16 on Llama-8B shapes, two calls bit for bit with its split
+   counters all zero after, and every k-tile a split; one layer's
+   projections and the lm_head are timed at m = 1, 8 (and 16) beside the
+   WMMA bm16 kernel on the same inputs (`qmm_decode_times`, each shape's
+   ms). The wgmma kernel (m > 16) is checked for the same weights at
+   m = 17, 64, 100, 255, 256 and 2048 and timed at m = 256 and 2048 beside
+   the WMMA bm64 kernel; both Hopper kernels' weight conversion is held bit
+   for bit on every byte value; `qmm_host_us` is the host's time for one
+   launch of each route. The
    dense flash kernels are also held against a dense f32 oracle
    (utils/testing.py): K7 at the bucketed-prefill and training shapes and at
    s = 2048 causal under the 2x rule (bucket 1024, the training shape and
@@ -82,10 +91,12 @@ Phases, each of which raises (exit code != 0) when it fails:
    prefill (K7), one bucketed admission of the largest prompt timed and
    profiled (`admission_profile`: device time by kernel, K3's share), and a
    profiled decode window (`decode_profile`: device time and kernel
-   launches a step, K1's by route). After the chunked run, the chunked
+   launches a step, K1's and K3's by route; it fails if K3 runs any kernel
+   but the decode kernel there, or a split-K reduction). After the chunked run, the chunked
    prefill of the same prompts is profiled by kernel
    (`chunked_prefill_profile`, K1's share on each route). Both serving
-   runs decode through the decode kernel and never the WMMA one.
+   runs decode through K1's and K3/K4's decode kernels and never the WMMA
+   ones.
 5. Drive the public API (`api.py`) at Llama-8B attention width: dense
    attention with ALiBi, dropout and the probability plane, and its
    gradient; packed varlen over the serving prompts with per-sequence ALiBi,
@@ -147,10 +158,13 @@ def parse_args():
 class Timer:
     """CUDA-event time of one call on the device, averaged over calls that
     each start with a cold L2 (a 128 MB buffer is rewritten before every
-    call) and are queued whole behind a spin of the card."""
+    call) and are queued whole behind a spin of the card. With clean=True
+    the buffer is read instead of written, so the L2 starts cold but holds
+    no dirty lines that the call's own reads would have to write back."""
 
-    def __init__(self):
+    def __init__(self, clean=False):
         self.flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+        self.clean = clean
 
     def ms(self, fn, reps=REPS) -> float:
         fn()  # warm-up: first-launch costs stay out of the number
@@ -158,7 +172,10 @@ class Timer:
         pairs = []
         for _ in range(reps):
             torch.cuda._sleep(SLEEP_CYCLES)
-            self.flush.zero_()
+            if self.clean:
+                self.flush.max()
+            else:
+                self.flush.zero_()
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -447,13 +464,16 @@ def check_paged_append(gen, timer, checks, kv_dtype, phase, cfg):
                 bound=bound(by, 0), err=0.0 if equal else float("nan"), tol=0.0)
 
 
-def check_qmm(gen, timer, checks, w_dtype, m, shapes, stacked, timed=True, kind=None):
+def check_qmm(gen, timer, checks, w_dtype, m, shapes, stacked, timed=True, kind=None,
+              splits=None):
     """K3 (stacked, layer_idx) / K4 (one weight) over `shapes` at m rows.
     2x rule against the f32 product, with the plain version (f32 product
     rounded to bf16) as the low-precision oracle. Times (when `timed`) are
-    summed over the shapes: one layer's projections, or the lm_head. `kind`
-    names the kernel of csrc/qmm.cu to run ('bm64': the WMMA kernel, timed
-    beside the wgmma kernel on the same shapes); by default the route's."""
+    summed over the shapes: one layer's projections, or the lm_head; each
+    shape's own are in `per_shape`. `kind` names the kernel of csrc/qmm.cu
+    to run ('bm64' / 'bm16': the WMMA kernel, timed beside the wgmma /
+    decode kernel on the same shapes), and `splits` its split count; by
+    default the route's and its plan's."""
     from xf_flash_attention_cutlass_tpu_torch.quant.linear import (
         _qmm_cuda,
         quantize_weight,
@@ -462,6 +482,7 @@ def check_qmm(gen, timer, checks, w_dtype, m, shapes, stacked, timed=True, kind=
     )
 
     tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0, ops=0)
+    per_shape = []
     worst = (0.0, 1.0)
     for K, N in shapes:
         w = torch.randn((K, N), generator=gen, device="cuda") / math.sqrt(K)
@@ -471,9 +492,10 @@ def check_qmm(gen, timer, checks, w_dtype, m, shapes, stacked, timed=True, kind=
             wq, s = quantize_weight(w, w_dtype)
         del w
         x = torch.randn((m, K), generator=gen, device="cuda").bfloat16()
-        if kind is not None:
+        if kind is not None or splits is not None:
             def kernel():
-                return _qmm_cuda(x, wq, s, "qmm.stacked" if stacked else "qmm.single", kind)
+                return _qmm_cuda(x, wq, s, "qmm.stacked" if stacked else "qmm.single", kind,
+                                 splits)
         elif stacked:
             wst = torch.stack([torch.zeros_like(wq), wq])
             sst = None if s is None else torch.stack([torch.zeros_like(s), s])
@@ -494,39 +516,65 @@ def check_qmm(gen, timer, checks, w_dtype, m, shapes, stacked, timed=True, kind=
         err, lp = max_err(y, y32), max_err(plain(), y32)
         tol = 2 * lp + 1e-5
         route = ("qmm.stacked" if stacked else "qmm.single") + (f".{kind}" if kind else "")
-        checks.add(f"{route}[m={m},K={K},N={N},{str(w_dtype).split('.')[-1]}]", err <= tol,
-                   max_abs_err=err, tolerance=tol)
+        tag = f",splits={splits}" if splits is not None else ""
+        checks.add(f"{route}[m={m},K={K},N={N},{str(w_dtype).split('.')[-1]}{tag}]",
+                   err <= tol, max_abs_err=err, tolerance=tol)
         if err / tol >= worst[0] / worst[1]:
             worst = (err, tol)
         if not timed:
             continue
         w_deq = (wq.float() * (s if s is not None else 1.0)).bfloat16()
-        tot["ms"] += timer.ms(kernel)
+        one = dict(K=K, N=N, ms=timer.ms(kernel), library_ms=timer.ms(lambda: torch.matmul(x, w_deq)),
+                   bound_ms=bound(nbytes(x, wq, s, y), 2 * m * K * N)[0])
+        per_shape.append(one)
+        tot["ms"] += one["ms"]
         tot["plain_ms"] += timer.ms(plain, PLAIN_REPS)
-        tot["library_ms"] += timer.ms(lambda: torch.matmul(x, w_deq))
+        tot["library_ms"] += one["library_ms"]
         tot["bytes"] += nbytes(x, wq, s, y)
         tot["ops"] += 2 * m * K * N
         del w_deq
     if not timed:
         return None
     return dict(ms=tot["ms"], plain_ms=tot["plain_ms"], library_ms=tot["library_ms"],
-                bound=bound(tot["bytes"], tot["ops"]), err=worst[0], tol=worst[1])
+                bound=bound(tot["bytes"], tot["ops"]), err=worst[0], tol=worst[1],
+                per_shape=per_shape)
 
 
 QMM_PREFILL_M = (17, 64, 100, 255, 256, 2048)  # ragged widths, a chunk, the largest bucket
+QMM_DECODE_M = (1, 8, 16)  # a chunk's last token, the engine's decode batch, N = 16
+
+
+def qmm_decode_times(measured):
+    """Each shape's ms on the decode kernel beside bm16's on the same inputs,
+    cuBLAS bf16 and the bound, at every m timed: one layer's projections
+    (stacked) and the lm_head (single)."""
+    out = {}
+    for where in ("stacked", "single"):
+        dec, old = measured[f"qmm.{where}.decode"], measured[f"qmm.{where}.bm16"]
+        for tag in ["m8"] + list(dec["other_shapes"]):
+            a = dec if tag == "m8" else dec["other_shapes"][tag]
+            b = old if tag == "m8" else old["other_shapes"][tag]
+            out[f"{where}.{tag}"] = dict(
+                ms=a["ms"], bm16_ms=b["ms"], library_ms=a["library_ms"], bound_ms=a["bound"][0],
+                shapes=[dict(K=x["K"], N=x["N"], ms=x["ms"], bm16_ms=y["ms"],
+                             library_ms=x["library_ms"], bound_ms=x["bound_ms"])
+                        for x, y in zip(a["per_shape"], b["per_shape"])])
+    return out
 
 
 def qmm_host_us(gen, calls=200):
-    """Host time of one K3 launch at m = 256 (one 4096 x 4096 int8 layer of
-    a stack), the calls queued behind a spin of the card so that only the
-    host's work is timed: the wgmma route (two tensor maps encoded, the
-    shared-memory limit set) beside the WMMA kernel (neither)."""
+    """Host time of one K3 launch on one 4096 x 4096 int8 layer, the calls
+    queued behind a spin of the card so that only the host's work is timed:
+    at m = 256 the wgmma route (two tensor maps encoded, the shared-memory
+    limit set) beside the WMMA kernel (neither); at m = 8 the decode route
+    (two tensor maps; its splits summed inside) beside bm16 (its splits
+    summed by a second launch)."""
     from xf_flash_attention_cutlass_tpu_torch.quant.linear import _qmm_cuda, quantize_weight
 
     wq, s = quantize_weight(torch.randn((4096, 4096), generator=gen, device="cuda"))
-    x = torch.randn((256, 4096), generator=gen, device="cuda").bfloat16()
     out = {}
-    for kind in ("wgmma", "bm64"):
+    for kind, m in (("wgmma", 256), ("bm64", 256), ("decode", 8), ("bm16", 8)):
+        x = torch.randn((m, 4096), generator=gen, device="cuda").bfloat16()
         _qmm_cuda(x, wq, s, "qmm.stacked", kind)
         torch.cuda.synchronize()
         torch.cuda._sleep(40 * SLEEP_CYCLES)  # about 0.1 s: longer than the host's loop
@@ -539,11 +587,13 @@ def qmm_host_us(gen, calls=200):
 
 
 def check_qmm_conversion(checks):
-    """The wgmma kernel's weight conversion, bit for bit: x = I (256 x 256)
-    times a 256 x 256 int8 / e4m3 weight holding every byte value in every
-    column (e4m3's two NaN codes excepted), with no scale, gives the weight
-    itself, since every int8 and e4m3 value is a bf16 value (e4m3's
-    subnormals included)."""
+    """The weight conversion of the wgmma and decode kernels, bit for bit:
+    x = I (256 x 256) times a 256 x 256 int8 / e4m3 weight holding every
+    byte value in every column (e4m3's two NaN codes excepted), with no
+    scale, gives the weight itself, since every int8 and e4m3 value is a
+    bf16 value (e4m3's subnormals included). The decode kernel takes the
+    identity in slices of 16 rows (its N = 16) and of 8 (N = 8): 16 or 32
+    calls that together cover every row of the weight, so every byte value."""
     from xf_flash_attention_cutlass_tpu_torch.quant.linear import qmm_route, quantized_matmul
 
     x = torch.eye(256, device="cuda", dtype=torch.bfloat16)
@@ -554,13 +604,58 @@ def check_qmm_conversion(checks):
         if w_dtype == torch.float8_e4m3fn:  # 0x7f and 0xff are NaN
             w = torch.where((w_bytes & 0x7F) == 0x7F, torch.zeros_like(w_bytes), w_bytes
                             ).view(w_dtype)
+        want = w.float().bfloat16()
+        name = str(w_dtype).split('.')[-1]
         route = qmm_route(256, 256, 256, w_dtype, x.data_ptr(), w.data_ptr())
         y = quantized_matmul(x, w, None)
-        want = w.float().bfloat16()
         # by value: e4m3's -0 comes out +0, a sum of +0 products
         equal = route == "wgmma" and torch.equal(y.float(), want.float())
-        checks.add(f"qmm.conversion_exact[{str(w_dtype).split('.')[-1]}]", equal, route=route,
+        checks.add(f"qmm.conversion_exact[{name}]", equal, route=route,
                    mismatches=int((y.float() != want.float()).sum()))
+        for rows in (16, 8):
+            routes = {qmm_route(rows, 256, 256, w_dtype, x[i:i + rows].data_ptr(), w.data_ptr())
+                      for i in range(0, 256, rows)}
+            y = torch.cat([quantized_matmul(x[i:i + rows], w, None) for i in range(0, 256, rows)])
+            equal = routes == {"decode"} and torch.equal(y.float(), want.float())
+            checks.add(f"qmm.decode.conversion_exact[{name},n={rows}]", equal,
+                       routes=sorted(routes), mismatches=int((y.float() != want.float()).sum()))
+
+
+def check_qmm_decode_repeat(gen, checks):
+    """The decode kernel's in-kernel split-K sum: at Llama-8B shapes whose
+    plan splits K, two calls give the same bits, and the arrival counters
+    read all zeros after them (every last split reset its tile's counter);
+    and one split per k-tile (the most the plan could give) holds the 2x
+    rule against the f32 product."""
+    from xf_flash_attention_cutlass_tpu_torch.quant.linear import (
+        _qmm_cuda,
+        decode_counters,
+        qmm_splits,
+        quantize_weight,
+        quantized_matmul,
+        quantized_matmul_ref,
+    )
+
+    for m, K, N in ((8, 4096, 1024), (16, 14336, 4096), (1, 4096, 4096), (16, 4096, 1024)):
+        wq, s = quantize_weight(torch.randn((K, N), generator=gen, device="cuda") / math.sqrt(K))
+        x = torch.randn((m, K), generator=gen, device="cuda").bfloat16()
+        splits = qmm_splits(m, N, K)[0]
+        y1 = quantized_matmul(x, wq, s)
+        y2 = quantized_matmul(x, wq, s)
+        torch.cuda.synchronize()
+        nonzero = int(decode_counters(x.device).count_nonzero())
+        checks.add(f"qmm.decode_repeat[m={m},K={K},N={N}]",
+                   splits > 1 and torch.equal(y1, y2) and nonzero == 0,
+                   splits=splits, nonzero_counters=nonzero)
+        y32 = x.float() @ wq.float() * s
+        tol = 2 * max_err(quantized_matmul_ref(x, wq, s), y32) + 1e-5
+        y = _qmm_cuda(x, wq, s, "qmm.single", "decode", K // 64)
+        torch.cuda.synchronize()
+        nonzero = int(decode_counters(x.device).count_nonzero())
+        err = max_err(y, y32)
+        checks.add(f"qmm.decode_every_split[m={m},K={K},N={N},splits={K // 64}]",
+                   err <= tol and nonzero == 0, max_abs_err=err, tolerance=tol,
+                   nonzero_counters=nonzero)
 
 
 def check_other_shapes(gen, checks):
@@ -596,6 +691,19 @@ def check_other_shapes(gen, checks):
             checks.add(f"other.qmm[m={m},K={K},N={N},{str(w_dtype).split('.')[-1]},"
                        f"stacked={stacked}]", err <= 2 * lp + 1e-5,
                        max_abs_err=err, tolerance=2 * lp + 1e-5)
+    # decode width on an x that TMA cannot load (its base 2 bytes off 16):
+    # the bm16 kernel
+    from xf_flash_attention_cutlass_tpu_torch import _build
+
+    wq, s = quantize_weight(torch.randn((4096, 1024), generator=gen, device="cuda") / 64)
+    x = torch.randn(8 * 4096 + 1, generator=gen, device="cuda").bfloat16()[1:].view(8, 4096)
+    y32 = x.float() @ wq.float() * s
+    tol = 2 * max_err(quantized_matmul_ref(x, wq, s), y32) + 1e-5
+    before = _build.LAUNCHES["qmm.single.bm16"]
+    err = max_err(quantized_matmul(x, wq, s), y32)
+    checks.add("other.qmm[m=8,K=4096,N=1024,int8,x_misaligned]",
+               err <= tol and _build.LAUNCHES["qmm.single.bm16"] == before + 1,
+               max_abs_err=err, tolerance=tol)
 
     h, h_k, d, page, n_pages, max_pages = 8, 2, 64, 16, 40, 12
     for kv_dtype, b, sq, causal, splits in ((torch.bfloat16, 3, 5, True, 3),
@@ -2008,8 +2116,8 @@ def profiled(fn, n_steps=1, groups=None):
     """Run fn n_steps times under torch.profiler; the kernels' summed device
     time and launches per step (every kernel's, not the ten largest) and
     the ten largest, or None where the trace holds no device time. `groups`
-    ({label: name substring}) adds each group's summed device time per
-    step."""
+    ({label: name substring}) adds each group's summed device time and
+    launches per step."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2035,18 +2143,25 @@ def profiled(fn, n_steps=1, groups=None):
         out["groups_ms_per_step"] = {
             label: sum(e.self_device_time_total for e in kernels if sub in e.key) / 1e3 / n_steps
             for label, sub in groups.items()}
+        out["groups_calls_per_step"] = {
+            label: sum(e.count for e in kernels if sub in e.key) / n_steps
+            for label, sub in groups.items()}
     return out
 
 
 # K1's kernels by route in a profiler trace
 K1_GROUPS = dict(k1_decode="paged_decode_kernel", k1_combine="paged_combine_kernel",
                  k1_wgmma="paged_wgmma_kernel", k1_wmma="paged_attention_kernel")
+# K3/K4's kernels by route, and the split-K reduction of the wgmma and WMMA routes
+K3_GROUPS = dict(k3_decode="qmm_decode_kernel", k3_wgmma="qmm_wgmma_kernel",
+                 k3_wmma="qmm_kernel", qmm_reduce="qmm_reduce_kernel")
 
 
 def profile_decode(eng, cfg, seed, n_steps=3):
     """Device time of decode-only engine steps with 8 active requests, from
-    a torch.profiler trace (`profiled`). The engine prefills whole prompts
-    (bucketed), so one step admits all 8."""
+    a torch.profiler trace (`profiled`), with K1's and K3/K4's kernels by
+    route. The engine prefills whole prompts (bucketed), so one step admits
+    all 8."""
     rng = np.random.default_rng(seed + 2)
     n = eng.ecfg.max_batch
     for i in range(n):
@@ -2054,7 +2169,7 @@ def profile_decode(eng, cfg, seed, n_steps=3):
     eng.step()  # admit and prefill every request, and the first decode
     if len(eng.active) != n:
         raise RuntimeError(f"decode profile: {len(eng.active)} of {n} requests active")
-    prof = profiled(eng.step, n_steps, groups=K1_GROUPS)
+    prof = profiled(eng.step, n_steps, groups=dict(K1_GROUPS, **K3_GROUPS))
     eng.run()
     return prof
 
@@ -2151,24 +2266,32 @@ def sass_by_function(lib_path):
 
 
 def qmm_instantiation(mangled):
-    """'wgmma128_int8', 'bm16_fp8', 'bm64_bf16', ... (the kernel, its tile
-    width or height, the weight type) for a mangled qmm kernel name, else
-    None (the split-K reduction)."""
+    """'wgmma128_int8', 'decode_n8_fp8', 'bm16_fp8', 'bm64_bf16', ... (the
+    kernel, its tile width or height or its tokens, the weight type) for a
+    mangled qmm kernel name, else None (the split-K reduction)."""
     types = "(a|9fp8e4m3_t|13__nv_bfloat16)"
-    m = (re.search(rf"qmm_wgmma_kernelI{types}Li(\d+)E", mangled)
-         or re.search(rf"qmm_kernelILi(\d+)E{types}E", mangled))
+    m = (re.search(rf"qmm_(wgmma|decode)_kernelI{types}Li(\d+)E", mangled)
+         or re.search(rf"qmm_(kernel)ILi(\d+)E{types}E", mangled))
     if m is None:
         return None
-    wgmma = "wgmma" in m.group(0)
-    dtype, tile = (m.group(1), m.group(2)) if wgmma else (m.group(2), m.group(1))
+    kind = m.group(1)
+    dtype, tile = (m.group(2), int(m.group(3))) if kind != "kernel" else (m.group(3),
+                                                                          int(m.group(2)))
     dtype = {"a": "int8", "9fp8e4m3_t": "fp8", "13__nv_bfloat16": "bf16"}[dtype]
-    return f"{'wgmma' if wgmma else 'bm'}{tile}_{dtype}"
+    if kind == "decode":
+        return f"decode_n{8 * tile}_{dtype}"
+    return f"{'wgmma' if kind == 'wgmma' else 'bm'}{tile}_{dtype}"
 
 
 def qmm_build_report(checks, lib_path):
     """Registers and spill bytes of every qmm instantiation (build/qmm.log)
     and the SASS counts of each. Checks that each wgmma instantiation holds
-    HGMMA and UTMALDG and no HMMA, and that the WMMA ones keep their HMMA."""
+    HGMMA and UTMALDG and no HMMA, that each of the six decode ones holds
+    HMMA (mma.sync) and UTMALDG, no HGMMA and no spill, and that the WMMA
+    ones keep their HMMA; and that the occupancy calculator gives every
+    decode instantiation the resident blocks an SM its split plan counts."""
+    from xf_flash_attention_cutlass_tpu_torch.quant import linear
+
     inst = ptxas_usage("qmm", qmm_instantiation)
     for name, counts in sass_by_function(lib_path).items():
         label = qmm_instantiation(name)
@@ -2176,7 +2299,21 @@ def qmm_build_report(checks, lib_path):
             inst.setdefault(label, {}).update(counts)
     print(json.dumps({"qmm_build": inst}), flush=True)
     wgmma = {n: r for n, r in inst.items() if n.startswith("wgmma")}
+    decode = {n: r for n, r in inst.items() if n.startswith("decode")}
     wmma = {n: r for n, r in inst.items() if n.startswith("bm")}
+    checks.add("qmm.decode_sass_mma_sync_tma_no_wgmma",
+               len(decode) == 6 and all(r.get("HMMA", 0) > 0 and r.get("UTMALDG", 0) > 0
+                                        and r.get("HGMMA", 1) == 0 for r in decode.values()),
+               sass={n: {op: r.get(op) for op in SASS_OPS} for n, r in decode.items()})
+    checks.add("qmm.decode_no_spills",
+               len(decode) == 6 and all(r.get("spill_bytes") == 0 for r in decode.values()),
+               registers={n: r.get("registers") for n, r in decode.items()},
+               spill_bytes={n: r.get("spill_bytes") for n, r in decode.items()})
+    occ = {f"{str(dt).split('.')[-1]}_n{rows}": linear.qmm_decode_blocks_per_sm(dt, rows)
+           for dt in (torch.int8, torch.float8_e4m3fn, torch.bfloat16) for rows in (8, 16)}
+    checks.add("qmm.decode_resident_blocks",
+               all(v == linear.QMM_DECODE_BLOCKS_PER_SM for v in occ.values()),
+               blocks_per_sm=occ, expected=linear.QMM_DECODE_BLOCKS_PER_SM)
     checks.add("qmm.wgmma_sass_wgmma_tma_no_mma_sync",
                len(wgmma) == 6 and all(r.get("HGMMA", 0) > 0 and r.get("UTMALDG", 0) > 0
                                        and r.get("HMMA", 1) == 0 for r in wgmma.values()),
@@ -2353,9 +2490,11 @@ KERNELS = {  # launch-counter name: (source, TPU kernel it replaces)
     "paged_attention.prefill.wgmma": (_PKG + "paged_attention.cu", _TPU + "ops/paged.py:97"),
     "paged_append.decode": (_PKG + "paged_append.cu", _TPU + "ops/paged_append.py:68"),
     "paged_append.prefill": (_PKG + "paged_append.cu", _TPU + "ops/paged_append.py:166"),
+    "qmm.stacked.decode": (_PKG + "qmm.cu", _TPU + "quant/linear.py:70"),
     "qmm.stacked.bm16": (_PKG + "qmm.cu", _TPU + "quant/linear.py:70"),
     "qmm.stacked.wgmma": (_PKG + "qmm.cu", _TPU + "quant/linear.py:70"),
     "qmm.stacked.bm64": (_PKG + "qmm.cu", _TPU + "quant/linear.py:70"),
+    "qmm.single.decode": (_PKG + "qmm.cu", _TPU + "quant/linear.py:48"),
     "qmm.single.bm16": (_PKG + "qmm.cu", _TPU + "quant/linear.py:48"),
     "qmm.single.wgmma": (_PKG + "qmm.cu", _TPU + "quant/linear.py:48"),
     "flash_fwd": (_PKG + "flash_fwd.cu", _TPU + "ops/flash_fwd.py:100"),
@@ -2369,19 +2508,22 @@ KERNELS = {  # launch-counter name: (source, TPU kernel it replaces)
 PATHS = {
     "serve_chunked": ["paged_attention.decode", "paged_attention.combine",
                       "paged_attention.prefill.wgmma", "paged_append.decode",
-                      "paged_append.prefill", "qmm.stacked.bm16", "qmm.stacked.wgmma",
-                      "qmm.single.bm16"],
+                      "paged_append.prefill", "qmm.stacked.decode", "qmm.stacked.wgmma",
+                      "qmm.single.decode"],
     "serve_bucketed": ["flash_fwd", "paged_append.prefill", "paged_attention.decode",
-                       "paged_attention.combine", "paged_append.decode", "qmm.stacked.bm16",
-                       "qmm.stacked.wgmma", "qmm.single.bm16"],
+                       "paged_attention.combine", "paged_append.decode", "qmm.stacked.decode",
+                       "qmm.stacked.wgmma", "qmm.single.decode"],
     "train": ["flash_fwd", "flash_bwd.dq", "flash_bwd.dkv", "flash_bwd.fused"],
     "api": ["flash_fwd", "flash_probs", "flash_bwd.dq", "flash_bwd.dkv",
             "paged_attention.decode", "paged_attention.decode.wmma",
             "paged_attention.prefill.wgmma"],
 }
-# kernels a main path must not launch: serving decodes on the decode kernel
-NOT_ON_PATH = {"serve_chunked": ["paged_attention.decode.wmma"],
-               "serve_bucketed": ["paged_attention.decode.wmma"]}
+# kernels a main path must not launch: serving decodes on K1's and K3/K4's
+# decode kernels
+NOT_ON_PATH = {"serve_chunked": ["paged_attention.decode.wmma", "qmm.stacked.bm16",
+                                 "qmm.single.bm16"],
+               "serve_bucketed": ["paged_attention.decode.wmma", "qmm.stacked.bm16",
+                                  "qmm.single.bm16"]}
 
 
 def nvidia_smi() -> str:
@@ -2470,11 +2612,19 @@ def main():
     layer_shapes = [(d, cfg.n_heads * hd), (d, cfg.n_kv_heads * hd), (d, cfg.n_kv_heads * hd),
                     (cfg.n_heads * hd, d), (d, cfg.ffn_dim), (d, cfg.ffn_dim), (cfg.ffn_dim, d)]
     distinct = sorted(set(layer_shapes))
-    # K3 at decode width (m = 8, the WMMA kernel); one layer's projections timed
-    measured["qmm.stacked.bm16"] = check_qmm(gen, timer, checks, torch.int8, 8, layer_shapes,
-                                             True)
-    for w_dtype in (torch.float8_e4m3fn, torch.bfloat16):
-        check_qmm(gen, timer, checks, w_dtype, 8, distinct, True, timed=False)
+    # K3 at decode widths (m = 1, 8, 16: the decode kernel), one layer's
+    # projections timed, beside the WMMA bm16 kernel forced onto the same shapes
+    for kind, name in ((None, "qmm.stacked.decode"), ("bm16", "qmm.stacked.bm16")):
+        r1, r8, r16 = (check_qmm(gen, timer, checks, torch.int8, m, layer_shapes, True,
+                                 kind=kind) for m in QMM_DECODE_M)
+        measured[name] = dict(r8, other_shapes={"m1": r1, "m16": r16})
+    # and checked, untimed: int8, fp8 and bf16 without scale, stacked and single
+    for w_dtype in (torch.int8, torch.float8_e4m3fn, torch.bfloat16):
+        for stacked in (True, False):
+            for m in QMM_DECODE_M:
+                if not (w_dtype == torch.int8 and stacked):  # checked above
+                    check_qmm(gen, timer, checks, w_dtype, m, distinct, stacked, timed=False)
+    check_qmm_decode_repeat(gen, checks)
     # K3 at prefill widths: the wgmma kernel at m = 256 (a chunk) and 2048 (the
     # largest bucket), timed beside the WMMA kernel on the same shapes
     for kind, name in ((None, "qmm.stacked.wgmma"), ("bm64", "qmm.stacked.bm64")):
@@ -2493,13 +2643,17 @@ def main():
     check_qmm_conversion(checks)
     report["qmm_host_us"] = qmm_host_us(gen)
     print(json.dumps({"qmm_host_us": report["qmm_host_us"]}), flush=True)
-    # the int8 lm_head (K4): m = 1 after a chunk, 8 per decode step, 256 at
-    # prefill width (the wgmma kernel)
-    for m in (1, 8, 256):
-        r = check_qmm(gen, timer, checks, torch.int8, m, [(d, cfg.vocab_size)], False,
-                      timed=m > 1)
-        if m > 1:
-            measured["qmm.single.bm16" if m == 8 else "qmm.single.wgmma"] = r
+    # the int8 lm_head (K4): m = 1 after a chunk and 8 per decode step (the
+    # decode kernel, beside bm16 on the same shapes), 256 at prefill width
+    # (the wgmma kernel)
+    for kind, name in ((None, "qmm.single.decode"), ("bm16", "qmm.single.bm16")):
+        r1, r8 = (check_qmm(gen, timer, checks, torch.int8, m, [(d, cfg.vocab_size)], False,
+                            kind=kind) for m in (1, 8))
+        measured[name] = dict(r8, other_shapes={"m1": r1})
+    measured["qmm.single.wgmma"] = check_qmm(gen, timer, checks, torch.int8, 256,
+                                             [(d, cfg.vocab_size)], False)
+    report["qmm_decode_times"] = qmm_decode_times(measured)
+    print(json.dumps({"qmm_decode_times": report["qmm_decode_times"]}), flush=True)
     measured["paged_attention.combine"] = check_paged_combine(
         gen, timer, checks, cfg, measured["paged_attention.decode"]["splits"])
     check_other_shapes(gen, checks)
@@ -2590,6 +2744,14 @@ def main():
                                           / bucketed["decode_step_ms"]["p50"])
     report["decode_profile"] = prof
     print(json.dumps({"decode_profile": prof}), flush=True)
+    # the decode step's projections on the decode kernel, its splits summed
+    # inside it: no reduction launch and no WMMA kernel
+    calls = (prof or {}).get("groups_calls_per_step", {})
+    checks.add("decode_profile.k3_decode_without_reduction",
+               calls.get("k3_decode", 0) > 0 and calls.get("qmm_reduce", 1) == 0
+               and calls.get("k3_wmma", 1) == 0,
+               calls_per_step={k: calls.get(k) for k in K3_GROUPS})
+    checks.raise_on_failure("decode profile")
     del eng
     torch.cuda.empty_cache()
     mark("decode_profile")

@@ -113,14 +113,14 @@ def _close_f32(got: torch.Tensor, want, k: int):
     np.testing.assert_allclose(got.float().numpy(), want, rtol=0, atol=tol)
 
 
-@pytest.mark.parametrize("m", [8, 64, 200])
+@pytest.mark.parametrize("m", [8, 16, 64, 200])
 @pytest.mark.parametrize("stacked", [False, True])
 @pytest.mark.parametrize("dt", [torch.int8, torch.float8_e4m3fn])
 def test_quantized_matmul_matches_jax(dt, stacked, m):
     """k and n are 128-aligned so the JAX stacked path runs its Pallas
-    kernel (interpret mode), not its slice fallback. m = 8 is a decode width
-    (the WMMA kernel on the card), 64 and 200 prefill widths (the wgmma
-    kernel)."""
+    kernel (interpret mode), not its slice fallback. m = 8 and 16 are
+    decode widths (the decode kernel on the card, with N = 8 and 16), 64
+    and 200 prefill widths (the wgmma kernel)."""
     k, n = 256, 128
     jdt = jnp.int8 if dt == torch.int8 else jnp.float8_e4m3fn
     x, w = _mm_inputs(2, m, k, n, layers=2 if stacked else None)
@@ -194,6 +194,33 @@ def test_qmm_splits_cover_k_exactly():
     assert linear.qmm_splits(256, 1024, 4096, "wgmma")[0] > 1  # k/v: 8 tiles alone
 
 
+@pytest.mark.parametrize("m", [1, 8, 16])
+def test_qmm_decode_splits(m):
+    """The decode kernel's split plan for the seven Llama-8B projections and
+    the lm_head: every k-tile in exactly one split, no split empty, the
+    output tiles of a split plan within the arrival counters, N = 8 or 16
+    tokens by m; and the plan keeps the card streaming with the fewest
+    splits: at least 99 of the 132 SMs get a block unless that would leave
+    fewer than 8 k-tiles in a split, and one split fewer would give fewer
+    blocks."""
+    assert linear.qmm_decode_rows(m) == (8 if m <= 8 else 16)
+    for k, n in LLAMA8B_KN:
+        splits, per = linear.qmm_splits(m, n, k)
+        assert (splits, per) == linear.qmm_decode_splits(n, k)
+        n_kt = -(-k // 64)
+        ranges = [range(s * per, min(n_kt, (s + 1) * per)) for s in range(splits)]
+        assert all(len(r) > 0 for r in ranges)
+        assert sorted(t for r in ranges for t in r) == list(range(n_kt))
+        cols = -(-n // 128)
+        assert splits == 1 or cols <= linear.QMM_DECODE_COUNTERS
+        assert per >= min(8, n_kt) and (cols * splits >= 99 or per == 8)
+        assert splits == 1 or cols * (splits - 1) < 99
+    assert linear.qmm_decode_splits(1024, 4096)[0] > 1  # k and v: 8 column tiles
+    # more column tiles than counters: one split, the whole of K
+    n_kt = 4096 // 64
+    assert linear.qmm_decode_splits(128 * (linear.QMM_DECODE_COUNTERS + 1), 4096) == (1, n_kt)
+
+
 def _stack_ptrs(layers, k, n, w_dtype, base=1 << 20):
     """Addresses of each layer of an aligned (layers, k, n) stack."""
     return [base + layer * k * n * w_dtype.itemsize for layer in range(layers)]
@@ -201,14 +228,21 @@ def _stack_ptrs(layers, k, n, w_dtype, base=1 << 20):
 
 @pytest.mark.parametrize("w_dtype", [torch.int8, torch.float8_e4m3fn, torch.bfloat16])
 def test_qmm_route(w_dtype):
-    """Decode widths take the WMMA bm16 kernel; prefill widths take the
-    wgmma kernel when TMA can load both operands (every Llama-8B shape,
-    stacked at any layer or single), else the WMMA bm64 kernel (the ragged
-    shapes chip_smoke.py checks, and a misaligned x)."""
+    """When TMA can load both operands (every Llama-8B shape, stacked at any
+    layer or single) decode widths take the decode kernel and prefill
+    widths the wgmma kernel; otherwise (the ragged shapes chip_smoke.py
+    checks, a misaligned x or weight) the WMMA kernel, bm16 at decode
+    widths and bm64 above."""
     x_ptr = 1 << 21
     for m in (1, 8, 16):
         for k, n in LLAMA8B_KN:
-            assert linear.qmm_route(m, k, n, w_dtype, x_ptr, x_ptr) == "bm16"
+            for w_ptr in _stack_ptrs(32, k, n, w_dtype) + [x_ptr]:  # stacked, single
+                assert linear.qmm_route(m, k, n, w_dtype, x_ptr, w_ptr) == "decode"
+        assert linear.qmm_route(m, 4096, 4096, w_dtype, x_ptr + 2, x_ptr) == "bm16"
+        assert linear.qmm_route(m, 4096, 4096, w_dtype, x_ptr, x_ptr + 8) == "bm16"
+    # chip_smoke.py's ragged decode shapes: N = 300 bytes, K = 203
+    for m, k, n in [(1, 200, 300), (5, 203, 136)]:
+        assert linear.qmm_route(m, k, n, w_dtype, x_ptr, x_ptr) == "bm16"
     for m in (17, 64, 256, 2048):
         for k, n in LLAMA8B_KN:
             for w_ptr in _stack_ptrs(32, k, n, w_dtype) + [x_ptr]:  # stacked, single

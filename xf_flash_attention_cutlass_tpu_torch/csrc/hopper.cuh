@@ -114,6 +114,12 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// Brings a tensor map (a kernel's __grid_constant__ parameter) into the
+// descriptor cache ahead of its first TMA load.
+__device__ __forceinline__ void prefetch_tensormap(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
 // Four 8 x 8 matrices of 16-bit elements from shared memory, transposed
 // (ldmatrix .trans): lane i names row i % 8 of matrix i / 8; lane l receives
 // in r[j] elements (2 (l % 4), l / 4) and (2 (l % 4) + 1, l / 4) of matrix j,

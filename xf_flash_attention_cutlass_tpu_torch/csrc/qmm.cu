@@ -11,7 +11,7 @@
 // device memory only ever sees one byte per weight; the per-output-channel
 // scale is applied after the f32 sum and the result rounded to bf16 once.
 //
-// Two kernels, chosen by quant/linear.py::qmm_route:
+// Three kernels, chosen by quant/linear.py::qmm_route:
 //
 // 1. qmm_wgmma_kernel, for m > 16 with TMA-legal operands (16-byte aligned
 //    bases, row strides multiples of 16 bytes: every Llama-8B shape). Bound
@@ -46,20 +46,43 @@
 //    - Blocks walk the token tiles fastest, so the blocks that share a
 //      weight tile run together and read it from L2. Few output tiles (the
 //      k and v projections at m = 256 make 8) are split over K to fill the
-//      132 SMs.
+//      132 SMs; qmm_reduce_kernel sums the partials in a second launch.
 //    Measured on an H100 (PERF.md): bf16 weights through shared memory (an
 //    earlier design of this kernel, converting into a swizzled tile that
 //    both warpgroups shared) ran int8 1.5x slower than the bf16 stack.
-// 2. qmm_kernel, the WMMA (mma.sync) kernel: m <= 16 (decode, BM = 16, so
-//    decode does not stream the weights through 64-row tiles of zeros) and
-//    m > 16 with operands TMA cannot take (BM = 64, element-wise loads at
-//    the ragged edge). Decode (m = 8) reads every weight byte once and does
-//    2 flops per byte per row: bound by bytes, 218 MB of int8 weights a layer
-//    is 65 us at 3.35 TB/s. Tiles of x (BM x 64) and W (64 x 128) are staged
-//    in shared memory through registers, the next tile's loads in flight
-//    while the current one is multiplied; few output tiles are split over K.
+// 2. qmm_decode_kernel, for m <= 16 (decode) with TMA-legal operands. Bound
+//    by bytes: at m = 8 a weight byte feeds 16 operations, about 54 TFLOP/s
+//    at 3.35 TB/s, so the tensor cores idle and the kernel's only job is to
+//    keep every SM's share of the weight bytes in flight (about 0.7 us of
+//    DRAM latency times 25 GB/s an SM: at least 18 KB an SM, and more for
+//    margin). 218 MB of int8 weights a Llama-8B layer is 65 us.
+//    - The same y^T = W^T x^T, on mma.sync m16n8k16: the weight columns are
+//      M, the tokens N (8 for m <= 8, 16 for m <= 16: NT n-tiles of 8), so
+//      no row of the product is a row of zeros beyond the last n-tile.
+//      Eight consumer warps own 16 weight columns each of a 128-column
+//      block and convert their A fragments with the wgmma kernel's
+//      `load_a`, unchanged; x's B fragments come from the staged x tile by
+//      `ldmatrix` (x is K-major: a token's row of k is B's column).
+//    - A producer warp (one lane) keeps a deep ring of TMA loads in flight:
+//      per stage the raw 64 x 128 weight tile (bytes, or bf16 in two
+//      64-column sub-tiles) and the tile of x beside it (8 or 16 tokens x 64
+//      bf16), both 128-byte swizzled, zero-filled past M, N and K. The ring
+//      takes as many stages as half of an SM's shared memory holds (6-12),
+//      so two blocks are resident on an SM: 96-192 KB of weights in flight.
+//    - Splits over K (quant/linear.py::qmm_decode_splits) are summed inside
+//      the kernel: each split writes its f32 partial, fences, and bumps the
+//      output tile's arrival counter; the block that arrives last adds the
+//      partials in split order (the result does not depend on the order of
+//      arrival), scales, stores bf16 and resets the counter to 0. The
+//      counters are zeroed once, when the wrapper allocates them, so a call
+//      needs no memset, no second launch and no read back to the host.
+// 3. qmm_kernel, the WMMA (mma.sync) kernel, for operands TMA cannot take:
+//    BM = 16 rows for m <= 16 and BM = 64 above, element-wise loads at the
+//    ragged edge. Tiles of x (BM x 64) and W (64 x 128) are staged in
+//    shared memory through registers, the next tile's loads in flight while
+//    the current one is multiplied; few output tiles are split over K.
 //
-// Split partials (f32) of either kernel are summed by qmm_reduce_kernel in
+// Split partials (f32) of kernels 1 and 3 are summed by qmm_reduce_kernel in
 // split order, so the result is deterministic, before the scale.
 #include <mma.h>
 
@@ -563,6 +586,318 @@ cudaError_t launch_bt(int bt, const void* x, const void* w, const float* scale, 
 
 }  // namespace wg
 
+// ---- the decode kernel (m <= 16, TMA-legal operands): y^T = W^T x^T ----------
+
+namespace dec {
+
+using namespace hopper;
+using wg::BK;
+using wg::BN;
+using wg::kPairs;
+using wg::kSubBytes;
+using wg::load_a;
+
+constexpr int kWarps = 8;  // consumer warps: warp (g, w) = (warp / 4, warp % 4)
+                           // owns the 16 weight columns load_a gives it
+constexpr int kThreads = 32 * kWarps + 32;  // the consumers, then the producer warp
+constexpr int kBlocksPerSm = 2;  // quant/linear.py's QMM_DECODE_BLOCKS_PER_SM
+
+// Shared memory of one block, from a 1024-byte aligned base: the ring of
+// stages, each the x tile (8 NT tokens x BK, bf16, K-major: one 128-byte
+// swizzled row a token) then the weight tile (as the wgmma kernel's: BK rows
+// of k x BN columns, bytes in one tile of 128-byte rows, bf16 in two 64-column
+// sub-tiles kSubBytes apart), then the barriers and the last-arrival flag.
+// The ring takes as many stages as half of an SM's 228 KB holds, so that
+// exactly two blocks are resident whatever the instantiation (the split plan
+// counts them).
+template <typename TW, int NT>
+struct Layout {
+  static constexpr bool kQuant = sizeof(TW) == 1;
+  static constexpr int kXBytes = NT * 8 * BK * 2;
+  static constexpr int kWBytes = BN * BK * static_cast<int>(sizeof(TW));
+  static constexpr int kStageBytes = kXBytes + kWBytes;  // a multiple of 1024
+  static constexpr int kSmSmem = 233472;  // an SM's shared memory, 1 KB a block reserved
+  static constexpr int kStages = (kSmSmem / kBlocksPerSm - 2048) / (kStageBytes + 16);
+  static constexpr int kBarOffset = kStages * kStageBytes;
+  static constexpr int kFlagOffset = kBarOffset + 16 * kStages;
+  static constexpr int kBytes = kFlagOffset + 16 + 1024;  // + alignment slack
+  static_assert(kBlocksPerSm * (kBytes + 1024) <= kSmSmem &&
+                    (kBlocksPerSm + 1) * (kBytes + 1024) > kSmSmem,
+                "exactly two blocks an SM");
+};
+
+// One block owns BN = 128 weight columns n0.. of one split of the k-tiles
+// (blockIdx.y of gridDim.y splits, kt_per_split each) and all M <= 8 NT
+// tokens. Warp (g, w) multiplies its 16 columns by the 8 NT tokens of every
+// k-tile of the split on mma.sync m16n8k16: A is the weights (load_a), B is
+// x, D (16 columns x 8 tokens) a thread's 4 NT f32 sums.
+template <typename TW, int NT>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
+    qmm_decode_kernel(const __grid_constant__ CUtensorMap tm_x,
+                      const __grid_constant__ CUtensorMap tm_w,
+                      const float* __restrict__ scale,  // (N,) or null
+                      __nv_bfloat16* __restrict__ y,    // (M, N)
+                      float* __restrict__ partial,      // (splits, M, N), when splits > 1
+                      int* __restrict__ counters,       // one per column tile, all 0 at entry
+                      int M, int N, int K, int kt_per_split) {
+  using L = Layout<TW, NT>;
+  constexpr int kS = L::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBarOffset);
+  uint64_t* empty = full + kS;
+  int* last_flag = reinterpret_cast<int*>(smem + L::kFlagOffset);
+  auto x_tile = [&](int st) { return smem + st * L::kStageBytes; };
+  auto w_tile = [&](int st) { return x_tile(st) + L::kXBytes; };
+
+  const int n0 = blockIdx.x * BN;
+  const int split = blockIdx.y, splits = gridDim.y;
+  const int n_kt = (K + BK - 1) / BK;
+  const int kt0 = split * kt_per_split;
+  const int kt1 = min(n_kt, kt0 + kt_per_split);  // the plan keeps kt0 < kt1
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (warp == kWarps && lane == 0) {  // the first loads' descriptors, while the barriers init
+    prefetch_tensormap(&tm_x);
+    prefetch_tensormap(&tm_w);
+  }
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kS; ++st) {
+      mbar_init(&full[st], 1);
+      mbar_init(&empty[st], kWarps);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp == kWarps) {  // ---- the producer warp: one lane starts every copy ----
+    if (lane == 0) {
+      for (int kt = kt0; kt < kt1; ++kt) {
+        const int i = kt - kt0, st = i % kS;
+        mbar_wait(&empty[st], ((i / kS) & 1) ^ 1);
+        mbar_arrive_expect_tx(&full[st], L::kStageBytes);
+        tma_load_2d(x_tile(st), &tm_x, &full[st], kt * BK, 0);
+        tma_load_2d(w_tile(st), &tm_w, &full[st], n0, kt * BK);
+        if constexpr (!L::kQuant)
+          tma_load_2d(w_tile(st) + kSubBytes, &tm_w, &full[st], n0 + 64, kt * BK);
+      }
+    }
+    return;
+  }
+
+  // ---- the consumer warps ----
+  const int g = warp >> 2, w = warp & 3;
+  float acc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[n][j] = 0.f;
+
+  // x's B fragments by ldmatrix (no transpose: a token's row of k is B's
+  // column): the lane names row `xr` (a token) and 16-byte chunk `xc` + 2 kk
+  // (NT = 2) or + 4 kk2 (NT = 1) of the swizzled x tile. NT = 1: matrices j
+  // = 0..3 are the k chunks 4 kk2 + j of tokens 0-7, so k16 slice 2 kk2 + h
+  // takes r[2h], r[2h + 1]; NT = 2: matrices (tokens 0-7 | 8-15) x (chunk
+  // 2 kk | 2 kk + 1), n-tile n takes r[2n], r[2n + 1].
+  const int xr = NT == 1 ? (lane & 7) : (lane & 7) + 8 * (lane >> 4);
+  const int xc = NT == 1 ? (lane >> 3) : ((lane >> 3) & 1);
+
+  for (int kt = kt0; kt < kt1; ++kt) {
+    const int i = kt - kt0, st = i % kS;
+    mbar_wait(&full[st], (i / kS) & 1);
+    uint32_t a[BK / 16][4];
+    load_a<TW>(w_tile(st), g, w, lane, a);
+    const unsigned char* xt = x_tile(st) + xr * 128;
+    if constexpr (NT == 1) {
+#pragma unroll
+      for (int kk2 = 0; kk2 < BK / 32; ++kk2) {
+        uint32_t r[4];
+        ldmatrix_x4(r, xt + (((4 * kk2 + xc) ^ (xr & 7)) << 4));
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const uint32_t b[2] = {r[2 * h], r[2 * h + 1]};
+          mma_bf16_16816(acc[0], a[2 * kk2 + h], b);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        uint32_t r[4];
+        ldmatrix_x4(r, xt + (((2 * kk + xc) ^ (xr & 7)) << 4));
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          const uint32_t b[2] = {r[2 * n], r[2 * n + 1]};
+          mma_bf16_16816(acc[n], a[kk], b);
+        }
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[st]);  // the warp is done with the stage
+  }
+
+  // ---- epilogue, from the mma.sync D layout: a thread holds A rows lane / 4
+  // and + 8 (weight columns n_lo, n_hi, per load_a) and, in n-tile n, tokens
+  // 8 n + 2 (lane % 4) and + 1. N is a multiple of 8 here, so the pair
+  // (n_lo, n_lo + 1) is whole or past N. ----
+  const int r = lane >> 2;
+  const int n_lo = n0 + 64 * g + 16 * w + (kPairs<TW> ? 2 * r : r);
+  const int n_hi = n_lo + (kPairs<TW> ? 1 : 8);
+  const int tok0 = 2 * (lane & 3);
+  auto store_y = [&](float (&v)[NT][4]) {
+    float s_lo = 1.f, s_hi = 1.f;
+    if (scale != nullptr) {
+      if (n_lo < N) s_lo = scale[n_lo];
+      if (n_hi < N) s_hi = scale[n_hi];
+    }
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int gm = 8 * n + tok0 + e;
+        if (gm >= M) continue;
+        __nv_bfloat16* row = y + static_cast<size_t>(gm) * N;
+        if constexpr (kPairs<TW>) {
+          if (n_lo < N)
+            *reinterpret_cast<__nv_bfloat162*>(row + n_lo) =
+                __floats2bfloat162_rn(v[n][e] * s_lo, v[n][2 + e] * s_hi);
+        } else {
+          if (n_lo < N) row[n_lo] = to_bf16(v[n][e] * s_lo);
+          if (n_hi < N) row[n_hi] = to_bf16(v[n][2 + e] * s_hi);
+        }
+      }
+  };
+  if (splits == 1) {
+    store_y(acc);
+    return;
+  }
+
+  // this split's f32 partial, then the output tile's arrival counter
+  const size_t mn = static_cast<size_t>(M) * N;
+  auto part = [&](int s, int gm) { return partial + s * mn + static_cast<size_t>(gm) * N; };
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int gm = 8 * n + tok0 + e;
+      if (gm >= M) continue;
+      float* row = part(split, gm);
+      if constexpr (kPairs<TW>) {
+        if (n_lo < N) *reinterpret_cast<float2*>(row + n_lo) = make_float2(acc[n][e], acc[n][2 + e]);
+      } else {
+        if (n_lo < N) row[n_lo] = acc[n][e];
+        if (n_hi < N) row[n_hi] = acc[n][2 + e];
+      }
+    }
+  __threadfence();  // the partial is visible device-wide before the arrival
+  named_barrier_sync(1, 32 * kWarps);
+  if (threadIdx.x == 0)
+    *last_flag = atomicAdd(&counters[blockIdx.x], 1) == splits - 1;
+  named_barrier_sync(1, 32 * kWarps);
+  if (!*last_flag) return;
+
+  // the last block to arrive: the partials summed in split order (this
+  // block's own from its registers: the same f32 values), then y
+  __threadfence();
+  float sum[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) sum[n][j] = 0.f;
+#pragma unroll 4  // the loads of four splits in flight; the adds stay in split order
+  for (int s = 0; s < splits; ++s) {
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int gm = 8 * n + tok0 + e;
+        float v_lo = acc[n][e], v_hi = acc[n][2 + e];
+        if (s != split && gm < M) {
+          const float* row = part(s, gm);
+          if constexpr (kPairs<TW>) {
+            if (n_lo < N) {
+              const float2 v = __ldcg(reinterpret_cast<const float2*>(row + n_lo));
+              v_lo = v.x;
+              v_hi = v.y;
+            }
+          } else {
+            if (n_lo < N) v_lo = __ldcg(row + n_lo);
+            if (n_hi < N) v_hi = __ldcg(row + n_hi);
+          }
+        }
+        sum[n][e] += v_lo;
+        sum[n][2 + e] += v_hi;
+      }
+  }
+  store_y(sum);
+  if (threadIdx.x == 0) counters[blockIdx.x] = 0;  // ready for the next call
+}
+
+template <typename TW, int NT>
+cudaError_t prepare() {
+  // raise the dynamic shared-memory limit once per instantiation (one device)
+  static cudaError_t err = cudaFuncSetAttribute(qmm_decode_kernel<TW, NT>,
+                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                Layout<TW, NT>::kBytes);
+  return err;
+}
+
+template <typename TW, int NT>
+cudaError_t launch(const void* x, const void* w, const float* scale, void* y, float* partial,
+                   int* counters, int M, int N, int K, int splits, int kt_per_split,
+                   cudaStream_t stream) {
+  using L = Layout<TW, NT>;
+  CUtensorMap tm_x, tm_w;
+  const uint64_t x_dims[2] = {static_cast<uint64_t>(K), static_cast<uint64_t>(M)};
+  const uint64_t x_strides[1] = {static_cast<uint64_t>(K) * 2};
+  const uint32_t x_box[2] = {BK, 8 * NT};
+  cudaError_t err = make_map(&tm_x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, x_dims, x_strides,
+                             x_box, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err != cudaSuccess) return err;
+  const uint64_t w_dims[2] = {static_cast<uint64_t>(N), static_cast<uint64_t>(K)};
+  const uint64_t w_strides[1] = {static_cast<uint64_t>(N) * sizeof(TW)};
+  const uint32_t w_box[2] = {128 / sizeof(TW), BK};  // 128-byte rows
+  err = make_map(&tm_w, L::kQuant ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                 2, w, w_dims, w_strides, w_box, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err != cudaSuccess) return err;
+  err = prepare<TW, NT>();
+  if (err != cudaSuccess) return err;
+  dim3 grid((N + BN - 1) / BN, splits);
+  qmm_decode_kernel<TW, NT><<<grid, kThreads, L::kBytes, stream>>>(
+      tm_x, tm_w, scale, static_cast<__nv_bfloat16*>(y), partial, counters, M, N, K,
+      kt_per_split);
+  return cudaGetLastError();
+}
+
+template <typename TW>
+cudaError_t launch_rows(int M, const void* x, const void* w, const float* scale, void* y,
+                        float* partial, int* counters, int N, int K, int splits,
+                        int kt_per_split, cudaStream_t stream) {
+  if (M <= 8)
+    return launch<TW, 1>(x, w, scale, y, partial, counters, M, N, K, splits, kt_per_split,
+                         stream);
+  if (M <= 16)
+    return launch<TW, 2>(x, w, scale, y, partial, counters, M, N, K, splits, kt_per_split,
+                         stream);
+  return cudaErrorInvalidValue;
+}
+
+template <typename TW, int NT>
+int blocks_per_sm() {
+  int n = -1;
+  if (prepare<TW, NT>() != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, qmm_decode_kernel<TW, NT>, kThreads,
+                                                    Layout<TW, NT>::kBytes) != cudaSuccess)
+    return -1;
+  return n;
+}
+
+template <typename TW>
+int blocks_per_sm_rows(int rows) {
+  return rows == 8 ? blocks_per_sm<TW, 1>() : rows == 16 ? blocks_per_sm<TW, 2>() : -1;
+}
+
+}  // namespace dec
+
 }  // namespace
 
 // x: (M, K) bf16; w: (K, N) of w_dtype; scale: (N,) f32 or null; y: (M, N)
@@ -612,5 +947,50 @@ extern "C" int xfa_qmm_wgmma(const void* x, const void* w, int w_dtype, const vo
                                           st);
     default:
       return cudaErrorInvalidValue;
+  }
+}
+
+// The decode kernel: as xfa_qmm_wgmma, for 1 <= M <= 16 (tiles of 8 tokens
+// for M <= 8, else 16) with the same operand rules. splits > 1 needs the f32
+// scratch `partial` (splits, M, N) and `counters`: one int32 per 128-column
+// tile, all 0 at entry, and all 0 again when the kernel ends (the last split
+// of each tile resets its own). No second launch.
+extern "C" int xfa_qmm_decode(const void* x, const void* w, int w_dtype, const void* scale,
+                              void* y, void* partial, void* counters, int M, int N, int K,
+                              int splits, int kt_per_split, void* stream) {
+  if (M == 0 || N == 0) return cudaSuccess;
+  if (splits < 1 || (splits > 1 && (partial == nullptr || counters == nullptr)) ||
+      N % 8 != 0 || K % 8 != 0 || (splits - 1) * kt_per_split >= (K + 63) / 64 ||
+      splits * kt_per_split < (K + 63) / 64)
+    return cudaErrorInvalidValue;
+  auto* s = static_cast<const float*>(scale);
+  auto* p = static_cast<float*>(partial);
+  auto* c = static_cast<int*>(counters);
+  auto st = static_cast<cudaStream_t>(stream);
+  switch (w_dtype) {
+    case XFA_I8:
+      return dec::launch_rows<int8_t>(M, x, w, s, y, p, c, N, K, splits, kt_per_split, st);
+    case XFA_FP8_E4M3:
+      return dec::launch_rows<fp8e4m3_t>(M, x, w, s, y, p, c, N, K, splits, kt_per_split, st);
+    case XFA_BF16:
+      return dec::launch_rows<__nv_bfloat16>(M, x, w, s, y, p, c, N, K, splits, kt_per_split,
+                                             st);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// Resident blocks an SM of the decode kernel for a weight dtype and its rows
+// (8 or 16), by the CUDA occupancy calculator; -1 on error.
+extern "C" int xfa_qmm_decode_blocks_per_sm(int w_dtype, int rows) {
+  switch (w_dtype) {
+    case XFA_I8:
+      return dec::blocks_per_sm_rows<int8_t>(rows);
+    case XFA_FP8_E4M3:
+      return dec::blocks_per_sm_rows<fp8e4m3_t>(rows);
+    case XFA_BF16:
+      return dec::blocks_per_sm_rows<__nv_bfloat16>(rows);
+    default:
+      return -1;
   }
 }

@@ -4,9 +4,10 @@ Weights are stored int8 (or fp8-e4m3) with one fp32 scale per output
 channel; activations stay bf16 (f32 in the CPU tests). On CUDA the product
 runs in the hand-written kernels of csrc/qmm.cu, which convert each weight
 tile to bf16 on chip right before the tensor-core product, so device memory
-only ever sees one byte per weight: the wgmma kernel (weights converted in
-registers) for m > 16 rows with TMA-legal operands, the WMMA kernel (in
-shared memory) for decode (m <= 16) and for ragged operands (`qmm_route`).
+only ever sees one byte per weight (`qmm_route`): with TMA-legal operands,
+the decode kernel (mma.sync, a deep TMA ring, the split-K sum inside) for
+m <= 16 rows and the wgmma kernel for m > 16, the weights converted in
+registers by both; the WMMA kernel (in shared memory) for ragged operands.
 On the CPU the plain version `quantized_matmul_ref` computes the same
 function.
 """
@@ -14,6 +15,7 @@ function.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -25,10 +27,21 @@ from xf_flash_attention_cutlass_tpu_torch.utils import cdiv, is_cuda
 
 _WEIGHT_QMAX = {torch.int8: 127.0, torch.float8_e4m3fn: 448.0}
 
-# tile geometry (rows, columns, depth) of each route of csrc/qmm.cu, for the
-# split-K plan; the wgmma kernel's rows (tokens) are qmm_wgmma_rows(m)
+# tile geometry (rows, columns, depth) of the routes of csrc/qmm.cu that
+# qmm_splits plans alike; the wgmma kernel's rows (tokens) are
+# qmm_wgmma_rows(m); the decode kernel has its own plan (qmm_decode_splits)
 _TILES = {"bm16": (16, 128, 64), "bm64": (64, 128, 64), "wgmma": (None, 128, 64)}
 _NUM_SMS = 132  # H100 SXM
+# resident blocks an SM of the decode kernel (csrc/qmm.cu, dec::kBlocksPerSm:
+# its ring fills half an SM's shared memory); chip_smoke.py checks it against
+# the occupancy calculator
+QMM_DECODE_BLOCKS_PER_SM = 2
+# arrival counters of the decode kernel's in-kernel split-K sum: one int32
+# per 128-column output tile, allocated and zeroed once per device; a plan
+# with more column tiles than this does not split
+QMM_DECODE_COUNTERS = 4096
+QMM_DECODE_MIN_TILES = 8  # k-tiles a split of the decode kernel holds at least
+_counters = {}
 
 
 def quantize_weight(
@@ -81,6 +94,15 @@ def _lib():
             + [ctypes.c_int] * 6
             + [ctypes.c_void_p]
         )
+        lib.xfa_qmm_decode.restype = ctypes.c_int
+        lib.xfa_qmm_decode.argtypes = (
+            [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+            + [ctypes.c_int] * 5
+            + [ctypes.c_void_p]
+        )
+        lib.xfa_qmm_decode_blocks_per_sm.restype = ctypes.c_int
+        lib.xfa_qmm_decode_blocks_per_sm.argtypes = [ctypes.c_int, ctypes.c_int]
         _lib_handle = lib
     return _lib_handle
 
@@ -89,16 +111,17 @@ def qmm_route(m: int, k: int, n: int, w_dtype: torch.dtype, x_ptr: int = 0,
               w_ptr: int = 0) -> str:
     """The kernel of csrc/qmm.cu that computes (m, k) bf16 x (k, n) weights
     of w_dtype, with x contiguous at address x_ptr and the weight rows
-    contiguous at w_ptr: 'bm16' (WMMA, 16-row tiles) for decode widths
-    (m <= 16); 'wgmma' for m > 16 when TMA can load both operands (bases
-    16-byte aligned, row strides k * 2 and n * element size multiples of 16
-    bytes); 'bm64' (WMMA, 64-row tiles, element-wise loads at the edges) for
-    m > 16 otherwise. A route chosen by shape: no route falls back to
-    another when a kernel fails."""
-    if m <= 16:
-        return "bm16"
+    contiguous at w_ptr. When TMA can load both operands (bases 16-byte
+    aligned, row strides k * 2 and n * element size multiples of 16 bytes:
+    every Llama-8B shape, stacked at any layer or single): 'decode' for
+    decode widths (m <= 16), 'wgmma' above. Otherwise the WMMA kernel with
+    element-wise loads at the edges: 'bm16' (16-row tiles) for m <= 16,
+    'bm64' above. A route chosen by shape: no route falls back to another
+    when a kernel fails."""
     legal = (x_ptr % 16 == 0 and w_ptr % 16 == 0 and (k * 2) % 16 == 0
              and (n * w_dtype.itemsize) % 16 == 0)
+    if m <= 16:
+        return "decode" if legal else "bm16"
     return "wgmma" if legal else "bm64"
 
 
@@ -108,13 +131,44 @@ def qmm_wgmma_rows(m: int) -> int:
     return 256 if m > 128 else 128
 
 
+def qmm_decode_rows(m: int) -> int:
+    """Tokens of the decode kernel's tile at m <= 16 rows: its mma.sync N, 8
+    or 16."""
+    return 8 if m <= 8 else 16
+
+
+@functools.lru_cache(maxsize=None)  # called once per projection of every decode step
+def qmm_decode_splits(n: int, k: int) -> Tuple[int, int]:
+    """(splits over K, k-tiles per split) of the decode kernel, whose splits
+    are summed inside it: the fewest splits (the most k-tiles per split)
+    that give at least 3/4 of the SMs a block of the 128-column tiles, but
+    no fewer than 8 k-tiles (64 KB of int8 weights) a split. The kernel is
+    bound by weight bytes, and a block's fixed cost (its first loads'
+    latency, its partial and the last split's sum) is paid once per block,
+    so long blocks on most SMs beat short blocks on all of them (a sweep of
+    split counts on an H100, PERF.md). Every split's k range is whole and
+    non-empty; a shape with more column tiles than the counter buffer holds
+    is not split. Bytes bound it at every m <= 16, so m does not enter."""
+    cols, n_kt = cdiv(n, 128), cdiv(k, 64)
+    if cols > QMM_DECODE_COUNTERS:
+        return 1, n_kt
+    per = n_kt
+    while per > QMM_DECODE_MIN_TILES and cols * cdiv(n_kt, per) < cdiv(3 * _NUM_SMS, 4):
+        per -= 1
+    splits = cdiv(n_kt, per)
+    return splits, cdiv(n_kt, splits)  # the same splits, as even as they go
+
+
 def qmm_splits(m: int, n: int, k: int, route: Optional[str] = None) -> Tuple[int, int]:
     """(splits over K, k-tiles per split) of csrc/qmm.cu's kernel `route`
-    (by default the route of aligned int8 operands): split only when the
-    output tiles leave SMs idle, and keep at least 4 k-tiles per split. The
-    WMMA kernels aim at two blocks an SM; the wgmma kernel holds an SM
-    alone (its registers), so its splits keep every block in one wave."""
+    (by default the route of aligned int8 operands). The decode kernel's
+    plan is `qmm_decode_splits`. Elsewhere: split only when the output
+    tiles leave SMs idle, and keep at least 4 k-tiles per split. The WMMA
+    kernels aim at two blocks an SM; the wgmma kernel holds an SM alone
+    (its registers), so its splits keep every block in one wave."""
     route = route or qmm_route(m, k, n, torch.int8)
+    if route == "decode":
+        return qmm_decode_splits(n, k)
     rows, cols, depth = _TILES[route]
     rows = rows or qmm_wgmma_rows(m)
     blocks = cdiv(n, cols) * cdiv(m, rows)
@@ -125,11 +179,33 @@ def qmm_splits(m: int, n: int, k: int, route: Optional[str] = None) -> Tuple[int
     return cdiv(n_kt, kt_per), kt_per
 
 
+def decode_counters(device: torch.device) -> torch.Tensor:
+    """The decode kernel's arrival counters on `device`: QMM_DECODE_COUNTERS
+    int32, zeroed once here when first allocated; every call leaves them 0
+    again, so no call needs a memset."""
+    idx = torch.device(device).index
+    if idx is None:
+        idx = torch.cuda.current_device()
+    buf = _counters.get(idx)
+    if buf is None:
+        buf = _counters[idx] = torch.zeros(QMM_DECODE_COUNTERS, dtype=torch.int32,
+                                           device=f"cuda:{idx}")
+    return buf
+
+
+def qmm_decode_blocks_per_sm(w_dtype: torch.dtype, rows: int) -> int:
+    """Resident blocks an SM of the decode kernel's instantiation for w_dtype
+    and rows (8 or 16), by the CUDA occupancy calculator (needs a card)."""
+    return _lib().xfa_qmm_decode_blocks_per_sm(_build.dtype_code(w_dtype), rows)
+
+
 def _qmm_cuda(x: torch.Tensor, w: torch.Tensor, scale: Optional[torch.Tensor],
-              route: str, kind: Optional[str] = None) -> torch.Tensor:
+              route: str, kind: Optional[str] = None,
+              splits: Optional[int] = None) -> torch.Tensor:
     """Launch csrc/qmm.cu's kernel `kind` (by default `qmm_route`'s choice;
-    chip_smoke.py names 'bm64' to time the WMMA kernel beside the wgmma one
-    on the same shapes)."""
+    chip_smoke.py names 'bm64' and 'bm16' to time the WMMA kernel beside the
+    wgmma and decode ones on the same shapes) over `splits` splits of K (by
+    default `qmm_splits`'; the bring-up sweeps them)."""
     if x.dtype != torch.bfloat16:
         raise TypeError(f"the CUDA qmm kernel takes bf16 activations, got {x.dtype}")
     if w.dtype not in (torch.int8, torch.float8_e4m3fn, torch.bfloat16):
@@ -143,14 +219,25 @@ def _qmm_cuda(x: torch.Tensor, w: torch.Tensor, scale: Optional[torch.Tensor],
     m = x2.shape[0]
     y = torch.empty((m, d_out), dtype=x.dtype, device=x.device)
     kind = kind or qmm_route(m, d_in, d_out, w.dtype, x2.data_ptr(), w.data_ptr())
-    splits, kt_per = qmm_splits(m, d_out, d_in, kind)
+    if splits is None:
+        splits, kt_per = qmm_splits(m, d_out, d_in, kind)
+    else:
+        kt_per = cdiv(cdiv(d_in, 64), splits)
+        splits = cdiv(cdiv(d_in, 64), kt_per)
     partial = (
         torch.empty((splits, m, d_out), dtype=torch.float32, device=x.device)
         if splits > 1 else None
     )
     args = (x2.data_ptr(), w.data_ptr(), _build.dtype_code(w.dtype), _build.ptr(scale),
             y.data_ptr(), _build.ptr(partial), m, d_out, d_in, splits, kt_per)
-    if kind == "wgmma":
+    if kind == "decode":
+        counters = decode_counters(x.device)
+        if splits > 1 and cdiv(d_out, 128) > counters.numel():
+            raise ValueError(f"qmm decode: {cdiv(d_out, 128)} column tiles exceed the "
+                             f"{counters.numel()} split counters")
+        rc = _lib().xfa_qmm_decode(*args[:6], counters.data_ptr(), *args[6:],
+                                   _build.stream_handle())
+    elif kind == "wgmma":
         rc = _lib().xfa_qmm_wgmma(*args, qmm_wgmma_rows(m), _build.stream_handle())
     else:
         vec_x = int(d_in % 8 == 0 and x2.data_ptr() % 16 == 0)
