@@ -25,14 +25,20 @@ Phases, each of which raises (exit code != 0) when it fails:
    HMMA (mma.sync) and UTMALDG and no spill, the two of its combine kernel
    no spill, and the 24 WMMA ones keep their HMMA; and unless the CUDA
    occupancy calculator gives every decode instantiation the resident
-   blocks an SM that the decode route's split heuristic counts.
+   blocks an SM that the decode route's split heuristic counts. The same
+   for K8 (`flash_probs_build`): it fails unless its eight instantiations
+   hold HGMMA and UTMALDG and no HMMA, the four that store by TMA UTMASTG
+   (TMA store), and none spills.
 2. Hold each kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it (Llama-8B widths), and time the kernel, the
    plain version and, where one exists, a PyTorch library call that computes
    the same function (a yardstick only; the port never calls it). Bucketed
    prefill's shapes are all covered: K3 at m = 256-2048, K5 appending a whole
    bucket at position 0 through a trash-tailed block-table row, K7 at every
-   bucket. K1's chunk (the Hopper chunk kernel) and decode (the decode
+   bucket, and the append kernel alone at the largest bucket (2048 rows,
+   timed on the Timer, behind a read-only flush and on device) and at
+   head dims 64, 32, 192, 40 and 66 (APPEND_WIDTH_CASES), bit for bit.
+   K1's chunk (the Hopper chunk kernel) and decode (the decode
    kernel and its combine) at fp8, int8 and bf16 each launch the route
    paged_plan names; both are also timed through the WMMA kernel, decode
    through the chunk kernel forced onto its rows too, and K1's library
@@ -75,6 +81,10 @@ Phases, each of which raises (exit code != 0) when it fails:
    per-row slopes and explicit positions over the packed serving prompts, K8
    (the probability plane) on the dense case and on the packed plane, entry by
    entry against its plain version (its dropout signs equal, 0 mismatches),
+   and at PROBS_CASES (sk % 4 != 0, d = 64 with GQA, fp16, windows with
+   softcap, segment ids, one query row, (b, s, h, d) views), then its shares
+   at the dense shape and on the packed plane (`probs_shares`: dropout 0,
+   no ALiBi, non-causal, every tile dead),
    K9/K10/K11 with ALiBi and dropout (3x rule against the oracle's gradients,
    the mask taken from K8's signs) and over the packed prompts, K1 with each
    of window, softcap, ALiBi and leftpad (the WMMA kernel,
@@ -184,6 +194,29 @@ class Timer:
             pairs.append((start, end))
         torch.cuda.synchronize()
         return sum(s.elapsed_time(e) for s, e in pairs) / reps
+
+
+def device_ms(fn, kernel, reps=REPS):
+    """Device time per call of fn of the kernels whose name holds `kernel`,
+    from a profiler trace of `reps` calls, each behind a read-only pass over
+    a 128 MB buffer (the L2 starts cold and clean): the kernel alone,
+    without the launch and event costs that the Timer includes. None when
+    the trace holds no such kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(TRACE_SETTLE_S)
+        for _ in range(reps):
+            flush.max()
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and kernel in e.key)
+    return us / 1e3 / reps if us > 0 else None
 
 
 def bound(n_bytes: float, n_ops: float) -> tuple:
@@ -460,8 +493,101 @@ def check_paged_append(gen, timer, checks, kv_dtype, phase, cfg):
                criterion="bit-equal pools and scales off the trash page")
     rows = b * sq * h_k
     by = nbytes(kn, vn, bt, pos) + 2 * rows * (d * kp.element_size() + (4 if quant else 0))
-    return dict(ms=timer.ms(kernel), plain_ms=timer.ms(plain, PLAIN_REPS), library_ms=None,
+    return dict(ms=timer.ms(kernel), device_ms=device_ms(kernel, APPEND_KERNEL),
+                plain_ms=timer.ms(plain, PLAIN_REPS), library_ms=None,
                 bound=bound(by, 0), err=0.0 if equal else float("nan"), tol=0.0)
+
+
+APPEND_KERNEL = "paged_append_kernel"  # the append kernel's name in a profiler trace
+
+
+def append_case(gen, kv_dtype, b, sq, h_k, d, page, n_pages, max_pages, positions):
+    """Zeroed pools (n_pages + 1 trash, h_k, page, d) of kv_dtype with f32
+    scales for int8 / fp8, a block table of distinct pages per row with the
+    trash page past its first n_pages // b entries, bf16 rows (b, sq, h_k, d)
+    (K scaled by 3, one K row all zero: amax 0) and int32 positions."""
+    quant = kv_dtype != torch.bfloat16
+    shape = (n_pages + 1, h_k, page, d)
+    pools = [torch.zeros(shape, dtype=kv_dtype, device="cuda") for _ in range(2)]
+    if quant:
+        pools += [torch.zeros(shape[:-1], device="cuda") for _ in range(2)]
+    per = n_pages // b
+    perm = torch.randperm(n_pages, generator=gen, device="cuda").int()
+    bt = torch.full((b, max_pages), n_pages, dtype=torch.int32, device="cuda")
+    for i in range(b):
+        bt[i, :min(per, max_pages)] = perm[i * per: i * per + min(per, max_pages)]
+    kn = (torch.randn((b, sq, h_k, d), generator=gen, device="cuda") * 3).bfloat16()
+    vn = torch.randn((b, sq, h_k, d), generator=gen, device="cuda").bfloat16()
+    kn[0, 0, 0] = 0
+    pos = torch.tensor(positions, dtype=torch.int32, device="cuda")
+    return pools, bt, kn, vn, pos
+
+
+def append_equal(pools, ref, n_pages) -> bool:
+    """Pools and scales bit-equal to the plain version's off the trash page."""
+    return all(torch.equal(a[:n_pages].view(torch.uint8), w[:n_pages].view(torch.uint8))
+               for a, w in zip(pools, ref))
+
+
+# the append kernel's widths beyond the serving shapes: (name, kv dtype, b,
+# sq, h_k, d, page, n_pages, max_pages, positions). d = 64 takes a half-warp
+# a row, d = 32 a quarter of the lanes of one, d = 192 two chunks a lane,
+# d = 40 and 66 the scalar loop (rows not 8-byte multiples); the chunks cross
+# page boundaries and run past the block table.
+APPEND_WIDTH_CASES = [
+    (f"d64_{str(dt).split('.')[-1]}", dt, 2, 100, 8, 64, 32, 12, 5, [40, 100])
+    for dt in (torch.float8_e4m3fn, torch.int8, torch.bfloat16)
+] + [
+    ("d32_int8", torch.int8, 3, 5, 2, 32, 16, 12, 4, [14, 33, 0]),
+    ("d192_fp8", torch.float8_e4m3fn, 1, 70, 4, 192, 64, 4, 2, [30]),
+    ("d40_fp8", torch.float8_e4m3fn, 2, 9, 2, 40, 16, 8, 4, [7, 60]),
+    ("d66_int8", torch.int8, 2, 9, 3, 66, 16, 8, 4, [7, 60]),
+    ("d66_bf16", torch.bfloat16, 2, 9, 3, 66, 16, 8, 4, [7, 60]),
+]
+
+
+def check_append_widths(gen, timer, checks, cfg):
+    """The append kernel at the largest bucket (2048 rows of Llama-8B's 8
+    kv heads at d = 128 into an fp8 page-256 pool, as an admission appends
+    it) and at APPEND_WIDTH_CASES, each bit-equal to the plain version off
+    the trash page. The bucket is timed: on the Timer, behind a read-only
+    flush (Timer(clean=True)) and on device (`device_ms`)."""
+    from xf_flash_attention_cutlass_tpu_torch.ops.paged_append import (
+        paged_append,
+        paged_append_ref,
+    )
+
+    out = None
+    cases = [("bucket2048_fp8", torch.float8_e4m3fn, 1, 2048, cfg.n_kv_heads, cfg.head_dim,
+              256, 16, 8, [0])] + APPEND_WIDTH_CASES
+    for name, dt, b, sq, h_k, d, page, n_pages, max_pages, positions in cases:
+        pools, bt, kn, vn, pos = append_case(gen, dt, b, sq, h_k, d, page, n_pages, max_pages,
+                                             positions)
+        ref = [t.clone() for t in pools]
+        sc = dict(k_scales=pools[2], v_scales=pools[3]) if len(pools) == 4 else {}
+
+        def kernel():
+            paged_append(pools[0], pools[1], kn, vn, bt, pos, **sc)
+
+        def plain():
+            paged_append_ref(ref[0], ref[1], kn, vn, bt, pos, *ref[2:])
+
+        kernel()
+        plain()
+        torch.cuda.synchronize()
+        equal = append_equal(pools, ref, n_pages)
+        checks.add(f"paged_append.width[{name}]", equal,
+                   max_abs_err=0.0 if equal else float("nan"), tolerance=0.0,
+                   criterion="bit-equal pools and scales off the trash page")
+        if name.startswith("bucket"):
+            rows = 2 * b * sq * h_k
+            by = nbytes(kn, vn, bt, pos) + rows * (d * pools[0].element_size() + 4)
+            out = dict(rows=rows, ms=timer.ms(kernel), clean_ms=Timer(clean=True).ms(kernel),
+                       device_ms=device_ms(kernel, APPEND_KERNEL),
+                       plain_ms=timer.ms(plain, PLAIN_REPS), bound=bound(by, 0),
+                       err=0.0 if equal else float("nan"), tol=0.0)
+        del pools, ref
+    return out
 
 
 def check_qmm(gen, timer, checks, w_dtype, m, shapes, stacked, timed=True, kind=None,
@@ -1484,6 +1610,110 @@ def check_probs(checks, name, q, k, lse, kw):
     return probs, err, mismatches
 
 
+# K8's shapes and options beyond the api path's: (name, b, h, h_k, sq, sk, d,
+# dtype, options; "alibi" takes alibi_slopes_ref, "segments" two segment ids a
+# row, "views" q and k as (b, s, h, d) tensors seen through transposes, read
+# by their strides). sk % 4 != 0 stores the plane without TMA; sq and sk off
+# the 64-row tiles, sk below one tile, one query row, a window from both
+# sides, d = 64 with h_k < h, fp16, and segment ids with dead tiles between
+# live ones.
+PROBS_CASES = [
+    ("sk301_gqa_dropout", 2, 8, 2, 200, 301, 128, torch.bfloat16,
+     dict(causal=True, dropout_p=0.1, dropout_seed=7)),
+    ("d64_gqa_alibi_dropout", 1, 8, 2, 256, 256, 64, torch.bfloat16,
+     dict(causal=True, alibi=True, dropout_p=0.1, dropout_seed=8)),
+    ("fp16_noncausal", 1, 4, 4, 192, 320, 128, torch.float16, dict()),
+    ("fp16_d64_sk130_dropout", 2, 4, 1, 77, 130, 64, torch.float16,
+     dict(dropout_p=0.2, dropout_seed=9)),
+    ("window_softcap", 1, 4, 2, 300, 300, 64, torch.bfloat16,
+     dict(window=(64, 16), softcap=30.0)),
+    ("window_softcap_alibi_sk299", 1, 4, 2, 250, 299, 128, torch.bfloat16,
+     dict(causal=True, window=(100, -1), softcap=20.0, alibi=True, dropout_p=0.1,
+          dropout_seed=10)),
+    ("sq1", 2, 8, 2, 1, 1000, 128, torch.bfloat16, dict(causal=True, alibi=True)),
+    ("sk20", 1, 4, 2, 70, 20, 64, torch.float16, dict(causal=True)),
+    ("segments_sk150", 2, 4, 2, 150, 150, 128, torch.bfloat16,
+     dict(causal=True, segments=True, dropout_p=0.1, dropout_seed=11)),
+    ("segments_sk256", 1, 8, 2, 256, 256, 64, torch.bfloat16,
+     dict(causal=True, segments=True, alibi=True)),
+    ("views_gqa_dropout", 2, 8, 2, 130, 200, 128, torch.bfloat16,
+     dict(causal=True, views=True, dropout_p=0.1, dropout_seed=12)),
+]
+
+
+def probs_case(gen, b, h, h_k, sq, sk, d, dtype, opts):
+    """q (b, h, sq, d), k (b, h_k, sk, d) and K8's keyword arguments for a
+    PROBS_CASES row; segment ids split each row at 40 % of its tokens
+    (self-attention: sq == sk)."""
+    from xf_flash_attention_cutlass_tpu_torch.utils.testing import alibi_slopes_ref
+
+    q = torch.randn((b, sq, h, d), generator=gen, device="cuda").to(dtype).transpose(1, 2)
+    k = torch.randn((b, sk, h_k, d), generator=gen, device="cuda").to(dtype).transpose(1, 2)
+    if not opts.get("views"):
+        q, k = q.contiguous(), k.contiguous()
+    kw = {n: x for n, x in opts.items() if n not in ("alibi", "segments", "views")}
+    if opts.get("alibi"):
+        kw["alibi_slopes"] = torch.from_numpy(alibi_slopes_ref(h)).cuda()
+    if opts.get("segments"):
+        seg = (torch.arange(sq, device="cuda") >= (2 * sq) // 5).int().expand(b, sq)
+        kw.update(q_segment_ids=seg.contiguous(), kv_segment_ids=seg.contiguous())
+    return q, k, kw
+
+
+def check_probs_cases(gen, checks):
+    """K8 at PROBS_CASES against its plain version (check_probs), each with
+    the LSE of K7 under the same options."""
+    from xf_flash_attention_cutlass_tpu_torch.ops.flash_fwd import flash_fwd
+
+    for name, *shape in PROBS_CASES:
+        q, k, kw = probs_case(gen, *shape)
+        _, lse = flash_fwd(q, k, k, **kw)
+        check_probs(checks, name, q, k, lse, kw)
+
+
+PROBS_KERNEL = "flash_probs_kernel"  # K8's name in a profiler trace
+
+
+def probs_shares(gen, timer, cfg, lens):
+    """K8 at the api path's dense shape (b = 1, 2048 tokens, Llama-8B's 32 /
+    8 heads, d = 128, bf16) in five variants, each on the Timer and on
+    device (`device_ms`): as the api path calls it (causal, ALiBi, dropout
+    0.1), at dropout 0, without ALiBi, non-causal, and with segment ids that
+    never meet (every tile dead: the zero stores alone). The differences
+    from the first are the shares of dropout's Philox, of ALiBi, and of the
+    dead half of a causal plane. Then the api path's packed plane: the
+    prompts of `lens` at the end of the list that fit in 2048 tokens, with
+    positions, segment ids and per-row ALiBi (1921 tokens at seed 0, so
+    sk % 4 != 0: no TMA stores)."""
+    from xf_flash_attention_cutlass_tpu_torch.ops.flash_fwd import attention_probs, flash_fwd
+    from xf_flash_attention_cutlass_tpu_torch.utils.testing import alibi_slopes_ref
+
+    h, h_k, d, s = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, API_S
+    q = torch.randn((1, h, s, d), generator=gen, device="cuda").bfloat16()
+    k = torch.randn((1, h_k, s, d), generator=gen, device="cuda").bfloat16()
+    api = dict(causal=True, alibi_slopes=torch.from_numpy(alibi_slopes_ref(h)).cuda(),
+               dropout_p=API_P, dropout_seed=API_SEED)
+    never = torch.zeros((1, s), dtype=torch.int32, device="cuda")
+    variants = dict(api=api, p0=dict(api, dropout_p=0.0),
+                    no_alibi={n: x for n, x in api.items() if n != "alibi_slopes"},
+                    noncausal=dict(api, causal=False),
+                    all_dead=dict(api, q_segment_ids=never, kv_segment_ids=never + 1))
+    out = {}
+    for name, kw in variants.items():
+        _, lse = flash_fwd(q, k, k, **kw)
+        out[name] = dict(ms=timer.ms(lambda: attention_probs(q, k, lse, **kw)),
+                         device_ms=device_ms(lambda: attention_probs(q, k, lse, **kw),
+                                             PROBS_KERNEL))
+        del lse
+    tail = lens[fitting_tail(lens):]
+    (q, k, v, _), kw = packed_case(gen, cfg, tail)
+    _, lse = flash_fwd(q, k, v, **kw)
+    out[f"packed_T{sum(tail)}"] = dict(
+        ms=timer.ms(lambda: attention_probs(q, k, lse, **kw)),
+        device_ms=device_ms(lambda: attention_probs(q, k, lse, **kw), PROBS_KERNEL))
+    return out
+
+
 def check_api_dense(gen, timer, checks, cfg):
     """K7, K8 and K9/K10/K11 at flash_attn_func's api-path shape (b = 1,
     2048 tokens, causal, ALiBi slopes of alibi_slopes_ref, dropout 0.1): K7
@@ -1807,9 +2037,9 @@ def time_api_steps(calls, copies, reps=5):
     """Each api step called again, warm: its host-clock ms over `reps`
     synchronized calls (least, median, largest) and its device ms per call
     from a profiler trace (`profiled`, two calls), with the device's busy
-    share of the median call; for the K1 steps, the device ms of the copy of
-    the caller's caches into K1's page layout that the step makes, and its
-    share of the step's device time."""
+    share of the median call and K8's device ms per call; for the K1 steps,
+    the device ms of the copy of the caller's caches into K1's page layout
+    that the step makes, and its share of the step's device time."""
     out = {}
     for name, fn in calls.items():
         ms = []
@@ -1819,11 +2049,12 @@ def time_api_steps(calls, copies, reps=5):
             fn()
             torch.cuda.synchronize()
             ms.append(1e3 * (time.perf_counter() - t0))
-        prof = profiled(fn, 2)
+        prof = profiled(fn, 2, groups=dict(k8="flash_probs_kernel"))
         dev = prof["device_ms_per_step"] if prof else None
         p50 = percentile(ms, 50)
         out[name] = dict(host_ms=dict(min=min(ms), p50=p50, max=max(ms)), device_ms=dev,
                          busy_share=dev / p50 if dev else None,
+                         k8_device_ms=prof["groups_ms_per_step"]["k8"] if prof else None,
                          top=prof["top"][:4] if prof else None)
         if name in copies:
             cprof = profiled(copies[name], 2)
@@ -2112,18 +2343,25 @@ def percentile(xs, p):
     return float(np.percentile(np.asarray(xs), p)) if xs else None
 
 
+# the trace records no kernel that runs in its first moments: a step that
+# launched its first kernels at once lost them (the api dense step's first K7
+# and K8 calls), so the steps start this long after the trace
+TRACE_SETTLE_S = 0.05
+
+
 def profiled(fn, n_steps=1, groups=None):
-    """Run fn n_steps times under torch.profiler; the kernels' summed device
-    time and launches per step (every kernel's, not the ten largest) and
-    the ten largest, or None where the trace holds no device time. `groups`
-    ({label: name substring}) adds each group's summed device time and
-    launches per step."""
+    """Run fn n_steps times under torch.profiler, TRACE_SETTLE_S after it
+    starts; the kernels' summed device time and launches per step (every
+    kernel's, not the ten largest) and the ten largest, or None where the
+    trace holds no device time. `groups` ({label: name substring}) adds each
+    group's summed device time and launches per step."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(TRACE_SETTLE_S)
         for _ in range(n_steps):
             fn()
         torch.cuda.synchronize()
@@ -2169,7 +2407,7 @@ def profile_decode(eng, cfg, seed, n_steps=3):
     eng.step()  # admit and prefill every request, and the first decode
     if len(eng.active) != n:
         raise RuntimeError(f"decode profile: {len(eng.active)} of {n} requests active")
-    prof = profiled(eng.step, n_steps, groups=dict(K1_GROUPS, **K3_GROUPS))
+    prof = profiled(eng.step, n_steps, groups=dict(K1_GROUPS, **K3_GROUPS, append=APPEND_KERNEL))
     eng.run()
     return prof
 
@@ -2189,7 +2427,7 @@ def profile_chunked_prefill(eng, cfg, seed):
             eng.add_request(3000 + i, prompt, 1)
         eng.run()
 
-    prof = profiled(run, groups=dict(K1_GROUPS, k3="qmm"))
+    prof = profiled(run, groups=dict(K1_GROUPS, k3="qmm", append=APPEND_KERNEL))
     return None if prof is None else dict(prof, prompt_tokens=int(lens.sum()))
 
 
@@ -2215,7 +2453,7 @@ def profile_admission(eng, cfg, seed):
     admit()
     end.record()
     end.synchronize()
-    prof = profiled(admit, groups=dict(k3="qmm", k7="flash_fwd"))
+    prof = profiled(admit, groups=dict(k3="qmm", k7="flash_fwd", append=APPEND_KERNEL))
     out = dict(prompt_tokens=n, bucket=eng._bucket(n), step_ms=start.elapsed_time(end))
     if prof is not None:
         out.update(prof, k3_share=prof["groups_ms_per_step"]["k3"] / prof["device_ms_per_step"],
@@ -2250,13 +2488,13 @@ def ptxas_usage(log_name, instantiation):
     return inst
 
 
-SASS_OPS = ("HGMMA", "UTMALDG", "HMMA")
+SASS_OPS = ("HGMMA", "UTMALDG", "UTMASTG", "HMMA")
 
 
 def sass_by_function(lib_path):
     """{mangled kernel name: {op: count}} of the HGMMA (wgmma), UTMALDG (TMA
-    load) and HMMA (mma.sync) instructions in `cuobjdump -sass` of a
-    library."""
+    load), UTMASTG (TMA store) and HMMA (mma.sync) instructions in
+    `cuobjdump -sass` of a library."""
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True, text=True,
                           timeout=300, check=True).stdout
@@ -2353,6 +2591,40 @@ def k7_build_report(checks, lib_path):
     checks.add("flash_fwd.option_free_no_spills",
                len(plain) == 4 and all(r.get("spill_bytes") == 0 for r in plain.values()),
                spill_bytes={n: r.get("spill_bytes") for n, r in plain.items()})
+    return report
+
+
+_K8_NAME = re.compile(r"flash_probs_kernelI(\w+?)Li(\d+)ELb([01])E")
+
+
+def probs_instantiation(mangled):
+    """'bf16_d128_tma_store' for a mangled flash_probs_kernel name (the
+    instantiation for sk % 4 != 0 is 'element_store'), else None."""
+    m = _K8_NAME.search(mangled)
+    if m is None:
+        return None
+    dtype = "bf16" if "bfloat16" in m.group(1) else "f16"
+    return f"{dtype}_d{m.group(2)}_{'tma_store' if m.group(3) == '1' else 'element_store'}"
+
+
+def probs_build_report(checks, lib_path):
+    """Registers and spill bytes of every K8 instantiation (build/
+    flash_probs.log) and its HGMMA, UTMALDG, UTMASTG and HMMA counts. Checks
+    that all eight hold HGMMA and UTMALDG and no HMMA, that the TMA-store
+    ones hold UTMASTG, and that none spills."""
+    inst = ptxas_usage("flash_probs", probs_instantiation)
+    sass = {probs_instantiation(n): c for n, c in sass_by_function(lib_path).items()
+            if probs_instantiation(n)}
+    report = dict(instantiations=inst, sass=sass)
+    print(json.dumps({"flash_probs_build": report}), flush=True)
+    checks.add("flash_probs.sass_wgmma_tma_no_mma_sync",
+               len(sass) == 8 and all(c["HGMMA"] > 0 and c["UTMALDG"] > 0 and c["HMMA"] == 0
+                                      for c in sass.values())
+               and all(c["UTMASTG"] > 0 for n, c in sass.items() if n.endswith("_tma_store")),
+               sass=sass)
+    checks.add("flash_probs.no_spills",
+               len(inst) == 8 and all(r.get("spill_bytes") == 0 for r in inst.values()),
+               spill_bytes={n: r.get("spill_bytes") for n, r in inst.items()})
     return report
 
 
@@ -2593,6 +2865,7 @@ def main():
     report["qmm_build"] = qmm_build_report(checks, libs["qmm"])
     report["flash_bwd_build"] = flash_bwd_build_report(checks, libs["flash_bwd"])
     report["paged_build"] = paged_build_report(checks, libs["paged_attention"])
+    report["flash_probs_build"] = probs_build_report(checks, libs["flash_probs"])
 
     # 2. kernels against their plain versions, at the main paths' shapes
     cfg = LlamaConfig.llama8b()
@@ -2660,6 +2933,8 @@ def main():
     check_paged_route_shapes(gen, checks)
     check_bucket_append(gen, checks, cfg)
     report["page32_append"] = check_page32_append(gen, timer, checks, cfg)
+    report["append_bucket2048"] = check_append_widths(gen, timer, checks, cfg)
+    print(json.dumps({"append_bucket2048": report["append_bucket2048"]}), flush=True)
     measured.update(check_flash(gen, timer, checks, cfg))
     report["flash_fwd_bshd_kernels"] = check_flash_fwd_tiling(gen, checks, cfg)
     check_flash_bwd_tiling(gen, checks, cfg)
@@ -2677,6 +2952,10 @@ def main():
     mark("kernels")
     # the API's options, at the api path's shapes
     measured["flash_probs"] = check_api_dense(gen, timer, checks, cfg)
+    check_probs_cases(gen, checks)
+    report["probs_shares"] = probs_shares(gen, timer, cfg, serving_prompt_lens(args.seed))
+    print(json.dumps({"probs_shares": report["probs_shares"]}), flush=True)
+    measured["flash_probs"]["device_ms"] = report["probs_shares"]["api"]["device_ms"]
     measured["paged_attention.decode.wmma"] = check_paged_extras(gen, timer, checks, cfg)
     report["api_kernels"] = dict(
         flash_probs=measured["flash_probs"],
@@ -2779,8 +3058,9 @@ def main():
             bound_by=r["bound"][1], library_ms=r["library_ms"],
         ))
         # K1: the WMMA kernel and the Hopper chunk kernel on the same inputs, SDPA
-        # over every page of the table, the split count
-        for extra in ("wmma_ms", "wgmma_ms", "library_ms_all_pages", "splits"):
+        # over every page of the table, the split count; the append kernel and
+        # K8 on device (a profiler trace)
+        for extra in ("wmma_ms", "wgmma_ms", "library_ms_all_pages", "splits", "device_ms"):
             if extra in r:
                 kernels[-1][extra] = r[extra]
         if "other_shapes" in r:  # K7 at the training shape and at s = 2048

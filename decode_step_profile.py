@@ -7,8 +7,9 @@ random weights from seed 0, INT8 weights, FP8 paged KV, page 256, 8
 requests, bucketed prefill), admits 8 requests of 256-token prompts from
 seed 2 (chip_smoke.py's decode profile), then runs decode-only steps:
 N steps under torch.profiler for the device time a step, the kernel
-launches a step (every kernel's, counted in the trace) and K1's and
-K3/K4's kernels (the split-K reduction included) by name with their calls,
+launches a step (every kernel's, counted in the trace) and K1's, K3/K4's
+(the split-K reduction included) and the append kernel's kernels by name
+with their calls,
 then N steps more on the host clock (each ended
 by the engine's own host sync) for their median. TREE (default: this
 checkout) is the root of a checkout of the repository, so that a parent
@@ -60,6 +61,7 @@ def main():
         sys.exit(f"decode_step_profile.py: {len(eng.active)} of {n} requests active")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.05)  # the trace records no kernel in its first moments
         for _ in range(args.steps):
             eng.step()
         torch.cuda.synchronize()
@@ -79,11 +81,12 @@ def main():
 
     k1 = by_name(lambda k: "paged_" in k and "append" not in k)
     k3 = by_name(lambda k: "qmm_" in k)
+    append = by_name(lambda k: "paged_append_kernel" in k)
     print(json.dumps({"decode_step_profile": dict(
         tree=tree, steps=args.steps, device_ms_per_step=total_us / 1e3 / args.steps,
         launches_per_step=sum(e.count for e in kernels) / args.steps,
         host_ms_p50=statistics.median(host_ms), host_ms=host_ms, k1_kernels=k1,
-        k3_kernels=k3, device=torch.cuda.get_device_name(0))}), flush=True)
+        k3_kernels=k3, append_kernels=append, device=torch.cuda.get_device_name(0))}), flush=True)
 
 
 if __name__ == "__main__":

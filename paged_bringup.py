@@ -1,11 +1,12 @@
 """Staged bring-up and timing of K1, the paged-attention kernels, on one H100.
 
-    python3 paged_bringup.py [--seed N] [--stages a,b,...] [--decode-routes r,...]
+    python3 paged_bringup.py [TREE] [--seed N] [--stages a,b,...] [--decode-routes r,...]
 
 Builds csrc/paged_attention.cu alone and prints its `paged_build` line
 (registers, spill bytes and the HGMMA / UTMALDG / HMMA counts of each
 instantiation), then runs the stages that --stages names (all by default),
-each printing its failed checks:
+each printing its failed checks (with --stages append alone, it builds
+csrc/paged_append.cu alone instead):
   routes  the route cases (PAGED_ROUTE_CASES of chip_smoke.py) under the 2x
           rule against the plain version and the f32 oracle;
   engine  the engine's shapes at fp8, int8 and bf16 (a 256-token chunk
@@ -22,25 +23,38 @@ each printing its failed checks:
           version), each with its split count, SDPA over the live keys and
           the bound (`k1_decode_times`; --decode-routes names the routes);
   sweep   the decode kernel's time at explicit split counts on both
-          kv_len ranges at fp8 (`k1_decode_sweep`).
-A descriptor or layout mistake shows as wrong numbers, not a fault, so a
-change to K1 is run here before chip_smoke.py. Needs a CUDA device.
+          kv_len ranges at fp8 (`k1_decode_sweep`);
+  append  the append kernel (K2/K5/K6) bit for bit against its plain
+          version at chip_smoke.py's shapes (decode b = 8, a 256-token
+          chunk, the buckets, page 32, the 2048-row bucket and the other
+          widths of APPEND_WIDTH_CASES), then `append_times`: decode, the
+          chunk (fp8), page 32 and the 2048-row bucket on the Timer and on
+          device (a profiler trace), the bucket also behind a read-only
+          flush.
+TREE (default: this checkout) is the root of a checkout whose package is
+measured with this checkout's chip_smoke.py, so that a parent tree unpacked
+beside this one is measured the same way in the same call. A descriptor or
+layout mistake shows as wrong numbers, not a fault, so a change to K1 is
+run here before chip_smoke.py. Needs a CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
+import os
 import sys
 import time
 
 import torch
 
-import chip_smoke as cs
-from xf_flash_attention_cutlass_tpu_torch import _build
-from xf_flash_attention_cutlass_tpu_torch.models.llama import LlamaConfig
+HERE = os.path.dirname(os.path.abspath(__file__))
+spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(HERE, "chip_smoke.py"))
+cs = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(cs)
 
-STAGES = ("routes", "engine", "decode", "sweep")
+STAGES = ("routes", "engine", "decode", "sweep", "append")
 DECODE_RANGES = {"check": (200, 1533), "profile": (256, 264)}  # kv_lens drawn from [lo, hi)
 SWEEP_SPLITS = (1, 2, 3, 4, 6, 8, 12, 16)
 
@@ -87,23 +101,48 @@ def k1_decode_sweep(gen, timer, cfg):
     return out
 
 
+def append_stage(gen, timer, checks, cfg):
+    """The append stage (module docstring): its checks, then `append_times`."""
+    times = {}
+    for phase in ("decode", "prefill"):
+        for dt in (torch.float8_e4m3fn, torch.int8, torch.bfloat16):
+            r = cs.check_paged_append(gen, timer, checks, dt, phase, cfg)
+            if dt == torch.float8_e4m3fn:
+                times[phase] = r
+    cs.check_bucket_append(gen, checks, cfg)
+    times["page32"] = cs.check_page32_append(gen, timer, checks, cfg)
+    times["bucket2048"] = cs.check_append_widths(gen, timer, checks, cfg)
+    keys = ("ms", "clean_ms", "device_ms", "plain_ms", "bound", "rows")
+    return {n: {k: r[k] for k in keys if k in r} for n, r in times.items()}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("tree", nargs="?", default=HERE)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--stages", default=",".join(STAGES))
     ap.add_argument("--decode-routes", default="decode,wgmma,wmma")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("paged_bringup.py: no CUDA device")
+    tree = os.path.abspath(args.tree)
+    sys.path.insert(0, tree)
+    os.chdir(tree)
+    from xf_flash_attention_cutlass_tpu_torch import _build
+    from xf_flash_attention_cutlass_tpu_torch.models.llama import LlamaConfig
+
     stages = args.stages.split(",")
-    _build.SOURCES = ("paged_attention",)
+    k1 = stages != ["append"]
+    _build.SOURCES = (("paged_attention",) if k1 else ()) + (
+        ("paged_append",) if "append" in stages else ())
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 oracles in full f32
     cfg = LlamaConfig.llama8b()
     t0 = time.perf_counter()
-    lib = _build.build_all()["paged_attention"]
-    print(json.dumps({"build_s": time.perf_counter() - t0}), flush=True)
+    libs = _build.build_all()
+    print(json.dumps({"tree": tree, "build_s": time.perf_counter() - t0}), flush=True)
     checks = cs.Checks()
-    cs.paged_build_report(checks, lib)
+    if k1:
+        cs.paged_build_report(checks, libs["paged_attention"])
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     timer = cs.Timer()
 
@@ -129,6 +168,9 @@ def main():
             gen, timer, cfg, args.decode_routes.split(","))}), flush=True)
     if "sweep" in stages:
         print(json.dumps({"k1_decode_sweep": k1_decode_sweep(gen, timer, cfg)}), flush=True)
+    if "append" in stages:
+        _, times = stage(checks, "e_append", lambda: append_stage(gen, timer, checks, cfg))
+        print(json.dumps({"append_times": times}), flush=True)
     print(cs.nvidia_smi(), flush=True)
     bad = [c["case"] for c in checks.cases if not c["ok"]]
     if bad:

@@ -477,6 +477,32 @@ def test_paged_append_verify_style_and_small_page_bit_exact():
 
 
 @pytest.mark.parametrize("qdt", ["int8", "fp8_e4m3"])
+def test_paged_append_d64_chunk_crosses_pages_and_the_table_bit_exact(qdt):
+    """d = 64 (a half-warp a row in the CUDA kernel), page 16, 6-token chunks
+    at unaligned positions: row 0 crosses a page boundary inside its two
+    live pages, row 1 crosses from its last live page into the table's trash
+    tail. Bit-exact against the JAX per-token path on every page but the
+    trash page. Then a chunk that runs past the table's last entry: its
+    tokens there are dropped, so the pools equal those of the chunk's
+    in-table head alone."""
+    pools, bt, kn, vn = _append_case(45, qdt=qdt, b=2, sq=6, page=16, d=64, n_pages=4)
+    assert (bt[:, 2:] == 4).all()  # two live pages a row, then the trash page
+    _check_append(pools, bt, kn, vn, np.asarray([12, 28], np.int32), "decode", 4)
+    tp = {n: _t(x) for n, x in pools.items()}
+    sc = dict(k_scales=tp["ks"], v_scales=tp["vs"])
+    want = {n: x.clone() for n, x in tp.items()}
+    pos = torch.tensor([62, 60], dtype=torch.int32)  # tokens 64.. sit past entry 3
+    paged_append.paged_append(tp["k"], tp["v"], _t(kn), _t(vn), _t(bt), pos, layer_idx=1, **sc)
+    head = dict(k_scales=want["ks"], v_scales=want["vs"])
+    for i, n in enumerate((2, 4)):  # each row's tokens below position 64
+        paged_append.paged_append(want["k"], want["v"], _t(kn)[i:i + 1, :n],
+                                  _t(vn)[i:i + 1, :n], _t(bt)[i:i + 1], pos[i:i + 1],
+                                  layer_idx=1, **head)
+    for n in tp:
+        np.testing.assert_array_equal(_bits(tp[n]), _bits(want[n]))
+
+
+@pytest.mark.parametrize("qdt", ["int8", "fp8_e4m3"])
 def test_paged_append_page32_scale_planes_match_jax_k6(qdt, monkeypatch):
     """Quantized prefill into page-32 pools: the JAX package routes it through
     _prefill_append_padded, whose _scale_write_kernel (K6) writes whole

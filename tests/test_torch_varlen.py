@@ -27,8 +27,10 @@ import torch
 
 import xf_flash_attention_cutlass_tpu as jx
 import xf_flash_attention_cutlass_tpu_torch as tx
+from xf_flash_attention_cutlass_tpu.ops import flash_fwd as jflash
 from xf_flash_attention_cutlass_tpu.ops import varlen as jvarlen
 from xf_flash_attention_cutlass_tpu_torch.models.llama import params_from_jax
+from xf_flash_attention_cutlass_tpu_torch.ops import flash_fwd as tflash
 from xf_flash_attention_cutlass_tpu_torch.ops import varlen as tvarlen
 from xf_flash_attention_cutlass_tpu_torch.utils.testing import max_err
 
@@ -166,3 +168,31 @@ def test_paged_s_dmask_matches_jax():
     assert tp.shape == (4, q.shape[0], int(used.sum()))
     assert max_err(tp, _t(jp)) <= 1e-5
     assert max_err(tl, _t(jl)) <= 1e-5
+
+
+def test_probs_sk_odd_gqa_dropout_matches_jax():
+    """K8's plain version (the card's yardstick) against the JAX kernel in
+    interpret mode where the CUDA kernel stores without TMA: sk % 4 != 0
+    (83 keys), GQA 4:2, causal, dropout 0.2, both given the same LSE. The
+    dropout bits differ by design (Philox here, the JAX package's own
+    generator there), so the magnitudes must agree, masked entries be 0 in
+    both (+0 in the port; the JAX kernel negates the dropped ones to -0),
+    and each realize the drop fraction within 0.03."""
+    rng = np.random.default_rng(12)
+    b, h, h_k, sq, sk, d, p = 1, 4, 2, 70, 83, 32, 0.2
+    q = rng.standard_normal((b, h, sq, d)).astype(np.float32)
+    k = rng.standard_normal((b, h_k, sk, d)).astype(np.float32)
+    v = rng.standard_normal((b, h_k, sk, d)).astype(np.float32)
+    kw = dict(causal=True, dropout_p=p, dropout_seed=5)
+    _, lse = tflash.flash_fwd_ref(*map(torch.from_numpy, (q, k, v)), **kw)
+    tp = tflash.attention_probs(torch.from_numpy(q), torch.from_numpy(k), lse, **kw)
+    jp = _t(jflash.attention_probs(jnp.asarray(q), jnp.asarray(k), jnp.asarray(lse.numpy()),
+                                   **kw))
+    assert tp.shape == jp.shape == (b, h, sq, sk)
+    assert max_err(tp.abs(), jp.abs()) <= 1e-5
+    visible = tflash.attention_mask(b, sq, sk, "cpu", causal=True).expand(b, h, sq, sk)
+    assert not torch.signbit(tp[~visible]).any()
+    for plane in (tp, jp):
+        assert (plane[~visible] == 0).all()
+        dropped = float((torch.signbit(plane) & visible).sum()) / float(visible.sum())
+        assert abs(dropped - p) < 0.03, dropped

@@ -52,17 +52,3 @@ __device__ __forceinline__ uint32_t bf16x2_from_bytes02(fp8e4m3_t, uint32_t v) {
   asm("mul.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(b), "r"(0x7B807B80u));
   return d;
 }
-
-// max over the block; every thread gets the result. blockDim.x must be a
-// multiple of 32 and at most 1024.
-__device__ __forceinline__ float block_max(float v, float* scratch) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (lane == 0) scratch[warp] = v;
-  __syncthreads();
-  const int n_warps = blockDim.x >> 5;
-  float r = scratch[0];
-  for (int w = 1; w < n_warps; ++w) r = fmaxf(r, scratch[w]);
-  __syncthreads();  // scratch may be reused right after
-  return r;
-}

@@ -1,29 +1,18 @@
 // Shared pieces of the dense flash-attention kernels (flash_fwd.cu: K7,
-// flash_probs.cu: K8, flash_bwd.cu: K9/K10/K11): the warp-level tensor-core
-// product, fragment loads from shared memory and tile copies (K8), the mask
-// and ALiBi distance of one (query, key) pair, the tile skip for explicit
-// positions and segment ids, the counter-based dropout mask and the
-// elementwise recompute of the backward.
+// flash_probs.cu: K8, flash_bwd.cu: K9/K10/K11): the packing of f32 pairs
+// into 16-bit operand registers, the mask and ALiBi distance of one (query,
+// key) pair, the tile skip for explicit positions and segment ids, the
+// counter-based dropout mask and the elementwise recompute of the backward.
 //
-// K8's products use mma.sync.m16n8k16 (bf16 or fp16 inputs, f32 sums).
-// Fragment layouts (PTX ISA, "Matrix fragments for mma.m16n8k16"), with g =
-// lane / 4 and t = 2 * (lane % 4):
-//   A 16x16, row-major: reg0 (g, t..t+1), reg1 (g+8, t..t+1), reg2 (g, t+8..t+9),
-//     reg3 (g+8, t+8..t+9);
-//   B 16x8 (k x n): reg0 (k = t..t+1, n = g), reg1 (k = t+8..t+9, n = g);
-//   C 16x8 f32: c0, c1 at (g, t), (g, t+1); c2, c3 at (g+8, t), (g+8, t+1).
-// Each register holds two consecutive k elements, the lower k in the low half.
-// The wgmma accumulators of K7 and K9-K11 (hopper.cuh) hold the same C layout
-// in each warp's 16 rows, so a pair of 8-column groups is the A fragment of
-// one 16-deep slice: scores and probabilities feed the next product from
-// registers.
-//
-// K8's shared-memory tiles are stored so that every fragment pair is one
-// aligned 32-bit word: an A operand row-major over its k index, a B operand
-// n-major ("k contiguous"). Row strides carry 8 elements of padding, which
-// spreads the fragment loads of one warp over all 32 banks. K7 and K9-K11
-// take their tiles by TMA and multiply with wgmma (hopper.cuh) and use only
-// the mask, dropout and recompute pieces here.
+// The kernels take their tiles by TMA and multiply with wgmma (hopper.cuh).
+// The wgmma accumulators hold the mma.sync m16n8k16 C layout in each warp's
+// 16 rows (PTX ISA, "Matrix fragments for mma.m16n8k16"), with g = lane / 4
+// and t = 2 * (lane % 4): c0, c1 at (g, t), (g, t + 1), c2, c3 at (g + 8, t),
+// (g + 8, t + 1) of every 8-column group. So a pair of 8-column groups is the
+// A fragment of one 16-deep slice (each register two consecutive k elements,
+// the lower k in the low half): scores and probabilities feed the next
+// product from registers, and the mask, ALiBi and dropout of an entry follow
+// from its row and column.
 #pragma once
 
 #include <math.h>
@@ -33,8 +22,6 @@
 
 namespace flash {
 
-constexpr int kThreads = 128;  // 4 warps
-constexpr int kPad = 8;        // elements of padding per shared-memory row
 // masked scores: finite, so exp(NEG_INF - m) is exactly 0 for any m >= M_FLOOR
 constexpr float kNegInf = -0.7f * 3.4028234663852886e38f;
 constexpr float kMFloor = -1e30f;  // floor of the running max
@@ -44,14 +31,6 @@ struct Mma;
 
 template <>
 struct Mma<__nv_bfloat16> {
-  __device__ __forceinline__ static void run(float c[4], const uint32_t a[4],
-                                             const uint32_t b[2]) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-  }
   __device__ __forceinline__ static uint32_t pack(float lo, float hi) {
     __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
     uint32_t r;
@@ -65,14 +44,6 @@ struct Mma<__nv_bfloat16> {
 
 template <>
 struct Mma<__half> {
-  __device__ __forceinline__ static void run(float c[4], const uint32_t a[4],
-                                             const uint32_t b[2]) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-  }
   __device__ __forceinline__ static uint32_t pack(float lo, float hi) {
     __half2 v = __floats2half2_rn(lo, hi);
     uint32_t r;
@@ -81,50 +52,6 @@ struct Mma<__half> {
   }
   __device__ __forceinline__ static __half from_float(float x) { return __float2half_rn(x); }
 };
-
-__device__ __forceinline__ uint32_t ld32(const void* p) {
-  return *static_cast<const uint32_t*>(p);
-}
-
-// A fragment of the 16x16 tile at p, row-major with row stride ld.
-template <typename T>
-__device__ __forceinline__ void load_a(uint32_t a[4], const T* p, int ld, int lane) {
-  const int g = lane >> 2, t = (lane & 3) * 2;
-  a[0] = ld32(p + g * ld + t);
-  a[1] = ld32(p + (g + 8) * ld + t);
-  a[2] = ld32(p + g * ld + t + 8);
-  a[3] = ld32(p + (g + 8) * ld + t + 8);
-}
-
-// B fragment of the 16x8 (k x n) tile at p, stored n-major: (k, n) at p[n*ld + k].
-template <typename T>
-__device__ __forceinline__ void load_b(uint32_t b[2], const T* p, int ld, int lane) {
-  const int g = lane >> 2, t = (lane & 3) * 2;
-  b[0] = ld32(p + g * ld + t);
-  b[1] = ld32(p + g * ld + t + 8);
-}
-
-// Copy rows [row0, row0 + R) of a (n_rows, D) tensor with contiguous rows
-// into dst (row stride ld), zero-filling rows past n_rows. 16-byte loads,
-// all of a thread's issued before its first store (K8 gained 9.5 % from
-// that on an H100, PERF.md).
-template <typename T, int D, int R>
-__device__ __forceinline__ void copy_rows(T* dst, int ld, const T* src, int row0, int n_rows) {
-  constexpr int kPerRow = D / 8, kStep = kThreads / kPerRow;
-  static_assert(kThreads % kPerRow == 0 && R % kStep == 0, "whole rows per pass");
-  const int r0 = threadIdx.x / kPerRow, c = (threadIdx.x % kPerRow) * 8;
-  const T* s = src + (row0 + r0) * D + c;
-  uint4 val[R / kStep];
-#pragma unroll
-  for (int k = 0; k < R / kStep; ++k) {
-    val[k] = make_uint4(0, 0, 0, 0);
-    if (row0 + r0 + k * kStep < n_rows)
-      val[k] = *reinterpret_cast<const uint4*>(s + k * kStep * D);
-  }
-#pragma unroll
-  for (int k = 0; k < R / kStep; ++k)
-    *reinterpret_cast<uint4*>(dst + (r0 + k * kStep) * ld + c) = val[k];
-}
 
 // Options beyond the masks, shared by K7, K8 and K9-K11 (XfaExtras in
 // ops/flash_fwd.py). Every pointer may be null.
@@ -190,14 +117,6 @@ __device__ __forceinline__ void dropout_keep2(const XfaExtras& ex, int ib, int i
   const bool hi = (col & 2) != 0;
   keep0 = (hi ? w.z : w.x) >= ex.drop_thresh;
   keep1 = (hi ? w.w : w.y) >= ex.drop_thresh;
-}
-
-// The keep bit of the single entry (row, col).
-__device__ __forceinline__ bool dropout_keep(const XfaExtras& ex, int ib, int ih, int row,
-                                             int col) {
-  const uint4 w = dropout_words(ex, ib, ih, row, col);
-  const int c = col & 3;
-  return (c == 0 ? w.x : c == 1 ? w.y : c == 2 ? w.z : w.w) >= ex.drop_thresh;
 }
 
 // Masking geometry of one (batch, head): bottom-right aligned, query row i at

@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: mbarriers,
-// TMA tile loads through host-encoded tensor maps, the wgmma shared-memory
-// descriptor, and the warpgroup products m64nNk16 in bf16 / fp16 with f32
-// sums. Nothing here is specific to one kernel.
+// TMA tile loads and stores through host-encoded tensor maps, the wgmma
+// shared-memory descriptor, and the warpgroup products m64nNk16 in bf16 /
+// fp16 with f32 sums. Nothing here is specific to one kernel.
 //
 // Shared-memory tiles are 128-byte swizzled: a tile of R rows x 64 16-bit
 // elements (one 128-byte row each) is what one TMA box with
@@ -112,6 +112,38 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1)
       : "memory");
+}
+
+// One box of a rank-3 tensor map from shared memory to global memory (a TMA
+// store, coordinates innermost first), added to this thread's open bulk
+// group; elements past the tensor's extent are not written. The threads'
+// writes of the box must be ordered before it: fence_proxy_async in each
+// writer, then a barrier.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_addr(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// Closes this thread's open bulk group of TMA stores.
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's bulk groups still read their
+// shared memory (the buffers of the others may be written again).
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// Waits until at most N of this thread's bulk groups are incomplete.
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Brings a tensor map (a kernel's __grid_constant__ parameter) into the

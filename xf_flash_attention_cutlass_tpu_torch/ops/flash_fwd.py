@@ -26,10 +26,10 @@ csrc/flash_probs.cu (K8) (bf16 or fp16, head_dim 64 or 128); CPU tensors run
 ``flash_fwd_ref`` and ``attention_probs_ref``, the plain versions, with the
 kernels' numerics: the softmax scale folded into q in f32 and rounded to q's
 dtype, f32 scores, the tanh softcap on the scaled scores, P rounded to V's
-dtype for the PV product, f32 sums. K7 applies the scale to q itself and
-reads q, k and v through their strides (TMA tensor maps), so the (b, s, h, d)
-views the model passes are not copied; ``fwd_block_order`` is the order in
-which it runs its blocks.
+dtype for the PV product, f32 sums. K7 and K8 apply the scale to q
+themselves and read q, k (and v) through their strides (TMA tensor maps),
+so the (b, s, h, d) views the model passes are not copied;
+``fwd_block_order`` is the order in which they run their blocks.
 """
 
 from __future__ import annotations
@@ -339,13 +339,10 @@ def _lib(name="flash_fwd"):
         lib = _build.load(name)
         fn = getattr(lib, f"xfa_{name}")
         fn.restype = ctypes.c_int
-        if name == "flash_fwd":  # 8 tensors, 9 ints, softcap, scale, the strides
-            fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
-                           + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
-                              ctypes.POINTER(XfaExtras), ctypes.c_void_p])
-        else:  # 6 tensors, 9 ints, softcap
-            fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
-                           + [ctypes.c_float, ctypes.POINTER(XfaExtras), ctypes.c_void_p])
+        # 8 tensors (K7) or 6 (K8), 9 ints, softcap, scale, the strides
+        fn.argtypes = ([ctypes.c_void_p] * (8 if name == "flash_fwd" else 6)
+                       + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
+                                               ctypes.POINTER(XfaExtras), ctypes.c_void_p])
         _lib_handles[name] = lib
     return _lib_handles[name]
 
@@ -479,19 +476,23 @@ def attention_probs_ref(q, k, lse, *, causal=False, window=(-1, -1), softcap=0.0
 
 
 def _attention_probs_cuda(q, k, lse, scale, causal, window, softcap, q_seg, kv_seg, ex):
+    """K8 on CUDA tensors. q and k are read through their strides where TMA
+    can (tma_strides) and copied otherwise; q is not pre-scaled (the kernel
+    scales it)."""
     check_cuda_dtypes("attention probs (K8)", q, k, k)
     b, h, sq, d = q.shape
     h_k, sk = k.shape[1], k.shape[2]
     wl, wr = resolve_window(causal, window)
-    qs = (q.float() * scale).to(q.dtype).contiguous()
-    k = k.contiguous()
+    (q, k), in_strides = tma_operands(q, k)
+    strides = (ctypes.c_int64 * 6)(*in_strides)
     lse = lse.float().contiguous()
     qseg, kseg = int32_or_none(q_seg), int32_or_none(kv_seg)
     out = torch.empty((b, h, sq, sk), dtype=torch.float32, device=q.device)
     rc = _lib("flash_probs").xfa_flash_probs(
-        qs.data_ptr(), k.data_ptr(), lse.data_ptr(), out.data_ptr(), _build.ptr(qseg),
+        q.data_ptr(), k.data_ptr(), lse.data_ptr(), out.data_ptr(), _build.ptr(qseg),
         _build.ptr(kseg), _build.dtype_code(q.dtype), b, h, h_k, sq, sk, d, wl, wr,
-        float(softcap), ex.ref(), _build.stream_handle(),
+        float(softcap), float(scale), ctypes.cast(strides, ctypes.c_void_p), ex.ref(),
+        _build.stream_handle(),
     )
     _build.check(rc, "flash_probs")
     _build.LAUNCHES["flash_probs"] += 1

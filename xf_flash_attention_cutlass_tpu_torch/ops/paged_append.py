@@ -10,8 +10,9 @@ are immutable. Rows past the block table are not written; inactive batch
 rows point their block tables at a trash page and may race there, as on the
 TPU — nothing ever reads the trash page.
 
-CUDA tensors run csrc/paged_append.cu (one thread block per token row);
-CPU tensors run ``paged_append_ref``, the plain version. Both quantize
+CUDA tensors run csrc/paged_append.cu (a warp, or at head_dim <= 64 a
+half-warp, per (token, kv head, K|V) row); CPU tensors run
+``paged_append_ref``, the plain version. Both quantize
 exactly like quant/kv.py, so the pools they write are bit-identical.
 """
 
