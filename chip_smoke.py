@@ -20,12 +20,13 @@ Phases, each of which raises (exit code != 0) when it fails:
    ptxas line saying wgmma was serialized: it fails unless every K9, K10
    and K11 instantiation holds HGMMA and UTMALDG and no HMMA and the
    option-free ones spill nothing. The same for K1 (`paged_build`): it
-   fails unless the six instantiations of its Hopper chunk kernel hold
-   HGMMA and UTMALDG, no HMMA and no spill, the twelve of its decode kernel
-   HMMA (mma.sync) and UTMALDG and no spill, the two of its combine kernel
-   no spill, and the 24 WMMA ones keep their HMMA; and unless the CUDA
-   occupancy calculator gives every decode instantiation the resident
-   blocks an SM that the decode route's split heuristic counts. The same
+   fails unless the twelve instantiations of its Hopper chunk kernel (six
+   option-free, six with the options) hold HGMMA and UTMALDG, no HMMA and
+   no spill, the 24 of its decode kernel HMMA (mma.sync) and UTMALDG and
+   no spill, the two of its combine kernel no spill, and the 24 WMMA ones
+   keep their HMMA; and unless the CUDA occupancy calculator gives every
+   decode instantiation, with the options or without, the resident blocks
+   an SM that the decode route's split heuristic counts. The same
    for K8 (`flash_probs_build`): it fails unless its eight instantiations
    hold HGMMA and UTMALDG and no HMMA, the four that store by TMA UTMASTG
    (TMA store), and none spills.
@@ -47,10 +48,11 @@ Phases, each of which raises (exit code != 0) when it fails:
    partials; the route cases (PAGED_ROUTE_CASES: pages 12-256, d 64 and
    128, splits, non-causal, a stacked layer, ragged row tiles, decode at
    groups 1-8 and sq 1-4 with kv_len < 64 and more splits than live tiles,
-   an option and an odd page on the WMMA kernel) hold every route to its
-   plain version and the oracle. K3/K4's decode kernel (m <= 16) is checked
-   for bf16 weights without scale, int8 and fp8, stacked and single, at
-   m = 1, 8 and 16 on Llama-8B shapes, two calls bit for bit with its split
+   an option on each Hopper kernel, odd pages with and without an option on
+   the WMMA kernel) hold every route to its plain version and the oracle.
+   K3/K4's decode kernel (m <= 16) is checked for bf16 weights without
+   scale, int8 and fp8, stacked and single, at m = 1, 8 and 16 on Llama-8B
+   shapes, two calls bit for bit with its split
    counters all zero after, and every k-tile a split; one layer's
    projections and the lm_head are timed at m = 1, 8 (and 16) beside the
    WMMA bm16 kernel on the same inputs (`qmm_decode_times`, each shape's
@@ -87,9 +89,13 @@ Phases, each of which raises (exit code != 0) when it fails:
    no ALiBi, non-causal, every tile dead),
    K9/K10/K11 with ALiBi and dropout (3x rule against the oracle's gradients,
    the mask taken from K8's signs) and over the packed prompts, K1 with each
-   of window, softcap, ALiBi and leftpad (the WMMA kernel,
-   `paged_attention.decode.wmma`), and the realized drop fraction within
-   0.01 of p.
+   of window, softcap, ALiBi and leftpad and all four at the api decode
+   shape (the decode kernel's options instantiation,
+   `paged_attention.decode.options`) and at a 256-token chunk over fp8,
+   int8 and bf16 pools, with a non-causal right window too (the chunk
+   kernel's, `paged_attention.prefill.options`), the WMMA kernel's options
+   instantiation forced onto the same inputs and timed beside them, and the
+   realized drop fraction within 0.01 of p.
 3. Train: Llama-8B widths, all 32 layers, bf16, one 1024-token batch from
    the seed, three plain SGD steps through K7 forward and K9/K10 backward
    and one through K11; every loss finite and below the one before.
@@ -111,8 +117,10 @@ Phases, each of which raises (exit code != 0) when it fails:
    attention with ALiBi, dropout and the probability plane, and its
    gradient; packed varlen over the serving prompts with per-sequence ALiBi,
    its gradient and the plane of a subset; paged varlen over a bf16 page-256
-   cache of those prompts; KV-cache decode with a rotary append on that
-   cache, and on a dense cache with softcap, window, ALiBi and leftpad.
+   cache of those prompts, then again with window, softcap and ALiBi;
+   KV-cache decode with a rotary append on that cache, and on a dense cache
+   with softcap, window, ALiBi and leftpad (both options calls on K1's
+   Hopper kernels, never the WMMA one).
    Its K1 outputs are held against K1's plain version and the oracle on the
    same inputs. Then each step is called again, warm: host-clock times over
    five calls, device time from a profiler trace, and the device time of the
@@ -149,6 +157,10 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, H100 SXM
 REPS = 20  # timed launches per measurement (plain versions: PLAIN_REPS)
 PLAIN_REPS = 3
+# calls of each api step under one trace: with two, a trace that lost one
+# call's first kernels (the layout copies) read 0.127 ms for a 0.22 ms
+# step; ten bound such a loss to a tenth
+API_TRACED_CALLS = 10
 L2_FLUSH_BYTES = 128 << 20  # > the 50 MB L2: every timed launch starts cold
 # the card spins this many cycles (about 2.5 ms) before each timed call, so
 # that the host has queued the whole call before it starts: the events then
@@ -330,41 +342,52 @@ def sdpa_over_live_keys(q, kp, vp, ks, vs, bt, lens):
     return t_live, sdpa_over_pages(q, kp, vp, ks, vs, bt, lens, t_live)
 
 
-def k1_bound(q, kp, ks, bt, lens, first_keys=None):
+def k1_bound(q, kp, ks, bt, lens, causal=True, window=(-1, -1), cache_leftpad=None, **_):
     """K1's (bound_ms, bound_by) on these inputs: q, the block tables and the
     K/V rows (and scales) any row sees read once, O (bf16) and LSE written
-    once; 4 * d operations per (query head, visible key). Rows see the keys
-    from first_keys (the window start or leftpad; 0 by default) up to their
-    causal limit."""
+    once; 4 * d operations per (query head, visible key). Row t of an entry
+    sees the keys from its window start and the leftpad (0 without them) to
+    its causal or right limit and kv_len; softcap and ALiBi (the other
+    keywords) add a few operations a score, not counted."""
     b, sq, h, d = q.shape
-    lens_l = [int(x) for x in lens.tolist()]
-    firsts = [0] * b if first_keys is None else [max(0, int(x)) for x in first_keys.tolist()]
-    visible = sum(max(0, min(n, n - sq + t + 1) - f) for n, f in zip(lens_l, firsts)
-                  for t in range(sq))
+    wl, wr = window[0], (0 if causal else window[1])
+    pads = [0] * b if cache_leftpad is None else [max(0, int(x)) for x in cache_leftpad.tolist()]
+    visible = read = 0
+    for n, lp in zip((int(x) for x in lens.tolist()), pads):
+        spans = [(max(lp, qpos - wl) if wl >= 0 else lp,
+                  min(n - 1, qpos + wr) if wr >= 0 else n - 1)
+                 for qpos in range(n - sq, n)]
+        spans = [(lo, hi) for lo, hi in spans if hi >= lo]
+        visible += sum(hi - lo + 1 for lo, hi in spans)
+        if spans:
+            read += max(hi for _, hi in spans) - min(lo for lo, _ in spans) + 1
     kv_row = 2 * d * kp.element_size() + (8 if ks is not None else 0)  # K, V, scales
     out_bytes = q.numel() * 2 + b * h * sq * 4
-    read = sum(max(0, n - f) for n, f in zip(lens_l, firsts))
     by = nbytes(q, bt, lens) + out_bytes + read * kp.shape[-3] * kv_row
     return bound(by, 4 * d * h * visible)
 
 
-def forced_route(route, q, kp, vp, ks, vs, bt, lens):
+def forced_route(route, q, kp, vp, ks, vs, bt, lens, layer_idx=1, **opts):
     """(splits, call) of K1 through the kernel `route` names on inputs of
-    layer 1 (option-free, causal), with the split count paged_plan gives
-    the decode route or, for another route forced onto the same rows, the
-    heuristic over that kernel's row tile."""
+    layer `layer_idx` (None: one layer), causal and option-free unless
+    `opts` (paged_attention's causal, window, softcap, alibi_slopes,
+    cache_leftpad) say otherwise, with the split count paged_plan gives or,
+    for another route forced onto the same rows, the heuristic over that
+    kernel's row tile."""
     from xf_flash_attention_cutlass_tpu_torch.ops import paged
 
     b, sq, h, d = q.shape
     h_k = kp.shape[-3]
-    route_now, splits = paged.paged_plan(q.shape, kp.shape, kp.dtype, bt.shape[1])
+    route_now, splits = paged.paged_plan(q.shape, kp.shape, kp.dtype, bt.shape[1], **opts)
     if route != route_now:
         rows = sq * (h // h_k)
         splits = paged.resolve_num_splits(0, b, h_k, rows, bt.shape[1],
                                           paged.route_row_tile(route, rows))
+    kw = dict(causal=True, window=(-1, -1), softcap=0.0, alibi_slopes=None, cache_leftpad=None)
+    kw.update(opts)
     return splits, lambda: paged._paged_attention_cuda(
-        q, kp, vp, 1, bt, lens, 1.0 / math.sqrt(d), True, (-1, -1), 0.0, None, None, splits,
-        ks, vs, route)
+        q, kp, vp, layer_idx, bt, lens, 1.0 / math.sqrt(d), kw["causal"], kw["window"],
+        kw["softcap"], kw["alibi_slopes"], kw["cache_leftpad"], splits, ks, vs, route)
 
 
 def check_paged_attention(gen, timer, checks, kv_dtype, phase, cfg):
@@ -884,8 +907,9 @@ def check_other_shapes(gen, checks):
 # multiple of 64 and one row tile of 17 rows; the decode kernel at groups 1,
 # 4 and 8, sq 1-4 (4-16 rows), pages 16-256, d 64 and 128, splits 1, 3, the
 # heuristic's and more than the live tiles, a stacked layer, kv_len < 64 and
-# non-causal rows; the WMMA kernel where the route sends it: an option and
-# an odd page, at chunk and at decode sizes.
+# non-causal rows; each Hopper kernel with an option (its options
+# instantiation); the WMMA kernel where the route sends it, odd pages, with
+# and without an option, at chunk and at decode sizes.
 PAGED_ROUTE_CASES = [
     (torch.float8_e4m3fn, 8, 2, 64, 16, 3, 40, True, 2, 1, {}, "wgmma", None),
     (torch.int8, 8, 2, 128, 32, 2, 24, True, 1, 2, {}, "wgmma", None),
@@ -895,7 +919,7 @@ PAGED_ROUTE_CASES = [
     (torch.int8, 8, 2, 128, 24, 2, 30, True, 1, 1, {}, "wgmma", None),
     (torch.bfloat16, 32, 8, 128, 16, 2, 8, True, 4, 1, {}, "wgmma", None),
     (torch.float8_e4m3fn, 8, 2, 128, 64, 2, 100, True, 0, 1, {}, "wgmma", None),
-    (torch.bfloat16, 8, 2, 128, 64, 2, 20, True, 1, 1, dict(softcap=20.0), "wmma", None),
+    (torch.bfloat16, 8, 2, 128, 64, 2, 20, True, 1, 1, dict(softcap=20.0), "wgmma", None),
     (torch.int8, 8, 2, 64, 12, 2, 20, True, 1, 1, {}, "wmma", None),
     (torch.float8_e4m3fn, 32, 8, 128, 32, 3, 1, True, 0, 1, {}, "decode", None),
     (torch.bfloat16, 8, 8, 64, 16, 3, 2, True, 3, 2, {}, "decode", None),
@@ -903,8 +927,10 @@ PAGED_ROUTE_CASES = [
     (torch.float8_e4m3fn, 8, 2, 64, 256, 3, 4, True, 20, 2, {}, "decode", 200),
     (torch.bfloat16, 32, 8, 128, 256, 2, 1, False, 3, 1, {}, "decode", 60),
     (torch.int8, 8, 2, 128, 16, 3, 3, True, 0, 1, {}, "decode", None),
-    (torch.float8_e4m3fn, 32, 8, 128, 32, 3, 1, True, 0, 1, dict(softcap=20.0), "wmma", None),
+    (torch.float8_e4m3fn, 32, 8, 128, 32, 3, 1, True, 0, 1, dict(softcap=20.0), "decode", None),
     (torch.bfloat16, 8, 2, 64, 12, 2, 1, True, 1, 1, {}, "wmma", None),
+    (torch.int8, 8, 2, 128, 12, 2, 20, True, 1, 1, dict(softcap=20.0), "wmma", None),
+    (torch.float8_e4m3fn, 32, 8, 128, 12, 3, 1, True, 0, 1, dict(window=(40, 0)), "wmma", None),
 ]
 
 
@@ -915,6 +941,7 @@ def check_paged_route_shapes(gen, checks):
     0: O = 0, LSE = -inf)."""
     from xf_flash_attention_cutlass_tpu_torch import _build
     from xf_flash_attention_cutlass_tpu_torch.ops.paged import (
+        has_options,
         paged_attention,
         paged_attention_ref,
         paged_plan,
@@ -938,7 +965,9 @@ def check_paged_route_shapes(gen, checks):
         q = torch.randn((b, sq, h, d), generator=gen, device="cuda").bfloat16()
         kw = dict(causal=causal, **opts)
         route, n_splits = paged_plan(q.shape, kp.shape, kv_dtype, max_pages, splits, **kw)
-        label = route_label(route, sq * (h // h_k))
+        full = dict(window=(-1, -1), softcap=0.0, alibi_slopes=None, cache_leftpad=None)
+        full.update(kw)
+        label = route_label(route, sq * (h // h_k), has_options(**full))
         n0 = _build.LAUNCHES[label]
         o, lse = paged_attention(q, kp, vp, bt, lens, num_splits=splits, layer_idx=layer, **kw,
                                  **sc)
@@ -1830,27 +1859,13 @@ def check_api_packed(gen, timer, checks, cfg, lens):
     return out
 
 
-def check_paged_extras(gen, timer, checks, cfg):
-    """K1 at the second kvcache call of the api path (b = 8 decode over a
-    dense (8, 4096, 8, 128) bf16 cache viewed as page-256 pages) with each
-    of window (1024, 0), softcap 30, ALiBi and cache_leftpad, and all four:
-    each call must launch the WMMA kernel (`paged_attention.decode.wmma`,
-    the route of the options) and pass the 2x rule against its plain
-    version and paged_attention_oracle. The all-four case is timed (with
-    its plain version and bound: the row of `paged_attention.decode.wmma`
-    in the kernels line) beside the option-free call, which takes the
-    decode kernel."""
-    from xf_flash_attention_cutlass_tpu_torch import _build
+def options_decode_inputs(gen, cfg):
+    """The second kvcache call of the api path: b = 8 decode over a dense
+    (8, 4096, 8, 128) bf16 cache viewed as page-256 pages, kv_lens from
+    1024-4096, and its options: window (1024, 0), softcap 30, ALiBi and
+    leftpads from 0-299. Returns (q, k_pool, v_pool, bt, lens, options)."""
     from xf_flash_attention_cutlass_tpu_torch.ops.kvcache import dense_cache_as_paged
-    from xf_flash_attention_cutlass_tpu_torch.ops.paged import (
-        paged_attention,
-        paged_attention_ref,
-        paged_plan,
-    )
-    from xf_flash_attention_cutlass_tpu_torch.utils.testing import (
-        alibi_slopes_ref,
-        paged_attention_oracle,
-    )
+    from xf_flash_attention_cutlass_tpu_torch.utils.testing import alibi_slopes_ref
 
     h, h_k, d, b, sk = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 8, 4096
     kd, vd = (torch.randn((b, sk, h_k, d), generator=gen, device="cuda").bfloat16()
@@ -1860,34 +1875,153 @@ def check_paged_extras(gen, timer, checks, cfg):
     del kd, vd
     bt = (torch.arange(b, dtype=torch.int32, device="cuda")[:, None] * pages
           + torch.arange(pages, dtype=torch.int32, device="cuda")[None])
-    lens_t = torch.randint(1024, sk + 1, (b,), generator=gen, device="cuda").int()
+    lens = torch.randint(1024, sk + 1, (b,), generator=gen, device="cuda").int()
     q = torch.randn((b, 1, h, d), generator=gen, device="cuda").bfloat16()
     full = dict(window=(1024, 0), softcap=30.0,
                 alibi_slopes=torch.from_numpy(alibi_slopes_ref(h)).cuda(),
                 cache_leftpad=torch.randint(0, 300, (b,), generator=gen, device="cuda").int())
+    return q, kp, vp, bt, lens, full
+
+
+def options_chunk_inputs(gen, kv_dtype, cfg):
+    """A 256-token chunk at b = 2 over page-256 pools (two layers of 64
+    pages, 16-page tables; layer 1 read) at kv_len 1024 and 700, and the
+    options: window (300, 0), softcap 30, (b, h) ALiBi slopes and leftpads
+    100 and 530 (the second entry's first 86 rows see no key). Returns
+    (q, k_pool, v_pool, k_scales, v_scales, bt, lens, options)."""
+    from xf_flash_attention_cutlass_tpu_torch.utils.testing import alibi_slopes_ref
+
+    h, h_k, d, b, n_pages = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 2, 64
+    kp, vp, ks, vs = kv_pools(gen, kv_dtype, 2, n_pages, h_k, 256, d)
+    bt = torch.stack([torch.randperm(n_pages, generator=gen, device="cuda")[:16]
+                      for _ in range(b)]).int()
+    lens = torch.tensor([1024, 700], dtype=torch.int32, device="cuda")
+    q = torch.randn((b, 256, h, d), generator=gen, device="cuda").bfloat16()
+    slopes = torch.from_numpy(alibi_slopes_ref(h)).cuda()
+    full = dict(window=(300, 0), softcap=30.0,
+                alibi_slopes=torch.stack([slopes, 0.5 * slopes]),
+                cache_leftpad=torch.tensor([100, 530], dtype=torch.int32, device="cuda"))
+    return q, kp, vp, ks, vs, bt, lens, full
+
+
+def check_paged_options(checks, name, want, q, kp, vp, ks, vs, bt, lens, layer_idx=None,
+                        **opts):
+    """One K1 call with options under the 2x rule against its plain version
+    and paged_attention_oracle: it must take route `want` and launch that
+    route's options instantiation once; rows that see no key give O = 0
+    and LSE = -inf where the oracle's LSE is -inf. Returns (plain_err, tol,
+    splits)."""
+    from xf_flash_attention_cutlass_tpu_torch import _build
+    from xf_flash_attention_cutlass_tpu_torch.ops.paged import (
+        paged_attention,
+        paged_attention_ref,
+        paged_plan,
+        route_label,
+    )
+    from xf_flash_attention_cutlass_tpu_torch.utils.testing import paged_attention_oracle
+
+    sq, h = q.shape[1], q.shape[2]
+    route, splits = paged_plan(q.shape, kp.shape, kp.dtype, bt.shape[1], **opts)
+    label = route_label(route, sq * (h // kp.shape[-3]), True)
+    sc = {} if ks is None else dict(k_scales=ks, v_scales=vs)
+    pick = (lambda x: x) if layer_idx is None else (lambda x: None if x is None else x[layer_idx])
+    sc1 = {} if ks is None else dict(k_scales=pick(ks), v_scales=pick(vs))
+    n0 = _build.LAUNCHES[label]
+    o, lse = paged_attention(q, kp, vp, bt, lens, layer_idx=layer_idx, **sc, **opts)
+    launched = _build.LAUNCHES[label] - n0 == 1
+    o_plain, _ = paged_attention_ref(q, pick(kp), pick(vp), bt, lens, num_splits=splits, **sc1,
+                                     **opts)
+    o32, l32 = paged_attention_oracle(q, pick(kp), pick(vp), bt, lens, **sc1, **opts)
+    olp, _ = paged_attention_oracle(q, pick(kp), pick(vp), bt, lens, upcast=False, **sc1, **opts)
+    torch.cuda.synchronize()
+    tol = 2 * max_err(olp, o32) + 1e-5
+    err, plain_err = max_err(o, o32), max_err(o, o_plain)
+    dead = torch.isneginf(l32)
+    dead_ok = torch.equal(torch.isneginf(lse), dead) and bool(
+        (o.transpose(1, 2)[dead] == 0).all())
+    checks.add(name, bool(torch.isfinite(o).all()) and err <= tol and plain_err <= tol
+               and dead_ok and launched and route == want,
+               max_abs_err=plain_err, tolerance=tol, err_vs_f32_oracle=err, num_splits=splits,
+               route=route, expected_route=want, launched=launched, dead_rows=int(dead.sum()),
+               dead_rows_ok=dead_ok)
+    return plain_err, tol, splits
+
+
+def check_paged_extras(gen, timer, checks, cfg):
+    """K1's options instantiations. Decode (options_decode_inputs: the api
+    path's second kvcache call) with each of window, softcap, ALiBi and
+    leftpad, and all four: each call must take, and launch, the decode
+    route's options instantiation (`paged_attention.decode.options`).
+    Chunk (options_chunk_inputs) at fp8, int8 and bf16 with each option, all
+    four, and a non-causal right window of 37 keys: each must launch the
+    chunk route's (`paged_attention.prefill.options`). Each under the 2x
+    rule (check_paged_options). Timed: the all-four decode call (its plain
+    version, bound, the option-free call on the same cache, `ms_no_options`)
+    and the all-four fp8 chunk call (the option-free and the ALiBi-of-slope-0
+    calls on the same inputs beside it); and the WMMA kernel's options
+    instantiation forced onto both, held to the same rule against the plain
+    version and timed. Returns the rows of `paged_attention.decode.options`,
+    `paged_attention.prefill.options` and `paged_attention.decode.wmma`."""
+    from xf_flash_attention_cutlass_tpu_torch.ops.paged import paged_attention, paged_attention_ref
+
+    q, kp, vp, bt, lens, full = options_decode_inputs(gen, cfg)
     for name, opts in [(n, {n: x}) for n, x in full.items()] + [("all", full)]:
-        route, splits = paged_plan(q.shape, kp.shape, kp.dtype, pages, **opts)
-        n0 = _build.LAUNCHES["paged_attention.decode.wmma"]
-        o, _ = paged_attention(q, kp, vp, bt, lens_t, **opts)
-        launched = _build.LAUNCHES["paged_attention.decode.wmma"] - n0 == 1
-        o_plain, _ = paged_attention_ref(q, kp, vp, bt, lens_t, num_splits=splits, **opts)
-        o32, _ = paged_attention_oracle(q, kp, vp, bt, lens_t, **opts)
-        olp, _ = paged_attention_oracle(q, kp, vp, bt, lens_t, upcast=False, **opts)
-        torch.cuda.synchronize()
-        tol = 2 * max_err(olp, o32) + 1e-5
-        err, plain_err = max_err(o, o32), max_err(o, o_plain)
-        checks.add(f"paged_attention.decode.options[{name}]",
-                   bool(torch.isfinite(o).all()) and err <= tol and plain_err <= tol
-                   and launched and route == "wmma",
-                   max_abs_err=plain_err, tolerance=tol, err_vs_f32_oracle=err,
-                   num_splits=splits, route=route, launched=launched)
-    ms = timer.ms(lambda: paged_attention(q, kp, vp, bt, lens_t, **full))
-    first = torch.maximum(full["cache_leftpad"], lens_t - 1 - full["window"][0])
-    return dict(ms=ms, ms_all_options=ms, err=plain_err, tol=tol,
-                plain_ms=timer.ms(lambda: paged_attention_ref(
-                    q, kp, vp, bt, lens_t, num_splits=splits, **full), PLAIN_REPS),
-                bound=k1_bound(q, kp, None, bt, lens_t, first), library_ms=None,
-                ms_no_options=timer.ms(lambda: paged_attention(q, kp, vp, bt, lens_t)))
+        err, tol, splits = check_paged_options(checks, f"paged_attention.decode.options[{name}]",
+                                               "decode", q, kp, vp, None, None, bt, lens, **opts)
+    out = {}
+    plain_ms = timer.ms(lambda: paged_attention_ref(q, kp, vp, bt, lens, num_splits=splits,
+                                                    **full), PLAIN_REPS)
+    dec_bound = k1_bound(q, kp, None, bt, lens, **full)
+    out["paged_attention.decode.options"] = dict(
+        ms=timer.ms(lambda: paged_attention(q, kp, vp, bt, lens, **full)), err=err, tol=tol,
+        plain_ms=plain_ms, bound=dec_bound, library_ms=None, splits=splits,
+        ms_no_options=timer.ms(lambda: paged_attention(q, kp, vp, bt, lens)))
+    wmma_splits, wmma = forced_route("wmma", q, kp, vp, None, None, bt, lens, None, **full)
+    o_plain, _ = paged_attention_ref(q, kp, vp, bt, lens, num_splits=wmma_splits, **full)
+    o, _ = wmma()
+    werr = max_err(o, o_plain)
+    checks.add("paged_attention.decode.wmma[options,forced]", werr <= tol, max_abs_err=werr,
+               tolerance=tol, num_splits=wmma_splits)
+    out["paged_attention.decode.wmma"] = dict(
+        ms=timer.ms(wmma), err=werr, tol=tol, plain_ms=plain_ms, bound=dec_bound, library_ms=None,
+        splits=wmma_splits)
+    del kp, vp
+
+    for kv_dtype in (torch.float8_e4m3fn, torch.int8, torch.bfloat16):
+        q, kp, vp, ks, vs, bt, lens, full = options_chunk_inputs(gen, kv_dtype, cfg)
+        cases = [(n, {n: x}) for n, x in full.items()] + [
+            ("all", full), ("right_window", dict(causal=False, window=(-1, 37)))]
+        for name, opts in cases:
+            err, tol, splits = check_paged_options(
+                checks, f"paged_attention.prefill.options[{str(kv_dtype).split('.')[-1]},{name}]",
+                "wgmma", q, kp, vp, ks, vs, bt, lens, 1, **opts)
+            if kv_dtype == torch.float8_e4m3fn and name == "all":
+                r = dict(err=err, tol=tol, splits=splits)
+        if kv_dtype != torch.float8_e4m3fn:
+            continue
+        sc = dict(k_scales=ks, v_scales=vs)
+        sc1 = dict(k_scales=ks[1], v_scales=vs[1])
+        zero = torch.zeros(cfg.n_heads, device="cuda")
+        wmma_splits, wmma = forced_route("wmma", q, kp, vp, ks, vs, bt, lens, **full)
+        r.update(
+            ms=timer.ms(lambda: paged_attention(q, kp, vp, bt, lens, layer_idx=1, **sc, **full)),
+            plain_ms=timer.ms(lambda: paged_attention_ref(
+                q, kp[1], vp[1], bt, lens, num_splits=r["splits"], **sc1, **full), PLAIN_REPS),
+            bound=k1_bound(q, kp, ks, bt, lens, **full), library_ms=None,
+            ms_no_options=timer.ms(lambda: paged_attention(q, kp, vp, bt, lens, layer_idx=1,
+                                                           **sc)),
+            ms_alibi0=timer.ms(lambda: paged_attention(q, kp, vp, bt, lens, layer_idx=1,
+                                                       alibi_slopes=zero, **sc)),
+            wmma_ms=timer.ms(wmma), wmma_splits=wmma_splits)
+        o_plain, _ = paged_attention_ref(q, kp[1], vp[1], bt, lens, num_splits=wmma_splits,
+                                         **sc1, **full)
+        o, _ = wmma()
+        werr = max_err(o, o_plain)
+        checks.add("paged_attention.prefill.wmma[options,forced]", werr <= r["tol"],
+                   max_abs_err=werr, tolerance=r["tol"], num_splits=wmma_splits)
+        out["paged_attention.prefill.options"] = r
+        del kp, vp, ks, vs
+    return out
 
 
 def api_path(gen, cfg, seed):
@@ -1901,7 +2035,8 @@ def api_path(gen, cfg, seed):
         prompts at the end of the list that fit in 2048 tokens;
     (c) paged flash_attn_varlen_func over a bf16 page-256 cache holding the
         8 prompts' keys, for the last 256 tokens of each (all of a shorter
-        one), causal;
+        one), causal; then again with window (512, 0), softcap 30 and (b)'s
+        (8, 32) ALiBi slopes;
     (d) flash_attn_with_kvcache: one decode token per prompt with a NeoX
         rotary append (dim 128, base 500000) on that cache; then a decode on
         a dense (8, 4096, 8, 128) cache with softcap 30, window (1024, 0),
@@ -1995,6 +2130,15 @@ def api_path(gen, cfg, seed):
 
     res["paged"] = dict(out=first_call("paged_varlen", paged_varlen), q=q_c, q_lens=q_lens,
                         bt=bt)
+    okw = dict(window_size=(512, 0), softcap=30.0, alibi_slopes=slopes_b)
+
+    def paged_varlen_options():
+        return xfa.flash_attn_varlen_func(q_c, k_cache, v_cache, cu_q, cu, max_seqlen_q=q_len,
+                                          max_seqlen_k=max(lens), causal=True, block_table=bt,
+                                          **okw)
+
+    res["paged_options"] = dict(out=first_call("paged_varlen_options", paged_varlen_options),
+                                kw=okw)
 
     lens_t = torch.tensor(lens, dtype=torch.int32, device="cuda")
     cos, sin = rotary_frequencies(d, 4096, base=500000.0, device="cuda")
@@ -2025,6 +2169,8 @@ def api_path(gen, cfg, seed):
     copies = {  # what (c) and (d) copy on every call before K1 reads the keys
         "paged_varlen": lambda: (k_cache.transpose(1, 2).contiguous(),
                                  v_cache.transpose(1, 2).contiguous()),
+        "paged_varlen_options": lambda: (k_cache.transpose(1, 2).contiguous(),
+                                         v_cache.transpose(1, 2).contiguous()),
         "kvcache_paged_append": lambda: (k_cache.transpose(1, 2).contiguous(),
                                          v_cache.transpose(1, 2).contiguous()),
         "kvcache_dense_options": lambda: (dense_cache_as_paged(kd, DEFAULT_PAGE),
@@ -2036,10 +2182,11 @@ def api_path(gen, cfg, seed):
 def time_api_steps(calls, copies, reps=5):
     """Each api step called again, warm: its host-clock ms over `reps`
     synchronized calls (least, median, largest) and its device ms per call
-    from a profiler trace (`profiled`, two calls), with the device's busy
-    share of the median call and K8's device ms per call; for the K1 steps,
-    the device ms of the copy of the caller's caches into K1's page layout
-    that the step makes, and its share of the step's device time."""
+    from a profiler trace (`profiled`, API_TRACED_CALLS calls), with the device's
+    busy share of the median call and K8's and K1's device ms per call; for
+    the K1 steps, the device ms of the copy of the caller's caches into K1's
+    page layout that the step makes, and its share of the step's device
+    time."""
     out = {}
     for name, fn in calls.items():
         ms = []
@@ -2049,15 +2196,16 @@ def time_api_steps(calls, copies, reps=5):
             fn()
             torch.cuda.synchronize()
             ms.append(1e3 * (time.perf_counter() - t0))
-        prof = profiled(fn, 2, groups=dict(k8="flash_probs_kernel"))
+        prof = profiled(fn, API_TRACED_CALLS, groups=dict(k8="flash_probs_kernel", k1="paged_"))
         dev = prof["device_ms_per_step"] if prof else None
         p50 = percentile(ms, 50)
         out[name] = dict(host_ms=dict(min=min(ms), p50=p50, max=max(ms)), device_ms=dev,
                          busy_share=dev / p50 if dev else None,
                          k8_device_ms=prof["groups_ms_per_step"]["k8"] if prof else None,
+                         k1_device_ms=prof["groups_ms_per_step"]["k1"] if prof else None,
                          top=prof["top"][:4] if prof else None)
         if name in copies:
-            cprof = profiled(copies[name], 2)
+            cprof = profiled(copies[name], API_TRACED_CALLS)
             copy_ms = cprof["device_ms_per_step"] if cprof else None
             out[name].update(layout_copy_device_ms=copy_ms,
                              layout_copy_share=copy_ms / dev if copy_ms and dev else None)
@@ -2130,6 +2278,10 @@ def check_api_outputs(checks, res, cfg):
     # (c) ran before (d)'s append, which no key of (c)'s queries sees
     oracle_check("api.flash_attn_varlen_func.paged", c["out"], qr, k_pool, v_pool, c["bt"],
                  lens, pick=packed_rows)
+    okw = res["paged_options"]["kw"]
+    oracle_check("api.flash_attn_varlen_func.paged_options", res["paged_options"]["out"], qr,
+                 k_pool, v_pool, c["bt"], lens, pick=packed_rows, window=okw["window_size"],
+                 softcap=okw["softcap"], alibi_slopes=okw["alibi_slopes"])
     pos = dd["lens"].long()
     k_rot = apply_rotary(dd["k_new"], dd["cos"], dd["sin"], pos[:, None], False)
     pe = dd["bt"].long().gather(1, (pos // 256)[:, None])[:, 0]
@@ -2680,15 +2832,16 @@ def flash_bwd_build_report(checks, lib_path):
 
 _K1_TYPES = {"a": "int8", "9fp8e4m3_t": "fp8", "13__nv_bfloat16": "bf16"}
 _K1_NAME = re.compile(r"paged_(wgmma|attention|decode)_kernelI(a|9fp8e4m3_t|13__nv_bfloat16)"
-                      r"Li(\d+)E(?:Li(\d+)E(?:Lb([01])E)?)?")
+                      r"Li(\d+)E(?:Li(\d+)E)?(?:Lb([01])E)?")
 _K1_COMBINE = re.compile(r"paged_combine_kernelILi(\d+)E")
 
 
 def k1_instantiation(mangled):
     """'wgmma_fp8_d128' for a mangled Hopper K1 chunk kernel name,
-    'decode_int8_d64_n8' for a decode one (n: its 8 or 16 query rows),
-    'wmma_int8_d64_rt32_options' for a WMMA one, 'combine_d128' for the
-    combine kernel, else None."""
+    'decode_int8_d64_n8' for a decode one (n: its 8 or 16 query rows), each
+    with '_options' for its options instantiation; 'wmma_int8_d64_rt32_options'
+    or '..._plain' for a WMMA one, 'combine_d128' for the combine kernel,
+    else None."""
     m = _K1_COMBINE.search(mangled)
     if m is not None:
         return f"combine_d{m.group(1)}"
@@ -2699,18 +2852,21 @@ def k1_instantiation(mangled):
            f"_d{m.group(3)}"
     if m.group(1) == "decode":
         name += f"_n{8 * int(m.group(4))}"
-    elif m.group(5) is not None:
-        name += f"_rt{m.group(4)}_{'options' if m.group(5) == '1' else 'plain'}"
-    return name
+    elif m.group(1) == "attention":
+        return name + f"_rt{m.group(4)}_{'options' if m.group(5) == '1' else 'plain'}"
+    return name + ("_options" if m.group(5) == "1" else "")
 
 
 def paged_build_report(checks, lib_path):
     """Registers and spill bytes of every K1 instantiation
     (build/paged_attention.log) and the SASS counts of each. Checks that the
-    six Hopper chunk instantiations hold HGMMA and UTMALDG, no HMMA and no
-    spill, that the twelve decode ones hold HMMA (mma.sync) and UTMALDG and
-    spill nothing, that the two combine ones spill nothing, and that the 24
-    WMMA ones keep their HMMA."""
+    twelve Hopper chunk instantiations (six option-free, six with the
+    options) hold HGMMA and UTMALDG, no HMMA and no spill, that the 24
+    decode ones (twelve of each) hold HMMA (mma.sync) and UTMALDG and spill
+    nothing, that the two combine ones spill nothing, that the 24 WMMA ones
+    (every one still reached: pages of no whole TMA box, with and without
+    the options) keep their HMMA, and that every decode instantiation keeps
+    the two resident blocks an SM its split plan counts."""
     inst = ptxas_usage("paged_attention", k1_instantiation)
     for name, counts in sass_by_function(lib_path).items():
         label = k1_instantiation(name)
@@ -2721,19 +2877,19 @@ def paged_build_report(checks, lib_path):
              for k in ("wgmma", "wmma", "decode", "combine")}
     wgmma, decode = kinds["wgmma"], kinds["decode"]
     checks.add("paged_attention.wgmma_sass_wgmma_tma_no_mma_sync",
-               len(wgmma) == 6 and all(r.get("HGMMA", 0) > 0 and r.get("UTMALDG", 0) > 0
+               len(wgmma) == 12 and all(r.get("HGMMA", 0) > 0 and r.get("UTMALDG", 0) > 0
                                        and r.get("HMMA", 1) == 0 for r in wgmma.values()),
                sass={n: {op: r.get(op) for op in SASS_OPS} for n, r in wgmma.items()})
     checks.add("paged_attention.wgmma_no_spills",
-               len(wgmma) == 6 and all(r.get("spill_bytes") == 0 for r in wgmma.values()),
+               len(wgmma) == 12 and all(r.get("spill_bytes") == 0 for r in wgmma.values()),
                spill_bytes={n: r.get("spill_bytes") for n, r in wgmma.items()})
     checks.add("paged_attention.decode_sass_mma_sync_tma",
-               len(decode) == 12 and all(r.get("HMMA", 0) > 0 and r.get("UTMALDG", 0) > 0
+               len(decode) == 24 and all(r.get("HMMA", 0) > 0 and r.get("UTMALDG", 0) > 0
                                          for r in decode.values()),
                sass={n: {op: r.get(op) for op in SASS_OPS} for n, r in decode.items()})
     spills = {n: r.get("spill_bytes") for k in ("decode", "combine") for n, r in kinds[k].items()}
     checks.add("paged_attention.decode_and_combine_no_spills",
-               len(spills) == 14 and all(b == 0 for b in spills.values()), spill_bytes=spills)
+               len(spills) == 26 and all(b == 0 for b in spills.values()), spill_bytes=spills)
     checks.add("paged_attention.wmma_sass_keeps_mma_sync",
                len(kinds["wmma"]) == 24 and all(r.get("HMMA", 0) > 0
                                                 for r in kinds["wmma"].values()),
@@ -2742,9 +2898,10 @@ def paged_build_report(checks, lib_path):
     # SM: the occupancy calculator must agree for every instantiation
     from xf_flash_attention_cutlass_tpu_torch.ops import paged
 
-    occ = {f"{str(dt).split('.')[-1]}_d{d}_n{n}": paged.decode_blocks_per_sm(dt, d, n)
+    occ = {f"{str(dt).split('.')[-1]}_d{d}_n{n}{'_options' if o else ''}":
+           paged.decode_blocks_per_sm(dt, d, n, o)
            for dt in (torch.float8_e4m3fn, torch.int8, torch.bfloat16) for d in (64, 128)
-           for n in (8, 16)}
+           for n in (8, 16) for o in (False, True)}
     checks.add("paged_attention.decode_resident_blocks",
                all(v == paged.DECODE_BLOCKS_PER_SM for v in occ.values()),
                blocks_per_sm=occ, expected=paged.DECODE_BLOCKS_PER_SM)
@@ -2758,8 +2915,10 @@ _TPU = "xf_flash_attention_cutlass_tpu/"
 KERNELS = {  # launch-counter name: (source, TPU kernel it replaces)
     "paged_attention.decode": (_PKG + "paged_attention.cu", _TPU + "ops/paged.py:97"),
     "paged_attention.combine": (_PKG + "paged_attention.cu", _TPU + "ops/paged.py:97"),
+    "paged_attention.decode.options": (_PKG + "paged_attention.cu", _TPU + "ops/paged.py:97"),
     "paged_attention.decode.wmma": (_PKG + "paged_attention.cu", _TPU + "ops/paged.py:97"),
     "paged_attention.prefill.wgmma": (_PKG + "paged_attention.cu", _TPU + "ops/paged.py:97"),
+    "paged_attention.prefill.options": (_PKG + "paged_attention.cu", _TPU + "ops/paged.py:97"),
     "paged_append.decode": (_PKG + "paged_append.cu", _TPU + "ops/paged_append.py:68"),
     "paged_append.prefill": (_PKG + "paged_append.cu", _TPU + "ops/paged_append.py:166"),
     "qmm.stacked.decode": (_PKG + "qmm.cu", _TPU + "quant/linear.py:70"),
@@ -2787,15 +2946,16 @@ PATHS = {
                        "qmm.stacked.wgmma", "qmm.single.decode"],
     "train": ["flash_fwd", "flash_bwd.dq", "flash_bwd.dkv", "flash_bwd.fused"],
     "api": ["flash_fwd", "flash_probs", "flash_bwd.dq", "flash_bwd.dkv",
-            "paged_attention.decode", "paged_attention.decode.wmma",
-            "paged_attention.prefill.wgmma"],
+            "paged_attention.decode", "paged_attention.decode.options",
+            "paged_attention.prefill.wgmma", "paged_attention.prefill.options"],
 }
 # kernels a main path must not launch: serving decodes on K1's and K3/K4's
-# decode kernels
+# decode kernels, and the api path's options take K1's Hopper kernels
 NOT_ON_PATH = {"serve_chunked": ["paged_attention.decode.wmma", "qmm.stacked.bm16",
                                  "qmm.single.bm16"],
                "serve_bucketed": ["paged_attention.decode.wmma", "qmm.stacked.bm16",
-                                  "qmm.single.bm16"]}
+                                  "qmm.single.bm16"],
+               "api": ["paged_attention.decode.wmma", "paged_attention.prefill.wmma"]}
 
 
 def nvidia_smi() -> str:
@@ -2956,12 +3116,13 @@ def main():
     report["probs_shares"] = probs_shares(gen, timer, cfg, serving_prompt_lens(args.seed))
     print(json.dumps({"probs_shares": report["probs_shares"]}), flush=True)
     measured["flash_probs"]["device_ms"] = report["probs_shares"]["api"]["device_ms"]
-    measured["paged_attention.decode.wmma"] = check_paged_extras(gen, timer, checks, cfg)
+    options = check_paged_extras(gen, timer, checks, cfg)
+    measured.update(options)
     report["api_kernels"] = dict(
         flash_probs=measured["flash_probs"],
         flash_fwd_packed=check_api_packed(gen, timer, checks, cfg,
                                           serving_prompt_lens(args.seed)),
-        paged_attention_options=measured["paged_attention.decode.wmma"])
+        paged_attention_options=options)
     print(json.dumps({"api_kernels": report["api_kernels"]}), flush=True)
     checks.raise_on_failure("kernel comparison")
     del timer
@@ -3058,9 +3219,11 @@ def main():
             bound_by=r["bound"][1], library_ms=r["library_ms"],
         ))
         # K1: the WMMA kernel and the Hopper chunk kernel on the same inputs, SDPA
-        # over every page of the table, the split count; the append kernel and
-        # K8 on device (a profiler trace)
-        for extra in ("wmma_ms", "wgmma_ms", "library_ms_all_pages", "splits", "device_ms"):
+        # over every page of the table, the split count, the options' calls
+        # beside the option-free one (and ALiBi of slope 0) on the same inputs;
+        # the append kernel and K8 on device (a profiler trace)
+        for extra in ("wmma_ms", "wgmma_ms", "library_ms_all_pages", "splits", "device_ms",
+                      "ms_no_options", "ms_alibi0", "wmma_splits"):
             if extra in r:
                 kernels[-1][extra] = r[extra]
         if "other_shapes" in r:  # K7 at the training shape and at s = 2048

@@ -24,6 +24,23 @@ csrc/paged_append.cu alone instead):
           the bound (`k1_decode_times`; --decode-routes names the routes);
   sweep   the decode kernel's time at explicit split counts on both
           kv_len ranges at fp8 (`k1_decode_sweep`);
+  options the options (window, softcap, ALiBi, leftpad) on both Hopper
+          routes: where the tree's route sends them there, the checks in
+          order (window, softcap, ALiBi, leftpad, all four; the chunk's also
+          a non-causal right window) at the api decode shape
+          (options_decode_inputs) and the chunk shape (options_chunk_inputs,
+          fp8, int8, bf16); then `k1_options_times`: at the api decode shape
+          with all four options and at the chunk shape (one 256-token chunk
+          over 1024 fp8 keys) with all four and with ALiBi of slope 0, each
+          route forced onto the same inputs (the decode kernel at the decode
+          shape only), on the Timer and on device (every K1 kernel of the
+          call, `paged_`), beside the option-free call, the bound and the
+          library yardstick: flex_attention under torch.compile (softcap
+          then ALiBi as its score_mod, the window, leftpad and kv_len as its
+          block mask, GQA) over the live keys gathered as SDPA's are, or its
+          error text where it does not compile. On a tree whose options
+          still take the WMMA kernel (stage 0 on a parent), only its route
+          and the option-free calls are timed;
   append  the append kernel (K2/K5/K6) bit for bit against its plain
           version at chip_smoke.py's shapes (decode b = 8, a 256-token
           chunk, the buckets, page 32, the 2048-row bucket and the other
@@ -42,6 +59,7 @@ from __future__ import annotations
 
 import argparse
 import importlib.util
+import inspect
 import json
 import os
 import sys
@@ -54,7 +72,7 @@ spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(HERE, "
 cs = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(cs)
 
-STAGES = ("routes", "engine", "decode", "sweep", "append")
+STAGES = ("routes", "engine", "decode", "sweep", "options", "append")
 DECODE_RANGES = {"check": (200, 1533), "profile": (256, 264)}  # kv_lens drawn from [lo, hi)
 SWEEP_SPLITS = (1, 2, 3, 4, 6, 8, 12, 16)
 
@@ -101,6 +119,126 @@ def k1_decode_sweep(gen, timer, cfg):
     return out
 
 
+def flex_yardstick(q, kp, vp, ks, vs, bt, lens, causal=True, window=(-1, -1), softcap=0.0,
+                   alibi_slopes=None, cache_leftpad=None):
+    """(T, call) of the options' library yardstick: flex_attention under
+    torch.compile over the first T keys of each block-table row (T the
+    largest kv_len rounded up to a page), gathered and dequantized to bf16
+    as sdpa_over_pages does but not repeated over the GQA group
+    (enable_gqa), with softcap then ALiBi as the score_mod and kv_len, the
+    leftpad and the window as the block mask. Compiled here, by a first
+    call; the caller times the call. Pools and scales of one layer."""
+    from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+
+    b, sq, h, d = q.shape
+    h_k, page = kp.shape[-3], kp.shape[-2]
+    t_live = (int(lens.max()) + page - 1) // page * page
+    idx = bt[:, :t_live // page].long()
+
+    def dense(pool, scales):
+        x = pool[idx].transpose(1, 2).reshape(b, h_k, t_live, d).float()
+        if scales is not None:
+            x = x * scales[idx].transpose(1, 2).reshape(b, h_k, t_live, 1)
+        return x.bfloat16()
+
+    kg, vg = dense(kp, ks), dense(vp, vs)
+    qt = q.transpose(1, 2)
+    n = lens.long()
+    lp = torch.zeros_like(n) if cache_leftpad is None else cache_leftpad.long()
+    slopes = None if alibi_slopes is None else alibi_slopes.float().expand(b, h).contiguous()
+    wl, wr = window[0], (0 if causal else window[1])
+
+    def mask_mod(bi, hi, qi, ki):
+        qpos = n[bi] - sq + qi
+        keep = (ki < n[bi]) & (ki >= lp[bi])
+        if wr >= 0:
+            keep = keep & (ki <= qpos + wr)
+        if wl >= 0:
+            keep = keep & (ki >= qpos - wl)
+        return keep
+
+    def score_mod(score, bi, hi, qi, ki):
+        if softcap > 0.0:
+            score = torch.tanh(score / softcap) * softcap
+        if slopes is not None:
+            score = score - slopes[bi, hi] * (n[bi] - sq + qi - ki).abs()
+        return score
+
+    block_mask = create_block_mask(mask_mod, b, None, sq, t_live, device="cuda")
+    fn = torch.compile(flex_attention, dynamic=False)  # each shape compiled as it is
+
+    def call():
+        return fn(qt, kg, vg, score_mod=score_mod, block_mask=block_mask, enable_gqa=True)
+
+    call()
+    return t_live, call
+
+
+def hopper_options():
+    """Whether the measured tree's Hopper K1 kernels take the options (its
+    decode kernel has an options instantiation); stage 0 on a parent tree
+    says no."""
+    from xf_flash_attention_cutlass_tpu_torch.ops import paged
+
+    return "options" in inspect.signature(paged.decode_blocks_per_sm).parameters
+
+
+def options_stage(gen, timer, checks, cfg):
+    """The options stage (module docstring): its checks where the tree's
+    route sends the options to the Hopper kernels, then `k1_options_times`."""
+    from xf_flash_attention_cutlass_tpu_torch.ops import paged
+    from xf_flash_attention_cutlass_tpu_torch.utils.testing import alibi_slopes_ref
+
+    hopper = hopper_options()
+    if hopper:
+        q, kp, vp, bt, lens, full = cs.options_decode_inputs(gen, cfg)
+        for name, opts in [(n, {n: x}) for n, x in full.items()] + [("all", full)]:
+            cs.check_paged_options(checks, f"paged_attention.decode.options[{name}]", "decode",
+                                   q, kp, vp, None, None, bt, lens, **opts)
+        del kp, vp
+        for dt in (torch.float8_e4m3fn, torch.int8, torch.bfloat16):
+            q, kp, vp, ks, vs, bt, lens, full = cs.options_chunk_inputs(gen, dt, cfg)
+            for name, opts in [(n, {n: x}) for n, x in full.items()] + [
+                    ("all", full), ("right_window", dict(causal=False, window=(-1, 37)))]:
+                cs.check_paged_options(
+                    checks, f"paged_attention.prefill.options[{str(dt).split('.')[-1]},{name}]",
+                    "wgmma", q, kp, vp, ks, vs, bt, lens, 1, **opts)
+            del kp, vp, ks, vs
+
+    def timed(q, kp, vp, ks, vs, bt, lens, layer, routes, opts):
+        pick = (lambda x: x) if layer is None else (lambda x: None if x is None else x[layer])
+        r = dict(bound=cs.k1_bound(q, kp, ks, bt, lens, **opts))
+        for route in routes if hopper else ("wmma",):
+            splits, call = cs.forced_route(route, q, kp, vp, ks, vs, bt, lens, layer, **opts)
+            r[route] = dict(splits=splits, ms=timer.ms(call), device_ms=cs.device_ms(call,
+                                                                                     "paged_"))
+        free = cs.forced_route(paged.paged_plan(q.shape, kp.shape, kp.dtype, bt.shape[1])[0],
+                               q, kp, vp, ks, vs, bt, lens, layer)[1]
+        r["no_options"] = dict(ms=timer.ms(free), device_ms=cs.device_ms(free, "paged_"))
+        try:
+            t_live, flex = flex_yardstick(q, pick(kp), pick(vp), pick(ks), pick(vs), bt, lens,
+                                          **opts)
+            r["library"] = dict(name="flex_attention", keys=t_live, ms=timer.ms(flex))
+        except Exception as e:  # a compile failure is the finding: its text stands in the row
+            r["library"] = dict(name="flex_attention", error=f"{type(e).__name__}: {e}"[:2000])
+        return r
+
+    out = {}
+    gen.manual_seed(gen.initial_seed())  # the timed inputs do not depend on the checks run
+    q, kp, vp, bt, lens, full = cs.options_decode_inputs(gen, cfg)
+    out["decode_all"] = timed(q, kp, vp, None, None, bt, lens, None, ("decode", "wgmma", "wmma"),
+                              full)
+    del kp, vp
+    q, kp, vp, ks, vs, bt, lens = cs.paged_inputs(gen, torch.float8_e4m3fn, "prefill", cfg)
+    full = dict(window=(300, 0), softcap=30.0,
+                alibi_slopes=torch.from_numpy(alibi_slopes_ref(cfg.n_heads)).cuda(),
+                cache_leftpad=torch.tensor([100], dtype=torch.int32, device="cuda"))
+    zero = dict(alibi_slopes=torch.zeros(cfg.n_heads, device="cuda"))
+    for name, opts in (("chunk_alibi0", zero), ("chunk_all", full)):
+        out[name] = timed(q, kp, vp, ks, vs, bt, lens, 1, ("wgmma", "wmma"), opts)
+    return out
+
+
 def append_stage(gen, timer, checks, cfg):
     """The append stage (module docstring): its checks, then `append_times`."""
     times = {}
@@ -141,7 +279,7 @@ def main():
     libs = _build.build_all()
     print(json.dumps({"tree": tree, "build_s": time.perf_counter() - t0}), flush=True)
     checks = cs.Checks()
-    if k1:
+    if k1 and hopper_options():  # the report of this checkout's instantiations
         cs.paged_build_report(checks, libs["paged_attention"])
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     timer = cs.Timer()
@@ -168,6 +306,9 @@ def main():
             gen, timer, cfg, args.decode_routes.split(","))}), flush=True)
     if "sweep" in stages:
         print(json.dumps({"k1_decode_sweep": k1_decode_sweep(gen, timer, cfg)}), flush=True)
+    if "options" in stages:
+        _, times = stage(checks, "d_options", lambda: options_stage(gen, timer, checks, cfg))
+        print(json.dumps({"k1_options_times": times}), flush=True)
     if "append" in stages:
         _, times = stage(checks, "e_append", lambda: append_stage(gen, timer, checks, cfg))
         print(json.dumps({"append_times": times}), flush=True)

@@ -10,7 +10,8 @@ admission of the largest of them (`profile_admission`), a decode window of
 8 requests (`profile_decode`), and each step of the `api` path, warm
 (`time_api_steps`). It prints one JSON line: each step's device ms and
 launches, with its kernel groups' device ms (K1's routes, K3, K7, the
-append kernel: `append`), and K8's device ms in the api steps.
+append kernel: `append`), and K8's, K1's and the layout copy's device ms
+in the api steps.
 A parent tree unpacked beside this one is measured by the same code in the
 same call, which chip_smoke.py's own profiles of two trees are not when
 the harness changed between them. Needs a CUDA device.
@@ -79,7 +80,8 @@ def main():
     del eng, params
     torch.cuda.empty_cache()
     _, _, calls, copies = cs.api_path(gen, cfg, args.seed)
-    out["api"] = {n: dict(device_ms=r["device_ms"], k8=r["k8_device_ms"])
+    out["api"] = {n: dict(device_ms=r["device_ms"], k8=r["k8_device_ms"], k1=r["k1_device_ms"],
+                          layout_copy=r.get("layout_copy_device_ms"))
                   for n, r in cs.time_api_steps(calls, copies).items()}
     out["seconds"] = time.perf_counter() - t0
     out["device"] = cs.nvidia_smi()

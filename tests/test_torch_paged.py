@@ -198,8 +198,9 @@ def test_paged_attention_layer_idx(kv):
     ],
 )
 def test_paged_attention_plain_extras(extra):
-    """Window, softcap, ALiBi and leftpad exist on the plain path only (the
-    CUDA kernel raises for them); they still follow the JAX semantics."""
+    """Window, softcap, ALiBi and leftpad on the plain version (the CUDA
+    kernels take them in their options instantiations): they follow the
+    JAX semantics."""
     q, pools, bt, lens = _paged_case(30, kv="f32", b=2, sq=4, h=4, h_k=1, dead_row=False)
     kw = dict(extra)
     if kw.pop("alibi", None):
@@ -250,18 +251,22 @@ def test_num_splits_heuristic_matches_jax():
         (1024, 256, 128, torch.float8_e4m3fn, False, "wgmma"),  # a 256-token chunk
         (1024, 16, 64, torch.int8, False, "wgmma"),  # page 16, d = 64
         (1024, 24, 128, torch.bfloat16, False, "wgmma"),  # 8-key TMA boxes
-        (1024, 256, 128, torch.float8_e4m3fn, True, "wmma"),  # an option
+        (1024, 256, 128, torch.float8_e4m3fn, True, "wgmma"),  # an option: its instantiation
         (1024, 12, 128, torch.bfloat16, False, "wmma"),  # a page of no whole box
         (1024, 256, 96, torch.bfloat16, False, "wmma"),  # d = 96
         (1024, 256, 128, torch.float16, False, "wmma"),  # no Hopper kernel for fp16 pools
+        (1024, 12, 128, torch.int8, True, "wmma"),  # an option on an odd page
+        (1024, 256, 128, torch.float16, True, "wmma"),  # an option on fp16 pools
     ],
 )
 def test_paged_route(rows, page, d, kv, options, route):
-    """paged_route is a pure function of the shapes, the pool dtype and the
-    options; the Hopper kernel's row tile (64) is the split heuristic's unit
-    on its route, the decode kernel's (16) and the WMMA kernel's (16 or 32)
-    on the others."""
-    assert paged.paged_route(rows, page, d, kv, options) == route
+    """paged_route is a pure function of the shapes and the pool dtype (the
+    options pick an instantiation and its label, not a kernel); the Hopper
+    kernel's row tile (64) is the split heuristic's unit on its route, the
+    decode kernel's (16) and the WMMA kernel's (16 or 32) on the others."""
+    assert paged.paged_route(rows, page, d, kv) == route
+    assert paged.route_label(route, rows, options).endswith(".options") == (
+        options and route != "wmma")
     assert paged.route_row_tile(route, rows) == (64 if route == "wgmma" else
                                                  paged.kernel_row_tile(rows))
 
@@ -274,17 +279,22 @@ def test_paged_route(rows, page, d, kv, options, route):
         (8, 32, 128, torch.int8, False, "decode", "paged_attention.decode"),  # group 8
         (16, 64, 64, torch.bfloat16, False, "decode", "paged_attention.decode"),  # verify
         (17, 256, 128, torch.float8_e4m3fn, False, "wgmma", "paged_attention.prefill.wgmma"),
-        (4, 256, 128, torch.float8_e4m3fn, True, "wmma", "paged_attention.decode.wmma"),
+        (4, 256, 128, torch.float8_e4m3fn, True, "decode", "paged_attention.decode.options"),
         (4, 12, 128, torch.bfloat16, False, "wmma", "paged_attention.decode.wmma"),  # odd page
         (40, 12, 128, torch.bfloat16, False, "wmma", "paged_attention.prefill.wmma"),
+        (17, 64, 64, torch.int8, True, "wgmma", "paged_attention.prefill.options"),
+        (4, 12, 128, torch.bfloat16, True, "wmma", "paged_attention.decode.wmma"),  # odd page
+        (4, 256, 128, torch.float16, True, "wmma", "paged_attention.decode.wmma"),  # fp16 pools
     ],
 )
 def test_paged_route_decode(rows, page, d, kv, options, route, label):
-    """The decode kernel takes every option-free call of at most 16 query
-    rows a KV head on TMA-legal pages; an option or an odd page sends such a
-    call to the WMMA kernel, counted as `paged_attention.decode.wmma`."""
-    assert paged.paged_route(rows, page, d, kv, options) == route
-    assert paged.route_label(route, rows) == label
+    """The decode kernel takes every call of at most 16 query rows a KV head
+    on TMA-legal pages of bf16, int8 or fp8, with or without the options
+    (counted as `paged_attention.decode.options` with them); an odd page or
+    fp16 pools send such a call to the WMMA kernel, counted as
+    `paged_attention.decode.wmma` either way."""
+    assert paged.paged_route(rows, page, d, kv) == route
+    assert paged.route_label(route, rows, options) == label
     assert paged.route_row_tile(route, rows) == {"decode": 16, "wgmma": 64}.get(
         route, paged.kernel_row_tile(rows))
 
@@ -318,6 +328,49 @@ def test_decode_split_keys_cover_live_keys_once(kv_len, n_splits, max_keys):
         assert lo % 64 == 0 or lo == hi == live
         assert hi - lo == max(0, min(per, live - s * per))
     assert sum(hi > lo for lo, hi in runs) == min(n_splits, -(-tiles // max(1, per // 64)))
+
+
+@pytest.mark.parametrize(
+    "kv_len,sq,wl,leftpad,n_splits,max_keys",
+    [
+        (1500, 1, 1024, None, 4, 4096),  # a window start (the api options' decode)
+        (1500, 1, -1, 300, 4, 4096),  # a leftpad
+        (1500, 4, 700, 900, 3, 4096),  # both: the leftpad is the later
+        (1500, 4, 900, 100, 3, 4096),  # both: the window start is the later
+        (200, 1, -1, 201, 4, 4096),  # a leftpad one past kv_len: no visible key
+        (1000, 2, -1, 130, 5, 4096),  # a first key inside a tile (128 + 2)
+        (5000, 1, 4000, None, 3, 4096),  # kv_len past the table
+    ],
+)
+def test_decode_split_keys_from_the_first_key(kv_len, sq, wl, leftpad, n_splits, max_keys):
+    """The decode kernel's split cut with the options: every key a row can
+    see (from the first row's window start or the leftpad to the live end)
+    in exactly one split, no split starting below the first key's 64-key
+    tile, whole tiles from there, and the cut starting where the plain
+    version's (first_page with the decode route's 64-key unit) starts."""
+    first_key = max(leftpad or 0, kv_len - sq - wl if wl >= 0 else 0)
+    runs = paged.decode_split_keys(kv_len, n_splits, max_keys, first_key)
+    live = min(kv_len, max_keys)
+    tiles = -(-live // 64)
+    first_tile = min(first_key // 64, tiles)
+    assert len(runs) == n_splits
+    covered = [k for lo, hi in runs for k in range(lo, hi)]
+    assert covered == list(range(min(first_tile * 64, live), live))
+    visible = [k for k in covered if k >= first_key]
+    assert visible == list(range(first_key, live))
+    for lo, hi in runs:
+        assert lo >= min(first_tile * 64, live)
+        assert (lo - first_tile * 64) % 64 == 0 or lo == hi == live
+    lens = torch.tensor([kv_len])
+    n_live = (lens.clamp_max(max_keys) + 63) // 64
+    lp = None if leftpad is None else torch.tensor([leftpad], dtype=torch.int32)
+    first = paged.first_page(lens, sq, 64, wl, lp, n_live)
+    assert int(first[0]) == first_tile
+    pps = (n_live - first + n_splits - 1) // n_splits  # the plain version's runs
+    assert [(min((int(first[0]) + s * int(pps[0])) * 64, live)) for s in range(n_splits)] == [
+        lo for lo, _ in runs]
+    if first_key == 0:  # no option: the option-free cut
+        assert runs == paged.decode_split_keys(kv_len, n_splits, max_keys)
 
 
 @pytest.mark.parametrize("b,sq,page,max_pages", [(8, 1, 256, 16), (8, 4, 256, 16),
@@ -371,6 +424,47 @@ def test_paged_attention_decode_route_2x_rule():
     _check_2x(q, pools, bt, lens, layer=1, num_splits=0)
 
 
+def test_paged_attention_decode_route_options_2x_rule():
+    """The decode route with all four options (window start, softcap, ALiBi
+    per (b, h), leftpad) on its plain version (64-key tile splits from the
+    first visible key's tile) against the JAX kernel under the 2x rule: 2
+    new tokens at group 4 (8 rows), d = 64, page 16, int8 pools of two
+    layers, the heuristic's splits (more than one), a leftpad inside a tile
+    and one past the window start, and a dead row."""
+    q, pools, bt, lens = _paged_case(91, kv="int8", b=3, sq=2, h=8, h_k=2, d=64, page=16,
+                                     n_pages=26, max_pages=12, layers=2)
+    lens = jnp.asarray([180, 150, 0], jnp.int32)
+    slopes = alibi_slopes_ref(8)[None] * np.asarray([[1.0], [0.5], [2.0]])  # (b, h)
+    kw = dict(window=(70, 0), softcap=5.0, alibi_slopes=jnp.asarray(slopes, jnp.float32),
+              cache_leftpad=jnp.asarray([37, 100, 0], jnp.int32))
+    tkw = dict(kw, alibi_slopes=_t(kw["alibi_slopes"]), cache_leftpad=_t(kw["cache_leftpad"]))
+    route, splits = paged.paged_plan(q.shape, pools["k"].shape, torch.int8, bt.shape[1], **tkw)
+    assert route == "decode" and splits > 1
+    _check_2x(q, pools, bt, lens, layer=1, num_splits=0, **kw)
+
+
+def test_paged_alibi_with_leftpad_needs_no_leftpad_term():
+    """ALiBi with a leftpad: the port's plain version takes slope * |qpos -
+    kcol| (no leftpad term, as the kernels do), the JAX oracle counts both
+    positions from the leftpad. On every key a row sees (kcol >= leftpad)
+    the two distances agree, so O and LSE agree to f32 rounding, causal and
+    not, with leftpads inside a row's window and past a short row's start."""
+    q, pools, bt, lens = _paged_case(92, kv="f32", b=3, sq=4, h=4, h_k=2, d=32, dead_row=False)
+    lens = jnp.asarray([60, 33, 9], jnp.int32)
+    slopes = jnp.asarray(alibi_slopes_ref(4) * 4.0)  # steep: a wrong distance shows
+    leftpad = jnp.asarray([21, 0, 7], jnp.int32)
+    for causal in (True, False):
+        o, lse = paged.paged_attention(_t(q), _t(pools["k"]), _t(pools["v"]), _t(bt), _t(lens),
+                                       causal=causal, alibi_slopes=_t(slopes),
+                                       cache_leftpad=_t(leftpad))
+        ro, rlse = (_t(a) for a in _jax_oracle(q, pools, bt, lens, None, causal=causal,
+                                               alibi_slopes=slopes, cache_leftpad=leftpad))
+        assert max_err(o, ro) <= 1e-5
+        assert torch.equal(torch.isfinite(lse), torch.isfinite(rlse))
+        finite = torch.isfinite(rlse)
+        assert max_err(lse[finite], rlse[finite]) <= 1e-5
+
+
 @pytest.mark.parametrize(
     "kw,options",
     [
@@ -386,16 +480,19 @@ def test_paged_attention_decode_route_2x_rule():
 )
 def test_paged_plan_options_and_splits(kw, options):
     """paged_plan: a chunk of 40 tokens at group 2 (80 rows) takes the
-    Hopper kernel unless an option asks for the WMMA kernel's general
-    instantiation, and the heuristic counts blocks of the route's row tile."""
+    Hopper kernel with or without the options (an option asks for its
+    options instantiation, counted apart), and the heuristic counts blocks
+    of its row tile."""
     full = dict(causal=True, window=(-1, -1), softcap=0.0, alibi_slopes=None,
                 cache_leftpad=None)
     full.update(kw)
     assert paged.has_options(**full) == options
     route, splits = paged.paged_plan((2, 40, 4, 64), (3, 9, 2, 16, 64), torch.float8_e4m3fn,
                                      12, 0, **kw)
-    assert route == ("wmma" if options else "wgmma")
-    tile = 64 if route == "wgmma" else 32
+    assert route == "wgmma"
+    assert paged.route_label(route, 80, options) == (
+        "paged_attention.prefill.options" if options else "paged_attention.prefill.wgmma")
+    tile = 64
     assert splits == paged.resolve_num_splits(0, 2, 2, 80, 12, tile)
     assert splits == paged.num_splits_heuristic(2 * 2 * -(-80 // tile), paged.NUM_SMS, 12,
                                                 paged.MAX_SPLITS)

@@ -17,11 +17,12 @@
 // operations bound (tensor cores).
 //
 // Three kernels, chosen by ops/paged.py::paged_route (a pure function of the
-// shapes, the pool dtype and the options):
+// shapes and the pool dtype; the options choose an instantiation, not a
+// kernel):
 //
 // `paged_decode_kernel` (the decode route: at most 16 query rows a KV head,
 // sq * group: decode and short verify; d 64 or 128, pages of a multiple of
-// 8 keys, no option). Decode is bound by bytes and by latency: a step reads
+// 8 keys, bf16 / int8 / fp8 pools). Decode is bound by bytes and by latency: a step reads
 // each live K/V byte once for 4 * group flops, and the work of one call is a
 // few MB, so the design keeps many bytes in flight and few passes around
 // them. One block owns one (split, batch entry, KV head): all of the GQA
@@ -45,7 +46,7 @@
 // merges partials (one warp per row) into O bf16 and LSE (b, h, sq).
 //
 // `paged_wgmma_kernel` (the Hopper route: more than 16 query rows a KV head,
-// d 64 or 128, pages of a multiple of 8 keys, no option). One block owns one
+// the same d, pages and pools). One block owns one
 // (split, batch entry, KV head, 64-row tile) of the rows t * group + g
 // (token-major, the GQA group inside), so at Llama-8B's group of 4 the 16
 // tokens' 64 rows share every K/V tile fetched; blocks launch heaviest first
@@ -70,8 +71,26 @@
 // The producer hands its registers to the consumer (setmaxnreg); two blocks
 // an SM, one for int8 / fp8 pools at d = 128 (shared memory).
 //
-// `paged_attention_kernel` (the first version on WMMA: the options and odd
-// pages, at any row count): one block per (row tile,
+// Both Hopper kernels have a second instantiation, kExtra, for the options
+// the API passes (the option-free one, which serving runs, compiles to the
+// code it had before them): a window (wl, wr) from query position
+// kv_len - sq + t, non-causal included; the tanh softcap on the K-scaled
+// score; ALiBi, the score of row t * group + g losing slope[b, kv_head * group
+// + g] * |qpos - kcol| after the softcap; and cache_leftpad, which masks the
+// keys before it. For every key a row can see (kcol >= leftpad),
+// |(qpos - leftpad) - (kcol - leftpad)| = |qpos - kcol|, so the leftpad takes
+// no part in ALiBi and only masks. As the TPU kernel folds the window start
+// into its loop bound, the split runs start at the unit (64-key tile on the
+// decode route, page on the chunk route) of the first key any row can see
+// (window start of the first row, leftpad; ops/paged.py::first_page), and a
+// chunk block starts at its first row's earliest key rounded down to a TMA
+// box (so no box crosses a page) and ends at its last row's right limit.
+// Softcap and ALiBi act on every tile, in natural units before the exp2;
+// the window start, the right window and the leftpad are masked on boundary
+// tiles only, beside kv_len.
+//
+// `paged_attention_kernel` (the first version on WMMA: pages of no whole
+// TMA box, with or without the options, at any row count): one block per (row tile,
 // batch entry, KV head, split), a row tile holding RT (16 or 32) query rows
 // of ONE KV head, ordered token-major with the GQA group inside. Each batch
 // entry's LIVE pages are cut into n_splits equal runs, so every split of a
@@ -85,17 +104,10 @@
 // TPU the softmax scale is folded into q by the wrapper, and P is rounded to
 // bf16 (q's dtype) after the V scale and before the PV product. Keys past the
 // causal limit, the split or kv_len are never loaded. Rows with kv_len = 0
-// (inactive slots) give O = 0 and LSE = -inf.
-//
-// Its kExtra instantiation adds what the API passes (the option-free one is
-// the decode path's): a window (wl, wr) from query position
-// kv_len - sq + t, non-causal included; the tanh softcap on the K-scaled
-// score; ALiBi, the score of row t * group + g losing slope[b, kv_head * group
-// + g] * |qpos - kcol| after the softcap, distances counted from the leftpad;
-// and cache_leftpad, which masks the keys before it. As the TPU kernel folds
-// the window start into its loop bound, the pages before the first key any
-// row can see (window start, leftpad) are left out of the split runs, and a
-// block starts at its first row's earliest key, so they are never loaded.
+// (inactive slots) give O = 0 and LSE = -inf. Its kExtra instantiation takes
+// the options as the Hopper ones do; the pages before the first key any row
+// can see are left out of its split runs, and a block starts at its first
+// row's earliest key.
 #include <mma.h>
 #include <string.h>
 
@@ -323,7 +335,7 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
         if constexpr (kExtra) {
           keep = keep && (wl < 0 || kcol >= qpos - wl) && kcol >= lp;
           if (softcap > 0.f) x = tanhf(x / softcap) * softcap;
-          x -= slope * fabsf(static_cast<float>((qpos - lp) - (kcol - lp)));
+          x -= slope * fabsf(static_cast<float>(qpos - kcol));  // no leftpad term
         }
         sv[u] = keep ? x : NEG_INF;
         rmax = fmaxf(rmax, sv[u]);
@@ -496,9 +508,46 @@ struct Params {
   int b, sq, h_k, group, page, max_pages, n_splits, n_rt;
   int page0;     // the layer's first page in the tensor maps
   int box_rows;  // keys per TMA box: the largest of 64, 32, 16, 8 dividing page
-  int causal;
+  int causal;    // the option-free instantiation's right window: 1 is 0, 0 none
   float scale;
+  // the options (the kExtra instantiation): the window (wl, wr), < 0
+  // unbounded, causal is wr = 0; the softcap, 0 none; ALiBi slopes (b, h)
+  // f32 and the leftpad (b,) int32, null when absent
+  int wl, wr;
+  float softcap;
+  const float* alibi;
+  const int32_t* leftpad;
 };
+
+constexpr int kNoLimit = 0x7fffffff;  // a right limit of no window
+
+// The options' leftpad of batch entry ib, and the first key its query row t
+// can see: its window start, or the leftpad
+__device__ __forceinline__ int leftpad_of(const Params& p, int ib) {
+  return p.leftpad != nullptr ? max(0, p.leftpad[ib]) : 0;
+}
+__device__ __forceinline__ int first_key_of(const Params& p, int lp, int kv_len, int t) {
+  return p.wl >= 0 ? max(lp, kv_len - p.sq + t - p.wl) : lp;
+}
+
+// The options' limits of one query row at position qpos: the first key it
+// can see, the last (kNoLimit: none), and its ALiBi slope (0 without ALiBi)
+struct RowLimits {
+  int lo, hi;
+  float slope;
+};
+__device__ __forceinline__ RowLimits row_limits(const Params& p, int lp, int qpos, int ib,
+                                                int head) {
+  return RowLimits{p.wl >= 0 ? max(lp, qpos - p.wl) : lp, p.wr >= 0 ? qpos + p.wr : kNoLimit,
+                   p.alibi != nullptr ? p.alibi[ib * p.h_k * p.group + head] : 0.f};
+}
+
+// softcap, then ALiBi, of one score: what the options do to every key
+__device__ __forceinline__ float score_options(const Params& p, float x, float slope, int qpos,
+                                               int kcol) {
+  if (p.softcap > 0.f) x = tanhf(x / p.softcap) * p.softcap;
+  return x - slope * fabsf(static_cast<float>(qpos - kcol));
+}
 
 // 16 pool bytes -> 16 bf16 values, as two 16-byte words in order
 template <typename KV>
@@ -552,7 +601,7 @@ __device__ __forceinline__ uint32_t scaled_pair(uint32_t w, float scale) {
   return pack_bf16(f.x * scale, f.y * scale);
 }
 
-template <typename KV, int D>
+template <typename KV, int D, bool kExtra>
 __global__ void __launch_bounds__(kThreadsWg, 2)
     paged_wgmma_kernel(const __grid_constant__ CUtensorMap tm_k,
                        const __grid_constant__ CUtensorMap tm_v, const Params p) {
@@ -584,16 +633,29 @@ __global__ void __launch_bounds__(kThreadsWg, 2)
   const int r0 = rt * kBQ;
   const int h = p.h_k * p.group;
 
-  // the split's keys: its run of the live pages, cut at kv_len and at the
-  // causal limit of the block's last row
+  // the split's keys: its run of the live pages (with the options, from the
+  // page of the first key any row can see), cut at kv_len and at the causal
+  // or right limit of the block's last row; with the options the block
+  // starts at its first row's earliest key, rounded down to a TMA box
   const int kv_len = p.lens[ib];
   const int n_live = min((kv_len + p.page - 1) / p.page, p.max_pages);
-  const int pps = (n_live + p.n_splits - 1) / p.n_splits;
-  const int kstart = split * pps * p.page;
-  int kend = min(min(split * pps + pps, n_live) * p.page, kv_len);
   const int t_first = min(r0 / p.group, p.sq - 1);
   const int t_last = min((min(r0 + kBQ, R) - 1) / p.group, p.sq - 1);
-  if (p.causal) kend = min(kend, kv_len - p.sq + t_last + 1);
+  int lp = 0, first_page = 0;
+  if constexpr (kExtra) {
+    lp = leftpad_of(p, ib);
+    first_page = min(first_key_of(p, lp, kv_len, 0) / p.page, n_live);
+  }
+  const int pps = (n_live - first_page + p.n_splits - 1) / p.n_splits;
+  const int lo = first_page + split * pps;
+  int kstart = lo * p.page;
+  int kend = min(min(lo + pps, n_live) * p.page, kv_len);
+  if constexpr (kExtra) {
+    kstart = max(kstart, first_key_of(p, lp, kv_len, t_first) / p.box_rows * p.box_rows);
+    if (p.wr >= 0) kend = min(kend, kv_len - p.sq + t_last + 1 + p.wr);
+  } else {
+    if (p.causal) kend = min(kend, kv_len - p.sq + t_last + 1);
+  }
   const int n_tiles = kend > kstart ? (kend - kstart + kBK - 1) / kBK : 0;
   const int32_t* bt_row = p.bt + static_cast<size_t>(ib) * p.max_pages;
 
@@ -713,6 +775,21 @@ __global__ void __launch_bounds__(kThreadsWg, 2)
 #pragma unroll
   for (int r = 0; r < 2; ++r) qpos[r] = kv_len - p.sq + min((row + 8 * r) / p.group, p.sq - 1);
   const int q_first = kv_len - p.sq + t_first;  // tiles ending at or before it need no mask
+  // the options: each row's limits and slope; a tile is a boundary tile if
+  // it reaches past the first row's right limit or starts below the last
+  // row's first key (the latest of the rows')
+  [[maybe_unused]] RowLimits lim[2];
+  [[maybe_unused]] float qf[2];  // the rows' positions as floats, for ALiBi
+  [[maybe_unused]] int hi_first = kNoLimit, lo_last = 0;
+  if constexpr (kExtra) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      lim[r] = row_limits(p, lp, qpos[r], ib, kvh * p.group + (row + 8 * r) % p.group);
+      qf[r] = static_cast<float>(qpos[r]);
+    }
+    if (p.wr >= 0) hi_first = q_first + p.wr;
+    lo_last = first_key_of(p, lp, kv_len, t_last);
+  }
 
   float acc[D / 2];  // O: 8-column group n holds acc[4n .. 4n+3]
 #pragma unroll
@@ -763,7 +840,29 @@ __global__ void __launch_bounds__(kThreadsWg, 2)
         s[4 * j + 3] *= kscl.y;
       }
     }
-    if (k0 + kBK > kend || (p.causal && k0 + kBK - 1 > q_first)) {
+    if constexpr (kExtra) {  // softcap and ALiBi on every tile, the mask on boundary tiles
+      if (p.softcap > 0.f) {
+#pragma unroll
+        for (int e = 0; e < kBK / 2; ++e) s[e] = tanhf(s[e] / p.softcap) * p.softcap;
+      }
+      if (p.alibi != nullptr) {  // positions as floats (exact below 2^24): no conversion a key
+        const float kf0 = static_cast<float>(k0 + col);
+#pragma unroll
+        for (int e = 0; e < kBK / 2; ++e) {
+          const int r = (e >> 1) & 1;
+          const float kf = kf0 + static_cast<float>((e >> 2) * 8 + (e & 1));
+          s[e] = fmaf(-lim[r].slope, fabsf(qf[r] - kf), s[e]);
+        }
+      }
+      if (k0 + kBK > kend || k0 + kBK - 1 > hi_first || k0 < lo_last) {
+#pragma unroll
+        for (int e = 0; e < kBK / 2; ++e) {
+          const int kcol = k0 + (e >> 2) * 8 + col + (e & 1);
+          const RowLimits& l = lim[(e >> 1) & 1];
+          if (kcol >= kend || kcol < l.lo || kcol > l.hi) s[e] = NEG_INF;
+        }
+      }
+    } else if (k0 + kBK > kend || (p.causal && k0 + kBK - 1 > q_first)) {
 #pragma unroll
       for (int e = 0; e < kBK / 2; ++e) {
         const int kcol = k0 + (e >> 2) * 8 + col + (e & 1);
@@ -870,7 +969,13 @@ inline int box_rows(int page) {
   return 0;
 }
 
-template <typename KV, int D>
+// whether a call needs the kExtra instantiation (ops/paged.py::has_options)
+inline bool has_options(const Params& prm) {
+  return prm.wl >= 0 || prm.wr > 0 || prm.softcap > 0.f || prm.alibi != nullptr ||
+         prm.leftpad != nullptr;
+}
+
+template <typename KV, int D, bool kExtra>
 cudaError_t launch(const void* k_pool, const void* v_pool, int n_pool_pages, const Params& prm,
                    cudaStream_t stream) {
   using L = Layout<KV, D>;
@@ -894,7 +999,7 @@ cudaError_t launch(const void* k_pool, const void* v_pool, int n_pool_pages, con
                              strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
     if (err != cudaSuccess) return err;
   }
-  auto* kernel = &paged_wgmma_kernel<KV, D>;
+  auto* kernel = &paged_wgmma_kernel<KV, D, kExtra>;
   static bool smem_limit_set = false;  // once per instantiation, as for the WMMA kernel
   if (!smem_limit_set) {
     cudaError_t err =
@@ -907,12 +1012,19 @@ cudaError_t launch(const void* k_pool, const void* v_pool, int n_pool_pages, con
   return cudaGetLastError();
 }
 
+template <typename KV, bool kExtra>
+cudaError_t launch_x(int d, const void* kp, const void* vp, int n_pool_pages, const Params& prm,
+                     cudaStream_t stream) {
+  if (d == 128) return launch<KV, 128, kExtra>(kp, vp, n_pool_pages, prm, stream);
+  if (d == 64) return launch<KV, 64, kExtra>(kp, vp, n_pool_pages, prm, stream);
+  return cudaErrorInvalidValue;
+}
+
 template <typename KV>
 cudaError_t launch_d(int d, const void* kp, const void* vp, int n_pool_pages, const Params& prm,
                      cudaStream_t stream) {
-  if (d == 128) return launch<KV, 128>(kp, vp, n_pool_pages, prm, stream);
-  if (d == 64) return launch<KV, 64>(kp, vp, n_pool_pages, prm, stream);
-  return cudaErrorInvalidValue;
+  return has_options(prm) ? launch_x<KV, true>(d, kp, vp, n_pool_pages, prm, stream)
+                          : launch_x<KV, false>(d, kp, vp, n_pool_pages, prm, stream);
 }
 
 }  // namespace wg
@@ -991,7 +1103,9 @@ __device__ __forceinline__ float scaled(const __nv_bfloat16* q, int i, float sca
 // (bytes 0, 2 then 1, 3 of each word) is the same in Q's fragments, and in
 // O^T's rows the epilogue undoes it. Each warp keeps its own running max,
 // sum and O^T; they are merged once at the end through shared memory.
-template <typename KV, int D, int NT>
+// kExtra: the options (the module comment); each thread keeps its S^T
+// columns' limits and slopes beside their positions.
+template <typename KV, int D, int NT, bool kExtra>
 __global__ void __launch_bounds__(kThreadsDec, kBlocksPerSm)
     paged_decode_kernel(const __grid_constant__ CUtensorMap tm_k,
                         const __grid_constant__ CUtensorMap tm_v, const wg::Params p) {
@@ -1014,13 +1128,19 @@ __global__ void __launch_bounds__(kThreadsDec, kBlocksPerSm)
   const int R = p.group * p.sq;
   const int h = p.h_k * p.group;
 
-  // the split's keys: a run of whole 64-key tiles of the live keys
+  // the split's keys: a run of whole 64-key tiles of the live keys, with
+  // the options from the tile of the first key any row can see
   // (ops/paged.py::decode_split_keys); the last row's causal limit is kv_len
   const int kv_len = p.lens[ib];
   const int live = min(kv_len, p.max_pages * p.page);
   const int n_live_tiles = (live + kTK - 1) / kTK;
-  const int tps = (n_live_tiles + p.n_splits - 1) / p.n_splits;
-  const int kstart = min(split * tps * kTK, live);
+  int lp = 0, first_tile = 0;
+  if constexpr (kExtra) {
+    lp = wg::leftpad_of(p, ib);
+    first_tile = min(wg::first_key_of(p, lp, kv_len, 0) / kTK, n_live_tiles);
+  }
+  const int tps = (n_live_tiles - first_tile + p.n_splits - 1) / p.n_splits;
+  const int kstart = min((first_tile + split * tps) * kTK, live);
   const int kend = min(kstart + tps * kTK, live);
   const int n_tiles = (kend - kstart + kTK - 1) / kTK;
   const int32_t* bt_row = p.bt + static_cast<size_t>(ib) * p.max_pages;
@@ -1103,6 +1223,21 @@ __global__ void __launch_bounds__(kThreadsDec, kBlocksPerSm)
     for (int e = 0; e < 2; ++e)
       qpos[n][e] = kv_len - p.sq + min((8 * n + 2 * c + e) / p.group, p.sq - 1);
   const int q_first = kv_len - p.sq;  // tiles ending at or before it need no causal mask
+  // the options: the columns' limits and slopes; a tile is a boundary tile
+  // if it reaches past the first row's right limit or starts below the last
+  // row's first key (the latest of the rows')
+  [[maybe_unused]] wg::RowLimits lim[NT][2];
+  [[maybe_unused]] int hi_first = wg::kNoLimit, lo_last = 0;
+  if constexpr (kExtra) {
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        lim[n][e] = wg::row_limits(p, lp, qpos[n][e], ib,
+                                   kvh * p.group + (8 * n + 2 * c + e) % p.group);
+    if (p.wr >= 0) hi_first = q_first + p.wr;
+    lo_last = wg::first_key_of(p, lp, kv_len, p.sq - 1);
+  }
 
   float acc[kMT][NT][4];  // O^T: m-tile (16 d) x n-tile (8 rows)
 #pragma unroll
@@ -1152,7 +1287,8 @@ __global__ void __launch_bounds__(kThreadsDec, kBlocksPerSm)
       }
     }
 
-    // the K scale per key; keys past kend or the row's causal limit masked
+    // the K scale per key (then the options' softcap and ALiBi); keys past
+    // kend or a row's limits masked on boundary tiles
     const int key0 = k0 + kw + g, key8 = key0 + 8;
     float ks0 = 1.f, ks8 = 1.f, vs0 = 1.f, vs8 = 1.f;
     if constexpr (kQuant) {
@@ -1162,18 +1298,34 @@ __global__ void __launch_bounds__(kThreadsDec, kBlocksPerSm)
       vs0 = sc[kTK + kw + g];
       vs8 = sc[kTK + kw + g + 8];
     }
-    const bool boundary = k0 + kTK > kend || (p.causal && k0 + kTK - 1 > q_first);
+    if constexpr (kExtra) {  // softcap and ALiBi on every tile, the mask on boundary tiles
+      const bool boundary = k0 + kTK > kend || k0 + kTK - 1 > hi_first || k0 < lo_last;
 #pragma unroll
-    for (int n = 0; n < NT; ++n)
+      for (int n = 0; n < NT; ++n)
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        s[n][e] *= ks0;
-        s[n][2 + e] *= ks8;
-        if (boundary) {
-          if (key0 >= kend || (p.causal && key0 > qpos[n][e])) s[n][e] = NEG_INF;
-          if (key8 >= kend || (p.causal && key8 > qpos[n][e])) s[n][2 + e] = NEG_INF;
+        for (int e = 0; e < 2; ++e) {
+          const wg::RowLimits& l = lim[n][e];
+          s[n][e] = wg::score_options(p, s[n][e] * ks0, l.slope, qpos[n][e], key0);
+          s[n][2 + e] = wg::score_options(p, s[n][2 + e] * ks8, l.slope, qpos[n][e], key8);
+          if (boundary) {
+            if (key0 >= kend || key0 < l.lo || key0 > l.hi) s[n][e] = NEG_INF;
+            if (key8 >= kend || key8 < l.lo || key8 > l.hi) s[n][2 + e] = NEG_INF;
+          }
         }
-      }
+    } else {
+      const bool boundary = k0 + kTK > kend || (p.causal && k0 + kTK - 1 > q_first);
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          s[n][e] *= ks0;
+          s[n][2 + e] *= ks8;
+          if (boundary) {
+            if (key0 >= kend || (p.causal && key0 > qpos[n][e])) s[n][e] = NEG_INF;
+            if (key8 >= kend || (p.causal && key8 > qpos[n][e])) s[n][2 + e] = NEG_INF;
+          }
+        }
+    }
 
     // the online-softmax update of each row; P times the V scale (0 past
     // kend, where the scale was not loaded), rounded to bf16, as P^T's B
@@ -1339,16 +1491,16 @@ __global__ void __launch_bounds__(kThreadsDec, kBlocksPerSm)
   }
 }
 
-template <typename KV, int D, int NT>
+template <typename KV, int D, int NT, bool kExtra>
 cudaError_t prepare() {
   // raise the dynamic shared-memory limit once per instantiation (one device)
-  static cudaError_t err = cudaFuncSetAttribute(paged_decode_kernel<KV, D, NT>,
+  static cudaError_t err = cudaFuncSetAttribute(paged_decode_kernel<KV, D, NT, kExtra>,
                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                 Layout<KV, D>::kBytes);
   return err;
 }
 
-template <typename KV, int D, int NT>
+template <typename KV, int D, int NT, bool kExtra>
 cudaError_t launch(const void* k_pool, const void* v_pool, int n_pool_pages,
                    const wg::Params& prm, cudaStream_t stream) {
   using L = Layout<KV, D>;
@@ -1370,35 +1522,43 @@ cudaError_t launch(const void* k_pool, const void* v_pool, int n_pool_pages,
         4, bases[i], dims, strides, box, swizzle);
     if (err != cudaSuccess) return err;
   }
-  cudaError_t err = prepare<KV, D, NT>();
+  cudaError_t err = prepare<KV, D, NT, kExtra>();
   if (err != cudaSuccess) return err;
   const unsigned grid = static_cast<unsigned>(prm.n_splits) * prm.b * prm.h_k;
-  paged_decode_kernel<KV, D, NT><<<grid, kThreadsDec, L::kBytes, stream>>>(maps[0], maps[1], prm);
+  paged_decode_kernel<KV, D, NT, kExtra>
+      <<<grid, kThreadsDec, L::kBytes, stream>>>(maps[0], maps[1], prm);
   return cudaGetLastError();
 }
 
-template <typename KV, int NT>
+template <typename KV, int NT, bool kExtra>
 cudaError_t launch_d(int d, const void* kp, const void* vp, int n_pool_pages,
                      const wg::Params& prm, cudaStream_t stream) {
-  if (d == 128) return launch<KV, 128, NT>(kp, vp, n_pool_pages, prm, stream);
-  if (d == 64) return launch<KV, 64, NT>(kp, vp, n_pool_pages, prm, stream);
+  if (d == 128) return dec::launch<KV, 128, NT, kExtra>(kp, vp, n_pool_pages, prm, stream);
+  if (d == 64) return dec::launch<KV, 64, NT, kExtra>(kp, vp, n_pool_pages, prm, stream);
   return cudaErrorInvalidValue;
+}
+
+template <typename KV, bool kExtra>
+cudaError_t launch_x(int d, const void* kp, const void* vp, int n_pool_pages,
+                     const wg::Params& prm, cudaStream_t stream) {
+  return prm.sq * prm.group <= 8
+             ? dec::launch_d<KV, 1, kExtra>(d, kp, vp, n_pool_pages, prm, stream)
+             : dec::launch_d<KV, 2, kExtra>(d, kp, vp, n_pool_pages, prm, stream);
 }
 
 template <typename KV>
 cudaError_t launch_rows(int d, const void* kp, const void* vp, int n_pool_pages,
                         const wg::Params& prm, cudaStream_t stream) {
-  const int rows = prm.sq * prm.group;
-  if (rows > 16) return cudaErrorInvalidValue;
-  return rows <= 8 ? launch_d<KV, 1>(d, kp, vp, n_pool_pages, prm, stream)
-                   : launch_d<KV, 2>(d, kp, vp, n_pool_pages, prm, stream);
+  if (prm.sq * prm.group > 16) return cudaErrorInvalidValue;
+  return wg::has_options(prm) ? dec::launch_x<KV, true>(d, kp, vp, n_pool_pages, prm, stream)
+                              : dec::launch_x<KV, false>(d, kp, vp, n_pool_pages, prm, stream);
 }
 
-template <typename KV, int D, int NT>
+template <typename KV, int D, int NT, bool kExtra>
 int blocks_per_sm() {
   int n = -1;
-  if (prepare<KV, D, NT>() != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, paged_decode_kernel<KV, D, NT>,
+  if (prepare<KV, D, NT, kExtra>() != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, paged_decode_kernel<KV, D, NT, kExtra>,
                                                     kThreadsDec, Layout<KV, D>::kBytes) !=
           cudaSuccess)
     return -1;
@@ -1502,7 +1662,8 @@ cudaError_t hopper_params(wg::Params* prm, const void* q, int64_t q_sb, int64_t 
                           int64_t q_sh, int kv_dtype, const void* k_scales, const void* v_scales,
                           const void* block_tables, const void* kv_lens, void* o, void* lse,
                           int b, int sq, int h_k, int group, int page, int max_pages,
-                          int pool_pages, int layer, int n_splits, int causal, float scale) {
+                          int pool_pages, int layer, int n_splits, int wl, int wr, float scale,
+                          float softcap, const void* alibi, const void* leftpad) {
   const int box = wg::box_rows(page);
   if (box == 0 || n_splits < 1 || group < 1) return cudaErrorInvalidValue;
   const bool quant = kv_dtype != XFA_BF16;
@@ -1528,8 +1689,13 @@ cudaError_t hopper_params(wg::Params* prm, const void* q, int64_t q_sb, int64_t 
   prm->n_rt = (group * sq + wg::kBQ - 1) / wg::kBQ;
   prm->page0 = layer * pool_pages;
   prm->box_rows = box;
-  prm->causal = causal;
+  prm->causal = wr == 0;
   prm->scale = scale;
+  prm->wl = wl;
+  prm->wr = wr;
+  prm->softcap = softcap;
+  prm->alibi = static_cast<const float*>(alibi);
+  prm->leftpad = static_cast<const int32_t*>(leftpad);
   return cudaSuccess;
 }
 
@@ -1540,8 +1706,11 @@ cudaError_t hopper_params(wg::Params* prm, const void* q, int64_t q_sb, int64_t 
 // contiguous, strides multiples of 8, base 16-byte aligned), not pre-scaled
 // (the kernel multiplies it by `scale`); pools (n_layers, pool_pages, h_k,
 // page, d) of kv_dtype with page % 8 == 0, read at layer `layer`; scales
-// (n_layers, pool_pages, h_k, page) f32 or null (bf16 pools); causal 1 is a
-// right window of 0, 0 none.
+// (n_layers, pool_pages, h_k, page) f32 or null (bf16 pools). The window
+// (wl, wr) is counted from query position kv_len - sq + t, < 0 unbounded:
+// causal is wr = 0; softcap 0 is none; alibi (b, h_k * group) f32 and
+// leftpad (b,) int32 may be null. A window start, a right window > 0, a
+// softcap, ALiBi or a leftpad take the kExtra instantiation.
 // One split writes o (b, sq, h, d) bf16 and lse (b, h, sq); more write f32
 // partials o (n_splits, b, sq, h, d) and lse (n_splits, b, sq, h).
 extern "C" int xfa_paged_attention_wgmma(const void* q, int64_t q_sb, int64_t q_st,
@@ -1551,12 +1720,14 @@ extern "C" int xfa_paged_attention_wgmma(const void* q, int64_t q_sb, int64_t q_
                                          const void* kv_lens, void* o, void* lse, int b, int sq,
                                          int h_k, int group, int d, int page, int max_pages,
                                          int n_layers, int pool_pages, int layer, int n_splits,
-                                         int causal, float scale, void* stream) {
+                                         int wl, int wr, float scale, float softcap,
+                                         const void* alibi, const void* leftpad, void* stream) {
   if (b * sq == 0) return cudaSuccess;
   wg::Params prm;
   cudaError_t err = hopper_params(&prm, q, q_sb, q_st, q_sh, kv_dtype, k_scales, v_scales,
                                   block_tables, kv_lens, o, lse, b, sq, h_k, group, page,
-                                  max_pages, pool_pages, layer, n_splits, causal, scale);
+                                  max_pages, pool_pages, layer, n_splits, wl, wr, scale, softcap,
+                                  alibi, leftpad);
   if (err != cudaSuccess) return err;
   const int n_pool_pages = n_layers * pool_pages;
   auto st = static_cast<cudaStream_t>(stream);
@@ -1573,22 +1744,24 @@ extern "C" int xfa_paged_attention_wgmma(const void* q, int64_t q_sb, int64_t q_
 }
 
 // The decode route (ops/paged.py::paged_route: sq * group <= 16 rows, d 64
-// or 128, page % 8 == 0, no option): the arguments of
-// xfa_paged_attention_wgmma. Each batch entry's live keys are cut into
-// n_splits runs of whole 64-key tiles; splits past them write empty
-// partials (O = 0, LSE = -inf).
+// or 128, page % 8 == 0): the arguments of xfa_paged_attention_wgmma. Each
+// batch entry's live keys (from the tile of the first key any row can see)
+// are cut into n_splits runs of whole 64-key tiles; splits past them write
+// empty partials (O = 0, LSE = -inf).
 extern "C" int xfa_paged_decode(const void* q, int64_t q_sb, int64_t q_st, int64_t q_sh,
                                 const void* k_pool, const void* v_pool, int kv_dtype,
                                 const void* k_scales, const void* v_scales,
                                 const void* block_tables, const void* kv_lens, void* o, void* lse,
                                 int b, int sq, int h_k, int group, int d, int page, int max_pages,
-                                int n_layers, int pool_pages, int layer, int n_splits, int causal,
-                                float scale, void* stream) {
+                                int n_layers, int pool_pages, int layer, int n_splits, int wl,
+                                int wr, float scale, float softcap, const void* alibi,
+                                const void* leftpad, void* stream) {
   if (b * sq == 0) return cudaSuccess;
   wg::Params prm;
   cudaError_t err = hopper_params(&prm, q, q_sb, q_st, q_sh, kv_dtype, k_scales, v_scales,
                                   block_tables, kv_lens, o, lse, b, sq, h_k, group, page,
-                                  max_pages, pool_pages, layer, n_splits, causal, scale);
+                                  max_pages, pool_pages, layer, n_splits, wl, wr, scale, softcap,
+                                  alibi, leftpad);
   if (err != cudaSuccess) return err;
   const int n_pool_pages = n_layers * pool_pages;
   auto st = static_cast<cudaStream_t>(stream);
@@ -1604,26 +1777,38 @@ extern "C" int xfa_paged_decode(const void* q, int64_t q_sb, int64_t q_st, int64
   }
 }
 
+namespace {
+
+// resident blocks an SM of decode instantiation i = (d == 128, rows > 8, options)
+template <typename KV>
+int decode_occupancy(int i) {
+  int (*const occ[8])() = {
+      dec::blocks_per_sm<KV, 64, 1, false>,  dec::blocks_per_sm<KV, 64, 1, true>,
+      dec::blocks_per_sm<KV, 64, 2, false>,  dec::blocks_per_sm<KV, 64, 2, true>,
+      dec::blocks_per_sm<KV, 128, 1, false>, dec::blocks_per_sm<KV, 128, 1, true>,
+      dec::blocks_per_sm<KV, 128, 2, false>, dec::blocks_per_sm<KV, 128, 2, true>};
+  return occ[i]();
+}
+
+}  // namespace
+
 // Resident blocks an SM of the decode kernel's (kv_dtype, d, rows <= 8 or
-// not) instantiation, by the CUDA occupancy calculator; -1 on an error.
-// ops/paged.py's DECODE_BLOCKS_PER_SM must equal it (chip_smoke.py checks).
-extern "C" int xfa_paged_decode_blocks_per_sm(int kv_dtype, int d, int rows) {
-  const bool wide = rows > 8;
-#define XFA_DEC_OCC(KV)                                                                    \
-  return d == 128 ? (wide ? dec::blocks_per_sm<KV, 128, 2>() : dec::blocks_per_sm<KV, 128, 1>()) \
-                  : (wide ? dec::blocks_per_sm<KV, 64, 2>() : dec::blocks_per_sm<KV, 64, 1>())
+// not, options or not) instantiation, by the CUDA occupancy calculator; -1
+// on an error. ops/paged.py's DECODE_BLOCKS_PER_SM must equal it
+// (chip_smoke.py checks).
+extern "C" int xfa_paged_decode_blocks_per_sm(int kv_dtype, int d, int rows, int options) {
   if (d != 64 && d != 128) return -1;
+  const int i = (d == 128) * 4 + (rows > 8) * 2 + (options != 0);
   switch (kv_dtype) {
     case XFA_BF16:
-      XFA_DEC_OCC(__nv_bfloat16);
+      return decode_occupancy<__nv_bfloat16>(i);
     case XFA_I8:
-      XFA_DEC_OCC(int8_t);
+      return decode_occupancy<int8_t>(i);
     case XFA_FP8_E4M3:
-      XFA_DEC_OCC(fp8e4m3_t);
+      return decode_occupancy<fp8e4m3_t>(i);
     default:
       return -1;
   }
-#undef XFA_DEC_OCC
 }
 
 // The merge of f32 split partials o_part (n_splits, b, sq, h, d) and

@@ -11,25 +11,28 @@ Options, as in the JAX package: a window (left, right) from query position
 kv_len - sq + t, with causal as a right window of 0; the tanh softcap on the
 K-scaled score; ALiBi slopes (h,) or (b, h), row t * group + g of KV head
 kvh taking the slope of q head kvh * group + g and losing slope * |qpos -
-kcol| after the softcap, both positions counted from the leftpad; and
+kcol| after the softcap (the leftpad takes no part: both positions counted
+from it give the same distance on every key a row sees); and
 ``cache_leftpad`` (b,), which masks the keys before it.
 
 CUDA tensors run one of the three hand-written kernels of
-csrc/paged_attention.cu, as ``paged_route`` picks from the shapes, the pool
-dtype and the options: the decode kernel ("decode", at most 16 query rows a
-KV head: decode and short verify), the Hopper chunk kernel ("wgmma", 64
-query rows a block, more than 16 rows a KV head: prefill chunks and paged
-varlen), both of which scale q themselves and write O and LSE in the
-caller's layout, or the first version on WMMA ("wmma": the options, odd
-pages). Split runs give f32 partials (O, LSE); the first two routes merge
-them with the combine kernel (``combine_splits``), the WMMA route with
-``combine_partials`` in plain torch. All take bf16 queries. CPU tensors run
-``paged_attention_ref``, the plain version, with the kernels' numerics.
-The decode route cuts each entry's live keys into ``num_splits`` runs of
-whole 64-key tiles (``decode_split_keys``); the others cut the pages from
-the first one any row can see (window start, leftpad) to the last live one
-into ``num_splits`` equal runs. The split count comes from the route's
-blocks (``paged_plan``).
+csrc/paged_attention.cu, as ``paged_route`` picks from the shapes and the
+pool dtype: the decode kernel ("decode", at most 16 query rows a KV head:
+decode and short verify), the Hopper chunk kernel ("wgmma", 64 query rows a
+block, more than 16 rows a KV head: prefill chunks and paged varlen), both
+of which scale q themselves and write O and LSE in the caller's layout, or
+the first version on WMMA ("wmma": pages of no whole TMA box). Each kernel
+has an option-free instantiation and one with the options (``has_options``),
+counted under labels of their own (``route_label``). Split runs give f32
+partials (O, LSE); the first two routes merge them with the combine kernel
+(``combine_splits``), the WMMA route with ``combine_partials`` in plain
+torch. All take bf16 queries. CPU tensors run ``paged_attention_ref``, the
+plain version, with the kernels' numerics. Every route cuts each entry's
+keys from the first one any row can see (window start, leftpad; 0 without
+them) to the last live one: the decode route into ``num_splits`` runs of
+whole 64-key tiles (``decode_split_keys``), the others into ``num_splits``
+equal runs of pages. The split count comes from the route's blocks
+(``paged_plan``).
 
 The layout is the JAX package's logical contract with its TPU padding
 removed: pools are stored tight, and the kernel reads any page size.
@@ -99,7 +102,7 @@ WGMMA_ROWS = 64  # query rows per block of the Hopper kernel: one warpgroup's
 
 def has_options(causal: bool, window: Tuple[int, int], softcap: float, alibi_slopes,
                 cache_leftpad) -> bool:
-    """Whether a call needs the WMMA kernel's general instantiation: a window
+    """Whether a call takes its kernel's options instantiation: a window
     start, a right window beyond the causal one, softcap, ALiBi or leftpad
     (non-causal attention is option-free)."""
     wr = 0 if causal else window[1]
@@ -107,16 +110,16 @@ def has_options(causal: bool, window: Tuple[int, int], softcap: float, alibi_slo
             or cache_leftpad is not None)
 
 
-def paged_route(rows: int, page: int, d: int, kv_dtype: torch.dtype, options: bool) -> str:
+def paged_route(rows: int, page: int, d: int, kv_dtype: torch.dtype) -> str:
     """The kernel of csrc/paged_attention.cu that takes a call, a pure
-    function of its shapes, pool dtype and options. With d 64 or 128, a page
-    of whole TMA boxes (a multiple of 8 keys), bf16, int8 or fp8 pools and
-    no option asking for the general kernel: "decode" (the decode kernel)
-    when at most 16 query rows share a KV head (rows = sq * group: decode
-    and short verify), else "wgmma" (the Hopper chunk kernel). Anything else
-    takes "wmma" (the first version: the options, odd pages)."""
-    if (d in (64, 128) and page % 8 == 0 and not options
-            and kv_dtype in (torch.bfloat16, *QUANT_DTYPES)):
+    function of its shapes and pool dtype (the options pick an
+    instantiation, not a kernel). With d 64 or 128, a page of whole TMA
+    boxes (a multiple of 8 keys) and bf16, int8 or fp8 pools: "decode" (the
+    decode kernel) when at most 16 query rows share a KV head (rows = sq *
+    group: decode and short verify), else "wgmma" (the Hopper chunk
+    kernel). Anything else takes "wmma" (the first version: odd pages; odd d
+    and fp16 pools, which its CUDA wrapper refuses)."""
+    if d in (64, 128) and page % 8 == 0 and kv_dtype in (torch.bfloat16, *QUANT_DTYPES):
         return "decode" if rows <= DECODE_ROWS else "wgmma"
     return "wmma"
 
@@ -128,13 +131,14 @@ def route_row_tile(route: str, rows: int) -> int:
     return DECODE_ROWS if route == "decode" else kernel_row_tile(rows)
 
 
-def route_label(route: str, rows: int) -> str:
-    """The launch counter (_build.LAUNCHES) of the route's kernel; the WMMA
-    kernel counts decode-sized calls (<= 16 rows a KV head) apart."""
+def route_label(route: str, rows: int, options: bool = False) -> str:
+    """The launch counter (_build.LAUNCHES) of the route's kernel: the Hopper
+    kernels count their options instantiation apart, the WMMA kernel its
+    decode-sized calls (<= 16 rows a KV head)."""
     if route == "decode":
-        return "paged_attention.decode"
+        return "paged_attention.decode.options" if options else "paged_attention.decode"
     if route == "wgmma":
-        return "paged_attention.prefill.wgmma"
+        return "paged_attention.prefill.options" if options else "paged_attention.prefill.wgmma"
     return "paged_attention.decode.wmma" if rows <= DECODE_ROWS else "paged_attention.prefill.wmma"
 
 
@@ -165,8 +169,7 @@ def paged_plan(q_shape, k_pool_shape, kv_dtype: torch.dtype, max_pages: int, num
     b, sq, h, d = q_shape
     h_k, page = k_pool_shape[-3], k_pool_shape[-2]
     rows = sq * (h // h_k)
-    route = paged_route(rows, page, d, kv_dtype,
-                        has_options(causal, window, softcap, alibi_slopes, cache_leftpad))
+    route = paged_route(rows, page, d, kv_dtype)
     if route == "decode":
         return route, resolve_num_splits(num_splits, b, h_k, rows,
                                          cdiv(max_pages * page, DECODE_TILE), DECODE_ROWS,
@@ -175,16 +178,19 @@ def paged_plan(q_shape, k_pool_shape, kv_dtype: torch.dtype, max_pages: int, num
                                      route_row_tile(route, rows))
 
 
-def decode_split_keys(kv_len: int, n_splits: int, max_keys: int):
+def decode_split_keys(kv_len: int, n_splits: int, max_keys: int, first_key: int = 0):
     """The decode kernel's cut of one batch entry's keys: [(lo, hi)] for
-    each split, the live keys (kv_len, at most the table's max_keys) cut
-    into n_splits runs of whole 64-key tiles; splits past the live tiles are
-    empty (lo == hi)."""
+    each split, the live keys (kv_len, at most the table's max_keys) from
+    the 64-key tile of `first_key` (the first key any row can see: window
+    start, leftpad; first_page's) cut into n_splits runs of whole tiles;
+    splits past the live tiles are empty (lo == hi)."""
     live = min(kv_len, max_keys)
-    per = cdiv(cdiv(live, DECODE_TILE), n_splits) * DECODE_TILE
+    n_tiles = cdiv(live, DECODE_TILE)
+    first = min(max(first_key, 0) // DECODE_TILE, n_tiles)
+    per = cdiv(n_tiles - first, n_splits) * DECODE_TILE
     out = []
     for s in range(n_splits):
-        lo = min(s * per, live)
+        lo = min(first * DECODE_TILE + s * per, live)
         out.append((lo, min(lo + per, live)))
     return out
 
@@ -273,25 +279,18 @@ def paged_attention_ref(
         keep = keep & (kcol <= qpos + max(wr, 0))
     if wl >= 0:
         keep = keep & (kcol >= qpos - wl)
-    leftpad = None
     if cache_leftpad is not None:
-        leftpad = cache_leftpad.to(device=dev, dtype=torch.long)[:, None, None, None]
-        keep = keep & (kcol >= leftpad)
-    if alibi_slopes is not None:
+        keep = keep & (kcol >= cache_leftpad.to(device=dev, dtype=torch.long)[:, None, None, None])
+    if alibi_slopes is not None:  # |qpos - kcol|: the leftpad masks, and adds no term
         slopes = alibi_slopes.to(device=dev, dtype=torch.float32)
         if slopes.dim() == 1:
             slopes = slopes[None].expand(b, h)
         row_slope = slopes.reshape(b, h_k, g)[:, :, torch.arange(rows, device=dev) % g]
-        kcol_eff, qpos_eff = kcol, qpos
-        if leftpad is not None:
-            kcol_eff = torch.where(kcol >= leftpad, kcol - leftpad, torch.full_like(kcol, 2**30))
-            qpos_eff = qpos - leftpad
-        s = s - row_slope[..., None] * (qpos_eff - kcol_eff).abs().float()
+        s = s - row_slope[..., None] * (qpos - kcol).abs().float()
 
     # each row's visible pages (64-key tiles on the decode route) cut into
     # num_splits equal runs, as the route's kernel does
-    options = has_options(causal, window, softcap, alibi_slopes, cache_leftpad)
-    unit = DECODE_TILE if paged_route(rows, page, d, k_pool.dtype, options) == "decode" else page
+    unit = DECODE_TILE if paged_route(rows, page, d, k_pool.dtype) == "decode" else page
     n_live = (lens.clamp_max(T) + unit - 1) // unit
     first = first_page(lens, sq, unit, wl, cache_leftpad, n_live)
     pps = (n_live - first + num_splits - 1) // num_splits
@@ -394,11 +393,11 @@ def _lib():
             fn.restype = ctypes.c_int
             fn.argtypes = (
                 [ctypes.c_void_p] + [ctypes.c_int64] * 3 + [ctypes.c_void_p] * 2
-                + [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 12
-                + [ctypes.c_float, ctypes.c_void_p]
+                + [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 13
+                + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 3
             )
         lib.xfa_paged_decode_blocks_per_sm.restype = ctypes.c_int
-        lib.xfa_paged_decode_blocks_per_sm.argtypes = [ctypes.c_int] * 3
+        lib.xfa_paged_decode_blocks_per_sm.argtypes = [ctypes.c_int] * 4
         lib.xfa_paged_combine.restype = ctypes.c_int
         lib.xfa_paged_combine.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
             ctypes.c_void_p]
@@ -406,10 +405,11 @@ def _lib():
     return _lib_handle
 
 
-def decode_blocks_per_sm(kv_dtype: torch.dtype, d: int, rows: int) -> int:
+def decode_blocks_per_sm(kv_dtype: torch.dtype, d: int, rows: int, options: bool = False) -> int:
     """Resident blocks an SM of the decode kernel's instantiation for these
-    pools and rows, by the CUDA occupancy calculator (on the card)."""
-    return _lib().xfa_paged_decode_blocks_per_sm(_build.dtype_code(kv_dtype), d, rows)
+    pools, rows and options, by the CUDA occupancy calculator (on the card)."""
+    return _lib().xfa_paged_decode_blocks_per_sm(_build.dtype_code(kv_dtype), d, rows,
+                                                 int(options))
 
 
 def _check_cuda_inputs(q, k_pool, v_pool, k_scales, v_scales):
@@ -439,12 +439,18 @@ def _paged_attention_cuda(q, k_pool, v_pool, layer_idx, block_tables, kv_lens, s
     choice; paged_bringup.py and chip_smoke.py also force another route to
     time it on the same shapes). Pools and scales as paged_attention takes
     them, with layer_idx not yet applied."""
+    wl, wr = int(window[0]), (0 if causal else int(window[1]))
+    b, sq, h, d = q.shape
+    slopes = None
+    if alibi_slopes is not None:
+        slopes = alibi_slopes.to(device=q.device, dtype=torch.float32).expand(b, h).contiguous()
+    leftpad = None if cache_leftpad is None else cache_leftpad.to(torch.int32).contiguous()
     if route in ("decode", "wgmma"):
         return _paged_hopper_cuda(q, k_pool, v_pool, layer_idx, block_tables, kv_lens, scale,
-                                  causal or window[1] == 0, num_splits, k_scales, v_scales, route)
+                                  num_splits, k_scales, v_scales, route, wl, wr, float(softcap),
+                                  slopes, leftpad)
     k_pool, v_pool = _layer(k_pool, layer_idx), _layer(v_pool, layer_idx)
     k_scales, v_scales = _layer(k_scales, layer_idx), _layer(v_scales, layer_idx)
-    b, sq, h, d = q.shape
     _, h_k, page, _ = k_pool.shape
     g = h // h_k
     rows = sq * g
@@ -453,11 +459,6 @@ def _paged_attention_cuda(q, k_pool, v_pool, layer_idx, block_tables, kv_lens, s
     qs = (q.float() * scale).to(q.dtype).contiguous()
     bt = block_tables.to(torch.int32).contiguous()
     lens = kv_lens.to(torch.int32).contiguous()
-    wl, wr = int(window[0]), (0 if causal else int(window[1]))
-    slopes = None
-    if alibi_slopes is not None:
-        slopes = alibi_slopes.to(device=q.device, dtype=torch.float32).expand(b, h).contiguous()
-    leftpad = None if cache_leftpad is None else cache_leftpad.to(torch.int32).contiguous()
     o_part = torch.empty((num_splits, b, h_k, rows, d), dtype=torch.float32, device=q.device)
     lse_part = torch.empty((num_splits, b, h_k, rows), dtype=torch.float32, device=q.device)
     rc = _lib().xfa_paged_attention(
@@ -476,10 +477,12 @@ def _paged_attention_cuda(q, k_pool, v_pool, layer_idx, block_tables, kv_lens, s
     return _unswap(o, lse, b, sq, h_k, g, d, q.dtype)
 
 
-def _paged_hopper_cuda(q, k_pool, v_pool, layer_idx, block_tables, kv_lens, scale, causal,
-                       num_splits, k_scales, v_scales, route):
+def _paged_hopper_cuda(q, k_pool, v_pool, layer_idx, block_tables, kv_lens, scale, num_splits,
+                       k_scales, v_scales, route, wl, wr, softcap, slopes, leftpad):
     """The decode kernel (route "decode") or the Hopper chunk kernel
-    ("wgmma"). q is read through its strides and scaled inside the kernel;
+    ("wgmma"), in its options instantiation when the window (wl, wr; causal
+    is wr = 0), softcap, slopes ((b, h) f32) or leftpad ((b,) int32) ask
+    for it. q is read through its strides and scaled inside the kernel;
     the pools' tensor maps span every layer, so layer_idx is a page
     coordinate; one split gives O (b, sq, h, d) and LSE (b, h, sq) as they
     are, more give f32 partials in that layout for the combine kernel."""
@@ -512,10 +515,12 @@ def _paged_hopper_cuda(q, k_pool, v_pool, layer_idx, block_tables, kv_lens, scal
         _build.dtype_code(k_pool.dtype), _build.ptr(k_scales), _build.ptr(v_scales),
         bt.data_ptr(), lens.data_ptr(), o.data_ptr(), lse.data_ptr(),
         b, sq, h_k, h // h_k, d, page, bt.shape[1], n_layers, pool_pages, layer, num_splits,
-        int(causal), float(scale), _build.stream_handle(),
+        wl, wr, float(scale), softcap, _build.ptr(slopes), _build.ptr(leftpad),
+        _build.stream_handle(),
     )
     _build.check(rc, f"paged_attention ({route})")
-    _build.LAUNCHES[route_label(route, sq * (h // h_k))] += 1
+    options = has_options(False, (wl, wr), softcap, slopes, leftpad)
+    _build.LAUNCHES[route_label(route, sq * (h // h_k), options)] += 1
     if num_splits > 1:
         return combine_splits(o, lse, q.dtype)
     return o, lse
