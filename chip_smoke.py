@@ -112,7 +112,18 @@ Phases, each of which raises (exit code != 0) when it fails:
    prefill of the same prompts is profiled by kernel
    (`chunked_prefill_profile`, K1's share on each route). Both serving
    runs decode through K1's and K3/K4's decode kernels and never the WMMA
-   ones.
+   ones. Every decode step is the replay of a CUDA graph: after each
+   serving run, each captured graph is replayed on its static buffers and
+   held bit for bit against the eager step on the same buffers
+   (`check_graph_replay`); the decode profile also traces the eager step on
+   those buffers and times both on the host clock. Between the two runs,
+   the engine's features (`serve_features`): the 8 chunked requests again
+   in windows of 4 decode steps (streams equal to the per-step run's), a
+   sampled run (top-k 50, top-p 0.9, temperature 0.8) in windows and again
+   per step (equal, every token in the vocabulary) with each sampling
+   route's device time (`sampling_times`), speculate_k = 3 on prompts of
+   repeated phrases and a 512-token registered prefix, each against the
+   per-step run under the tie rule (`TIE_DELTA`).
 5. Drive the public API (`api.py`) at Llama-8B attention width: dense
    attention with ALiBi, dropout and the probability plane, and its
    gradient; packed varlen over the serving prompts with per-sequence ALiBi,
@@ -127,7 +138,8 @@ Phases, each of which raises (exit code != 0) when it fails:
    copies of the caller's caches into K1's page layout. Each main path
    (training, chunked and bucketed serving, the API) runs with the launch
    counters cleared just before and read just after, to show that every
-   kernel of the path ran and no plain version did.
+   kernel of the path ran and no plain version did; the serving features'
+   runs (windows, sampled, speculative, prefix) are main paths too.
 6. Print the seconds of each phase, the `kernels` JSON line, the card's
    name and power limit, and, last,
    {"ok": true, "device": {...}}.
@@ -1518,12 +1530,15 @@ def kernel_names(fn):
     """The CUDA kernels one call of fn launches, in order (profiler trace).
     fn runs twice in the trace, a spin of the card between, and the kernels
     after the spin are returned: a trace has been seen to miss a kernel of
-    the first call after the profiler starts."""
+    the first call after the profiler starts. The calls start
+    TRACE_SETTLE_S after the trace does: without it a trace once lost the
+    first call and the spin both."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(TRACE_SETTLE_S)
         fn()
         torch.cuda._sleep(1000)
         fn()
@@ -2416,7 +2431,7 @@ def reference_check(params, cfg, checks, seed):
         lens = torch.tensor([n_valid + 1, 0], dtype=torch.int32, device=dev)
         _, logits_d = decode_core(p, dtok, pools, dbt, lens, cfg)
         # bucketed prefill rewrites page 0 with the same prompt's KV
-        _, logits_b = prefill_core(p, tokens, n_valid, pools, bt[:, :1], cfg)
+        logits_b = prefill_core(p, tokens, n_valid, pools, bt[:, :1], cfg)
         runs[name] = tuple(x.float().cpu() for x in (logits_p, logits_d[:1], logits_b[None]))
         seconds[name] = time.perf_counter() - t0
     for i, what in enumerate(("prefill_logits", "decode_logits", "bucketed_prefill_logits")):
@@ -2437,29 +2452,34 @@ def serve(eng, cfg, seed):
     the requests already active). Each request's time to first token runs
     from the moment all 8 are queued to the engine's `first_token_at`. With
     bucketed prefill the first step admits every prompt, one after the
-    other, before it decodes: the last first token gives the prefill rate."""
+    other, before it decodes: the last first token gives the prefill rate.
+    A decode step is also timed on the host clock (it ends in the engine's
+    one host read); in windows of K it emits up to K tokens a request."""
     rng = np.random.default_rng(seed)
     lens = rng.integers(200, 1501, 8)
     n_new = 32
     prompts = {i: rng.integers(0, cfg.vocab_size, int(n)).tolist() for i, n in enumerate(lens)}
     for rid, p in prompts.items():
         eng.add_request(rid, p, n_new)
-    prefill_ms, decode_ms, decode_tokens = [], [], 0
+    prefill_ms, decode_ms, decode_host_ms, decode_tokens = [], [], [], 0
     stats0 = dict(eng.stats)  # the counters also hold the warm-up request
     t0 = time.perf_counter()
     while eng.has_work():
         admitted0, chunks0 = eng.stats["requests_admitted"], eng.stats["prefill_chunks"]
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        h0 = time.perf_counter()
         start.record()
         emitted = eng.step()
         end.record()
         end.synchronize()
+        host_ms = 1e3 * (time.perf_counter() - h0)
         ms = start.elapsed_time(end)
         if eng.stats["requests_admitted"] > admitted0 or eng.stats["prefill_chunks"] > chunks0:
             prefill_ms.append(ms)
         else:
             decode_ms.append(ms)
+            decode_host_ms.append(host_ms)
             decode_tokens += sum(len(v) for v in emitted.values())
     wall = time.perf_counter() - t0
     for rid in prompts:
@@ -2480,6 +2500,8 @@ def serve(eng, cfg, seed):
                              p99=percentile(prefill_ms, 99)),
         decode_step_ms=dict(p50=percentile(decode_ms, 50), p90=percentile(decode_ms, 90),
                             p99=percentile(decode_ms, 99)),
+        decode_step_host_ms=dict(p50=percentile(decode_host_ms, 50),
+                                 p90=percentile(decode_host_ms, 90)),
         ttft_ms=dict(p50=percentile(ttft_ms, 50), p90=percentile(ttft_ms, 90),
                      max=max(ttft_ms)),
         wall_s=wall, stats={k: v - stats0[k] for k, v in eng.stats.items()},
@@ -2547,21 +2569,57 @@ K3_GROUPS = dict(k3_decode="qmm_decode_kernel", k3_wgmma="qmm_wgmma_kernel",
                  k3_wmma="qmm_kernel", qmm_reduce="qmm_reduce_kernel")
 
 
+def admit_profile_requests(eng, cfg, seed, max_new):
+    """The decode profiles' 8 requests (256-token prompts from seed + 2),
+    admitted and prefilled by one step of a bucketed engine, which also
+    decodes them once (or a window)."""
+    rng = np.random.default_rng(seed + 2)
+    n = eng.ecfg.max_batch
+    for i in range(n):
+        eng.add_request(1000 + i, rng.integers(0, cfg.vocab_size, 256).tolist(), max_new)
+    eng.step()
+    if len(eng.active) != n:
+        raise RuntimeError(f"decode profile: {len(eng.active)} of {n} requests active")
+
+
 def profile_decode(eng, cfg, seed, n_steps=3):
     """Device time of decode-only engine steps with 8 active requests, from
     a torch.profiler trace (`profiled`), with K1's and K3/K4's kernels by
     route. The engine prefills whole prompts (bucketed), so one step admits
-    all 8."""
-    rng = np.random.default_rng(seed + 2)
-    n = eng.ecfg.max_batch
-    for i in range(n):
-        eng.add_request(1000 + i, rng.integers(0, cfg.vocab_size, 256).tolist(), n_steps + 2)
-    eng.step()  # admit and prefill every request, and the first decode
-    if len(eng.active) != n:
-        raise RuntimeError(f"decode profile: {len(eng.active)} of {n} requests active")
-    prof = profiled(eng.step, n_steps, groups=dict(K1_GROUPS, **K3_GROUPS, append=APPEND_KERNEL))
+    all 8. Each step is a graph replay; the same decode run eagerly on the
+    graph's static buffers (decode_multi_step, one step) is profiled too,
+    for the split by kernel should the trace not see inside the graph, and
+    both are timed on the host clock (each ended by its one host read)."""
+    admit_profile_requests(eng, cfg, seed, 2 * n_steps + 8)
+    groups = dict(K1_GROUPS, **K3_GROUPS, append=APPEND_KERNEL)
+    prof = profiled(eng.step, n_steps, groups=groups)
+    s, g = eng._static, eng._graphs[(1, False)]
+
+    def eager():
+        toks, _ = eng._window_fn(1, False, s["tokens"], s["bt"], s["lens"], s["temps"],
+                                 s["step"])
+        return toks.cpu()
+
+    def replay():
+        g.graph.replay()
+        return g.tokens.cpu()
+
+    eager_prof = profiled(eager, n_steps, groups=groups)
+    host = {}
+    for name, fn in (("replay", replay), ("eager", eager), ("replay2", replay),
+                     ("eager2", eager)):
+        fn()
+        t = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            fn()
+            t.append(1e3 * (time.perf_counter() - t0))
+        host[name] = percentile(t, 50)
     eng.run()
-    return prof
+    if prof is None:
+        return None
+    return dict(prof, eager_on_static_buffers=eager_prof, host_ms_p50=host,
+                graph_launches_per_replay=sum(g.launches.values()))
 
 
 def profile_chunked_prefill(eng, cfg, seed):
@@ -2611,6 +2669,345 @@ def profile_admission(eng, cfg, seed):
         out.update(prof, k3_share=prof["groups_ms_per_step"]["k3"] / prof["device_ms_per_step"],
                    busy_share=prof["device_ms_per_step"] / out["step_ms"])
     return out
+
+
+# ---- the engine's serving features: graphs, windows, sampling, speculation --
+
+# the tie rule's bound on the logits of one position computed two ways (the
+# verify step's L-token tiling or another chunking against the per-step
+# run): bf16 activations round differently through 32 layers, so an argmax
+# may flip only where the per-step run's top two logits lie within twice
+# this of each other
+TIE_DELTA = 0.25
+
+
+def check_graph_replay(eng, checks, name):
+    """Each captured graph of the engine replayed on its static buffers
+    (holding the last step's inputs) against decode_multi_step run eagerly
+    on the same buffers: tokens and logits bit for bit (as int32 words, so
+    that the inactive rows' values compare too). Both rewrite the same KV
+    rows with the same bytes."""
+    s = eng._static
+    for (K, sampling), g in sorted(eng._graphs.items()):
+        g.graph.replay()
+        toks_g, logits_g = g.tokens.clone(), g.logits.clone()
+        toks_e, logits_e = eng._window_fn(K, sampling, s["tokens"], s["bt"], s["lens"],
+                                          s["temps"], s["step"])
+        ok = (torch.equal(toks_g, toks_e)
+              and torch.equal(logits_g.view(torch.int32), logits_e.view(torch.int32)))
+        live = s["lens"] > 0
+        checks.add(f"{name}.graph_equals_eager[K={K},sampling={int(sampling)}]", ok,
+                   max_abs_err_live_rows=max_err(logits_g[live], logits_e[live]),
+                   active_rows=int(live.sum()), launches_per_replay=sum(g.launches.values()))
+
+
+def serve_recorded(eng, prompts, n_new, prefix_id=None):
+    """Serve greedy requests and keep, for each token, the logits it was
+    chosen from: a prefill's (the engine's _sample_first), a graphed
+    per-step decode's (the graph's logits output) or a speculative verify
+    position's (verify_core wrapped for the run, its calls over more than
+    one token). Returns (streams,
+    {(rid, index): logits (V,)}, the decode or verify steps' ms on CUDA
+    events, the tokens they emitted)."""
+    from xf_flash_attention_cutlass_tpu_torch.serve import engine as engine_mod
+
+    logits, verified = {}, []
+    sample_first, verify_core = eng._sample_first, engine_mod.verify_core
+
+    def first(lg, rid, temperature):
+        logits[(rid, 0)] = lg.detach().clone()
+        return sample_first(lg, rid, temperature)
+
+    def verify(*a, **kw):  # decode_core calls it too, at one token (the graph's warm-up)
+        out = verify_core(*a, **kw)
+        if out.shape[1] > 1:
+            verified.append(out)
+        return out
+
+    eng._sample_first, engine_mod.verify_core = first, verify
+    step_ms, step_tokens = [], 0
+    try:
+        for rid, p in prompts.items():
+            eng.add_request(rid, p, n_new, prefix_id=prefix_id)
+        while eng.has_work():
+            before = {st["id"]: len(st["generated"]) for st in eng.active.values()}
+            chunks0, admitted0 = eng.stats["prefill_chunks"], eng.stats["requests_admitted"]
+            verified.clear()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            emitted = eng.step()
+            end.record()
+            end.synchronize()
+            if not emitted:
+                continue
+            if (eng.stats["prefill_chunks"] == chunks0
+                    and eng.stats["requests_admitted"] == admitted0):
+                step_ms.append(start.elapsed_time(end))
+                step_tokens += sum(len(v) for v in emitted.values())
+            graph = eng._graphs.get((1, False))
+            for slot, st in eng.active.items():
+                n0 = before.get(st["id"], 1)  # admitted in this step: index 0 came from prefill
+                for i in range(len(st["generated"]) - n0):
+                    if verified:
+                        logits[(st["id"], n0 + i)] = verified[0][slot, i].clone()
+                    else:
+                        logits[(st["id"], n0 + i)] = graph.logits[slot].clone()
+    finally:
+        eng._sample_first = sample_first
+        engine_mod.verify_core = verify_core
+    streams = {rid: list(eng.results[rid]) for rid in prompts}
+    return streams, logits, step_ms, step_tokens
+
+
+def tie_rule(checks, name, ref, run):
+    """Hold a run's greedy streams to the per-step reference's up to their
+    first difference: at every position both computed from the same context
+    (each index up to the first difference) the two logit vectors differ by
+    at most TIE_DELTA, and where the streams part the reference's top two
+    logits lie within 2 * TIE_DELTA. Returns the summary."""
+    (ref_s, ref_l), (run_s, run_l) = ref, run
+    worst, parted, exact = 0.0, [], 0
+    for rid, want in ref_s.items():
+        got = run_s[rid]
+        j = next((i for i, (a, b) in enumerate(zip(want, got)) if a != b), None)
+        if j is None and len(want) == len(got):
+            exact += 1
+        last = len(want) - 1 if j is None else j
+        for i in range(last + 1):
+            if (rid, i) in ref_l and (rid, i) in run_l:
+                worst = max(worst, max_err(ref_l[(rid, i)], run_l[(rid, i)]))
+        if j is not None:
+            top = torch.topk(ref_l[(rid, j)].float(), 2).values
+            parted.append(dict(request=rid, index=j, top_two_gap=float(top[0] - top[1]),
+                               delta_there=max_err(ref_l[(rid, j)], run_l[(rid, j)])))
+    ok = worst <= TIE_DELTA and all(p["top_two_gap"] <= 2 * TIE_DELTA for p in parted)
+    out = dict(requests=len(ref_s), exact=exact, parted=parted, worst_logit_delta=worst,
+               tie_delta=TIE_DELTA)
+    checks.add(f"{name}.tie_rule", ok, **out)
+    return out
+
+
+def repeated_prompts(rng, cfg, n, length=256, phrase=32):
+    """n prompts of `length` tokens, each a random phrase repeated: prompt
+    lookup finds n-grams to draft from."""
+    out = {}
+    for i in range(n):
+        p = rng.integers(0, cfg.vocab_size, phrase).tolist()
+        out[i] = (p * -(-length // phrase))[:length]
+    return out
+
+
+def sampling_times(cfg, seed, reps=20):
+    """sample_tokens on 8 rows of the vocabulary's f32 logits on the card:
+    the argmax alone, then each route at temperature 0.8, each captured in
+    a CUDA graph as in the engine's decode step and its replays timed with
+    CUDA events (a route is a few hundred small kernels, most of them the
+    Philox noise's elementwise int64 ops: launched eagerly, the host could
+    not queue them as fast as the card runs them). Returns {route: ms}."""
+    from xf_flash_attention_cutlass_tpu_torch.serve.engine import sample_tokens
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    logits = torch.randn((8, cfg.vocab_size), generator=gen, device="cuda")
+    temps = torch.full((8,), 0.8, device="cuda")
+    step = torch.zeros((), dtype=torch.int64, device="cuda")
+    routes = dict(greedy=dict(temperature=None), temperature=dict(), top_k50=dict(top_k=50),
+                  top_k50_top_p09=dict(top_k=50, top_p=0.9),
+                  top_p09_prefix128=dict(top_p=0.9),
+                  top_p09_full_sort=dict(top_p=0.9, approx_top_k=False))
+    out = {}
+    for name, kw in routes.items():
+        kw = dict(dict(temperature=temps, step=step, seed=seed), **kw)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            sample_tokens(logits, **kw)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            sample_tokens(logits, **kw)
+        graph.replay()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            graph.replay()
+        end.record()
+        end.synchronize()
+        out[name] = start.elapsed_time(end) / reps
+        del graph
+    return out
+
+
+# the Gumbel noise's bound between the card and the CPU: each side rounds
+# its two logs within a few ulp, and the noise reaches about 16 in size
+NOISE_TOL = 1e-5
+
+
+def check_sampling_on_cpu(cfg, seed, checks, device="cuda"):
+    """sample_tokens on the card against the same call on the CPU: 8 rows
+    of the vocabulary's f32 logits, mixed temperatures (two greedy rows),
+    a step word per row (two past 2**31, wrapped by the counter's mask) and
+    a 64-bit seed, on both lanes, for every route. The Philox uniforms are
+    integer math and must be bit-equal; the noise within NOISE_TOL (its logs
+    round per library); the tokens equal. Returns {route: tokens equal}."""
+    from xf_flash_attention_cutlass_tpu_torch.serve.engine import (
+        gumbel_noise,
+        philox_uniform,
+        sample_tokens,
+    )
+
+    gen = torch.Generator(device=device).manual_seed(seed + 6)
+    logits = torch.randn((8, cfg.vocab_size), generator=gen, device=device)
+    temps = torch.tensor([0.0, 0.5, 0.8, 1.3, 0.8, 2.0, 0.0, 1.0], device=device)
+    steps = torch.tensor([0, 1, 7, 2**31 + 5, 2**32 + 3, 12345, 99, 3], device=device)
+    key = (1 << 40) + seed
+    routes = dict(temperature=dict(), top_k50=dict(top_k=50), top_p09_prefix128=dict(top_p=0.9),
+                  top_k50_top_p09=dict(top_k=50, top_p=0.9),
+                  top_p09_full_sort=dict(top_p=0.9, approx_top_k=False))
+    out = {}
+    for lane in (0, 1):
+        args = (8, cfg.vocab_size, steps, lane, key)
+        u_card, u_cpu = philox_uniform(*args, device), philox_uniform(*args, "cpu")
+        g_card, g_cpu = gumbel_noise(*args, device).cpu(), gumbel_noise(*args, "cpu")
+        checks.add(f"serve_sampled.noise_equals_cpu[lane={lane}]",
+                   torch.equal(u_card.cpu().view(torch.int32), u_cpu.view(torch.int32))
+                   and max_err(g_card, g_cpu) <= NOISE_TOL,
+                   max_abs_err=max_err(g_card, g_cpu), tolerance=NOISE_TOL,
+                   noise_bit_equal_share=float((g_card.view(torch.int32)
+                                                == g_cpu.view(torch.int32)).float().mean()))
+        for name, kw in routes.items():
+            kw = dict(temperature=temps, step=steps, seed=key, lane=lane, **kw)
+            card = sample_tokens(logits, **kw).cpu()
+            cpu = sample_tokens(logits.cpu(), **dict(kw, temperature=temps.cpu(),
+                                                     step=steps.cpu()))
+            same = torch.equal(card, cpu)
+            out[f"{name}[lane={lane}]"] = same
+            checks.add(f"serve_sampled.tokens_equal_cpu[{name},lane={lane}]", same,
+                       card=card.tolist(), cpu=cpu.tolist())
+    return out
+
+
+def profile_window(eng, cfg, seed, n_windows=2):
+    """profile_decode's 8 requests (256-token prompts, the same tokens) on
+    an engine with multi_step = 4: device time and kernel launches a window
+    from a profiler trace, and the host time of a window, for the device
+    time a token beside the per-step graph's on the same contexts."""
+    admit_profile_requests(eng, cfg, seed, 4 * (2 * n_windows + 2))
+    prof = profiled(eng.step, n_windows, groups=dict(K1_GROUPS, **K3_GROUPS))
+    host = []
+    for _ in range(n_windows):
+        t0 = time.perf_counter()
+        eng.step()
+        host.append(1e3 * (time.perf_counter() - t0))
+    eng.run()
+    return None if prof is None else dict(prof, host_ms=host)
+
+
+def sampled_run(eng, cfg, seed, n_new=16):
+    """8 requests of serve's prompts at temperature 0.8 (the engine's top_k
+    and top_p); their streams, each token checked to lie in the vocabulary."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(200, 1501, 8)
+    prompts = {i: rng.integers(0, cfg.vocab_size, int(n)).tolist() for i, n in enumerate(lens)}
+    for rid, p in prompts.items():
+        eng.add_request(rid, p, n_new, temperature=0.8)
+    eng.run()
+    return {rid: list(eng.results[rid]) for rid in prompts}
+
+
+def serve_features(params, cfg, ecfg, seed, checks, paths, per_step_chunked):
+    """The engine's features at the serving configuration: (1) the 8
+    chunked serving requests again in windows of 4 (streams equal to the
+    per-step run's, `per_step_chunked`); (2) a sampled run (top-k 50, top-p
+    0.9, temperature 0.8, bucketed) in windows of 4 and again per step:
+    equal; (3) speculate_k = 3 on prompts of repeated phrases against the
+    per-step run, under the tie rule; (4) a 512-token registered prefix
+    against the per-step run over prefix + prompt, under the tie rule. Each
+    engine's graphs are held to the eager step; profile_decode's requests
+    are profiled in windows of 4 too. Returns the report."""
+    from xf_flash_attention_cutlass_tpu_torch.serve.engine import DecodeEngine
+
+    report = {}
+    bucketed = dataclasses.replace(ecfg, prefill_chunk=None)
+
+    eng = DecodeEngine(params, cfg, dataclasses.replace(ecfg, multi_step=4))
+    windowed, paths["serve_multi_step"] = drive("serve_multi_step",
+                                                lambda: serve(eng, cfg, seed))
+    same = {rid: eng.results[rid] == per_step_chunked[rid] for rid in per_step_chunked}
+    checks.add("serve_multi_step.streams_equal_per_step", all(same.values()), per_request=same)
+    check_graph_replay(eng, checks, "serve_multi_step")
+    report["serve_multi_step"] = windowed
+    print(json.dumps({"serve_multi_step": windowed}), flush=True)
+    del eng
+    torch.cuda.empty_cache()
+
+    eng = DecodeEngine(params, cfg, dataclasses.replace(bucketed, multi_step=4))
+    report["decode_window_profile"] = profile_window(eng, cfg, seed)
+    print(json.dumps({"decode_window_profile": report["decode_window_profile"]}), flush=True)
+    del eng
+    torch.cuda.empty_cache()
+
+    sampling = dataclasses.replace(bucketed, top_k=50, top_p=0.9, sample_seed=seed)
+    eng = DecodeEngine(params, cfg, dataclasses.replace(sampling, multi_step=4))
+    a, paths["serve_sampled"] = drive("serve_sampled", lambda: sampled_run(eng, cfg, seed))
+    check_graph_replay(eng, checks, "serve_sampled")
+    del eng
+    eng = DecodeEngine(params, cfg, sampling)
+    b = sampled_run(eng, cfg, seed)
+    del eng
+    torch.cuda.empty_cache()
+    checks.add("serve_sampled.reproducible", a == b,
+               in_vocabulary=all(0 <= t < cfg.vocab_size for s in a.values() for t in s),
+               distinct_tokens=len({t for s in a.values() for t in s}))
+    report["serve_sampled"] = dict(streams_equal=a == b, tokens=sum(map(len, a.values())),
+                                   sampling_ms=sampling_times(cfg, seed),
+                                   equals_cpu=check_sampling_on_cpu(cfg, seed, checks))
+    print(json.dumps({"serve_sampled": report["serve_sampled"]}), flush=True)
+
+    rng = np.random.default_rng(seed + 4)
+    prompts = repeated_prompts(rng, cfg, ecfg.max_batch)
+    eng = DecodeEngine(params, cfg, bucketed)
+    ref_s, ref_l, ref_ms, ref_tok = serve_recorded(eng, prompts, 24)
+    del eng
+    eng = DecodeEngine(params, cfg, dataclasses.replace(bucketed, speculate_k=3))
+    (spec_s, spec_l, spec_ms, spec_tok), paths["serve_speculative"] = drive(
+        "serve_speculative", lambda: serve_recorded(eng, prompts, 24))
+    report["serve_speculative"] = dict(
+        tie_rule=tie_rule(checks, "serve_speculative", (ref_s, ref_l), (spec_s, spec_l)),
+        stats=dict(eng.stats), per_step_ms=dict(p50=percentile(ref_ms, 50),
+                                                p90=percentile(ref_ms, 90)),
+        verify_step_ms=dict(p50=percentile(spec_ms, 50), p90=percentile(spec_ms, 90)),
+        per_step_tok_s=ref_tok / (sum(ref_ms) / 1e3), verify_tok_s=spec_tok / (sum(spec_ms) / 1e3),
+        tokens_per_verify_step=spec_tok / len(spec_ms))
+    print(json.dumps({"serve_speculative": report["serve_speculative"]}), flush=True)
+    del eng, ref_l, spec_l
+    torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(seed + 5)
+    prefix = rng.integers(0, cfg.vocab_size, 512).tolist()
+    prompts = {i: rng.integers(0, cfg.vocab_size, int(n)).tolist()
+               for i, n in enumerate(rng.integers(100, 401, ecfg.max_batch))}
+    eng = DecodeEngine(params, cfg, ecfg)
+    ref_s, ref_l, _, _ = serve_recorded(eng, {r: prefix + p for r, p in prompts.items()}, 16)
+    del eng
+    eng = DecodeEngine(params, cfg, ecfg)
+
+    def prefixed():
+        eng.register_prefix("sys", prefix)
+        out = serve_recorded(eng, prompts, 16, prefix_id="sys")
+        eng.release_prefix("sys")
+        return out
+
+    (pre_s, pre_l, _, _), paths["serve_prefix"] = drive("serve_prefix", prefixed)
+    checks.add("serve_prefix.pages_returned", eng.pool.free_pages() == ecfg.num_pages,
+               free_pages=eng.pool.free_pages())
+    report["serve_prefix"] = dict(
+        tie_rule=tie_rule(checks, "serve_prefix", (ref_s, ref_l), (pre_s, pre_l)),
+        stats=dict(eng.stats), prefix_tokens=len(prefix))
+    print(json.dumps({"serve_prefix": report["serve_prefix"]}), flush=True)
+    del eng, ref_l, pre_l
+    torch.cuda.empty_cache()
+    return report
 
 
 # ---- what the build made of K7 and K3 ----------------------------------------
@@ -2935,26 +3332,36 @@ KERNELS = {  # launch-counter name: (source, TPU kernel it replaces)
     "flash_bwd.fused": (_PKG + "flash_bwd.cu", _TPU + "ops/flash_bwd.py:156"),
 }
 # the kernels each main path must launch (and it may call no plain version);
-# the engine's decode splits (paged_plan: 4 at b = 8) run the combine kernel
+# the engine's decode splits (paged_plan: 4 at b = 8) run the combine kernel.
+# Every decode step is the replay of a CUDA graph (`graph.decode`, a window
+# of several: `graph.decode_multi_step`), which adds the launches its
+# capture counted; the speculative path verifies 3 tokens a request (K1's
+# decode route at 12 rows, K3/K4's wgmma route at m = 24) and never decodes
+_SERVE_KERNELS = ["paged_attention.decode", "paged_attention.combine", "paged_append.decode",
+                  "qmm.stacked.decode", "qmm.stacked.wgmma", "qmm.single.decode"]
+_CHUNKED = ["paged_attention.prefill.wgmma", "paged_append.prefill"]
+_BUCKETED = ["flash_fwd", "paged_append.prefill"]
 PATHS = {
-    "serve_chunked": ["paged_attention.decode", "paged_attention.combine",
-                      "paged_attention.prefill.wgmma", "paged_append.decode",
-                      "paged_append.prefill", "qmm.stacked.decode", "qmm.stacked.wgmma",
-                      "qmm.single.decode"],
-    "serve_bucketed": ["flash_fwd", "paged_append.prefill", "paged_attention.decode",
-                       "paged_attention.combine", "paged_append.decode", "qmm.stacked.decode",
-                       "qmm.stacked.wgmma", "qmm.single.decode"],
+    "serve_chunked": _SERVE_KERNELS + _CHUNKED + ["graph.decode"],
+    "serve_bucketed": _SERVE_KERNELS + _BUCKETED + ["graph.decode"],
     "train": ["flash_fwd", "flash_bwd.dq", "flash_bwd.dkv", "flash_bwd.fused"],
     "api": ["flash_fwd", "flash_probs", "flash_bwd.dq", "flash_bwd.dkv",
             "paged_attention.decode", "paged_attention.decode.options",
             "paged_attention.prefill.wgmma", "paged_attention.prefill.options"],
+    "serve_multi_step": _SERVE_KERNELS + _CHUNKED + ["graph.decode", "graph.decode_multi_step"],
+    "serve_sampled": _SERVE_KERNELS + _BUCKETED + ["graph.decode_multi_step"],
+    "serve_speculative": _BUCKETED + ["paged_attention.decode", "paged_attention.combine",
+                                      "qmm.stacked.wgmma", "qmm.single.wgmma",
+                                      "qmm.single.decode"],
+    "serve_prefix": _SERVE_KERNELS + _CHUNKED + ["graph.decode"],
 }
 # kernels a main path must not launch: serving decodes on K1's and K3/K4's
 # decode kernels, and the api path's options take K1's Hopper kernels
-NOT_ON_PATH = {"serve_chunked": ["paged_attention.decode.wmma", "qmm.stacked.bm16",
-                                 "qmm.single.bm16"],
-               "serve_bucketed": ["paged_attention.decode.wmma", "qmm.stacked.bm16",
-                                  "qmm.single.bm16"],
+_NOT_SERVING = ["paged_attention.decode.wmma", "qmm.stacked.bm16", "qmm.single.bm16"]
+NOT_ON_PATH = {"serve_chunked": _NOT_SERVING, "serve_bucketed": _NOT_SERVING,
+               "serve_multi_step": _NOT_SERVING, "serve_sampled": _NOT_SERVING,
+               "serve_speculative": _NOT_SERVING + ["graph.decode", "paged_append.decode"],
+               "serve_prefix": _NOT_SERVING,
                "api": ["paged_attention.decode.wmma", "paged_attention.prefill.wmma"]}
 
 
@@ -3161,11 +3568,20 @@ def main():
     serving["launches"] = paths["serve_chunked"]
     report["serving"] = serving
     print(json.dumps({"serving": serving}), flush=True)
+    per_step_chunked = {rid: list(eng.results[rid]) for rid in range(8)}
+    check_graph_replay(eng, checks, "serve_chunked")
     report["chunked_prefill_profile"] = profile_chunked_prefill(eng, cfg, args.seed)
     print(json.dumps({"chunked_prefill_profile": report["chunked_prefill_profile"]}), flush=True)
     del eng
     torch.cuda.empty_cache()
+    checks.raise_on_failure("chunked serving")
     mark("serve_chunked")
+
+    # the engine's features: windows, sampling, speculative verify, prefixes
+    report["serve_features"] = serve_features(params, cfg, ecfg, args.seed, checks, paths,
+                                              per_step_chunked)
+    checks.raise_on_failure("serving features")
+    mark("serve_features")
 
     # the kernels are warm from the chunked engine: no warm-up request here
     eng = DecodeEngine(params, cfg, dataclasses.replace(ecfg, prefill_chunk=None))
@@ -3182,8 +3598,13 @@ def main():
     if prof is not None:  # device busy share of a decode-only step
         prof["busy_share_of_p50_step"] = (prof["device_ms_per_step"]
                                           / bucketed["decode_step_ms"]["p50"])
+        if prof["eager_on_static_buffers"]:  # the same with the eager step's device time
+            prof["busy_share_eager_device_ms"] = (
+                prof["eager_on_static_buffers"]["device_ms_per_step"]
+                / bucketed["decode_step_ms"]["p50"])
     report["decode_profile"] = prof
     print(json.dumps({"decode_profile": prof}), flush=True)
+    check_graph_replay(eng, checks, "serve_bucketed")
     # the decode step's projections on the decode kernel, its splits summed
     # inside it: no reduction launch and no WMMA kernel
     calls = (prof or {}).get("groups_calls_per_step", {})

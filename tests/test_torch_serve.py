@@ -170,21 +170,27 @@ def test_engine_rejects_what_the_slice_does_not_serve(jax_params):
     params = params_from_jax(_numpy_tree(jax_params))
     cfg = LlamaConfig(**TINY)
     base = dict(max_batch=2, page_size=16, num_pages=16, max_seq=256, prefill_chunk=32)
+    # served since the engine's features were ported: the engine builds
     for extra in (dict(speculate_k=2), dict(multi_step=2), dict(top_k=5), dict(top_p=0.9)):
-        with pytest.raises(NotImplementedError):
-            DecodeEngine(params, cfg, EngineConfig(**{**base, **extra}), device="cpu")
+        DecodeEngine(params, cfg, EngineConfig(**{**base, **extra}), device="cpu")
     with pytest.raises(NotImplementedError):
         DecodeEngine(params, cfg, EngineConfig(**base), device="cpu", mesh=object())
     moe = dict(params, layers=dict(params["layers"], router=torch.zeros(2, 64, 4)))
     with pytest.raises(NotImplementedError):
         DecodeEngine(moe, cfg, EngineConfig(**base), device="cpu")
     eng = DecodeEngine(params, cfg, EngineConfig(**base), device="cpu")
-    with pytest.raises(NotImplementedError):
-        eng.add_request(0, [1, 2], 3, temperature=0.7)
-    with pytest.raises(NotImplementedError):
-        eng.add_request(0, [1, 2], 3, prefix_id="sys")
-    with pytest.raises(NotImplementedError):
-        eng.register_prefix("sys", [1, 2, 3])
+    eng.add_request(0, [1, 2], 3, temperature=0.7)
+    # the JAX engine's errors: an unknown prefix, a prefix without chunked prefill
+    with pytest.raises(KeyError):
+        eng.add_request(1, [1, 2], 3, prefix_id="sys")
+    eng.register_prefix("sys", [1, 2, 3])
+    eng.add_request(1, [1, 2], 3, prefix_id="sys")
+    bucketed = DecodeEngine(params, cfg, EngineConfig(**{**base, "prefill_chunk": None}),
+                            device="cpu")
+    with pytest.raises(ValueError):
+        bucketed.register_prefix("sys", [1, 2, 3])
+    with pytest.raises(ValueError):
+        bucketed.add_request(0, [1, 2], 3, prefix_id="sys")
     # the JAX engine's prefill_chunk % 128 rule for quantized page-256 pools
     with pytest.raises(ValueError):
         DecodeEngine(params, cfg, EngineConfig(**{**base, "page_size": 256,

@@ -1,0 +1,5 @@
+from xf_flash_attention_cutlass_tpu_torch.serve.allocator import PagePool  # noqa: F401
+from xf_flash_attention_cutlass_tpu_torch.serve.engine import (  # noqa: F401
+    DecodeEngine,
+    EngineConfig,
+)

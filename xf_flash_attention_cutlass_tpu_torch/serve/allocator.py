@@ -15,6 +15,8 @@ import hashlib
 import os
 import subprocess
 import threading
+from typing import List, Optional
+
 import numpy as np
 
 from xf_flash_attention_cutlass_tpu_torch._build import BUILD_DIR, PKG_DIR
@@ -55,6 +57,14 @@ def _build() -> ctypes.CDLL:
         lib.xfa_pool_free_pages.argtypes = [vp]
         lib.xfa_request_admit.restype = i32
         lib.xfa_request_admit.argtypes = [vp] + [i32] * 3
+        lib.xfa_request_admit_prefixed.restype = i32
+        lib.xfa_request_admit_prefixed.argtypes = [vp] + [i32] * 4
+        lib.xfa_prefix_alloc.restype = i32
+        lib.xfa_prefix_alloc.argtypes = [vp, i32, p32]
+        lib.xfa_prefix_free.restype = None
+        lib.xfa_prefix_free.argtypes = [vp, p32, i32]
+        lib.xfa_request_shared_pages.restype = i32
+        lib.xfa_request_shared_pages.argtypes = [vp, i32]
         lib.xfa_request_extend.restype = i32
         lib.xfa_request_extend.argtypes = [vp, i32, i32]
         lib.xfa_request_truncate.restype = i32
@@ -76,25 +86,35 @@ class _PyPool:
         self.num_pages = num_pages
         self.page_size = page_size
         self.free_list = list(range(num_pages - 1, -1, -1))
-        self.slots = [None] * max_requests  # [id, seq_len, pages]
+        self.slots = [None] * max_requests  # [id, seq_len, pages, shared_pages]
 
-    def admit(self, rid, prompt_len, target_len):
+    def admit(self, rid, prompt_len, target_len, shared_pages=0):
+        if shared_pages < 0 or prompt_len < shared_pages * self.page_size:
+            return -1
         try:
             slot = self.slots.index(None)
         except ValueError:
             return -1
-        need = -(-prompt_len // self.page_size)
+        need = max(-(-prompt_len // self.page_size) - shared_pages, 0)
         if len(self.free_list) < need:
             return -1
         pages = [self.free_list.pop() for _ in range(need)]
-        self.slots[slot] = [rid, prompt_len, pages]
+        self.slots[slot] = [rid, prompt_len, pages, shared_pages]
         return slot
+
+    def prefix_alloc(self, n_pages):
+        if n_pages < 0 or len(self.free_list) < n_pages:
+            return None
+        return [self.free_list.pop() for _ in range(n_pages)]
+
+    def prefix_free(self, pages):
+        self.free_list.extend(pages)
 
     def extend(self, slot, n_tokens):
         ent = self.slots[slot]
         if ent is None:
             return -1
-        need = -(-(ent[1] + n_tokens) // self.page_size) - len(ent[2])
+        need = -(-(ent[1] + n_tokens) // self.page_size) - ent[3] - len(ent[2])
         if need > len(self.free_list):
             return -1
         for _ in range(need):
@@ -104,11 +124,11 @@ class _PyPool:
 
     def truncate(self, slot, new_len):
         ent = self.slots[slot]
-        if ent is None or new_len < 0:
+        if ent is None or new_len < ent[3] * self.page_size:
             return -1
         if new_len >= ent[1]:
             return ent[1]
-        keep = -(-new_len // self.page_size)
+        keep = max(-(-new_len // self.page_size) - ent[3], 0)
         while len(ent[2]) > keep:
             self.free_list.append(ent[2].pop())
         ent[1] = new_len
@@ -124,8 +144,10 @@ class _PyPool:
 class PagePool:
     """KV page pool + request table. backend="native" (the default) runs
     the C++ allocator and raises when it cannot be built; "python" runs the
-    pure-Python copy. Shared-prefix pages (the JAX package's prefix_alloc)
-    wait for the port's prefix sharing."""
+    pure-Python copy. A shared prefix's pages (prefix_alloc) belong to the
+    caller until prefix_free; a request admitted with admit_prefixed owns
+    only the pages past them, and its block-table row leaves the first
+    shared_pages entries for the caller to fill."""
 
     def __init__(self, num_pages: int, page_size: int, max_requests: int,
                  backend: str = "native"):
@@ -164,6 +186,42 @@ class PagePool:
         if self._lib:
             return self._lib.xfa_request_admit(self._h, request_id, prompt_len, target_len)
         return self._py.admit(request_id, prompt_len, target_len)
+
+    def admit_prefixed(self, request_id: int, shared_pages: int, prompt_len: int,
+                       target_len: int) -> int:
+        """Admit with the first `shared_pages` logical pages provided by a
+        shared prefix (see prefix_alloc); prompt_len counts the prefix's
+        tokens too. Only the pages past the shared region are owned."""
+        if self._lib:
+            return self._lib.xfa_request_admit_prefixed(self._h, request_id, shared_pages,
+                                                        prompt_len, target_len)
+        return self._py.admit(request_id, prompt_len, target_len, shared_pages=shared_pages)
+
+    def prefix_alloc(self, n_pages: int) -> Optional[List[int]]:
+        """Reserve pages for a shared prefix: their ids, or None when the
+        pool cannot supply them. Freed only by prefix_free."""
+        if self._lib:
+            buf = np.zeros((max(n_pages, 1),), np.int32)
+            rc = self._lib.xfa_prefix_alloc(
+                self._h, n_pages, buf.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)))
+            return buf[:n_pages].tolist() if rc == 0 else None
+        return self._py.prefix_alloc(n_pages)
+
+    def prefix_free(self, pages) -> None:
+        """Return a prefix's pages; no live request may still read them."""
+        if self._lib:
+            buf = np.ascontiguousarray(np.asarray(pages, np.int32))
+            self._lib.xfa_prefix_free(
+                self._h, buf.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), len(buf))
+        else:
+            self._py.prefix_free(list(pages))
+
+    def shared_pages(self, slot: int) -> int:
+        """The shared-prefix pages of a slot's request; -1 when inactive."""
+        if self._lib:
+            return self._lib.xfa_request_shared_pages(self._h, slot)
+        ent = self._py.slots[slot]
+        return ent[3] if ent else -1
 
     def extend(self, slot: int, n_tokens: int = 1) -> int:
         if self._lib:
@@ -206,8 +264,9 @@ class PagePool:
         for s, ent in enumerate(self._py.slots):
             if ent is None:
                 continue
-            pages = ent[2][:max_pages]
-            bt[s, : len(pages)] = pages
+            off = min(ent[3], max_pages)  # own pages land after the shared region
+            pages = ent[2][: max(max_pages - off, 0)]
+            bt[s, off : off + len(pages)] = pages
             sl[s] = ent[1]
             n += 1
         return bt, sl, n

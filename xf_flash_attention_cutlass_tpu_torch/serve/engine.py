@@ -2,30 +2,48 @@
 or chunked prefill, on one device.
 
 Host-side scheduling (admission, per-step page growth, retirement, OOM
-preemption) follows the JAX package's serve/engine.py step for step, and the
-page allocator is the same C++ one, so for the same requests both engines
-assign the same pages. With ``prefill_chunk`` unset (the default), each
-engine step admits whole prompts while slots are free: ``prefill_core`` runs
-dense causal flash attention (K7) over the prompt padded to a power-of-two
-bucket and appends the bucket's KV at position 0. With ``prefill_chunk``
-set, each step runs at most one prefill chunk (``prefill_chunk_core``). Then
+preemption, multi-step windows, speculative verify, shared prefixes)
+follows the JAX package's serve/engine.py step for step, and the page
+allocator is the same C++ one, so for the same requests both engines assign
+the same pages. With ``prefill_chunk`` unset (the default), each engine step
+admits whole prompts while slots are free: ``prefill_core`` runs dense
+causal flash attention (K7) over the prompt padded to a power-of-two bucket
+and appends the bucket's KV at position 0. With ``prefill_chunk`` set, each
+step runs at most one prefill chunk per lane (``prefill_chunk_core``). Then
 comes one batched decode step (``decode_core``, the L = 1 case of
-``verify_core``). Each core is a Python loop over the layers.
+``verify_core``, plus sampling), or ``multi_step`` of them in one window
+(``decode_multi_step``) when no request is queued or prefilling, or one
+speculative verify step (``verify_core`` over the last token and
+``speculate_k - 1`` prompt-lookup drafts) when every active request is
+greedy. Each core is a Python loop over the layers.
+
+On CUDA every decode step, per-step or windowed, is the replay of a CUDA
+graph of ``decode_multi_step`` (one graph for each window length and
+sampling on or off, captured at first use over static token, block-table,
+length, temperature and step buffers): one host sync a window. A capture
+or replay error raises; no decode step runs eagerly in its place. On the
+CPU the same function runs as a plain loop.
+
+Sampling (temperature, top-k, top-p) runs on the device: a Gumbel-max draw
+over Philox4x32-10 noise whose counter is (column, row, step, lane) under
+the key ``sample_seed``, so a sampled stream depends only on the seed, the
+engine step and the batch row, and windows give the tokens of per-step
+mode.
 
 KV pools are ``(L, num_pages + 1, h_k, page, d)`` — the extra page is the
 trash page that inactive batch rows and padded chunk tails write to — with
 f32 per-token scales ``(L, num_pages + 1, h_k, page)`` for int8 / fp8 pools.
 They are stored tight (no TPU sublane or lane padding) and updated IN PLACE
-by the append kernel: the counterpart of the JAX package's pool donation.
+by the append kernel: the counterpart of the JAX package's pool donation,
+and what keeps a captured graph's pool addresses valid.
 
 Cache protocol: the allocator's seq_len counts the tokens whose KV is in
 the cache after the upcoming step. A decode step consumes the previously
 sampled token, appends its KV at position seq_len - 1 and attends over
 seq_len keys.
 
-What the port does not serve yet raises NotImplementedError: speculative
-decoding, multi-step windows, shared prefixes, sampling (temperature,
-top-k, top-p), meshes and MoE models.
+What the port does not serve yet raises NotImplementedError: meshes and MoE
+models.
 """
 
 from __future__ import annotations
@@ -33,12 +51,13 @@ from __future__ import annotations
 import dataclasses
 import logging
 import time
-from collections import deque
+from collections import Counter, deque
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
+from xf_flash_attention_cutlass_tpu_torch import _build
 from xf_flash_attention_cutlass_tpu_torch.models.llama import (
     LlamaConfig,
     _proj,
@@ -48,7 +67,7 @@ from xf_flash_attention_cutlass_tpu_torch.models.llama import (
     pack_params_for_decode,
     rms_norm,
 )
-from xf_flash_attention_cutlass_tpu_torch.ops.flash_fwd import flash_fwd
+from xf_flash_attention_cutlass_tpu_torch.ops.flash_fwd import MASK32, flash_fwd, philox4x32_10
 from xf_flash_attention_cutlass_tpu_torch.ops.paged import paged_attention
 from xf_flash_attention_cutlass_tpu_torch.ops.paged_append import paged_append
 from xf_flash_attention_cutlass_tpu_torch.ops.rotary import rotary_frequencies
@@ -62,9 +81,16 @@ logger = logging.getLogger(__name__)
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
     """The JAX package's EngineConfig, field for field. The port serves
-    bucketed prefill (prefill_chunk None or 0) and chunked prefill,
-    speculate_k <= 1, multi_step <= 1 and no top_k / top_p; DecodeEngine
-    raises NotImplementedError for the rest."""
+    every field on one device: bucketed (prefill_chunk None or 0) or
+    chunked prefill over prefill_lanes, speculate_k > 1 (greedy requests),
+    multi_step > 1, and sampling with top_k / top_p / approx_top_k under
+    sample_seed. DecodeEngine raises NotImplementedError for meshes and MoE
+    models.
+
+    The speculative verify step runs eagerly on CUDA (no graph yet): on an
+    H100 80GB HBM3 (700 W) at Llama-8B width with random weights,
+    speculate_k = 3 served 144 tokens/s against 970 for the graphed
+    per-step decode (chip_smoke.py's serve_speculative)."""
 
     max_batch: int = 8
     page_size: int = 256
@@ -110,19 +136,107 @@ def effective_engine_config(ecfg: EngineConfig) -> EngineConfig:
     return ecfg
 
 
-def sample_tokens(logits: torch.Tensor) -> torch.Tensor:
-    """Greedy next-token selection: argmax over the vocabulary, the first
-    index on ties. (b, V) f32 -> (b,) int64."""
-    return torch.argmax(logits, dim=-1)
+# candidate prefix of the pure top-p route with approx_top_k (the JAX
+# package's _TOP_P_PREFIX_K): the nucleus is taken within the top 128
+_TOP_P_PREFIX_K = 128
+# the counter's last word: decode steps draw on lane 0, the first token of a
+# prefill on lane 1 (with the request id as its step)
+DECODE_LANE, PREFILL_LANE = 0, 1
 
 
-def _attention_layers(params, x, pools, bt, kv_lens, append_pos, positions, cfg):
+def philox_uniform(rows: int, cols: int, step, lane: int, seed: int,
+                   device) -> torch.Tensor:
+    """(rows, cols) f32 u in (0, 1): entry (r, c) is the top 23 bits of the
+    first word of Philox4x32-10 on counter (c, r, step, lane) under the key
+    `seed`. `step` is an int or an int tensor of shape () or (rows,), on the
+    device (a graph replays it)."""
+    seed &= (1 << 64) - 1
+    shape = (rows, cols)
+    col = torch.arange(cols, dtype=torch.int64, device=device)[None].expand(shape)
+    row = torch.arange(rows, dtype=torch.int64, device=device)[:, None].expand(shape)
+    st = torch.as_tensor(step, dtype=torch.int64, device=device).reshape(-1, 1) & MASK32
+    word, _, _, _ = philox4x32_10(col, row, st.expand(shape), torch.full_like(col, lane),
+                                  seed & MASK32, seed >> 32)
+    return ((word >> 9).to(torch.float32) + 0.5) * 2.0**-23
+
+
+def gumbel_noise(rows: int, cols: int, step, lane: int, seed: int,
+                 device) -> torch.Tensor:
+    """(rows, cols) f32 Gumbel noise, -log(-log(u)) of philox_uniform."""
+    return -torch.log(-torch.log(philox_uniform(rows, cols, step, lane, seed, device)))
+
+
+def _nucleus(vals: torch.Tensor, top_p: float) -> torch.Tensor:
+    """Sorted (descending) scaled logits with the tokens past the nucleus
+    set to -inf: a token is kept while the probability before it is below
+    top_p, so the top token always survives."""
+    probs = torch.softmax(vals, dim=-1)
+    cum = torch.cumsum(probs, dim=-1)
+    return vals.masked_fill(cum - probs >= top_p, float("-inf"))
+
+
+def sample_tokens(
+    logits: torch.Tensor,  # (b, V) f32
+    temperature: Optional[torch.Tensor] = None,  # (b,) f32; <= 0: greedy row
+    step=None,  # int, or int tensor () / (b,): the counter's step word
+    seed: int = 0,
+    top_k: int = 0,  # keep the k most probable tokens (0 = off)
+    top_p: float = 0.0,  # nucleus: the smallest set with cumulative prob >= p
+    approx_top_k: bool = True,
+    lane: int = DECODE_LANE,
+) -> torch.Tensor:
+    """Batched next-token selection, the JAX package's sample_tokens: rows
+    with temperature <= 0 take the argmax (the first index on ties), the
+    others draw from softmax(logits / max(t, 1e-6)), truncated. Any top_k >
+    0 draws within the sorted top-k prefix, the nucleus taken inside the
+    renormalized prefix; pure top-p with approx_top_k draws within a
+    128-candidate prefix, without it over the full sorted vocabulary. The
+    JAX package's approx_max_k has no torch counterpart: the prefixes are
+    the exact torch.topk, which is what it computes on the CPU.
+
+    The draw is a Gumbel-max over counter-based noise (gumbel_noise), with
+    no host read: it runs inside a captured graph. (b, V) -> (b,) int64."""
+    greedy = torch.argmax(logits, dim=-1)
+    if temperature is None:
+        return greedy
+    b, V = logits.shape
+    t = torch.as_tensor(temperature, dtype=torch.float32, device=logits.device)
+    scaled = logits / torch.clamp_min(t, 1e-6)[:, None]
+    step = 0 if step is None else step
+    if (top_k and top_k > 0) or (top_p and top_p > 0.0 and approx_top_k):
+        k = min(top_k, V) if top_k and top_k > 0 else min(_TOP_P_PREFIX_K, V)
+        vals, idx = torch.topk(scaled, k, dim=-1)  # sorted, descending
+        if top_p and top_p > 0.0:
+            vals = _nucleus(vals, top_p)
+        pos = torch.argmax(vals + gumbel_noise(b, k, step, lane, seed, logits.device), dim=-1)
+        sampled = idx.gather(-1, pos[:, None])[:, 0]
+    else:
+        masked = scaled
+        if top_p and top_p > 0.0:
+            vals, order = torch.sort(scaled, dim=-1, descending=True)
+            drop = torch.isneginf(_nucleus(vals, top_p))
+            masked = scaled.masked_fill(torch.zeros_like(drop).scatter(-1, order, drop),
+                                        float("-inf"))
+        sampled = torch.argmax(masked + gumbel_noise(b, V, step, lane, seed, logits.device),
+                               dim=-1)
+    return torch.where(t > 0.0, sampled, greedy)
+
+
+def _rope(cfg: LlamaConfig, device, rope=None):
+    """The (cos, sin) rotary tables: the caller's (the engine builds them
+    once), else built here."""
+    if rope is not None:
+        return rope
+    return rotary_frequencies(cfg.head_dim, cfg.max_seq_len, cfg.rope_base, device=device)
+
+
+def _attention_layers(params, x, pools, bt, kv_lens, append_pos, positions, cfg, rope=None):
     """The layer loop shared by verify/decode and chunked prefill: per
     layer, append the new tokens' KV into the pools in place, then attend
     over the paged cache (causal from the bottom right), project and run
     the MLP. Returns the final-normed hidden states."""
     b, s, _ = x.shape
-    cos, sin = rotary_frequencies(cfg.head_dim, cfg.max_seq_len, cfg.rope_base, device=x.device)
+    cos, sin = _rope(cfg, x.device, rope)
     quant = "k_s" in pools
     scales = dict(k_scales=pools["k_s"], v_scales=pools["v_s"]) if quant else {}
     for l in range(pools["k"].shape[0]):
@@ -143,6 +257,7 @@ def verify_core(
     block_tables: torch.Tensor,  # (b, max_pages)
     kv_lens: torch.Tensor,  # (b,) — seq length AFTER this step (cur + L)
     cfg: LlamaConfig,
+    rope=None,  # (cos, sin); None builds them
 ) -> torch.Tensor:
     """One batched multi-token step: appends all L input tokens' KV (in
     place) and returns logits at every position, (b, L, vocab) f32.
@@ -154,16 +269,56 @@ def verify_core(
     x = params["embed"][tokens.clamp(0, cfg.vocab_size - 1)]
     append_pos = (kv_lens - L).clamp_min(0)
     positions = append_pos[:, None] + torch.arange(L, device=tokens.device)[None]
-    x = _attention_layers(params, x, pools, block_tables, kv_lens, append_pos, positions, cfg)
+    x = _attention_layers(params, x, pools, block_tables, kv_lens, append_pos, positions, cfg,
+                          rope)
     logits = _proj(x.reshape(b * L, -1), params["lm_head"])
     return logits.reshape(b, L, -1).float()
 
 
-def decode_core(params, tokens, pools, block_tables, kv_lens, cfg: LlamaConfig):
-    """One batched decode step = the L = 1 case of verify_core, plus greedy
-    sampling. Returns (next_tokens (b,), logits (b, vocab))."""
-    logits = verify_core(params, tokens, pools, block_tables, kv_lens, cfg)[:, 0]
-    return sample_tokens(logits), logits
+def decode_core(params, tokens, pools, block_tables, kv_lens, cfg: LlamaConfig,
+                temperature=None, step=None, seed: int = 0, top_k: int = 0,
+                top_p: float = 0.0, approx_top_k: bool = True, rope=None):
+    """One batched decode step = the L = 1 case of verify_core, plus
+    sampling (sample_tokens; greedy when temperature is None). Returns
+    (next_tokens (b,), logits (b, vocab))."""
+    logits = verify_core(params, tokens, pools, block_tables, kv_lens, cfg, rope)[:, 0]
+    return sample_tokens(logits, temperature, step, seed, top_k, top_p, approx_top_k), logits
+
+
+def decode_multi_step(params, tokens, pools, block_tables, kv_lens, cfg: LlamaConfig,
+                      temperature=None, step0=None, seed: int = 0, top_k: int = 0,
+                      top_p: float = 0.0, approx_top_k: bool = True, n_steps: int = 2,
+                      rope=None):
+    """`n_steps` autoregressive decode steps, each fed the previous one's
+    tokens on the device. Contract (the JAX package's): `kv_lens` is the
+    length after the FIRST step (the engine pre-extends pages by n_steps);
+    step i uses kv_lens + i and the sampling step step0 + i, the per-step
+    engine's schedule, so the streams are token-identical. Returns
+    ((n_steps, b) tokens, the last step's logits (b, vocab))."""
+    step0 = 0 if step0 is None else step0
+    toks, logits = [], None
+    for i in range(n_steps):
+        nt, logits = decode_core(params, tokens, pools, block_tables, kv_lens + i, cfg,
+                                 temperature, step0 + i, seed, top_k, top_p, approx_top_k, rope)
+        toks.append(nt)
+        tokens = nt[:, None]
+    return torch.stack(toks), logits
+
+
+def draft_prompt_lookup(ctx: List[int], n_draft: int, ngram: int = 3) -> List[int]:
+    """Model-free drafting (prompt lookup), the JAX package's: find the
+    latest earlier occurrence of the context's final `ngram` and propose the
+    tokens that followed it, padded with the last token."""
+    if n_draft <= 0:
+        return []
+    if len(ctx) > ngram:
+        pat = ctx[-ngram:]
+        for s in range(len(ctx) - ngram - 1, -1, -1):
+            if ctx[s : s + ngram] == pat:
+                cont = ctx[s + ngram : s + ngram + n_draft]
+                if cont:
+                    return (cont + [ctx[-1]] * (n_draft - len(cont)))[:n_draft]
+    return [ctx[-1]] * n_draft
 
 
 def prefill_core(
@@ -173,17 +328,19 @@ def prefill_core(
     pools: Dict[str, torch.Tensor],
     bt_row: torch.Tensor,  # (1, cdiv(S, page)) — the prompt's pages, then trash
     cfg: LlamaConfig,
+    rope=None,
 ):
     """Prefill one request: per layer, dense causal flash attention over
     the bucket with kv_lens = [true_len], and the whole bucket's KV appended
     at position 0 (in place; the padded tail lands past the prompt or on
-    the trash page, where nothing attends to it). Returns (first_token,
-    logits of the last prompt token (vocab,) f32)."""
+    the trash page, where nothing attends to it). Returns the logits of
+    the last prompt token, (vocab,) f32: the engine samples the first token
+    from them (DecodeEngine._sample_first)."""
     s = tokens.shape[1]
     dev = tokens.device
     x = params["embed"][tokens.clamp(0, cfg.vocab_size - 1)]
     positions = torch.arange(s, device=dev)[None]
-    cos, sin = rotary_frequencies(cfg.head_dim, cfg.max_seq_len, cfg.rope_base, device=dev)
+    cos, sin = _rope(cfg, dev, rope)
     kv_lens = torch.tensor([true_len], dtype=torch.int32, device=dev)
     zero = torch.zeros((1,), dtype=torch.int32, device=dev)
     scales = dict(k_scales=pools["k_s"], v_scales=pools["v_s"]) if "k_s" in pools else {}
@@ -196,8 +353,7 @@ def prefill_core(
         x = x + _proj(o.transpose(1, 2).reshape(1, s, cfg.n_heads * cfg.head_dim), layer["wo"])
         x = mlp_block(layer, x, cfg)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
-    logits = _proj(x[:, max(true_len - 1, 0)], params["lm_head"]).float()[0]
-    return sample_tokens(logits), logits
+    return _proj(x[:, max(true_len - 1, 0)], params["lm_head"]).float()[0]
 
 
 def prefill_chunk_core(
@@ -208,6 +364,7 @@ def prefill_chunk_core(
     pools: Dict[str, torch.Tensor],
     bt: torch.Tensor,  # (P, max_pages) per-lane block table incl. trash tail
     cfg: LlamaConfig,
+    rope=None,
 ) -> torch.Tensor:
     """One step of incremental prefill for P prompts: append each lane's
     chunk KV into its pages (in place), then paged attention of the chunk
@@ -217,7 +374,7 @@ def prefill_chunk_core(
     P, C = tokens.shape
     x = params["embed"][tokens.clamp(0, cfg.vocab_size - 1)]
     positions = n_prior[:, None] + torch.arange(C, device=tokens.device)[None]
-    x = _attention_layers(params, x, pools, bt, n_prior + C, n_prior, positions, cfg)
+    x = _attention_layers(params, x, pools, bt, n_prior + C, n_prior, positions, cfg, rope)
     last = (n_valid - 1).clamp_min(0)
     x_last = x[torch.arange(P, device=x.device), last]
     return _proj(x_last, params["lm_head"]).float()
@@ -233,9 +390,22 @@ def _to_device(tree, device):
     return tree
 
 
+@dataclasses.dataclass
+class _DecodeGraph:
+    """One captured decode window: its graph, its outputs (in the engine's
+    graph pool), the kernel launches one replay makes (counted on the host
+    at capture) and the label its replays are counted under."""
+
+    graph: "torch.cuda.CUDAGraph"
+    tokens: torch.Tensor  # (K, max_batch) int64
+    logits: torch.Tensor  # (max_batch, vocab) f32, the last inner step's
+    launches: Counter
+    label: str
+
+
 class DecodeEngine:
     """Continuous batching: admit, bucketed or chunked prefill, batched
-    decode, retire."""
+    decode (per step, in multi-step windows, or speculative), retire."""
 
     def __init__(
         self,
@@ -284,18 +454,34 @@ class DecodeEngine:
                 k=torch.zeros(shape, dtype=dtype, device=self.device),
                 v=torch.zeros(shape, dtype=dtype, device=self.device),
             )
+        # the rotary tables, built once for every core
+        self.rope = rotary_frequencies(cfg.head_dim, cfg.max_seq_len, cfg.rope_base,
+                                       device=self.device)
         self.queue: deque = deque()
         self.active: Dict[int, dict] = {}  # slot -> request state
         self.results: Dict[int, List[int]] = {}
+        # the sampling counter's step word: advanced where the JAX engine
+        # advances its _step_count (per decode step, per window step, per
+        # speculative step)
+        self._step_count = 0
         # in-flight chunked prefills: one per lane; each engine step
         # advances every busy lane by one chunk in a single batched call
         self._prefills: List[Optional[dict]] = [None] * ecfg.prefill_lanes
+        # shared-prefix cache: prefix_id -> dict(pages, n_pages, shared_len,
+        # tokens, remainder); slot -> prefix_id for live requests
+        self._prefixes: Dict[str, dict] = {}
+        self._slot_prefix: Dict[int, str] = {}
         # tokens emitted by requests that were later preempted (a preempted
         # request requeues with prompt + generated and its remaining budget)
         self._preempt_emitted: Dict[int, List[int]] = {}
         # host clock (time.perf_counter) at which each request's first token
         # was read back from the device: the end of its time to first token
         self.first_token_at: Dict[int, float] = {}
+        # CUDA graphs of the decode window, by (K, sampling), sharing one
+        # memory pool, over the static buffers of self._static
+        self._graphs: Dict[tuple, _DecodeGraph] = {}
+        self._graph_pool = None
+        self._static: Optional[Dict[str, torch.Tensor]] = None
         self.stats: Dict[str, int] = dict(
             steps=0, decode_steps=0, spec_steps=0, prefill_chunks=0,
             tokens_emitted=0, drafts_proposed=0, drafts_accepted=0,
@@ -307,17 +493,58 @@ class DecodeEngine:
         request_id: int,
         prompt: List[int],
         max_new_tokens: int,
-        temperature: float = 0.0,
-        prefix_id: Optional[str] = None,
+        temperature: float = 0.0,  # 0: greedy; > 0 samples (top_k / top_p are engine-wide)
+        prefix_id: Optional[str] = None,  # a shared prefix (register_prefix)
     ):
-        if temperature > 0.0:
-            raise NotImplementedError("sampling (temperature > 0) is not ported yet")
         if prefix_id is not None:
-            raise NotImplementedError("shared prefixes are not ported yet")
-        self.queue.append((request_id, list(prompt), max_new_tokens))
+            if not self.ecfg.prefill_chunk:
+                raise ValueError("prefix caching requires chunked prefill "
+                                 "(EngineConfig.prefill_chunk)")
+            if prefix_id not in self._prefixes:
+                raise KeyError(f"unknown prefix {prefix_id!r}")
+        self.queue.append((request_id, list(prompt), max_new_tokens, temperature, prefix_id))
 
     def register_prefix(self, prefix_id: str, tokens: List[int]) -> None:
-        raise NotImplementedError("shared prefixes are not ported yet")
+        """Prefill a shared prefix (a system prompt) once into its own
+        pages; requests admitted with this prefix_id attend to those pages
+        through their block tables. Only whole pages are shared; the
+        remainder (len % page_size tokens) is prepended to each request's
+        own prompt. Requires chunked prefill. Free with release_prefix."""
+        if not self.ecfg.prefill_chunk:
+            raise ValueError("prefix caching requires EngineConfig.prefill_chunk")
+        if prefix_id in self._prefixes:
+            raise ValueError(f"prefix {prefix_id!r} already registered")
+        page, C = self.ecfg.page_size, self.ecfg.prefill_chunk
+        n_pages = len(tokens) // page
+        shared_len = n_pages * page
+        pages = self.pool.prefix_alloc(n_pages) if n_pages else []
+        if pages is None:
+            raise RuntimeError("page pool cannot hold the prefix")
+        bt_row = np.full((1, self.ecfg.max_pages_per_seq), self.trash_page, np.int32)
+        bt_row[0, :n_pages] = pages
+        pos = 0
+        while pos < shared_len:
+            chunk = tokens[pos : pos + C]
+            buf = np.zeros((1, C), np.int64)
+            buf[0, : len(chunk)] = chunk
+            prefill_chunk_core(
+                self.params, self._tensor(buf), self._tensor(np.array([pos], np.int64)),
+                self._tensor(np.array([len(chunk)], np.int64)), self.pools,
+                self._tensor(bt_row), self.cfg, self.rope,
+            )
+            pos += len(chunk)
+        self._prefixes[prefix_id] = dict(pages=list(pages), n_pages=n_pages,
+                                         shared_len=shared_len, tokens=list(tokens),
+                                         remainder=list(tokens[shared_len:]))
+
+    def release_prefix(self, prefix_id: str) -> None:
+        """Return a prefix's pages to the pool (no live request may still
+        reference it)."""
+        if prefix_id in self._slot_prefix.values():
+            raise RuntimeError(f"prefix {prefix_id!r} still in use")
+        pf = self._prefixes.pop(prefix_id)
+        if pf["n_pages"]:
+            self.pool.prefix_free(pf["pages"])
 
     # ---- internals -------------------------------------------------------
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
@@ -331,10 +558,21 @@ class DecodeEngine:
             b *= 2
         return min(b, self.ecfg.max_seq)
 
+    def _sample_first(self, logits: torch.Tensor, rid: int, temperature: float) -> int:
+        """A prefill's first token from its last prompt token's logits
+        (vocab,): the argmax, or a draw on the prefill lane with the request
+        id as the step (the JAX engine's fold_in(base, (rid << 8) ^ 0xA5))."""
+        temps = None
+        if temperature > 0.0:
+            temps = torch.tensor([temperature], dtype=torch.float32, device=logits.device)
+        e = self.ecfg
+        return int(sample_tokens(logits[None], temps, rid, e.sample_seed, e.top_k, e.top_p,
+                                 e.approx_top_k, lane=PREFILL_LANE)[0])
+
     def _admit_one(self) -> bool:
         """Admit the queue's head and prefill its whole prompt (bucketed);
         False when the allocator has no room for it."""
-        rid, prompt, max_new = self.queue[0]
+        rid, prompt, max_new, temp, _ = self.queue[0]  # no prefix: add_request guards it
         slot = self.pool.admit(rid, len(prompt), len(prompt) + max_new)
         if slot < 0:
             return False
@@ -347,34 +585,55 @@ class DecodeEngine:
         bt, _, _ = self.pool.build_block_tables(self.ecfg.max_pages_per_seq)
         bt_row = np.full((1, cdiv(bucket, page)), self.trash_page, np.int32)
         bt_row[0, :n_pages] = bt[slot, :n_pages]
-        first, _ = prefill_core(self.params, self._tensor(tokens), len(prompt), self.pools,
-                                self._tensor(bt_row), self.cfg)
-        self._activate(slot, rid, prompt, int(first), max_new)
+        logits = prefill_core(self.params, self._tensor(tokens), len(prompt), self.pools,
+                              self._tensor(bt_row), self.cfg, self.rope)
+        first = self._sample_first(logits, rid, temp)
+        self._activate(slot, rid, prompt, first, max_new, temp, None)
         return True
 
-    def _activate(self, slot: int, rid: int, prompt: List[int], first: int, max_new: int):
+    def _activate(self, slot: int, rid: int, prompt: List[int], first: int, max_new: int,
+                  temperature: float, prefix_id: Optional[str]):
         """A request whose prefill emitted its first token starts decoding."""
         self.first_token_at.setdefault(rid, time.perf_counter())
         self.active[slot] = dict(id=rid, prompt=prompt, last_token=first, generated=[first],
-                                 max_new=max_new)
+                                 max_new=max_new, temperature=temperature, prefix_id=prefix_id)
         self.stats["requests_admitted"] += 1
         self.stats["tokens_emitted"] += 1  # prefill emits the first token
 
     def _start_chunked_prefill(self, lane: int) -> bool:
-        rid, prompt, max_new = self.queue[0]
-        slot = self.pool.admit(rid, len(prompt), len(prompt) + max_new)
+        rid, prompt, max_new, temp, prefix_id = self.queue[0]
+        if prefix_id is not None:
+            pf = self._prefixes[prefix_id]
+            todo = pf["remainder"] + prompt  # the tokens this request computes
+            base = pf["shared_len"]
+            total = base + len(todo)
+            slot = self.pool.admit_prefixed(rid, pf["n_pages"], total, total + max_new)
+        else:
+            todo, base = prompt, 0
+            slot = self.pool.admit(rid, len(todo), len(todo) + max_new)
         if slot < 0:
             return False
         self.queue.popleft()
-        self._prefills[lane] = dict(slot=slot, id=rid, prompt=prompt, done=0, max_new=max_new)
+        if prefix_id is not None:
+            self._slot_prefix[slot] = prefix_id
+        self._prefills[lane] = dict(slot=slot, id=rid, prompt=prompt, todo=todo, base=base,
+                                    done=0, max_new=max_new, temperature=temp,
+                                    prefix_id=prefix_id)
         return True
 
+    def _prefix_pages(self, slot: int) -> List[int]:
+        pid = self._slot_prefix.get(slot)
+        return [] if pid is None else self._prefixes[pid]["pages"]
+
     def _bt_row(self, slot: int) -> np.ndarray:
-        """This slot's block-table row: its own pages, trash elsewhere."""
+        """This slot's block-table row: its own pages (after the shared
+        region), the shared prefix's pages overlaid, trash elsewhere."""
         bt, _, _ = self.pool.build_block_tables(self.ecfg.max_pages_per_seq)
         row = bt[slot].copy()
         n_pages = cdiv(max(self.pool.seq_len(slot), 1), self.ecfg.page_size)
         row[n_pages:] = self.trash_page
+        pages = self._prefix_pages(slot)
+        row[: len(pages)] = pages
         return row
 
     def _advance_chunked_prefill(self):
@@ -389,27 +648,25 @@ class DecodeEngine:
         for lane, st in enumerate(self._prefills):
             if st is None:
                 continue
-            chunk = st["prompt"][st["done"] : st["done"] + C]
+            chunk = st["todo"][st["done"] : st["done"] + C]
             tokens[lane, : len(chunk)] = chunk
-            n_prior[lane] = st["done"]
+            n_prior[lane] = st["base"] + st["done"]
             n_valid[lane] = len(chunk)
             bt[lane] = self._bt_row(st["slot"])
         logits = prefill_chunk_core(
             self.params, self._tensor(tokens), self._tensor(n_prior), self._tensor(n_valid),
-            self.pools, self._tensor(bt), self.cfg,
+            self.pools, self._tensor(bt), self.cfg, self.rope,
         )
-        first_tokens = None  # fetched only when a lane completes
         for lane, st in enumerate(self._prefills):
             if st is None:
                 continue
             st["done"] += int(n_valid[lane])
             self.stats["prefill_chunks"] += 1
-            if st["done"] < len(st["prompt"]):
+            if st["done"] < len(st["todo"]):
                 continue
-            if first_tokens is None:
-                first_tokens = sample_tokens(logits).cpu().numpy()
-            self._activate(st["slot"], st["id"], st["prompt"], int(first_tokens[lane]),
-                           st["max_new"])
+            first = self._sample_first(logits[lane], st["id"], st["temperature"])
+            self._activate(st["slot"], st["id"], st["prompt"], first, st["max_new"],
+                           st["temperature"], st["prefix_id"])
             self._prefills[lane] = None
 
     def _preempt(self, slot: int) -> None:
@@ -417,16 +674,37 @@ class DecodeEngine:
         it resumes through prefill once pages free up."""
         st = self.active.pop(slot)
         self.pool.retire(slot)
+        self._slot_prefix.pop(slot, None)
         remaining = st["max_new"] - len(st["generated"])
         self._preempt_emitted[st["id"]] = (
             self._preempt_emitted.get(st["id"], []) + st["generated"]
         )
-        self.queue.appendleft((st["id"], st["prompt"] + st["generated"], remaining))
+        self.queue.appendleft((st["id"], st["prompt"] + st["generated"], remaining,
+                               st["temperature"], st["prefix_id"]))
         self.stats["preemptions"] += 1
+
+    def _grow(self, n_tokens: int) -> None:
+        """Extend every active sequence by n_tokens; preempt on OOM."""
+        for slot in list(self.active):
+            if self.pool.extend(slot, n_tokens) < 0:
+                self._preempt(slot)
+
+    def _batch_tables(self):
+        """(block tables, kv_lens) of the decode batch: inactive rows on the
+        trash page, shared-prefix pages overlaid on their requests' rows."""
+        bt, kv_lens, _ = self.pool.build_block_tables(self.ecfg.max_pages_per_seq)
+        for slot in range(self.ecfg.max_batch):
+            if slot not in self.active:
+                bt[slot, :] = self.trash_page
+        for slot in self.active:
+            pages = self._prefix_pages(slot)
+            bt[slot, : len(pages)] = pages
+        return bt, kv_lens
 
     def step(self) -> Dict[int, List[int]]:
         """Admit and prefill, retire finished requests, then one batched
-        decode step. Returns tokens emitted.
+        decode step, one multi-step window or one speculative step. Returns
+        tokens emitted.
 
         With ecfg.prefill_chunk set, at most one prefill chunk per lane runs
         before the decode batch; otherwise whole prompts are prefilled at
@@ -457,36 +735,176 @@ class DecodeEngine:
             if done:
                 self.results[st["id"]] = self._preempt_emitted.pop(st["id"], []) + st["generated"]
                 self.pool.retire(slot)
+                self._slot_prefix.pop(slot, None)
                 del self.active[slot]
                 self.stats["requests_finished"] += 1
         if not self.active:
             return emitted
         self.stats["steps"] += 1
-        self.stats["decode_steps"] += 1
-        for slot in list(self.active):
-            if self.pool.extend(slot, 1) < 0:
-                self._preempt(slot)
+        # speculative decoding: greedy requests only (acceptance is equality
+        # with the target's argmax, so the stream is plain greedy decoding)
+        if self.ecfg.speculate_k > 1 and all(
+            st["temperature"] <= 0.0 for st in self.active.values()
+        ):
+            self.stats["spec_steps"] += 1
+            self._spec_decode(emitted)
+            self.stats["tokens_emitted"] += sum(len(v) for v in emitted.values())
+            return emitted
+        # a multi-step window only when the host has no scheduling work
+        # pending (no queue, no busy prefill lane)
+        K = self.ecfg.multi_step
+        if K <= 1 or self.queue or any(st is not None for st in self._prefills):
+            K = 1
+        self.stats["decode_steps"] += K
+        self._grow(K)  # the window's tokens' KV
         if not self.active:
             return emitted
-        bt, kv_lens, _ = self.pool.build_block_tables(self.ecfg.max_pages_per_seq)
-        for slot in range(self.ecfg.max_batch):
-            if slot not in self.active:
-                bt[slot, :] = self.trash_page  # inactive rows -> trash page
+        bt, kv_lens = self._batch_tables()
         tokens = np.zeros((self.ecfg.max_batch, 1), np.int64)
+        temps = np.zeros((self.ecfg.max_batch,), np.float32)
         for slot, st in self.active.items():
             tokens[slot, 0] = st["last_token"]
-        next_tokens, _ = decode_core(
-            self.params, self._tensor(tokens), self.pools, self._tensor(bt),
-            self._tensor(kv_lens), self.cfg,
-        )
-        next_np = next_tokens.cpu().numpy()
+            temps[slot] = st["temperature"]
+        # the same step schedule per step and in a window: step i of a
+        # window draws with the count step i would have had alone
+        step0 = self._step_count + 1
+        self._step_count += K
+        # lengths after the window's first step (pages were pre-extended by
+        # K); inactive rows clamp to 0 as in per-step mode
+        lens_first = np.maximum(kv_lens - (K - 1), 0).astype(np.int32)
+        toks = self._decode_window(tokens, bt, lens_first, temps, step0, K)
         for slot, st in self.active.items():
-            tok = int(next_np[slot])
-            st["last_token"] = tok
-            st["generated"].append(tok)
-            emitted.setdefault(st["id"], []).append(tok)
+            for i in range(K):
+                tok = int(toks[i, slot])
+                st["last_token"] = tok
+                st["generated"].append(tok)
+                emitted.setdefault(st["id"], []).append(tok)
+                if len(st["generated"]) >= st["max_new"] or tok == self.ecfg.eos_token:
+                    # the window's overshoot past this is discarded (it only
+                    # touched this request's own pages)
+                    break
         self.stats["tokens_emitted"] += sum(len(v) for v in emitted.values())
         return emitted
+
+    def _spec_decode(self, emitted: Dict[int, List[int]]) -> None:
+        """One speculative step: draft L-1 tokens per request (prompt
+        lookup), verify the whole batch in one L-token step, accept the
+        longest matching prefix and one bonus token (1..L tokens a request),
+        truncate the rejected drafts' pages. The verify step runs eagerly."""
+        L = self.ecfg.speculate_k
+        self._grow(L)  # pages for every candidate position; rolled back below
+        if not self.active:
+            return
+        bt, kv_lens = self._batch_tables()
+        tokens = np.zeros((self.ecfg.max_batch, L), np.int64)
+        for slot, st in self.active.items():
+            drafts = draft_prompt_lookup(st["prompt"] + st["generated"], L - 1,
+                                         self.ecfg.spec_ngram)
+            tokens[slot] = [st["last_token"]] + drafts
+        self._step_count += 1
+        logits = verify_core(self.params, self._tensor(tokens), self.pools, self._tensor(bt),
+                             self._tensor(kv_lens), self.cfg, self.rope)
+        greedy = torch.argmax(logits, dim=-1).cpu().numpy()  # (b, L)
+        for slot, st in self.active.items():
+            g, drafts = greedy[slot], tokens[slot, 1:]
+            a = 0
+            while a < L - 1 and drafts[a] == g[a]:
+                a += 1
+            out = [int(t) for t in drafts[:a]] + [int(g[a])]
+            out = out[: st["max_new"] - len(st["generated"])]  # the request's budget
+            if self.ecfg.eos_token >= 0 and self.ecfg.eos_token in out:
+                out = out[: out.index(self.ecfg.eos_token) + 1]
+            self.stats["drafts_proposed"] += L - 1
+            self.stats["drafts_accepted"] += max(len(out) - 1, 0)
+            # the cache keeps [last] + the kept drafts: len(out) inputs
+            self.pool.truncate(slot, int(kv_lens[slot]) - L + len(out))
+            st["generated"].extend(out)
+            st["last_token"] = out[-1]
+            emitted.setdefault(st["id"], []).extend(out)
+
+    # ---- the decode window: a plain loop on the CPU, a graph on CUDA ------
+    def _window_fn(self, K: int, sampling: bool, tokens, bt, lens, temps, step0):
+        e = self.ecfg
+        return decode_multi_step(
+            self.params, tokens, self.pools, bt, lens, self.cfg,
+            temperature=temps if sampling else None, step0=step0, seed=e.sample_seed,
+            top_k=e.top_k, top_p=e.top_p, approx_top_k=e.approx_top_k, n_steps=K,
+            rope=self.rope,
+        )
+
+    def _decode_window(self, tokens, bt, lens, temps, step0: int, K: int) -> np.ndarray:
+        """K decode steps from host arrays (tokens (b, 1), block tables,
+        lengths after the first step, temperatures, the first step's
+        count); returns the (K, b) tokens on the host: one read a window."""
+        sampling = bool(temps.any())
+        if self.device.type != "cuda":
+            toks, _ = self._window_fn(K, sampling, self._tensor(tokens), self._tensor(bt),
+                                      self._tensor(lens), self._tensor(temps),
+                                      torch.tensor(step0, dtype=torch.int64))
+            return toks.numpy()
+        g = self._graphs.get((K, sampling)) or self._capture(K, sampling)
+        s = self._static
+        for name, a in (("tokens", tokens), ("bt", bt), ("lens", lens), ("temps", temps)):
+            s[name].copy_(torch.from_numpy(a))
+        s["step"].fill_(step0)
+        g.graph.replay()
+        out = g.tokens.cpu().numpy()
+        _build.LAUNCHES.update(g.launches)  # a replay runs no wrapper's host code
+        _build.LAUNCHES[g.label] += 1
+        return out
+
+    def _capture(self, K: int, sampling: bool) -> _DecodeGraph:
+        """Capture the K-step window (sampling on or off) as a CUDA graph.
+        It runs first eagerly on inactive rows (trash-page tables, length 0:
+        it writes only the trash page), which builds the kernels' libraries
+        and runs their first-call setup (shared-memory limits, the driver
+        entry point of the tensor-map encoder, K3's split counters) before
+        capture. The wrappers count their launches on the host during
+        capture; those counts are taken back out and added on every replay
+        instead."""
+        mb, mp = self.ecfg.max_batch, self.ecfg.max_pages_per_seq
+        if self._static is None:
+            dev = self.device
+            self._static = dict(
+                tokens=torch.zeros((mb, 1), dtype=torch.int64, device=dev),
+                bt=torch.zeros((mb, mp), dtype=torch.int32, device=dev),
+                lens=torch.zeros((mb,), dtype=torch.int32, device=dev),
+                temps=torch.zeros((mb,), dtype=torch.float32, device=dev),
+                step=torch.zeros((), dtype=torch.int64, device=dev),
+            )
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        s = self._static
+        s["tokens"].zero_()
+        s["bt"].fill_(self.trash_page)
+        s["lens"].zero_()
+        s["temps"].zero_()
+        s["step"].zero_()
+
+        def run():
+            return self._window_fn(K, sampling, s["tokens"], s["bt"], s["lens"], s["temps"],
+                                   s["step"])
+
+        side = torch.cuda.Stream(device=self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            run()
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        torch.cuda.synchronize(self.device)
+        before = Counter(_build.LAUNCHES)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self._graph_pool):
+            toks, logits = run()
+        launches = Counter(_build.LAUNCHES)
+        launches.subtract(before)
+        launches = +launches
+        _build.LAUNCHES.subtract(launches)
+        for k in launches:
+            if not _build.LAUNCHES[k] and k not in before:
+                del _build.LAUNCHES[k]
+        g = _DecodeGraph(graph, toks, logits, launches,
+                         "graph.decode_multi_step" if K > 1 else "graph.decode")
+        self._graphs[(K, sampling)] = g
+        return g
 
     def has_work(self) -> bool:
         """True while a request is queued, prefilling or decoding."""
@@ -518,12 +936,6 @@ def _check_served(params, ecfg: EngineConfig, mesh) -> None:
     """Raise NotImplementedError for what the port does not serve yet;
     nothing is silently served another way."""
     missing = []
-    if ecfg.speculate_k > 1:
-        missing.append("speculative decoding (speculate_k > 1)")
-    if ecfg.multi_step > 1:
-        missing.append("multi-step windows (multi_step > 1)")
-    if ecfg.top_k or ecfg.top_p:
-        missing.append("top-k / top-p sampling")
     if mesh is not None:
         missing.append("meshes")
     if "router" in params["layers"]:
