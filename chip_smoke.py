@@ -140,7 +140,31 @@ Phases, each of which raises (exit code != 0) when it fails:
    counters cleared just before and read just after, to show that every
    kernel of the path ran and no plain version did; the serving features'
    runs (windows, sampled, speculative, prefix) are main paths too.
-6. Print the seconds of each phase, the `kernels` JSON line, the card's
+6. Serve the MoE family (`serve_moe`): Mixtral-8x7B geometry (32 layers,
+   full width, 8 experts, top-2, capacity factor 1.25) with INT8 weights
+   drawn and quantized a layer at a time, over an FP8 page-256 KV cache.
+   First the reference check of the cores (2 layers) against the CPU, with
+   the routing (the same two experts wherever the f32 router's second
+   choice leads its third by more than ROUTER_MARGIN and twice the bf16 CPU
+   run's error on that row, in the first layer), and K3 on the expert
+   stack's (L * E, d_in, d_out) view at entries 0 and 255 (past 2**31
+   bytes) at m = 8 and 80; then the 8 serving requests (32 new tokens),
+   chunked and bucketed, each a main path (K3's decode and wgmma routes at
+   l * E + e, K1, the append kernel, K4, and K7 when bucketed; no WMMA
+   kernel), their graphs held to the eager step and the tie rule between
+   the two runs' streams measured, not held (top-k routing flips where a
+   router is near a tie, and the logits downstream move by O(1)); a chunked
+   engine saved once its prefills
+   are done and 4 decode steps later, resumed in a fresh engine (streams
+   equal to the uninterrupted run's) and loaded again (pools byte-equal),
+   with the file's size and the save and load seconds; one decode step
+   profiled (`moe_decode_profile`: device time, K3 by route, the cuBLAS
+   GEMMs of the dispatch and combine, busy share, tokens/s, the split
+   counters zero after); and two SGD steps of the MoE loss at 2 layers, bf16,
+   512 tokens (K7, K9, K10), the losses falling, after which those bf16
+   params (plain experts) serve 8 short requests through a bucketed engine
+   (its graph against the eager step).
+7. Print the seconds of each phase, the `kernels` JSON line, the card's
    name and power limit, and, last,
    {"ok": true, "device": {...}}.
 
@@ -2373,13 +2397,19 @@ def train(gen, cfg, seed, steps=3, lr=0.005):
 
 # ---- phase 4: serving ---------------------------------------------------------
 
-def reference_check(params, cfg, checks, seed):
-    """The prefill and decode cores at Llama-8B width, cut to 2 layers, on
-    the card (kernels) against the same cores on the CPU (plain versions),
-    for one 128-token chunk, one decode step and one bucketed prefill (the
-    same 100-token prompt in its 128-token bucket). 2x rule on the logits:
-    the card's error against the CPU run in f32 is at most twice the CPU bf16
-    run's error, plus 1e-5."""
+def reference_check(params, cfg, checks, seed, name="engine_reference"):
+    """The prefill and decode cores at the model's width (Llama-8B, or
+    Mixtral-8x7B geometry), cut to 2 layers, on the card (kernels) against
+    the same cores on the CPU (plain versions), for one 128-token chunk, one
+    decode step and one bucketed prefill (the same 100-token prompt in its
+    128-token bucket). 2x rule on the logits: the card's error against the
+    CPU run in f32 is at most twice the CPU bf16 run's error, plus 1e-5. For
+    an MoE model also the first layer's routing: on every row where the f32
+    run's router puts the second expert above the third by more than
+    ROUTER_MARGIN and more than twice the bf16 CPU run's probability error
+    on that row, the card's run picks the same two experts. Returns the
+    seconds of each run."""
+    from xf_flash_attention_cutlass_tpu_torch.models import moe
     from xf_flash_attention_cutlass_tpu_torch.models.llama import pack_params_for_decode
     from xf_flash_attention_cutlass_tpu_torch.serve.engine import (
         decode_core,
@@ -2407,9 +2437,17 @@ def reference_check(params, cfg, checks, seed):
     rng = np.random.default_rng(seed + 1)
     prompt = rng.integers(0, cfg.vocab_size, n_valid)
     next_token = int(rng.integers(0, cfg.vocab_size))
-    runs, seconds = {}, {}
-    for name, dev, dt in (("card", "cuda", None), ("cpu_bf16", "cpu", None),
-                          ("cpu_f32", "cpu", torch.float32)):
+    runs, seconds, routed = {}, {}, {}
+    dispatch = moe.top_k_dispatch
+    for run, dev, dt in (("card", "cuda", None), ("cpu_bf16", "cpu", None),
+                         ("cpu_f32", "cpu", torch.float32)):
+        seen = routed[run] = []
+
+        def recording(probs, top_k, capacity, seen=seen):  # the router's probabilities
+            seen.append(probs.float().cpu())
+            return dispatch(probs, top_k, capacity)
+
+        moe.top_k_dispatch = recording
         t0 = time.perf_counter()
         p = pack_params_for_decode(to(sub, dev, dt))
         shape = (n_layers, n_pages + 1, cfg.n_kv_heads, page, cfg.head_dim)
@@ -2432,15 +2470,46 @@ def reference_check(params, cfg, checks, seed):
         _, logits_d = decode_core(p, dtok, pools, dbt, lens, cfg)
         # bucketed prefill rewrites page 0 with the same prompt's KV
         logits_b = prefill_core(p, tokens, n_valid, pools, bt[:, :1], cfg)
-        runs[name] = tuple(x.float().cpu() for x in (logits_p, logits_d[:1], logits_b[None]))
-        seconds[name] = time.perf_counter() - t0
+        moe.top_k_dispatch = dispatch
+        # the decode's inactive row too: it must stay finite (an MoE layer's
+        # dispatch would spread a NaN to every row)
+        runs[run] = tuple(x.float().cpu() for x in (logits_p, logits_d[:1], logits_b[None],
+                                                    logits_d[1:]))
+        seconds[run] = time.perf_counter() - t0
     for i, what in enumerate(("prefill_logits", "decode_logits", "bucketed_prefill_logits")):
         ref = runs["cpu_f32"][i]
         err, lp = max_err(runs["card"][i], ref), max_err(runs["cpu_bf16"][i], ref)
         ok = bool(torch.isfinite(runs["card"][i]).all()) and err <= 2 * lp + 1e-5
-        checks.add(f"engine_reference.{what}", ok, max_abs_err=err, tolerance=2 * lp + 1e-5,
+        checks.add(f"{name}.{what}", ok, max_abs_err=err, tolerance=2 * lp + 1e-5,
                    shape=list(runs["card"][i].shape))
+    checks.add(f"{name}.inactive_row_finite", bool(torch.isfinite(runs["card"][3]).all()))
+    if routed["card"]:
+        # the first layer's router calls (the chunk's, the decode's, the
+        # bucket's): their inputs hold no earlier routing decision, which
+        # a near-tie can flip and so move a row's later inputs by O(1).
+        # Per row, the 2x rule: the margin is at least twice the bf16 CPU
+        # run's own probability error on that row
+        calls = list(zip(routed["card"], routed["cpu_bf16"], routed["cpu_f32"]))[::n_layers]
+        rows = sure_rows = differ = 0
+        for card, lp, ref in calls:
+            top = torch.sort(ref, dim=-1, descending=True, stable=True)
+            margin = torch.clamp_min(2 * (lp - ref).abs().amax(dim=-1), ROUTER_MARGIN)
+            sure = (top.values[:, 1] - top.values[:, 2]) > margin
+            want = top.indices[:, :2].sort(dim=-1).values
+            got = torch.sort(card, dim=-1, descending=True, stable=True).indices[:, :2]
+            differ += int(((got.sort(dim=-1).values != want).any(dim=-1) & sure).sum())
+            rows += ref.shape[0]
+            sure_rows += int(sure.sum())
+        checks.add(f"{name}.expert_indices", differ == 0 and sure_rows > 0, rows=rows,
+                   rows_past_margin=sure_rows, rows_differing=differ, calls=len(calls),
+                   min_margin=ROUTER_MARGIN)
     return seconds
+
+
+# the least router margin (second expert's probability over the third's)
+# past which the card's routing must equal the f32 CPU run's; per row the
+# check widens it to twice the bf16 CPU run's own probability error there
+ROUTER_MARGIN = 1e-3
 
 
 def serve(eng, cfg, seed):
@@ -2754,7 +2823,7 @@ def serve_recorded(eng, prompts, n_new, prefix_id=None):
                     else:
                         logits[(st["id"], n0 + i)] = graph.logits[slot].clone()
     finally:
-        eng._sample_first = sample_first
+        del eng._sample_first  # the class's method again (no engine-method cycle)
         engine_mod.verify_core = verify_core
     streams = {rid: list(eng.results[rid]) for rid in prompts}
     return streams, logits, step_ms, step_tokens
@@ -3008,6 +3077,333 @@ def serve_features(params, cfg, ecfg, seed, checks, paths, per_step_chunked):
     del eng, ref_l, pre_l
     torch.cuda.empty_cache()
     return report
+
+
+# ---- phase 6: the MoE family at Mixtral-8x7B geometry ------------------------
+
+MOE_PAGES = 64  # page-256 FP8 pages of the MoE engines: the 8 prompts need 28
+
+
+def moe_expert_offsets(params, cfg, gen, checks):
+    """K3 on the expert stacks' (L * E, d_in, d_out) views at the first and
+    the last entry (l * E + e = 255: 255 x 58.7 MB past the base, beyond
+    2**31 bytes) and m = 8 (the decode route) and 80 (a chunk's capacity,
+    the wgmma route): each view shares the stack's storage at the entry's
+    byte offset, and the kernel's output passes the 2x rule against the f32
+    product (plain version as the low-precision oracle)."""
+    from xf_flash_attention_cutlass_tpu_torch.quant.linear import (
+        quantized_matmul,
+        quantized_matmul_ref,
+    )
+
+    E = cfg.n_experts
+    out = {}
+    for name in ("w_gate", "w_down"):
+        wq, s = params["layers"][name]
+        L, _, K, N = wq.shape
+        flat, sflat = wq.view(L * E, K, N), s.view(L * E, N)
+        for idx in (0, L * E - 1):
+            offset = flat[idx].data_ptr() - wq.data_ptr()
+            for m in (8, 80):
+                x = torch.randn((m, K), generator=gen, device="cuda").bfloat16()
+                y = quantized_matmul(x, flat, sflat, layer_idx=idx)
+                y32 = (x.float() @ flat[idx].float()) * sflat[idx]
+                err = max_err(y, y32)
+                tol = 2 * max_err(quantized_matmul_ref(x, flat[idx], sflat[idx]), y32) + 1e-5
+                ok = (err <= tol and offset == idx * K * N
+                      and flat.data_ptr() == wq.data_ptr())
+                checks.add(f"serve_moe.expert_view[{name},idx={idx},m={m}]", ok,
+                           max_abs_err=err, tolerance=tol, byte_offset=offset)
+                out[f"{name}.{idx}.m{m}"] = dict(err=err, tol=tol, byte_offset=offset)
+    return out
+
+
+def moe_train(gen, cfg, seed, lr=0.005):
+    """Two plain SGD steps of moe_loss_fn on one batch (b = 1, 512 tokens
+    from the seed) with bf16 parameters at cfg's widths, then the loss once
+    more: every loss finite and below the one before. Returns (ok, report,
+    the trained parameters, detached)."""
+    from xf_flash_attention_cutlass_tpu_torch.models.moe import init_moe_params, moe_loss_fn
+
+    params = init_moe_params(gen, cfg)
+    leaves = [params["embed"], params["final_norm"], params["lm_head"],
+              *params["layers"].values()]
+    for t in leaves:
+        t.requires_grad_(True)
+    rng = np.random.default_rng(seed + 7)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 513))).cuda()
+    losses, step_ms = [], []
+    for i in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = moe_loss_fn(params, tokens, cfg)
+        if i < 2:
+            grads = torch.autograd.grad(loss, leaves)
+            with torch.no_grad():
+                for t, g in zip(leaves, grads):
+                    t.sub_(g, alpha=lr)
+            del grads
+        losses.append(float(loss.detach()))
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    for t in leaves:
+        t.requires_grad_(False)
+    ok = all(math.isfinite(x) for x in losses) and all(b < a for a, b in zip(losses, losses[1:]))
+    return ok, dict(layers=cfg.n_layers, tokens=512, lr=lr, losses=losses, step_ms=step_ms,
+                    peak_memory_gb=peak), params
+
+
+def moe_bf16_engine(params, cfg, checks, seed):
+    """bf16 MoE params (the trained 2-layer ones: plain experts, their
+    einsums in torch, the attention projections on K3 with bf16 weights)
+    served by a bucketed engine over FP8 page-256 KV: 8 requests of 64-256
+    prompt tokens, 8 new tokens each, every token in the vocabulary, the
+    graph equal to the eager step. Returns the streams' lengths."""
+    from xf_flash_attention_cutlass_tpu_torch.serve import DecodeEngine, EngineConfig
+
+    eng = DecodeEngine(params, cfg, EngineConfig(kv_quant="fp8_e4m3", page_size=256,
+                                                 num_pages=16, max_seq=1024, max_batch=8))
+    rng = np.random.default_rng(seed + 8)
+    for i in range(8):
+        eng.add_request(i, rng.integers(0, cfg.vocab_size, int(rng.integers(64, 257))).tolist(), 8)
+    out = eng.run()
+    ok = all(len(out[i]) == 8 and all(0 <= t < cfg.vocab_size for t in out[i]) for i in range(8))
+    checks.add("serve_moe_bf16.streams_complete", ok, lens=[len(out.get(i, [])) for i in range(8)])
+    check_graph_replay(eng, checks, "serve_moe_bf16")
+    del eng
+    torch.cuda.empty_cache()
+    return {i: len(out[i]) for i in range(8)}
+
+
+def moe_checkpoint(params, cfg, ecfg, prompts, want, checks):
+    """A chunked engine over the serving prompts, saved (include_params=False)
+    once every prefill is done and 4 decode steps later, into a temporary
+    directory; loaded into a fresh engine over the same params, whose
+    streams must equal the uninterrupted run's (`want`), token for token;
+    loaded again, whose pools must equal the saved engine's byte for byte.
+    Returns the file's size and the save and load seconds."""
+    import tempfile
+
+    from xf_flash_attention_cutlass_tpu_torch.serve import DecodeEngine, load_engine, save_engine
+
+    eng = DecodeEngine(params, cfg, ecfg)
+    for rid, p in prompts.items():
+        eng.add_request(rid, p, len(want[rid]))
+    while eng.queue or any(st is not None for st in eng._prefills):
+        eng.step()
+    for _ in range(4):
+        eng.step()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "moe.npz")
+        t0 = time.perf_counter()
+        save_engine(eng, path)
+        out["save_s"] = time.perf_counter() - t0
+        out["file_bytes"] = os.path.getsize(path)
+        t0 = time.perf_counter()
+        resumed = load_engine(path, params=params)
+        torch.cuda.synchronize()
+        out["load_s"] = time.perf_counter() - t0
+        streams = resumed.run()
+        del resumed
+        same = {rid: list(streams[rid]) == want[rid] for rid in want}
+        checks.add("serve_moe.checkpoint.resumed_streams_equal", all(same.values()),
+                   per_request=same)
+        again = load_engine(path, params=params)
+        equal = {k: bool(torch.equal(v.view(torch.uint8), again.pools[k].view(torch.uint8)))
+                 for k, v in eng.pools.items()}
+        checks.add("serve_moe.checkpoint.pools_byte_equal", all(equal.values()), pools=equal,
+                   allocator_equal=bool(np.array_equal(again.pool.snapshot(),
+                                                       eng.pool.snapshot())))
+        del again
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_profile(eng, cfg, seed, checks):
+    """One decode step of 8 active requests (profile_decode's 256-token
+    prompts, bucketed: one step admits all 8) under a profiler trace: its
+    device time, K3's kernels by route, the launches the graph replay adds
+    to the counters (K3's by route), then five steps on the host clock: busy
+    share (device time over the host step) and tokens/s; and the MoE MLP's
+    plain parts alone (moe_mlp_parts). The decode kernel's split counters
+    must read 0 after the steps."""
+    from xf_flash_attention_cutlass_tpu_torch import _build
+    from xf_flash_attention_cutlass_tpu_torch.quant.linear import decode_counters
+
+    admit_profile_requests(eng, cfg, seed, 16)
+    eng.step()  # warm
+    before = dict(_build.LAUNCHES)
+    eng.step()
+    launches = {k: v - before.get(k, 0) for k, v in _build.LAUNCHES.items()
+                if v != before.get(k, 0)}
+    groups = dict(K3_GROUPS, k1_decode="paged_decode_kernel",
+                  k1_combine="paged_combine_kernel", append=APPEND_KERNEL)
+    prof = profiled(eng.step, 1, groups=groups)
+    host = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        eng.step()
+        host.append(1e3 * (time.perf_counter() - t0))
+    counters = decode_counters(torch.device("cuda"))
+    checks.add("serve_moe.decode_counters_zero_after_steps", int(counters.abs().sum()) == 0,
+               nonzero=int((counters != 0).sum()))
+    active = len(eng.active)
+    eng.run()
+    host_ms = percentile(host, 50)
+    out = dict(active=active, host_ms_p50=host_ms, tokens_per_s=active / (host_ms / 1e3),
+               wrapper_launches_per_step={k: v for k, v in launches.items()
+                                          if k.startswith("qmm") or k.startswith("graph")})
+    if prof is not None:
+        out.update(prof, busy_share=prof["device_ms_per_step"] / host_ms)
+    out["mlp_parts"] = moe_mlp_parts(eng.params, cfg)
+    return out
+
+
+def moe_mlp_parts(params, cfg, rows=8):
+    """Device ms a decode step (all layers) of the MoE MLP's parts other
+    than K3, at the decode's shapes (8 rows, capacity 8), each captured in a
+    CUDA graph of cfg.n_layers calls as the decode step runs them and its
+    replays profiled: the router (rms_norm, the f32 product, softmax), the
+    dispatch (top_k_dispatch: sort, cumsum, one-hots), the dispatch and
+    combine einsums, and the SwiGLU's silu and product between K3's calls."""
+    import torch.nn.functional as F
+
+    from xf_flash_attention_cutlass_tpu_torch.models.llama import rms_norm
+    from xf_flash_attention_cutlass_tpu_torch.models.moe import expert_capacity, top_k_dispatch
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    d, E, C = cfg.dim, cfg.n_experts, expert_capacity(cfg, rows)
+    x = torch.randn((1, rows, d), generator=gen, device="cuda").bfloat16()
+    norm, router = params["layers"]["mlp_norm"][0], params["layers"]["router"][0]
+    flat = rms_norm(x, norm, cfg.rms_eps).reshape(rows, d)
+    probs = torch.softmax(flat.float() @ router, dim=-1)
+    dispatch, combine, _ = top_k_dispatch(probs, cfg.top_k, C)
+    out = torch.randn((E, C, d), generator=gen, device="cuda").bfloat16()
+    g = torch.randn((C, cfg.ffn_dim), generator=gen, device="cuda").bfloat16()
+    parts = dict(
+        router=lambda: torch.softmax(rms_norm(x, norm, cfg.rms_eps).reshape(rows, d).float()
+                                     @ router, dim=-1),
+        dispatch=lambda: top_k_dispatch(probs, cfg.top_k, C),
+        einsums=lambda: (torch.einsum("nec,nd->ecd", dispatch.bfloat16(), flat),
+                         torch.einsum("nec,ecd->nd", combine.bfloat16(), out)),
+        swiglu=lambda: [F.silu(g) * g for _ in range(E)],
+    )
+    ms = {}
+    for name, fn in parts.items():
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(cfg.n_layers):
+                fn()
+        prof = profiled(graph.replay, 3)
+        ms[name] = None if prof is None else prof["device_ms_per_step"]
+        del graph
+    return ms
+
+
+def serve_moe(gen, checks, paths, seed):
+    """The MoE family served at Mixtral-8x7B geometry (all 32 layers, full
+    width, random INT8 weights from the seed, drawn a layer at a time), an
+    FP8 page-256 KV cache, greedy, every decode step a graph replay:
+    (1) the reference check of the cores, cut to 2 layers, against the CPU,
+    routing included, and K3 on the expert views at l * E + e; (2) the 8
+    serving prompts with 32 new tokens each, chunked (256-token chunks) and
+    bucketed, each a main path, their graphs held to the eager step, the
+    tie rule between their streams measured (not a gate: routing flips at
+    near-ties move the logits by O(1)); (3) a chunked engine
+    saved mid-stream and resumed; (4) one decode step profiled; (5) two SGD
+    steps of the MoE loss at 2 layers, whose bf16 params then serve through
+    the engine too. Returns the report."""
+    from xf_flash_attention_cutlass_tpu_torch.models.moe import (
+        MoEConfig,
+        init_moe_params_quantized,
+    )
+    from xf_flash_attention_cutlass_tpu_torch.serve import DecodeEngine, EngineConfig
+    from xf_flash_attention_cutlass_tpu_torch.serve.checkpoint import _flatten
+
+    cfg = MoEConfig.mixtral8x7b_geometry()
+    report = {}
+    t0 = time.perf_counter()
+    params = init_moe_params_quantized(gen, cfg)
+    torch.cuda.synchronize()
+    report["init_s"] = time.perf_counter() - t0
+    report["params_gb"] = sum(t.numel() * t.element_size() for t in _flatten(params)) / 1e9
+    report["reference_check_s"] = reference_check(params, cfg, checks, seed, "moe_reference")
+    report["expert_views"] = moe_expert_offsets(params, cfg, gen, checks)
+    checks.raise_on_failure("moe reference check")
+    print(json.dumps({"serve_moe_init": report}), flush=True)
+
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(200, 1501, 8)
+    prompts = {i: rng.integers(0, cfg.vocab_size, int(n)).tolist() for i, n in enumerate(lens)}
+    n_new = 32
+    ecfg = EngineConfig(kv_quant="fp8_e4m3", page_size=256, num_pages=MOE_PAGES, max_seq=4096,
+                        max_batch=8, prefill_chunk=256)
+    runs = {}
+    for mode, e in (("chunked", ecfg), ("bucketed", dataclasses.replace(ecfg, prefill_chunk=None))):
+        eng = DecodeEngine(params, cfg, e)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        (streams, logits, step_ms, step_tok), paths[f"serve_moe_{mode}"] = drive(
+            f"serve_moe_{mode}", lambda: serve_recorded(eng, prompts, n_new))
+        wall = time.perf_counter() - t0
+        bad = {rid: s for rid, s in streams.items()
+               if len(s) != n_new or not all(0 <= t < cfg.vocab_size for t in s)}
+        checks.add(f"serve_moe_{mode}.streams_complete", not bad, bad=bad)
+        check_graph_replay(eng, checks, f"serve_moe_{mode}")
+        runs[mode] = (streams, logits)
+        report[f"serving_{mode}"] = dict(
+            prompt_tokens=int(lens.sum()), new_tokens_per_request=n_new, wall_s=wall,
+            decode_only_steps=len(step_ms),
+            decode_step_ms=dict(p50=percentile(step_ms, 50), p90=percentile(step_ms, 90)),
+            decode_tok_s=step_tok / (sum(step_ms) / 1e3) if step_ms else None,
+            peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+            launches=paths[f"serve_moe_{mode}"], stats=dict(eng.stats))
+        print(json.dumps({f"serve_moe_{mode}": report[f"serving_{mode}"]}), flush=True)
+        if mode == "chunked":
+            del eng
+            torch.cuda.empty_cache()
+    # measured, not a gate: top-k routing is discontinuous, so the rounding
+    # that separates a chunked prefill from a bucketed one (an FP8 cache or
+    # the prompt's own K/V under the attention) flips a token's experts where
+    # its router is near a tie, and the logits downstream then move by O(1)
+    # (PERF.md, the MoE serving path)
+    report["tie_rule"] = tie_rule(Checks(), "serve_moe.measured", runs["chunked"],
+                                  runs["bucketed"])
+    print(json.dumps({"serve_moe_tie_rule": report["tie_rule"]}), flush=True)
+    want = runs["chunked"][0]
+    del runs
+    checks.raise_on_failure("moe serving")
+
+    report["checkpoint"] = moe_checkpoint(params, cfg, ecfg, prompts, want, checks)
+    print(json.dumps({"serve_moe_checkpoint": report["checkpoint"]}), flush=True)
+    report["decode_profile"] = moe_profile(eng, cfg, seed, checks)
+    print(json.dumps({"moe_decode_profile": report["decode_profile"]}), flush=True)
+    del eng, params
+    torch.cuda.empty_cache()
+    checks.raise_on_failure("moe checkpoint and profile")
+
+    torch.cuda.reset_peak_memory_stats()
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    (ok, training, trained), paths["train_moe"] = drive(
+        "train_moe", lambda: moe_train(gen, cfg2, seed))
+    checks.add("train_moe.loss_falls", ok, losses=training["losses"])
+    report["training"] = training
+    print(json.dumps({"train_moe": training}), flush=True)
+    report["bf16_engine"] = moe_bf16_engine(trained, cfg2, checks, seed)
+    del trained
+    torch.cuda.empty_cache()
+    checks.raise_on_failure("moe training and the bf16 engine")
+    return report
+
 
 
 # ---- what the build made of K7 and K3 ----------------------------------------
@@ -3354,14 +3750,23 @@ PATHS = {
                                       "qmm.stacked.wgmma", "qmm.single.wgmma",
                                       "qmm.single.decode"],
     "serve_prefix": _SERVE_KERNELS + _CHUNKED + ["graph.decode"],
+    # the MoE family: every expert projection on K3 (stacked at l * E + e),
+    # the decode route at the decode's capacity (8 rows), the wgmma route at
+    # a chunk's or a bucket's (80-640 rows)
+    "serve_moe_chunked": _SERVE_KERNELS + _CHUNKED + ["graph.decode"],
+    "serve_moe_bucketed": _SERVE_KERNELS + _BUCKETED + ["graph.decode"],
+    "train_moe": ["flash_fwd", "flash_bwd.dq", "flash_bwd.dkv"],
 }
 # kernels a main path must not launch: serving decodes on K1's and K3/K4's
 # decode kernels, and the api path's options take K1's Hopper kernels
 _NOT_SERVING = ["paged_attention.decode.wmma", "qmm.stacked.bm16", "qmm.single.bm16"]
+_MOE_NOT_SERVING = ["qmm.stacked.bm64", "qmm.single.bm64", "paged_attention.prefill.wmma"]
 NOT_ON_PATH = {"serve_chunked": _NOT_SERVING, "serve_bucketed": _NOT_SERVING,
                "serve_multi_step": _NOT_SERVING, "serve_sampled": _NOT_SERVING,
                "serve_speculative": _NOT_SERVING + ["graph.decode", "paged_append.decode"],
                "serve_prefix": _NOT_SERVING,
+               "serve_moe_chunked": _NOT_SERVING + _MOE_NOT_SERVING,
+               "serve_moe_bucketed": _NOT_SERVING + _MOE_NOT_SERVING,
                "api": ["paged_attention.decode.wmma", "paged_attention.prefill.wmma"]}
 
 
@@ -3628,7 +4033,11 @@ def main():
     del calls, copies
     mark("api")
 
-    # 6. the kernels line, the card, the result
+    # 6. the MoE family: Mixtral-8x7B geometry served, saved and resumed, trained
+    report["serve_moe"] = serve_moe(gen, checks, paths, args.seed)
+    mark("serve_moe")
+
+    # 7. the kernels line, the card, the result
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         r = measured[name]

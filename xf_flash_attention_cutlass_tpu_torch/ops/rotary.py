@@ -8,6 +8,8 @@ tail passes through.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 
@@ -54,3 +56,21 @@ def rotary_frequencies(
     t = torch.arange(max_pos, dtype=torch.float32, device=device)
     freqs = torch.outer(t, inv_freq)
     return torch.cos(freqs).to(dtype), torch.sin(freqs).to(dtype)
+
+
+def apply_rotary_single(
+    x: torch.Tensor,  # (s, d) or (b, s, d): no head axis
+    cos: torch.Tensor,
+    sin: torch.Tensor,
+    positions: Optional[torch.Tensor] = None,  # (b, s); None: 0 .. s - 1
+    interleaved: bool = True,
+) -> torch.Tensor:
+    """apply_rotary for layouts without a head axis."""
+    squeeze_b = x.dim() == 2
+    if squeeze_b:
+        x = x[None]
+    b, s, _ = x.shape
+    if positions is None:
+        positions = torch.arange(s, device=x.device)[None].expand(b, s)
+    out = apply_rotary(x[:, :, None, :], cos, sin, positions, interleaved)[:, :, 0]
+    return out[0] if squeeze_b else out

@@ -75,6 +75,12 @@ def _build() -> ctypes.CDLL:
         lib.xfa_request_seq_len.argtypes = [vp, i32]
         lib.xfa_build_block_tables.restype = i32
         lib.xfa_build_block_tables.argtypes = [vp, p32, i32, p32]
+        lib.xfa_pool_snapshot_size.restype = i32
+        lib.xfa_pool_snapshot_size.argtypes = [vp]
+        lib.xfa_pool_snapshot.restype = i32
+        lib.xfa_pool_snapshot.argtypes = [vp, p32, i32]
+        lib.xfa_pool_restore.restype = i32
+        lib.xfa_pool_restore.argtypes = [vp, p32, i32]
         _lib = lib
         return _lib
 
@@ -139,6 +145,31 @@ class _PyPool:
         if ent is not None:
             self.free_list.extend(ent[2])
             self.slots[slot] = None
+
+    def snapshot(self) -> np.ndarray:
+        """The native snapshot's int32 words: geometry, the free list, then
+        per slot (active, id, seq_len, target_len, shared_pages, n_pages,
+        pages...); the copy keeps no target length and writes 0."""
+        words = [self.num_pages, self.page_size, len(self.slots),
+                 len(self.free_list)] + list(self.free_list)
+        for ent in self.slots:
+            if ent is None:
+                words += [0, -1, 0, 0, 0, 0]
+            else:
+                words += [1, ent[0], ent[1], 0, ent[3], len(ent[2])] + list(ent[2])
+        return np.asarray(words, np.int32)
+
+    def restore(self, words) -> None:
+        w = np.asarray(words, np.int32).tolist()
+        if w[:3] != [self.num_pages, self.page_size, len(self.slots)]:
+            raise ValueError("allocator snapshot geometry mismatch")
+        r = 4 + w[3]
+        self.free_list = w[4:r]
+        for s in range(len(self.slots)):
+            active, rid, seq_len, _target, shared, n_pg = w[r : r + 6]
+            pages = w[r + 6 : r + 6 + n_pg]
+            r += 6 + n_pg
+            self.slots[s] = [rid, seq_len, pages, shared] if active else None
 
 
 class PagePool:
@@ -246,6 +277,32 @@ class PagePool:
             return self._lib.xfa_request_seq_len(self._h, slot)
         ent = self._py.slots[slot]
         return ent[1] if ent else -1
+
+    def snapshot(self) -> np.ndarray:
+        """The allocator's state (free list, per-slot page maps) as an int32
+        vector, the layout of csrc/page_allocator.cpp's xfa_pool_snapshot:
+        what an engine checkpoint saves."""
+        if self._lib:
+            n = self._lib.xfa_pool_snapshot_size(self._h)
+            buf = np.zeros((n,), np.int32)
+            wrote = self._lib.xfa_pool_snapshot(
+                self._h, buf.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), n)
+            if wrote < 0:
+                raise RuntimeError("allocator snapshot failed")
+            return buf[:wrote]
+        return self._py.snapshot()
+
+    def restore(self, words: np.ndarray) -> None:
+        """Restore a snapshot into a pool of the same geometry; raises
+        ValueError on another geometry or malformed words."""
+        buf = np.ascontiguousarray(np.asarray(words, np.int32))
+        if self._lib:
+            rc = self._lib.xfa_pool_restore(
+                self._h, buf.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), len(buf))
+            if rc != 0:
+                raise ValueError("allocator snapshot geometry mismatch")
+        else:
+            self._py.restore(buf)
 
     def build_block_tables(self, max_pages: int):
         """Returns (block_tables (max_requests, max_pages) int32,

@@ -42,8 +42,13 @@ the cache after the upcoming step. A decode step consumes the previously
 sampled token, appends its KV at position seq_len - 1 and attends over
 seq_len keys.
 
-What the port does not serve yet raises NotImplementedError: meshes and MoE
-models.
+Both model families serve: a layer whose params hold a ``router`` runs the
+sparse MoE MLP (``models/moe.py``) where a Llama layer runs its SwiGLU MLP
+(``_mlp``). Every row of a step's batch, padded bucket tails, idle chunk
+lanes and dead decode rows included, competes for the experts' capacity in
+row order, as in the JAX engine, which feeds the same rows.
+
+What the port does not serve yet raises NotImplementedError: meshes.
 """
 
 from __future__ import annotations
@@ -67,6 +72,7 @@ from xf_flash_attention_cutlass_tpu_torch.models.llama import (
     pack_params_for_decode,
     rms_norm,
 )
+from xf_flash_attention_cutlass_tpu_torch.models.moe import moe_mlp_block
 from xf_flash_attention_cutlass_tpu_torch.ops.flash_fwd import MASK32, flash_fwd, philox4x32_10
 from xf_flash_attention_cutlass_tpu_torch.ops.paged import paged_attention
 from xf_flash_attention_cutlass_tpu_torch.ops.paged_append import paged_append
@@ -84,8 +90,7 @@ class EngineConfig:
     every field on one device: bucketed (prefill_chunk None or 0) or
     chunked prefill over prefill_lanes, speculate_k > 1 (greedy requests),
     multi_step > 1, and sampling with top_k / top_p / approx_top_k under
-    sample_seed. DecodeEngine raises NotImplementedError for meshes and MoE
-    models.
+    sample_seed. DecodeEngine raises NotImplementedError for meshes.
 
     The speculative verify step runs eagerly on CUDA (no graph yet): on an
     H100 80GB HBM3 (700 W) at Llama-8B width with random weights,
@@ -230,6 +235,15 @@ def _rope(cfg: LlamaConfig, device, rope=None):
     return rotary_frequencies(cfg.head_dim, cfg.max_seq_len, cfg.rope_base, device=device)
 
 
+def _mlp(layer, x: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
+    """The dense SwiGLU MLP, or the sparse MoE MLP for a layer that holds
+    a router (models/moe.py), as the JAX engine's _mlp chooses."""
+    if "router" in layer:
+        out, _ = moe_mlp_block(layer, x, cfg)
+        return out
+    return mlp_block(layer, x, cfg)
+
+
 def _attention_layers(params, x, pools, bt, kv_lens, append_pos, positions, cfg, rope=None):
     """The layer loop shared by verify/decode and chunked prefill: per
     layer, append the new tokens' KV into the pools in place, then attend
@@ -246,7 +260,7 @@ def _attention_layers(params, x, pools, bt, kv_lens, append_pos, positions, cfg,
         o, _ = paged_attention(q, pools["k"], pools["v"], bt, kv_lens, causal=True,
                                layer_idx=l, **scales)
         x = x + _proj(o.reshape(b, s, cfg.n_heads * cfg.head_dim), layer["wo"])
-        x = mlp_block(layer, x, cfg)
+        x = _mlp(layer, x, cfg)
     return rms_norm(x, params["final_norm"], cfg.rms_eps)
 
 
@@ -351,7 +365,7 @@ def prefill_core(
                          causal=True, kv_lens=kv_lens)
         paged_append(pools["k"], pools["v"], k_new, v_new, bt_row, zero, layer_idx=l, **scales)
         x = x + _proj(o.transpose(1, 2).reshape(1, s, cfg.n_heads * cfg.head_dim), layer["wo"])
-        x = mlp_block(layer, x, cfg)
+        x = _mlp(layer, x, cfg)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
     return _proj(x[:, max(true_len - 1, 0)], params["lm_head"]).float()[0]
 
@@ -416,7 +430,7 @@ class DecodeEngine:
         device=None,  # None: CUDA, raising when it is absent
         mesh=None,
     ):
-        _check_served(params, ecfg, mesh)
+        _check_served(mesh)
         self.device = resolve_device(device)
         # decode and prefill read every projection through the stacked
         # matmul (the same buffers, no copies)
@@ -932,13 +946,8 @@ class DecodeEngine:
         )
 
 
-def _check_served(params, ecfg: EngineConfig, mesh) -> None:
-    """Raise NotImplementedError for what the port does not serve yet;
-    nothing is silently served another way."""
-    missing = []
+def _check_served(mesh) -> None:
+    """Raise NotImplementedError for what the port does not serve yet
+    (meshes); nothing is silently served another way."""
     if mesh is not None:
-        missing.append("meshes")
-    if "router" in params["layers"]:
-        missing.append("MoE models")
-    if missing:
-        raise NotImplementedError("not ported yet: " + "; ".join(missing))
+        raise NotImplementedError("not ported yet: meshes")
