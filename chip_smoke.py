@@ -164,7 +164,29 @@ Phases, each of which raises (exit code != 0) when it fails:
    512 tokens (K7, K9, K10), the losses falling, after which those bf16
    params (plain experts) serve 8 short requests through a bucketed engine
    (its graph against the eager step).
-7. Print the seconds of each phase, the `kernels` JSON line, the card's
+7. fp16 and f32 (`check_dtype_kernels`, `check_refusals`,
+   `api_dtype_path`, `serving_dtype_paths`): the fp16 and f32
+   instantiations of K1 (decode and chunk at the engine's shapes over fp16,
+   fp8 and int8 pools for fp16 queries, f32, fp8 and int8 for f32 ones, the
+   options on every route, an odd page on the WMMA kernel, the combine
+   kernel writing fp16 and f32), of the append kernel (fp16 and f32 rows
+   into pools of their dtype, int8 and fp8, decode, chunk and page 32, bit
+   for bit) and of K3/K4 (fp16 activations on the decode, wgmma and WMMA
+   kernels over int8, fp8 and fp16 weights; f32 activations on the f32
+   kernel over f32, int8 and fp8 weights), each against its plain version
+   under the 2x rule (float64 oracles for f32), the serving shapes timed
+   beside their bound (f32 operations at F32_FLOPS) and SDPA / cuBLAS in the
+   working dtype; f64 refused by each wrapper and a bucketed f32 engine by
+   K7 (TypeError naming the kernel); the api's KV-cache decode and paged
+   varlen over fp16 and f32 caches against the plain versions (`api_dtypes`,
+   a main path). Then Llama-8B at full width and depth served twice, each a
+   main path after the reference check of its cores (2 layers) against the
+   CPU in its dtype and in f32 (f64 for f32): `serve_fp16` (fp16
+   activations, INT8 weights, FP8 page-256 cache, bucketed prefill through
+   K7 in fp16) and `serve_f32` (unquantized f32 weights, 32.1 GB; an f32
+   cache of 48 pages of 256; 256-token chunked prefill), their graphs held
+   to the eager step and a decode step profiled.
+8. Print the seconds of each phase, the `kernels` JSON line, the card's
    name and power limit, and, last,
    {"ok": true, "device": {...}}.
 
@@ -190,7 +212,8 @@ import torch
 import torch.nn.functional as F
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
-BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, H100 SXM
+BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, H100 SXM (fp16 the same)
+F32_FLOPS = 67e12  # f32 FMA peak (no tensor cores), H100 SXM: the f32 kernels' rate
 REPS = 20  # timed launches per measurement (plain versions: PLAIN_REPS)
 PLAIN_REPS = 3
 # calls of each api step under one trace: with two, a trace that lost one
@@ -267,10 +290,11 @@ def device_ms(fn, kernel, reps=REPS):
     return us / 1e3 / reps if us > 0 else None
 
 
-def bound(n_bytes: float, n_ops: float) -> tuple:
+def bound(n_bytes: float, n_ops: float, peak: float = BF16_FLOPS) -> tuple:
     """(bound_ms, bound_by): the larger of bytes over the HBM rate and
-    operations over the bf16 tensor-core peak."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / BF16_FLOPS
+    operations over `peak` (the bf16 tensor-core peak; F32_FLOPS for the
+    f32 kernels)."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / peak
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -279,7 +303,17 @@ def nbytes(*tensors) -> int:
 
 
 def max_err(a, b) -> float:
-    return float((a.float() - b.float()).abs().max())
+    return float((a.double() - b.double()).abs().max())
+
+
+QUANT = (torch.int8, torch.float8_e4m3fn)
+DT_TAG = {torch.bfloat16: "bf16", torch.float16: "f16", torch.float32: "f32",
+          torch.int8: "int8", torch.float8_e4m3fn: "float8_e4m3fn"}
+
+
+def peak_of(dtype) -> float:
+    """The operations rate a kernel's bound takes for activations of dtype."""
+    return F32_FLOPS if dtype == torch.float32 else BF16_FLOPS
 
 
 class Checks:
@@ -311,8 +345,8 @@ def kv_pools(gen, kv_dtype, layers, pages, h_k, page, d):
     out = []
     for _ in range(2):
         x = torch.randn(shape, generator=gen, device="cuda")
-        if kv_dtype == torch.bfloat16:
-            out.append((x.bfloat16(), None))
+        if kv_dtype not in QUANT:
+            out.append((x.to(kv_dtype), None))
         else:
             name = "int8" if kv_dtype == torch.int8 else "fp8_e4m3"
             vals, sc = quantize_kv(x, name)
@@ -325,8 +359,8 @@ def kv_pools(gen, kv_dtype, layers, pages, h_k, page, d):
 def sdpa_over_pages(q, kp, vp, ks, vs, bt, lens, T):
     """The library yardstick of K1: SDPA over the first T keys of each
     block-table row, gathered, dequantized and expanded over the GQA group
-    (bf16), with the bottom-right causal mask and kv_len; rows that see no
-    key are unmasked (SDPA gives NaN on them; they are not compared)."""
+    (in q's dtype), with the bottom-right causal mask and kv_len; rows that
+    see no key are unmasked (SDPA gives NaN on them; they are not compared)."""
     b, sq, h, d = q.shape
     h_k, page = kp.shape[1], kp.shape[2]
     pages = (T + page - 1) // page
@@ -336,7 +370,7 @@ def sdpa_over_pages(q, kp, vp, ks, vs, bt, lens, T):
         x = pool[idx].transpose(1, 2).reshape(b, h_k, pages * page, d)[:, :, :T].float()
         if scales is not None:
             x = x * scales[idx].transpose(1, 2).reshape(b, h_k, pages * page, 1)[:, :, :T]
-        return x.bfloat16().repeat_interleave(h // h_k, dim=1)
+        return x.to(q.dtype).repeat_interleave(h // h_k, dim=1)
 
     kg, vg = dense(kp, ks), dense(vp, vs)
     kcol = torch.arange(T, device=q.device)
@@ -348,12 +382,13 @@ def sdpa_over_pages(q, kp, vp, ks, vs, bt, lens, T):
     return lambda: F.scaled_dot_product_attention(qt, kg, vg, attn_mask=mask)
 
 
-def paged_inputs(gen, kv_dtype, phase, cfg, kv_range=(200, 1533)):
+def paged_inputs(gen, kv_dtype, phase, cfg, kv_range=(200, 1533), q_dtype=torch.bfloat16):
     """K1's inputs at the engine's shapes: two layers of page-256 pools of
     64 pages (+ a trash page), 16-page block tables, q (b, sq, h, d) bf16.
     Decode: b = 8, sq = 1, kv_lens drawn from kv_range, the last slot
     inactive (kv_len 0 on the trash page); prefill: one 256-token chunk at
-    kv_len 1024. Returns (q, k_pool, v_pool, k_scales, v_scales, bt, lens)."""
+    kv_len 1024. q in q_dtype. Returns (q, k_pool, v_pool, k_scales,
+    v_scales, bt, lens)."""
     h, h_k, d, page, max_pages = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 256, 16
     b, sq = (8, 1) if phase == "decode" else (1, 256)
     n_pages = 64
@@ -366,7 +401,7 @@ def paged_inputs(gen, kv_dtype, phase, cfg, kv_range=(200, 1533)):
         bt[-1] = n_pages
     else:
         lens = torch.tensor([1024], dtype=torch.int32, device="cuda")  # 4th chunk
-    q = torch.randn((b, sq, h, d), generator=gen, device="cuda").bfloat16()
+    q = torch.randn((b, sq, h, d), generator=gen, device="cuda").to(q_dtype)
     return q, kp, vp, ks, vs, bt, lens
 
 
@@ -398,9 +433,9 @@ def k1_bound(q, kp, ks, bt, lens, causal=True, window=(-1, -1), cache_leftpad=No
         if spans:
             read += max(hi for _, hi in spans) - min(lo for lo, _ in spans) + 1
     kv_row = 2 * d * kp.element_size() + (8 if ks is not None else 0)  # K, V, scales
-    out_bytes = q.numel() * 2 + b * h * sq * 4
+    out_bytes = q.numel() * q.element_size() + b * h * sq * 4
     by = nbytes(q, bt, lens) + out_bytes + read * kp.shape[-3] * kv_row
-    return bound(by, 4 * d * h * visible)
+    return bound(by, 4 * d * h * visible, peak_of(q.dtype))
 
 
 def forced_route(route, q, kp, vp, ks, vs, bt, lens, layer_idx=1, **opts):
@@ -414,7 +449,8 @@ def forced_route(route, q, kp, vp, ks, vs, bt, lens, layer_idx=1, **opts):
 
     b, sq, h, d = q.shape
     h_k = kp.shape[-3]
-    route_now, splits = paged.paged_plan(q.shape, kp.shape, kp.dtype, bt.shape[1], **opts)
+    route_now, splits = paged.paged_plan(q.shape, kp.shape, kp.dtype, bt.shape[1], **opts,
+                                         q_dtype=q.dtype)
     if route != route_now:
         rows = sq * (h // h_k)
         splits = paged.resolve_num_splits(0, b, h_k, rows, bt.shape[1],
@@ -426,15 +462,18 @@ def forced_route(route, q, kp, vp, ks, vs, bt, lens, layer_idx=1, **opts):
         kw["softcap"], kw["alibi_slopes"], kw["cache_leftpad"], splits, ks, vs, route)
 
 
-def check_paged_attention(gen, timer, checks, kv_dtype, phase, cfg):
+def check_paged_attention(gen, timer, checks, kv_dtype, phase, cfg, q_dtype=torch.bfloat16,
+                          timed=True):
     """K1 at the engine's shapes: decode b=8, sq=1 over kv_lens of the
-    serving prompts (the WMMA kernel), or one 256-token chunk at b=1 (the
-    Hopper kernel; also timed through the WMMA kernel on the same inputs).
-    The tolerance is the 2x rule's: twice the error of the dense oracle in
-    the working dtype against the dense float32 oracle (utils/testing.py),
+    serving prompts (the decode kernel), or one 256-token chunk at b=1 (the
+    Hopper kernel; also timed through the WMMA kernel on the same inputs),
+    with q_dtype queries (f32: the f32 kernel). The tolerance is the 2x
+    rule's: twice the error of the dense oracle in the working dtype against
+    the dense float32 oracle (utils/testing.py; float64 for f32 queries),
     plus 1e-5. Both the kernel's distance from its plain version and its
-    error against the f32 oracle must stay within it, and the call must
-    launch the route paged_plan names."""
+    error against the high-precision oracle must stay within it, and the
+    call must launch the route paged_plan names. Returns its row (None when
+    not `timed`)."""
     from xf_flash_attention_cutlass_tpu_torch import _build
     from xf_flash_attention_cutlass_tpu_torch.ops.paged import (
         paged_attention,
@@ -445,7 +484,7 @@ def check_paged_attention(gen, timer, checks, kv_dtype, phase, cfg):
     from xf_flash_attention_cutlass_tpu_torch.utils.testing import paged_attention_oracle
 
     h, h_k, d, page, max_pages = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 256, 16
-    q, kp, vp, ks, vs, bt, lens = paged_inputs(gen, kv_dtype, phase, cfg)
+    q, kp, vp, ks, vs, bt, lens = paged_inputs(gen, kv_dtype, phase, cfg, q_dtype=q_dtype)
     b, sq = q.shape[:2]
     sc = {} if ks is None else dict(k_scales=ks, v_scales=vs)
     sc1 = {} if ks is None else dict(k_scales=ks[1], v_scales=vs[1])
@@ -453,8 +492,9 @@ def check_paged_attention(gen, timer, checks, kv_dtype, phase, cfg):
     def kernel():
         return paged_attention(q, kp, vp, bt, lens, layer_idx=1, **sc)
 
-    route, splits = paged_plan(q.shape, kp.shape, kp.dtype, max_pages)
-    label = route_label(route, sq * (h // h_k))
+    route, splits = paged_plan(q.shape, kp.shape, kp.dtype, max_pages, q_dtype=q_dtype)
+    label = route_label(route, sq * (h // h_k), q_dtype=q_dtype)
+    ref_dt = torch.float64 if q_dtype == torch.float32 else torch.float32
 
     def plain():
         return paged_attention_ref(q, kp[1], vp[1], bt, lens, num_splits=splits, **sc1)
@@ -463,8 +503,9 @@ def check_paged_attention(gen, timer, checks, kv_dtype, phase, cfg):
     o, lse = kernel()
     launched = _build.LAUNCHES[label] - n0 == 1
     o_plain, lse_plain = plain()
-    o32, l32 = paged_attention_oracle(q, kp[1], vp[1], bt, lens, **sc1)
-    olp, llp = paged_attention_oracle(q, kp[1], vp[1], bt, lens, upcast=False, **sc1)
+    o32, l32 = paged_attention_oracle(q, kp[1], vp[1], bt, lens, ref_dtype=ref_dt, **sc1)
+    olp, llp = paged_attention_oracle(q, kp[1], vp[1], bt, lens, upcast=False, ref_dtype=ref_dt,
+                                      **sc1)
     torch.cuda.synchronize()
     live = lens > 0
     plain_err, err, lp_err = max_err(o, o_plain), max_err(o, o32), max_err(olp, o32)
@@ -476,9 +517,13 @@ def check_paged_attention(gen, timer, checks, kv_dtype, phase, cfg):
     ok = (bool(torch.isfinite(o).all()) and dead_ok and plain_err <= tol and err <= tol
           and lse_plain_err <= ltol and lerr <= ltol and launched)
     name = f"paged_attention.{phase}[{str(kv_dtype).split('.')[-1]}]"
+    if q_dtype != torch.bfloat16:
+        name = f"paged_attention.{phase}[{DT_TAG[q_dtype]}/{DT_TAG[kv_dtype]}]"
     checks.add(name, ok, max_abs_err=plain_err, tolerance=tol, err_vs_f32_oracle=err,
                lse_err=lse_plain_err, lse_err_vs_f32_oracle=lerr, lse_tolerance=ltol,
                dead_rows_ok=dead_ok, num_splits=splits, route=route, launched=launched)
+    if not timed:
+        return None
 
     # library yardstick: SDPA over the live keys (the largest kv_len rounded
     # up to a page); beside it, the earlier yardstick over every page of the
@@ -497,15 +542,18 @@ def check_paged_attention(gen, timer, checks, kv_dtype, phase, cfg):
     )
     # the first version on the same inputs; at decode also the Hopper chunk
     # kernel forced onto the rows (a 64-row tile of group * sq live rows)
-    for other in ("wmma",) + (("wgmma",) if route == "decode" else ()):
+    others = () if route == "f32" else ("wmma",) + (("wgmma",) if route == "decode" else ())
+    for other in others:
         out[f"{other}_ms"] = timer.ms(forced_route(other, q, kp, vp, ks, vs, bt, lens)[1])
     return out
 
 
-def check_paged_append(gen, timer, checks, kv_dtype, phase, cfg):
-    """K2 (decode: 8 rows at scattered positions) and K5 (a 256-token chunk):
-    the kernel's pools and scales must equal the plain version's bit for bit
-    on every page but the trash page."""
+def check_paged_append(gen, timer, checks, kv_dtype, phase, cfg, row_dtype=torch.bfloat16,
+                       timed=True):
+    """K2 (decode: 8 rows at scattered positions) and K5 (a 256-token chunk)
+    of row_dtype rows: the kernel's pools and scales must equal the plain
+    version's bit for bit on every page but the trash page. Returns its row
+    (None when not `timed`)."""
     from xf_flash_attention_cutlass_tpu_torch.ops.paged_append import (
         paged_append,
         paged_append_ref,
@@ -513,7 +561,7 @@ def check_paged_append(gen, timer, checks, kv_dtype, phase, cfg):
 
     h_k, d, page, max_pages, n_pages = cfg.n_kv_heads, cfg.head_dim, 256, 16, 64
     b, sq = (8, 1) if phase == "decode" else (1, 256)
-    quant = kv_dtype != torch.bfloat16
+    quant = kv_dtype in QUANT
     shape = (2, n_pages + 1, h_k, page, d)
     kp = torch.zeros(shape, dtype=kv_dtype, device="cuda")
     vp = torch.zeros_like(kp)
@@ -527,8 +575,8 @@ def check_paged_append(gen, timer, checks, kv_dtype, phase, cfg):
         pos = torch.randint(0, 6 * page, (b,), generator=gen, device="cuda").int()
     else:
         pos = torch.tensor([768], dtype=torch.int32, device="cuda")
-    kn = (torch.randn((b, sq, h_k, d), generator=gen, device="cuda") * 3).bfloat16()
-    vn = torch.randn((b, sq, h_k, d), generator=gen, device="cuda").bfloat16()
+    kn = (torch.randn((b, sq, h_k, d), generator=gen, device="cuda") * 3).to(row_dtype)
+    vn = torch.randn((b, sq, h_k, d), generator=gen, device="cuda").to(row_dtype)
     kn[0, 0, 0] = 0  # amax 0: scale 1
     ref = [None if t is None else t[1].clone() for t in (kp, vp, ks, vs)]
     sc = dict(k_scales=ks, v_scales=vs) if quant else {}
@@ -548,8 +596,12 @@ def check_paged_append(gen, timer, checks, kv_dtype, phase, cfg):
             a, w = got[1, :n_pages].contiguous(), want[:n_pages].contiguous()
             equal &= bool(torch.equal(a.view(torch.uint8), w.view(torch.uint8)))
     name = f"paged_append.{phase}[{str(kv_dtype).split('.')[-1]}]"
+    if row_dtype != torch.bfloat16:
+        name = f"paged_append.{phase}[{DT_TAG[row_dtype]}->{DT_TAG[kv_dtype]}]"
     checks.add(name, equal, max_abs_err=0.0 if equal else float("nan"), tolerance=0.0,
                criterion="bit-equal pools and scales off the trash page")
+    if not timed:
+        return None
     rows = b * sq * h_k
     by = nbytes(kn, vn, bt, pos) + 2 * rows * (d * kp.element_size() + (4 if quant else 0))
     return dict(ms=timer.ms(kernel), device_ms=device_ms(kernel, APPEND_KERNEL),
@@ -650,10 +702,12 @@ def check_append_widths(gen, timer, checks, cfg):
 
 
 def check_qmm(gen, timer, checks, w_dtype, m, shapes, stacked, timed=True, kind=None,
-              splits=None):
-    """K3 (stacked, layer_idx) / K4 (one weight) over `shapes` at m rows.
-    2x rule against the f32 product, with the plain version (f32 product
-    rounded to bf16) as the low-precision oracle. Times (when `timed`) are
+              splits=None, x_dtype=torch.bfloat16):
+    """K3 (stacked, layer_idx) / K4 (one weight) over `shapes` at m rows of
+    x_dtype activations (w_dtype bf16 / fp16 / f32: unscaled weights of that
+    dtype). 2x rule against the f32 product (f64 for f32 activations), with
+    the plain version (the f32 product rounded to x's dtype) as the
+    low-precision oracle. Times (when `timed`) are
     summed over the shapes: one layer's projections, or the lm_head; each
     shape's own are in `per_shape`. `kind` names the kernel of csrc/qmm.cu
     to run ('bm64' / 'bm16': the WMMA kernel, timed beside the wgmma /
@@ -671,12 +725,12 @@ def check_qmm(gen, timer, checks, w_dtype, m, shapes, stacked, timed=True, kind=
     worst = (0.0, 1.0)
     for K, N in shapes:
         w = torch.randn((K, N), generator=gen, device="cuda") / math.sqrt(K)
-        if w_dtype == torch.bfloat16:
-            wq, s = w.bfloat16(), None
+        if w_dtype not in QUANT:
+            wq, s = w.to(w_dtype), None
         else:
             wq, s = quantize_weight(w, w_dtype)
         del w
-        x = torch.randn((m, K), generator=gen, device="cuda").bfloat16()
+        x = torch.randn((m, K), generator=gen, device="cuda").to(x_dtype)
         if kind is not None or splits is not None:
             def kernel():
                 return _qmm_cuda(x, wq, s, "qmm.stacked" if stacked else "qmm.single", kind,
@@ -695,22 +749,24 @@ def check_qmm(gen, timer, checks, w_dtype, m, shapes, stacked, timed=True, kind=
             return quantized_matmul_ref(x, wq, s)
 
         y = kernel()
-        y32 = x.float() @ wq.float()
+        acc = torch.float64 if x_dtype == torch.float32 else torch.float32
+        y32 = x.to(acc) @ wq.to(acc)
         if s is not None:
-            y32 = y32 * s
+            y32 = y32 * s.to(acc)
         err, lp = max_err(y, y32), max_err(plain(), y32)
         tol = 2 * lp + 1e-5
         route = ("qmm.stacked" if stacked else "qmm.single") + (f".{kind}" if kind else "")
         tag = f",splits={splits}" if splits is not None else ""
-        checks.add(f"{route}[m={m},K={K},N={N},{str(w_dtype).split('.')[-1]}{tag}]",
-                   err <= tol, max_abs_err=err, tolerance=tol)
+        xtag = "" if x_dtype == torch.bfloat16 else f"{DT_TAG[x_dtype]}/"
+        checks.add(f"{route}[m={m},K={K},N={N},{xtag}{str(w_dtype).split('.')[-1]}{tag}]",
+                   err <= tol and y.dtype == x_dtype, max_abs_err=err, tolerance=tol)
         if err / tol >= worst[0] / worst[1]:
             worst = (err, tol)
         if not timed:
             continue
-        w_deq = (wq.float() * (s if s is not None else 1.0)).bfloat16()
+        w_deq = (wq.float() * (s if s is not None else 1.0)).to(x_dtype)
         one = dict(K=K, N=N, ms=timer.ms(kernel), library_ms=timer.ms(lambda: torch.matmul(x, w_deq)),
-                   bound_ms=bound(nbytes(x, wq, s, y), 2 * m * K * N)[0])
+                   bound_ms=bound(nbytes(x, wq, s, y), 2 * m * K * N, peak_of(x_dtype))[0])
         per_shape.append(one)
         tot["ms"] += one["ms"]
         tot["plain_ms"] += timer.ms(plain, PLAIN_REPS)
@@ -721,8 +777,8 @@ def check_qmm(gen, timer, checks, w_dtype, m, shapes, stacked, timed=True, kind=
     if not timed:
         return None
     return dict(ms=tot["ms"], plain_ms=tot["plain_ms"], library_ms=tot["library_ms"],
-                bound=bound(tot["bytes"], tot["ops"]), err=worst[0], tol=worst[1],
-                per_shape=per_shape)
+                bound=bound(tot["bytes"], tot["ops"], peak_of(x_dtype)), err=worst[0],
+                tol=worst[1], per_shape=per_shape)
 
 
 QMM_PREFILL_M = (17, 64, 100, 255, 256, 2048)  # ragged widths, a chunk, the largest bucket
@@ -1028,14 +1084,15 @@ def check_paged_route_shapes(gen, checks):
                    dead_rows_ok=dead_ok, route=route, expected_route=want, launched=launched)
 
 
-def check_paged_combine(gen, timer, checks, cfg, n_splits):
+def check_paged_combine(gen, timer, checks, cfg, n_splits, out_dtype=torch.bfloat16):
     """The combine kernel against its plain version (combine_partials, then
     O in bf16 and LSE moved to (b, h, sq)) on f32 partials of K1 decode's
     caller layout at the engine's shape (b = 8, sq = 1, 32 heads, d = 128)
     and split count, with an empty partial and a row whose partials are all
-    empty. Tolerance: O within one bf16 rounding of the f32 merge
-    (2^-8 |O| + 1e-6 an element), LSE within 1e-5 + 1e-6 |LSE|; the empty
-    row gives O = 0 and LSE = -inf."""
+    empty, O written in out_dtype. Tolerance: O within one rounding to
+    out_dtype of the f32 merge (2^-8 |O| for bf16, 2^-11 for fp16, 2^-23 for
+    f32, + 1e-6 an element), LSE within 1e-5 + 1e-6 |LSE|; the empty row
+    gives O = 0 and LSE = -inf."""
     from xf_flash_attention_cutlass_tpu_torch.ops.combine import combine_partials
     from xf_flash_attention_cutlass_tpu_torch.ops.paged import combine_splits, combine_splits_ref
 
@@ -1044,11 +1101,13 @@ def check_paged_combine(gen, timer, checks, cfg, n_splits):
     lse_part = 4 * torch.randn((n_splits, b, sq, h), generator=gen, device="cuda")
     lse_part[0, 0, 0, 0] = -math.inf  # an empty split
     lse_part[:, -1] = -math.inf  # an inactive slot: every split empty
-    o, lse = combine_splits(o_part, lse_part, torch.bfloat16)
-    o_plain, lse_plain = combine_splits_ref(o_part, lse_part, torch.bfloat16)
+    rounding = {torch.bfloat16: 2.0 ** -8, torch.float16: 2.0 ** -11,
+                torch.float32: 2.0 ** -23}[out_dtype]
+    o, lse = combine_splits(o_part, lse_part, out_dtype)
+    o_plain, lse_plain = combine_splits_ref(o_part, lse_part, out_dtype)
     o32, _ = combine_partials(o_part, lse_part)
     torch.cuda.synchronize()
-    o_excess = float(((o.float() - o32).abs() - 2.0 ** -8 * o32.abs()).max())
+    o_excess = float(((o.float() - o32).abs() - rounding * o32.abs()).max())
     finite = torch.isfinite(lse_plain)
     lse_excess = float(((lse[finite] - lse_plain[finite]).abs()
                         - 1e-6 * lse_plain[finite].abs()).max())
@@ -1056,16 +1115,17 @@ def check_paged_combine(gen, timer, checks, cfg, n_splits):
     same_empty = torch.equal(torch.isfinite(lse), finite)
     ok = o_excess <= 1e-6 and lse_excess <= 1e-5 and empty_ok and same_empty
     err = max_err(o, o_plain)
-    checks.add(f"paged_attention.combine[splits={n_splits}]", ok, max_abs_err=err,
-               o_excess_over_one_bf16_rounding=o_excess, lse_excess=lse_excess,
+    tag = "" if out_dtype == torch.bfloat16 else f"{DT_TAG[out_dtype]},"
+    checks.add(f"paged_attention.combine[{tag}splits={n_splits}]", ok, max_abs_err=err,
+               o_excess_over_one_rounding=o_excess, lse_excess=lse_excess,
                empty_rows_ok=empty_ok)
-    # bound: the partials read once, O (bf16) and LSE written once
-    by = nbytes(o_part, lse_part) + b * sq * h * (2 * d + 4)
-    return dict(ms=timer.ms(lambda: combine_splits(o_part, lse_part, torch.bfloat16)),
-                plain_ms=timer.ms(lambda: combine_splits_ref(o_part, lse_part, torch.bfloat16),
+    # bound: the partials read once, O and LSE written once
+    by = nbytes(o_part, lse_part) + b * sq * h * (d * out_dtype.itemsize + 4)
+    return dict(ms=timer.ms(lambda: combine_splits(o_part, lse_part, out_dtype)),
+                plain_ms=timer.ms(lambda: combine_splits_ref(o_part, lse_part, out_dtype),
                                   PLAIN_REPS),
                 library_ms=None, bound=bound(by, 0), err=err,
-                tol=float(2.0 ** -7 * o32.abs().max()), splits=n_splits)
+                tol=float(2 * rounding * o32.abs().max()), splits=n_splits)
 
 
 def check_bucket_append(gen, checks, cfg):
@@ -1104,7 +1164,7 @@ def check_bucket_append(gen, checks, cfg):
         del pools, ref
 
 
-def check_page32_append(gen, timer, checks, cfg):
+def check_page32_append(gen, timer, checks, cfg, row_dtype=torch.bfloat16):
     """The work of the TPU's K6 (`_scale_write_kernel`, whole per-page scale
     planes for quantized prefill into page-32 pools) done by the port's one
     append kernel: two 64-token rows at page-aligned positions into int8 and
@@ -1125,8 +1185,8 @@ def check_page32_append(gen, timer, checks, cfg):
         bt = torch.full((b, 4), n_pages, dtype=torch.int32, device="cuda")
         bt[:, :3] = torch.randperm(n_pages, generator=gen, device="cuda")[:6].int().reshape(b, 3)
         pos = torch.tensor([32, 0], dtype=torch.int32, device="cuda")
-        kn = (torch.randn((b, sq, h_k, d), generator=gen, device="cuda") * 3).bfloat16()
-        vn = torch.randn((b, sq, h_k, d), generator=gen, device="cuda").bfloat16()
+        kn = (torch.randn((b, sq, h_k, d), generator=gen, device="cuda") * 3).to(row_dtype)
+        vn = torch.randn((b, sq, h_k, d), generator=gen, device="cuda").to(row_dtype)
 
         def kernel():
             paged_append(pools[0], pools[1], kn, vn, bt, pos, k_scales=pools[2],
@@ -1140,7 +1200,8 @@ def check_page32_append(gen, timer, checks, cfg):
         torch.cuda.synchronize()
         equal = all(torch.equal(a[:n_pages].view(torch.uint8), w[:n_pages].view(torch.uint8))
                     for a, w in zip(pools, ref))
-        checks.add(f"paged_append.page32[{str(kv_dtype).split('.')[-1]},sq={sq}]", equal,
+        tag = "" if row_dtype == torch.bfloat16 else f"{DT_TAG[row_dtype]}->"
+        checks.add(f"paged_append.page32[{tag}{str(kv_dtype).split('.')[-1]},sq={sq}]", equal,
                    max_abs_err=0.0 if equal else float("nan"), tolerance=0.0,
                    criterion="bit-equal pools and scales off the trash page")
         if kv_dtype == torch.float8_e4m3fn:
@@ -1550,29 +1611,32 @@ def check_attention_block_launches(gen, checks, cfg):
     return block
 
 
-def kernel_names(fn):
+def kernel_names(fn, traces=3):
     """The CUDA kernels one call of fn launches, in order (profiler trace).
     fn runs twice in the trace, a spin of the card between, and the kernels
     after the spin are returned: a trace has been seen to miss a kernel of
     the first call after the profiler starts. The calls start
     TRACE_SETTLE_S after the trace does: without it a trace once lost the
-    first call and the spin both."""
+    first call and the spin both. A trace that still holds no spin (seen
+    on the card for code whose earlier traces held it) is taken again, up
+    to `traces` times, before this raises."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        time.sleep(TRACE_SETTLE_S)
-        fn()
-        torch.cuda._sleep(1000)
-        fn()
+    for _ in range(traces):
         torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    names = [e.name[:120] for e in sorted(events, key=lambda e: e.time_range.start)]
-    spins = [i for i, n in enumerate(names) if "spin_kernel" in n]
-    if not spins:
-        raise RuntimeError("kernel_names: the spin between the two calls is not in the trace")
-    return names[spins[-1] + 1:]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(TRACE_SETTLE_S)
+            fn()
+            torch.cuda._sleep(1000)
+            fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        names = [e.name[:120] for e in sorted(events, key=lambda e: e.time_range.start)]
+        spins = [i for i, n in enumerate(names) if "spin_kernel" in n]
+        if spins:
+            return names[spins[-1] + 1:]
+    raise RuntimeError("kernel_names: the spin between the two calls is not in the trace")
 
 
 def check_flash(gen, timer, checks, cfg):
@@ -1898,16 +1962,17 @@ def check_api_packed(gen, timer, checks, cfg, lens):
     return out
 
 
-def options_decode_inputs(gen, cfg):
+def options_decode_inputs(gen, cfg, dtype=torch.bfloat16):
     """The second kvcache call of the api path: b = 8 decode over a dense
-    (8, 4096, 8, 128) bf16 cache viewed as page-256 pages, kv_lens from
-    1024-4096, and its options: window (1024, 0), softcap 30, ALiBi and
-    leftpads from 0-299. Returns (q, k_pool, v_pool, bt, lens, options)."""
+    (8, 4096, 8, 128) cache of `dtype` (bf16 there) viewed as page-256
+    pages, kv_lens from 1024-4096, and its options: window (1024, 0),
+    softcap 30, ALiBi and leftpads from 0-299. Returns (q, k_pool, v_pool,
+    bt, lens, options)."""
     from xf_flash_attention_cutlass_tpu_torch.ops.kvcache import dense_cache_as_paged
     from xf_flash_attention_cutlass_tpu_torch.utils.testing import alibi_slopes_ref
 
     h, h_k, d, b, sk = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 8, 4096
-    kd, vd = (torch.randn((b, sk, h_k, d), generator=gen, device="cuda").bfloat16()
+    kd, vd = (torch.randn((b, sk, h_k, d), generator=gen, device="cuda").to(dtype)
               for _ in range(2))
     kp, pages = dense_cache_as_paged(kd, 256)
     vp, _ = dense_cache_as_paged(vd, 256)
@@ -1915,14 +1980,14 @@ def options_decode_inputs(gen, cfg):
     bt = (torch.arange(b, dtype=torch.int32, device="cuda")[:, None] * pages
           + torch.arange(pages, dtype=torch.int32, device="cuda")[None])
     lens = torch.randint(1024, sk + 1, (b,), generator=gen, device="cuda").int()
-    q = torch.randn((b, 1, h, d), generator=gen, device="cuda").bfloat16()
+    q = torch.randn((b, 1, h, d), generator=gen, device="cuda").to(dtype)
     full = dict(window=(1024, 0), softcap=30.0,
                 alibi_slopes=torch.from_numpy(alibi_slopes_ref(h)).cuda(),
                 cache_leftpad=torch.randint(0, 300, (b,), generator=gen, device="cuda").int())
     return q, kp, vp, bt, lens, full
 
 
-def options_chunk_inputs(gen, kv_dtype, cfg):
+def options_chunk_inputs(gen, kv_dtype, cfg, q_dtype=torch.bfloat16):
     """A 256-token chunk at b = 2 over page-256 pools (two layers of 64
     pages, 16-page tables; layer 1 read) at kv_len 1024 and 700, and the
     options: window (300, 0), softcap 30, (b, h) ALiBi slopes and leftpads
@@ -1935,7 +2000,7 @@ def options_chunk_inputs(gen, kv_dtype, cfg):
     bt = torch.stack([torch.randperm(n_pages, generator=gen, device="cuda")[:16]
                       for _ in range(b)]).int()
     lens = torch.tensor([1024, 700], dtype=torch.int32, device="cuda")
-    q = torch.randn((b, 256, h, d), generator=gen, device="cuda").bfloat16()
+    q = torch.randn((b, 256, h, d), generator=gen, device="cuda").to(q_dtype)
     slopes = torch.from_numpy(alibi_slopes_ref(h)).cuda()
     full = dict(window=(300, 0), softcap=30.0,
                 alibi_slopes=torch.stack([slopes, 0.5 * slopes]),
@@ -1960,8 +2025,9 @@ def check_paged_options(checks, name, want, q, kp, vp, ks, vs, bt, lens, layer_i
     from xf_flash_attention_cutlass_tpu_torch.utils.testing import paged_attention_oracle
 
     sq, h = q.shape[1], q.shape[2]
-    route, splits = paged_plan(q.shape, kp.shape, kp.dtype, bt.shape[1], **opts)
-    label = route_label(route, sq * (h // kp.shape[-3]), True)
+    route, splits = paged_plan(q.shape, kp.shape, kp.dtype, bt.shape[1], **opts, q_dtype=q.dtype)
+    label = route_label(route, sq * (h // kp.shape[-3]), True, q.dtype)
+    ref_dt = torch.float64 if q.dtype == torch.float32 else torch.float32
     sc = {} if ks is None else dict(k_scales=ks, v_scales=vs)
     pick = (lambda x: x) if layer_idx is None else (lambda x: None if x is None else x[layer_idx])
     sc1 = {} if ks is None else dict(k_scales=pick(ks), v_scales=pick(vs))
@@ -1970,8 +2036,10 @@ def check_paged_options(checks, name, want, q, kp, vp, ks, vs, bt, lens, layer_i
     launched = _build.LAUNCHES[label] - n0 == 1
     o_plain, _ = paged_attention_ref(q, pick(kp), pick(vp), bt, lens, num_splits=splits, **sc1,
                                      **opts)
-    o32, l32 = paged_attention_oracle(q, pick(kp), pick(vp), bt, lens, **sc1, **opts)
-    olp, _ = paged_attention_oracle(q, pick(kp), pick(vp), bt, lens, upcast=False, **sc1, **opts)
+    o32, l32 = paged_attention_oracle(q, pick(kp), pick(vp), bt, lens, ref_dtype=ref_dt, **sc1,
+                                      **opts)
+    olp, _ = paged_attention_oracle(q, pick(kp), pick(vp), bt, lens, upcast=False,
+                                    ref_dtype=ref_dt, **sc1, **opts)
     torch.cuda.synchronize()
     tol = 2 * max_err(olp, o32) + 1e-5
     err, plain_err = max_err(o, o32), max_err(o, o_plain)
@@ -2397,13 +2465,17 @@ def train(gen, cfg, seed, steps=3, lr=0.005):
 
 # ---- phase 4: serving ---------------------------------------------------------
 
-def reference_check(params, cfg, checks, seed, name="engine_reference"):
+def reference_check(params, cfg, checks, seed, name="engine_reference", dtype=torch.bfloat16,
+                    bucketed=True):
     """The prefill and decode cores at the model's width (Llama-8B, or
     Mixtral-8x7B geometry), cut to 2 layers, on the card (kernels) against
     the same cores on the CPU (plain versions), for one 128-token chunk, one
     decode step and one bucketed prefill (the same 100-token prompt in its
-    128-token bucket). 2x rule on the logits: the card's error against the
-    CPU run in f32 is at most twice the CPU bf16 run's error, plus 1e-5. For
+    128-token bucket; not with `bucketed` False). The params are in `dtype`
+    (bf16, fp16 or f32), and so is the KV cache where the model is f32 (FP8
+    else). 2x rule on the logits: the card's error against the CPU run in
+    f32 (f64 for an f32 model) is at most twice the CPU run's error in
+    `dtype`, plus 1e-5. For
     an MoE model also the first layer's routing: on every row where the f32
     run's router puts the second expert above the third by more than
     ROUTER_MARGIN and more than twice the bf16 CPU run's probability error
@@ -2422,16 +2494,16 @@ def reference_check(params, cfg, checks, seed, name="engine_reference"):
         k: ((v[0][:n_layers], v[1][:n_layers]) if isinstance(v, tuple) else v[:n_layers])
         for k, v in params["layers"].items()})
 
-    def to(tree, dev, dtype=None):
+    def to(tree, dev, dt=None):  # the model's `dtype` tensors in dt
         if isinstance(tree, dict):
-            return {k: to(v, dev, dtype) for k, v in tree.items()}
+            return {k: to(v, dev, dt) for k, v in tree.items()}
         if isinstance(tree, tuple):
-            return tuple(to(v, dev, dtype) for v in tree)
+            return tuple(to(v, dev, dt) for v in tree)
         if tree is None:
             return None
         t = tree.to(dev)
-        if dtype is not None and t.dtype == torch.bfloat16:
-            t = t.to(dtype)
+        if dt is not None and t.dtype == dtype:
+            t = t.to(dt)
         return t
 
     rng = np.random.default_rng(seed + 1)
@@ -2439,8 +2511,10 @@ def reference_check(params, cfg, checks, seed, name="engine_reference"):
     next_token = int(rng.integers(0, cfg.vocab_size))
     runs, seconds, routed = {}, {}, {}
     dispatch = moe.top_k_dispatch
-    for run, dev, dt in (("card", "cuda", None), ("cpu_bf16", "cpu", None),
-                         ("cpu_f32", "cpu", torch.float32)):
+    lp_run, ref_run = f"cpu_{DT_TAG[dtype]}", "cpu_f64" if dtype == torch.float32 else "cpu_f32"
+    ref_dt = torch.float64 if dtype == torch.float32 else torch.float32
+    for run, dev, dt in (("card", "cuda", None), (lp_run, "cpu", None),
+                         (ref_run, "cpu", ref_dt)):
         seen = routed[run] = []
 
         def recording(probs, top_k, capacity, seen=seen):  # the router's probabilities
@@ -2451,11 +2525,16 @@ def reference_check(params, cfg, checks, seed, name="engine_reference"):
         t0 = time.perf_counter()
         p = pack_params_for_decode(to(sub, dev, dt))
         shape = (n_layers, n_pages + 1, cfg.n_kv_heads, page, cfg.head_dim)
-        pools = dict(
-            k=torch.zeros(shape, dtype=torch.float8_e4m3fn, device=dev),
-            v=torch.zeros(shape, dtype=torch.float8_e4m3fn, device=dev),
-            k_s=torch.zeros(shape[:-1], device=dev), v_s=torch.zeros(shape[:-1], device=dev),
-        )
+        if dtype == torch.float32:  # the f32 engine's cache: unquantized, the run's dtype
+            kv_dt = dt or dtype
+            pools = dict(k=torch.zeros(shape, dtype=kv_dt, device=dev),
+                         v=torch.zeros(shape, dtype=kv_dt, device=dev))
+        else:
+            pools = dict(
+                k=torch.zeros(shape, dtype=torch.float8_e4m3fn, device=dev),
+                v=torch.zeros(shape, dtype=torch.float8_e4m3fn, device=dev),
+                k_s=torch.zeros(shape[:-1], device=dev), v_s=torch.zeros(shape[:-1], device=dev),
+            )
         tokens = torch.zeros((1, C), dtype=torch.int64, device=dev)
         tokens[0, :n_valid] = torch.from_numpy(prompt)
         bt = torch.tensor([[0, n_pages]], dtype=torch.int32, device=dev)
@@ -2469,7 +2548,8 @@ def reference_check(params, cfg, checks, seed, name="engine_reference"):
         lens = torch.tensor([n_valid + 1, 0], dtype=torch.int32, device=dev)
         _, logits_d = decode_core(p, dtok, pools, dbt, lens, cfg)
         # bucketed prefill rewrites page 0 with the same prompt's KV
-        logits_b = prefill_core(p, tokens, n_valid, pools, bt[:, :1], cfg)
+        logits_b = (prefill_core(p, tokens, n_valid, pools, bt[:, :1], cfg) if bucketed
+                    else logits_d[0])
         moe.top_k_dispatch = dispatch
         # the decode's inactive row too: it must stay finite (an MoE layer's
         # dispatch would spread a NaN to every row)
@@ -2477,8 +2557,10 @@ def reference_check(params, cfg, checks, seed, name="engine_reference"):
                                                     logits_d[1:]))
         seconds[run] = time.perf_counter() - t0
     for i, what in enumerate(("prefill_logits", "decode_logits", "bucketed_prefill_logits")):
-        ref = runs["cpu_f32"][i]
-        err, lp = max_err(runs["card"][i], ref), max_err(runs["cpu_bf16"][i], ref)
+        if what.startswith("bucketed") and not bucketed:
+            continue
+        ref = runs[ref_run][i]
+        err, lp = max_err(runs["card"][i], ref), max_err(runs[lp_run][i], ref)
         ok = bool(torch.isfinite(runs["card"][i]).all()) and err <= 2 * lp + 1e-5
         checks.add(f"{name}.{what}", ok, max_abs_err=err, tolerance=2 * lp + 1e-5,
                    shape=list(runs["card"][i].shape))
@@ -2489,7 +2571,7 @@ def reference_check(params, cfg, checks, seed, name="engine_reference"):
         # a near-tie can flip and so move a row's later inputs by O(1).
         # Per row, the 2x rule: the margin is at least twice the bf16 CPU
         # run's own probability error on that row
-        calls = list(zip(routed["card"], routed["cpu_bf16"], routed["cpu_f32"]))[::n_layers]
+        calls = list(zip(routed["card"], routed[lp_run], routed[ref_run]))[::n_layers]
         rows = sure_rows = differ = 0
         for card, lp, ref in calls:
             top = torch.sort(ref, dim=-1, descending=True, stable=True)
@@ -3406,6 +3488,447 @@ def serve_moe(gen, checks, paths, seed):
 
 
 
+# ---- phase 7: fp16 and f32 (K1, the append kernel, K3/K4) -----------------------
+
+F16, F32, FP8 = torch.float16, torch.float32, torch.float8_e4m3fn
+
+
+def check_k1_call(checks, timer, name, q, kp, vp, ks, vs, bt, lens, layer_idx=None, timed=False,
+                  library=None, **opts):
+    """One K1 call of any route and dtype under the 2x rule against its plain
+    version and paged_attention_oracle (float64 for f32 queries): it must
+    launch the route paged_plan names once, under its label (route_label);
+    rows that see no key give O = 0 and LSE = -inf. Timed: its row (ms,
+    plain_ms, bound, library_ms: `library`'s time, or None)."""
+    from xf_flash_attention_cutlass_tpu_torch import _build
+    from xf_flash_attention_cutlass_tpu_torch.ops.paged import (
+        has_options,
+        paged_attention,
+        paged_attention_ref,
+        paged_plan,
+        route_label,
+    )
+    from xf_flash_attention_cutlass_tpu_torch.utils.testing import paged_attention_oracle
+
+    sq, h = q.shape[1], q.shape[2]
+    route, splits = paged_plan(q.shape, kp.shape, kp.dtype, bt.shape[1], **opts, q_dtype=q.dtype)
+    full = dict(causal=True, window=(-1, -1), softcap=0.0, alibi_slopes=None, cache_leftpad=None)
+    full.update(opts)
+    label = route_label(route, sq * (h // kp.shape[-3]), has_options(**full), q.dtype)
+    ref_dt = torch.float64 if q.dtype == F32 else torch.float32
+    sc = {} if ks is None else dict(k_scales=ks, v_scales=vs)
+    pick = (lambda x: x) if layer_idx is None else (lambda x: None if x is None else x[layer_idx])
+    sc1 = {} if ks is None else dict(k_scales=pick(ks), v_scales=pick(vs))
+
+    def kernel():
+        return paged_attention(q, kp, vp, bt, lens, layer_idx=layer_idx, **sc, **opts)
+
+    def plain():
+        return paged_attention_ref(q, pick(kp), pick(vp), bt, lens, num_splits=splits, **sc1,
+                                   **opts)
+
+    n0 = _build.LAUNCHES[label]
+    o, lse = kernel()
+    launched = _build.LAUNCHES[label] - n0 == 1
+    o_plain, _ = plain()
+    o_ref, l_ref = paged_attention_oracle(q, pick(kp), pick(vp), bt, lens, ref_dtype=ref_dt,
+                                          **sc1, **opts)
+    o_lp, _ = paged_attention_oracle(q, pick(kp), pick(vp), bt, lens, upcast=False,
+                                     ref_dtype=ref_dt, **sc1, **opts)
+    torch.cuda.synchronize()
+    tol = 2 * max_err(o_lp, o_ref) + 1e-5
+    err, plain_err = max_err(o, o_ref), max_err(o, o_plain)
+    dead = torch.isneginf(l_ref)
+    dead_ok = torch.equal(torch.isneginf(lse), dead) and bool(
+        (o.transpose(1, 2)[dead] == 0).all())
+    ok = (bool(torch.isfinite(o).all()) and o.dtype == q.dtype and err <= tol
+          and plain_err <= tol and dead_ok and launched)
+    checks.add(name, ok, max_abs_err=plain_err, tolerance=tol, err_vs_oracle=err, route=route,
+               label=label, num_splits=splits, launched=launched, dead_rows=int(dead.sum()))
+    if not timed:
+        return None
+    return dict(ms=timer.ms(kernel), plain_ms=timer.ms(plain, PLAIN_REPS),
+                bound=k1_bound(q, kp, ks, bt, lens, **opts),
+                library_ms=None if library is None else timer.ms(library),
+                err=plain_err, tol=tol, splits=splits, route=route)
+
+
+def odd_page_inputs(gen, cfg, dtype, page=12):
+    """K1's decode shape (b = 8, kv_lens 200-1533, the last slot inactive)
+    over pools of `dtype` with pages of no whole TMA box (12 keys): the WMMA
+    kernel's. Returns (q, k_pool, v_pool, bt, lens)."""
+    h, h_k, d, b = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 8
+    max_pages = -(-1533 // page)
+    n_pages = b * max_pages
+    kp, vp, _, _ = kv_pools(gen, dtype, 1, n_pages, h_k, page, d)
+    kp, vp = kp[0], vp[0]
+    bt = torch.randperm(n_pages, generator=gen, device="cuda").int().reshape(b, max_pages)
+    lens = torch.randint(200, 1533, (b,), generator=gen, device="cuda").int()
+    lens[-1] = 0
+    bt[-1] = n_pages
+    q = torch.randn((b, 1, h, d), generator=gen, device="cuda").to(dtype)
+    return q, kp, vp, bt, lens
+
+
+def check_dtype_kernels(gen, timer, checks, cfg):
+    """The fp16 and f32 instantiations of K1, the append kernel and K3/K4
+    against their plain versions, at the serving paths' shapes and in the
+    crosses no engine path runs. K1 (check_paged_attention): decode and a
+    256-token chunk with fp16 queries over fp8, fp16 and int8 pools and f32
+    queries over f32, fp8 and int8 pools; fp16 with each option and all four
+    at the api decode shape (over an fp16 dense cache) and at the chunk shape
+    (fp8 pools), f32 with all four at both (over f32 and fp8); an fp16 decode
+    over page-12 pools (the WMMA kernel); the combine kernel writing fp16 and
+    f32. The append: fp16 rows into fp8, fp16 and int8 pools, f32 rows into
+    f32, int8 and fp8, decode and chunk, and both at page 32 (K6's work), bit
+    for bit. K3/K4 (check_qmm): fp16 activations over int8 (timed), fp8 and
+    fp16 weights on the decode and wgmma kernels, stacked and single, and
+    the WMMA kernels forced; f32 activations over f32 (timed), int8 and fp8
+    weights, stacked and single. The 2x rule throughout (against float64
+    oracles for f32), with SDPA / cuBLAS (no TF32) in the working dtype as
+    the library yardsticks. Returns the timed rows by launch label."""
+    from xf_flash_attention_cutlass_tpu_torch._build import LABEL_SUFFIX
+    from xf_flash_attention_cutlass_tpu_torch.ops.paged import paged_attention
+
+    measured = {}
+    d, hd = cfg.dim, cfg.head_dim
+    layer_shapes = [(d, cfg.n_heads * hd), (d, cfg.n_kv_heads * hd), (d, cfg.n_kv_heads * hd),
+                    (cfg.n_heads * hd, d), (d, cfg.ffn_dim), (d, cfg.ffn_dim), (cfg.ffn_dim, d)]
+    # the untimed crosses: the q, k and down projections' shapes (each K and N)
+    few = [(d, cfg.n_heads * hd), (d, cfg.n_kv_heads * hd), (cfg.ffn_dim, d)]
+    # K1 at the engine's shapes: timed over the pools each serving path uses
+    for q_dt, pools in ((F16, (FP8, F16, torch.int8)), (F32, (F32, FP8, torch.int8))):
+        for kv in pools:
+            for phase in ("decode", "prefill"):
+                timed = kv == pools[0]
+                r = check_paged_attention(gen, timer, checks, kv, phase, cfg, q_dt, timed)
+                if r is not None:
+                    label = ({"decode": "paged_attention.decode", "prefill":
+                              "paged_attention.prefill.wgmma"}[phase] + ".f16"
+                             if q_dt == F16 else f"paged_attention.{phase}.f32")
+                    measured[label] = r
+    for out_dt in (F16, F32):
+        label = "paged_attention.decode" + LABEL_SUFFIX[out_dt]
+        measured["paged_attention.combine" + LABEL_SUFFIX[out_dt]] = check_paged_combine(
+            gen, timer, checks, cfg, measured[label]["splits"], out_dt)
+    # K1's options: fp16 on both Hopper routes, f32 on the f32 kernel
+    for dt in (F16, F32):
+        q, kp, vp, bt, lens, full = options_decode_inputs(gen, cfg, dt)
+        cases = ([(n, {n: x}) for n, x in full.items()] if dt == F16 else []) + [("all", full)]
+        for name, opts in cases:
+            r = check_k1_call(checks, timer, f"paged_attention.decode.options[{DT_TAG[dt]},{name}]",
+                              q, kp, vp, None, None, bt, lens, timed=name == "all" and dt == F16,
+                              **opts)
+            if r is not None:
+                r["ms_no_options"] = timer.ms(lambda: paged_attention(q, kp, vp, bt, lens))
+                measured["paged_attention.decode.options.f16"] = r
+        del kp, vp
+        q, kp, vp, ks, vs, bt, lens, full = options_chunk_inputs(gen, FP8, cfg, dt)
+        cases = ([(n, {n: x}) for n, x in full.items()] if dt == F16 else []) + [
+            ("all", full), ("right_window", dict(causal=False, window=(-1, 37)))]
+        for name, opts in cases:
+            r = check_k1_call(checks, timer,
+                              f"paged_attention.prefill.options[{DT_TAG[dt]}/fp8,{name}]",
+                              q, kp, vp, ks, vs, bt, lens, 1, timed=name == "all" and dt == F16,
+                              **opts)
+            if r is not None:
+                measured["paged_attention.prefill.options.f16"] = r
+        del kp, vp, ks, vs
+    # an odd page: the WMMA kernel with fp16 queries over fp16 pools
+    q, kp, vp, bt, lens = odd_page_inputs(gen, cfg, F16)
+    _, library = sdpa_over_live_keys(q, kp, vp, None, None, bt, lens)
+    measured["paged_attention.decode.wmma.f16"] = check_k1_call(
+        checks, timer, "paged_attention.decode.wmma[f16,page=12]", q, kp, vp, None, None, bt,
+        lens, timed=True, library=library)
+    del kp, vp
+    # the append kernel
+    for row_dt, pools in ((F16, (FP8, F16, torch.int8)), (F32, (F32, torch.int8, FP8))):
+        for kv in pools:
+            for phase in ("decode", "prefill"):
+                r = check_paged_append(gen, timer, checks, kv, phase, cfg, row_dt,
+                                       timed=kv == pools[0])
+                if r is not None:
+                    measured[f"paged_append.{phase}{LABEL_SUFFIX[row_dt]}"] = r
+        measured[f"page32_append{LABEL_SUFFIX[row_dt]}"] = check_page32_append(
+            gen, timer, checks, cfg, row_dt)
+    # K3/K4 with fp16 activations: the decode and wgmma kernels timed over
+    # int8 weights at m = 8 and 256, one layer's projections and the lm_head
+    for m, kind in ((8, "decode"), (256, "wgmma")):
+        measured[f"qmm.stacked.{kind}.f16"] = check_qmm(gen, timer, checks, torch.int8, m,
+                                                        layer_shapes, True, x_dtype=F16)
+        measured[f"qmm.single.{kind}.f16"] = check_qmm(gen, timer, checks, torch.int8, m,
+                                                       [(d, cfg.vocab_size)], False, x_dtype=F16)
+        for w_dt in (FP8, F16):
+            for stacked in (True, False):
+                check_qmm(gen, timer, checks, w_dt, m, few, stacked, timed=False, x_dtype=F16)
+    for kind, m in (("bm16", 8), ("bm64", 256)):  # the WMMA kernels forced onto the layer
+        measured[f"qmm.stacked.{kind}.f16"] = check_qmm(gen, timer, checks, torch.int8, m,
+                                                        layer_shapes, True, kind=kind,
+                                                        x_dtype=F16)
+    # K3/K4 with f32 activations: unquantized f32 weights (the f32 engine's)
+    # timed at m = 8 (and 256 beside it), the lm_head over int8 weights
+    r8, r256 = (check_qmm(gen, timer, checks, F32, m, layer_shapes, True, x_dtype=F32)
+                for m in (8, 256))
+    measured["qmm.stacked.f32"] = dict(r8, other_shapes={"m256": r256})
+    measured["qmm.single.f32"] = check_qmm(gen, timer, checks, torch.int8, 8,
+                                           [(d, cfg.vocab_size)], False, x_dtype=F32)
+    for w_dt in (torch.int8, FP8):
+        for stacked in (True, False):
+            for m in (8, 256):
+                check_qmm(gen, timer, checks, w_dt, m, few, stacked, timed=False, x_dtype=F32)
+    check_qmm(gen, timer, checks, F32, 19, [(200, 300)], False, timed=False, x_dtype=F32)
+    return measured
+
+
+def check_refusals(gen, cfg, checks):
+    """What still raises on the card: f64 in each wrapper of this slice (K1,
+    the append kernel, K3/K4: a TypeError naming the kernel), and a bucketed
+    f32 engine (its prefill's K7 takes no f32: a TypeError naming K7)."""
+    from xf_flash_attention_cutlass_tpu_torch.models.llama import LlamaConfig, init_params
+    from xf_flash_attention_cutlass_tpu_torch.ops.paged import paged_attention
+    from xf_flash_attention_cutlass_tpu_torch.ops.paged_append import paged_append
+    from xf_flash_attention_cutlass_tpu_torch.quant.linear import quantized_matmul
+    from xf_flash_attention_cutlass_tpu_torch.serve.engine import DecodeEngine, EngineConfig
+
+    f64 = torch.float64
+    pool = torch.zeros((3, 2, 16, 64), dtype=f64, device="cuda")
+    bt = torch.zeros((1, 2), dtype=torch.int32, device="cuda")
+    lens = torch.ones(1, dtype=torch.int32, device="cuda")
+    calls = dict(
+        k1=lambda: paged_attention(torch.zeros((1, 1, 4, 64), dtype=f64, device="cuda"), pool,
+                                   pool, bt, lens),
+        append=lambda: paged_append(pool, pool, torch.zeros((1, 1, 2, 64), dtype=f64,
+                                                             device="cuda"),
+                                    torch.zeros((1, 1, 2, 64), dtype=f64, device="cuda"), bt,
+                                    lens),
+        qmm=lambda: quantized_matmul(torch.zeros((8, 64), dtype=f64, device="cuda"),
+                                     torch.zeros((64, 64), dtype=torch.int8, device="cuda"),
+                                     torch.ones(64, device="cuda")))
+    names = dict(k1="K1", append="K2/K5/K6", qmm="K3/K4")
+    for what, fn in calls.items():
+        try:
+            fn()
+            msg = None
+        except TypeError as e:
+            msg = str(e)
+        checks.add(f"refusal.f64[{what}]", msg is not None and names[what] in msg, message=msg)
+    tiny = LlamaConfig(vocab_size=256, dim=512, n_layers=1, n_heads=4, n_kv_heads=2,
+                       ffn_dim=1024, max_seq_len=1024)
+    eng = DecodeEngine(init_params(gen, tiny, dtype=F32), tiny,
+                       EngineConfig(page_size=256, num_pages=4, max_seq=1024, max_batch=2),
+                       dtype=F32)
+    eng.add_request(0, list(range(100)), 2)
+    try:
+        eng.run()
+        msg = None
+    except TypeError as e:
+        msg = str(e)
+    torch.cuda.synchronize()
+    checks.add("refusal.bucketed_f32_engine", msg is not None and "K7" in msg, message=msg)
+
+
+def profile_decode_steps(eng, cfg, seed, n_steps=3):
+    """Device time of decode-only steps of a chunked engine with 8 active
+    requests (prompts of 200 tokens: one chunk each, admitted over as many
+    steps as its prefill lanes need), from a profiler trace, with K1's and
+    K3/K4's kernels by route."""
+    rng = np.random.default_rng(seed + 2)
+    n = eng.ecfg.max_batch
+    for i in range(n):
+        eng.add_request(2000 + i, rng.integers(0, cfg.vocab_size, 200).tolist(),
+                        2 * n_steps + 2 * n)
+    for _ in range(4 * n):
+        if len(eng.active) == n and not any(eng._prefills) and not eng.queue:
+            break
+        eng.step()
+    if len(eng.active) != n or any(eng._prefills):
+        raise RuntimeError(f"decode profile: {len(eng.active)} of {n} requests decoding")
+    groups = dict(K1_GROUPS, **K3_GROUPS, k1_f32="paged_f32_kernel", k3_f32="qmm_f32_kernel",
+                  append=APPEND_KERNEL)
+    prof = profiled(eng.step, n_steps, groups=groups)
+    eng.run()
+    return prof
+
+
+def serving_dtype_paths(gen, cfg, checks, paths, seed):
+    """The fp16 and f32 serving paths at Llama-8B's full width and depth
+    (random weights from the seed): each first the reference check of its
+    cores (2 layers) against the CPU, then the 8 serving requests as a main
+    path, its graphs against the eager step, and a profiled decode step.
+    `serve_fp16`: fp16 activations, INT8 weights, an FP8 page-256 cache,
+    bucketed prefill (K7 in fp16). `serve_f32`: unquantized f32 weights
+    (32.1 GB), an f32 cache of 48 pages of 256, 256-token chunked prefill.
+    Returns the report's rows."""
+    from xf_flash_attention_cutlass_tpu_torch.models.llama import init_params, quantize_params
+    from xf_flash_attention_cutlass_tpu_torch.serve.engine import DecodeEngine, EngineConfig
+
+    out = {}
+    for name, dtype in (("serve_fp16", F16), ("serve_f32", F32)):
+        t0 = time.perf_counter()
+        if dtype == F16:
+            params = quantize_params(init_params(gen, cfg, dtype=F16))
+            ecfg = EngineConfig(kv_quant="fp8_e4m3", page_size=256, num_pages=256, max_seq=4096,
+                                max_batch=8, prefill_chunk=None)
+        else:
+            params = init_params(gen, cfg, dtype=F32)
+            ecfg = EngineConfig(page_size=256, num_pages=48, max_seq=4096, max_batch=8,
+                                prefill_chunk=256)
+        torch.cuda.synchronize()
+        row = dict(init_s=time.perf_counter() - t0)
+        row["reference_check_s"] = reference_check(
+            params, cfg, checks, seed, name=f"engine_reference_{DT_TAG[dtype]}", dtype=dtype,
+            bucketed=dtype != F32)
+        eng = DecodeEngine(params, cfg, ecfg, dtype=dtype)
+        eng.add_request(-1, list(range(300)), 2)  # warm-up request, not counted
+        eng.run()
+        torch.cuda.reset_peak_memory_stats()
+        served, paths[name] = drive(name, lambda: serve(eng, cfg, seed))
+        served["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        served["launches"] = paths[name]
+        check_graph_replay(eng, checks, name)
+        prof = profile_decode(eng, cfg, seed) if dtype == F16 else profile_decode_steps(
+            eng, cfg, seed)
+        if prof is not None:
+            prof["busy_share_of_p50_step"] = (prof["device_ms_per_step"]
+                                              / served["decode_step_ms"]["p50"])
+        row.update(serving=served, decode_profile=prof)
+        print(json.dumps({name: row}), flush=True)
+        out[name] = row
+        del eng, params
+        torch.cuda.empty_cache()
+        checks.raise_on_failure(name)
+    return out
+
+
+def api_dtype_path(gen, cfg):
+    """The api's K1 calls over fp16 and f32 caches (they raised on the card
+    before): flash_attn_with_kvcache decoding b = 4 rows over a paged
+    (num_blocks, 256, 8, 128) cache with one new token each appended, and
+    flash_attn_varlen_func over the same cache with ragged queries of
+    20-300 tokens (the chunk route for fp16, the f32 kernel for f32), each
+    again with window (300, 0), softcap 30 and ALiBi (and a leftpad of 0-99
+    for the decode: the options instantiations for fp16). A main path:
+    returns each call's output beside CPU copies of its inputs (the caches
+    as they were before the append) for check_api_dtype_outputs."""
+    import xf_flash_attention_cutlass_tpu_torch as xfa
+    from xf_flash_attention_cutlass_tpu_torch.utils.testing import alibi_slopes_ref
+
+    h, h_k, d, page, per, b = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 256, 4, 4
+    slopes = torch.from_numpy(alibi_slopes_ref(h)).cuda()
+    full = dict(window_size=(300, 0), softcap=30.0, alibi_slopes=slopes)
+    cases = []
+    for dt, opts in ((F16, {}), (F16, full), (F32, {}), (F32, full)):
+        kc, vc = (torch.randn((b * per, page, h_k, d), generator=gen, device="cuda").to(dt)
+                  for _ in range(2))
+        bt = torch.randperm(b * per, generator=gen, device="cuda").int().reshape(b, per)
+        seqlens = torch.randint(100, per * page - 1, (b,), generator=gen, device="cuda").int()
+        q = torch.randn((b, 1, h, d), generator=gen, device="cuda").to(dt)
+        kn, vn = (torch.randn((b, 1, h_k, d), generator=gen, device="cuda").to(dt)
+                  for _ in range(2))
+        dec_opts = dict(opts)
+        if opts:
+            dec_opts["cache_leftpad"] = torch.randint(0, 100, (b,), generator=gen,
+                                                      device="cuda").int()
+        before = [t.cpu() for t in (q, kc, vc, kn, vn, bt, seqlens)]
+        out = xfa.flash_attn_with_kvcache(q, kc, vc, kn, vn, cache_seqlens=seqlens,
+                                          block_table=bt, causal=True, **dec_opts)[0]
+        cases.append(("kvcache_decode", dt, out.cpu(), before, (kc.cpu(), vc.cpu()),
+                      {k: v.cpu() if torch.is_tensor(v) else v for k, v in dec_opts.items()}))
+        lens_q = torch.randint(20, 301, (b,), generator=gen, device="cuda").tolist()
+        cu_q = torch.tensor([0] + list(np.cumsum(lens_q)), dtype=torch.int32, device="cuda")
+        used = torch.minimum(seqlens.long() + 1 + torch.tensor(lens_q, device="cuda"),
+                             torch.tensor(per * page, device="cuda")).int()
+        qv = torch.randn((int(cu_q[-1]), h, d), generator=gen, device="cuda").to(dt)
+        out = xfa.flash_attn_varlen_func(qv, kc, vc, cu_q, None, max(lens_q), per * page,
+                                         causal=True, block_table=bt, seqused_k=used, **opts)
+        cases.append(("paged_varlen", dt, out.cpu(),
+                      [t.cpu() for t in (qv, kc, vc, bt, cu_q, used)], max(lens_q),
+                      {k: v.cpu() if torch.is_tensor(v) else v for k, v in opts.items()}))
+        del kc, vc
+    return cases
+
+
+def check_api_dtype_outputs(checks, cases):
+    """api_dtype_path's outputs against the plain versions on the CPU in the
+    call's dtype and in f32 (f64 for f32) under the 2x rule; the caches the
+    card appended to equal the CPU's bit for bit."""
+    import xf_flash_attention_cutlass_tpu_torch as xfa
+    from xf_flash_attention_cutlass_tpu_torch.ops.kvcache import attention_with_kvcache
+    from xf_flash_attention_cutlass_tpu_torch.ops.varlen import flash_attn_varlen_paged
+
+    for kind, dt, out, inp, extra, opts in cases:
+        ref_dt = torch.float64 if dt == F32 else torch.float32
+        up = [t.to(ref_dt) if t.is_floating_point() else t for t in inp]
+        if kind == "kvcache_decode":
+            q, kc, vc, kn, vn, bt, seqlens = inp
+            kc_lp, vc_lp = kc.clone(), vc.clone()
+            lp = xfa.flash_attn_with_kvcache(q, kc_lp, vc_lp, kn, vn, cache_seqlens=seqlens,
+                                             block_table=bt, causal=True, **opts)[0]
+            ref = attention_with_kvcache(up[0], up[1], up[2], up[3], up[4],
+                                         cache_seqlens=seqlens, block_table=bt, causal=True,
+                                         **opts)[0]
+            same = torch.equal(extra[0], kc_lp) and torch.equal(extra[1], vc_lp)
+        else:
+            qv, kc, vc, bt, cu_q, used = inp
+            lp = xfa.flash_attn_varlen_func(qv, kc, vc, cu_q, None, extra, kc.shape[0] * 256,
+                                            causal=True, block_table=bt, seqused_k=used,
+                                            **opts)
+            vopts = dict(opts)
+            if "window_size" in vopts:
+                vopts["window"] = vopts.pop("window_size")
+            ref, _ = flash_attn_varlen_paged(up[0], up[1], up[2], bt, cu_q, used,
+                                             max_seqlen_q=extra, causal=True, **vopts)
+            same = True
+        tol = 2 * max_err(lp, ref) + 1e-5
+        err, plain_err = max_err(out, ref), max_err(out, lp)
+        checks.add(f"api.{kind}[{DT_TAG[dt]}{',options' if opts else ''}]",
+                   err <= tol and plain_err <= tol and same and out.dtype == dt
+                   and bool(torch.isfinite(out).all()),
+                   max_abs_err=plain_err, tolerance=tol, err_vs_oracle=err, caches_equal=same)
+
+
+def dtypes_phase_alone(out_dir=None):
+    """Build everything, then run this slice's phase alone (the kernel checks
+    and refusals, the api's fp16 and f32 calls, then the two serving paths);
+    for bring-up (dtypes_bringup.py --stages phase). Returns the exit code."""
+    from xf_flash_attention_cutlass_tpu_torch import _build
+    from xf_flash_attention_cutlass_tpu_torch.models.llama import LlamaConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    _build.build_all()
+    phase_s = dict(build=time.perf_counter() - t0)
+    print(json.dumps({"build_s": phase_s["build"]}), flush=True)
+    cfg = LlamaConfig.llama8b()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    checks, paths, report = Checks(), {}, {}
+    t0 = time.perf_counter()
+    report["dtype_kernels"] = check_dtype_kernels(gen, Timer(), checks, cfg)
+    check_refusals(gen, cfg, checks)
+    cases, paths["api_dtypes"] = drive("api_dtypes", lambda: api_dtype_path(gen, cfg))
+    check_api_dtype_outputs(checks, cases)
+    phase_s["dtype_kernels"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ok = True
+    try:
+        report["serving_dtypes"] = serving_dtype_paths(gen, cfg, checks, paths, 0)
+    except RuntimeError as e:
+        print(f"serving_dtypes: {e}", flush=True)
+        ok = False
+    phase_s["serving_dtypes"] = time.perf_counter() - t0
+    bad = [c["case"] for c in checks.cases if not c["ok"]]
+    print(json.dumps({"phase_s": phase_s, "failed": bad, "n_checks": len(checks.cases)}),
+          flush=True)
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, "dtypes_phase.json"), "w") as f:
+            json.dump(dict(report, checks=checks.cases, phase_s=phase_s), f, indent=1,
+                      default=str)
+    return 0 if ok and not bad else 1
+
+
+
 # ---- what the build made of K7 and K3 ----------------------------------------
 
 def ptxas_usage(log_name, instantiation):
@@ -3448,25 +3971,56 @@ def sass_by_function(lib_path):
             for name, body in zip(parts[1::2], parts[2::2])}
 
 
+# mangled template arguments: the activations' 16-bit type (bf16 or f16), and
+# the weights' or pool's (int8 a, fp8, or a substitution S.._ that repeats the
+# activations' type: an unscaled stack or an unquantized pool)
+_T16 = {"13__nv_bfloat16": "bf16", "6__half": "f16"}
+_TW = "(a|9fp8e4m3_t|13__nv_bfloat16|6__half|S\\d*_)"
+
+
+def _weight_tag(mangled_arg, t16):
+    return {"a": "int8", "9fp8e4m3_t": "fp8"}.get(mangled_arg, t16)
+
+
 def qmm_instantiation(mangled):
     """'wgmma128_int8', 'decode_n8_fp8', 'bm16_fp8', 'bm64_bf16', ... (the
     kernel, its tile width or height or its tokens, the weight type) for a
-    mangled qmm kernel name, else None (the split-K reduction)."""
-    types = "(a|9fp8e4m3_t|13__nv_bfloat16)"
-    m = (re.search(rf"qmm_(wgmma|decode)_kernelI{types}Li(\d+)E", mangled)
-         or re.search(rf"qmm_(kernel)ILi(\d+)E{types}E", mangled))
-    if m is None:
-        return None
-    kind = m.group(1)
-    dtype, tile = (m.group(2), int(m.group(3))) if kind != "kernel" else (m.group(3),
-                                                                          int(m.group(2)))
-    dtype = {"a": "int8", "9fp8e4m3_t": "fp8", "13__nv_bfloat16": "bf16"}[dtype]
+    mangled qmm kernel name of bf16 activations, the same with 'f16_' after
+    the kernel for fp16 activations ('wgmma128_f16_int8'), 'f32_bm16_int8'
+    for the f32 kernel, else None (the split-K reduction)."""
+    t16 = "(13__nv_bfloat16|6__half)"
+    m = re.search(r"qmm_f32_kernelI(f|a|9fp8e4m3_t)Li(\d+)E", mangled)
+    if m is not None:
+        return f"f32_bm{m.group(2)}_{_weight_tag(m.group(1), 'f32')}"
+    m = re.search(rf"qmm_(wgmma|decode)_kernelI{t16}{_TW}Li(\d+)E", mangled)
+    if m is not None:
+        kind, t, tw, tile = m.group(1), _T16[m.group(2)], m.group(3), int(m.group(4))
+    else:
+        m = re.search(rf"qmm_(kernel)I{t16}Li(\d+)E{_TW}E", mangled)
+        if m is None:
+            return None
+        kind, t, tile, tw = m.group(1), _T16[m.group(2)], int(m.group(3)), m.group(4)
+    dtype = _weight_tag(tw, t)
+    pre = "" if t == "bf16" else "f16_"
     if kind == "decode":
-        return f"decode_n{8 * tile}_{dtype}"
-    return f"{'wgmma' if kind == 'wgmma' else 'bm'}{tile}_{dtype}"
+        return f"decode_n{8 * tile}_{pre}{dtype}"
+    return f"{'wgmma' if kind == 'wgmma' else 'bm'}{tile}_{pre}{dtype}"
 
 
-def qmm_build_report(checks, lib_path):
+def build_usage(libs, names, instantiation):
+    """ptxas_usage of each library in `names` (a source and its fp16 variant,
+    _build.VARIANTS) with the SASS counts of each instantiation added."""
+    inst = {}
+    for name in (n for n in names if n in libs):
+        inst.update(ptxas_usage(name, instantiation))
+        for mangled, counts in sass_by_function(libs[name]).items():
+            label = instantiation(mangled)
+            if label is not None:
+                inst.setdefault(label, {}).update(counts)
+    return inst
+
+
+def qmm_build_report(checks, libs):
     """Registers and spill bytes of every qmm instantiation (build/qmm.log)
     and the SASS counts of each. Checks that each wgmma instantiation holds
     HGMMA and UTMALDG and no HMMA, that each of the six decode ones holds
@@ -3475,35 +4029,40 @@ def qmm_build_report(checks, lib_path):
     decode instantiation the resident blocks an SM its split plan counts."""
     from xf_flash_attention_cutlass_tpu_torch.quant import linear
 
-    inst = ptxas_usage("qmm", qmm_instantiation)
-    for name, counts in sass_by_function(lib_path).items():
-        label = qmm_instantiation(name)
-        if label is not None:
-            inst.setdefault(label, {}).update(counts)
+    inst = build_usage(libs, ("qmm", "qmm_f16"), qmm_instantiation)
     print(json.dumps({"qmm_build": inst}), flush=True)
     wgmma = {n: r for n, r in inst.items() if n.startswith("wgmma")}
     decode = {n: r for n, r in inst.items() if n.startswith("decode")}
     wmma = {n: r for n, r in inst.items() if n.startswith("bm")}
+    f32 = {n: r for n, r in inst.items() if n.startswith("f32")}
     checks.add("qmm.decode_sass_mma_sync_tma_no_wgmma",
-               len(decode) == 6 and all(r.get("HMMA", 0) > 0 and r.get("UTMALDG", 0) > 0
-                                        and r.get("HGMMA", 1) == 0 for r in decode.values()),
+               len(decode) == 12 and all(r.get("HMMA", 0) > 0 and r.get("UTMALDG", 0) > 0
+                                         and r.get("HGMMA", 1) == 0 for r in decode.values()),
                sass={n: {op: r.get(op) for op in SASS_OPS} for n, r in decode.items()})
     checks.add("qmm.decode_no_spills",
-               len(decode) == 6 and all(r.get("spill_bytes") == 0 for r in decode.values()),
+               len(decode) == 12 and all(r.get("spill_bytes") == 0 for r in decode.values()),
                registers={n: r.get("registers") for n, r in decode.items()},
                spill_bytes={n: r.get("spill_bytes") for n, r in decode.items()})
-    occ = {f"{str(dt).split('.')[-1]}_n{rows}": linear.qmm_decode_blocks_per_sm(dt, rows)
-           for dt in (torch.int8, torch.float8_e4m3fn, torch.bfloat16) for rows in (8, 16)}
+    occ = {f"{DT_TAG[xt]}/{str(dt).split('.')[-1]}_n{rows}":
+           linear.qmm_decode_blocks_per_sm(dt, rows, xt)
+           for xt in (torch.bfloat16, torch.float16)
+           for dt in (torch.int8, torch.float8_e4m3fn, xt) for rows in (8, 16)}
     checks.add("qmm.decode_resident_blocks",
                all(v == linear.QMM_DECODE_BLOCKS_PER_SM for v in occ.values()),
                blocks_per_sm=occ, expected=linear.QMM_DECODE_BLOCKS_PER_SM)
     checks.add("qmm.wgmma_sass_wgmma_tma_no_mma_sync",
-               len(wgmma) == 6 and all(r.get("HGMMA", 0) > 0 and r.get("UTMALDG", 0) > 0
-                                       and r.get("HMMA", 1) == 0 for r in wgmma.values()),
+               len(wgmma) == 12 and all(r.get("HGMMA", 0) > 0 and r.get("UTMALDG", 0) > 0
+                                        and r.get("HMMA", 1) == 0 for r in wgmma.values()),
                sass={n: {op: r.get(op) for op in SASS_OPS} for n, r in wgmma.items()})
     checks.add("qmm.wmma_sass_keeps_mma_sync",
-               len(wmma) == 6 and all(r.get("HMMA", 0) > 0 for r in wmma.values()),
+               len(wmma) == 12 and all(r.get("HMMA", 0) > 0 for r in wmma.values()),
                hmma={n: r.get("HMMA") for n, r in wmma.items()})
+    # the f32 kernel: FMA only (no tensor-core instruction); spills reported
+    checks.add("qmm.f32_no_tensor_cores",
+               len(f32) == 6 and all(r.get("HMMA", 1) == 0 and r.get("HGMMA", 1) == 0
+                                     for r in f32.values()),
+               registers={n: r.get("registers") for n, r in f32.items()},
+               spill_bytes={n: r.get("spill_bytes") for n, r in f32.items()})
     return inst
 
 
@@ -3623,77 +4182,87 @@ def flash_bwd_build_report(checks, lib_path):
     return dict(instantiations=inst, serialized=serialized)
 
 
-_K1_TYPES = {"a": "int8", "9fp8e4m3_t": "fp8", "13__nv_bfloat16": "bf16"}
-_K1_NAME = re.compile(r"paged_(wgmma|attention|decode)_kernelI(a|9fp8e4m3_t|13__nv_bfloat16)"
-                      r"Li(\d+)E(?:Li(\d+)E)?(?:Lb([01])E)?")
-_K1_COMBINE = re.compile(r"paged_combine_kernelILi(\d+)E")
+_K1_NAME = re.compile(r"paged_(wgmma|attention|decode)_kernelI(13__nv_bfloat16|6__half)"
+                      + _TW + r"Li(\d+)E(?:Li(\d+)E)?(?:Lb([01])E)?")
+_K1_COMBINE = re.compile(r"paged_combine_kernelI(13__nv_bfloat16|6__half|f)Li(\d+)E")
+_K1_F32 = re.compile(r"paged_f32_kernelI(f|a|9fp8e4m3_t)Li(\d+)E")
 
 
 def k1_instantiation(mangled):
-    """'wgmma_fp8_d128' for a mangled Hopper K1 chunk kernel name,
-    'decode_int8_d64_n8' for a decode one (n: its 8 or 16 query rows), each
-    with '_options' for its options instantiation; 'wmma_int8_d64_rt32_options'
-    or '..._plain' for a WMMA one, 'combine_d128' for the combine kernel,
-    else None."""
+    """'wgmma_fp8_d128' for a mangled Hopper K1 chunk kernel name of bf16
+    queries, 'decode_int8_d64_n8' for a decode one (n: its 8 or 16 query
+    rows), each with '_options' for its options instantiation;
+    'wmma_int8_d64_rt32_options' or '..._plain' for a WMMA one; the same with
+    'f16_' after the kernel for fp16 queries ('decode_f16_fp8_d128_n8');
+    'combine_d128' (bf16 O), 'combine_f16_d128' or 'combine_f32_d128' for
+    the combine kernel; 'f32_fp8_d128' for the f32 kernel; else None."""
     m = _K1_COMBINE.search(mangled)
     if m is not None:
-        return f"combine_d{m.group(1)}"
+        out = {"13__nv_bfloat16": "", "6__half": "f16_", "f": "f32_"}[m.group(1)]
+        return f"combine_{out}d{m.group(2)}"
+    m = _K1_F32.search(mangled)
+    if m is not None:
+        return f"f32_{_weight_tag(m.group(1), 'f32')}_d{m.group(2)}"
     m = _K1_NAME.search(mangled)
     if m is None:
         return None
-    name = f"{'wmma' if m.group(1) == 'attention' else m.group(1)}_{_K1_TYPES[m.group(2)]}" \
-           f"_d{m.group(3)}"
-    if m.group(1) == "decode":
-        name += f"_n{8 * int(m.group(4))}"
-    elif m.group(1) == "attention":
-        return name + f"_rt{m.group(4)}_{'options' if m.group(5) == '1' else 'plain'}"
-    return name + ("_options" if m.group(5) == "1" else "")
+    kind, t = m.group(1), _T16[m.group(2)]
+    name = (f"{'wmma' if kind == 'attention' else kind}_{'' if t == 'bf16' else 'f16_'}"
+            f"{_weight_tag(m.group(3), t)}_d{m.group(4)}")
+    if kind == "decode":
+        name += f"_n{8 * int(m.group(5))}"
+    elif kind == "attention":
+        return name + f"_rt{m.group(5)}_{'options' if m.group(6) == '1' else 'plain'}"
+    return name + ("_options" if m.group(6) == "1" else "")
 
 
-def paged_build_report(checks, lib_path):
+def paged_build_report(checks, libs):
     """Registers and spill bytes of every K1 instantiation
     (build/paged_attention.log) and the SASS counts of each. Checks that the
-    twelve Hopper chunk instantiations (six option-free, six with the
-    options) hold HGMMA and UTMALDG, no HMMA and no spill, that the 24
-    decode ones (twelve of each) hold HMMA (mma.sync) and UTMALDG and spill
-    nothing, that the two combine ones spill nothing, that the 24 WMMA ones
-    (every one still reached: pages of no whole TMA box, with and without
-    the options) keep their HMMA, and that every decode instantiation keeps
-    the two resident blocks an SM its split plan counts."""
-    inst = ptxas_usage("paged_attention", k1_instantiation)
-    for name, counts in sass_by_function(lib_path).items():
-        label = k1_instantiation(name)
-        if label is not None:
-            inst.setdefault(label, {}).update(counts)
+    24 Hopper chunk instantiations (bf16 and fp16 queries, option-free and
+    with the options) hold HGMMA and UTMALDG, no HMMA and no spill, that the
+    48 decode ones hold HMMA (mma.sync) and UTMALDG and spill nothing, that
+    the six combine ones (bf16, fp16, f32 O) spill nothing, that the 48 WMMA
+    ones (every one still reached: pages of no whole TMA box, with and
+    without the options) keep their HMMA, that the six f32 ones hold no
+    tensor-core instruction, and that every decode instantiation keeps the
+    two resident blocks an SM its split plan counts."""
+    inst = build_usage(libs, ("paged_attention", "paged_attention_f16"), k1_instantiation)
     print(json.dumps({"paged_build": inst}), flush=True)
     kinds = {k: {n: r for n, r in inst.items() if n.startswith(k)}
-             for k in ("wgmma", "wmma", "decode", "combine")}
+             for k in ("wgmma", "wmma", "decode", "combine", "f32")}
     wgmma, decode = kinds["wgmma"], kinds["decode"]
     checks.add("paged_attention.wgmma_sass_wgmma_tma_no_mma_sync",
-               len(wgmma) == 12 and all(r.get("HGMMA", 0) > 0 and r.get("UTMALDG", 0) > 0
+               len(wgmma) == 24 and all(r.get("HGMMA", 0) > 0 and r.get("UTMALDG", 0) > 0
                                        and r.get("HMMA", 1) == 0 for r in wgmma.values()),
                sass={n: {op: r.get(op) for op in SASS_OPS} for n, r in wgmma.items()})
     checks.add("paged_attention.wgmma_no_spills",
-               len(wgmma) == 12 and all(r.get("spill_bytes") == 0 for r in wgmma.values()),
+               len(wgmma) == 24 and all(r.get("spill_bytes") == 0 for r in wgmma.values()),
                spill_bytes={n: r.get("spill_bytes") for n, r in wgmma.items()})
     checks.add("paged_attention.decode_sass_mma_sync_tma",
-               len(decode) == 24 and all(r.get("HMMA", 0) > 0 and r.get("UTMALDG", 0) > 0
+               len(decode) == 48 and all(r.get("HMMA", 0) > 0 and r.get("UTMALDG", 0) > 0
                                          for r in decode.values()),
                sass={n: {op: r.get(op) for op in SASS_OPS} for n, r in decode.items()})
     spills = {n: r.get("spill_bytes") for k in ("decode", "combine") for n, r in kinds[k].items()}
     checks.add("paged_attention.decode_and_combine_no_spills",
-               len(spills) == 26 and all(b == 0 for b in spills.values()), spill_bytes=spills)
+               len(spills) == 54 and all(b == 0 for b in spills.values()), spill_bytes=spills)
     checks.add("paged_attention.wmma_sass_keeps_mma_sync",
-               len(kinds["wmma"]) == 24 and all(r.get("HMMA", 0) > 0
+               len(kinds["wmma"]) == 48 and all(r.get("HMMA", 0) > 0
                                                 for r in kinds["wmma"].values()),
                hmma={n: r.get("HMMA") for n, r in kinds["wmma"].items()})
+    checks.add("paged_attention.f32_no_tensor_cores",
+               len(kinds["f32"]) == 6 and all(r.get("HMMA", 1) == 0 and r.get("HGMMA", 1) == 0
+                                              for r in kinds["f32"].values()),
+               registers={n: r.get("registers") for n, r in kinds["f32"].items()},
+               spill_bytes={n: r.get("spill_bytes") for n, r in kinds["f32"].items()})
     # the decode route's split heuristic counts DECODE_BLOCKS_PER_SM blocks an
     # SM: the occupancy calculator must agree for every instantiation
     from xf_flash_attention_cutlass_tpu_torch.ops import paged
 
-    occ = {f"{str(dt).split('.')[-1]}_d{d}_n{n}{'_options' if o else ''}":
-           paged.decode_blocks_per_sm(dt, d, n, o)
-           for dt in (torch.float8_e4m3fn, torch.int8, torch.bfloat16) for d in (64, 128)
+    occ = {f"{DT_TAG[qt]}/{str(dt).split('.')[-1]}_d{d}_n{n}{'_options' if o else ''}":
+           paged.decode_blocks_per_sm(dt, d, n, o, qt)
+           for qt in (torch.bfloat16, torch.float16)
+           for dt in (torch.float8_e4m3fn, torch.int8, qt) for d in (64, 128)
            for n in (8, 16) for o in (False, True)}
     checks.add("paged_attention.decode_resident_blocks",
                all(v == paged.DECODE_BLOCKS_PER_SM for v in occ.values()),
@@ -3727,6 +4296,24 @@ KERNELS = {  # launch-counter name: (source, TPU kernel it replaces)
     "flash_bwd.dkv": (_PKG + "flash_bwd.cu", _TPU + "ops/flash_bwd.py:284"),
     "flash_bwd.fused": (_PKG + "flash_bwd.cu", _TPU + "ops/flash_bwd.py:156"),
 }
+# the fp16 and f32 instantiations (phase 7), each beside the kernel it instantiates
+_K1 = (_PKG + "paged_attention.cu", _TPU + "ops/paged.py:97")
+_K3 = (_PKG + "qmm.cu", _TPU + "quant/linear.py:70")
+_K4 = (_PKG + "qmm.cu", _TPU + "quant/linear.py:48")
+KERNELS.update({
+    "paged_attention.decode.f16": _K1, "paged_attention.combine.f16": _K1,
+    "paged_attention.decode.options.f16": _K1, "paged_attention.decode.wmma.f16": _K1,
+    "paged_attention.prefill.wgmma.f16": _K1, "paged_attention.prefill.options.f16": _K1,
+    "paged_attention.decode.f32": _K1, "paged_attention.prefill.f32": _K1,
+    "paged_attention.combine.f32": _K1,
+    "paged_append.decode.f16": (_PKG + "paged_append.cu", _TPU + "ops/paged_append.py:68"),
+    "paged_append.prefill.f16": (_PKG + "paged_append.cu", _TPU + "ops/paged_append.py:166"),
+    "paged_append.decode.f32": (_PKG + "paged_append.cu", _TPU + "ops/paged_append.py:68"),
+    "paged_append.prefill.f32": (_PKG + "paged_append.cu", _TPU + "ops/paged_append.py:166"),
+    "qmm.stacked.decode.f16": _K3, "qmm.stacked.wgmma.f16": _K3, "qmm.stacked.bm16.f16": _K3,
+    "qmm.stacked.bm64.f16": _K3, "qmm.single.decode.f16": _K4, "qmm.single.wgmma.f16": _K4,
+    "qmm.stacked.f32": _K3, "qmm.single.f32": _K4,
+})
 # the kernels each main path must launch (and it may call no plain version);
 # the engine's decode splits (paged_plan: 4 at b = 8) run the combine kernel.
 # Every decode step is the replay of a CUDA graph (`graph.decode`, a window
@@ -3756,6 +4343,19 @@ PATHS = {
     "serve_moe_chunked": _SERVE_KERNELS + _CHUNKED + ["graph.decode"],
     "serve_moe_bucketed": _SERVE_KERNELS + _BUCKETED + ["graph.decode"],
     "train_moe": ["flash_fwd", "flash_bwd.dq", "flash_bwd.dkv"],
+    # phase 7: Llama-8B in fp16 (INT8 weights, FP8 cache, bucketed prefill:
+    # K7 in fp16) and in f32 (f32 weights and cache, chunked prefill; the
+    # lm_head is a plain f32 tensor, so torch.matmul, as in the JAX engine)
+    "serve_fp16": ["flash_fwd", "paged_append.prefill.f16", "paged_append.decode.f16",
+                   "paged_attention.decode.f16", "paged_attention.combine.f16",
+                   "qmm.stacked.decode.f16", "qmm.stacked.wgmma.f16", "qmm.single.decode.f16",
+                   "graph.decode"],
+    "serve_f32": ["paged_append.prefill.f32", "paged_append.decode.f32",
+                  "paged_attention.prefill.f32", "paged_attention.decode.f32",
+                  "paged_attention.combine.f32", "qmm.stacked.f32", "graph.decode"],
+    "api_dtypes": ["paged_attention.decode.f16", "paged_attention.prefill.wgmma.f16",
+                   "paged_attention.decode.options.f16", "paged_attention.prefill.options.f16",
+                   "paged_attention.decode.f32", "paged_attention.prefill.f32"],
 }
 # kernels a main path must not launch: serving decodes on K1's and K3/K4's
 # decode kernels, and the api path's options take K1's Hopper kernels
@@ -3768,6 +4368,16 @@ NOT_ON_PATH = {"serve_chunked": _NOT_SERVING, "serve_bucketed": _NOT_SERVING,
                "serve_moe_chunked": _NOT_SERVING + _MOE_NOT_SERVING,
                "serve_moe_bucketed": _NOT_SERVING + _MOE_NOT_SERVING,
                "api": ["paged_attention.decode.wmma", "paged_attention.prefill.wmma"]}
+# the fp16 path launches none of the bf16 instantiations, and no WMMA kernel;
+# the f32 path nothing but the f32 instantiations
+_BF16_SERVING = _SERVE_KERNELS + _CHUNKED + ["paged_append.prefill"]
+NOT_ON_PATH.update({
+    "serve_fp16": _BF16_SERVING + _NOT_SERVING + [
+        "paged_attention.decode.wmma.f16", "qmm.stacked.bm16.f16", "qmm.single.bm16.f16",
+        "qmm.stacked.bm64.f16"],
+    "serve_f32": _BF16_SERVING + ["flash_fwd", "paged_attention.decode.f16",
+                                  "paged_append.decode.f16", "qmm.stacked.decode.f16"],
+    "api_dtypes": ["paged_attention.decode.wmma.f16", "paged_attention.prefill.wmma.f16"]})
 
 
 def nvidia_smi() -> str:
@@ -3834,9 +4444,9 @@ def main():
     print(f"build: {report['build_s']:.1f} s for {len(_build.SOURCES)} kernel sources", flush=True)
     checks = Checks()
     report["flash_fwd_build"] = k7_build_report(checks, libs["flash_fwd"])
-    report["qmm_build"] = qmm_build_report(checks, libs["qmm"])
+    report["qmm_build"] = qmm_build_report(checks, libs)
     report["flash_bwd_build"] = flash_bwd_build_report(checks, libs["flash_bwd"])
-    report["paged_build"] = paged_build_report(checks, libs["paged_attention"])
+    report["paged_build"] = paged_build_report(checks, libs)
     report["flash_probs_build"] = probs_build_report(checks, libs["flash_probs"])
 
     # 2. kernels against their plain versions, at the main paths' shapes
@@ -4037,7 +4647,24 @@ def main():
     report["serve_moe"] = serve_moe(gen, checks, paths, args.seed)
     mark("serve_moe")
 
-    # 7. the kernels line, the card, the result
+    # 7. fp16 and f32: the new instantiations against their plain versions,
+    # the refusals that stay, the api's calls over fp16 and f32 caches, then
+    # Llama-8B served in fp16 and in f32
+    dtype_rows = check_dtype_kernels(gen, Timer(), checks, cfg)
+    measured.update(dtype_rows)
+    report["dtype_kernels"] = dtype_rows
+    print(json.dumps({"dtype_kernels": dtype_rows}), flush=True)
+    check_refusals(gen, cfg, checks)
+    cases, paths["api_dtypes"] = drive("api_dtypes", lambda: api_dtype_path(gen, cfg))
+    check_api_dtype_outputs(checks, cases)
+    del cases
+    checks.raise_on_failure("fp16 and f32 kernels")
+    torch.cuda.empty_cache()
+    mark("dtype_kernels")
+    report["serving_dtypes"] = serving_dtype_paths(gen, cfg, checks, paths, args.seed)
+    mark("serving_dtypes")
+
+    # 8. the kernels line, the card, the result
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         r = measured[name]

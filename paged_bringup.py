@@ -271,8 +271,9 @@ def main():
 
     stages = args.stages.split(",")
     k1 = stages != ["append"]
-    _build.SOURCES = (("paged_attention",) if k1 else ()) + (
-        ("paged_append",) if "append" in stages else ())
+    k1_libs = ("paged_attention",) + tuple(  # and its fp16 variant, on trees that have it
+        n for n in getattr(_build, "VARIANTS", {}) if n.startswith("paged_attention"))
+    _build.SOURCES = (k1_libs if k1 else ()) + (("paged_append",) if "append" in stages else ())
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 oracles in full f32
     cfg = LlamaConfig.llama8b()
     t0 = time.perf_counter()
@@ -280,7 +281,7 @@ def main():
     print(json.dumps({"tree": tree, "build_s": time.perf_counter() - t0}), flush=True)
     checks = cs.Checks()
     if k1 and hopper_options():  # the report of this checkout's instantiations
-        cs.paged_build_report(checks, libs["paged_attention"])
+        cs.paged_build_report(checks, libs)
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     timer = cs.Timer()
 

@@ -163,16 +163,16 @@ def main():
     stages = args.stages.split(",")
     if not torch.cuda.is_available():
         sys.exit("qmm_bringup.py: no CUDA device")
-    _build.SOURCES = ("qmm",)
+    _build.SOURCES = ("qmm", "qmm_f16")
     t0 = time.perf_counter()
-    lib = _build.build_all()["qmm"]
+    libs = _build.build_all()
     print(json.dumps({"build_s": time.perf_counter() - t0}), flush=True)
     with open(f"{_build.BUILD_DIR}/qmm.log") as f:
         for line in f:
             if "serialized" in line:
                 print(line.rstrip(), flush=True)
     checks = cs.Checks()
-    cs.qmm_build_report(checks, lib)
+    cs.qmm_build_report(checks, libs)
     cs.check_qmm_conversion(checks)
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     timer = cs.Timer()

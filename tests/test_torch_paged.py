@@ -31,6 +31,7 @@ from xf_flash_attention_cutlass_tpu.ops.reference import (
     construct_local_mask,
 )
 from xf_flash_attention_cutlass_tpu.quant.kv import quantize_kv as j_quantize_kv
+from xf_flash_attention_cutlass_tpu_torch import _build
 from xf_flash_attention_cutlass_tpu_torch.models.llama import params_from_jax
 from xf_flash_attention_cutlass_tpu_torch.ops import combine, paged, paged_append, rotary
 from xf_flash_attention_cutlass_tpu_torch.utils.testing import (
@@ -254,21 +255,35 @@ def test_num_splits_heuristic_matches_jax():
         (1024, 256, 128, torch.float8_e4m3fn, True, "wgmma"),  # an option: its instantiation
         (1024, 12, 128, torch.bfloat16, False, "wmma"),  # a page of no whole box
         (1024, 256, 96, torch.bfloat16, False, "wmma"),  # d = 96
-        (1024, 256, 128, torch.float16, False, "wmma"),  # no Hopper kernel for fp16 pools
+        (1024, 256, 128, torch.float16, False, "wmma"),  # bf16 queries over fp16 pools: refused
         (1024, 12, 128, torch.int8, True, "wmma"),  # an option on an odd page
-        (1024, 256, 128, torch.float16, True, "wmma"),  # an option on fp16 pools
+        (1024, 256, 128, torch.float16, True, "wmma"),  # the same with an option
+        # (query dtype, pool dtype): fp16 queries over fp16, int8 or fp8 pools
+        # take the Hopper routes; an f32 query or pool the f32 kernel
+        (4, 256, 128, (torch.float16, torch.float16), False, "decode"),
+        (1024, 256, 128, (torch.float16, torch.float16), True, "wgmma"),
+        (1024, 256, 64, (torch.float16, torch.float8_e4m3fn), False, "wgmma"),
+        (16, 32, 128, (torch.float16, torch.int8), True, "decode"),
+        (1024, 12, 128, (torch.float16, torch.float16), False, "wmma"),  # an odd page
+        (4, 256, 128, (torch.float32, torch.float32), False, "f32"),
+        (1024, 12, 64, (torch.float32, torch.float8_e4m3fn), True, "f32"),  # any page
+        (4, 256, 128, (torch.bfloat16, torch.float32), False, "f32"),  # refused there
     ],
 )
 def test_paged_route(rows, page, d, kv, options, route):
-    """paged_route is a pure function of the shapes and the pool dtype (the
-    options pick an instantiation and its label, not a kernel); the Hopper
-    kernel's row tile (64) is the split heuristic's unit on its route, the
-    decode kernel's (16) and the WMMA kernel's (16 or 32) on the others."""
-    assert paged.paged_route(rows, page, d, kv) == route
-    assert paged.route_label(route, rows, options).endswith(".options") == (
-        options and route != "wmma")
-    assert paged.route_row_tile(route, rows) == (64 if route == "wgmma" else
-                                                 paged.kernel_row_tile(rows))
+    """paged_route is a pure function of the shapes and the query and pool
+    dtypes (the options pick an instantiation and its label, not a kernel);
+    the Hopper kernel's row tile (64) is the split heuristic's unit on its
+    route, the decode kernel's (16), the f32 kernel's (16) and the WMMA
+    kernel's (16 or 32) on the others. fp16 labels end in ".f16"."""
+    q_dt, kv = kv if isinstance(kv, tuple) else (torch.bfloat16, kv)
+    assert paged.paged_route(rows, page, d, kv, q_dt) == route
+    label = paged.route_label(route, rows, options, q_dt)
+    assert label.endswith(_build.LABEL_SUFFIX[q_dt])
+    assert label.removesuffix(_build.LABEL_SUFFIX[q_dt]).endswith(".options") == (
+        options and route not in ("wmma", "f32"))
+    assert paged.route_row_tile(route, rows) == (64 if route == "wgmma" else 16 if route == "f32"
+                                                 else paged.kernel_row_tile(rows))
 
 
 @pytest.mark.parametrize(
@@ -284,7 +299,7 @@ def test_paged_route(rows, page, d, kv, options, route):
         (40, 12, 128, torch.bfloat16, False, "wmma", "paged_attention.prefill.wmma"),
         (17, 64, 64, torch.int8, True, "wgmma", "paged_attention.prefill.options"),
         (4, 12, 128, torch.bfloat16, True, "wmma", "paged_attention.decode.wmma"),  # odd page
-        (4, 256, 128, torch.float16, True, "wmma", "paged_attention.decode.wmma"),  # fp16 pools
+        (4, 256, 128, torch.float16, True, "wmma", "paged_attention.decode.wmma"),  # refused
     ],
 )
 def test_paged_route_decode(rows, page, d, kv, options, route, label):

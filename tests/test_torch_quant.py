@@ -226,31 +226,48 @@ def _stack_ptrs(layers, k, n, w_dtype, base=1 << 20):
     return [base + layer * k * n * w_dtype.itemsize for layer in range(layers)]
 
 
-@pytest.mark.parametrize("w_dtype", [torch.int8, torch.float8_e4m3fn, torch.bfloat16])
+@pytest.mark.parametrize("w_dtype", [torch.int8, torch.float8_e4m3fn, torch.bfloat16,
+                                     # (activations, weights): fp16 routes as bf16; f32
+                                     # activations take the f32 kernel at any alignment
+                                     (torch.float16, torch.int8), (torch.float16, torch.float16),
+                                     (torch.float32, torch.int8), (torch.float32, torch.float32)])
 def test_qmm_route(w_dtype):
     """When TMA can load both operands (every Llama-8B shape, stacked at any
     layer or single) decode widths take the decode kernel and prefill
     widths the wgmma kernel; otherwise (the ragged shapes chip_smoke.py
     checks, a misaligned x or weight) the WMMA kernel, bm16 at decode
-    widths and bm64 above."""
+    widths and bm64 above. The legality test counts x's element size (2
+    bytes for bf16 and fp16); f32 activations take the f32 kernel for every
+    shape and alignment."""
+    x_dtype, w_dtype = w_dtype if isinstance(w_dtype, tuple) else (torch.bfloat16, w_dtype)
+    f32 = x_dtype == torch.float32
+
+    def route(m, k, n, w_dt, x_ptr, w_ptr):
+        return linear.qmm_route(m, k, n, w_dt, x_ptr, w_ptr, x_dtype)
+
+    def want(name):
+        return "f32" if f32 else name
+
     x_ptr = 1 << 21
     for m in (1, 8, 16):
         for k, n in LLAMA8B_KN:
             for w_ptr in _stack_ptrs(32, k, n, w_dtype) + [x_ptr]:  # stacked, single
-                assert linear.qmm_route(m, k, n, w_dtype, x_ptr, w_ptr) == "decode"
-        assert linear.qmm_route(m, 4096, 4096, w_dtype, x_ptr + 2, x_ptr) == "bm16"
-        assert linear.qmm_route(m, 4096, 4096, w_dtype, x_ptr, x_ptr + 8) == "bm16"
+                assert route(m, k, n, w_dtype, x_ptr, w_ptr) == want("decode")
+        assert route(m, 4096, 4096, w_dtype, x_ptr + 2, x_ptr) == want("bm16")
+        assert route(m, 4096, 4096, w_dtype, x_ptr, x_ptr + 8) == want("bm16")
     # chip_smoke.py's ragged decode shapes: N = 300 bytes, K = 203
     for m, k, n in [(1, 200, 300), (5, 203, 136)]:
-        assert linear.qmm_route(m, k, n, w_dtype, x_ptr, x_ptr) == "bm16"
+        assert route(m, k, n, w_dtype, x_ptr, x_ptr) == want("bm16")
     for m in (17, 64, 256, 2048):
         for k, n in LLAMA8B_KN:
             for w_ptr in _stack_ptrs(32, k, n, w_dtype) + [x_ptr]:  # stacked, single
-                assert linear.qmm_route(m, k, n, w_dtype, x_ptr, w_ptr) == "wgmma"
-        assert linear.qmm_route(m, 4096, 4096, w_dtype, x_ptr + 8, x_ptr) == "bm64"
-        assert linear.qmm_route(m, 4096, 4096, w_dtype, x_ptr, x_ptr + 4) == "bm64"
+                assert route(m, k, n, w_dtype, x_ptr, w_ptr) == want("wgmma")
+        assert route(m, 4096, 4096, w_dtype, x_ptr + 8, x_ptr) == want("bm64")
+        assert route(m, 4096, 4096, w_dtype, x_ptr, x_ptr + 4) == want("bm64")
     # chip_smoke.py's ragged shapes: x rows of 8200 bytes, N = 300 / 136 / 1000 / 130
     for m, k, n in [(100, 4100, 1000), (17, 256, 130), (17, 200, 300), (100, 203, 136)]:
-        assert linear.qmm_route(m, k, n, w_dtype, x_ptr, x_ptr) == "bm64"
+        assert route(m, k, n, w_dtype, x_ptr, x_ptr) == want("bm64")
+    # K = 4: 8-byte rows of 2-byte activations are not TMA-legal
+    assert route(17, 4, 4096, w_dtype, x_ptr, x_ptr) == want("bm64")
     assert linear.qmm_route(100, 4096, 1000, torch.bfloat16, x_ptr, x_ptr) == "wgmma"
     assert linear.qmm_route(100, 4096, 1000, torch.int8, x_ptr, x_ptr) == "bm64"

@@ -1,7 +1,9 @@
 """Build and load the port's CUDA kernels.
 
 Each source in ``csrc/*.cu`` is compiled by its own ``nvcc`` process into a
-shared library with a plain C interface, and loaded with ``ctypes``. All
+shared library with a plain C interface, and loaded with ``ctypes``;
+paged_attention.cu and qmm.cu are compiled twice, their fp16 instantiations
+(-DXFA_HALF) apart from the rest. All
 sources are compiled together, in parallel, at first use; the libraries go
 to ``build/`` inside the package (listed in ``.gitignore``) under a name
 that carries a hash of the sources, so an edited source is rebuilt and an
@@ -29,8 +31,14 @@ PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "build")
 
-# every kernel source; each becomes lib<name>-<hash>.so
-SOURCES = ("paged_attention", "paged_append", "qmm", "flash_fwd", "flash_probs", "flash_bwd")
+# every kernel library; each becomes lib<name>-<hash>.so, from csrc/<name>.cu
+# or, for a variant, from another source with its defines
+SOURCES = ("paged_attention", "paged_attention_f16", "paged_append", "qmm", "qmm_f16",
+           "flash_fwd", "flash_probs", "flash_bwd")
+# K1's and K3/K4's fp16 instantiations, built apart from the bf16 and f32 ones
+# (XFA_HALF) so that the two halves of those sources compile in parallel
+VARIANTS = {"paged_attention_f16": ("paged_attention", ["-DXFA_HALF"]),
+            "qmm_f16": ("qmm", ["-DXFA_HALF"])}
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -74,7 +82,8 @@ def build_all() -> Dict[str, str]:
     procs = {}
     for n in todo:
         tmp = f"{paths[n]}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, f"{n}.cu")]
+        src, defines = VARIANTS.get(n, (n, []))
+        cmd = [_nvcc(), *NVCC_FLAGS, *defines, "-o", tmp, os.path.join(CSRC_DIR, f"{src}.cu")]
         procs[n] = (tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         ))
@@ -132,7 +141,11 @@ DTYPE_CODES = {
     torch.int8: 1,
     torch.float8_e4m3fn: 2,
     torch.float16: 3,
+    torch.float32: 4,
 }
+
+# The launch labels of fp16 and f32 instantiations end in these (bf16: none)
+LABEL_SUFFIX = {torch.bfloat16: "", torch.float16: ".f16", torch.float32: ".f32"}
 
 # Launch counts of every kernel wrapper, by route, and calls of the plain
 # PyTorch versions. A wrapper adds one to LAUNCHES where it launches its

@@ -7,9 +7,10 @@ The wrappers move the heads axis to the kernels' (batch, heads, seq, dim)
 and call the ops: dense attention (K7 forward, K9/K10 backward, K8 for the
 probabilities), packed varlen (the same kernels with segment ids and
 positions), paged varlen and the KV cache (K1). CUDA tensors run the
-kernels, which take bf16 or fp16 (K1: bf16 queries); any other dtype raises
-TypeError naming the kernel, and nothing falls back to a plain version. CPU
-tensors run the plain versions in any dtype the validation admits.
+kernels, which take bf16 or fp16 (K1 also f32, on its f32 kernel); any other
+dtype raises TypeError naming the kernel, and nothing falls back to a plain
+version. CPU tensors run the plain versions in any dtype the validation
+admits.
 """
 
 from __future__ import annotations

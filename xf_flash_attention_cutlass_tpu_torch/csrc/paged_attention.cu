@@ -16,9 +16,14 @@
 // bound. A 256-token prefill chunk does 4 * 256 * group flops per key:
 // operations bound (tensor cores).
 //
-// Three kernels, chosen by ops/paged.py::paged_route (a pure function of the
-// shapes and the pool dtype; the options choose an instantiation, not a
-// kernel):
+// Four kernels, chosen by ops/paged.py::paged_route (a pure function of the
+// shapes and the query and pool dtypes; the options choose an
+// instantiation, not a kernel). The first three take bf16 or fp16 queries
+// (a template parameter T: one instantiation each, over pools of T, int8 or
+// fp8; fp16 has bf16's product shapes and bytes, every int8 and e4m3 value
+// is an fp16 value too, and P is rounded to T before the PV product); the
+// comments below say bf16 for T. The fourth, `paged_f32_kernel`, takes f32
+// queries over f32, int8 or fp8 pools.
 //
 // `paged_decode_kernel` (the decode route: at most 16 query rows a KV head,
 // sq * group: decode and short verify; d 64 or 128, pages of a multiple of
@@ -89,6 +94,18 @@
 // the window start, the right window and the leftpad are masked on boundary
 // tiles only, beside kv_len.
 //
+// `paged_f32_kernel` (the f32 route: f32 queries, any page): wgmma has no f32
+// inputs and its tf32 mode keeps 10 mantissa bits, so this is a simple FMA
+// kernel in f32 (about 67 TFLOP/s on an H100). One block owns 16 query rows
+// of one (split, batch entry, KV head), the split a run of live pages as on
+// the WMMA route; per 64-key tile K and V are converted to f32 into shared
+// memory, S = Q K^T and O += P V run on the FMA units with an online softmax
+// in between, the options (window, softcap, ALiBi, leftpad) are applied at
+// run time, and O and LSE (or f32 partials for the combine kernel) are
+// written in the caller's layout. Bound at decode by bytes (f32 pools: 1 KB
+// of K and V a key and KV head at d = 128), at a 256-token chunk by
+// operations.
+//
 // `paged_attention_kernel` (the first version on WMMA: pages of no whole
 // TMA box, with or without the options, at any row count): one block per (row tile,
 // batch entry, KV head, split), a row tile holding RT (16 or 32) query rows
@@ -109,7 +126,6 @@
 // can see are left out of its split runs, and a block starts at its first
 // row's earliest key.
 #include <mma.h>
-#include <string.h>
 
 #include "common.cuh"
 #include "hopper.cuh"
@@ -145,13 +161,14 @@ struct Smem {
   static constexpr int bytes = scales + align128(2 * TK * 4);
 };
 
-template <typename KV>
-__device__ __forceinline__ void store_row16(__nv_bfloat16* dst, const uint4& raw) {
-  // 16 bytes of KV values -> 16 / sizeof(KV) bf16 values at dst
+template <typename T, typename KV>
+__device__ __forceinline__ void store_row16(T* dst, const uint4& raw) {
+  // 16 bytes of KV values -> 16 / sizeof(KV) T values at dst (exact: KV is T,
+  // int8 or e4m3)
   constexpr int E = 16 / sizeof(KV);
   const KV* v = reinterpret_cast<const KV*>(&raw);
 #pragma unroll
-  for (int e = 0; e < E; ++e) dst[e] = to_bf16(to_float(v[e]));
+  for (int e = 0; e < E; ++e) dst[e] = from_float<T>(to_float(v[e]));
 }
 
 // One key tile of a block in registers: each thread's 16-byte chunks of the
@@ -194,14 +211,15 @@ struct TileRegs {
     }
   }
 
-  __device__ __forceinline__ void store(__nv_bfloat16* ks_smem, __nv_bfloat16* vs_smem,
-                                        float* ksc, float* vsc, int ldq) const {
+  template <typename T>
+  __device__ __forceinline__ void store(T* ks_smem, T* vs_smem, float* ksc, float* vsc,
+                                        int ldq) const {
 #pragma unroll
     for (int it = 0; it < LOADS; ++it) {
       const int c = threadIdx.x + it * kThreads;
       const int j = c / (D / CH), dc = (c % (D / CH)) * CH;
-      store_row16<KV>(ks_smem + j * ldq + dc, k[it]);
-      store_row16<KV>(vs_smem + j * ldq + dc, v[it]);
+      store_row16<T, KV>(ks_smem + j * ldq + dc, k[it]);
+      store_row16<T, KV>(vs_smem + j * ldq + dc, v[it]);
     }
     if (threadIdx.x < TK) {
       ksc[threadIdx.x] = ks;
@@ -210,9 +228,9 @@ struct TileRegs {
   }
 };
 
-template <typename KV, int D, int RT, bool kExtra>
+template <typename T, typename KV, int D, int RT, bool kExtra>
 __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
-    const __nv_bfloat16* __restrict__ q,  // (b, sq, h, D), pre-scaled
+    const T* __restrict__ q,              // (b, sq, h, D), pre-scaled
     const KV* __restrict__ k_pool,        // (pages, h_k, page, D): one layer
     const KV* __restrict__ v_pool,
     const float* __restrict__ k_scales,  // (pages, h_k, page) or null
@@ -229,11 +247,11 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
   constexpr int LDQ = L::LDQ, LDS = L::LDS, LDP = L::LDP, LDO = L::LDO;
 
   extern __shared__ __align__(128) unsigned char smem[];
-  auto* qs = reinterpret_cast<__nv_bfloat16*>(smem + L::q);
-  auto* ks = reinterpret_cast<__nv_bfloat16*>(smem + L::k);
-  auto* vs = reinterpret_cast<__nv_bfloat16*>(smem + L::v);
+  auto* qs = reinterpret_cast<T*>(smem + L::q);
+  auto* ks = reinterpret_cast<T*>(smem + L::k);
+  auto* vs = reinterpret_cast<T*>(smem + L::v);
   auto* ss = reinterpret_cast<float*>(smem + L::s);
-  auto* ps = reinterpret_cast<__nv_bfloat16*>(smem + L::p);
+  auto* ps = reinterpret_cast<T*>(smem + L::p);
   auto* os = reinterpret_cast<float*>(smem + L::o);
   auto* m_s = reinterpret_cast<float*>(smem + L::stats);
   auto* l_s = m_s + RT;
@@ -306,8 +324,8 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
       wmma::fill_fragment(acc, 0.f);
 #pragma unroll
       for (int kk = 0; kk < D; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> bk;
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> a;
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::col_major> bk;
         wmma::load_matrix_sync(a, qs + fi * 16 * LDQ + kk, LDQ);
         wmma::load_matrix_sync(bk, ks + fj * 16 * LDQ + kk, LDQ);
         wmma::mma_sync(acc, a, bk, acc);
@@ -349,7 +367,7 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
         const int c = lane + 32 * u;
         const float p = expf(sv[u] - m_new);
         rsum += p;
-        ps[r * LDP + c] = to_bf16(p * vsc[c]);
+        ps[r * LDP + c] = from_float<T>(p * vsc[c]);
       }
       for (int o = 16; o > 0; o >>= 1) rsum += __shfl_xor_sync(0xffffffffu, rsum, o);
       if (lane == 0) {
@@ -373,8 +391,8 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
       wmma::load_matrix_sync(acc, os + fi * 16 * LDO + fj * 16, LDO, wmma::mem_row_major);
 #pragma unroll
       for (int kk = 0; kk < TK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> bv;
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> a;
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major> bv;
         wmma::load_matrix_sync(a, ps + fi * 16 * LDP + kk, LDP);
         wmma::load_matrix_sync(bv, vs + kk * LDQ + fj * 16, LDQ);
         wmma::mma_sync(acc, a, bv, acc);
@@ -412,10 +430,10 @@ struct Args {
   float softcap;
 };
 
-template <typename KV, int D, int RT, bool kExtra>
+template <typename T, typename KV, int D, int RT, bool kExtra>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   constexpr int smem = Smem<D, RT>::bytes;
-  auto kernel = paged_attention_kernel<KV, D, RT, kExtra>;
+  auto kernel = paged_attention_kernel<T, KV, D, RT, kExtra>;
   // raise the dynamic shared-memory limit once per instantiation (one
   // device), not on every launch: it is a CUDA API call on the decode path
   static bool smem_limit_set = false;
@@ -428,7 +446,7 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   const int R = a.group * a.sq;
   dim3 grid((R + RT - 1) / RT, a.b * a.h_k, a.n_splits);
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(a.q), static_cast<const KV*>(a.kp),
+      static_cast<const T*>(a.q), static_cast<const KV*>(a.kp),
       static_cast<const KV*>(a.vp), a.ksc, a.vsc, a.bt, a.lens, a.o, a.lse, a.alibi, a.leftpad,
       a.b, a.sq, a.h_k, a.group, a.page, a.max_pages, a.wl, a.wr, a.softcap);
   return cudaGetLastError();
@@ -436,21 +454,21 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
 
 // The option-free kernel unless a window start, a right window beyond the
 // causal one, softcap, ALiBi or leftpad asks for the general one.
-template <typename KV, int D, int RT>
+template <typename T, typename KV, int D, int RT>
 cudaError_t launch_x(const Args& a, cudaStream_t st) {
   const bool extra = a.wl >= 0 || a.wr > 0 || a.softcap > 0.f || a.alibi != nullptr ||
                      a.leftpad != nullptr;
-  return extra ? launch<KV, D, RT, true>(a, st) : launch<KV, D, RT, false>(a, st);
+  return extra ? launch<T, KV, D, RT, true>(a, st) : launch<T, KV, D, RT, false>(a, st);
 }
 
-template <typename KV>
+template <typename T, typename KV>
 cudaError_t dispatch_d(int d, int row_tile, const Args& a, cudaStream_t st) {
   if (row_tile != 16 && row_tile != 32) return cudaErrorInvalidValue;
   switch (d) {
     case 64:
-      return row_tile == 16 ? launch_x<KV, 64, 16>(a, st) : launch_x<KV, 64, 32>(a, st);
+      return row_tile == 16 ? launch_x<T, KV, 64, 16>(a, st) : launch_x<T, KV, 64, 32>(a, st);
     case 128:
-      return row_tile == 16 ? launch_x<KV, 128, 16>(a, st) : launch_x<KV, 128, 32>(a, st);
+      return row_tile == 16 ? launch_x<T, KV, 128, 16>(a, st) : launch_x<T, KV, 128, 32>(a, st);
     default:
       return cudaErrorInvalidValue;
   }
@@ -497,13 +515,13 @@ struct Layout {
 };
 
 struct Params {
-  const __nv_bfloat16* q;    // (b, sq, h, D), not pre-scaled
+  const void* q;             // (b, sq, h, D) of the kernel's T, not pre-scaled
   int64_t q_sb, q_st, q_sh;  // its (batch, token, head) strides in elements
   const float* k_scales;     // (L * pages, h_k, page) or null (bf16 pools)
   const float* v_scales;
   const int32_t* bt;    // (b, max_pages)
   const int32_t* lens;  // (b,)
-  void* o;              // one split: (b, sq, h, D) bf16; more: (splits, b, sq, h, D) f32
+  void* o;              // one split: (b, sq, h, D) of T; more: (splits, b, sq, h, D) f32
   float* lse;           // one split: (b, h, sq); more: (splits, b, sq, h)
   int b, sq, h_k, group, page, max_pages, n_splits, n_rt;
   int page0;     // the layer's first page in the tensor maps
@@ -549,24 +567,24 @@ __device__ __forceinline__ float score_options(const Params& p, float x, float s
   return x - slope * fabsf(static_cast<float>(qpos - kcol));
 }
 
-// 16 pool bytes -> 16 bf16 values, as two 16-byte words in order
-template <typename KV>
-__device__ __forceinline__ void bytes_to_bf16(const uint4& raw, uint4& lo, uint4& hi) {
+// 16 pool bytes -> 16 T (bf16 or f16) values, as two 16-byte words in order
+template <typename T, typename KV>
+__device__ __forceinline__ void bytes_to_x16(const uint4& raw, uint4& lo, uint4& hi) {
   const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
   uint32_t out[8];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    out[2 * i] = bf16x2_from_bytes02(KV{}, __byte_perm(w[i], 0, 0x4140));      // bytes 0, 1
-    out[2 * i + 1] = bf16x2_from_bytes02(KV{}, __byte_perm(w[i], 0, 0x4342));  // bytes 2, 3
+    out[2 * i] = x2_from_bytes02<T, KV>(__byte_perm(w[i], 0, 0x4140));      // bytes 0, 1
+    out[2 * i + 1] = x2_from_bytes02<T, KV>(__byte_perm(w[i], 0, 0x4342));  // bytes 2, 3
   }
   lo = make_uint4(out[0], out[1], out[2], out[3]);
   hi = make_uint4(out[4], out[5], out[6], out[7]);
 }
 
-// One staged byte tile (64 rows of D bytes) into a swizzled bf16 tile; rows
+// One staged byte tile (64 rows of D bytes) into a swizzled T tile; rows
 // from `live` on are written as zeros. pt: the thread of the producer
 // warpgroup.
-template <typename KV, int D>
+template <typename T, typename KV, int D>
 __device__ __forceinline__ void convert_tile(const unsigned char* raw, unsigned char* tile,
                                              int live, int pt) {
   constexpr int kChunks = kBK * D / 16;  // 16-byte chunks of the byte tile
@@ -577,7 +595,7 @@ __device__ __forceinline__ void convert_tile(const unsigned char* raw, unsigned 
     const int j = c / (D / 16), dcol = (c % (D / 16)) * 16;
     uint4 bytes = make_uint4(0, 0, 0, 0), lo, hi;
     if (j < live) bytes = *reinterpret_cast<const uint4*>(raw + j * D + dcol);
-    bytes_to_bf16<KV>(bytes, lo, hi);
+    bytes_to_x16<T, KV>(bytes, lo, hi);
     // 16-byte chunk c16 of row j of sub-tile dcol / 64 sits at chunk c16 ^ (j % 8)
     unsigned char* row = tile + (dcol / 64) * kBK * 128 + j * 128;
     const int c16 = (dcol % 64) / 8;
@@ -586,22 +604,14 @@ __device__ __forceinline__ void convert_tile(const unsigned char* raw, unsigned 
   }
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  uint32_t r;
-  memcpy(&r, &v, 4);
-  return r;
-}
-
-// a bf16 pair times the softmax scale: f32 products rounded to bf16
+// a T pair times the softmax scale: f32 products rounded to T
+template <typename T>
 __device__ __forceinline__ uint32_t scaled_pair(uint32_t w, float scale) {
-  __nv_bfloat162 v;
-  memcpy(&v, &w, 4);
-  const float2 f = __bfloat1622float2(v);
-  return pack_bf16(f.x * scale, f.y * scale);
+  const float2 f = unpack2<T>(w);
+  return pack2<T>(f.x * scale, f.y * scale);
 }
 
-template <typename KV, int D, bool kExtra>
+template <typename T, typename KV, int D, bool kExtra>
 __global__ void __launch_bounds__(kThreadsWg, 2)
     paged_wgmma_kernel(const __grid_constant__ CUtensorMap tm_k,
                        const __grid_constant__ CUtensorMap tm_v, const Params p) {
@@ -725,13 +735,13 @@ __global__ void __launch_bounds__(kThreadsWg, 2)
         mbar_wait(&raw_full[rs], (i / kRaw) & 1);
         mbar_wait(&empty[st], ((i / kStages) & 1) ^ 1);
         const int live = kend - (kstart + i * kBK);
-        convert_tile<KV, D>(raw_k(rs), k_tile(st), live, pt);
-        convert_tile<KV, D>(raw_v(rs), v_tile(st), live, pt);
+        convert_tile<T, KV, D>(raw_k(rs), k_tile(st), live, pt);
+        convert_tile<T, KV, D>(raw_v(rs), v_tile(st), live, pt);
         if (pt < kBK) {
           scales(st)[pt] = ks;
           scales(st)[kBK + pt] = vs;
         }
-        fence_proxy_async();  // the bf16 tiles are read by wgmma (the async proxy)
+        fence_proxy_async();  // the converted tiles are read by wgmma (the async proxy)
         named_barrier_sync(2, 128);
         if (pt == 0) {
           mbar_arrive(&full[st]);
@@ -750,7 +760,7 @@ __global__ void __launch_bounds__(kThreadsWg, 2)
   const int row = r0 + warp * 16 + (lane >> 2);
   const int col = (lane & 3) * 2;  // its key (and O) columns in an 8-column group
 
-  // the Q tile times the softmax scale (f32 products rounded to bf16) into
+  // the Q tile times the softmax scale (f32 products rounded to T) into
   // shared memory, 128-byte swizzled as a TMA box would write it; rows past
   // R are zero. (With Q held as wgmma's A registers instead, ptxas gave
   // those registers to P at d = 64, measured on the card: the second key
@@ -761,10 +771,10 @@ __global__ void __launch_bounds__(kThreadsWg, 2)
     uint4 w = make_uint4(0, 0, 0, 0);
     if (gr < R) {
       const int t = gr / p.group, head = kvh * p.group + gr % p.group;
-      w = *reinterpret_cast<const uint4*>(p.q + ib * p.q_sb + t * p.q_st + head * p.q_sh +
-                                          ch * 8);
-      w = make_uint4(scaled_pair(w.x, p.scale), scaled_pair(w.y, p.scale),
-                     scaled_pair(w.z, p.scale), scaled_pair(w.w, p.scale));
+      w = *reinterpret_cast<const uint4*>(static_cast<const T*>(p.q) + ib * p.q_sb +
+                                          t * p.q_st + head * p.q_sh + ch * 8);
+      w = make_uint4(scaled_pair<T>(w.x, p.scale), scaled_pair<T>(w.y, p.scale),
+                     scaled_pair<T>(w.z, p.scale), scaled_pair<T>(w.w, p.scale));
     }
     *reinterpret_cast<uint4*>(q_tile + (ch / 8) * kBQ * 128 + r * 128 +
                               (((ch % 8) ^ (r & 7)) << 4)) = w;
@@ -822,7 +832,7 @@ __global__ void __launch_bounds__(kThreadsWg, 2)
     for (int kk = 0; kk < D / 16; ++kk) {
       const uint64_t da = desc_sw128(q_tile + (kk / 4) * kBQ * 128 + (kk % 4) * 32, 16, 1024);
       const uint64_t db = desc_sw128(k_tile(st) + (kk / 4) * kBK * 128 + (kk % 4) * 32, 16, 1024);
-      Wgmma<__nv_bfloat16, kBK>::ss(s, da, db, kk > 0);
+      Wgmma<T, kBK>::ss(s, da, db, kk > 0);
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -898,7 +908,7 @@ __global__ void __launch_bounds__(kThreadsWg, 2)
       }
     }
 
-    // O += P V: P times the V scale, rounded to bf16, packed as the A operand
+    // O += P V: P times the V scale, rounded to T, packed as the A operand
     uint32_t pa[kBK / 16][4];
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk) {
@@ -911,7 +921,7 @@ __global__ void __launch_bounds__(kThreadsWg, 2)
           v0 *= vscl.x;
           v1 *= vscl.y;
         }
-        pa[kk][w] = pack_bf16(v0, v1);
+        pa[kk][w] = pack2<T>(v0, v1);
       }
     }
     fence_regs(acc);
@@ -919,7 +929,7 @@ __global__ void __launch_bounds__(kThreadsWg, 2)
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk) {
       const uint64_t db = desc_sw128(v_tile(st) + kk * 16 * 128, kBK * 128, 1024);
-      Wgmma<__nv_bfloat16, D>::rs_tb(acc, pa[kk], db, 1);
+      Wgmma<T, D>::rs_tb(acc, pa[kk], db, 1);
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -943,12 +953,11 @@ __global__ void __launch_bounds__(kThreadsWg, 2)
     const float inv = no_key ? 0.f : 1.f / l;
     const float lse = no_key ? -INFINITY : m_row[r] + logf(l);
     if (p.n_splits == 1) {
-      __nv_bfloat16* orow =
-          static_cast<__nv_bfloat16*>(p.o) + ((static_cast<size_t>(ib) * p.sq + t) * h + head) * D;
+      T* orow = static_cast<T*>(p.o) + ((static_cast<size_t>(ib) * p.sq + t) * h + head) * D;
 #pragma unroll
       for (int n = 0; n < D / 8; ++n)
         *reinterpret_cast<uint32_t*>(orow + n * 8 + col) =
-            pack_bf16(acc[4 * n + 2 * r] * inv, acc[4 * n + 2 * r + 1] * inv);
+            pack2<T>(acc[4 * n + 2 * r] * inv, acc[4 * n + 2 * r + 1] * inv);
       if ((lane & 3) == 0) p.lse[(static_cast<size_t>(ib) * h + head) * p.sq + t] = lse;
     } else {
       const size_t ri = ((static_cast<size_t>(split) * p.b + ib) * p.sq + t) * h + head;
@@ -960,6 +969,13 @@ __global__ void __launch_bounds__(kThreadsWg, 2)
       if ((lane & 3) == 0) p.lse[ri] = lse;
     }
   }
+}
+
+// the tensor-map element type of T
+template <typename T>
+constexpr CUtensorMapDataType map_type() {
+  return std::is_same<T, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                        : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
 }
 
 // keys per TMA box: the largest of 64, 32, 16, 8 that divides the page, or 0
@@ -975,7 +991,7 @@ inline bool has_options(const Params& prm) {
          prm.leftpad != nullptr;
 }
 
-template <typename KV, int D, bool kExtra>
+template <typename T, typename KV, int D, bool kExtra>
 cudaError_t launch(const void* k_pool, const void* v_pool, int n_pool_pages, const Params& prm,
                    cudaStream_t stream) {
   using L = Layout<KV, D>;
@@ -987,19 +1003,19 @@ cudaError_t launch(const void* k_pool, const void* v_pool, int n_pool_pages, con
                             static_cast<uint64_t>(prm.h_k), static_cast<uint64_t>(n_pool_pages)};
   const uint64_t strides[3] = {D * es, static_cast<uint64_t>(prm.page) * D * es,
                                static_cast<uint64_t>(prm.h_k) * prm.page * D * es};
-  // byte pools: boxes of whole D-byte rows, unswizzled (staged); bf16 pools:
-  // 64-column boxes, 128-byte swizzled (the ring wgmma reads)
+  // byte pools: boxes of whole D-byte rows, unswizzled (staged); 16-bit
+  // pools: 64-column boxes, 128-byte swizzled (the ring wgmma reads)
   const uint32_t box[4] = {L::kQuant ? static_cast<uint32_t>(D) : 64u,
                            static_cast<uint32_t>(prm.box_rows), 1, 1};
   for (int i = 0; i < 2; ++i) {
     cudaError_t err =
         L::kQuant ? make_map(&maps[i], CU_TENSOR_MAP_DATA_TYPE_UINT8, 4, bases[i], dims, strides,
                              box, CU_TENSOR_MAP_SWIZZLE_NONE)
-                  : make_map(&maps[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, bases[i], dims,
-                             strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+                  : make_map(&maps[i], map_type<T>(), 4, bases[i], dims, strides, box,
+                             CU_TENSOR_MAP_SWIZZLE_128B);
     if (err != cudaSuccess) return err;
   }
-  auto* kernel = &paged_wgmma_kernel<KV, D, kExtra>;
+  auto* kernel = &paged_wgmma_kernel<T, KV, D, kExtra>;
   static bool smem_limit_set = false;  // once per instantiation, as for the WMMA kernel
   if (!smem_limit_set) {
     cudaError_t err =
@@ -1012,19 +1028,19 @@ cudaError_t launch(const void* k_pool, const void* v_pool, int n_pool_pages, con
   return cudaGetLastError();
 }
 
-template <typename KV, bool kExtra>
+template <typename T, typename KV, bool kExtra>
 cudaError_t launch_x(int d, const void* kp, const void* vp, int n_pool_pages, const Params& prm,
                      cudaStream_t stream) {
-  if (d == 128) return launch<KV, 128, kExtra>(kp, vp, n_pool_pages, prm, stream);
-  if (d == 64) return launch<KV, 64, kExtra>(kp, vp, n_pool_pages, prm, stream);
+  if (d == 128) return launch<T, KV, 128, kExtra>(kp, vp, n_pool_pages, prm, stream);
+  if (d == 64) return launch<T, KV, 64, kExtra>(kp, vp, n_pool_pages, prm, stream);
   return cudaErrorInvalidValue;
 }
 
-template <typename KV>
+template <typename T, typename KV>
 cudaError_t launch_d(int d, const void* kp, const void* vp, int n_pool_pages, const Params& prm,
                      cudaStream_t stream) {
-  return has_options(prm) ? launch_x<KV, true>(d, kp, vp, n_pool_pages, prm, stream)
-                          : launch_x<KV, false>(d, kp, vp, n_pool_pages, prm, stream);
+  return has_options(prm) ? launch_x<T, KV, true>(d, kp, vp, n_pool_pages, prm, stream)
+                          : launch_x<T, KV, false>(d, kp, vp, n_pool_pages, prm, stream);
 }
 
 }  // namespace wg
@@ -1034,7 +1050,6 @@ cudaError_t launch_d(int d, const void* kp, const void* vp, int n_pool_pages, co
 namespace dec {
 
 using namespace hopper;
-using wg::pack_bf16;
 
 constexpr int kTK = 64;     // keys per tile
 constexpr int kWarps = 4;   // consumer warps: 16 keys of every tile each
@@ -1083,14 +1098,15 @@ __device__ __forceinline__ int tile_off(int j, int cb) {
   return (cb / kC) * kTK * W + j * W + (((cb % kC) ^ x) << 4);
 }
 
-template <typename KV>
-__device__ __forceinline__ uint32_t lo02(uint32_t w) { return bf16x2_from_bytes02(KV{}, w); }
-template <typename KV>
-__device__ __forceinline__ uint32_t hi13(uint32_t w) { return bf16x2_from_bytes02(KV{}, w >> 8); }
+template <typename T, typename KV>
+__device__ __forceinline__ uint32_t lo02(uint32_t w) { return x2_from_bytes02<T, KV>(w); }
+template <typename T, typename KV>
+__device__ __forceinline__ uint32_t hi13(uint32_t w) { return x2_from_bytes02<T, KV>(w >> 8); }
 
-// q[i] times the softmax scale, f32 product rounded to bf16
-__device__ __forceinline__ float scaled(const __nv_bfloat16* q, int i, float scale) {
-  return __bfloat162float(q[i]) * scale;
+// q[i] times the softmax scale in f32 (packed with pack2: rounded to T)
+template <typename T>
+__device__ __forceinline__ float scaled(const T* q, int i, float scale) {
+  return to_float(q[i]) * scale;
 }
 
 // One block owns one (split, batch entry, KV head) and its R = sq * group
@@ -1105,7 +1121,7 @@ __device__ __forceinline__ float scaled(const __nv_bfloat16* q, int i, float sca
 // sum and O^T; they are merged once at the end through shared memory.
 // kExtra: the options (the module comment); each thread keeps its S^T
 // columns' limits and slopes beside their positions.
-template <typename KV, int D, int NT, bool kExtra>
+template <typename T, typename KV, int D, int NT, bool kExtra>
 __global__ void __launch_bounds__(kThreadsDec, kBlocksPerSm)
     paged_decode_kernel(const __grid_constant__ CUtensorMap tm_k,
                         const __grid_constant__ CUtensorMap tm_v, const wg::Params p) {
@@ -1190,28 +1206,29 @@ __global__ void __launch_bounds__(kThreadsDec, kBlocksPerSm)
   const int g = lane >> 2, c = lane & 3;
   const int kw = 16 * warp;  // the warp's keys in every tile
 
-  // Q's B fragments, times the softmax scale (f32 products rounded to bf16):
+  // Q's B fragments, times the softmax scale (f32 products rounded to T):
   // k-step kk of bf16 K reads d 16kk + 2c, +1 and 16kk + 8 + 2c, +1; of
   // byte K, d 16kk + 4c, +2 and 16kk + 4c + 1, +3. Rows past R are zero.
   uint32_t qb[kMT][NT][2];
 #pragma unroll
   for (int n = 0; n < NT; ++n) {
     const int r = 8 * n + g;
-    const __nv_bfloat16* qrow = nullptr;
+    const T* qrow = nullptr;
     if (r < R)
-      qrow = p.q + ib * p.q_sb + (r / p.group) * p.q_st + (kvh * p.group + r % p.group) * p.q_sh;
+      qrow = static_cast<const T*>(p.q) + ib * p.q_sb + (r / p.group) * p.q_st +
+             (kvh * p.group + r % p.group) * p.q_sh;
 #pragma unroll
     for (int kk = 0; kk < kMT; ++kk) {
       if (qrow == nullptr) {
         qb[kk][n][0] = qb[kk][n][1] = 0u;
       } else if constexpr (kQuant) {
         const int e = 16 * kk + 4 * c;
-        qb[kk][n][0] = pack_bf16(scaled(qrow, e, p.scale), scaled(qrow, e + 2, p.scale));
-        qb[kk][n][1] = pack_bf16(scaled(qrow, e + 1, p.scale), scaled(qrow, e + 3, p.scale));
+        qb[kk][n][0] = pack2<T>(scaled(qrow, e, p.scale), scaled(qrow, e + 2, p.scale));
+        qb[kk][n][1] = pack2<T>(scaled(qrow, e + 1, p.scale), scaled(qrow, e + 3, p.scale));
       } else {
         const int e = 16 * kk + 2 * c;
-        qb[kk][n][0] = pack_bf16(scaled(qrow, e, p.scale), scaled(qrow, e + 1, p.scale));
-        qb[kk][n][1] = pack_bf16(scaled(qrow, e + 8, p.scale), scaled(qrow, e + 9, p.scale));
+        qb[kk][n][0] = pack2<T>(scaled(qrow, e, p.scale), scaled(qrow, e + 1, p.scale));
+        qb[kk][n][1] = pack2<T>(scaled(qrow, e + 8, p.scale), scaled(qrow, e + 9, p.scale));
       }
     }
   }
@@ -1274,16 +1291,18 @@ __global__ void __launch_bounds__(kThreadsDec, kBlocksPerSm)
       ldmatrix_x4(r, kt + tile_off<kW>(kw + (lane & 7) + ((lane >> 3) & 1) * 8,
                                        2 * kx + (lane >> 4)));
       if constexpr (kQuant) {
-        const uint32_t a0[4] = {lo02<KV>(r[0]), lo02<KV>(r[1]), hi13<KV>(r[0]), hi13<KV>(r[1])};
-        const uint32_t a1[4] = {lo02<KV>(r[2]), lo02<KV>(r[3]), hi13<KV>(r[2]), hi13<KV>(r[3])};
+        const uint32_t a0[4] = {lo02<T, KV>(r[0]), lo02<T, KV>(r[1]), hi13<T, KV>(r[0]),
+                                hi13<T, KV>(r[1])};
+        const uint32_t a1[4] = {lo02<T, KV>(r[2]), lo02<T, KV>(r[3]), hi13<T, KV>(r[2]),
+                                hi13<T, KV>(r[3])};
 #pragma unroll
         for (int n = 0; n < NT; ++n) {
-          mma_bf16_16816(s[n], a0, qb[2 * kx][n]);
-          mma_bf16_16816(s[n], a1, qb[2 * kx + 1][n]);
+          mma_16816<T>(s[n], a0, qb[2 * kx][n]);
+          mma_16816<T>(s[n], a1, qb[2 * kx + 1][n]);
         }
       } else {
 #pragma unroll
-        for (int n = 0; n < NT; ++n) mma_bf16_16816(s[n], r, qb[kx][n]);
+        for (int n = 0; n < NT; ++n) mma_16816<T>(s[n], r, qb[kx][n]);
       }
     }
 
@@ -1328,7 +1347,7 @@ __global__ void __launch_bounds__(kThreadsDec, kBlocksPerSm)
     }
 
     // the online-softmax update of each row; P times the V scale (0 past
-    // kend, where the scale was not loaded), rounded to bf16, as P^T's B
+    // kend, where the scale was not loaded), rounded to T, as P^T's B
     // fragments
     uint32_t pb[NT][2];
 #pragma unroll
@@ -1355,8 +1374,8 @@ __global__ void __launch_bounds__(kThreadsDec, kBlocksPerSm)
         pv[e] = key0 < kend ? p0 * vs0 : 0.f;
         pv[2 + e] = key8 < kend ? p8 * vs8 : 0.f;
       }
-      pb[n][0] = movmatrix_trans(pack_bf16(pv[0], pv[1]));
-      pb[n][1] = movmatrix_trans(pack_bf16(pv[2], pv[3]));
+      pb[n][0] = movmatrix_trans(pack2<T>(pv[0], pv[1]));
+      pb[n][1] = movmatrix_trans(pack2<T>(pv[2], pv[3]));
     }
 
     // O^T += V^T P^T; on a boundary tile the V of keys past kend (stale or
@@ -1378,16 +1397,18 @@ __global__ void __launch_bounds__(kThreadsDec, kBlocksPerSm)
         r[3] &= mask_hi;
       }
       if constexpr (kQuant) {
-        const uint32_t a0[4] = {lo02<KV>(r[0]), lo02<KV>(r[1]), lo02<KV>(r[2]), lo02<KV>(r[3])};
-        const uint32_t a1[4] = {hi13<KV>(r[0]), hi13<KV>(r[1]), hi13<KV>(r[2]), hi13<KV>(r[3])};
+        const uint32_t a0[4] = {lo02<T, KV>(r[0]), lo02<T, KV>(r[1]), lo02<T, KV>(r[2]),
+                                lo02<T, KV>(r[3])};
+        const uint32_t a1[4] = {hi13<T, KV>(r[0]), hi13<T, KV>(r[1]), hi13<T, KV>(r[2]),
+                                hi13<T, KV>(r[3])};
 #pragma unroll
         for (int n = 0; n < NT; ++n) {
-          mma_bf16_16816(acc[2 * q2][n], a0, pb[n]);
-          mma_bf16_16816(acc[2 * q2 + 1][n], a1, pb[n]);
+          mma_16816<T>(acc[2 * q2][n], a0, pb[n]);
+          mma_16816<T>(acc[2 * q2 + 1][n], a1, pb[n]);
         }
       } else {
 #pragma unroll
-        for (int n = 0; n < NT; ++n) mma_bf16_16816(acc[q2][n], r, pb[n]);
+        for (int n = 0; n < NT; ++n) mma_16816<T>(acc[q2][n], r, pb[n]);
       }
     }
     __syncwarp();
@@ -1448,7 +1469,7 @@ __global__ void __launch_bounds__(kThreadsDec, kBlocksPerSm)
   named_barrier_sync(1, 32 * kWarps);
 
   // the sum over the warps, in the caller's layout: one split writes O
-  // (b, sq, h, D) bf16 and LSE (b, h, sq); more write f32 partials
+  // (b, sq, h, D) of T and LSE (b, h, sq); more write f32 partials
   // (splits, b, sq, h, D) and (splits, b, sq, h). Rows that saw no key give
   // O = 0 and LSE = -inf.
   const int tid = threadIdx.x;
@@ -1466,8 +1487,8 @@ __global__ void __launch_bounds__(kThreadsDec, kBlocksPerSm)
     const int t = row / p.group, head = kvh * p.group + row % p.group;
     const size_t ri = (static_cast<size_t>(ib) * p.sq + t) * h + head;
     if (p.n_splits == 1) {
-      *reinterpret_cast<uint2*>(static_cast<__nv_bfloat16*>(p.o) + ri * D + d4) =
-          make_uint2(pack_bf16(o.x, o.y), pack_bf16(o.z, o.w));
+      *reinterpret_cast<uint2*>(static_cast<T*>(p.o) + ri * D + d4) =
+          make_uint2(pack2<T>(o.x, o.y), pack2<T>(o.z, o.w));
     } else {
       const size_t pi = static_cast<size_t>(split) * p.b * p.sq * h + ri;
       *reinterpret_cast<float4*>(static_cast<float*>(p.o) + pi * D + d4) = o;
@@ -1491,16 +1512,16 @@ __global__ void __launch_bounds__(kThreadsDec, kBlocksPerSm)
   }
 }
 
-template <typename KV, int D, int NT, bool kExtra>
+template <typename T, typename KV, int D, int NT, bool kExtra>
 cudaError_t prepare() {
   // raise the dynamic shared-memory limit once per instantiation (one device)
-  static cudaError_t err = cudaFuncSetAttribute(paged_decode_kernel<KV, D, NT, kExtra>,
+  static cudaError_t err = cudaFuncSetAttribute(paged_decode_kernel<T, KV, D, NT, kExtra>,
                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                 Layout<KV, D>::kBytes);
   return err;
 }
 
-template <typename KV, int D, int NT, bool kExtra>
+template <typename T, typename KV, int D, int NT, bool kExtra>
 cudaError_t launch(const void* k_pool, const void* v_pool, int n_pool_pages,
                    const wg::Params& prm, cudaStream_t stream) {
   using L = Layout<KV, D>;
@@ -1518,47 +1539,47 @@ cudaError_t launch(const void* k_pool, const void* v_pool, int n_pool_pages,
       L::kW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
   for (int i = 0; i < 2; ++i) {
     cudaError_t err = make_map(
-        &maps[i], L::kQuant ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-        4, bases[i], dims, strides, box, swizzle);
+        &maps[i], L::kQuant ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : wg::map_type<T>(), 4, bases[i],
+        dims, strides, box, swizzle);
     if (err != cudaSuccess) return err;
   }
-  cudaError_t err = prepare<KV, D, NT, kExtra>();
+  cudaError_t err = prepare<T, KV, D, NT, kExtra>();
   if (err != cudaSuccess) return err;
   const unsigned grid = static_cast<unsigned>(prm.n_splits) * prm.b * prm.h_k;
-  paged_decode_kernel<KV, D, NT, kExtra>
+  paged_decode_kernel<T, KV, D, NT, kExtra>
       <<<grid, kThreadsDec, L::kBytes, stream>>>(maps[0], maps[1], prm);
   return cudaGetLastError();
 }
 
-template <typename KV, int NT, bool kExtra>
+template <typename T, typename KV, int NT, bool kExtra>
 cudaError_t launch_d(int d, const void* kp, const void* vp, int n_pool_pages,
                      const wg::Params& prm, cudaStream_t stream) {
-  if (d == 128) return dec::launch<KV, 128, NT, kExtra>(kp, vp, n_pool_pages, prm, stream);
-  if (d == 64) return dec::launch<KV, 64, NT, kExtra>(kp, vp, n_pool_pages, prm, stream);
+  if (d == 128) return dec::launch<T, KV, 128, NT, kExtra>(kp, vp, n_pool_pages, prm, stream);
+  if (d == 64) return dec::launch<T, KV, 64, NT, kExtra>(kp, vp, n_pool_pages, prm, stream);
   return cudaErrorInvalidValue;
 }
 
-template <typename KV, bool kExtra>
+template <typename T, typename KV, bool kExtra>
 cudaError_t launch_x(int d, const void* kp, const void* vp, int n_pool_pages,
                      const wg::Params& prm, cudaStream_t stream) {
   return prm.sq * prm.group <= 8
-             ? dec::launch_d<KV, 1, kExtra>(d, kp, vp, n_pool_pages, prm, stream)
-             : dec::launch_d<KV, 2, kExtra>(d, kp, vp, n_pool_pages, prm, stream);
+             ? dec::launch_d<T, KV, 1, kExtra>(d, kp, vp, n_pool_pages, prm, stream)
+             : dec::launch_d<T, KV, 2, kExtra>(d, kp, vp, n_pool_pages, prm, stream);
 }
 
-template <typename KV>
+template <typename T, typename KV>
 cudaError_t launch_rows(int d, const void* kp, const void* vp, int n_pool_pages,
                         const wg::Params& prm, cudaStream_t stream) {
   if (prm.sq * prm.group > 16) return cudaErrorInvalidValue;
-  return wg::has_options(prm) ? dec::launch_x<KV, true>(d, kp, vp, n_pool_pages, prm, stream)
-                              : dec::launch_x<KV, false>(d, kp, vp, n_pool_pages, prm, stream);
+  return wg::has_options(prm) ? dec::launch_x<T, KV, true>(d, kp, vp, n_pool_pages, prm, stream)
+                              : dec::launch_x<T, KV, false>(d, kp, vp, n_pool_pages, prm, stream);
 }
 
-template <typename KV, int D, int NT, bool kExtra>
+template <typename T, typename KV, int D, int NT, bool kExtra>
 int blocks_per_sm() {
   int n = -1;
-  if (prepare<KV, D, NT, kExtra>() != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, paged_decode_kernel<KV, D, NT, kExtra>,
+  if (prepare<T, KV, D, NT, kExtra>() != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, paged_decode_kernel<T, KV, D, NT, kExtra>,
                                                     kThreadsDec, Layout<KV, D>::kBytes) !=
           cudaSuccess)
     return -1;
@@ -1566,12 +1587,13 @@ int blocks_per_sm() {
 }
 
 // The merge of split partials: one warp per (batch entry, token, head) row,
-// the splits' weights exp(LSE_s - max) in split order, O in bf16.
-template <int D>
+// the splits' weights exp(LSE_s - max) in split order, O in TO (bf16, f16 or
+// f32: the queries' dtype).
+template <typename TO, int D>
 __global__ void __launch_bounds__(128) paged_combine_kernel(
     const float* __restrict__ o_part,    // (splits, b, sq, h, D)
     const float* __restrict__ lse_part,  // (splits, b, sq, h)
-    __nv_bfloat16* __restrict__ o,       // (b, sq, h, D)
+    TO* __restrict__ o,                  // (b, sq, h, D)
     float* __restrict__ lse,             // (b, h, sq)
     int n_splits, int b, int sq, int h) {
   constexpr int V = D / 32;  // columns a lane
@@ -1606,10 +1628,14 @@ __global__ void __launch_bounds__(128) paged_combine_kernel(
   }
   const bool has = sumw > 0.f;
   const float inv = has ? 1.f / sumw : 0.f;
-  __nv_bfloat16* dst = o + static_cast<size_t>(r) * D + lane * V;
+  TO* dst = o + static_cast<size_t>(r) * D + lane * V;
 #pragma unroll
-  for (int j = 0; j < V; j += 2)
-    *reinterpret_cast<uint32_t*>(dst + j) = pack_bf16(acc[j] * inv, acc[j + 1] * inv);
+  for (int j = 0; j < V; j += 2) {
+    if constexpr (std::is_same<TO, float>::value)
+      *reinterpret_cast<float2*>(dst + j) = make_float2(acc[j] * inv, acc[j + 1] * inv);
+    else
+      *reinterpret_cast<uint32_t*>(dst + j) = pack2<TO>(acc[j] * inv, acc[j + 1] * inv);
+  }
   if (lane == 0) {
     const int head = r % h, t = r / h % sq, ib = r / (h * sq);
     lse[(static_cast<size_t>(ib) * h + head) * sq + t] = has ? m_safe + logf(sumw) : -INFINITY;
@@ -1618,23 +1644,311 @@ __global__ void __launch_bounds__(128) paged_combine_kernel(
 
 }  // namespace dec
 
+// ---- the f32 route: paged_f32_kernel ------------------------------------------
+
+namespace sim {
+
+constexpr int kRT = 16;   // query rows per block
+constexpr int kTK = 64;   // keys per tile
+constexpr int kThreadsF32 = 128;
+
+// Shared memory of one block: the scaled Q rows, the K tile (rows padded to
+// D + 1 floats: the score loop's lanes read 32 keys' column d from 32
+// banks), the V tile, the scores (then P), the rows' running max, sum and
+// correction, and the tile's K and V scales.
+template <int D>
+struct Smem {
+  static constexpr int LDK = D + 1;
+  static constexpr int LDS = kTK + 1;
+  static constexpr int q = 0;
+  static constexpr int k = q + kRT * D;
+  static constexpr int v = k + kTK * LDK;
+  static constexpr int s = v + kTK * D;
+  static constexpr int stats = s + kRT * LDS;  // m, l, corr: 3 * kRT
+  static constexpr int scales = stats + 3 * kRT;  // ks, vs: 2 * kTK
+  static constexpr int floats = scales + 2 * kTK;
+  static constexpr int bytes = floats * 4;
+};
+
+// One block owns kRT query rows (t * group + g) of one (split, batch entry,
+// KV head); the split's keys are its run of the live pages, as on the WMMA
+// route. Per 64-key tile: the K and V rows of any pool dtype are converted to
+// f32 into shared memory (exact), S = Q K^T by FMA (thread: one key, 8 rows),
+// the K scale, softcap, ALiBi and the masks, an online softmax per row (a
+// warp a row), P times the V scale, and O += P V by FMA (thread: one column
+// of D, kRT * D / 128 rows, in registers). The options are read at run time:
+// one instantiation a (pool dtype, D).
+template <typename KV, int D>
+__global__ void __launch_bounds__(kThreadsF32) paged_f32_kernel(const KV* __restrict__ k_pool,
+                                                                const KV* __restrict__ v_pool,
+                                                                const wg::Params p) {
+  using L = Smem<D>;
+  constexpr int CH = 16 / sizeof(KV);  // values per 16-byte chunk
+  constexpr int CPT = kThreadsF32 / D;  // threads per O column (1 or 2)
+  constexpr int RPT = kRT / CPT;        // O rows per thread
+  extern __shared__ __align__(16) float sm[];
+  float* qs = sm + L::q;
+  float* ks = sm + L::k;
+  float* vs = sm + L::v;
+  float* ss = sm + L::s;
+  float* m_s = sm + L::stats;
+  float* l_s = m_s + kRT;
+  float* c_s = l_s + kRT;
+  float* ksc = sm + L::scales;
+  float* vsc = ksc + kTK;
+
+  const int R = p.group * p.sq;
+  const int r0 = blockIdx.x * kRT;
+  const int ib = blockIdx.y / p.h_k, kvh = blockIdx.y % p.h_k;
+  const int split = blockIdx.z;
+  const int h = p.h_k * p.group;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const float* q = static_cast<const float*>(p.q);
+
+  const int kv_len = p.lens[ib];
+  const int n_live = min((kv_len + p.page - 1) / p.page, p.max_pages);
+  const int lp = wg::leftpad_of(p, ib);
+  const int first_page = min(max(wg::first_key_of(p, lp, kv_len, 0), 0) / p.page, n_live);
+  const int pps = (n_live - first_page + p.n_splits - 1) / p.n_splits;
+  const int lo = first_page + split * pps;
+  const int hi = min(lo + pps, n_live);
+  const int t_first = min(r0 / p.group, p.sq - 1);
+  const int t_last = min((min(r0 + kRT, R) - 1) / p.group, p.sq - 1);
+  const int kstart = max(lo * p.page, wg::first_key_of(p, lp, kv_len, t_first));
+  int kend = min(hi * p.page, kv_len);
+  if (p.wr >= 0) kend = min(kend, kv_len - p.sq + t_last + 1 + p.wr);
+
+  // Q times the softmax scale (rows past R are zero), the stats
+  for (int i = tid; i < kRT * D; i += kThreadsF32) {
+    const int r = i / D, dc = i % D, gr = r0 + r;
+    float x = 0.f;
+    if (gr < R) {
+      const int t = gr / p.group, head = kvh * p.group + gr % p.group;
+      x = q[ib * p.q_sb + t * p.q_st + head * p.q_sh + dc] * p.scale;
+    }
+    qs[i] = x;
+  }
+  for (int i = tid; i < kRT; i += kThreadsF32) {
+    m_s[i] = M_FLOOR;
+    l_s[i] = 0.f;
+  }
+  float acc[RPT];
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) acc[i] = 0.f;
+  const int ocol = tid % D, orow0 = tid / D;  // O rows orow0 + CPT * i
+
+  const int32_t* bt_row = p.bt + static_cast<size_t>(ib) * p.max_pages;
+  const size_t head_stride = static_cast<size_t>(p.page) * D;
+  for (int k0 = kstart; k0 < kend; k0 += kTK) {
+    __syncthreads();  // the previous tile is consumed
+    // K and V rows as f32 (keys past kend as zeros), and their scales: the
+    // 16-byte chunks of kU passes loaded together, then converted
+    constexpr int kLoads = kTK * (D / CH) / kThreadsF32, kU = kLoads < 4 ? kLoads : 4;
+#pragma unroll
+    for (int it0 = 0; it0 < kLoads; it0 += kU) {
+      uint4 kr[kU], vr[kU];
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        const int c = tid + (it0 + u) * kThreadsF32;
+        const int kp = k0 + c / (D / CH), dc = (c % (D / CH)) * CH;
+        kr[u] = vr[u] = make_uint4(0, 0, 0, 0);
+        if (kp < kend) {
+          const size_t off =
+              (static_cast<size_t>(p.page0 + bt_row[kp / p.page]) * p.h_k + kvh) * head_stride +
+              static_cast<size_t>(kp % p.page) * D + dc;
+          kr[u] = *reinterpret_cast<const uint4*>(k_pool + off);
+          vr[u] = *reinterpret_cast<const uint4*>(v_pool + off);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        const int c = tid + (it0 + u) * kThreadsF32;
+        const int j = c / (D / CH), dc = (c % (D / CH)) * CH;
+        const KV* kv = reinterpret_cast<const KV*>(&kr[u]);
+        const KV* vv = reinterpret_cast<const KV*>(&vr[u]);
+#pragma unroll
+        for (int e = 0; e < CH; ++e) {
+          ks[j * L::LDK + dc + e] = to_float(kv[e]);
+          vs[j * D + dc + e] = to_float(vv[e]);
+        }
+      }
+    }
+    if (tid < kTK) {
+      const int kp = k0 + tid;
+      float kscale = 1.f, vscale = 0.f;  // P of a key past kend is 0
+      if (kp < kend) {
+        vscale = 1.f;
+        if (p.k_scales != nullptr) {
+          const size_t so =
+              (static_cast<size_t>(p.page0 + bt_row[kp / p.page]) * p.h_k + kvh) * p.page +
+              kp % p.page;
+          kscale = p.k_scales[so];
+          vscale = p.v_scales[so];
+        }
+      }
+      ksc[tid] = kscale;
+      vsc[tid] = vscale;
+    }
+    __syncthreads();
+
+    // S = Q K^T: thread tid takes key tid % 64 of rows tid / 64 + 2 i
+    {
+      const int j = tid % kTK, rb = tid / kTK;
+      float sacc[kRT / 2];
+#pragma unroll
+      for (int i = 0; i < kRT / 2; ++i) sacc[i] = 0.f;
+      const float* krow = ks + j * L::LDK;
+#pragma unroll 4
+      for (int dd = 0; dd < D; ++dd) {
+        const float kv = krow[dd];
+#pragma unroll
+        for (int i = 0; i < kRT / 2; ++i) sacc[i] = fmaf(qs[(rb + 2 * i) * D + dd], kv, sacc[i]);
+      }
+      const int kcol = k0 + j;
+#pragma unroll
+      for (int i = 0; i < kRT / 2; ++i) {
+        const int r = rb + 2 * i;
+        const int t = min((r0 + r) / p.group, p.sq - 1);
+        const int qpos = kv_len - p.sq + t;
+        const wg::RowLimits lim =
+            wg::row_limits(p, lp, qpos, ib, kvh * p.group + (r0 + r) % p.group);
+        float x = wg::score_options(p, sacc[i] * ksc[j], lim.slope, qpos, kcol);
+        if (kcol >= kend || kcol < lim.lo || kcol > lim.hi) x = NEG_INF;
+        ss[r * L::LDS + j] = x;
+      }
+    }
+    __syncthreads();
+
+    // online softmax, one warp a row, two keys a lane; P times the V scale
+    for (int r = warp; r < kRT; r += kThreadsF32 / 32) {
+      const float x0 = ss[r * L::LDS + lane], x1 = ss[r * L::LDS + lane + 32];
+      float mx = fmaxf(x0, x1);
+      for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      const float m_prev = m_s[r];
+      const float m_new = fmaxf(m_prev, mx);
+      const float p0 = expf(x0 - m_new), p1 = expf(x1 - m_new);
+      float sum = p0 + p1;
+      for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+      ss[r * L::LDS + lane] = p0 * vsc[lane];
+      ss[r * L::LDS + lane + 32] = p1 * vsc[lane + 32];
+      if (lane == 0) {
+        const float corr = expf(m_prev - m_new);
+        m_s[r] = m_new;
+        l_s[r] = l_s[r] * corr + sum;
+        c_s[r] = corr;
+      }
+    }
+    __syncthreads();
+
+    // O += P V
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) acc[i] *= c_s[orow0 + CPT * i];
+#pragma unroll 4
+    for (int j = 0; j < kTK; ++j) {
+      const float v = vs[j * D + ocol];
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) acc[i] = fmaf(ss[(orow0 + CPT * i) * L::LDS + j], v, acc[i]);
+    }
+  }
+  __syncthreads();
+
+  // O and LSE in the caller's layout: one split O (b, sq, h, D) f32 and LSE
+  // (b, h, sq); more, f32 partials (splits, b, sq, h, D) and (splits, b, sq,
+  // h). Rows that saw no key give O = 0 and LSE = -inf.
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    const int r = orow0 + CPT * i, gr = r0 + r;
+    if (gr >= R) continue;
+    const float l = l_s[r];
+    const int t = gr / p.group, head = kvh * p.group + gr % p.group;
+    size_t ri = (static_cast<size_t>(ib) * p.sq + t) * h + head;
+    if (p.n_splits > 1) ri += static_cast<size_t>(split) * p.b * p.sq * h;
+    static_cast<float*>(p.o)[ri * D + ocol] = l > 0.f ? acc[i] / l : 0.f;
+  }
+  for (int r = tid; r < kRT; r += kThreadsF32) {
+    const int gr = r0 + r;
+    if (gr >= R) continue;
+    const float l = l_s[r];
+    const float lse = l > 0.f ? m_s[r] + logf(l) : -INFINITY;
+    const int t = gr / p.group, head = kvh * p.group + gr % p.group;
+    if (p.n_splits == 1)
+      p.lse[(static_cast<size_t>(ib) * h + head) * p.sq + t] = lse;
+    else
+      p.lse[((static_cast<size_t>(split) * p.b + ib) * p.sq + t) * h + head] = lse;
+  }
+}
+
+template <typename KV, int D>
+cudaError_t launch(const void* k_pool, const void* v_pool, const wg::Params& prm,
+                   cudaStream_t stream) {
+  auto* kernel = &paged_f32_kernel<KV, D>;
+  static cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<D>::bytes);  // once
+  if (err != cudaSuccess) return err;
+  const int R = prm.group * prm.sq;
+  dim3 grid((R + kRT - 1) / kRT, prm.b * prm.h_k, prm.n_splits);
+  kernel<<<grid, kThreadsF32, Smem<D>::bytes, stream>>>(static_cast<const KV*>(k_pool),
+                                                        static_cast<const KV*>(v_pool), prm);
+  return cudaGetLastError();
+}
+
+template <typename KV>
+cudaError_t launch_d(int d, const void* kp, const void* vp, const wg::Params& prm,
+                     cudaStream_t stream) {
+  if (d == 128) return launch<KV, 128>(kp, vp, prm, stream);
+  if (d == 64) return launch<KV, 64>(kp, vp, prm, stream);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace sim
+
 }  // namespace
 
-// q (b, sq, h_k * group, d) bf16; pools (pages, h_k, page, d) of kv_dtype;
-// scales (pages, h_k, page) f32 or null; o_part (n_splits, b, h_k, group *
-// sq, d) f32; lse_part (n_splits, b, h_k, group * sq) f32. row_tile (16 or
-// 32) is the query rows per block, chosen by the caller (ops/paged.py).
-// wl / wr: the window, < 0 unbounded (causal is wr = 0); softcap 0 is none;
-// alibi (b, h_k * group) f32 and leftpad (b,) int32 may be null.
-extern "C" int xfa_paged_attention(const void* q, const void* k_pool, const void* v_pool,
-                                   int kv_dtype, const void* k_scales, const void* v_scales,
-                                   const void* block_tables, const void* kv_lens, void* o_part,
-                                   void* lse_part, int b, int sq, int h_k, int group, int d,
-                                   int page, int max_pages, int n_splits, int wl, int wr,
-                                   float softcap, const void* alibi, const void* leftpad,
-                                   int row_tile, void* stream) {
+// This library's 16-bit query type: the source is built twice (_build.py),
+// with XFA_HALF for the fp16 instantiations, without for the bf16 ones and
+// the f32 kernel and the combine kernel, so that the halves compile in
+// parallel.
+#ifdef XFA_HALF
+using T16 = __half;
+constexpr int kT16 = XFA_F16;
+#else
+using T16 = __nv_bfloat16;
+constexpr int kT16 = XFA_BF16;
+#endif
+
+// The (query dtype, pool dtype) pairs of this library's 16-bit kernels: T16
+// queries over pools of T16, int8 or fp8. Calls f(T16{}, KV{}) for the pair
+// (tags of the element types), or returns cudaErrorInvalidValue.
+template <typename F>
+cudaError_t by_dtypes(int q_dtype, int kv_dtype, F&& f) {
+  if (q_dtype != kT16) return cudaErrorInvalidValue;
+  switch (kv_dtype) {
+    case XFA_I8:
+      return f(T16{}, int8_t{});
+    case XFA_FP8_E4M3:
+      return f(T16{}, fp8e4m3_t{});
+    default:
+      return kv_dtype == kT16 ? f(T16{}, T16{}) : cudaErrorInvalidValue;
+  }
+}
+
+// q (b, sq, h_k * group, d) of q_dtype (bf16 or f16); pools (pages, h_k,
+// page, d) of kv_dtype (q_dtype, int8 or fp8); scales (pages, h_k, page) f32
+// or null; o_part (n_splits, b, h_k, group * sq, d) f32; lse_part (n_splits,
+// b, h_k, group * sq) f32. row_tile (16 or 32) is the query rows per block,
+// chosen by the caller (ops/paged.py). wl / wr: the window, < 0 unbounded
+// (causal is wr = 0); softcap 0 is none; alibi (b, h_k * group) f32 and
+// leftpad (b,) int32 may be null.
+extern "C" int xfa_paged_attention(const void* q, int q_dtype, const void* k_pool,
+                                   const void* v_pool, int kv_dtype, const void* k_scales,
+                                   const void* v_scales, const void* block_tables,
+                                   const void* kv_lens, void* o_part, void* lse_part, int b,
+                                   int sq, int h_k, int group, int d, int page, int max_pages,
+                                   int n_splits, int wl, int wr, float softcap,
+                                   const void* alibi, const void* leftpad, int row_tile,
+                                   void* stream) {
   if (b * sq == 0) return cudaSuccess;
-  const bool quant = kv_dtype != XFA_BF16;
+  const bool quant = kv_dtype == XFA_I8 || kv_dtype == XFA_FP8_E4M3;
   const Args a{q, k_pool, v_pool,
                quant ? static_cast<const float*>(k_scales) : nullptr,
                quant ? static_cast<const float*>(v_scales) : nullptr,
@@ -1643,21 +1957,14 @@ extern "C" int xfa_paged_attention(const void* q, const void* k_pool, const void
                static_cast<const float*>(alibi), static_cast<const int32_t*>(leftpad),
                b, sq, h_k, group, page, max_pages, n_splits, wl, wr, softcap};
   auto st = static_cast<cudaStream_t>(stream);
-  switch (kv_dtype) {
-    case XFA_BF16:
-      return dispatch_d<__nv_bfloat16>(d, row_tile, a, st);
-    case XFA_I8:
-      return dispatch_d<int8_t>(d, row_tile, a, st);
-    case XFA_FP8_E4M3:
-      return dispatch_d<fp8e4m3_t>(d, row_tile, a, st);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return by_dtypes(q_dtype, kv_dtype, [&](auto t, auto kv) {
+    return dispatch_d<decltype(t), decltype(kv)>(d, row_tile, a, st);
+  });
 }
 
 namespace {
 
-// The launch parameters of the Hopper and decode routes, or an error.
+// The launch parameters of the Hopper, decode and f32 routes, or an error.
 cudaError_t hopper_params(wg::Params* prm, const void* q, int64_t q_sb, int64_t q_st,
                           int64_t q_sh, int kv_dtype, const void* k_scales, const void* v_scales,
                           const void* block_tables, const void* kv_lens, void* o, void* lse,
@@ -1665,11 +1972,11 @@ cudaError_t hopper_params(wg::Params* prm, const void* q, int64_t q_sb, int64_t 
                           int pool_pages, int layer, int n_splits, int wl, int wr, float scale,
                           float softcap, const void* alibi, const void* leftpad) {
   const int box = wg::box_rows(page);
-  if (box == 0 || n_splits < 1 || group < 1) return cudaErrorInvalidValue;
-  const bool quant = kv_dtype != XFA_BF16;
+  if (page < 1 || n_splits < 1 || group < 1) return cudaErrorInvalidValue;
+  const bool quant = kv_dtype == XFA_I8 || kv_dtype == XFA_FP8_E4M3;
   if (quant && (k_scales == nullptr || v_scales == nullptr)) return cudaErrorInvalidValue;
   *prm = wg::Params{};
-  prm->q = static_cast<const __nv_bfloat16*>(q);
+  prm->q = q;
   prm->q_sb = q_sb;
   prm->q_st = q_st;
   prm->q_sh = q_sh;
@@ -1702,18 +2009,19 @@ cudaError_t hopper_params(wg::Params* prm, const void* q, int64_t q_sb, int64_t 
 }  // namespace
 
 // The Hopper route (ops/paged.py::paged_route): q (b, sq, h_k * group, d)
-// bf16 read through its (batch, token, head) element strides (last dimension
-// contiguous, strides multiples of 8, base 16-byte aligned), not pre-scaled
-// (the kernel multiplies it by `scale`); pools (n_layers, pool_pages, h_k,
-// page, d) of kv_dtype with page % 8 == 0, read at layer `layer`; scales
-// (n_layers, pool_pages, h_k, page) f32 or null (bf16 pools). The window
-// (wl, wr) is counted from query position kv_len - sq + t, < 0 unbounded:
-// causal is wr = 0; softcap 0 is none; alibi (b, h_k * group) f32 and
-// leftpad (b,) int32 may be null. A window start, a right window > 0, a
-// softcap, ALiBi or a leftpad take the kExtra instantiation.
-// One split writes o (b, sq, h, d) bf16 and lse (b, h, sq); more write f32
-// partials o (n_splits, b, sq, h, d) and lse (n_splits, b, sq, h).
-extern "C" int xfa_paged_attention_wgmma(const void* q, int64_t q_sb, int64_t q_st,
+// of q_dtype (bf16 or f16) read through its (batch, token, head) element
+// strides (last dimension contiguous, strides multiples of 8, base 16-byte
+// aligned), not pre-scaled (the kernel multiplies it by `scale`); pools
+// (n_layers, pool_pages, h_k, page, d) of kv_dtype (q_dtype, int8 or fp8)
+// with page % 8 == 0, read at layer `layer`; scales (n_layers, pool_pages,
+// h_k, page) f32 or null (unquantized pools). The window (wl, wr) is counted
+// from query position kv_len - sq + t, < 0 unbounded: causal is wr = 0;
+// softcap 0 is none; alibi (b, h_k * group) f32 and leftpad (b,) int32 may
+// be null. A window start, a right window > 0, a softcap, ALiBi or a leftpad
+// take the kExtra instantiation. One split writes o (b, sq, h, d) of q_dtype
+// and lse (b, h, sq); more write f32 partials o (n_splits, b, sq, h, d) and
+// lse (n_splits, b, sq, h).
+extern "C" int xfa_paged_attention_wgmma(const void* q, int q_dtype, int64_t q_sb, int64_t q_st,
                                          int64_t q_sh, const void* k_pool, const void* v_pool,
                                          int kv_dtype, const void* k_scales,
                                          const void* v_scales, const void* block_tables,
@@ -1729,18 +2037,12 @@ extern "C" int xfa_paged_attention_wgmma(const void* q, int64_t q_sb, int64_t q_
                                   max_pages, pool_pages, layer, n_splits, wl, wr, scale, softcap,
                                   alibi, leftpad);
   if (err != cudaSuccess) return err;
+  if (prm.box_rows == 0) return cudaErrorInvalidValue;
   const int n_pool_pages = n_layers * pool_pages;
   auto st = static_cast<cudaStream_t>(stream);
-  switch (kv_dtype) {
-    case XFA_BF16:
-      return wg::launch_d<__nv_bfloat16>(d, k_pool, v_pool, n_pool_pages, prm, st);
-    case XFA_I8:
-      return wg::launch_d<int8_t>(d, k_pool, v_pool, n_pool_pages, prm, st);
-    case XFA_FP8_E4M3:
-      return wg::launch_d<fp8e4m3_t>(d, k_pool, v_pool, n_pool_pages, prm, st);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return by_dtypes(q_dtype, kv_dtype, [&](auto t, auto kv) {
+    return wg::launch_d<decltype(t), decltype(kv)>(d, k_pool, v_pool, n_pool_pages, prm, st);
+  });
 }
 
 // The decode route (ops/paged.py::paged_route: sq * group <= 16 rows, d 64
@@ -1748,9 +2050,9 @@ extern "C" int xfa_paged_attention_wgmma(const void* q, int64_t q_sb, int64_t q_
 // batch entry's live keys (from the tile of the first key any row can see)
 // are cut into n_splits runs of whole 64-key tiles; splits past them write
 // empty partials (O = 0, LSE = -inf).
-extern "C" int xfa_paged_decode(const void* q, int64_t q_sb, int64_t q_st, int64_t q_sh,
-                                const void* k_pool, const void* v_pool, int kv_dtype,
-                                const void* k_scales, const void* v_scales,
+extern "C" int xfa_paged_decode(const void* q, int q_dtype, int64_t q_sb, int64_t q_st,
+                                int64_t q_sh, const void* k_pool, const void* v_pool,
+                                int kv_dtype, const void* k_scales, const void* v_scales,
                                 const void* block_tables, const void* kv_lens, void* o, void* lse,
                                 int b, int sq, int h_k, int group, int d, int page, int max_pages,
                                 int n_layers, int pool_pages, int layer, int n_splits, int wl,
@@ -1763,73 +2065,121 @@ extern "C" int xfa_paged_decode(const void* q, int64_t q_sb, int64_t q_st, int64
                                   max_pages, pool_pages, layer, n_splits, wl, wr, scale, softcap,
                                   alibi, leftpad);
   if (err != cudaSuccess) return err;
+  if (prm.box_rows == 0) return cudaErrorInvalidValue;
   const int n_pool_pages = n_layers * pool_pages;
   auto st = static_cast<cudaStream_t>(stream);
+  return by_dtypes(q_dtype, kv_dtype, [&](auto t, auto kv) {
+    return dec::launch_rows<decltype(t), decltype(kv)>(d, k_pool, v_pool, n_pool_pages, prm, st);
+  });
+}
+
+// The f32 route (ops/paged.py::paged_route: f32 queries, any page): the
+// arguments of xfa_paged_attention_wgmma with q f32 (read through its strides,
+// any alignment) over f32, int8 or fp8 pools, d 64 or 128; the window,
+// softcap, ALiBi and leftpad at run time. Each batch entry's live pages (from
+// the page of the first key any row can see) are cut into n_splits runs; one
+// split writes o (b, sq, h, d) f32 and lse (b, h, sq), more f32 partials
+// (n_splits, b, sq, h, d) and (n_splits, b, sq, h) for xfa_paged_combine.
+extern "C" int xfa_paged_f32(const void* q, int64_t q_sb, int64_t q_st, int64_t q_sh,
+                             const void* k_pool, const void* v_pool, int kv_dtype,
+                             const void* k_scales, const void* v_scales,
+                             const void* block_tables, const void* kv_lens, void* o, void* lse,
+                             int b, int sq, int h_k, int group, int d, int page, int max_pages,
+                             int n_layers, int pool_pages, int layer, int n_splits, int wl,
+                             int wr, float scale, float softcap, const void* alibi,
+                             const void* leftpad, void* stream) {
+#ifdef XFA_HALF
+  return cudaErrorInvalidValue;  // built without XFA_HALF only
+#else
+  if (b * sq == 0) return cudaSuccess;
+  (void)n_layers;
+  wg::Params prm;
+  cudaError_t err = hopper_params(&prm, q, q_sb, q_st, q_sh, kv_dtype, k_scales, v_scales,
+                                  block_tables, kv_lens, o, lse, b, sq, h_k, group, page,
+                                  max_pages, pool_pages, layer, n_splits, wl, wr, scale, softcap,
+                                  alibi, leftpad);
+  if (err != cudaSuccess) return err;
+  auto st = static_cast<cudaStream_t>(stream);
   switch (kv_dtype) {
-    case XFA_BF16:
-      return dec::launch_rows<__nv_bfloat16>(d, k_pool, v_pool, n_pool_pages, prm, st);
+    case XFA_F32:
+      return sim::launch_d<float>(d, k_pool, v_pool, prm, st);
     case XFA_I8:
-      return dec::launch_rows<int8_t>(d, k_pool, v_pool, n_pool_pages, prm, st);
+      return sim::launch_d<int8_t>(d, k_pool, v_pool, prm, st);
     case XFA_FP8_E4M3:
-      return dec::launch_rows<fp8e4m3_t>(d, k_pool, v_pool, n_pool_pages, prm, st);
+      return sim::launch_d<fp8e4m3_t>(d, k_pool, v_pool, prm, st);
     default:
       return cudaErrorInvalidValue;
   }
+#endif
 }
 
 namespace {
 
 // resident blocks an SM of decode instantiation i = (d == 128, rows > 8, options)
-template <typename KV>
+template <typename T, typename KV>
 int decode_occupancy(int i) {
   int (*const occ[8])() = {
-      dec::blocks_per_sm<KV, 64, 1, false>,  dec::blocks_per_sm<KV, 64, 1, true>,
-      dec::blocks_per_sm<KV, 64, 2, false>,  dec::blocks_per_sm<KV, 64, 2, true>,
-      dec::blocks_per_sm<KV, 128, 1, false>, dec::blocks_per_sm<KV, 128, 1, true>,
-      dec::blocks_per_sm<KV, 128, 2, false>, dec::blocks_per_sm<KV, 128, 2, true>};
+      dec::blocks_per_sm<T, KV, 64, 1, false>,  dec::blocks_per_sm<T, KV, 64, 1, true>,
+      dec::blocks_per_sm<T, KV, 64, 2, false>,  dec::blocks_per_sm<T, KV, 64, 2, true>,
+      dec::blocks_per_sm<T, KV, 128, 1, false>, dec::blocks_per_sm<T, KV, 128, 1, true>,
+      dec::blocks_per_sm<T, KV, 128, 2, false>, dec::blocks_per_sm<T, KV, 128, 2, true>};
   return occ[i]();
 }
 
 }  // namespace
 
-// Resident blocks an SM of the decode kernel's (kv_dtype, d, rows <= 8 or
-// not, options or not) instantiation, by the CUDA occupancy calculator; -1
-// on an error. ops/paged.py's DECODE_BLOCKS_PER_SM must equal it
-// (chip_smoke.py checks).
-extern "C" int xfa_paged_decode_blocks_per_sm(int kv_dtype, int d, int rows, int options) {
+// Resident blocks an SM of the decode kernel's (q_dtype, kv_dtype, d, rows
+// <= 8 or not, options or not) instantiation, by the CUDA occupancy
+// calculator; -1 on an error. ops/paged.py's DECODE_BLOCKS_PER_SM must equal
+// it (chip_smoke.py checks).
+extern "C" int xfa_paged_decode_blocks_per_sm(int q_dtype, int kv_dtype, int d, int rows,
+                                              int options) {
   if (d != 64 && d != 128) return -1;
   const int i = (d == 128) * 4 + (rows > 8) * 2 + (options != 0);
-  switch (kv_dtype) {
-    case XFA_BF16:
-      return decode_occupancy<__nv_bfloat16>(i);
-    case XFA_I8:
-      return decode_occupancy<int8_t>(i);
-    case XFA_FP8_E4M3:
-      return decode_occupancy<fp8e4m3_t>(i);
-    default:
-      return -1;
-  }
+  int n = -1;
+  by_dtypes(q_dtype, kv_dtype, [&](auto t, auto kv) {
+    n = decode_occupancy<decltype(t), decltype(kv)>(i);
+    return cudaSuccess;
+  });
+  return n;
 }
 
 // The merge of f32 split partials o_part (n_splits, b, sq, h, d) and
-// lse_part (n_splits, b, sq, h) into o (b, sq, h, d) bf16 and lse (b, h, sq):
-// ops/paged.py::combine_splits_ref's arithmetic.
+// lse_part (n_splits, b, sq, h) into o (b, sq, h, d) of out_dtype (bf16, f16
+// or f32) and lse (b, h, sq): ops/paged.py::combine_splits_ref's arithmetic.
+// (Built without XFA_HALF only.)
 extern "C" int xfa_paged_combine(const void* o_part, const void* lse_part, void* o, void* lse,
-                                 int n_splits, int b, int sq, int h, int d, void* stream) {
+                                 int out_dtype, int n_splits, int b, int sq, int h, int d,
+                                 void* stream) {
+#ifdef XFA_HALF
+  return cudaErrorInvalidValue;
+#else
   const int rows = b * sq * h;
   if (rows == 0) return cudaSuccess;
-  if (n_splits < 1) return cudaErrorInvalidValue;
+  if (n_splits < 1 || (d != 64 && d != 128)) return cudaErrorInvalidValue;
   const unsigned grid = static_cast<unsigned>((rows + 3) / 4);
   auto st = static_cast<cudaStream_t>(stream);
   const auto* op = static_cast<const float*>(o_part);
   const auto* lp = static_cast<const float*>(lse_part);
-  auto* oo = static_cast<__nv_bfloat16*>(o);
   auto* lo = static_cast<float*>(lse);
-  if (d == 128)
-    dec::paged_combine_kernel<128><<<grid, 128, 0, st>>>(op, lp, oo, lo, n_splits, b, sq, h);
-  else if (d == 64)
-    dec::paged_combine_kernel<64><<<grid, 128, 0, st>>>(op, lp, oo, lo, n_splits, b, sq, h);
-  else
-    return cudaErrorInvalidValue;
-  return cudaGetLastError();
+  auto run = [&](auto tag) {
+    using TO = decltype(tag);
+    auto* oo = static_cast<TO*>(o);
+    if (d == 128)
+      dec::paged_combine_kernel<TO, 128><<<grid, 128, 0, st>>>(op, lp, oo, lo, n_splits, b, sq, h);
+    else
+      dec::paged_combine_kernel<TO, 64><<<grid, 128, 0, st>>>(op, lp, oo, lo, n_splits, b, sq, h);
+    return cudaGetLastError();
+  };
+  switch (out_dtype) {
+    case XFA_BF16:
+      return run(__nv_bfloat16{});
+    case XFA_F16:
+      return run(__half{});
+    case XFA_F32:
+      return run(float{});
+    default:
+      return cudaErrorInvalidValue;
+  }
+#endif
 }

@@ -11,7 +11,11 @@
 // device memory only ever sees one byte per weight; the per-output-channel
 // scale is applied after the f32 sum and the result rounded to bf16 once.
 //
-// Three kernels, chosen by quant/linear.py::qmm_route:
+// The three kernels below take bf16 or f16 activations x (one instantiation
+// each; f16 has bf16's product shapes, and every int8 and e4m3 value is an
+// f16 value too) over weights of x's dtype (unscaled), int8 or fp8; a fourth,
+// qmm_f32_kernel, takes f32 activations (see its section). Chosen by
+// quant/linear.py::qmm_route:
 //
 // 1. qmm_wgmma_kernel, for m > 16 with TMA-legal operands (16-byte aligned
 //    bases, row strides multiples of 16 bytes: every Llama-8B shape). Bound
@@ -82,8 +86,19 @@
 //    shared memory through registers, the next tile's loads in flight while
 //    the current one is multiplied; few output tiles are split over K.
 //
-// Split partials (f32) of kernels 1 and 3 are summed by qmm_reduce_kernel in
-// split order, so the result is deterministic, before the scale.
+// 4. qmm_f32_kernel, for f32 activations over f32, int8 or fp8 weights:
+//    wgmma has no f32 inputs and its tf32 mode keeps 10 mantissa bits, so
+//    the product runs on the FMA units in f32 (about 67 TFLOP/s on an H100).
+//    Bound: operations at prefill widths (2 * 256 operations per weight at
+//    m = 256), bytes at decode widths (4 bytes per f32 weight at m = 8). A
+//    block owns 16 (m <= 16) or 128 tokens x 128 weight columns of one split
+//    of the k-tiles; each k-tile of x and of W (converted to f32) is staged
+//    in shared memory through registers (the next tile's loads in flight),
+//    and a thread sums the outer products of its tokens and 8 columns. A
+//    simple kernel: no TMA ring.
+//
+// Split partials (f32) of kernels 1, 3 and 4 are summed by qmm_reduce_kernel
+// in split order, so the result is deterministic, before the scale.
 #include <mma.h>
 
 #include <algorithm>
@@ -121,13 +136,14 @@ constexpr int smem_bytes() {
   return ab > c ? ab : c;
 }
 
-// 16 bytes of W converted to bf16 and stored at dst (16 / sizeof(TW) values)
-template <typename TW>
-__device__ __forceinline__ void convert_store16(__nv_bfloat16* dst, const uint4& raw) {
+// 16 bytes of W converted to T (bf16 or f16; exact) and stored at dst
+// (16 / sizeof(TW) values)
+template <typename T, typename TW>
+__device__ __forceinline__ void convert_store16(T* dst, const uint4& raw) {
   constexpr int E = 16 / sizeof(TW);
   const TW* v = reinterpret_cast<const TW*>(&raw);
 #pragma unroll
-  for (int e = 0; e < E; ++e) dst[e] = to_bf16(to_float(v[e]));
+  for (int e = 0; e < E; ++e) dst[e] = from_float<T>(to_float(v[e]));
 }
 
 // 16 bytes from base[idx...]: one vector load when allowed and whole, else
@@ -147,7 +163,7 @@ __device__ __forceinline__ uint4 load16(const U* base, size_t idx, int valid, bo
   return r.u;
 }
 
-// One k-tile of x (BM x BK bf16) and W (BK x BN) as raw 16-byte chunks in
+// One k-tile of x (BM x BK, 16-bit) and W (BK x BN) as raw 16-byte chunks in
 // registers, so that the next tile's loads are in flight while the current
 // one is multiplied from shared memory.
 template <int BM, typename TW>
@@ -160,8 +176,8 @@ struct KTileRegs {
                 "tile chunks must split evenly over the threads");
   uint4 xr[XL], wr[WL];
 
-  __device__ __forceinline__ void load(const __nv_bfloat16* x, const TW* w, int M, int N, int K,
-                                       int m0, int n0, int k0, bool vec_x, bool vec_w) {
+  __device__ __forceinline__ void load(const void* x, const TW* w, int M, int N, int K, int m0,
+                                       int n0, int k0, bool vec_x, bool vec_w) {
 #pragma unroll
     for (int it = 0; it < XL; ++it) {
       const int c = threadIdx.x + it * kThreads;
@@ -178,8 +194,9 @@ struct KTileRegs {
     }
   }
 
-  // x as it is; W converted to bf16 on the way in
-  __device__ __forceinline__ void store(__nv_bfloat16* xs, __nv_bfloat16* ws) const {
+  // x as it is; W converted to x's type T on the way in
+  template <typename T>
+  __device__ __forceinline__ void store(T* xs, T* ws) const {
 #pragma unroll
     for (int it = 0; it < XL; ++it) {
       const int c = threadIdx.x + it * kThreads;
@@ -188,17 +205,17 @@ struct KTileRegs {
 #pragma unroll
     for (int it = 0; it < WL; ++it) {
       const int c = threadIdx.x + it * kThreads;
-      convert_store16<TW>(ws + (c / (BN / EW)) * LDW + (c % (BN / EW)) * EW, wr[it]);
+      convert_store16<T, TW>(ws + (c / (BN / EW)) * LDW + (c % (BN / EW)) * EW, wr[it]);
     }
   }
 };
 
-template <int BM, typename TW>
+template <typename T, int BM, typename TW>
 __global__ void __launch_bounds__(kThreads) qmm_kernel(
-    const __nv_bfloat16* __restrict__ x,  // (M, K)
+    const T* __restrict__ x,              // (M, K)
     const TW* __restrict__ w,             // (K, N): layer l of the stack
     const float* __restrict__ scale,      // (N,) or null (has_scale=False)
-    __nv_bfloat16* __restrict__ y,        // (M, N), written when splits == 1
+    T* __restrict__ y,                    // (M, N), written when splits == 1
     float* __restrict__ partial,          // (splits, M, N), written when splits > 1
     int M, int N, int K, int kt_per_split, bool vec_x, bool vec_w) {
   constexpr int WM = BM / Layout<BM>::WARPS_M;
@@ -206,7 +223,7 @@ __global__ void __launch_bounds__(kThreads) qmm_kernel(
   constexpr int FM = WM / 16, FN = WN / 16;
 
   extern __shared__ __align__(128) unsigned char smem[];
-  auto* xs = reinterpret_cast<__nv_bfloat16*>(smem);         // [BM][LDX]
+  auto* xs = reinterpret_cast<T*>(smem);                     // [BM][LDX]
   auto* ws = xs + BM * LDX;                                  // [BK][LDW]
   auto* cs = reinterpret_cast<float*>(smem);                 // [BM][LDC], after the loop
 
@@ -233,8 +250,8 @@ __global__ void __launch_bounds__(kThreads) qmm_kernel(
       regs.load(x, w, M, N, K, m0, n0, (kt + 1) * BK, vec_x, vec_w);
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a[FM];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> bfr[FN];
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> a[FM];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major> bfr[FN];
 #pragma unroll
       for (int i = 0; i < FM; ++i)
         wmma::load_matrix_sync(a[i], xs + (wm * WM + i * 16) * LDX + kk, LDX);
@@ -266,61 +283,53 @@ __global__ void __launch_bounds__(kThreads) qmm_kernel(
       partial[(static_cast<size_t>(blockIdx.z) * M + gm) * N + gn] = v;
     } else {
       y[static_cast<size_t>(gm) * N + gn] =
-          to_bf16(scale != nullptr ? v * scale[gn] : v);
+          from_float<T>(scale != nullptr ? v * scale[gn] : v);
     }
   }
 }
 
-// y = (sum over splits of partial) * scale, summed in split order
+// y = (sum over splits of partial) * scale, summed in split order, stored as
+// TO (bf16, f16 or f32)
+template <typename TO>
 __global__ void qmm_reduce_kernel(const float* __restrict__ partial,
-                                  const float* __restrict__ scale,
-                                  __nv_bfloat16* __restrict__ y, int splits, int M, int N) {
+                                  const float* __restrict__ scale, TO* __restrict__ y,
+                                  int splits, int M, int N) {
   const size_t mn = static_cast<size_t>(M) * N;
   for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x; i < mn;
        i += static_cast<size_t>(gridDim.x) * blockDim.x) {
     float v = 0.f;
     for (int s = 0; s < splits; ++s) v += partial[s * mn + i];
     if (scale != nullptr) v *= scale[i % N];
-    y[i] = to_bf16(v);
+    if constexpr (std::is_same<TO, float>::value)
+      y[i] = v;
+    else
+      y[i] = from_float<TO>(v);
   }
 }
 
-template <int BM, typename TW>
+// the split partials' sum into y (a second launch), after a split kernel
+template <typename TO>
+cudaError_t reduce(const float* partial, const float* scale, void* y, int splits, int M, int N,
+                   cudaStream_t stream) {
+  const size_t mn = static_cast<size_t>(M) * N;
+  const int blocks = static_cast<int>(std::min<size_t>((mn + 255) / 256, 4096));
+  qmm_reduce_kernel<TO><<<blocks, 256, 0, stream>>>(partial, scale, static_cast<TO*>(y), splits,
+                                                    M, N);
+  return cudaGetLastError();
+}
+
+template <typename T, int BM, typename TW>
 cudaError_t launch(const void* x, const void* w, const float* scale, void* y, float* partial,
                    int M, int N, int K, int splits, int kt_per_split, bool vec_x, bool vec_w,
                    cudaStream_t stream) {
   constexpr int smem = smem_bytes<BM>();
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, splits);
-  qmm_kernel<BM, TW><<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const TW*>(w), scale,
-      static_cast<__nv_bfloat16*>(y), splits > 1 ? partial : nullptr, M, N, K, kt_per_split,
-      vec_x, vec_w);
+  qmm_kernel<T, BM, TW><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const TW*>(w), scale, static_cast<T*>(y),
+      splits > 1 ? partial : nullptr, M, N, K, kt_per_split, vec_x, vec_w);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
-  const size_t mn = static_cast<size_t>(M) * N;
-  const int blocks = static_cast<int>(std::min<size_t>((mn + 255) / 256, 4096));
-  qmm_reduce_kernel<<<blocks, 256, 0, stream>>>(partial, scale,
-                                                static_cast<__nv_bfloat16*>(y), splits, M, N);
-  return cudaGetLastError();
-}
-
-template <int BM>
-cudaError_t dispatch_w(int w_dtype, const void* x, const void* w, const float* scale, void* y,
-                       float* partial, int M, int N, int K, int splits, int kt_per_split,
-                       bool vec_x, bool vec_w, cudaStream_t stream) {
-  switch (w_dtype) {
-    case XFA_I8:
-      return launch<BM, int8_t>(x, w, scale, y, partial, M, N, K, splits, kt_per_split, vec_x,
-                                vec_w, stream);
-    case XFA_FP8_E4M3:
-      return launch<BM, fp8e4m3_t>(x, w, scale, y, partial, M, N, K, splits, kt_per_split,
-                                   vec_x, vec_w, stream);
-    case XFA_BF16:
-      return launch<BM, __nv_bfloat16>(x, w, scale, y, partial, M, N, K, splits, kt_per_split,
-                                       vec_x, vec_w, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return reduce<T>(partial, scale, y, splits, M, N, stream);
 }
 
 // ---- the wgmma kernel (m > 16, TMA-legal operands): y^T = W^T x^T ------------
@@ -344,10 +353,10 @@ constexpr int kProducerRegs = 40, kConsumerRegs = 232;
 static_assert(128 * kProducerRegs + kConsumers * kConsumerRegs <= 65536, "register file");
 
 // Shared memory of one stage, from a 1024-byte aligned base: the x tile (BT
-// tokens x BK, bf16, K-major: BT rows of 128 bytes, 128-byte swizzled), then
-// the weight tile (BK rows of k x BN columns, 128-byte swizzled): int8 / fp8
-// bytes in one tile of 128-byte rows, bf16 in two 64-column sub-tiles
-// kSubBytes apart (warpgroup g reads sub-tile g).
+// tokens x BK, 16-bit, K-major: BT rows of 128 bytes, 128-byte swizzled),
+// then the weight tile (BK rows of k x BN columns, 128-byte swizzled): int8 /
+// fp8 bytes in one tile of 128-byte rows, 16-bit weights in two 64-column
+// sub-tiles kSubBytes apart (warpgroup g reads sub-tile g).
 template <typename TW, int BT>
 struct Layout {
   static constexpr bool kQuant = sizeof(TW) == 1;
@@ -359,7 +368,7 @@ struct Layout {
   static_assert(kBytes <= 232448, "the ring must fit in shared memory");
 };
 
-// The weight bytes become bf16 pairs by bf16x2_from_bytes02 (common.cuh).
+// The weight bytes become pairs of x's type T by x2_from_bytes02 (common.cuh).
 
 // The A fragments of one stage for warp w of warpgroup g: the warp's 16
 // weight columns x BK, as BK / 16 sets of four registers in the mma.sync
@@ -368,12 +377,12 @@ struct Layout {
 // elements; a lane gets the bytes of columns 2r, 2r + 1 at k and k + 1,
 // and bytes 0, 2 and 1, 3 of that word are the A pairs of column 2r and
 // 2r + 1. So A row r holds column 2r, A row r + 8 column 2r + 1 (kPairs).
-// bf16: ldmatrix .trans gives the A fragments as they are; A row r holds
-// column r and row r + 8 column r + 8.
+// 16-bit weights: ldmatrix .trans gives the A fragments as they are; A row
+// r holds column r and row r + 8 column r + 8.
 template <typename TW>
 constexpr bool kPairs = sizeof(TW) == 1;
 
-template <typename TW>
+template <typename T, typename TW>
 __device__ __forceinline__ void load_a(const unsigned char* wt, int g, int w, int lane,
                                        uint32_t (&a)[BK / 16][4]) {
   if constexpr (kPairs<TW>) {
@@ -385,10 +394,10 @@ __device__ __forceinline__ void load_a(const unsigned char* wt, int g, int w, in
       ldmatrix_x4_trans(r, wt + k * 128 + ((c ^ (k & 7)) << 4));
 #pragma unroll
       for (int h = 0; h < 2; ++h) {  // the k16 slices 2 k2 and 2 k2 + 1
-        a[2 * k2 + h][0] = bf16x2_from_bytes02(TW{}, r[2 * h]);
-        a[2 * k2 + h][1] = bf16x2_from_bytes02(TW{}, r[2 * h] >> 8);
-        a[2 * k2 + h][2] = bf16x2_from_bytes02(TW{}, r[2 * h + 1]);
-        a[2 * k2 + h][3] = bf16x2_from_bytes02(TW{}, r[2 * h + 1] >> 8);
+        a[2 * k2 + h][0] = x2_from_bytes02<T, TW>(r[2 * h]);
+        a[2 * k2 + h][1] = x2_from_bytes02<T, TW>(r[2 * h] >> 8);
+        a[2 * k2 + h][2] = x2_from_bytes02<T, TW>(r[2 * h + 1]);
+        a[2 * k2 + h][3] = x2_from_bytes02<T, TW>(r[2 * h + 1] >> 8);
       }
     }
   } else {
@@ -402,12 +411,12 @@ __device__ __forceinline__ void load_a(const unsigned char* wt, int g, int w, in
   }
 }
 
-template <typename TW, int BT>
+template <typename T, typename TW, int BT>
 __global__ void __launch_bounds__(kThreads, 1)
     qmm_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
                      const __grid_constant__ CUtensorMap tm_w,
                      const float* __restrict__ scale,  // (N,) or null
-                     __nv_bfloat16* __restrict__ y,    // (M, N), written when splits == 1
+                     T* __restrict__ y,                // (M, N), written when splits == 1
                      float* __restrict__ partial,      // (splits, M, N), when splits > 1
                      int M, int N, int K, int kt_per_split) {
   using L = Layout<TW, BT>;
@@ -467,13 +476,12 @@ __global__ void __launch_bounds__(kThreads, 1)
     constexpr int P = decltype(parity)::value;
     const int it = kt - kt0, st = it % kStages;
     mbar_wait(&full[st], (it / kStages) & 1);
-    load_a<TW>(w_tile(st), g, w, lane, a[P]);
+    load_a<T, TW>(w_tile(st), g, w, lane, a[P]);
     fence_regs(acc);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk)
-      Wgmma<__nv_bfloat16, BT>::rs(acc, a[P][kk], desc_sw128(x_tile(st) + kk * 32, 16, 1024),
-                                   1);
+      Wgmma<T, BT>::rs(acc, a[P][kk], desc_sw128(x_tile(st) + kk * 32, 16, 1024), 1);
     wgmma_commit();
     wgmma_wait<1>();  // the previous k-tile's products are done: its stage and
                       // its A registers are free
@@ -525,21 +533,26 @@ __global__ void __launch_bounds__(kThreads, 1)
           if (n_hi < N) row[n_hi] = v_hi;
         }
       } else {
-        __nv_bfloat16* row = y + static_cast<size_t>(gm) * N;
+        T* row = y + static_cast<size_t>(gm) * N;
         if constexpr (kPairs<TW>) {
-          if (n_lo < N)
-            *reinterpret_cast<__nv_bfloat162*>(row + n_lo) =
-                __floats2bfloat162_rn(v_lo * s_lo, v_hi * s_hi);
+          if (n_lo < N) *reinterpret_cast<uint32_t*>(row + n_lo) = pack2<T>(v_lo * s_lo, v_hi * s_hi);
         } else {
-          if (n_lo < N) row[n_lo] = to_bf16(v_lo * s_lo);
-          if (n_hi < N) row[n_hi] = to_bf16(v_hi * s_hi);
+          if (n_lo < N) row[n_lo] = from_float<T>(v_lo * s_lo);
+          if (n_hi < N) row[n_hi] = from_float<T>(v_hi * s_hi);
         }
       }
     }
   }
 }
 
-template <typename TW, int BT>
+// the tensor-map element type of a 16-bit T
+template <typename T>
+constexpr CUtensorMapDataType map_type() {
+  return std::is_same<T, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                        : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+}
+
+template <typename T, typename TW, int BT>
 cudaError_t launch(const void* x, const void* w, const float* scale, void* y, float* partial,
                    int M, int N, int K, int splits, int kt_per_split, cudaStream_t stream) {
   using L = Layout<TW, BT>;
@@ -547,40 +560,35 @@ cudaError_t launch(const void* x, const void* w, const float* scale, void* y, fl
   const uint64_t x_dims[2] = {static_cast<uint64_t>(K), static_cast<uint64_t>(M)};
   const uint64_t x_strides[1] = {static_cast<uint64_t>(K) * 2};
   const uint32_t x_box[2] = {BK, BT};
-  cudaError_t err = make_map(&tm_x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, x_dims, x_strides,
-                             x_box, CU_TENSOR_MAP_SWIZZLE_128B);
+  cudaError_t err = make_map(&tm_x, map_type<T>(), 2, x, x_dims, x_strides, x_box,
+                             CU_TENSOR_MAP_SWIZZLE_128B);
   if (err != cudaSuccess) return err;
   const uint64_t w_dims[2] = {static_cast<uint64_t>(N), static_cast<uint64_t>(K)};
   const uint64_t w_strides[1] = {static_cast<uint64_t>(N) * sizeof(TW)};
   const uint32_t w_box[2] = {128 / sizeof(TW), BK};  // 128-byte rows
-  const CUtensorMapDataType w_type =
-      L::kQuant ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const CUtensorMapDataType w_type = L::kQuant ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : map_type<T>();
   err = make_map(&tm_w, w_type, 2, w, w_dims, w_strides, w_box, CU_TENSOR_MAP_SWIZZLE_128B);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(qmm_wgmma_kernel<TW, BT>,
+  err = cudaFuncSetAttribute(qmm_wgmma_kernel<T, TW, BT>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
   if (err != cudaSuccess) return err;
   dim3 grid((M + BT - 1) / BT, (N + BN - 1) / BN, splits);
-  qmm_wgmma_kernel<TW, BT><<<grid, kThreads, L::kBytes, stream>>>(
-      tm_x, tm_w, scale, static_cast<__nv_bfloat16*>(y), splits > 1 ? partial : nullptr, M, N,
-      K, kt_per_split);
+  qmm_wgmma_kernel<T, TW, BT><<<grid, kThreads, L::kBytes, stream>>>(
+      tm_x, tm_w, scale, static_cast<T*>(y), splits > 1 ? partial : nullptr, M, N, K,
+      kt_per_split);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
-  const size_t mn = static_cast<size_t>(M) * N;
-  const int blocks = static_cast<int>(std::min<size_t>((mn + 255) / 256, 4096));
-  qmm_reduce_kernel<<<blocks, 256, 0, stream>>>(partial, scale, static_cast<__nv_bfloat16*>(y),
-                                                splits, M, N);
-  return cudaGetLastError();
+  return reduce<T>(partial, scale, y, splits, M, N, stream);
 }
 
-template <typename TW>
+template <typename T, typename TW>
 cudaError_t launch_bt(int bt, const void* x, const void* w, const float* scale, void* y,
                       float* partial, int M, int N, int K, int splits, int kt_per_split,
                       cudaStream_t stream) {
   if (bt == 128)
-    return launch<TW, 128>(x, w, scale, y, partial, M, N, K, splits, kt_per_split, stream);
+    return launch<T, TW, 128>(x, w, scale, y, partial, M, N, K, splits, kt_per_split, stream);
   if (bt == 256)
-    return launch<TW, 256>(x, w, scale, y, partial, M, N, K, splits, kt_per_split, stream);
+    return launch<T, TW, 256>(x, w, scale, y, partial, M, N, K, splits, kt_per_split, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -603,10 +611,11 @@ constexpr int kThreads = 32 * kWarps + 32;  // the consumers, then the producer 
 constexpr int kBlocksPerSm = 2;  // quant/linear.py's QMM_DECODE_BLOCKS_PER_SM
 
 // Shared memory of one block, from a 1024-byte aligned base: the ring of
-// stages, each the x tile (8 NT tokens x BK, bf16, K-major: one 128-byte
+// stages, each the x tile (8 NT tokens x BK, 16-bit, K-major: one 128-byte
 // swizzled row a token) then the weight tile (as the wgmma kernel's: BK rows
-// of k x BN columns, bytes in one tile of 128-byte rows, bf16 in two 64-column
-// sub-tiles kSubBytes apart), then the barriers and the last-arrival flag.
+// of k x BN columns, bytes in one tile of 128-byte rows, 16-bit weights in two
+// 64-column sub-tiles kSubBytes apart), then the barriers and the last-arrival
+// flag.
 // The ring takes as many stages as half of an SM's 228 KB holds, so that
 // exactly two blocks are resident whatever the instantiation (the split plan
 // counts them).
@@ -631,12 +640,12 @@ struct Layout {
 // tokens. Warp (g, w) multiplies its 16 columns by the 8 NT tokens of every
 // k-tile of the split on mma.sync m16n8k16: A is the weights (load_a), B is
 // x, D (16 columns x 8 tokens) a thread's 4 NT f32 sums.
-template <typename TW, int NT>
+template <typename T, typename TW, int NT>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
     qmm_decode_kernel(const __grid_constant__ CUtensorMap tm_x,
                       const __grid_constant__ CUtensorMap tm_w,
                       const float* __restrict__ scale,  // (N,) or null
-                      __nv_bfloat16* __restrict__ y,    // (M, N)
+                      T* __restrict__ y,                // (M, N)
                       float* __restrict__ partial,      // (splits, M, N), when splits > 1
                       int* __restrict__ counters,       // one per column tile, all 0 at entry
                       int M, int N, int K, int kt_per_split) {
@@ -706,7 +715,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
     const int i = kt - kt0, st = i % kS;
     mbar_wait(&full[st], (i / kS) & 1);
     uint32_t a[BK / 16][4];
-    load_a<TW>(w_tile(st), g, w, lane, a);
+    load_a<T, TW>(w_tile(st), g, w, lane, a);
     const unsigned char* xt = x_tile(st) + xr * 128;
     if constexpr (NT == 1) {
 #pragma unroll
@@ -716,7 +725,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const uint32_t b[2] = {r[2 * h], r[2 * h + 1]};
-          mma_bf16_16816(acc[0], a[2 * kk2 + h], b);
+          mma_16816<T>(acc[0], a[2 * kk2 + h], b);
         }
       }
     } else {
@@ -727,7 +736,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
 #pragma unroll
         for (int n = 0; n < NT; ++n) {
           const uint32_t b[2] = {r[2 * n], r[2 * n + 1]};
-          mma_bf16_16816(acc[n], a[kk], b);
+          mma_16816<T>(acc[n], a[kk], b);
         }
       }
     }
@@ -755,14 +764,13 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
       for (int e = 0; e < 2; ++e) {
         const int gm = 8 * n + tok0 + e;
         if (gm >= M) continue;
-        __nv_bfloat16* row = y + static_cast<size_t>(gm) * N;
+        T* row = y + static_cast<size_t>(gm) * N;
         if constexpr (kPairs<TW>) {
           if (n_lo < N)
-            *reinterpret_cast<__nv_bfloat162*>(row + n_lo) =
-                __floats2bfloat162_rn(v[n][e] * s_lo, v[n][2 + e] * s_hi);
+            *reinterpret_cast<uint32_t*>(row + n_lo) = pack2<T>(v[n][e] * s_lo, v[n][2 + e] * s_hi);
         } else {
-          if (n_lo < N) row[n_lo] = to_bf16(v[n][e] * s_lo);
-          if (n_hi < N) row[n_hi] = to_bf16(v[n][2 + e] * s_hi);
+          if (n_lo < N) row[n_lo] = from_float<T>(v[n][e] * s_lo);
+          if (n_hi < N) row[n_hi] = from_float<T>(v[n][2 + e] * s_hi);
         }
       }
   };
@@ -832,16 +840,16 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
   if (threadIdx.x == 0) counters[blockIdx.x] = 0;  // ready for the next call
 }
 
-template <typename TW, int NT>
+template <typename T, typename TW, int NT>
 cudaError_t prepare() {
   // raise the dynamic shared-memory limit once per instantiation (one device)
-  static cudaError_t err = cudaFuncSetAttribute(qmm_decode_kernel<TW, NT>,
+  static cudaError_t err = cudaFuncSetAttribute(qmm_decode_kernel<T, TW, NT>,
                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                 Layout<TW, NT>::kBytes);
   return err;
 }
 
-template <typename TW, int NT>
+template <typename T, typename TW, int NT>
 cudaError_t launch(const void* x, const void* w, const float* scale, void* y, float* partial,
                    int* counters, int M, int N, int K, int splits, int kt_per_split,
                    cudaStream_t stream) {
@@ -850,77 +858,303 @@ cudaError_t launch(const void* x, const void* w, const float* scale, void* y, fl
   const uint64_t x_dims[2] = {static_cast<uint64_t>(K), static_cast<uint64_t>(M)};
   const uint64_t x_strides[1] = {static_cast<uint64_t>(K) * 2};
   const uint32_t x_box[2] = {BK, 8 * NT};
-  cudaError_t err = make_map(&tm_x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, x_dims, x_strides,
-                             x_box, CU_TENSOR_MAP_SWIZZLE_128B);
+  cudaError_t err = make_map(&tm_x, wg::map_type<T>(), 2, x, x_dims, x_strides, x_box,
+                             CU_TENSOR_MAP_SWIZZLE_128B);
   if (err != cudaSuccess) return err;
   const uint64_t w_dims[2] = {static_cast<uint64_t>(N), static_cast<uint64_t>(K)};
   const uint64_t w_strides[1] = {static_cast<uint64_t>(N) * sizeof(TW)};
   const uint32_t w_box[2] = {128 / sizeof(TW), BK};  // 128-byte rows
-  err = make_map(&tm_w, L::kQuant ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                 2, w, w_dims, w_strides, w_box, CU_TENSOR_MAP_SWIZZLE_128B);
+  err = make_map(&tm_w, L::kQuant ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : wg::map_type<T>(), 2, w,
+                 w_dims, w_strides, w_box, CU_TENSOR_MAP_SWIZZLE_128B);
   if (err != cudaSuccess) return err;
-  err = prepare<TW, NT>();
+  err = prepare<T, TW, NT>();
   if (err != cudaSuccess) return err;
   dim3 grid((N + BN - 1) / BN, splits);
-  qmm_decode_kernel<TW, NT><<<grid, kThreads, L::kBytes, stream>>>(
-      tm_x, tm_w, scale, static_cast<__nv_bfloat16*>(y), partial, counters, M, N, K,
-      kt_per_split);
+  qmm_decode_kernel<T, TW, NT><<<grid, kThreads, L::kBytes, stream>>>(
+      tm_x, tm_w, scale, static_cast<T*>(y), partial, counters, M, N, K, kt_per_split);
   return cudaGetLastError();
 }
 
-template <typename TW>
+template <typename T, typename TW>
 cudaError_t launch_rows(int M, const void* x, const void* w, const float* scale, void* y,
                         float* partial, int* counters, int N, int K, int splits,
                         int kt_per_split, cudaStream_t stream) {
   if (M <= 8)
-    return launch<TW, 1>(x, w, scale, y, partial, counters, M, N, K, splits, kt_per_split,
-                         stream);
+    return launch<T, TW, 1>(x, w, scale, y, partial, counters, M, N, K, splits, kt_per_split,
+                            stream);
   if (M <= 16)
-    return launch<TW, 2>(x, w, scale, y, partial, counters, M, N, K, splits, kt_per_split,
-                         stream);
+    return launch<T, TW, 2>(x, w, scale, y, partial, counters, M, N, K, splits, kt_per_split,
+                            stream);
   return cudaErrorInvalidValue;
 }
 
-template <typename TW, int NT>
+template <typename T, typename TW, int NT>
 int blocks_per_sm() {
   int n = -1;
-  if (prepare<TW, NT>() != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, qmm_decode_kernel<TW, NT>, kThreads,
+  if (prepare<T, TW, NT>() != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, qmm_decode_kernel<T, TW, NT>, kThreads,
                                                     Layout<TW, NT>::kBytes) != cudaSuccess)
     return -1;
   return n;
 }
 
-template <typename TW>
+template <typename T, typename TW>
 int blocks_per_sm_rows(int rows) {
-  return rows == 8 ? blocks_per_sm<TW, 1>() : rows == 16 ? blocks_per_sm<TW, 2>() : -1;
+  return rows == 8 ? blocks_per_sm<T, TW, 1>() : rows == 16 ? blocks_per_sm<T, TW, 2>() : -1;
 }
 
 }  // namespace dec
 
+// ---- the f32 kernel (f32 activations): y = x W by FMA in f32 -------------------
+
+namespace sg {
+
+constexpr int kThreadsF32 = 256;  // 16 x 16 threads
+constexpr int BN = 128;           // weight columns per block
+constexpr int BK = 64;            // k per tile: the split plan's k-tile
+
+// Shared memory: the x tile k-major (BK rows of BM tokens, padded to BM + 4
+// floats) and the weight tile converted to f32 (BK rows of BN columns).
+template <int BM>
+struct Smem {
+  static constexpr int LDX = BM + 4;
+  static constexpr int bytes = (BK * LDX + BK * BN) * 4;
+};
+
+// 4 weights at (gk, gn..gn+3) as raw words (a float4 of f32 weights, one
+// word of 4 bytes): one vector load when `vec` and whole, else element-wise
+// with zeros past N and K. Converted only when stored (w4_floats), so the
+// loads of the next tile stay in flight.
+template <typename TW>
+using Raw4 = std::conditional_t<sizeof(TW) == 4, float4, uint32_t>;
+
+template <typename TW>
+__device__ __forceinline__ Raw4<TW> load_w4(const TW* w, int K, int N, int gk, int gn, bool vec) {
+  Raw4<TW> r{};
+  if (gk < K) {
+    const TW* row = w + static_cast<size_t>(gk) * N;
+    if (vec && gn + 3 < N) {
+      r = *reinterpret_cast<const Raw4<TW>*>(row + gn);
+    } else {
+      TW* e = reinterpret_cast<TW*>(&r);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (gn + i < N) e[i] = row[gn + i];
+    }
+  }
+  return r;
+}
+
+template <typename TW>
+__device__ __forceinline__ float4 w4_floats(const Raw4<TW>& r) {
+  if constexpr (sizeof(TW) == 4) {
+    return r;
+  } else {
+    const TW* e = reinterpret_cast<const TW*>(&r);
+    return make_float4(to_float(e[0]), to_float(e[1]), to_float(e[2]), to_float(e[3]));
+  }
+}
+
+// One block owns BM tokens x BN weight columns of one split of the k-tiles
+// (blockIdx.z). Per k-tile, x (coalesced along k) and W (4 columns a thread,
+// int8 / fp8 converted exactly) go to shared memory from registers, the
+// next tile's loads in flight while this one is multiplied; thread (ty, tx)
+// then sums the outer products of its BM / 16 tokens and 8 columns (tx *
+// 4.., 64 + tx * 4..) over the tile's 64 k by FMA into a tile sum, added to
+// its running sum once a tile (so a sum of K terms carries about 64 + K / 64
+// roundings, not K). The scale after the sum, as the 16-bit kernels apply
+// it.
+template <typename TW, int BM>
+__global__ void __launch_bounds__(kThreadsF32) qmm_f32_kernel(
+    const float* __restrict__ x,       // (M, K)
+    const TW* __restrict__ w,          // (K, N): layer l of the stack
+    const float* __restrict__ scale,   // (N,) or null
+    float* __restrict__ y,             // (M, N), written when splits == 1
+    float* __restrict__ partial,       // (splits, M, N), written when splits > 1
+    int M, int N, int K, int kt_per_split, bool vec_w) {
+  constexpr int TM = BM / 16;
+  constexpr int LDX = Smem<BM>::LDX;
+  extern __shared__ __align__(16) float smf[];
+  float* xs = smf;             // [BK][LDX]
+  float* ws = smf + BK * LDX;  // [BK][BN]
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
+  const int n_kt = (K + BK - 1) / BK;
+  const int kt0 = blockIdx.z * kt_per_split;
+  const int kt1 = min(n_kt, kt0 + kt_per_split);
+
+  float acc[TM][8], tile[TM][8];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  // one k-tile in registers: thread tid's x values (k = tid % 64 of tokens
+  // tid / 64 + 4 i) and its W chunks (4 columns each)
+  constexpr int XL = BM / 4, WL = BK * BN / 4 / kThreadsF32;
+  float xr[XL];
+  Raw4<TW> wr[WL];
+  auto load = [&](int k0) {
+    const int gk = k0 + tid % BK;
+#pragma unroll
+    for (int i = 0; i < XL; ++i) {
+      const int gm = m0 + tid / BK + 4 * i;
+      xr[i] = gm < M && gk < K ? x[static_cast<size_t>(gm) * K + gk] : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < WL; ++i) {
+      const int c = tid + i * kThreadsF32;
+      wr[i] = load_w4(w, K, N, k0 + c / (BN / 4), n0 + (c % (BN / 4)) * 4, vec_w);
+    }
+  };
+  if (kt0 < kt1) load(kt0 * BK);
+  for (int kt = kt0; kt < kt1; ++kt) {
+#pragma unroll
+    for (int i = 0; i < XL; ++i) xs[(tid % BK) * LDX + tid / BK + 4 * i] = xr[i];
+#pragma unroll
+    for (int i = 0; i < WL; ++i) {
+      const int c = tid + i * kThreadsF32;
+      *reinterpret_cast<float4*>(ws + (c / (BN / 4)) * BN + (c % (BN / 4)) * 4) =
+          w4_floats<TW>(wr[i]);
+    }
+    __syncthreads();
+    if (kt + 1 < kt1) load((kt + 1) * BK);  // in flight while this tile is multiplied
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) tile[i][j] = 0.f;
+#pragma unroll 4
+    for (int kk = 0; kk < BK; ++kk) {
+      float a[TM];
+      if constexpr (TM % 4 == 0) {
+#pragma unroll
+        for (int i = 0; i < TM; i += 4) {
+          const float4 v = *reinterpret_cast<const float4*>(xs + kk * LDX + ty * TM + i);
+          a[i] = v.x;
+          a[i + 1] = v.y;
+          a[i + 2] = v.z;
+          a[i + 3] = v.w;
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < TM; ++i) a[i] = xs[kk * LDX + ty * TM + i];
+      }
+      const float4 b0 = *reinterpret_cast<const float4*>(ws + kk * BN + tx * 4);
+      const float4 b1 = *reinterpret_cast<const float4*>(ws + kk * BN + 64 + tx * 4);
+      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) tile[i][j] = fmaf(a[i], b[j], tile[i][j]);
+    }
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] += tile[i][j];
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int gm = m0 + ty * TM + i;
+    if (gm >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int gn = n0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + j - 4);
+      if (gn >= N) continue;
+      if (partial != nullptr)
+        partial[(static_cast<size_t>(blockIdx.z) * M + gm) * N + gn] = acc[i][j];
+      else
+        y[static_cast<size_t>(gm) * N + gn] = scale != nullptr ? acc[i][j] * scale[gn] : acc[i][j];
+    }
+  }
+}
+
+template <typename TW, int BM>
+cudaError_t launch(const void* x, const void* w, const float* scale, void* y, float* partial,
+                   int M, int N, int K, int splits, int kt_per_split, bool vec_w,
+                   cudaStream_t stream) {
+  constexpr int smem = Smem<BM>::bytes;
+  auto* kernel = &qmm_f32_kernel<TW, BM>;
+  static cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);  // once
+  if (attr != cudaSuccess) return attr;
+  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, splits);
+  kernel<<<grid, kThreadsF32, smem, stream>>>(static_cast<const float*>(x),
+                                              static_cast<const TW*>(w), scale,
+                                              static_cast<float*>(y),
+                                              splits > 1 ? partial : nullptr, M, N, K,
+                                              kt_per_split, vec_w);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  return reduce<float>(partial, scale, y, splits, M, N, stream);
+}
+
+template <typename TW>
+cudaError_t launch_bm(int bm, const void* x, const void* w, const float* scale, void* y,
+                      float* partial, int M, int N, int K, int splits, int kt_per_split,
+                      bool vec_w, cudaStream_t stream) {
+  if (bm == 16)
+    return launch<TW, 16>(x, w, scale, y, partial, M, N, K, splits, kt_per_split, vec_w, stream);
+  if (bm == 128)
+    return launch<TW, 128>(x, w, scale, y, partial, M, N, K, splits, kt_per_split, vec_w,
+                           stream);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace sg
+
 }  // namespace
 
-// x: (M, K) bf16; w: (K, N) of w_dtype; scale: (N,) f32 or null; y: (M, N)
-// bf16; partial: (splits, M, N) f32 scratch, used when splits > 1. bm (16 or
-// 64) is the rows of x per block, chosen by the caller (quant/linear.py).
-extern "C" int xfa_qmm(const void* x, const void* w, int w_dtype, const void* scale, void* y,
-                       void* partial, int M, int N, int K, int splits, int kt_per_split,
+// This library's 16-bit activation type: the source is built twice
+// (_build.py), with XFA_HALF for the fp16 instantiations, without for the
+// bf16 ones and the f32 kernel, so that the halves compile in parallel.
+#ifdef XFA_HALF
+using T16 = __half;
+constexpr int kT16 = XFA_F16;
+#else
+using T16 = __nv_bfloat16;
+constexpr int kT16 = XFA_BF16;
+#endif
+
+// The (activation dtype, weight dtype) pairs of this library's 16-bit
+// kernels: T16 activations over weights of T16 (unscaled), int8 or fp8.
+// Calls f(T16{}, TW{}) for the pair (tags of the element types), or returns
+// cudaErrorInvalidValue.
+template <typename F>
+cudaError_t by_dtypes(int x_dtype, int w_dtype, F&& f) {
+  if (x_dtype != kT16) return cudaErrorInvalidValue;
+  switch (w_dtype) {
+    case XFA_I8:
+      return f(T16{}, int8_t{});
+    case XFA_FP8_E4M3:
+      return f(T16{}, fp8e4m3_t{});
+    default:
+      return w_dtype == kT16 ? f(T16{}, T16{}) : cudaErrorInvalidValue;
+  }
+}
+
+// x: (M, K) of x_dtype (bf16 or f16); w: (K, N) of w_dtype (x_dtype, int8 or
+// fp8); scale: (N,) f32 or null; y: (M, N) of x_dtype; partial: (splits, M,
+// N) f32 scratch, used when splits > 1. bm (16 or 64) is the rows of x per
+// block, chosen by the caller (quant/linear.py).
+extern "C" int xfa_qmm(const void* x, int x_dtype, const void* w, int w_dtype, const void* scale,
+                       void* y, void* partial, int M, int N, int K, int splits, int kt_per_split,
                        int vec_x, int vec_w, int bm, void* stream) {
   if (M == 0 || N == 0) return cudaSuccess;
-  if (splits < 1 || (splits > 1 && partial == nullptr)) return cudaErrorInvalidValue;
+  if (splits < 1 || (splits > 1 && partial == nullptr) || (bm != 16 && bm != 64))
+    return cudaErrorInvalidValue;
   auto* s = static_cast<const float*>(scale);
   auto* p = static_cast<float*>(partial);
   auto st = static_cast<cudaStream_t>(stream);
-  switch (bm) {
-    case 16:
-      return dispatch_w<16>(w_dtype, x, w, s, y, p, M, N, K, splits, kt_per_split, vec_x != 0,
-                            vec_w != 0, st);
-    case 64:
-      return dispatch_w<64>(w_dtype, x, w, s, y, p, M, N, K, splits, kt_per_split, vec_x != 0,
-                            vec_w != 0, st);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return by_dtypes(x_dtype, w_dtype, [&](auto t, auto tw) {
+    using T = decltype(t);
+    using TW = decltype(tw);
+    return bm == 16 ? launch<T, 16, TW>(x, w, s, y, p, M, N, K, splits, kt_per_split,
+                                        vec_x != 0, vec_w != 0, st)
+                    : launch<T, 64, TW>(x, w, s, y, p, M, N, K, splits, kt_per_split,
+                                        vec_x != 0, vec_w != 0, st);
+  });
 }
 
 // The wgmma kernel: as xfa_qmm, for M > 16 with x contiguous (row stride K
@@ -928,26 +1162,19 @@ extern "C" int xfa_qmm(const void* x, const void* w, int w_dtype, const void* sc
 // N * sizeof(w) multiples of 16 (quant/linear.py::qmm_route); tiles of bt
 // tokens (bt: 128 or 256) x 128 weight columns, splits over K as the caller
 // plans them (qmm_splits).
-extern "C" int xfa_qmm_wgmma(const void* x, const void* w, int w_dtype, const void* scale,
-                             void* y, void* partial, int M, int N, int K, int splits,
-                             int kt_per_split, int bt, void* stream) {
+extern "C" int xfa_qmm_wgmma(const void* x, int x_dtype, const void* w, int w_dtype,
+                             const void* scale, void* y, void* partial, int M, int N, int K,
+                             int splits, int kt_per_split, int bt, void* stream) {
   if (M == 0 || N == 0) return cudaSuccess;
   if (splits < 1 || (splits > 1 && partial == nullptr) || N % 8 != 0 || K % 8 != 0)
     return cudaErrorInvalidValue;
   auto* s = static_cast<const float*>(scale);
   auto* p = static_cast<float*>(partial);
   auto st = static_cast<cudaStream_t>(stream);
-  switch (w_dtype) {
-    case XFA_I8:
-      return wg::launch_bt<int8_t>(bt, x, w, s, y, p, M, N, K, splits, kt_per_split, st);
-    case XFA_FP8_E4M3:
-      return wg::launch_bt<fp8e4m3_t>(bt, x, w, s, y, p, M, N, K, splits, kt_per_split, st);
-    case XFA_BF16:
-      return wg::launch_bt<__nv_bfloat16>(bt, x, w, s, y, p, M, N, K, splits, kt_per_split,
-                                          st);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return by_dtypes(x_dtype, w_dtype, [&](auto t, auto tw) {
+    return wg::launch_bt<decltype(t), decltype(tw)>(bt, x, w, s, y, p, M, N, K, splits,
+                                                    kt_per_split, st);
+  });
 }
 
 // The decode kernel: as xfa_qmm_wgmma, for 1 <= M <= 16 (tiles of 8 tokens
@@ -955,9 +1182,9 @@ extern "C" int xfa_qmm_wgmma(const void* x, const void* w, int w_dtype, const vo
 // scratch `partial` (splits, M, N) and `counters`: one int32 per 128-column
 // tile, all 0 at entry, and all 0 again when the kernel ends (the last split
 // of each tile resets its own). No second launch.
-extern "C" int xfa_qmm_decode(const void* x, const void* w, int w_dtype, const void* scale,
-                              void* y, void* partial, void* counters, int M, int N, int K,
-                              int splits, int kt_per_split, void* stream) {
+extern "C" int xfa_qmm_decode(const void* x, int x_dtype, const void* w, int w_dtype,
+                              const void* scale, void* y, void* partial, void* counters, int M,
+                              int N, int K, int splits, int kt_per_split, void* stream) {
   if (M == 0 || N == 0) return cudaSuccess;
   if (splits < 1 || (splits > 1 && (partial == nullptr || counters == nullptr)) ||
       N % 8 != 0 || K % 8 != 0 || (splits - 1) * kt_per_split >= (K + 63) / 64 ||
@@ -967,30 +1194,52 @@ extern "C" int xfa_qmm_decode(const void* x, const void* w, int w_dtype, const v
   auto* p = static_cast<float*>(partial);
   auto* c = static_cast<int*>(counters);
   auto st = static_cast<cudaStream_t>(stream);
+  return by_dtypes(x_dtype, w_dtype, [&](auto t, auto tw) {
+    return dec::launch_rows<decltype(t), decltype(tw)>(M, x, w, s, y, p, c, N, K, splits,
+                                                       kt_per_split, st);
+  });
+}
+
+// The f32 kernel: x (M, K) f32 contiguous, any alignment; w (K, N) f32, int8
+// or fp8 (vec_w: N % 4 == 0 and w aligned to 4 elements); scale (N,) f32 or
+// null; y (M, N) f32; partial (splits, M, N) f32 scratch when splits > 1
+// (summed by a second launch). bm (16 or 128): the tokens per block. (Built
+// without XFA_HALF only.)
+extern "C" int xfa_qmm_f32(const void* x, const void* w, int w_dtype, const void* scale, void* y,
+                           void* partial, int M, int N, int K, int splits, int kt_per_split,
+                           int vec_w, int bm, void* stream) {
+#ifdef XFA_HALF
+  return cudaErrorInvalidValue;
+#else
+  if (M == 0 || N == 0) return cudaSuccess;
+  if (splits < 1 || (splits > 1 && partial == nullptr)) return cudaErrorInvalidValue;
+  auto* s = static_cast<const float*>(scale);
+  auto* p = static_cast<float*>(partial);
+  auto st = static_cast<cudaStream_t>(stream);
   switch (w_dtype) {
+    case XFA_F32:
+      return sg::launch_bm<float>(bm, x, w, s, y, p, M, N, K, splits, kt_per_split, vec_w != 0,
+                                  st);
     case XFA_I8:
-      return dec::launch_rows<int8_t>(M, x, w, s, y, p, c, N, K, splits, kt_per_split, st);
+      return sg::launch_bm<int8_t>(bm, x, w, s, y, p, M, N, K, splits, kt_per_split, vec_w != 0,
+                                   st);
     case XFA_FP8_E4M3:
-      return dec::launch_rows<fp8e4m3_t>(M, x, w, s, y, p, c, N, K, splits, kt_per_split, st);
-    case XFA_BF16:
-      return dec::launch_rows<__nv_bfloat16>(M, x, w, s, y, p, c, N, K, splits, kt_per_split,
-                                             st);
+      return sg::launch_bm<fp8e4m3_t>(bm, x, w, s, y, p, M, N, K, splits, kt_per_split,
+                                      vec_w != 0, st);
     default:
       return cudaErrorInvalidValue;
   }
+#endif
 }
 
-// Resident blocks an SM of the decode kernel for a weight dtype and its rows
-// (8 or 16), by the CUDA occupancy calculator; -1 on error.
-extern "C" int xfa_qmm_decode_blocks_per_sm(int w_dtype, int rows) {
-  switch (w_dtype) {
-    case XFA_I8:
-      return dec::blocks_per_sm_rows<int8_t>(rows);
-    case XFA_FP8_E4M3:
-      return dec::blocks_per_sm_rows<fp8e4m3_t>(rows);
-    case XFA_BF16:
-      return dec::blocks_per_sm_rows<__nv_bfloat16>(rows);
-    default:
-      return -1;
-  }
+// Resident blocks an SM of the decode kernel for an (activation, weight)
+// dtype pair and its rows (8 or 16), by the CUDA occupancy calculator; -1 on
+// error.
+extern "C" int xfa_qmm_decode_blocks_per_sm(int x_dtype, int w_dtype, int rows) {
+  int n = -1;
+  by_dtypes(x_dtype, w_dtype, [&](auto t, auto tw) {
+    n = dec::blocks_per_sm_rows<decltype(t), decltype(tw)>(rows);
+    return cudaSuccess;
+  });
+  return n;
 }

@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from xf_flash_attention_cutlass_tpu_torch.ops.flash import flash_attention
 from xf_flash_attention_cutlass_tpu_torch.ops.rotary import apply_rotary, rotary_frequencies
 from xf_flash_attention_cutlass_tpu_torch.quant.linear import quantize_weight, quantized_matmul
+from xf_flash_attention_cutlass_tpu_torch.utils import acc_dtype
 
 PROJ_NAMES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 
@@ -112,7 +113,7 @@ def layer_view(layers: Dict[str, Any], l: int) -> Dict[str, Any]:
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
-    xf = x.float()
+    xf = x.to(acc_dtype(x.dtype))
     var = (xf * xf).mean(dim=-1, keepdim=True)
     # cast to x's dtype BEFORE the weight multiply, as the JAX package does
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * w

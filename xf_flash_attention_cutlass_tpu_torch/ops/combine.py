@@ -14,13 +14,17 @@ from typing import Tuple
 
 import torch
 
+from xf_flash_attention_cutlass_tpu_torch.utils import acc_dtype
+
 
 def combine_partials(
     o_parts: torch.Tensor,  # (n_splits, ..., d)
     lse_parts: torch.Tensor,  # (n_splits, ...)
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Merge n split-KV partials along axis 0. Returns (O, LSE) in f32."""
-    lse_parts = lse_parts.float()
+    """Merge n split-KV partials along axis 0. Returns (O, LSE) in f32 (f64
+    for f64 partials)."""
+    acc = acc_dtype(o_parts.dtype)
+    lse_parts = lse_parts.to(acc)
     m = lse_parts.amax(dim=0)  # -inf if all empty
     m_safe = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
     w = torch.exp(lse_parts - m_safe)
@@ -31,7 +35,7 @@ def combine_partials(
         has, m_safe + torch.log(torch.where(has, sumw, torch.ones_like(sumw))),
         torch.full_like(sumw, -torch.inf),
     )
-    o = (w.unsqueeze(-1) * o_parts.float()).sum(dim=0)
+    o = (w.unsqueeze(-1) * o_parts.to(acc)).sum(dim=0)
     denom = torch.where(has, sumw, torch.ones_like(sumw)).unsqueeze(-1)
     o = torch.where(has.unsqueeze(-1), o / denom, torch.zeros_like(o))
     return o, lse

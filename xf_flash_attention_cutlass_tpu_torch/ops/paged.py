@@ -15,23 +15,28 @@ kcol| after the softcap (the leftpad takes no part: both positions counted
 from it give the same distance on every key a row sees); and
 ``cache_leftpad`` (b,), which masks the keys before it.
 
-CUDA tensors run one of the three hand-written kernels of
+CUDA tensors run one of the four hand-written kernels of
 csrc/paged_attention.cu, as ``paged_route`` picks from the shapes and the
-pool dtype: the decode kernel ("decode", at most 16 query rows a KV head:
-decode and short verify), the Hopper chunk kernel ("wgmma", 64 query rows a
-block, more than 16 rows a KV head: prefill chunks and paged varlen), both
-of which scale q themselves and write O and LSE in the caller's layout, or
-the first version on WMMA ("wmma": pages of no whole TMA box). Each kernel
-has an option-free instantiation and one with the options (``has_options``),
-counted under labels of their own (``route_label``). Split runs give f32
-partials (O, LSE); the first two routes merge them with the combine kernel
+query and pool dtypes: the decode kernel ("decode", at most 16 query rows a
+KV head: decode and short verify), the Hopper chunk kernel ("wgmma", 64
+query rows a block, more than 16 rows a KV head: prefill chunks and paged
+varlen), both of which scale q themselves and write O and LSE in the
+caller's layout, the first version on WMMA ("wmma": pages of no whole TMA
+box), all three for bf16 or fp16 queries over pools of the queries' dtype,
+int8 or fp8, and the f32 kernel ("f32": f32 queries over f32, int8 or fp8
+pools, any page, FMA in f32 throughout). The 16-bit kernels have an
+option-free instantiation and one with the options (``has_options``),
+counted under labels of their own (``route_label``; fp16 and f32 calls
+under labels ending in ".f16" / ".f32"). Split runs give f32 partials (O,
+LSE); the decode, chunk and f32 routes merge them with the combine kernel
 (``combine_splits``), the WMMA route with ``combine_partials`` in plain
-torch. All take bf16 queries. CPU tensors run ``paged_attention_ref``, the
-plain version, with the kernels' numerics. Every route cuts each entry's
-keys from the first one any row can see (window start, leftpad; 0 without
-them) to the last live one: the decode route into ``num_splits`` runs of
-whole 64-key tiles (``decode_split_keys``), the others into ``num_splits``
-equal runs of pages. The split count comes from the route's blocks
+torch. Any other dtype raises TypeError naming K1. CPU tensors run
+``paged_attention_ref``, the plain version, with the kernels' numerics.
+Every route cuts each entry's keys from the first one any row can see
+(window start, leftpad; 0 without them) to the last live one: the decode
+route into ``num_splits`` runs of whole 64-key tiles
+(``decode_split_keys``), the others into ``num_splits`` equal runs of
+pages. The split count comes from the route's blocks
 (``paged_plan``).
 
 The layout is the JAX package's logical contract with its TPU padding
@@ -49,7 +54,7 @@ import torch
 from xf_flash_attention_cutlass_tpu_torch import _build
 from xf_flash_attention_cutlass_tpu_torch.ops.combine import combine_partials
 from xf_flash_attention_cutlass_tpu_torch.quant.kv import QUANT_DTYPES
-from xf_flash_attention_cutlass_tpu_torch.utils import cdiv, is_cuda
+from xf_flash_attention_cutlass_tpu_torch.utils import acc_dtype, cdiv, is_cuda
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 M_FLOOR = -1e30  # running-max floor: exp(NEG_INF - M_FLOOR) == 0
@@ -110,16 +115,28 @@ def has_options(causal: bool, window: Tuple[int, int], softcap: float, alibi_slo
             or cache_leftpad is not None)
 
 
-def paged_route(rows: int, page: int, d: int, kv_dtype: torch.dtype) -> str:
+Q16_DTYPES = (torch.bfloat16, torch.float16)  # the queries of the 16-bit kernels
+F32_ROWS = 16  # query rows per block of the f32 kernel
+F32_BLOCKS_PER_SM = 2  # the f32 kernel's blocks an SM (its shared memory), for its splits
+
+
+def paged_route(rows: int, page: int, d: int, kv_dtype: torch.dtype,
+                q_dtype: torch.dtype = torch.bfloat16) -> str:
     """The kernel of csrc/paged_attention.cu that takes a call, a pure
-    function of its shapes and pool dtype (the options pick an
-    instantiation, not a kernel). With d 64 or 128, a page of whole TMA
-    boxes (a multiple of 8 keys) and bf16, int8 or fp8 pools: "decode" (the
+    function of its shapes and its query and pool dtypes (the options pick
+    an instantiation, not a kernel). f32 queries or pools take "f32" (the
+    f32 kernel, any page; its wrapper refuses f32 pools under 16-bit
+    queries). With d 64 or 128, a page of whole TMA boxes (a multiple of 8
+    keys) and pools of the queries' 16-bit dtype, int8 or fp8: "decode" (the
     decode kernel) when at most 16 query rows share a KV head (rows = sq *
-    group: decode and short verify), else "wgmma" (the Hopper chunk
-    kernel). Anything else takes "wmma" (the first version: odd pages; odd d
-    and fp16 pools, which its CUDA wrapper refuses)."""
-    if d in (64, 128) and page % 8 == 0 and kv_dtype in (torch.bfloat16, *QUANT_DTYPES):
+    group: decode and short verify), else "wgmma" (the Hopper chunk kernel).
+    Anything else takes "wmma" (the first version: odd pages; odd d and
+    16-bit pools of the other 16-bit dtype, which its CUDA wrapper
+    refuses)."""
+    if q_dtype == torch.float32 or kv_dtype == torch.float32:
+        return "f32"
+    if (d in (64, 128) and page % 8 == 0 and q_dtype in Q16_DTYPES
+            and kv_dtype in (q_dtype, *QUANT_DTYPES)):
         return "decode" if rows <= DECODE_ROWS else "wgmma"
     return "wmma"
 
@@ -128,18 +145,29 @@ def route_row_tile(route: str, rows: int) -> int:
     """Query rows per block of the route's kernel."""
     if route == "wgmma":
         return WGMMA_ROWS
+    if route == "f32":
+        return F32_ROWS
     return DECODE_ROWS if route == "decode" else kernel_row_tile(rows)
 
 
-def route_label(route: str, rows: int, options: bool = False) -> str:
+def route_label(route: str, rows: int, options: bool = False,
+                q_dtype: torch.dtype = torch.bfloat16) -> str:
     """The launch counter (_build.LAUNCHES) of the route's kernel: the Hopper
-    kernels count their options instantiation apart, the WMMA kernel its
-    decode-sized calls (<= 16 rows a KV head)."""
+    kernels count their options instantiation apart, the WMMA and f32
+    kernels their decode-sized calls (<= 16 rows a KV head); fp16 queries
+    add ".f16" (bf16 none). The f32 kernel takes the options at run time."""
+    if route == "f32":
+        return ("paged_attention.decode.f32" if rows <= DECODE_ROWS
+                else "paged_attention.prefill.f32")
     if route == "decode":
-        return "paged_attention.decode.options" if options else "paged_attention.decode"
-    if route == "wgmma":
-        return "paged_attention.prefill.options" if options else "paged_attention.prefill.wgmma"
-    return "paged_attention.decode.wmma" if rows <= DECODE_ROWS else "paged_attention.prefill.wmma"
+        label = "paged_attention.decode.options" if options else "paged_attention.decode"
+    elif route == "wgmma":
+        label = ("paged_attention.prefill.options" if options
+                 else "paged_attention.prefill.wgmma")
+    else:
+        label = ("paged_attention.decode.wmma" if rows <= DECODE_ROWS
+                 else "paged_attention.prefill.wmma")
+    return label + _build.LABEL_SUFFIX[q_dtype]
 
 
 def resolve_num_splits(num_splits: int, b: int, h_k: int, rows: int, max_blocks: int,
@@ -159,21 +187,25 @@ def resolve_num_splits(num_splits: int, b: int, h_k: int, rows: int, max_blocks:
 
 def paged_plan(q_shape, k_pool_shape, kv_dtype: torch.dtype, max_pages: int, num_splits: int = 0,
                causal: bool = True, window: Tuple[int, int] = (-1, -1), softcap: float = 0.0,
-               alibi_slopes=None, cache_leftpad=None) -> Tuple[str, int]:
+               alibi_slopes=None, cache_leftpad=None,
+               q_dtype: torch.dtype = torch.bfloat16) -> Tuple[str, int]:
     """(route, splits) of a paged_attention call: the kernel paged_route
     picks and the split count resolve_num_splits gives for its blocks. On
     the decode route the cores are the H100's SMs times the decode kernel's
-    resident blocks and the splits' unit is a 64-key tile; elsewhere the
-    SMs and pages. k_pool_shape is (pages, h_k, page, d), or (L, ...) with a
-    layer axis."""
+    resident blocks and the splits' unit is a 64-key tile; on the f32 route
+    the SMs times two and pages; elsewhere the SMs and pages. k_pool_shape
+    is (pages, h_k, page, d), or (L, ...) with a layer axis."""
     b, sq, h, d = q_shape
     h_k, page = k_pool_shape[-3], k_pool_shape[-2]
     rows = sq * (h // h_k)
-    route = paged_route(rows, page, d, kv_dtype)
+    route = paged_route(rows, page, d, kv_dtype, q_dtype)
     if route == "decode":
         return route, resolve_num_splits(num_splits, b, h_k, rows,
                                          cdiv(max_pages * page, DECODE_TILE), DECODE_ROWS,
                                          NUM_SMS * DECODE_BLOCKS_PER_SM)
+    if route == "f32":  # its blocks (78 KB of shared memory at d = 128) fit two an SM
+        return route, resolve_num_splits(num_splits, b, h_k, rows, max_pages, F32_ROWS,
+                                         NUM_SMS * F32_BLOCKS_PER_SM)
     return route, resolve_num_splits(num_splits, b, h_k, rows, max_pages,
                                      route_row_tile(route, rows))
 
@@ -247,18 +279,19 @@ def paged_attention_ref(
     scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)
     kv_quant = k_scales is not None
     dt = q.dtype
+    acc = acc_dtype(dt)  # f32, or f64 for an f64 oracle run
 
     # decode swap: (b, sq, h_k, g, d) -> (b, h_k, sq*g, d), row = t*g + gi
-    qf = (q.float() * scale).to(dt).float()
+    qf = (q.to(acc) * scale).to(dt).to(acc)
     qg = qf.reshape(b, sq, h_k, g, d).permute(0, 2, 1, 3, 4).reshape(b, h_k, rows, d)
 
-    kg = _gather(k_pool, block_tables).float()  # (b, h_k, T, d)
-    vg = _gather(v_pool, block_tables).float()
+    kg = _gather(k_pool, block_tables).to(acc)  # (b, h_k, T, d)
+    vg = _gather(v_pool, block_tables).to(acc)
     T = kg.shape[2]
     ks = vs = None
     if kv_quant:
-        ks = _gather(k_scales, block_tables).float()  # (b, h_k, T)
-        vs = _gather(v_scales, block_tables).float()
+        ks = _gather(k_scales, block_tables).to(acc)  # (b, h_k, T)
+        vs = _gather(v_scales, block_tables).to(acc)
 
     s = qg @ kg.transpose(-1, -2)  # (b, h_k, rows, T) f32
     if kv_quant:  # K scale on the score plane
@@ -286,11 +319,11 @@ def paged_attention_ref(
         if slopes.dim() == 1:
             slopes = slopes[None].expand(b, h)
         row_slope = slopes.reshape(b, h_k, g)[:, :, torch.arange(rows, device=dev) % g]
-        s = s - row_slope[..., None] * (qpos - kcol).abs().float()
+        s = s - row_slope[..., None] * (qpos - kcol).abs().to(acc)
 
     # each row's visible pages (64-key tiles on the decode route) cut into
     # num_splits equal runs, as the route's kernel does
-    unit = DECODE_TILE if paged_route(rows, page, d, k_pool.dtype) == "decode" else page
+    unit = DECODE_TILE if paged_route(rows, page, d, k_pool.dtype, dt) == "decode" else page
     n_live = (lens.clamp_max(T) + unit - 1) // unit
     first = first_page(lens, sq, unit, wl, cache_leftpad, n_live)
     pps = (n_live - first + num_splits - 1) // num_splits
@@ -303,9 +336,9 @@ def paged_attention_ref(
         p = torch.exp(s_sp - m)
         l_sum = p.sum(dim=-1, keepdim=True)
         if kv_quant:
-            pv = (p * vs[:, :, None, :]).to(dt).float()
+            pv = (p * vs[:, :, None, :]).to(dt).to(acc)
         else:
-            pv = p.to(v_pool.dtype).float()
+            pv = p.to(v_pool.dtype).to(acc)
         o = pv @ vg
         empty = l_sum <= 0
         l_safe = torch.where(empty, 1.0, l_sum)
@@ -352,16 +385,17 @@ def combine_splits_ref(o_part: torch.Tensor, lse_part: torch.Tensor,
 
 def combine_splits(o_part: torch.Tensor, lse_part: torch.Tensor,
                    out_dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The split merge of the decode and Hopper chunk routes: on CUDA
-    tensors the combine kernel (one launch, bf16 out), on CPU tensors its
-    plain version, combine_splits_ref."""
+    """The split merge of the decode, Hopper chunk and f32 routes: on CUDA
+    tensors the combine kernel (one launch, O in out_dtype: bf16, fp16 or
+    f32), on CPU tensors its plain version, combine_splits_ref."""
     if not is_cuda(o_part, lse_part):
         _build.PLAIN_CALLS["paged_attention.combine"] += 1
         return combine_splits_ref(o_part, lse_part, out_dtype)
     n_splits, b, sq, h, d = o_part.shape
-    if out_dtype != torch.bfloat16 or d not in (64, 128):
-        raise ValueError(f"the combine kernel writes bf16 O of head_dim 64 or 128, got "
-                         f"{out_dtype}, {d}")
+    if out_dtype not in _build.LABEL_SUFFIX:
+        raise TypeError(f"the combine kernel (K1) writes bf16, fp16 or f32 O, got {out_dtype}")
+    if d not in (64, 128):
+        raise ValueError(f"the combine kernel writes O of head_dim 64 or 128, got {d}")
     if (o_part.dtype != torch.float32 or lse_part.dtype != torch.float32
             or not o_part.is_contiguous() or not lse_part.is_contiguous()
             or tuple(lse_part.shape) != (n_splits, b, sq, h)):
@@ -370,58 +404,80 @@ def combine_splits(o_part: torch.Tensor, lse_part: torch.Tensor,
     o = torch.empty((b, sq, h, d), dtype=out_dtype, device=o_part.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=o_part.device)
     rc = _lib().xfa_paged_combine(o_part.data_ptr(), lse_part.data_ptr(), o.data_ptr(),
-                                  lse.data_ptr(), n_splits, b, sq, h, d, _build.stream_handle())
+                                  lse.data_ptr(), _build.dtype_code(out_dtype), n_splits, b, sq,
+                                  h, d, _build.stream_handle())
     _build.check(rc, "paged_attention (combine)")
-    _build.LAUNCHES["paged_attention.combine"] += 1
+    _build.LAUNCHES["paged_attention.combine" + _build.LABEL_SUFFIX[out_dtype]] += 1
     return o, lse
 
 
-_lib_handle = None
+_lib_handles = {}
 
 
-def _lib():
-    global _lib_handle
-    if _lib_handle is None:
-        lib = _build.load("paged_attention")
+def _lib(q_dtype: torch.dtype = torch.bfloat16):
+    """The library of csrc/paged_attention.cu that holds the kernels for
+    q_dtype queries: fp16's is built apart (_build.VARIANTS); bf16's also
+    holds the f32 kernel and the combine kernel."""
+    name = "paged_attention_f16" if q_dtype == torch.float16 else "paged_attention"
+    lib = _lib_handles.get(name)
+    if lib is None:
+        lib = _build.load(name)
         lib.xfa_paged_attention.restype = ctypes.c_int
         lib.xfa_paged_attention.argtypes = (
-            [ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 6
-            + [ctypes.c_int] * 10 + [ctypes.c_float] + [ctypes.c_void_p] * 2
-            + [ctypes.c_int, ctypes.c_void_p]
+            [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_int]
+            + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [ctypes.c_float]
+            + [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p]
         )
+        tail = ([ctypes.c_int64] * 3 + [ctypes.c_void_p] * 2 + [ctypes.c_int]
+                + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 13 + [ctypes.c_float] * 2
+                + [ctypes.c_void_p] * 3)
         for fn in (lib.xfa_paged_attention_wgmma, lib.xfa_paged_decode):
             fn.restype = ctypes.c_int
-            fn.argtypes = (
-                [ctypes.c_void_p] + [ctypes.c_int64] * 3 + [ctypes.c_void_p] * 2
-                + [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 13
-                + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 3
-            )
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_int] + tail
+        lib.xfa_paged_f32.restype = ctypes.c_int
+        lib.xfa_paged_f32.argtypes = [ctypes.c_void_p] + tail
         lib.xfa_paged_decode_blocks_per_sm.restype = ctypes.c_int
-        lib.xfa_paged_decode_blocks_per_sm.argtypes = [ctypes.c_int] * 4
+        lib.xfa_paged_decode_blocks_per_sm.argtypes = [ctypes.c_int] * 5
         lib.xfa_paged_combine.restype = ctypes.c_int
-        lib.xfa_paged_combine.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
+        lib.xfa_paged_combine.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
             ctypes.c_void_p]
-        _lib_handle = lib
-    return _lib_handle
+        _lib_handles[name] = lib
+    return lib
 
 
-def decode_blocks_per_sm(kv_dtype: torch.dtype, d: int, rows: int, options: bool = False) -> int:
+def decode_blocks_per_sm(kv_dtype: torch.dtype, d: int, rows: int, options: bool = False,
+                        q_dtype: torch.dtype = torch.bfloat16) -> int:
     """Resident blocks an SM of the decode kernel's instantiation for these
-    pools, rows and options, by the CUDA occupancy calculator (on the card)."""
-    return _lib().xfa_paged_decode_blocks_per_sm(_build.dtype_code(kv_dtype), d, rows,
+    queries, pools, rows and options, by the CUDA occupancy calculator (on
+    the card)."""
+    return _lib(q_dtype).xfa_paged_decode_blocks_per_sm(_build.dtype_code(q_dtype),
+                                                 _build.dtype_code(kv_dtype), d, rows,
                                                  int(options))
 
 
+def check_kernel_dtypes(q_dtype: torch.dtype, kv_dtype: torch.dtype) -> None:
+    """Raise TypeError unless a kernel of K1 takes queries of q_dtype over
+    pools of kv_dtype: bf16 or fp16 queries over pools of their own dtype,
+    int8 or fp8 (the 16-bit kernels), f32 queries over f32, int8 or fp8
+    pools (the f32 kernel)."""
+    if q_dtype == torch.float32:
+        ok = kv_dtype in (torch.float32, *QUANT_DTYPES)
+    else:
+        ok = q_dtype in Q16_DTYPES and kv_dtype in (q_dtype, *QUANT_DTYPES)
+    if not ok:
+        raise TypeError(f"the CUDA paged-attention kernels (K1) take bf16/fp16 queries over pools "
+                        f"of their dtype, int8 or fp8, or f32 queries over f32/int8/fp8 pools; "
+                        f"got {q_dtype} queries over {kv_dtype} pools")
+
+
 def _check_cuda_inputs(q, k_pool, v_pool, k_scales, v_scales):
-    if q.dtype != torch.bfloat16:
-        raise TypeError(f"the CUDA paged-attention kernel (K1) takes bf16 queries, got {q.dtype}")
     kv_quant = k_scales is not None
     if kv_quant != (k_pool.dtype in QUANT_DTYPES):
         raise ValueError(f"{k_pool.dtype} pools {'need' if not kv_quant else 'take no'} scales")
-    if k_pool.dtype not in (torch.bfloat16, *QUANT_DTYPES) or v_pool.dtype != k_pool.dtype:
-        raise TypeError(
-            f"the CUDA paged-attention kernel takes bf16/int8/fp8 pools, got {k_pool.dtype}"
-        )
+    if v_pool.dtype != k_pool.dtype:
+        raise TypeError(f"the CUDA paged-attention kernels (K1) take K and V pools of one dtype, "
+                        f"got {k_pool.dtype}/{v_pool.dtype}")
+    check_kernel_dtypes(q.dtype, k_pool.dtype)
     d = q.shape[-1]
     if d not in (64, 128):
         raise ValueError(f"the CUDA paged-attention kernel takes head_dim 64 or 128, got {d}")
@@ -445,7 +501,7 @@ def _paged_attention_cuda(q, k_pool, v_pool, layer_idx, block_tables, kv_lens, s
     if alibi_slopes is not None:
         slopes = alibi_slopes.to(device=q.device, dtype=torch.float32).expand(b, h).contiguous()
     leftpad = None if cache_leftpad is None else cache_leftpad.to(torch.int32).contiguous()
-    if route in ("decode", "wgmma"):
+    if route in ("decode", "wgmma", "f32"):
         return _paged_hopper_cuda(q, k_pool, v_pool, layer_idx, block_tables, kv_lens, scale,
                                   num_splits, k_scales, v_scales, route, wl, wr, float(softcap),
                                   slopes, leftpad)
@@ -461,15 +517,16 @@ def _paged_attention_cuda(q, k_pool, v_pool, layer_idx, block_tables, kv_lens, s
     lens = kv_lens.to(torch.int32).contiguous()
     o_part = torch.empty((num_splits, b, h_k, rows, d), dtype=torch.float32, device=q.device)
     lse_part = torch.empty((num_splits, b, h_k, rows), dtype=torch.float32, device=q.device)
-    rc = _lib().xfa_paged_attention(
-        qs.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), _build.dtype_code(k_pool.dtype),
+    rc = _lib(q.dtype).xfa_paged_attention(
+        qs.data_ptr(), _build.dtype_code(q.dtype), k_pool.data_ptr(), v_pool.data_ptr(),
+        _build.dtype_code(k_pool.dtype),
         _build.ptr(k_scales), _build.ptr(v_scales), bt.data_ptr(), lens.data_ptr(),
         o_part.data_ptr(), lse_part.data_ptr(),
         b, sq, h_k, g, d, page, bt.shape[1], num_splits, wl, wr, float(softcap),
         _build.ptr(slopes), _build.ptr(leftpad), kernel_row_tile(rows), _build.stream_handle(),
     )
     _build.check(rc, "paged_attention")
-    _build.LAUNCHES[route_label("wmma", rows)] += 1
+    _build.LAUNCHES[route_label("wmma", rows, q_dtype=q.dtype)] += 1
     if num_splits > 1:
         o, lse = combine_partials(o_part, lse_part)
     else:
@@ -479,13 +536,14 @@ def _paged_attention_cuda(q, k_pool, v_pool, layer_idx, block_tables, kv_lens, s
 
 def _paged_hopper_cuda(q, k_pool, v_pool, layer_idx, block_tables, kv_lens, scale, num_splits,
                        k_scales, v_scales, route, wl, wr, softcap, slopes, leftpad):
-    """The decode kernel (route "decode") or the Hopper chunk kernel
-    ("wgmma"), in its options instantiation when the window (wl, wr; causal
-    is wr = 0), softcap, slopes ((b, h) f32) or leftpad ((b,) int32) ask
-    for it. q is read through its strides and scaled inside the kernel;
-    the pools' tensor maps span every layer, so layer_idx is a page
-    coordinate; one split gives O (b, sq, h, d) and LSE (b, h, sq) as they
-    are, more give f32 partials in that layout for the combine kernel."""
+    """The decode kernel (route "decode"), the Hopper chunk kernel
+    ("wgmma") or the f32 kernel ("f32"), the 16-bit ones in their options
+    instantiation when the window (wl, wr; causal is wr = 0), softcap,
+    slopes ((b, h) f32) or leftpad ((b,) int32) ask for it. q is read
+    through its strides and scaled inside the kernel; the pools are read
+    over every layer, so layer_idx is a page coordinate; one split gives O
+    (b, sq, h, d) and LSE (b, h, sq) as they are, more give f32 partials in
+    that layout for the combine kernel."""
     if layer_idx is None:  # one layer: a leading layer axis of 1, no copy
         k_pool, v_pool = k_pool[None], v_pool[None]
         k_scales = None if k_scales is None else k_scales[None]
@@ -499,19 +557,25 @@ def _paged_hopper_cuda(q, k_pool, v_pool, layer_idx, block_tables, kv_lens, scal
         raise ValueError("the Hopper paged-attention kernels read pools and scales at 16-byte "
                          "aligned bases")
     b, sq, h, _ = q.shape
-    if q.stride(-1) != 1 or q.data_ptr() % 16 or any(st % 8 for st in q.stride()[:3]):
-        q = q.clone(memory_format=torch.contiguous_format)  # the kernel reads 16-byte rows
+    if q.stride(-1) != 1 or (route != "f32" and (q.data_ptr() % 16
+                                                 or any(st % 8 for st in q.stride()[:3]))):
+        q = q.clone(memory_format=torch.contiguous_format)  # 16-bit kernels read 16-byte rows
     bt = block_tables.to(torch.int32).contiguous()
     lens = kv_lens.to(torch.int32).contiguous()
     if num_splits == 1:
-        o = torch.empty((b, sq, h, d), dtype=torch.bfloat16, device=q.device)
+        o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
         lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     else:
         o = torch.empty((num_splits, b, sq, h, d), dtype=torch.float32, device=q.device)
         lse = torch.empty((num_splits, b, sq, h), dtype=torch.float32, device=q.device)
-    fn = _lib().xfa_paged_decode if route == "decode" else _lib().xfa_paged_attention_wgmma
+    lib = _lib(q.dtype)
+    if route == "f32":
+        fn, head = lib.xfa_paged_f32, (q.data_ptr(),)
+    else:
+        fn = lib.xfa_paged_decode if route == "decode" else lib.xfa_paged_attention_wgmma
+        head = (q.data_ptr(), _build.dtype_code(q.dtype))
     rc = fn(
-        q.data_ptr(), *q.stride()[:3], k_pool.data_ptr(), v_pool.data_ptr(),
+        *head, *q.stride()[:3], k_pool.data_ptr(), v_pool.data_ptr(),
         _build.dtype_code(k_pool.dtype), _build.ptr(k_scales), _build.ptr(v_scales),
         bt.data_ptr(), lens.data_ptr(), o.data_ptr(), lse.data_ptr(),
         b, sq, h_k, h // h_k, d, page, bt.shape[1], n_layers, pool_pages, layer, num_splits,
@@ -520,7 +584,7 @@ def _paged_hopper_cuda(q, k_pool, v_pool, layer_idx, block_tables, kv_lens, scal
     )
     _build.check(rc, f"paged_attention ({route})")
     options = has_options(False, (wl, wr), softcap, slopes, leftpad)
-    _build.LAUNCHES[route_label(route, sq * (h // h_k), options)] += 1
+    _build.LAUNCHES[route_label(route, sq * (h // h_k), options, q.dtype)] += 1
     if num_splits > 1:
         return combine_splits(o, lse, q.dtype)
     return o, lse
@@ -563,7 +627,8 @@ def paged_attention(
     if cache_leftpad is not None and tuple(cache_leftpad.shape) != (b,):
         raise ValueError(f"cache_leftpad must be ({b},), got {tuple(cache_leftpad.shape)}")
     route, splits = paged_plan(q.shape, k_pool.shape, k_pool.dtype, block_tables.shape[1],
-                               num_splits, causal, window, softcap, alibi_slopes, cache_leftpad)
+                               num_splits, causal, window, softcap, alibi_slopes, cache_leftpad,
+                               q.dtype)
     scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)
     if is_cuda(q, k_pool, v_pool, block_tables, kv_lens, alibi_slopes, cache_leftpad):
         return _paged_attention_cuda(q, k_pool, v_pool, layer_idx, block_tables, kv_lens, scale,

@@ -11,9 +11,11 @@ rows point their block tables at a trash page and may race there, as on the
 TPU — nothing ever reads the trash page.
 
 CUDA tensors run csrc/paged_append.cu (a warp, or at head_dim <= 64 a
-half-warp, per (token, kv head, K|V) row); CPU tensors run
-``paged_append_ref``, the plain version. Both quantize
-exactly like quant/kv.py, so the pools they write are bit-identical.
+half-warp, per (token, kv head, K|V) row): bf16, fp16 or f32 rows, written
+as they are into pools of their own dtype or quantized into int8 / fp8
+pools; any other dtype raises TypeError. CPU tensors run
+``paged_append_ref``, the plain version. Both quantize exactly like
+quant/kv.py, so the pools they write are bit-identical.
 """
 
 from __future__ import annotations
@@ -72,11 +74,34 @@ def _lib():
         lib = _build.load("paged_append")
         lib.xfa_paged_append.restype = ctypes.c_int
         lib.xfa_paged_append.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 4
-            + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+            [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_int]
+            + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         )
         _lib_handle = lib
     return _lib_handle
+
+
+ROW_DTYPES = (torch.bfloat16, torch.float16, torch.float32)  # the kernel's K/V rows
+
+
+def append_label(sq: int, row_dtype: torch.dtype) -> str:
+    """The launch counter (_build.LAUNCHES) of the append kernel's
+    instantiation for these rows: decode (sq = 1) or prefill, bf16 rows
+    unsuffixed, fp16 and f32 rows counted apart."""
+    kind = "paged_append.decode" if sq == 1 else "paged_append.prefill"
+    return kind + _build.LABEL_SUFFIX[row_dtype]
+
+
+def check_append_dtypes(row_dtype: torch.dtype, pool_dtype: torch.dtype) -> None:
+    """Raise TypeError unless the CUDA append kernel takes rows of row_dtype
+    into pools of pool_dtype: bf16, fp16 or f32 rows into pools of their own
+    dtype, or into int8 / fp8 pools."""
+    if row_dtype not in ROW_DTYPES:
+        raise TypeError(f"the CUDA append kernel (K2/K5/K6) takes bf16/fp16/f32 K/V rows, "
+                        f"got {row_dtype}")
+    if pool_dtype not in (row_dtype, *QUANT_DTYPES):
+        raise TypeError(f"the CUDA append kernel (K2/K5/K6) writes {row_dtype} rows into "
+                        f"{row_dtype}, int8 or fp8 pools, got {pool_dtype}")
 
 
 def _paged_append_cuda(k_pool, v_pool, k_new, v_new, block_tables, positions,
@@ -85,10 +110,10 @@ def _paged_append_cuda(k_pool, v_pool, k_new, v_new, block_tables, positions,
     quant = k_scales is not None
     if quant != (k_pool.dtype in QUANT_DTYPES):
         raise ValueError(f"{k_pool.dtype} pools {'need' if not quant else 'take no'} scales")
-    if k_new.dtype != torch.bfloat16 or v_new.dtype != torch.bfloat16:
-        raise TypeError(f"the CUDA append kernel takes bf16 K/V rows, got {k_new.dtype}")
-    if k_pool.dtype not in (torch.bfloat16, *QUANT_DTYPES) or v_pool.dtype != k_pool.dtype:
-        raise TypeError(f"the CUDA append kernel takes bf16/int8/fp8 pools, got {k_pool.dtype}")
+    if v_new.dtype != k_new.dtype or v_pool.dtype != k_pool.dtype:
+        raise TypeError(f"the CUDA append kernel (K2/K5/K6) takes K and V of one dtype, got "
+                        f"rows {k_new.dtype}/{v_new.dtype}, pools {k_pool.dtype}/{v_pool.dtype}")
+    check_append_dtypes(k_new.dtype, k_pool.dtype)
     pools = (k_pool, v_pool) + ((k_scales, v_scales) if quant else ())
     if not all(t.is_contiguous() for t in pools):
         raise ValueError("pools and scales must be contiguous (they are written in place)")
@@ -98,13 +123,13 @@ def _paged_append_cuda(k_pool, v_pool, k_new, v_new, block_tables, positions,
     bt = block_tables.to(torch.int32).contiguous()
     pos = positions.to(torch.int32).contiguous()
     rc = _lib().xfa_paged_append(
-        kn.data_ptr(), vn.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        _build.dtype_code(k_pool.dtype),
+        kn.data_ptr(), vn.data_ptr(), _build.dtype_code(kn.dtype), k_pool.data_ptr(),
+        v_pool.data_ptr(), _build.dtype_code(k_pool.dtype),
         _build.ptr(k_scales), _build.ptr(v_scales), bt.data_ptr(), pos.data_ptr(),
         b, sq, h_k, d, k_pool.shape[-2], bt.shape[1], _build.stream_handle(),
     )
     _build.check(rc, "paged_append")
-    _build.LAUNCHES["paged_append.decode" if sq == 1 else "paged_append.prefill"] += 1
+    _build.LAUNCHES[append_label(sq, kn.dtype)] += 1
 
 
 def paged_append(

@@ -12,6 +12,8 @@ from typing import Optional
 
 import torch
 
+from xf_flash_attention_cutlass_tpu_torch.utils import acc_dtype
+
 
 def apply_rotary(
     x: torch.Tensor,  # (b, s, h, d)
@@ -28,9 +30,10 @@ def apply_rotary(
     if r > d:
         raise ValueError(f"rotary_dim {r} exceeds head_dim {d}")
     positions = positions.long().clamp(0, cos.shape[0] - 1)
-    c = cos[positions].float()[:, :, None, :]  # (b, s, 1, r/2)
-    sn = sin[positions].float()[:, :, None, :]
-    xr = x[..., :r].float()
+    acc = acc_dtype(x.dtype)
+    c = cos[positions].to(acc)[:, :, None, :]  # (b, s, 1, r/2)
+    sn = sin[positions].to(acc)[:, :, None, :]
+    xr = x[..., :r].to(acc)
     tail = x[..., r:]
     if interleaved:
         x1 = xr[..., 0::2]

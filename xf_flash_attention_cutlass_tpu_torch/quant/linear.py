@@ -1,15 +1,18 @@
 """INT8 / FP8 weight-only projections (QKV/O, MLP and lm_head matmuls).
 
 Weights are stored int8 (or fp8-e4m3) with one fp32 scale per output
-channel; activations stay bf16 (f32 in the CPU tests). On CUDA the product
-runs in the hand-written kernels of csrc/qmm.cu, which convert each weight
-tile to bf16 on chip right before the tensor-core product, so device memory
-only ever sees one byte per weight (`qmm_route`): with TMA-legal operands,
-the decode kernel (mma.sync, a deep TMA ring, the split-K sum inside) for
-m <= 16 rows and the wgmma kernel for m > 16, the weights converted in
-registers by both; the WMMA kernel (in shared memory) for ragged operands.
-On the CPU the plain version `quantized_matmul_ref` computes the same
-function.
+channel, or unquantized in the activations' dtype without a scale;
+activations are the model's dtype: bf16, fp16 or f32. On CUDA the product
+runs in the hand-written kernels of csrc/qmm.cu (`qmm_route`). bf16 and fp16
+activations take the tensor-core kernels, which convert each weight tile to
+the activations' dtype on chip right before the product, so device memory
+only ever sees one byte per quantized weight: with TMA-legal operands, the
+decode kernel (mma.sync, a deep TMA ring, the split-K sum inside) for m <= 16
+rows and the wgmma kernel for m > 16, the weights converted in registers by
+both; the WMMA kernel (in shared memory) for ragged operands. f32
+activations take the f32 kernel (FMA in f32 over f32, int8 or fp8 weights).
+Any other dtype raises TypeError naming K3/K4. On the CPU the plain version
+`quantized_matmul_ref` computes the same function.
 """
 
 from __future__ import annotations
@@ -23,14 +26,15 @@ from torch import nn
 
 from xf_flash_attention_cutlass_tpu_torch import _build
 from xf_flash_attention_cutlass_tpu_torch.quant.kv import quantize_with_scale
-from xf_flash_attention_cutlass_tpu_torch.utils import cdiv, is_cuda
+from xf_flash_attention_cutlass_tpu_torch.utils import acc_dtype, cdiv, is_cuda
 
 _WEIGHT_QMAX = {torch.int8: 127.0, torch.float8_e4m3fn: 448.0}
 
 # tile geometry (rows, columns, depth) of the routes of csrc/qmm.cu that
 # qmm_splits plans alike; the wgmma kernel's rows (tokens) are
 # qmm_wgmma_rows(m); the decode kernel has its own plan (qmm_decode_splits)
-_TILES = {"bm16": (16, 128, 64), "bm64": (64, 128, 64), "wgmma": (None, 128, 64)}
+_TILES = {"bm16": (16, 128, 64), "bm64": (64, 128, 64), "wgmma": (None, 128, 64),
+          "f32": (None, 128, 64)}
 _NUM_SMS = 132  # H100 SXM
 # resident blocks an SM of the decode kernel (csrc/qmm.cu, dec::kBlocksPerSm:
 # its ring fills half an SM's shared memory); chip_smoke.py checks it against
@@ -64,61 +68,62 @@ def quantize_weight(
 def quantized_matmul_ref(
     x: torch.Tensor, w: torch.Tensor, scale: Optional[torch.Tensor]
 ) -> torch.Tensor:
-    """Plain version: f32 product of x and the (unscaled) weight, scale per
-    output channel, cast back to x's dtype."""
+    """Plain version: f32 product of x and the (unscaled) weight (f64 for
+    f64 activations), scale per output channel, cast back to x's dtype."""
     d_in, d_out = w.shape
-    y = x.reshape(-1, d_in).float() @ w.float()
+    acc = acc_dtype(x.dtype)
+    y = x.reshape(-1, d_in).to(acc) @ w.to(acc)
     if scale is not None:
-        y = y * scale.float()
+        y = y * scale.to(acc)
     return y.to(x.dtype).reshape(*x.shape[:-1], d_out)
 
 
-_lib_handle = None
+_lib_handles = {}
 
 
-def _lib():
-    global _lib_handle
-    if _lib_handle is None:
-        lib = _build.load("qmm")
+def _lib(x_dtype: torch.dtype = torch.bfloat16):
+    """The library of csrc/qmm.cu that holds the kernels for x_dtype
+    activations: fp16's is built apart (_build.VARIANTS); bf16's also holds
+    the f32 kernel."""
+    name = "qmm_f16" if x_dtype == torch.float16 else "qmm"
+    lib = _lib_handles.get(name)
+    if lib is None:
+        lib = _build.load(name)
         lib.xfa_qmm.restype = ctypes.c_int
-        lib.xfa_qmm.argtypes = (
-            [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-             ctypes.c_void_p, ctypes.c_void_p]
-            + [ctypes.c_int] * 8
-            + [ctypes.c_void_p]
-        )
+        head = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_void_p]  # x, its dtype, w, its dtype, scale, y, partial
+        lib.xfa_qmm.argtypes = head + [ctypes.c_int] * 8 + [ctypes.c_void_p]
         lib.xfa_qmm_wgmma.restype = ctypes.c_int
-        lib.xfa_qmm_wgmma.argtypes = (
-            [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-             ctypes.c_void_p, ctypes.c_void_p]
-            + [ctypes.c_int] * 6
-            + [ctypes.c_void_p]
-        )
+        lib.xfa_qmm_wgmma.argtypes = head + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         lib.xfa_qmm_decode.restype = ctypes.c_int
-        lib.xfa_qmm_decode.argtypes = (
-            [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-            + [ctypes.c_int] * 5
-            + [ctypes.c_void_p]
+        lib.xfa_qmm_decode.argtypes = head + [ctypes.c_void_p] + [ctypes.c_int] * 5 + [
+            ctypes.c_void_p]
+        lib.xfa_qmm_f32.restype = ctypes.c_int
+        lib.xfa_qmm_f32.argtypes = (
+            [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3
+            + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         )
         lib.xfa_qmm_decode_blocks_per_sm.restype = ctypes.c_int
-        lib.xfa_qmm_decode_blocks_per_sm.argtypes = [ctypes.c_int, ctypes.c_int]
-        _lib_handle = lib
-    return _lib_handle
+        lib.xfa_qmm_decode_blocks_per_sm.argtypes = [ctypes.c_int] * 3
+        _lib_handles[name] = lib
+    return lib
 
 
 def qmm_route(m: int, k: int, n: int, w_dtype: torch.dtype, x_ptr: int = 0,
-              w_ptr: int = 0) -> str:
-    """The kernel of csrc/qmm.cu that computes (m, k) bf16 x (k, n) weights
-    of w_dtype, with x contiguous at address x_ptr and the weight rows
-    contiguous at w_ptr. When TMA can load both operands (bases 16-byte
-    aligned, row strides k * 2 and n * element size multiples of 16 bytes:
-    every Llama-8B shape, stacked at any layer or single): 'decode' for
-    decode widths (m <= 16), 'wgmma' above. Otherwise the WMMA kernel with
-    element-wise loads at the edges: 'bm16' (16-row tiles) for m <= 16,
-    'bm64' above. A route chosen by shape: no route falls back to another
-    when a kernel fails."""
-    legal = (x_ptr % 16 == 0 and w_ptr % 16 == 0 and (k * 2) % 16 == 0
+              w_ptr: int = 0, x_dtype: torch.dtype = torch.bfloat16) -> str:
+    """The kernel of csrc/qmm.cu that computes (m, k) activations of x_dtype
+    x (k, n) weights of w_dtype, with x contiguous at address x_ptr and the
+    weight rows contiguous at w_ptr. f32 activations take 'f32' (the f32
+    kernel, any alignment). Otherwise, when TMA can load both operands
+    (bases 16-byte aligned, row strides k * x's element size and n * w's
+    multiples of 16 bytes: every Llama-8B shape, stacked at any layer or
+    single): 'decode' for decode widths (m <= 16), 'wgmma' above; else the
+    WMMA kernel with element-wise loads at the edges: 'bm16' (16-row tiles)
+    for m <= 16, 'bm64' above. A route chosen by shape and dtype: no route
+    falls back to another when a kernel fails."""
+    if x_dtype == torch.float32:
+        return "f32"
+    legal = (x_ptr % 16 == 0 and w_ptr % 16 == 0 and (k * x_dtype.itemsize) % 16 == 0
              and (n * w_dtype.itemsize) % 16 == 0)
     if m <= 16:
         return "decode" if legal else "bm16"
@@ -129,6 +134,12 @@ def qmm_wgmma_rows(m: int) -> int:
     """Rows (tokens) of the wgmma kernel's output tile at m rows: its wgmma
     N, 128 or 256."""
     return 256 if m > 128 else 128
+
+
+def qmm_f32_rows(m: int) -> int:
+    """Tokens of the f32 kernel's output tile at m rows: 16 at decode widths,
+    128 above."""
+    return 16 if m <= 16 else 128
 
 
 def qmm_decode_rows(m: int) -> int:
@@ -170,7 +181,7 @@ def qmm_splits(m: int, n: int, k: int, route: Optional[str] = None) -> Tuple[int
     if route == "decode":
         return qmm_decode_splits(n, k)
     rows, cols, depth = _TILES[route]
-    rows = rows or qmm_wgmma_rows(m)
+    rows = rows or (qmm_f32_rows(m) if route == "f32" else qmm_wgmma_rows(m))
     blocks = cdiv(n, cols) * cdiv(m, rows)
     n_kt = cdiv(k, depth)
     want = _NUM_SMS // blocks if route == "wgmma" else cdiv(2 * _NUM_SMS, blocks)
@@ -193,10 +204,39 @@ def decode_counters(device: torch.device) -> torch.Tensor:
     return buf
 
 
-def qmm_decode_blocks_per_sm(w_dtype: torch.dtype, rows: int) -> int:
-    """Resident blocks an SM of the decode kernel's instantiation for w_dtype
-    and rows (8 or 16), by the CUDA occupancy calculator (needs a card)."""
-    return _lib().xfa_qmm_decode_blocks_per_sm(_build.dtype_code(w_dtype), rows)
+def qmm_decode_blocks_per_sm(w_dtype: torch.dtype, rows: int,
+                             x_dtype: torch.dtype = torch.bfloat16) -> int:
+    """Resident blocks an SM of the decode kernel's instantiation for x_dtype,
+    w_dtype and rows (8 or 16), by the CUDA occupancy calculator (needs a
+    card)."""
+    return _lib(x_dtype).xfa_qmm_decode_blocks_per_sm(_build.dtype_code(x_dtype),
+                                               _build.dtype_code(w_dtype), rows)
+
+
+X16_DTYPES = (torch.bfloat16, torch.float16)  # the activations of the tensor-core kernels
+
+
+def check_kernel_dtypes(x_dtype: torch.dtype, w_dtype: torch.dtype) -> None:
+    """Raise TypeError unless a kernel of K3/K4 takes activations of x_dtype
+    over weights of w_dtype: bf16 or fp16 activations over weights of their
+    own dtype, int8 or fp8 (the tensor-core kernels), f32 activations over
+    f32, int8 or fp8 weights (the f32 kernel)."""
+    quant = tuple(_WEIGHT_QMAX)
+    if x_dtype == torch.float32:
+        ok = w_dtype in (torch.float32, *quant)
+    else:
+        ok = x_dtype in X16_DTYPES and w_dtype in (x_dtype, *quant)
+    if not ok:
+        raise TypeError(f"the CUDA qmm kernels (K3/K4) take bf16/fp16 activations over weights "
+                        f"of their dtype, int8 or fp8, or f32 activations over f32/int8/fp8 "
+                        f"weights; got {x_dtype} activations over {w_dtype} weights")
+
+
+def qmm_label(route: str, kind: str, x_dtype: torch.dtype) -> str:
+    """The launch counter (_build.LAUNCHES) of a call: `route` ('qmm.stacked'
+    or 'qmm.single'), the kernel `kind`, and '.f16' for fp16 activations
+    (the f32 kernel's kind names its dtype)."""
+    return f"{route}.{kind}" + ("" if kind == "f32" else _build.LABEL_SUFFIX[x_dtype])
 
 
 def _qmm_cuda(x: torch.Tensor, w: torch.Tensor, scale: Optional[torch.Tensor],
@@ -206,10 +246,7 @@ def _qmm_cuda(x: torch.Tensor, w: torch.Tensor, scale: Optional[torch.Tensor],
     chip_smoke.py names 'bm64' and 'bm16' to time the WMMA kernel beside the
     wgmma and decode ones on the same shapes) over `splits` splits of K (by
     default `qmm_splits`'; the bring-up sweeps them)."""
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"the CUDA qmm kernel takes bf16 activations, got {x.dtype}")
-    if w.dtype not in (torch.int8, torch.float8_e4m3fn, torch.bfloat16):
-        raise TypeError(f"the CUDA qmm kernel takes int8/fp8/bf16 weights, got {w.dtype}")
+    check_kernel_dtypes(x.dtype, w.dtype)
     if not w.is_contiguous():
         raise ValueError("weight must be contiguous")
     if scale is not None and (scale.dtype != torch.float32 or not scale.is_contiguous()):
@@ -218,7 +255,9 @@ def _qmm_cuda(x: torch.Tensor, w: torch.Tensor, scale: Optional[torch.Tensor],
     x2 = x.reshape(-1, d_in).contiguous()
     m = x2.shape[0]
     y = torch.empty((m, d_out), dtype=x.dtype, device=x.device)
-    kind = kind or qmm_route(m, d_in, d_out, w.dtype, x2.data_ptr(), w.data_ptr())
+    kind = kind or qmm_route(m, d_in, d_out, w.dtype, x2.data_ptr(), w.data_ptr(), x.dtype)
+    if (kind == "f32") != (x.dtype == torch.float32):
+        raise TypeError(f"the qmm kernel {kind!r} does not take {x.dtype} activations")
     if splits is None:
         splits, kt_per = qmm_splits(m, d_out, d_in, kind)
     else:
@@ -228,28 +267,32 @@ def _qmm_cuda(x: torch.Tensor, w: torch.Tensor, scale: Optional[torch.Tensor],
         torch.empty((splits, m, d_out), dtype=torch.float32, device=x.device)
         if splits > 1 else None
     )
-    args = (x2.data_ptr(), w.data_ptr(), _build.dtype_code(w.dtype), _build.ptr(scale),
-            y.data_ptr(), _build.ptr(partial), m, d_out, d_in, splits, kt_per)
-    if kind == "decode":
+    args = (x2.data_ptr(), _build.dtype_code(x.dtype), w.data_ptr(), _build.dtype_code(w.dtype),
+            _build.ptr(scale), y.data_ptr(), _build.ptr(partial), m, d_out, d_in, splits, kt_per)
+    if kind == "f32":
+        vec_w = int(d_out % 4 == 0 and w.data_ptr() % (4 * w.element_size()) == 0)
+        rc = _lib(x.dtype).xfa_qmm_f32(args[0], *args[2:], vec_w, qmm_f32_rows(m),
+                                _build.stream_handle())
+    elif kind == "decode":
         counters = decode_counters(x.device)
         if splits > 1 and cdiv(d_out, 128) > counters.numel():
             raise ValueError(f"qmm decode: {cdiv(d_out, 128)} column tiles exceed the "
                              f"{counters.numel()} split counters")
-        rc = _lib().xfa_qmm_decode(*args[:6], counters.data_ptr(), *args[6:],
+        rc = _lib(x.dtype).xfa_qmm_decode(*args[:7], counters.data_ptr(), *args[7:],
                                    _build.stream_handle())
     elif kind == "wgmma":
-        rc = _lib().xfa_qmm_wgmma(*args, qmm_wgmma_rows(m), _build.stream_handle())
+        rc = _lib(x.dtype).xfa_qmm_wgmma(*args, qmm_wgmma_rows(m), _build.stream_handle())
     else:
         vec_x = int(d_in % 8 == 0 and x2.data_ptr() % 16 == 0)
         vec_w = int((d_out * w.element_size()) % 16 == 0 and w.data_ptr() % 16 == 0)
-        rc = _lib().xfa_qmm(*args, vec_x, vec_w, _TILES[kind][0], _build.stream_handle())
+        rc = _lib(x.dtype).xfa_qmm(*args, vec_x, vec_w, _TILES[kind][0], _build.stream_handle())
     _build.check(rc, "qmm")
-    _build.LAUNCHES[f"{route}.{kind}"] += 1
+    _build.LAUNCHES[qmm_label(route, kind, x.dtype)] += 1
     return y.reshape(*x.shape[:-1], d_out)
 
 
 def quantized_matmul(
-    x: torch.Tensor,  # (..., d_in) bf16 (f32 on the CPU path too)
+    x: torch.Tensor,  # (..., d_in) bf16, fp16 or f32
     w_q: torch.Tensor,  # (d_in, d_out) int8/fp8 — or (L, d_in, d_out) stacked
     scale: Optional[torch.Tensor],  # (d_out,) f32 — or (L, d_out); None: no scale
     *,
@@ -259,9 +302,9 @@ def quantized_matmul(
 
     With ``layer_idx`` the weight and scale carry a leading layer axis and
     layer ``layer_idx`` is read in place (a view at an offset, never a
-    copy). ``scale=None`` serves unquantized bf16 stacks (the JAX package's
-    ``has_scale=False``). CUDA tensors run csrc/qmm.cu; CPU tensors the
-    plain version."""
+    copy). ``scale=None`` serves unquantized stacks in the activations'
+    dtype (the JAX package's ``has_scale=False``). CUDA tensors run
+    csrc/qmm.cu; CPU tensors the plain version."""
     if layer_idx is not None:
         layer = int(layer_idx)
         w_q = w_q[layer]

@@ -33,6 +33,13 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
     return dev
 
 
+def acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The working precision of the plain versions for inputs of `dtype`:
+    float32, or float64 for float64 inputs, so that a float64 run of the
+    plain versions is a float64 oracle."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
 def is_cuda(*tensors: torch.Tensor) -> bool:
     """True when the tensors lie on a CUDA device. Mixed devices raise."""
     kinds = {t.device.type for t in tensors if t is not None}

@@ -94,7 +94,8 @@ def flash_attention_oracle(q, k, v, *, causal=False, window=(-1, -1), softcap=0.
 
 def paged_attention_oracle(q, k_pool, v_pool, block_tables, kv_lens, *, k_scales=None,
                            v_scales=None, causal=True, window=(-1, -1), softcap=0.0,
-                           alibi_slopes=None, cache_leftpad=None, upcast=True):
+                           alibi_slopes=None, cache_leftpad=None, upcast=True,
+                           ref_dtype=torch.float32):
     """Dense softmax attention over the keys each block-table row names,
     written apart from ops/paged.py: the pages are gathered in logical order
     and dequantized, the heads repeated over the GQA group, and the scores
@@ -103,26 +104,29 @@ def paged_attention_oracle(q, k_pool, v_pool, block_tables, kv_lens, *, k_scales
     the tanh softcap and ALiBi (slopes (h,) or (b, h) times |qpos - kpos|,
     both counted from the leftpad) on the scores.
 
-    upcast=True is the float32 oracle: every step in f32. upcast=False is
-    the low-precision oracle: q times the softmax scale, the dequantized K
-    and V, the scores, P and the PV product each rounded to q's dtype, with
-    the softmax in f32. Returns (O (b, sq, h, d) in f32 or q's dtype, LSE
-    (b, h, sq) f32, -inf on rows that see no key)."""
+    upcast=True is the high-precision oracle: every step in ref_dtype
+    (float32, or float64 to hold float32 inputs). upcast=False is the
+    low-precision oracle: q times the softmax scale, the dequantized K and V,
+    the scores, P and the PV product each rounded to q's dtype, with the
+    softmax in f32 (in ref_dtype where q is wider). Returns (O (b, sq, h, d)
+    in ref_dtype or q's dtype, LSE (b, h, sq) f32 or ref_dtype, -inf on rows
+    that see no key)."""
     b, sq, h, d = q.shape
     h_k = k_pool.shape[1]
-    dt = torch.float32 if upcast else q.dtype
+    dt = ref_dtype if upcast else q.dtype
+    acc = ref_dtype if upcast or q.dtype == ref_dtype else torch.float32
     bt = block_tables.long()
 
     def dense(pool, scales):  # (pages, h_k, page, d) -> (b, h, T, d)
-        x = pool[bt].float()  # (b, max_pages, h_k, page, d)
+        x = pool[bt].to(acc)  # (b, max_pages, h_k, page, d)
         if scales is not None:
-            x = x * scales[bt].float()[..., None]
+            x = x * scales[bt].to(acc)[..., None]
         x = x.transpose(1, 2).reshape(b, h_k, -1, d)
         return x.repeat_interleave(h // h_k, dim=1).to(dt)
 
     k, v = dense(k_pool, k_scales), dense(v_pool, v_scales)
-    qs = (q.float() / math.sqrt(d)).to(dt).transpose(1, 2)  # (b, h, sq, d)
-    s = (qs @ k.transpose(-1, -2)).float()  # (b, h, sq, T)
+    qs = (q.to(acc) / math.sqrt(d)).to(dt).transpose(1, 2)  # (b, h, sq, d)
+    s = (qs @ k.transpose(-1, -2)).to(acc)  # (b, h, sq, T)
     if softcap > 0.0:
         s = torch.tanh(s / softcap) * softcap
     kcol = torch.arange(k.shape[2], device=q.device)
@@ -141,7 +145,7 @@ def paged_attention_oracle(q, k_pool, v_pool, block_tables, kv_lens, *, k_scales
     if alibi_slopes is not None:
         sl = alibi_slopes.to(q.device).float()
         sl = sl[None] if sl.dim() == 1 else sl
-        s = s - sl[:, :, None, None] * ((qpos - pad) - (kcol - pad)).abs().float()
+        s = s - sl[:, :, None, None] * ((qpos - pad) - (kcol - pad)).abs().to(acc)
     s = s.masked_fill(~keep, -torch.inf)
     lse = torch.logsumexp(s, dim=-1)
     p = torch.exp(s - lse[..., None]).nan_to_num(nan=0.0)  # rows with no key: P = 0
