@@ -176,8 +176,9 @@ Phases, each of which raises (exit code != 0) when it fails:
    kernel over f32, int8 and fp8 weights), each against its plain version
    under the 2x rule (float64 oracles for f32), the serving shapes timed
    beside their bound (f32 operations at F32_FLOPS) and SDPA / cuBLAS in the
-   working dtype; f64 refused by each wrapper and a bucketed f32 engine by
-   K7 (TypeError naming the kernel); the api's KV-cache decode and paged
+   working dtype (flash_attention in fp16 beside the fp16 options rows); f64
+   refused by every kernel's wrapper, K1 to K11, and mixed dtypes by K7
+   (TypeError naming the kernel); the api's KV-cache decode and paged
    varlen over fp16 and f32 caches against the plain versions (`api_dtypes`,
    a main path). Then Llama-8B at full width and depth served twice, each a
    main path after the reference check of its cores (2 layers) against the
@@ -186,7 +187,24 @@ Phases, each of which raises (exit code != 0) when it fails:
    K7 in fp16) and `serve_f32` (unquantized f32 weights, 32.1 GB; an f32
    cache of 48 pages of 256; 256-token chunked prefill), their graphs held
    to the eager step and a decode step profiled.
-8. Print the seconds of each phase, the `kernels` JSON line, the card's
+8. The dense flash family in f32 (`f32_flash_phase`, `serve_f32_bucketed`):
+   K7, K8, K9, K10 and K11's f32 kernels (csrc/flash_f32.cu) against their
+   plain versions in f64 (the oracle) and f32 (the low-precision oracle)
+   under the 2x rule: K7 at bucket 1024, `train_s1024` and s = 2048, K9-K11
+   at `train_s1024` (both routes, bit-reproducible K9 and K10, K11's dK/dV
+   equal to K10's), K8 at the api shape with ALiBi and dropout (its dropout
+   signs equal to the bf16 kernel's), timed beside their bound at
+   F32_FLOPS and SDPA in f32 (the backend named); untimed at GQA, d = 64,
+   unaligned lengths, every option and the packed prompts; then three main
+   paths: `train_f32` (Llama-8B widths cut to 8 layers, f32, three SGD
+   steps on K7/K9/K10 and one on K11, the loss falling; a 2-layer copy's
+   gradient against the plain versions in f64 on the card), `api_f32`
+   (flash_attn_func in f32 at 2048 tokens with ALiBi, dropout, the plane
+   and the gradient; packed varlen with its gradient; one call at d = 64;
+   checked after against the plain versions) and, beside `serve_f32` on
+   its params, `serve_f32_bucketed` (bucketed prefill: K7 in f32; its
+   streams equal to the chunked run's, or held to the tie rule).
+9. Print the seconds of each phase, the `kernels` JSON line, the card's
    name and power limit, and, last,
    {"ok": true, "device": {...}}.
 
@@ -2412,10 +2430,11 @@ def check_api_outputs(checks, res, cfg):
 
 # ---- phase 3: training ----------------------------------------------------------
 
-def train(gen, cfg, seed, steps=3, lr=0.005):
+def train(gen, cfg, seed, steps=3, lr=0.005, dtype=torch.bfloat16):
     """Plain SGD on one batch (b = 1, 1024 tokens made from the seed) with
-    bf16 parameters at the widths of cfg: `steps` steps through the two-pass
-    backward (K9, K10), one through the one-pass backward (K11), and one
+    parameters in dtype (bf16, or f32) at the widths of cfg: `steps` steps
+    through the two-pass backward (K9, K10), one through the one-pass
+    backward (K11), and one
     more two-pass step under the profiler. Every loss must be finite and
     below the one before it. The rate is small because the embedding
     (entries of about 0.02) feeds an RMS norm that scales its gradient up
@@ -2425,7 +2444,7 @@ def train(gen, cfg, seed, steps=3, lr=0.005):
     from xf_flash_attention_cutlass_tpu_torch.models.llama import init_params, loss_fn
 
     t0 = time.perf_counter()
-    params = init_params(gen, cfg)
+    params = init_params(gen, cfg, dtype=dtype)
     leaves = [params["embed"], params["final_norm"], params["lm_head"],
               *params["layers"].values()]
     for t in leaves:
@@ -2465,13 +2484,12 @@ def train(gen, cfg, seed, steps=3, lr=0.005):
 
 # ---- phase 4: serving ---------------------------------------------------------
 
-def reference_check(params, cfg, checks, seed, name="engine_reference", dtype=torch.bfloat16,
-                    bucketed=True):
+def reference_check(params, cfg, checks, seed, name="engine_reference", dtype=torch.bfloat16):
     """The prefill and decode cores at the model's width (Llama-8B, or
     Mixtral-8x7B geometry), cut to 2 layers, on the card (kernels) against
     the same cores on the CPU (plain versions), for one 128-token chunk, one
     decode step and one bucketed prefill (the same 100-token prompt in its
-    128-token bucket; not with `bucketed` False). The params are in `dtype`
+    128-token bucket). The params are in `dtype`
     (bf16, fp16 or f32), and so is the KV cache where the model is f32 (FP8
     else). 2x rule on the logits: the card's error against the CPU run in
     f32 (f64 for an f32 model) is at most twice the CPU run's error in
@@ -2548,8 +2566,7 @@ def reference_check(params, cfg, checks, seed, name="engine_reference", dtype=to
         lens = torch.tensor([n_valid + 1, 0], dtype=torch.int32, device=dev)
         _, logits_d = decode_core(p, dtok, pools, dbt, lens, cfg)
         # bucketed prefill rewrites page 0 with the same prompt's KV
-        logits_b = (prefill_core(p, tokens, n_valid, pools, bt[:, :1], cfg) if bucketed
-                    else logits_d[0])
+        logits_b = prefill_core(p, tokens, n_valid, pools, bt[:, :1], cfg)
         moe.top_k_dispatch = dispatch
         # the decode's inactive row too: it must stay finite (an MoE layer's
         # dispatch would spread a NaN to every row)
@@ -2557,8 +2574,6 @@ def reference_check(params, cfg, checks, seed, name="engine_reference", dtype=to
                                                     logits_d[1:]))
         seconds[run] = time.perf_counter() - t0
     for i, what in enumerate(("prefill_logits", "decode_logits", "bucketed_prefill_logits")):
-        if what.startswith("bucketed") and not bucketed:
-            continue
         ref = runs[ref_run][i]
         err, lp = max_err(runs["card"][i], ref), max_err(runs[lp_run][i], ref)
         ok = bool(torch.isfinite(runs["card"][i]).all()) and err <= 2 * lp + 1e-5
@@ -3493,6 +3508,74 @@ def serve_moe(gen, checks, paths, seed):
 F16, F32, FP8 = torch.float16, torch.float32, torch.float8_e4m3fn
 
 
+def flex_yardstick(q, kp, vp, ks, vs, bt, lens, causal=True, window=(-1, -1), softcap=0.0,
+                   alibi_slopes=None, cache_leftpad=None):
+    """(T, call) of the options' library yardstick: flex_attention under
+    torch.compile over the first T keys of each block-table row (T the
+    largest kv_len rounded up to a page), gathered and dequantized to q's
+    dtype (bf16 or fp16) as sdpa_over_pages does but not repeated over the GQA group
+    (enable_gqa), with softcap then ALiBi as the score_mod and kv_len, the
+    leftpad and the window as the block mask. Compiled here, by a first
+    call; the caller times the call. Pools and scales of one layer."""
+    from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+
+    b, sq, h, d = q.shape
+    h_k, page = kp.shape[-3], kp.shape[-2]
+    t_live = (int(lens.max()) + page - 1) // page * page
+    idx = bt[:, :t_live // page].long()
+
+    def dense(pool, scales):
+        x = pool[idx].transpose(1, 2).reshape(b, h_k, t_live, d).float()
+        if scales is not None:
+            x = x * scales[idx].transpose(1, 2).reshape(b, h_k, t_live, 1)
+        return x.to(q.dtype)
+
+    kg, vg = dense(kp, ks), dense(vp, vs)
+    qt = q.transpose(1, 2)
+    n = lens.long()
+    lp = torch.zeros_like(n) if cache_leftpad is None else cache_leftpad.long()
+    slopes = None if alibi_slopes is None else alibi_slopes.float().expand(b, h).contiguous()
+    wl, wr = window[0], (0 if causal else window[1])
+
+    def mask_mod(bi, hi, qi, ki):
+        qpos = n[bi] - sq + qi
+        keep = (ki < n[bi]) & (ki >= lp[bi])
+        if wr >= 0:
+            keep = keep & (ki <= qpos + wr)
+        if wl >= 0:
+            keep = keep & (ki >= qpos - wl)
+        return keep
+
+    def score_mod(score, bi, hi, qi, ki):
+        if softcap > 0.0:
+            score = torch.tanh(score / softcap) * softcap
+        if slopes is not None:
+            score = score - slopes[bi, hi] * (n[bi] - sq + qi - ki).abs()
+        return score
+
+    block_mask = create_block_mask(mask_mod, b, None, sq, t_live, device="cuda")
+    fn = torch.compile(flex_attention, dynamic=False)  # each shape compiled as it is
+
+    def call():
+        return fn(qt, kg, vg, score_mod=score_mod, block_mask=block_mask, enable_gqa=True)
+
+    call()
+    return t_live, call
+
+
+def flex_library(q, kp, vp, ks, vs, bt, lens, opts, timed):
+    """flex_yardstick's call on one layer's pools for a timed options row,
+    else None; a compile failure prints its text and gives None."""
+    if not timed:
+        return None
+    try:
+        return flex_yardstick(q, kp, vp, ks, vs, bt, lens, **opts)[1]
+    except Exception as e:  # the row then has no library time; the text says why
+        print(json.dumps({"flex_attention_error": f"{type(e).__name__}: {e}"[:2000]}),
+              flush=True)
+        return None
+
+
 def check_k1_call(checks, timer, name, q, kp, vp, ks, vs, bt, lens, layer_idx=None, timed=False,
                   library=None, **opts):
     """One K1 call of any route and dtype under the 2x rule against its plain
@@ -3616,8 +3699,11 @@ def check_dtype_kernels(gen, timer, checks, cfg):
         q, kp, vp, bt, lens, full = options_decode_inputs(gen, cfg, dt)
         cases = ([(n, {n: x}) for n, x in full.items()] if dt == F16 else []) + [("all", full)]
         for name, opts in cases:
+            timed = name == "all" and dt == F16
             r = check_k1_call(checks, timer, f"paged_attention.decode.options[{DT_TAG[dt]},{name}]",
-                              q, kp, vp, None, None, bt, lens, timed=name == "all" and dt == F16,
+                              q, kp, vp, None, None, bt, lens, timed=timed,
+                              library=flex_library(q, kp, vp, None, None, bt, lens, opts,
+                                                   timed),
                               **opts)
             if r is not None:
                 r["ms_no_options"] = timer.ms(lambda: paged_attention(q, kp, vp, bt, lens))
@@ -3627,9 +3713,11 @@ def check_dtype_kernels(gen, timer, checks, cfg):
         cases = ([(n, {n: x}) for n, x in full.items()] if dt == F16 else []) + [
             ("all", full), ("right_window", dict(causal=False, window=(-1, 37)))]
         for name, opts in cases:
+            timed = name == "all" and dt == F16
+            library = flex_library(q, kp[1], vp[1], ks[1], vs[1], bt, lens, opts, timed)
             r = check_k1_call(checks, timer,
                               f"paged_attention.prefill.options[{DT_TAG[dt]}/fp8,{name}]",
-                              q, kp, vp, ks, vs, bt, lens, 1, timed=name == "all" and dt == F16,
+                              q, kp, vp, ks, vs, bt, lens, 1, timed=timed, library=library,
                               **opts)
             if r is not None:
                 measured["paged_attention.prefill.options.f16"] = r
@@ -3680,17 +3768,19 @@ def check_dtype_kernels(gen, timer, checks, cfg):
     return measured
 
 
-def check_refusals(gen, cfg, checks):
-    """What still raises on the card: f64 in each wrapper of this slice (K1,
-    the append kernel, K3/K4: a TypeError naming the kernel), and a bucketed
-    f32 engine (its prefill's K7 takes no f32: a TypeError naming K7)."""
-    from xf_flash_attention_cutlass_tpu_torch.models.llama import LlamaConfig, init_params
+def check_refusals(checks):
+    """What still raises on the card: f64 in every kernel's wrapper (K1, the
+    append kernel, K3/K4, K7, K8 and K9-K11), and mixed q / k dtypes in K7:
+    a TypeError naming the kernel."""
+    from xf_flash_attention_cutlass_tpu_torch.ops.flash_bwd import flash_bwd
+    from xf_flash_attention_cutlass_tpu_torch.ops.flash_fwd import attention_probs, flash_fwd
     from xf_flash_attention_cutlass_tpu_torch.ops.paged import paged_attention
     from xf_flash_attention_cutlass_tpu_torch.ops.paged_append import paged_append
     from xf_flash_attention_cutlass_tpu_torch.quant.linear import quantized_matmul
-    from xf_flash_attention_cutlass_tpu_torch.serve.engine import DecodeEngine, EngineConfig
 
     f64 = torch.float64
+    x = torch.zeros((1, 4, 64, 64), dtype=f64, device="cuda")
+    lse = torch.zeros((1, 4, 64), device="cuda")
     pool = torch.zeros((3, 2, 16, 64), dtype=f64, device="cuda")
     bt = torch.zeros((1, 2), dtype=torch.int32, device="cuda")
     lens = torch.ones(1, dtype=torch.int32, device="cuda")
@@ -3703,28 +3793,22 @@ def check_refusals(gen, cfg, checks):
                                     lens),
         qmm=lambda: quantized_matmul(torch.zeros((8, 64), dtype=f64, device="cuda"),
                                      torch.zeros((64, 64), dtype=torch.int8, device="cuda"),
-                                     torch.ones(64, device="cuda")))
-    names = dict(k1="K1", append="K2/K5/K6", qmm="K3/K4")
+                                     torch.ones(64, device="cuda")),
+        k7=lambda: flash_fwd(x, x, x),
+        k8=lambda: attention_probs(x, x, lse),
+        k9_k11=lambda: flash_bwd(x, x, x, x, lse, x),
+        k7_mixed=lambda: flash_fwd(x.float(), x.bfloat16(), x.bfloat16()))
+    names = dict(k1="K1", append="K2/K5/K6", qmm="K3/K4", k7="K7", k8="K8", k9_k11="K9-K11",
+                 k7_mixed="K7")
     for what, fn in calls.items():
         try:
             fn()
             msg = None
         except TypeError as e:
             msg = str(e)
-        checks.add(f"refusal.f64[{what}]", msg is not None and names[what] in msg, message=msg)
-    tiny = LlamaConfig(vocab_size=256, dim=512, n_layers=1, n_heads=4, n_kv_heads=2,
-                       ffn_dim=1024, max_seq_len=1024)
-    eng = DecodeEngine(init_params(gen, tiny, dtype=F32), tiny,
-                       EngineConfig(page_size=256, num_pages=4, max_seq=1024, max_batch=2),
-                       dtype=F32)
-    eng.add_request(0, list(range(100)), 2)
-    try:
-        eng.run()
-        msg = None
-    except TypeError as e:
-        msg = str(e)
-    torch.cuda.synchronize()
-    checks.add("refusal.bucketed_f32_engine", msg is not None and "K7" in msg, message=msg)
+        kind = "mixed" if what.endswith("_mixed") else "f64"
+        checks.add(f"refusal.{kind}[{what.removesuffix('_mixed')}]",
+                   msg is not None and names[what] in msg, message=msg)
 
 
 def profile_decode_steps(eng, cfg, seed, n_steps=3):
@@ -3750,20 +3834,24 @@ def profile_decode_steps(eng, cfg, seed, n_steps=3):
     return prof
 
 
-def serving_dtype_paths(gen, cfg, checks, paths, seed):
+def serving_dtype_paths(gen, cfg, checks, paths, seed, dtypes=(torch.float16, torch.float32)):
     """The fp16 and f32 serving paths at Llama-8B's full width and depth
     (random weights from the seed): each first the reference check of its
-    cores (2 layers) against the CPU, then the 8 serving requests as a main
-    path, its graphs against the eager step, and a profiled decode step.
-    `serve_fp16`: fp16 activations, INT8 weights, an FP8 page-256 cache,
-    bucketed prefill (K7 in fp16). `serve_f32`: unquantized f32 weights
-    (32.1 GB), an f32 cache of 48 pages of 256, 256-token chunked prefill.
-    Returns the report's rows."""
+    cores (2 layers; the chunk, decode and bucketed prefill cores) against
+    the CPU, then the 8 serving requests as a main path, its graphs against
+    the eager step, and a profiled decode step. `serve_fp16`: fp16
+    activations, INT8 weights, an FP8 page-256 cache, bucketed prefill (K7
+    in fp16). `serve_f32`: unquantized f32 weights (32.1 GB), an f32 cache
+    of 48 pages of 256, 256-token chunked prefill; then `serve_f32_bucketed`
+    on the same params (serve_f32_bucketed: K7 in f32), its streams held to
+    the chunked run's. Returns the report's rows."""
     from xf_flash_attention_cutlass_tpu_torch.models.llama import init_params, quantize_params
     from xf_flash_attention_cutlass_tpu_torch.serve.engine import DecodeEngine, EngineConfig
 
     out = {}
     for name, dtype in (("serve_fp16", F16), ("serve_f32", F32)):
+        if dtype not in dtypes:
+            continue
         t0 = time.perf_counter()
         if dtype == F16:
             params = quantize_params(init_params(gen, cfg, dtype=F16))
@@ -3776,8 +3864,7 @@ def serving_dtype_paths(gen, cfg, checks, paths, seed):
         torch.cuda.synchronize()
         row = dict(init_s=time.perf_counter() - t0)
         row["reference_check_s"] = reference_check(
-            params, cfg, checks, seed, name=f"engine_reference_{DT_TAG[dtype]}", dtype=dtype,
-            bucketed=dtype != F32)
+            params, cfg, checks, seed, name=f"engine_reference_{DT_TAG[dtype]}", dtype=dtype)
         eng = DecodeEngine(params, cfg, ecfg, dtype=dtype)
         eng.add_request(-1, list(range(300)), 2)  # warm-up request, not counted
         eng.run()
@@ -3794,9 +3881,16 @@ def serving_dtype_paths(gen, cfg, checks, paths, seed):
         row.update(serving=served, decode_profile=prof)
         print(json.dumps({name: row}), flush=True)
         out[name] = row
-        del eng, params
+        chunked = {rid: list(eng.results[rid]) for rid in range(8)}
+        del eng
         torch.cuda.empty_cache()
         checks.raise_on_failure(name)
+        if dtype == F32:
+            out["serve_f32_bucketed"] = serve_f32_bucketed(params, cfg, ecfg, checks, paths,
+                                                           seed, chunked)
+            print(json.dumps({"serve_f32_bucketed": out["serve_f32_bucketed"]}), flush=True)
+            checks.raise_on_failure("serve_f32_bucketed")
+        del params
     return out
 
 
@@ -3887,6 +3981,611 @@ def check_api_dtype_outputs(checks, cases):
                    max_abs_err=plain_err, tolerance=tol, err_vs_oracle=err, caches_equal=same)
 
 
+# ---- phase 8: the dense flash family in f32 (K7, K8, K9-K11) -------------------------
+
+# the 2x rule's absolute term for f32 results held to the f64 plain versions
+F32_ATOL = 1e-5
+# K7, K8 and K9-K11 in f32 off the paths' shapes: (name, b, h, h_k, sq, sk, d,
+# options; flash_case's, and "alibi": the heads' alibi_slopes_ref slopes,
+# "dropout": API_P under API_SEED), untimed
+F32_FLASH_CASES = [
+    ("unaligned_113x203", 2, 4, 2, 113, 203, 128, dict()),
+    ("unaligned_causal_113x203", 2, 4, 2, 113, 203, 128, dict(causal=True)),
+    ("d64", 2, 4, 2, 160, 160, 64, dict(causal=True)),
+    ("d64_gqa_4_1_window", 1, 16, 4, 333, 333, 64, dict(window=(64, 64))),
+    ("window", 1, 4, 2, 200, 200, 128, dict(window=(48, 16))),
+    ("window_left_causal", 1, 8, 2, 384, 384, 128, dict(causal=True, window=(77, -1))),
+    ("softcap", 1, 4, 2, 150, 190, 128, dict(causal=True, softcap=30.0)),
+    ("segments", 2, 4, 2, 130, 130, 128, dict(causal=True, segments=True)),
+    ("gqa_4_1", 1, 32, 8, 256, 256, 128, dict(causal=True)),
+    ("kv_lens_empty_row", 2, 4, 2, 96, 96, 128, dict(causal=True, kv_lens=[50, 0])),
+    ("sq1_causal_sk700", 1, 32, 8, 1, 700, 128, dict(causal=True)),
+    ("ragged_300x1000_causal", 1, 8, 2, 300, 1000, 128, dict(causal=True)),
+    ("alibi_dropout", 1, 8, 2, 300, 300, 128, dict(causal=True, alibi=True, dropout=True)),
+    ("d64_all_options", 1, 8, 2, 200, 260, 64,
+     dict(window=(100, 20), softcap=30.0, alibi=True, dropout=True)),
+]
+
+
+def f32_case(gen, b, h, h_k, sq, sk, d, opts):
+    """flash_case's q, k, v, dO in f32 and its keywords, with the heads'
+    ALiBi slopes ("alibi") and the api path's dropout ("dropout")."""
+    from xf_flash_attention_cutlass_tpu_torch.utils.testing import alibi_slopes_ref
+
+    opts = dict(opts)
+    alibi, drop = opts.pop("alibi", False), opts.pop("dropout", False)
+    tensors, kw = flash_case(gen, b, h, h_k, sq, sk, d, dict(opts, dtype=F32))
+    if alibi:
+        kw["alibi_slopes"] = torch.from_numpy(alibi_slopes_ref(h)).cuda()
+    if drop:
+        kw.update(dropout_p=API_P, dropout_seed=API_SEED)
+    return tensors, kw
+
+
+def f64(*tensors):
+    return [t.double() for t in tensors]
+
+
+def rule_2x(got, lp, ref):
+    """(error against the f64 oracle, error against the f32 plain version,
+    tolerance): the 2x rule, twice the f32 plain version's own error plus
+    F32_ATOL."""
+    return max_err(got, ref), max_err(got, lp), 2 * max_err(lp, ref) + F32_ATOL
+
+
+def launched_once(label, fn):
+    """fn's result, and whether it counted exactly one launch under label."""
+    from xf_flash_attention_cutlass_tpu_torch import _build
+
+    n0 = _build.LAUNCHES[label]
+    out = fn()
+    return out, _build.LAUNCHES[label] - n0 == 1
+
+
+def check_f32_fwd(checks, name, q, k, v, kw):
+    """K7 in f32 on given inputs against flash_fwd_ref in f64 (the oracle)
+    and in f32 (the low-precision oracle) under the 2x rule, for O and for
+    LSE; rows that see no key give O = 0 and LSE = -inf; one launch under
+    flash_fwd.f32. Returns (error against the f32 plain version,
+    tolerance)."""
+    from xf_flash_attention_cutlass_tpu_torch.ops.flash_fwd import flash_fwd, flash_fwd_ref
+
+    (o, lse), once = launched_once("flash_fwd.f32", lambda: flash_fwd(q, k, v, **kw))
+    o32, l32 = flash_fwd_ref(q, k, v, **kw)
+    o64, l64 = flash_fwd_ref(*f64(q, k, v), **kw)
+    torch.cuda.synchronize()
+    live = torch.isfinite(l64)
+    err, plain_err, tol = rule_2x(o, o32, o64)
+    lerr, lplain, ltol = rule_2x(lse[live], l32[live], l64[live])
+    empty_ok = bool((o[~live] == 0).all() and torch.isneginf(lse[~live]).all())
+    ok = (bool(torch.isfinite(o).all()) and o.dtype == F32 and empty_ok and once
+          and max(err, plain_err) <= tol and max(lerr, lplain) <= ltol)
+    checks.add(f"flash_fwd.f32.{name}", ok, max_abs_err=plain_err, tolerance=tol,
+               err_vs_f64=err, lse_err=lplain, lse_err_vs_f64=lerr, lse_tolerance=ltol,
+               empty_rows=int((~live).sum()), empty_rows_ok=empty_ok, launched=once)
+    return plain_err, tol
+
+
+def check_f32_bwd(checks, name, tensors, kw):
+    """K9 + K10 (two-pass) and K11 (fused) in f32 against flash_bwd_ref in
+    f64 (on the f64 forward's residuals) and in f32 (on the f32 plain
+    forward's, which the kernels take too) under the 2x rule, for dq, dk and
+    dv, each route launching under its f32 labels. Returns the residuals and
+    the worst (error, tolerance) of each route."""
+    from xf_flash_attention_cutlass_tpu_torch import _build
+    from xf_flash_attention_cutlass_tpu_torch.ops.flash_bwd import flash_bwd, flash_bwd_ref
+    from xf_flash_attention_cutlass_tpu_torch.ops.flash_fwd import flash_fwd_ref
+
+    q, k, v, do = tensors
+    o, lse = flash_fwd_ref(q, k, v, **kw)
+    o64, l64 = flash_fwd_ref(*f64(q, k, v), **kw)
+    g64 = flash_bwd_ref(*f64(q, k, v), o64, l64, do.double(), **kw)
+    g32 = flash_bwd_ref(q, k, v, o, lse, do, **kw)
+    del o64, l64
+    worst = {}
+    for route, fused, labels in (("two_pass", None, ("flash_bwd.dq.f32", "flash_bwd.dkv.f32")),
+                                 ("fused", True, ("flash_bwd.fused.f32",))):
+        n0 = [_build.LAUNCHES[x] for x in labels]
+        got = flash_bwd(q, k, v, o, lse, do, fused=fused, **kw)
+        torch.cuda.synchronize()
+        once = [_build.LAUNCHES[x] - n for x, n in zip(labels, n0)] == [1] * len(labels)
+        res = {g: rule_2x(x, x32, x64) for g, x, x32, x64 in zip(("dq", "dk", "dv"), got, g32,
+                                                                   g64)}
+        checks.add(f"flash_bwd.f32.{route}.{name}",
+                   all(bool(torch.isfinite(x).all()) and x.dtype == F32 for x in got) and once
+                   and all(max(e, pe) <= t for e, pe, t in res.values()),
+                   **{f"{g}_err": r[1] for g, r in res.items()},
+                   **{f"{g}_err_vs_f64": r[0] for g, r in res.items()},
+                   **{f"{g}_tolerance": r[2] for g, r in res.items()}, launched=once)
+        worst[route] = max(((r[1], r[2]) for r in res.values()), key=lambda t: t[0] / t[1])
+    return o, lse, worst
+
+
+def check_f32_probs(checks, name, q, k, lse, kw):
+    """K8 in f32 against attention_probs_ref in f64 and in f32 on the same
+    LSE under the 2x rule, its sign bits (the entries the dropout dropped)
+    equal to the f32 plain version's everywhere. Returns (the plane, its
+    error against the f32 plain version, the tolerance)."""
+    from xf_flash_attention_cutlass_tpu_torch.ops.flash_fwd import (
+        attention_probs,
+        attention_probs_ref,
+    )
+
+    probs, once = launched_once("flash_probs.f32", lambda: attention_probs(q, k, lse, **kw))
+    p32 = attention_probs_ref(q, k, lse, **kw)
+    p64 = attention_probs_ref(*f64(q, k, lse), **kw)
+    torch.cuda.synchronize()
+    err, plain_err, tol = rule_2x(probs, p32, p64)
+    del p64
+    mismatches = int((torch.signbit(probs) != torch.signbit(p32)).sum())
+    checks.add(f"flash_probs.f32[{name}]", bool(torch.isfinite(probs).all()) and once
+               and max(err, plain_err) <= tol and mismatches == 0, max_abs_err=plain_err,
+               tolerance=tol, err_vs_f64=err, sign_mismatches=mismatches, launched=once)
+    return probs, plain_err, tol
+
+
+def check_f32_dropout_mask(checks, name, q, k, lse, kw, probs):
+    """The f32 plane's dropout signs against the bf16 kernel's plane on the
+    same inputs rounded to bf16 (the same LSE): the sign bit of every entry
+    equal, so both dtypes' kernels drop the same entries."""
+    from xf_flash_attention_cutlass_tpu_torch.ops.flash_fwd import attention_probs
+
+    p16 = attention_probs(q.bfloat16(), k.bfloat16(), lse, **kw)
+    torch.cuda.synchronize()
+    diff = int((torch.signbit(p16) != torch.signbit(probs)).sum())
+    dropped = int(torch.signbit(probs).sum())
+    checks.add(f"flash_probs.f32.dropout_mask_equals_bf16[{name}]", diff == 0 and dropped > 0,
+               sign_mismatches=diff, dropped_entries=dropped)
+
+
+def sdpa_yardstick(q, k, v, backward=False):
+    """SDPA in q's dtype (causal, over the group-expanded heads; TF32 off):
+    a callable of one forward (or, with backward, of the gradient of a
+    forward already run), and the names of the kernels one call launches
+    (the backend that ran)."""
+    g = q.shape[1] // k.shape[1]
+    if not backward:
+        kx, vx = k.repeat_interleave(g, dim=1), v.repeat_interleave(g, dim=1)
+
+        def fn():
+            return F.scaled_dot_product_attention(q, kx, vx, is_causal=True)
+    else:
+        qx, kx, vx = (t.detach().requires_grad_(True) for t in (q, k, v))
+        out = F.scaled_dot_product_attention(qx, kx.repeat_interleave(g, dim=1),
+                                             vx.repeat_interleave(g, dim=1), is_causal=True)
+        do = torch.randn_like(out)
+
+        def fn():
+            return torch.autograd.grad(out, (qx, kx, vx), do, retain_graph=True)
+    names = kernel_names(fn)
+    return fn, [n for n in names if "fmha" in n or "ttention" in n] or names[:4]
+
+
+def time_f32_fwd(timer, q, k, v, kw, err, tol):
+    """Times of K7 in f32, its plain version and SDPA in f32 (the backend
+    named); the bound counts the visible pairs, 4 d operations each, at
+    F32_FLOPS."""
+    from xf_flash_attention_cutlass_tpu_torch.ops.flash_fwd import flash_fwd, flash_fwd_ref
+
+    b, h, sq, d = q.shape
+    o, lse = flash_fwd(q, k, v, **kw)
+    library, names = sdpa_yardstick(q, k, v)
+    ops = 4 * d * visible_pairs(b, h, sq, k.shape[2], kw)
+    return dict(ms=timer.ms(lambda: flash_fwd(q, k, v, **kw)),
+                device_ms=device_ms(lambda: flash_fwd(q, k, v, **kw), "flash_fwd_f32_kernel"),
+                plain_ms=timer.ms(lambda: flash_fwd_ref(q, k, v, **kw), PLAIN_REPS),
+                library_ms=timer.ms(library), library_kernels=names,
+                bound=bound(nbytes(q, k, v, o, lse, kw.get("kv_lens")), ops, F32_FLOPS),
+                err=err, tol=tol)
+
+
+def check_f32_bwd_repeat(checks, tensors, kw, name, dq_tol):
+    """K9 twice gives the same dQ bit for bit, K10 twice the same dK and dV;
+    K11's dK and dV equal K10's bit for bit (the same tile products, summed
+    in the same order); K11's dQ (the same tile parts, added by atomics in a
+    changing order) agrees with K9's within the 2x rule's dq tolerance."""
+    from xf_flash_attention_cutlass_tpu_torch.ops.flash_bwd import FlashBwdLaunch
+
+    q, k, v, o, lse, do = tensors
+    run = FlashBwdLaunch(q, k, v, o, lse, do, **bwd_launch_kw(kw, q.shape[-1]))
+    (dk1, dv1), (dk2, dv2) = run.dkv(), run.dkv()
+    dq9, dq9_again = run.dq(), run.dq()
+    dq11, dk11, dv11 = run.fused()
+    torch.cuda.synchronize()
+    checks.add(f"flash_bwd.f32.dq_bit_reproducible[{name}]", bool(torch.equal(dq9, dq9_again)),
+               max_abs_err=max_err(dq9, dq9_again), tolerance=0.0)
+    checks.add(f"flash_bwd.f32.dkv_bit_reproducible[{name}]",
+               bool(torch.equal(dk1, dk2) and torch.equal(dv1, dv2)),
+               max_abs_err=max(max_err(dk1, dk2), max_err(dv1, dv2)), tolerance=0.0)
+    checks.add(f"flash_bwd.f32.fused_dkv_equals_dkv[{name}]",
+               bool(torch.equal(dk11, dk1) and torch.equal(dv11, dv1)),
+               max_abs_err=max(max_err(dk11, dk1), max_err(dv11, dv1)), tolerance=0.0)
+    err = max_err(dq11, dq9)
+    checks.add(f"flash_bwd.f32.fused_dq_vs_dq[{name}]", err <= dq_tol, max_abs_err=err,
+               tolerance=dq_tol, criterion="the 2x rule's dq tolerance")
+
+
+def time_f32_bwd(timer, tensors, kw, worst):
+    """Times of K9, K10 and K11 in f32 (each launched alone on prepared
+    inputs), the plain backward and SDPA's backward in f32 (the backend
+    named). Bounds at F32_FLOPS: 2 d operations per visible pair for each
+    tile product, K9 three, K10 four, K11 five."""
+    from xf_flash_attention_cutlass_tpu_torch.ops.flash_bwd import FlashBwdLaunch, flash_bwd_ref
+
+    q, k, v, o, lse, do = tensors
+    b, h, sq, d = q.shape
+    run = FlashBwdLaunch(q, k, v, o, lse, do, **bwd_launch_kw(kw, d))
+    pair_ops = 2 * d * visible_pairs(b, h, sq, k.shape[2], kw)
+    plain_ms = timer.ms(lambda: flash_bwd_ref(q, k, v, o, lse, do, **kw), PLAIN_REPS)
+    library, names = sdpa_yardstick(q, k, v, backward=True)
+    library_ms = timer.ms(library)
+    ins = nbytes(q, k, v, do, lse) + 4 * lse.numel()  # and Delta
+    dq, (dk, dv) = run.dq(), run.dkv()
+    out = {}
+    for key, fn, n_prod, outs, route, kernel in (
+            ("flash_bwd.dq.f32", "dq", 3, (dq,), "two_pass", "flash_bwd_dq_f32_kernel"),
+            ("flash_bwd.dkv.f32", "dkv", 4, (dk, dv), "two_pass", "flash_bwd_dkv_f32_kernel"),
+            ("flash_bwd.fused.f32", "fused", 5, (dq, dk, dv), "fused",
+             "flash_bwd_dkv_f32_kernel")):
+        out[key] = dict(ms=timer.ms(getattr(run, fn)),
+                        device_ms=device_ms(getattr(run, fn), kernel),
+                        plain_ms=plain_ms, library_ms=library_ms, library_kernels=names,
+                        bound=bound(ins + nbytes(*outs), n_prod * pair_ops, F32_FLOPS),
+                        err=worst[route][0], tol=worst[route][1])
+    return out
+
+
+def check_f32_views(gen, checks, cfg):
+    """q, k, v and dO in f32 as the (b, s, h, d) views the model passes, at
+    the training shape: K7, K9 and K10 read them as they are (no copy) and
+    give the same bits as on contiguous copies, K11 the same dK, dV bits."""
+    from xf_flash_attention_cutlass_tpu_torch.ops.flash_bwd import FlashBwdLaunch
+    from xf_flash_attention_cutlass_tpu_torch.ops.flash_fwd import flash_fwd, flash_fwd_ref
+
+    h, h_k, d, s = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 1024
+    views = [torch.randn((1, s, n, d), generator=gen, device="cuda").transpose(1, 2)
+             for n in (h, h_k, h_k, h)]
+    q, k, v, do = views
+    kw = dict(causal=True)
+    flat = [t.contiguous() for t in views]
+    fwd_same = all(torch.equal(a, b) for a, b in zip(flash_fwd(q, k, v, **kw),
+                                                     flash_fwd(*flat[:3], **kw)))
+    o, lse = flash_fwd_ref(q, k, v, **kw)
+    run = FlashBwdLaunch(q, k, v, o, lse, do, **bwd_launch_kw(kw, d))
+    no_copy = all(a.data_ptr() == b.data_ptr() for a, b in zip((run.q, run.k, run.v, run.do),
+                                                                 views))
+    got = (run.dq(), *run.dkv(), *run.fused()[1:])
+    run_c = FlashBwdLaunch(*flat[:3], o, lse, flat[3], **bwd_launch_kw(kw, d))
+    want = (run_c.dq(), *run_c.dkv(), *run_c.fused()[1:])
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    checks.add("flash_f32.bshd_views_same_result", fwd_same and same and no_copy,
+               forward_bit_equal=fwd_same, backward_bit_equal=same, no_copy=no_copy)
+
+
+def check_flash_f32(gen, timer, checks, cfg, quick=False):
+    """K7, K8 and K9-K11 in f32 (csrc/flash_f32.cu), each against its plain
+    version in f64 and f32 under the 2x rule: K7 at the bucketed-prefill
+    shape (bucket 1024, kv_len 716) timed, at `train_s1024` and s = 2048
+    causal timed as its other shapes; K9, K10 and K11 at `train_s1024`
+    timed, with the repeat and fused checks; K8 at (1, 32, 2048, 2048),
+    causal with ALiBi and dropout 0.1, timed (and on device), its dropout
+    signs equal to the bf16 kernel's; then F32_FLASH_CASES (K7, both
+    backward routes and K8 where no kv_lens), the packed prompts with
+    positions, segment ids and per-row ALiBi, and the (b, s, h, d) views;
+    last K7 in fp16 at bucket 1024 timed (the serve_fp16 path's K7). With
+    quick, F32_FLASH_CASES and the views only, untimed. Returns the timed
+    rows by launch label."""
+    from xf_flash_attention_cutlass_tpu_torch.ops.flash_fwd import flash_fwd, flash_fwd_ref
+
+    def cases():
+        for name, *shape, opts in F32_FLASH_CASES:
+            (q, k, v, do), kw = f32_case(gen, *shape, opts)
+            check_f32_fwd(checks, name, q, k, v, kw)
+            check_f32_bwd(checks, name, (q, k, v, do), kw)
+            if "kv_lens" not in kw:
+                _, lse = flash_fwd_ref(q, k, v, **kw)
+                probs, _, _ = check_f32_probs(checks, name, q, k, lse, kw)
+                if "dropout_p" in kw:
+                    check_f32_dropout_mask(checks, name, q, k, lse, kw, probs)
+        tensors, kw = packed_case(gen, cfg, BWD_TILING_PACKED)
+        q, k, v, do = (t.float() for t in tensors)
+        check_f32_fwd(checks, "packed_positions_row_alibi", q, k, v, kw)
+        check_f32_bwd(checks, "packed_positions_row_alibi", (q, k, v, do), kw)
+        _, lse = flash_fwd_ref(q, k, v, **kw)
+        check_f32_probs(checks, "packed_positions_row_alibi", q, k, lse, kw)
+        check_f32_views(gen, checks, cfg)
+
+    if quick:
+        cases()
+        return {}
+    h, h_k, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    measured = {}
+    (q, k, v, _), kw = f32_case(gen, 1, h, h_k, 1024, 1024, d, dict(causal=True, kv_lens=[716]))
+    err, tol = check_f32_fwd(checks, "bucket1024_kv716", q, k, v, kw)
+    measured["flash_fwd.f32"] = time_f32_fwd(timer, q, k, v, kw, err, tol)
+    other = measured["flash_fwd.f32"]["other_shapes"] = {}
+    for name, s in (("train_s1024", 1024), ("causal_s2048", 2048)):
+        (q, k, v, do), kw = f32_case(gen, 1, h, h_k, s, s, d, dict(causal=True))
+        err, tol = check_f32_fwd(checks, name, q, k, v, kw)
+        other[name] = time_f32_fwd(timer, q, k, v, kw, err, tol)
+    (q, k, v, do), kw = f32_case(gen, 1, h, h_k, 1024, 1024, d, dict(causal=True))
+    o, lse, worst = check_f32_bwd(checks, "train_s1024", (q, k, v, do), kw)
+    tensors = (q, k, v, o, lse, do)
+    measured.update(time_f32_bwd(timer, tensors, kw, worst))
+    dq_tol = max(c["dq_tolerance"] for c in checks.cases
+                 if c["case"] in ("flash_bwd.f32.two_pass.train_s1024",
+                                  "flash_bwd.f32.fused.train_s1024"))
+    check_f32_bwd_repeat(checks, tensors, kw, "train_s1024", dq_tol)
+    del tensors, o
+    # K8 at the api path's shape and options
+    (q, k, v, _), kw = f32_case(gen, 1, h, h_k, API_S, API_S, d,
+                                dict(causal=True, alibi=True, dropout=True))
+    _, lse = flash_fwd(q, k, v, **kw)
+    probs, err, tol = check_f32_probs(checks, "api_s2048_alibi_dropout", q, k, lse, kw)
+    check_f32_dropout_mask(checks, "api_s2048_alibi_dropout", q, k, lse, kw, probs)
+    from xf_flash_attention_cutlass_tpu_torch.ops.flash_fwd import (
+        attention_probs,
+        attention_probs_ref,
+    )
+
+    pairs = visible_pairs(1, h, API_S, API_S, dict(causal=True))
+    measured["flash_probs.f32"] = dict(
+        ms=timer.ms(lambda: attention_probs(q, k, lse, **kw)),
+        device_ms=device_ms(lambda: attention_probs(q, k, lse, **kw), "flash_probs_f32_kernel"),
+        plain_ms=timer.ms(lambda: attention_probs_ref(q, k, lse, **kw), PLAIN_REPS),
+        library_ms=None, bound=bound(nbytes(q, k, lse, probs), 2 * d * pairs, F32_FLOPS),
+        err=err, tol=tol)
+    del probs, q, k, v
+    torch.cuda.empty_cache()
+    cases()
+    # K7 in fp16 at bucket 1024: the serve_fp16 path's K7, beside SDPA in fp16
+    x, kw, err, tol = check_flash_fwd(gen, checks, "f16.bucket1024_kv716", 1, h, h_k, 1024,
+                                      1024, d, dict(causal=True, kv_lens=[716], dtype=F16))
+    r = time_flash_fwd(timer, *x, kw, err, tol)
+    r.pop("ms_general")
+    measured["flash_fwd.f16"] = r
+    return measured
+
+
+def train_f32(gen, cfg, seed, checks, paths):
+    """f32 training at Llama-8B widths cut to 8 layers (train(): three SGD
+    steps on K7/K9/K10 in f32, one on K11, then the profiled step, the loss
+    falling at each; rate 0.002: at train()'s 0.005 the fifth step's loss
+    rose on an H100, 10.02 -> 10.94), a main path;
+    then the gradient of a 2-layer copy (1024 tokens) through the kernels
+    against the same model with the plain versions of K7 and K9/K10 in its
+    place, in f64 (the oracle) and in f32, on the card, under the 2x rule
+    for every parameter's gradient. Returns the report's row."""
+    from xf_flash_attention_cutlass_tpu_torch.models import llama
+    from xf_flash_attention_cutlass_tpu_torch.ops.flash_bwd import flash_bwd_ref
+    from xf_flash_attention_cutlass_tpu_torch.ops.flash_fwd import flash_fwd_ref
+
+    c8 = dataclasses.replace(cfg, n_layers=8)
+    torch.cuda.reset_peak_memory_stats()
+    (ok, row), paths["train_f32"] = drive("train_f32",
+                                          lambda: train(gen, c8, seed, lr=0.002, dtype=F32))
+    checks.add("train_f32.loss_falls", ok, losses=row["losses"])
+
+    class Plain(torch.autograd.Function):  # flash_attention with the plain versions
+        @staticmethod
+        def forward(ctx, q, k, v, causal, kv_lens):
+            o, lse = flash_fwd_ref(q, k, v, causal=causal, kv_lens=kv_lens)
+            ctx.save_for_backward(q, k, v, o, lse)
+            ctx.causal, ctx.kv_lens = causal, kv_lens
+            return o, lse
+
+        @staticmethod
+        def backward(ctx, do, _dlse):
+            q, k, v, o, lse = ctx.saved_tensors
+            return (*flash_bwd_ref(q, k, v, o, lse, do, causal=ctx.causal,
+                                   kv_lens=ctx.kv_lens), None, None)
+
+    c2 = dataclasses.replace(cfg, n_layers=2)
+    base = llama.init_params(gen, c2, dtype=F32)
+    tokens = torch.from_numpy(np.random.default_rng(seed + 4).integers(
+        0, cfg.vocab_size, (1, 1025))).cuda()
+    grads = {}
+    kernels = llama.flash_attention
+    for run, dt, attention in (("card", F32, None), ("plain_f32", F32, "plain"),
+                               ("plain_f64", torch.float64, "plain")):
+        params = {n: ({m: t.to(dt) for m, t in x.items()} if isinstance(x, dict) else x.to(dt))
+                  for n, x in base.items()}
+        leaves = [params["embed"], params["final_norm"], params["lm_head"],
+                  *params["layers"].values()]
+        for t in leaves:
+            t.requires_grad_(True)
+        if attention:
+            llama.flash_attention = lambda q, k, v, causal=False, kv_lens=None, fused=None: (
+                Plain.apply(q, k, v, causal, kv_lens))
+        try:
+            grads[run] = torch.autograd.grad(llama.loss_fn(params, tokens, c2), leaves)
+        finally:
+            llama.flash_attention = kernels
+        del params, leaves
+    torch.cuda.synchronize()
+    worst = None
+    for g, g32, g64 in zip(grads["card"], grads["plain_f32"], grads["plain_f64"]):
+        r = rule_2x(g, g32, g64)
+        if worst is None or max(r[0], r[1]) / r[2] > max(worst[0], worst[1]) / worst[2]:
+            worst = r
+    checks.add("train_f32.grad_2layer_vs_f64_plain", max(worst[0], worst[1]) <= worst[2],
+               max_abs_err=worst[1], err_vs_f64=worst[0], tolerance=worst[2],
+               parameters=len(grads["card"]))
+    del grads, base
+    torch.cuda.empty_cache()
+    row["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return row
+
+
+def api_f32_path(gen, cfg):
+    """The api's dense calls in f32 at Llama-8B attention width (32 q / 8 kv
+    heads, d = 128), through the wrappers a user calls: flash_attn_func at
+    2048 tokens, causal, ALiBi, dropout 0.1, return_attn_probs, and the
+    gradient of sum(out * w); packed flash_attn_varlen_func over the 8
+    serving prompts, causal, per-sequence ALiBi slopes, and its gradient;
+    flash_attn_func at d = 64 (b = 2, 300 tokens, 8 / 2 heads, causal) and
+    its gradient. A main path: returns each call's inputs and outputs for
+    check_api_f32_outputs."""
+    import xf_flash_attention_cutlass_tpu_torch as xfa
+    from xf_flash_attention_cutlass_tpu_torch.utils.testing import alibi_slopes_ref
+
+    h, h_k, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+
+    def randn(*sh):
+        return torch.randn(sh, generator=gen, device="cuda")
+
+    out = {}
+    xs = [randn(1, API_S, n, d).requires_grad_(True) for n in (h, h_k, h_k)]
+    w = randn(1, API_S, h, d)
+    slopes = torch.from_numpy(alibi_slopes_ref(h)).cuda()
+    o, lse, probs = xfa.flash_attn_func(*xs, dropout_p=API_P, causal=True, alibi_slopes=slopes,
+                                        return_attn_probs=True, dropout_seed=API_SEED)
+    grads = torch.autograd.grad((o * w).sum(), xs)
+    out["dense"] = dict(x=[t.detach() for t in xs], w=w, o=o.detach(), lse=lse, probs=probs,
+                        grads=grads, kw=dict(causal=True, alibi_slopes=slopes, dropout_p=API_P,
+                                             dropout_seed=API_SEED))
+    lens = serving_prompt_lens(0)
+    T = sum(lens)
+    cu = torch.tensor(np.cumsum([0] + lens), dtype=torch.int32, device="cuda")
+    xs = [randn(T, n, d).requires_grad_(True) for n in (h, h_k, h_k)]
+    w = randn(T, h, d)
+    slopes_b = torch.rand((len(lens), h), generator=gen, device="cuda") * 0.1
+    o = xfa.flash_attn_varlen_func(*xs, cu, cu, max(lens), max(lens), causal=True,
+                                   alibi_slopes=slopes_b)
+    grads = torch.autograd.grad((o * w).sum(), xs)
+    out["packed"] = dict(x=[t.detach() for t in xs], w=w, o=o.detach(), grads=grads, cu=cu,
+                         slopes=slopes_b)
+    xs = [randn(2, 300, n, 64).requires_grad_(True) for n in (8, 2, 2)]
+    w = randn(2, 300, 8, 64)
+    o = xfa.flash_attn_func(*xs, causal=True)
+    grads = torch.autograd.grad((o * w).sum(), xs)
+    out["d64"] = dict(x=[t.detach() for t in xs], w=w, o=o.detach(), grads=grads,
+                      kw=dict(causal=True))
+    return out
+
+
+def check_api_f32_outputs(checks, res):
+    """api_f32_path's outputs against the plain versions on the card, in
+    f64 (the oracle) and in f32, under the 2x rule: O, the dense call's LSE
+    and plane (its signs equal to the f32 plain plane's), and the gradients
+    (flash_bwd_ref on each run's own residuals). The packed call is held to
+    the plain versions over the packed tokens with the segment ids,
+    positions and per-row slopes the varlen entry builds."""
+    from xf_flash_attention_cutlass_tpu_torch.ops.flash_bwd import flash_bwd_ref
+    from xf_flash_attention_cutlass_tpu_torch.ops.flash_fwd import (
+        attention_probs_ref,
+        flash_fwd_ref,
+    )
+    from xf_flash_attention_cutlass_tpu_torch.ops.varlen import (
+        _packed_positions,
+        _row_slopes_from_segments,
+    )
+
+    def bhsd(t):  # (b, s, h, d), or packed (T, h, d), as the ops take it
+        return t[None].transpose(1, 2) if t.dim() == 3 else t.transpose(1, 2)
+
+    for name, r in res.items():
+        kw = r.get("kw")
+        if name == "packed":
+            T = r["o"].shape[0]
+            qseg, kseg, qpos, kpos = _packed_positions(r["cu"], r["cu"], T, T)
+            kw = dict(causal=True, q_segment_ids=qseg[None], kv_segment_ids=kseg[None],
+                      q_positions=qpos[None], kv_positions=kpos[None],
+                      alibi_row_slopes=_row_slopes_from_segments(r["slopes"], qseg))
+        q, k, v, w = (bhsd(t) for t in (*r["x"], r["w"]))
+        plain = {}
+        for dt in (F32, torch.float64):
+            xq, xk, xv, xw = (t.to(dt) for t in (q, k, v, w))
+            o, lse = flash_fwd_ref(xq, xk, xv, **kw)
+            plain[dt] = dict(o=o, lse=lse, grads=flash_bwd_ref(xq, xk, xv, o, lse, xw, **kw))
+            if "probs" in r:
+                plain[dt]["probs"] = attention_probs_ref(xq, xk, lse, **kw)
+        got = dict(o=bhsd(r["o"]), grads=[bhsd(g) for g in r["grads"]])
+        res_2x = {"o": rule_2x(got["o"], plain[F32]["o"], plain[torch.float64]["o"])}
+        for g, x, x32, x64 in zip(("dq", "dk", "dv"), got["grads"], plain[F32]["grads"],
+                                  plain[torch.float64]["grads"]):
+            res_2x[g] = rule_2x(x, x32, x64)
+        extra = {}
+        if "probs" in r:
+            live = torch.isfinite(plain[torch.float64]["lse"])
+            res_2x["lse"] = rule_2x(r["lse"][live], plain[F32]["lse"][live],
+                                    plain[torch.float64]["lse"][live])
+            res_2x["probs"] = rule_2x(r["probs"], plain[F32]["probs"],
+                                      plain[torch.float64]["probs"])
+            extra["sign_mismatches"] = int(
+                (torch.signbit(r["probs"]) != torch.signbit(plain[F32]["probs"])).sum())
+        del plain
+        finite = all(bool(torch.isfinite(t).all()) for t in (got["o"], *got["grads"]))
+        checks.add(f"api_f32.{name}", finite and extra.get("sign_mismatches", 0) == 0
+                   and all(max(e, pe) <= t for e, pe, t in res_2x.values()),
+                   **{f"{n}_err": x[1] for n, x in res_2x.items()},
+                   **{f"{n}_err_vs_f64": x[0] for n, x in res_2x.items()},
+                   **{f"{n}_tolerance": x[2] for n, x in res_2x.items()}, **extra)
+
+
+def serve_f32_bucketed(params, cfg, ecfg, checks, paths, seed, chunked):
+    """Llama-8B in f32 with bucketed prefill (buckets 256-2048: K7 in f32)
+    on serve_f32's params and cache geometry, the 8 serving requests as a
+    main path, its graphs against the eager step and a profiled decode step;
+    its greedy streams against the chunked run's (`chunked`): equal, or
+    else both runs served again with their logits recorded and held to the
+    tie rule. Returns the report's row."""
+    from xf_flash_attention_cutlass_tpu_torch.serve.engine import DecodeEngine
+
+    becfg = dataclasses.replace(ecfg, prefill_chunk=None)
+    eng = DecodeEngine(params, cfg, becfg, dtype=F32)
+    eng.add_request(-1, list(range(300)), 2)  # warm-up request, not counted
+    eng.run()
+    torch.cuda.reset_peak_memory_stats()
+    served, paths["serve_f32_bucketed"] = drive("serve_f32_bucketed",
+                                                lambda: serve(eng, cfg, seed))
+    served["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    served["launches"] = paths["serve_f32_bucketed"]
+    check_graph_replay(eng, checks, "serve_f32_bucketed")
+    streams = {rid: list(eng.results[rid]) for rid in chunked}
+    prof = profile_decode_steps(eng, cfg, seed)
+    if prof is not None:
+        prof["busy_share_of_p50_step"] = (prof["device_ms_per_step"]
+                                          / served["decode_step_ms"]["p50"])
+    exact = sum(streams[rid] == chunked[rid] for rid in chunked)
+    if exact == len(chunked):
+        checks.add("serve_f32_bucketed.streams_equal_chunked", True, exact=exact,
+                   requests=len(chunked))
+    else:  # serve both again, recording the logits each token came from
+        rng = np.random.default_rng(seed)
+        lens = rng.integers(200, 1501, 8)
+        prompts = {100 + i: rng.integers(0, cfg.vocab_size, int(n)).tolist()
+                   for i, n in enumerate(lens)}
+        runs = []
+        for e in (DecodeEngine(params, cfg, ecfg, dtype=F32), eng):
+            streams_r, logits, _, _ = serve_recorded(e, prompts, 32)
+            runs.append((streams_r, logits))
+        tie_rule(checks, "serve_f32_bucketed.vs_chunked", runs[0], runs[1])
+    del eng
+    torch.cuda.empty_cache()
+    return dict(serving=served, decode_profile=prof, streams_equal_chunked=exact)
+
+
+def f32_flash_phase(gen, timer, checks, cfg, paths, seed):
+    """Phase 8's kernels and refusal-free paths: the f32 kernel checks
+    (check_flash_f32), f32 training (train_f32) and the api's f32 calls
+    (api_f32, a main path, checked after). Returns the report's rows."""
+    measured = check_flash_f32(gen, timer, checks, cfg)
+    print(json.dumps({"flash_f32_kernels": measured}), flush=True)
+    checks.raise_on_failure("f32 flash kernels")
+    torch.cuda.empty_cache()
+    training = train_f32(gen, cfg, seed, checks, paths)
+    print(json.dumps({"train_f32": training}), flush=True)
+    checks.raise_on_failure("f32 training")
+    res, paths["api_f32"] = drive("api_f32", lambda: api_f32_path(gen, cfg))
+    check_api_f32_outputs(checks, res)
+    del res
+    checks.raise_on_failure("api f32")
+    torch.cuda.empty_cache()
+    return measured, training
+
+
 def dtypes_phase_alone(out_dir=None):
     """Build everything, then run this slice's phase alone (the kernel checks
     and refusals, the api's fp16 and f32 calls, then the two serving paths);
@@ -3905,7 +4604,7 @@ def dtypes_phase_alone(out_dir=None):
     checks, paths, report = Checks(), {}, {}
     t0 = time.perf_counter()
     report["dtype_kernels"] = check_dtype_kernels(gen, Timer(), checks, cfg)
-    check_refusals(gen, cfg, checks)
+    check_refusals(checks)
     cases, paths["api_dtypes"] = drive("api_dtypes", lambda: api_dtype_path(gen, cfg))
     check_api_dtype_outputs(checks, cases)
     phase_s["dtype_kernels"] = time.perf_counter() - t0
@@ -4132,6 +4831,33 @@ def probs_build_report(checks, lib_path):
     return report
 
 
+_F32_NAME = re.compile(r"flash_(fwd|probs|bwd_dq|bwd_dkv)_f32_kernelILi(\d+)E(?:Lb([01])E)?")
+
+
+def f32_instantiation(mangled):
+    """'fwd_d128', 'probs_d64', 'dq_d128', 'dkv_d128', 'fused_d64', ... for a
+    mangled kernel name of csrc/flash_f32.cu, else None."""
+    m = _F32_NAME.search(mangled)
+    if m is None:
+        return None
+    kind = {"fwd": "fwd", "probs": "probs", "bwd_dq": "dq"}.get(m.group(1))
+    kind = kind or ("fused" if m.group(3) == "1" else "dkv")
+    return f"{kind}_d{m.group(2)}"
+
+
+def flash_f32_build_report(checks):
+    """Registers and spill bytes of every kernel of csrc/flash_f32.cu
+    (build/flash_f32.log): ten instantiations (K7, K8, K9, K10, K11 at d =
+    64 and 128), none spilling."""
+    inst = ptxas_usage("flash_f32", f32_instantiation)
+    print(json.dumps({"flash_f32_build": inst}), flush=True)
+    checks.add("flash_f32.no_spills",
+               len(inst) == 10 and all(r.get("spill_bytes") == 0 for r in inst.values()),
+               spill_bytes={n: r.get("spill_bytes") for n, r in inst.items()},
+               registers={n: r.get("registers") for n, r in inst.items()})
+    return inst
+
+
 _BWD_NAME = re.compile(r"flash_bwd_(dkv|dq)_kernelI(\w+?)Li(\d+)E(?:Lb([01])E)?Lb([01])E")
 
 
@@ -4314,6 +5040,16 @@ KERNELS.update({
     "qmm.stacked.bm64.f16": _K3, "qmm.single.decode.f16": _K4, "qmm.single.wgmma.f16": _K4,
     "qmm.stacked.f32": _K3, "qmm.single.f32": _K4,
 })
+# the dense flash family's fp16 K7 (phase 7's serve_fp16) and f32 kernels (phase 8)
+_F32 = _PKG + "flash_f32.cu"
+KERNELS.update({
+    "flash_fwd.f16": (_PKG + "flash_fwd.cu", _TPU + "ops/flash_fwd.py:100"),
+    "flash_fwd.f32": (_F32, _TPU + "ops/flash_fwd.py:100"),
+    "flash_probs.f32": (_F32, _TPU + "ops/flash_fwd.py:379"),
+    "flash_bwd.dq.f32": (_F32, _TPU + "ops/flash_bwd.py:228"),
+    "flash_bwd.dkv.f32": (_F32, _TPU + "ops/flash_bwd.py:284"),
+    "flash_bwd.fused.f32": (_F32, _TPU + "ops/flash_bwd.py:156"),
+})
 # the kernels each main path must launch (and it may call no plain version);
 # the engine's decode splits (paged_plan: 4 at b = 8) run the combine kernel.
 # Every decode step is the replay of a CUDA graph (`graph.decode`, a window
@@ -4346,7 +5082,7 @@ PATHS = {
     # phase 7: Llama-8B in fp16 (INT8 weights, FP8 cache, bucketed prefill:
     # K7 in fp16) and in f32 (f32 weights and cache, chunked prefill; the
     # lm_head is a plain f32 tensor, so torch.matmul, as in the JAX engine)
-    "serve_fp16": ["flash_fwd", "paged_append.prefill.f16", "paged_append.decode.f16",
+    "serve_fp16": ["flash_fwd.f16", "paged_append.prefill.f16", "paged_append.decode.f16",
                    "paged_attention.decode.f16", "paged_attention.combine.f16",
                    "qmm.stacked.decode.f16", "qmm.stacked.wgmma.f16", "qmm.single.decode.f16",
                    "graph.decode"],
@@ -4356,6 +5092,14 @@ PATHS = {
     "api_dtypes": ["paged_attention.decode.f16", "paged_attention.prefill.wgmma.f16",
                    "paged_attention.decode.options.f16", "paged_attention.prefill.options.f16",
                    "paged_attention.decode.f32", "paged_attention.prefill.f32"],
+    # phase 8: the dense flash family in f32 (bucketed f32 prefill, f32
+    # training cut to 8 layers, the api's f32 dense calls)
+    "serve_f32_bucketed": ["flash_fwd.f32", "paged_append.prefill.f32",
+                           "paged_append.decode.f32", "paged_attention.decode.f32",
+                           "paged_attention.combine.f32", "qmm.stacked.f32", "graph.decode"],
+    "train_f32": ["flash_fwd.f32", "flash_bwd.dq.f32", "flash_bwd.dkv.f32",
+                  "flash_bwd.fused.f32"],
+    "api_f32": ["flash_fwd.f32", "flash_probs.f32", "flash_bwd.dq.f32", "flash_bwd.dkv.f32"],
 }
 # kernels a main path must not launch: serving decodes on K1's and K3/K4's
 # decode kernels, and the api path's options take K1's Hopper kernels
@@ -4369,14 +5113,21 @@ NOT_ON_PATH = {"serve_chunked": _NOT_SERVING, "serve_bucketed": _NOT_SERVING,
                "serve_moe_bucketed": _NOT_SERVING + _MOE_NOT_SERVING,
                "api": ["paged_attention.decode.wmma", "paged_attention.prefill.wmma"]}
 # the fp16 path launches none of the bf16 instantiations, and no WMMA kernel;
-# the f32 path nothing but the f32 instantiations
+# the f32 paths nothing but the f32 instantiations (no 16-bit flash kernel)
 _BF16_SERVING = _SERVE_KERNELS + _CHUNKED + ["paged_append.prefill"]
+_FLASH16 = [k + sfx for k in ("flash_fwd", "flash_probs", "flash_bwd.dq", "flash_bwd.dkv",
+                              "flash_bwd.fused") for sfx in ("", ".f16")]
+_F16_IN_F32 = ["paged_attention.decode.f16", "paged_append.decode.f16",
+               "qmm.stacked.decode.f16"]
 NOT_ON_PATH.update({
     "serve_fp16": _BF16_SERVING + _NOT_SERVING + [
         "paged_attention.decode.wmma.f16", "qmm.stacked.bm16.f16", "qmm.single.bm16.f16",
-        "qmm.stacked.bm64.f16"],
-    "serve_f32": _BF16_SERVING + ["flash_fwd", "paged_attention.decode.f16",
-                                  "paged_append.decode.f16", "qmm.stacked.decode.f16"],
+        "qmm.stacked.bm64.f16", "flash_fwd", "flash_fwd.f32"],
+    "serve_f32": _BF16_SERVING + _FLASH16 + _F16_IN_F32 + ["flash_fwd.f32"],
+    "serve_f32_bucketed": _BF16_SERVING + _FLASH16 + _F16_IN_F32 + [
+        "paged_attention.prefill.f32"],
+    "train_f32": _FLASH16,
+    "api_f32": _FLASH16,
     "api_dtypes": ["paged_attention.decode.wmma.f16", "paged_attention.prefill.wmma.f16"]})
 
 
@@ -4448,6 +5199,7 @@ def main():
     report["flash_bwd_build"] = flash_bwd_build_report(checks, libs["flash_bwd"])
     report["paged_build"] = paged_build_report(checks, libs)
     report["flash_probs_build"] = probs_build_report(checks, libs["flash_probs"])
+    report["flash_f32_build"] = flash_f32_build_report(checks)
 
     # 2. kernels against their plain versions, at the main paths' shapes
     cfg = LlamaConfig.llama8b()
@@ -4654,17 +5406,26 @@ def main():
     measured.update(dtype_rows)
     report["dtype_kernels"] = dtype_rows
     print(json.dumps({"dtype_kernels": dtype_rows}), flush=True)
-    check_refusals(gen, cfg, checks)
+    check_refusals(checks)
     cases, paths["api_dtypes"] = drive("api_dtypes", lambda: api_dtype_path(gen, cfg))
     check_api_dtype_outputs(checks, cases)
     del cases
     checks.raise_on_failure("fp16 and f32 kernels")
     torch.cuda.empty_cache()
     mark("dtype_kernels")
+
+    # 8. the dense flash family in f32: K7, K8 and K9-K11 against their plain
+    # versions in f64 and f32, f32 training (8 layers), the api's f32 dense
+    # calls; the bucketed f32 engine serves below, beside serve_f32
+    flash_f32_rows, report["train_f32"] = f32_flash_phase(gen, Timer(), checks, cfg, paths,
+                                                          args.seed)
+    measured.update(flash_f32_rows)
+    report["flash_f32_kernels"] = flash_f32_rows
+    mark("flash_f32")
     report["serving_dtypes"] = serving_dtype_paths(gen, cfg, checks, paths, args.seed)
     mark("serving_dtypes")
 
-    # 8. the kernels line, the card, the result
+    # 9. the kernels line, the card, the result
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         r = measured[name]

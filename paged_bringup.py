@@ -119,61 +119,6 @@ def k1_decode_sweep(gen, timer, cfg):
     return out
 
 
-def flex_yardstick(q, kp, vp, ks, vs, bt, lens, causal=True, window=(-1, -1), softcap=0.0,
-                   alibi_slopes=None, cache_leftpad=None):
-    """(T, call) of the options' library yardstick: flex_attention under
-    torch.compile over the first T keys of each block-table row (T the
-    largest kv_len rounded up to a page), gathered and dequantized to bf16
-    as sdpa_over_pages does but not repeated over the GQA group
-    (enable_gqa), with softcap then ALiBi as the score_mod and kv_len, the
-    leftpad and the window as the block mask. Compiled here, by a first
-    call; the caller times the call. Pools and scales of one layer."""
-    from torch.nn.attention.flex_attention import create_block_mask, flex_attention
-
-    b, sq, h, d = q.shape
-    h_k, page = kp.shape[-3], kp.shape[-2]
-    t_live = (int(lens.max()) + page - 1) // page * page
-    idx = bt[:, :t_live // page].long()
-
-    def dense(pool, scales):
-        x = pool[idx].transpose(1, 2).reshape(b, h_k, t_live, d).float()
-        if scales is not None:
-            x = x * scales[idx].transpose(1, 2).reshape(b, h_k, t_live, 1)
-        return x.bfloat16()
-
-    kg, vg = dense(kp, ks), dense(vp, vs)
-    qt = q.transpose(1, 2)
-    n = lens.long()
-    lp = torch.zeros_like(n) if cache_leftpad is None else cache_leftpad.long()
-    slopes = None if alibi_slopes is None else alibi_slopes.float().expand(b, h).contiguous()
-    wl, wr = window[0], (0 if causal else window[1])
-
-    def mask_mod(bi, hi, qi, ki):
-        qpos = n[bi] - sq + qi
-        keep = (ki < n[bi]) & (ki >= lp[bi])
-        if wr >= 0:
-            keep = keep & (ki <= qpos + wr)
-        if wl >= 0:
-            keep = keep & (ki >= qpos - wl)
-        return keep
-
-    def score_mod(score, bi, hi, qi, ki):
-        if softcap > 0.0:
-            score = torch.tanh(score / softcap) * softcap
-        if slopes is not None:
-            score = score - slopes[bi, hi] * (n[bi] - sq + qi - ki).abs()
-        return score
-
-    block_mask = create_block_mask(mask_mod, b, None, sq, t_live, device="cuda")
-    fn = torch.compile(flex_attention, dynamic=False)  # each shape compiled as it is
-
-    def call():
-        return fn(qt, kg, vg, score_mod=score_mod, block_mask=block_mask, enable_gqa=True)
-
-    call()
-    return t_live, call
-
-
 def hopper_options():
     """Whether the measured tree's Hopper K1 kernels take the options (its
     decode kernel has an options instantiation); stage 0 on a parent tree
@@ -216,8 +161,8 @@ def options_stage(gen, timer, checks, cfg):
                                q, kp, vp, ks, vs, bt, lens, layer)[1]
         r["no_options"] = dict(ms=timer.ms(free), device_ms=cs.device_ms(free, "paged_"))
         try:
-            t_live, flex = flex_yardstick(q, pick(kp), pick(vp), pick(ks), pick(vs), bt, lens,
-                                          **opts)
+            t_live, flex = cs.flex_yardstick(q, pick(kp), pick(vp), pick(ks), pick(vs), bt,
+                                             lens, **opts)
             r["library"] = dict(name="flex_attention", keys=t_live, ms=timer.ms(flex))
         except Exception as e:  # a compile failure is the finding: its text stands in the row
             r["library"] = dict(name="flex_attention", error=f"{type(e).__name__}: {e}"[:2000])

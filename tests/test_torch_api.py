@@ -30,6 +30,17 @@ import xf_flash_attention_cutlass_tpu_torch as tx
 from xf_flash_attention_cutlass_tpu_torch.models.llama import params_from_jax
 from xf_flash_attention_cutlass_tpu_torch.utils.testing import alibi_slopes_ref, max_err
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's side of these tests is tiny: one intra-op thread keeps it
+    from spinning against the other test workers' processes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ULP = float(np.finfo(np.float32).eps)
 
 

@@ -38,6 +38,16 @@ from xf_flash_attention_cutlass_tpu_torch.ops.flash_fwd import (
 from xf_flash_attention_cutlass_tpu_torch.utils.testing import flash_attention_oracle, max_err
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's side of these tests is tiny: one intra-op thread keeps it
+    from spinning against the other test workers' processes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _rand(seed, shape, scale=1.0):
     rng = np.random.default_rng(seed)
     return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32))

@@ -280,18 +280,20 @@ def test_validators_take_the_new_dtypes():
     dtype, int8 or fp8; K3/K4 activations of each over weights of their
     dtype, int8 or fp8. An f64 query, row or activation, and a 16-bit query
     over the other 16-bit dtype's pools, raise TypeError naming the
-    kernel. f32 stays off the dense flash kernels (K7, K8, K9-K11) until
-    their own slice: their shared dtype check, which K7's wrapper runs before
-    a bucketed f32 engine's prefill could launch, raises TypeError for f32
-    q/k/v and takes bf16 and fp16."""
+    kernel. The dense flash kernels (K7, K8, K9-K11) share one dtype check,
+    which K7's wrapper runs before a bucketed engine's prefill launches: it
+    takes bf16, fp16 and f32 q/k/v of one dtype (f32 on csrc/flash_f32.cu)
+    and raises TypeError naming the kernel for f64 and for mixed dtypes."""
     for dt in (torch.bfloat16, torch.float16, torch.float32):
         _check_validators(dt)
     x = torch.zeros((1, 2, 8, 64), dtype=torch.float32)
-    with pytest.raises(TypeError, match="flash forward"):
-        flash_fwd.check_cuda_dtypes("flash forward (K7)", x, x, x)
-    for dt in (torch.bfloat16, torch.float16):
+    for dt in (torch.bfloat16, torch.float16, torch.float32):
         y = x.to(dt)
         flash_fwd.check_cuda_dtypes("flash forward (K7)", y, y, y)
+    with pytest.raises(TypeError, match="flash forward \\(K7\\)"):
+        flash_fwd.check_cuda_dtypes("flash forward (K7)", x.double(), x.double(), x.double())
+    with pytest.raises(TypeError, match="flash forward \\(K7\\)"):
+        flash_fwd.check_cuda_dtypes("flash forward (K7)", x, x.bfloat16(), x.bfloat16())
 
 
 def _check_validators(dt):

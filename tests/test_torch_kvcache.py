@@ -39,6 +39,17 @@ from xf_flash_attention_cutlass_tpu_torch.utils.testing import (
     paged_attention_oracle,
 )
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's side of these tests is tiny: one intra-op thread keeps it
+    from spinning against the other test workers' processes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 JNP = {"f32": jnp.float32, "f16": jnp.float16, "bf16": jnp.bfloat16}
 
 

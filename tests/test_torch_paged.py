@@ -42,6 +42,16 @@ from xf_flash_attention_cutlass_tpu_torch.utils.testing import (
 )
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's side of these tests is tiny: one intra-op thread keeps it
+    from spinning against the other test workers' processes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(a) -> torch.Tensor:
     return params_from_jax(np.asarray(a))
 

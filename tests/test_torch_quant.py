@@ -16,6 +16,17 @@ from xf_flash_attention_cutlass_tpu.quant import linear as jlinear
 from xf_flash_attention_cutlass_tpu_torch.models.llama import params_from_jax
 from xf_flash_attention_cutlass_tpu_torch.quant import kv, linear
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's side of these tests is tiny: one intra-op thread keeps it
+    from spinning against the other test workers' processes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 QDTYPES = {"int8": (torch.int8, np.int8), "fp8_e4m3": (torch.float8_e4m3fn, np.uint8)}
 
 

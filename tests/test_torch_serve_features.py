@@ -36,6 +36,17 @@ from xf_flash_attention_cutlass_tpu_torch.serve.engine import (
     sample_tokens,
 )
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's side of these tests is tiny: one intra-op thread keeps it
+    from spinning against the other test workers' processes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # the tiny model of tests/test_serve.py
 TINY = dict(vocab_size=97, dim=64, n_layers=2, n_heads=4, n_kv_heads=2,
             ffn_dim=128, max_seq_len=512)

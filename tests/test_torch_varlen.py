@@ -34,6 +34,17 @@ from xf_flash_attention_cutlass_tpu_torch.ops import flash_fwd as tflash
 from xf_flash_attention_cutlass_tpu_torch.ops import varlen as tvarlen
 from xf_flash_attention_cutlass_tpu_torch.utils.testing import max_err
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's side of these tests is tiny: one intra-op thread keeps it
+    from spinning against the other test workers' processes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ULP = float(np.finfo(np.float32).eps)
 
 

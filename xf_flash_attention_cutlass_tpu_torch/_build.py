@@ -3,7 +3,8 @@
 Each source in ``csrc/*.cu`` is compiled by its own ``nvcc`` process into a
 shared library with a plain C interface, and loaded with ``ctypes``;
 paged_attention.cu and qmm.cu are compiled twice, their fp16 instantiations
-(-DXFA_HALF) apart from the rest. All
+(-DXFA_HALF) apart from the rest; the dense flash family's f32 kernels have
+a source of their own (flash_f32.cu). All
 sources are compiled together, in parallel, at first use; the libraries go
 to ``build/`` inside the package (listed in ``.gitignore``) under a name
 that carries a hash of the sources, so an edited source is rebuilt and an
@@ -34,7 +35,7 @@ BUILD_DIR = os.path.join(PKG_DIR, "build")
 # every kernel library; each becomes lib<name>-<hash>.so, from csrc/<name>.cu
 # or, for a variant, from another source with its defines
 SOURCES = ("paged_attention", "paged_attention_f16", "paged_append", "qmm", "qmm_f16",
-           "flash_fwd", "flash_probs", "flash_bwd")
+           "flash_fwd", "flash_probs", "flash_bwd", "flash_f32")
 # K1's and K3/K4's fp16 instantiations, built apart from the bf16 and f32 ones
 # (XFA_HALF) so that the two halves of those sources compile in parallel
 VARIANTS = {"paged_attention_f16": ("paged_attention", ["-DXFA_HALF"]),

@@ -15,17 +15,21 @@ mask dropped and 1 / (1 - p) elsewhere (the mask replayed from the seed,
 keyed by each q head). Returns (dq, dk, dv) in the input dtypes. The masks,
 ALiBi and positions are flash_fwd's.
 
-CUDA tensors run csrc/flash_bwd.cu: by default the two-pass split, K9
-(dQ) then K10 (dK/dV); ``fused=True`` runs K11, one pass whose dQ is summed
-with f32 atomics into a buffer the wrapper allocates and then casts (atomics
-sum in an order that changes from run to run). ``fused=None`` means two-pass,
-as in the JAX package. The kernels read q, k, v and dO through their strides
+CUDA tensors run csrc/flash_bwd.cu (bf16, fp16) or its f32 kernels in
+csrc/flash_f32.cu: by default the two-pass split, K9 (dQ) then K10 (dK/dV);
+``fused=True`` runs K11, one pass whose dQ is summed with f32 atomics into a
+buffer the wrapper allocates and then casts (atomics sum in an order that
+changes from run to run). Launches count under ``flash_label``
+(``flash_bwd.dq``, ``flash_bwd.dq.f16``, ``flash_bwd.dq.f32``, ...).
+``fused=None`` means two-pass, as in the JAX package. The kernels read q, k,
+v and dO through their strides
 where the tensor maps can (the model's (b, s, h, d) views need no copy) and
 write dq, dk and dv in q's and k's memory layout. K9's blocks launch in
 K7's order (ops/flash_fwd.py ``fwd_block_order``), K10/K11's in
 ``bwd_block_order``: heaviest first under a causal mask. CPU tensors run
 ``flash_bwd_ref``, the plain version, for either value of ``fused``: both
-schedules compute the same function.
+schedules compute the same function (in f64 for f64 inputs: the oracle of
+the f32 kernels).
 """
 
 from __future__ import annotations
@@ -47,11 +51,13 @@ from xf_flash_attention_cutlass_tpu_torch.ops.flash_fwd import (
     check_shapes,
     dropout_keep_mask,
     expand_kv,
+    flash_entry,
+    flash_label,
     int32_or_none,
     resolve_window,
     tma_operands,
 )
-from xf_flash_attention_cutlass_tpu_torch.utils import is_cuda
+from xf_flash_attention_cutlass_tpu_torch.utils import acc_dtype, is_cuda
 
 
 def _group_sum(x: torch.Tensor, h_k: int) -> torch.Tensor:
@@ -66,61 +72,63 @@ def flash_bwd_ref(q, k, v, o, lse, do, *, causal=False, window=(-1, -1), softcap
                   q_positions=None, kv_positions=None, dropout_p=0.0,
                   dropout_seed=0) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain version of the backward: P, dP, dS, dQ, dK and dV worked out
-    explicitly in f32, with dS rounded to K's (dQ) and Q's (dK) dtype and P
-    to dO's (dV) before the products, as the kernels do."""
+    explicitly in f32 (f64 for f64 inputs), with dS rounded to K's (dQ) and
+    Q's (dK) dtype and P to dO's (dV) before the products, as the kernels
+    do."""
     b, h, sq, d = q.shape
     h_k, sk = k.shape[1], k.shape[2]
     scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)
-    qf, dof = q.float(), do.float()
-    kf, vf = expand_kv(k, h).float(), expand_kv(v, h).float()
-    delta = (dof * o.float()).sum(dim=-1, keepdim=True)
+    acc = acc_dtype(q.dtype)
+    qf, dof = q.to(acc), do.to(acc)
+    kf, vf = expand_kv(k, h).to(acc), expand_kv(v, h).to(acc)
+    delta = (dof * o.to(acc)).sum(dim=-1, keepdim=True)
     s = (qf @ kf.transpose(-1, -2)) * scale
     if softcap > 0.0:
         tanh_s = torch.tanh(s / softcap)
         s = tanh_s * softcap
     bias = alibi_bias(b, h, sq, sk, q.device, alibi_slopes, alibi_row_slopes, q_positions,
-                      kv_positions)
+                      kv_positions, dtype=acc)
     if bias is not None:
         s = s - bias
     keep = attention_mask(b, sq, sk, q.device, causal=causal, window=window, kv_lens=kv_lens,
                           q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
                           q_positions=q_positions, kv_positions=kv_positions)
-    lse = lse.float()[..., None]
+    lse = lse.to(acc)[..., None]
     lse_safe = torch.where(torch.isfinite(lse), lse, torch.full_like(lse, 3.0e38))
     p = torch.where(keep, torch.exp(s - lse_safe), torch.zeros_like(s))
     dp = dof @ vf.transpose(-1, -2)
     p_dv = p
     if dropout_p > 0.0:
         z = torch.where(dropout_keep_mask(dropout_seed, dropout_p, b, h, sq, sk, q.device),
-                        1.0 / (1.0 - dropout_p), 0.0)
+                        1.0 / (1.0 - dropout_p), 0.0).to(acc)
         p_dv, dp = p * z, dp * z
     ds = p * (dp - delta)
     if softcap > 0.0:
         ds = ds * (1.0 - tanh_s * tanh_s)
     ds = ds * scale
-    dq = ds.to(k.dtype).float() @ kf
-    dk = ds.to(q.dtype).float().transpose(-1, -2) @ qf
-    dv = p_dv.to(do.dtype).float().transpose(-1, -2) @ dof
+    dq = ds.to(k.dtype).to(acc) @ kf
+    dk = ds.to(q.dtype).to(acc).transpose(-1, -2) @ qf
+    dv = p_dv.to(do.dtype).to(acc).transpose(-1, -2) @ dof
     return dq.to(q.dtype), _group_sum(dk, h_k).to(k.dtype), _group_sum(dv, h_k).to(v.dtype)
 
 
-_lib_handle = None
+_fns = {}
 
 
-def _lib():
-    global _lib_handle
-    if _lib_handle is None:
-        lib = _build.load("flash_bwd")
+def _fn(name: str, dtype: torch.dtype):
+    """The entry point of K9 (name "flash_bwd_dq") or K10/K11
+    ("flash_bwd_dkv") for the inputs' dtype, its argument types set."""
+    lib, fn_name = flash_entry("flash_bwd", name, dtype)
+    if fn_name not in _fns:
+        fn = getattr(_build.load(lib), fn_name)
         common = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + [ctypes.c_float] * 2
                   + [ctypes.POINTER(XfaExtras)])
-        lib.xfa_flash_bwd_dq.restype = ctypes.c_int
-        lib.xfa_flash_bwd_dq.argtypes = [ctypes.c_void_p] * 7 + common + [ctypes.c_void_p] * 2
-        lib.xfa_flash_bwd_dkv.restype = ctypes.c_int
-        lib.xfa_flash_bwd_dkv.argtypes = (
-            [ctypes.c_void_p] * 9 + common + [ctypes.c_int] + [ctypes.c_void_p] * 2
-        )
-        _lib_handle = lib
-    return _lib_handle
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 7 + common + [ctypes.c_void_p] * 2
+                       if name == "flash_bwd_dq" else
+                       [ctypes.c_void_p] * 9 + common + [ctypes.c_int] + [ctypes.c_void_p] * 2)
+        _fns[fn_name] = fn
+    return _fns[fn_name]
 
 
 def bwd_block_order(n_kt: int, h_k: int, b: int):
@@ -173,33 +181,32 @@ class FlashBwdLaunch:
     def dq(self) -> torch.Tensor:
         dq = torch.empty_like(self.q)  # q's memory layout
         strides = self._strides(dq, self.k, self.v)
-        rc = _lib().xfa_flash_bwd_dq(*self.ins, dq.data_ptr(), *self.tail,
-                                     ctypes.cast(strides, ctypes.c_void_p),
-                                     _build.stream_handle())
+        rc = _fn("flash_bwd_dq", self.q.dtype)(*self.ins, dq.data_ptr(), *self.tail,
+                                               ctypes.cast(strides, ctypes.c_void_p),
+                                               _build.stream_handle())
         _build.check(rc, "flash_bwd (dq)")
-        _build.LAUNCHES["flash_bwd.dq"] += 1
+        _build.LAUNCHES[flash_label("flash_bwd.dq", self.q.dtype)] += 1
         return dq
 
     def dkv(self) -> Tuple[torch.Tensor, torch.Tensor]:
         dk, dv = torch.empty_like(self.k), torch.empty_like(self.v)
         strides = self._strides(self.q, dk, dv)
-        rc = _lib().xfa_flash_bwd_dkv(*self.ins, dk.data_ptr(), dv.data_ptr(), None,
-                                      *self.tail, 0, ctypes.cast(strides, ctypes.c_void_p),
-                                      _build.stream_handle())
+        rc = _fn("flash_bwd_dkv", self.q.dtype)(
+            *self.ins, dk.data_ptr(), dv.data_ptr(), None, *self.tail, 0,
+            ctypes.cast(strides, ctypes.c_void_p), _build.stream_handle())
         _build.check(rc, "flash_bwd (dkv)")
-        _build.LAUNCHES["flash_bwd.dkv"] += 1
+        _build.LAUNCHES[flash_label("flash_bwd.dkv", self.q.dtype)] += 1
         return dk, dv
 
     def fused(self) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         dk, dv = torch.empty_like(self.k), torch.empty_like(self.v)
         dq_acc = torch.zeros_like(self.q, dtype=torch.float32)  # q's memory layout
         strides = self._strides(dq_acc, dk, dv)
-        rc = _lib().xfa_flash_bwd_dkv(*self.ins, dk.data_ptr(), dv.data_ptr(),
-                                      dq_acc.data_ptr(), *self.tail, 1,
-                                      ctypes.cast(strides, ctypes.c_void_p),
-                                      _build.stream_handle())
+        rc = _fn("flash_bwd_dkv", self.q.dtype)(
+            *self.ins, dk.data_ptr(), dv.data_ptr(), dq_acc.data_ptr(), *self.tail, 1,
+            ctypes.cast(strides, ctypes.c_void_p), _build.stream_handle())
         _build.check(rc, "flash_bwd (fused)")
-        _build.LAUNCHES["flash_bwd.fused"] += 1
+        _build.LAUNCHES[flash_label("flash_bwd.fused", self.q.dtype)] += 1
         return dq_acc.to(self.q.dtype), dk, dv
 
 

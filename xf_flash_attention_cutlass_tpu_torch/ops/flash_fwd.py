@@ -22,14 +22,19 @@ a forward with the same options: masked entries and rows with LSE = -inf are
 0, entries the dropout dropped are negated.
 
 CUDA tensors run the hand-written kernels csrc/flash_fwd.cu (K7) and
-csrc/flash_probs.cu (K8) (bf16 or fp16, head_dim 64 or 128); CPU tensors run
+csrc/flash_probs.cu (K8) for bf16 or fp16, and their f32 kernels in
+csrc/flash_f32.cu (f32 FMA), head_dim 64 or 128; CPU tensors run
 ``flash_fwd_ref`` and ``attention_probs_ref``, the plain versions, with the
 kernels' numerics: the softmax scale folded into q in f32 and rounded to q's
 dtype, f32 scores, the tanh softcap on the scaled scores, P rounded to V's
-dtype for the PV product, f32 sums. K7 and K8 apply the scale to q
-themselves and read q, k (and v) through their strides (TMA tensor maps),
-so the (b, s, h, d) views the model passes are not copied;
-``fwd_block_order`` is the order in which they run their blocks.
+dtype for the PV product, f32 sums (f64 throughout for f64 inputs, so a
+float64 run of the plain versions is the oracle of an f32 kernel). K7 and
+K8 apply the scale to q themselves and read q, k (and v) through their
+strides (TMA tensor maps; the f32 kernels' float4 loads take the same
+layouts), so the (b, s, h, d) views the model passes are not copied;
+``fwd_block_order`` is the order in which they run their blocks. Each launch
+counts under ``flash_label``: ``flash_fwd``, ``flash_fwd.f16``,
+``flash_fwd.f32`` (``flash_probs...`` for K8).
 """
 
 from __future__ import annotations
@@ -41,11 +46,11 @@ from typing import Optional, Tuple
 import torch
 
 from xf_flash_attention_cutlass_tpu_torch import _build
-from xf_flash_attention_cutlass_tpu_torch.utils import is_cuda
+from xf_flash_attention_cutlass_tpu_torch.utils import acc_dtype, is_cuda
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 M_FLOOR = -1e30  # running-max floor: exp(NEG_INF - M_FLOOR) == 0
-CUDA_DTYPES = (torch.bfloat16, torch.float16)
+CUDA_DTYPES = (torch.bfloat16, torch.float16, torch.float32)
 CUDA_HEAD_DIMS = (64, 128)
 TILE = 64  # rows / keys of one entry of the kernels' tile tables (kTile)
 MASK32 = 0xFFFFFFFF
@@ -143,18 +148,20 @@ def attention_mask(b: int, sq: int, sk: int, device, *, causal: bool = False,
 
 
 def alibi_bias(b: int, h: int, sq: int, sk: int, device, alibi_slopes=None,
-               alibi_row_slopes=None, q_positions=None, kv_positions=None):
-    """slope * |qpos - kpos| broadcastable to (b, h, sq, sk) f32, or None
-    without ALiBi. Slopes are (h,) or (b, h), or (b, h, sq) per row."""
+               alibi_row_slopes=None, q_positions=None, kv_positions=None,
+               dtype=torch.float32):
+    """slope * |qpos - kpos| broadcastable to (b, h, sq, sk) in dtype (f32,
+    or f64 for an f64 run), or None without ALiBi. Slopes are (h,) or (b, h),
+    or (b, h, sq) per row."""
     if alibi_slopes is None and alibi_row_slopes is None:
         return None
     qp, kp = positions(sq, sk, device, q_positions, kv_positions)
-    dist = (qp[:, None, :, None] - kp[:, None, None, :]).abs().float()
+    dist = (qp[:, None, :, None] - kp[:, None, None, :]).abs().to(dtype)
     if alibi_slopes is not None:
-        sl = alibi_slopes.to(device=device, dtype=torch.float32)
+        sl = alibi_slopes.to(device=device, dtype=dtype)
         sl = sl.expand(b, h) if sl.dim() == 1 else sl
         return sl[:, :, None, None] * dist
-    return alibi_row_slopes.to(device=device, dtype=torch.float32)[..., None] * dist
+    return alibi_row_slopes.to(device=device, dtype=dtype)[..., None] * dist
 
 
 def expand_kv(x: torch.Tensor, h: int) -> torch.Tensor:
@@ -164,16 +171,17 @@ def expand_kv(x: torch.Tensor, h: int) -> torch.Tensor:
 
 def masked_scores(q, k, *, causal, window, softcap, scale, kv_lens, q_segment_ids,
                   kv_segment_ids, alibi_slopes, alibi_row_slopes, q_positions, kv_positions):
-    """The forward's f32 scores (b, h, sq, sk) from q rounded after the scale,
-    softcap, ALiBi, and the keep mask."""
+    """The forward's scores (b, h, sq, sk) in f32 (f64 for f64 inputs) from q
+    rounded after the scale, softcap, ALiBi, and the keep mask."""
     b, h, sq, _ = q.shape
     sk = k.shape[2]
-    qs = (q.float() * scale).to(q.dtype).float()
-    s = qs @ expand_kv(k, h).float().transpose(-1, -2)
+    acc = acc_dtype(q.dtype)
+    qs = (q.to(acc) * scale).to(q.dtype).to(acc)
+    s = qs @ expand_kv(k, h).to(acc).transpose(-1, -2)
     if softcap > 0.0:
         s = torch.tanh(s / softcap) * softcap
     bias = alibi_bias(b, h, sq, sk, q.device, alibi_slopes, alibi_row_slopes, q_positions,
-                      kv_positions)
+                      kv_positions, dtype=acc)
     if bias is not None:
         s = s - bias
     keep = attention_mask(b, sq, sk, q.device, causal=causal, window=window, kv_lens=kv_lens,
@@ -188,7 +196,8 @@ def flash_fwd_ref(q, k, v, *, causal=False, window=(-1, -1), softcap=0.0,
                   q_positions=None, kv_positions=None, dropout_p=0.0,
                   dropout_seed=0) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of the dense forward with the kernel's numerics (one
-    softmax over all keys instead of the kernel's online one)."""
+    softmax over all keys instead of the kernel's online one). f64 inputs
+    are computed in f64 and give an f64 LSE."""
     b, h, sq, d = q.shape
     sk = k.shape[2]
     scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)
@@ -204,7 +213,7 @@ def flash_fwd_ref(q, k, v, *, causal=False, window=(-1, -1), softcap=0.0,
     if dropout_p > 0.0:  # P leaves the row sum whole, the product without
         drop_keep = dropout_keep_mask(dropout_seed, dropout_p, b, h, sq, sk, q.device)
         p = torch.where(drop_keep, p, torch.zeros_like(p))
-    acc = p.to(v.dtype).float() @ expand_kv(v, h).float()
+    acc = p.to(v.dtype).to(s.dtype) @ expand_kv(v, h).to(s.dtype)
     empty = l_sum <= 0
     inv = torch.where(empty, 1.0, 1.0 / torch.where(empty, 1.0, l_sum))
     o = acc * inv
@@ -260,7 +269,7 @@ def check_shapes(q, k, v, kv_lens, q_segment_ids, kv_segment_ids) -> None:
 def check_cuda_dtypes(what: str, q, k, v) -> None:
     """Raise on the dtypes and head dims csrc/flash_*.cu do not take."""
     if q.dtype not in CUDA_DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"the CUDA {what} kernel takes bf16 or fp16 q/k/v of one dtype, "
+        raise TypeError(f"the CUDA {what} kernel takes bf16, fp16 or f32 q/k/v of one dtype, "
                         f"got {q.dtype}/{k.dtype}/{v.dtype}")
     if q.shape[-1] not in CUDA_HEAD_DIMS:
         raise ValueError(f"the CUDA {what} kernel takes head_dim 64 or 128, got {q.shape[-1]}")
@@ -330,21 +339,38 @@ class Extras:
         return ctypes.byref(self.struct)
 
 
-_lib_handles = {}
+def flash_label(kernel: str, dtype: torch.dtype) -> str:
+    """The launch label of a dense flash kernel ("flash_fwd", "flash_probs",
+    "flash_bwd.dq", ...) for inputs of dtype: bf16 as it is, fp16 and f32
+    with ".f16" / ".f32" appended."""
+    return kernel + _build.LABEL_SUFFIX[dtype]
 
 
-def _lib(name="flash_fwd"):
-    """The loaded library of csrc/flash_fwd.cu (K7) or csrc/flash_probs.cu (K8)."""
-    if name not in _lib_handles:
-        lib = _build.load(name)
-        fn = getattr(lib, f"xfa_{name}")
+def flash_entry(lib: str, name: str, dtype: torch.dtype):
+    """The library and entry-point name of a dense flash kernel for inputs of
+    dtype: lib (csrc/<lib>.cu) and xfa_<name> for bf16 and fp16, the f32
+    kernel xfa_<name>_f32 of csrc/flash_f32.cu for f32 (same arguments)."""
+    if dtype == torch.float32:
+        return "flash_f32", f"xfa_{name}_f32"
+    return lib, f"xfa_{name}"
+
+
+_fns = {}
+
+
+def _fn(name: str, dtype: torch.dtype):
+    """The entry point of K7 (name "flash_fwd") or K8 ("flash_probs") for q's
+    dtype, its argument types set."""
+    lib, fn_name = flash_entry(name, name, dtype)
+    if fn_name not in _fns:
+        fn = getattr(_build.load(lib), fn_name)
         fn.restype = ctypes.c_int
         # 8 tensors (K7) or 6 (K8), 9 ints, softcap, scale, the strides
         fn.argtypes = ([ctypes.c_void_p] * (8 if name == "flash_fwd" else 6)
                        + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
                                                ctypes.POINTER(XfaExtras), ctypes.c_void_p])
-        _lib_handles[name] = lib
-    return _lib_handles[name]
+        _fns[fn_name] = fn
+    return _fns[fn_name]
 
 
 # ---- K7's host-side layout rules ------------------------------------------------
@@ -360,10 +386,10 @@ def fwd_block_order(n_qt: int, h: int, b: int):
 
 def tma_strides(t: torch.Tensor):
     """The (batch, head, row) element strides by which K7's tensor maps read
-    a (b, heads, s, d) 16-bit tensor, or None when TMA cannot: the last
-    dimension must be contiguous, the base and the strides 16-byte
-    multiples. A dimension of extent 1 is never stepped, so its stride is
-    replaced by a valid one."""
+    a (b, heads, s, d) tensor (the f32 kernels' float4 loads take the same
+    rule), or None when TMA cannot: the last dimension must be contiguous,
+    the base and the strides 16-byte multiples. A dimension of extent 1 is
+    never stepped, so its stride is replaced by a valid one."""
     if t.stride(-1) != 1 or t.data_ptr() % 16:
         return None
     out = []
@@ -398,14 +424,14 @@ def _flash_fwd_cuda(q, k, v, scale, causal, window, softcap, kv_lens, q_seg, kv_
     strides = (ctypes.c_int64 * 12)(*in_strides, *o.stride()[:3])
     lens, qseg, kseg = int32_or_none(kv_lens), int32_or_none(q_seg), int32_or_none(kv_seg)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    rc = _lib().xfa_flash_fwd(
+    rc = _fn("flash_fwd", q.dtype)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
         _build.ptr(lens), _build.ptr(qseg), _build.ptr(kseg), _build.dtype_code(q.dtype),
         b, h, h_k, sq, sk, d, wl, wr, float(softcap), float(scale),
         ctypes.cast(strides, ctypes.c_void_p), ex.ref(), _build.stream_handle(),
     )
     _build.check(rc, "flash_fwd")
-    _build.LAUNCHES["flash_fwd"] += 1
+    _build.LAUNCHES[flash_label("flash_fwd", q.dtype)] += 1
     return o, lse
 
 
@@ -457,7 +483,7 @@ def attention_probs_ref(q, k, lse, *, causal=False, window=(-1, -1), softcap=0.0
                         kv_positions=None, dropout_p=0.0, dropout_seed=0) -> torch.Tensor:
     """Plain version of K8: exp(S - LSE) in f32 with the forward's scores;
     masked entries and rows with LSE = -inf 0; visible entries the dropout
-    dropped negated."""
+    dropped negated. f64 inputs give an f64 plane."""
     b, h, sq, d = q.shape
     scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)
     s, keep = masked_scores(q, k, causal=causal, window=window, softcap=softcap, scale=scale,
@@ -465,7 +491,7 @@ def attention_probs_ref(q, k, lse, *, causal=False, window=(-1, -1), softcap=0.0
                             kv_segment_ids=kv_segment_ids, alibi_slopes=alibi_slopes,
                             alibi_row_slopes=alibi_row_slopes, q_positions=q_positions,
                             kv_positions=kv_positions)
-    lse = lse.float()[..., None]
+    lse = lse.to(s.dtype)[..., None]
     live = lse > -3e38
     keep = keep & live
     p = torch.where(keep, torch.exp(s - torch.where(live, lse, 0.0)), torch.zeros_like(s))
@@ -488,14 +514,14 @@ def _attention_probs_cuda(q, k, lse, scale, causal, window, softcap, q_seg, kv_s
     lse = lse.float().contiguous()
     qseg, kseg = int32_or_none(q_seg), int32_or_none(kv_seg)
     out = torch.empty((b, h, sq, sk), dtype=torch.float32, device=q.device)
-    rc = _lib("flash_probs").xfa_flash_probs(
+    rc = _fn("flash_probs", q.dtype)(
         q.data_ptr(), k.data_ptr(), lse.data_ptr(), out.data_ptr(), _build.ptr(qseg),
         _build.ptr(kseg), _build.dtype_code(q.dtype), b, h, h_k, sq, sk, d, wl, wr,
         float(softcap), float(scale), ctypes.cast(strides, ctypes.c_void_p), ex.ref(),
         _build.stream_handle(),
     )
     _build.check(rc, "flash_probs")
-    _build.LAUNCHES["flash_probs"] += 1
+    _build.LAUNCHES[flash_label("flash_probs", q.dtype)] += 1
     return out
 
 

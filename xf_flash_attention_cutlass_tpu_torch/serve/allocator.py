@@ -1,5 +1,5 @@
-"""ctypes binding for the native C++ page allocator (csrc/page_allocator.cpp
-at the root of the repository, shared with the JAX package).
+"""ctypes binding for the native C++ page allocator (the package's own
+csrc/page_allocator.cpp).
 
 Compiled on first use with g++ into the port's build directory (listed in
 ``.gitignore``), under a name that carries a hash of the source; a failed
@@ -19,9 +19,9 @@ from typing import List, Optional
 
 import numpy as np
 
-from xf_flash_attention_cutlass_tpu_torch._build import BUILD_DIR, PKG_DIR
+from xf_flash_attention_cutlass_tpu_torch._build import BUILD_DIR, CSRC_DIR
 
-_SRC = os.path.join(os.path.dirname(PKG_DIR), "csrc", "page_allocator.cpp")
+_SRC = os.path.join(CSRC_DIR, "page_allocator.cpp")
 _lock = threading.Lock()
 _lib = None
 
