@@ -204,9 +204,27 @@ Phases, each of which raises (exit code != 0) when it fails:
    checked after against the plain versions) and, beside `serve_f32` on
    its params, `serve_f32_bucketed` (bucketed prefill: K7 in f32; its
    streams equal to the chunked run's, or held to the tie rule).
-9. Print the seconds of each phase, the `kernels` JSON line, the card's
-   name and power limit, and, last,
-   {"ok": true, "device": {...}}.
+9. Every head dim in K1 and K7 (`head_dims_phase`, `serve_phi3`): the
+   decode and f32 kernels' resident blocks at every rung (64, 128, 192,
+   256) against the split plan's tables; K1 and K7 at d = 16, 32, 40, 59,
+   64, 80, 96, 111, 128, 160, 192, 224 and 256 under the 2x rule against
+   their plain versions and the oracles (K1: decode and 256-row chunks,
+   bf16 and fp16 queries over pools of their own dtype, fp8 and int8, f32;
+   odd pages on the WMMA kernel; the combine on every split run; K7 and its
+   f32 kernel, causal and not), each launch asserted at the head dim and
+   rung the route functions name (the padded copy at 59, 111 and 40 over
+   byte pools); the options at d = 96 and 256 on K1's Hopper kernels and
+   K7; rows timed at d = 96 and 256 (K1 decode, chunk, combine and f32
+   decode, K7 at bucket 1024 and its f32 kernel, Phi-3 geometry). Then
+   Phi-3-mini-4k widths (head dim 96, 32 layers, random INT8 weights, FP8
+   KV at page 256): the reference check of its cores, the 8 serving
+   requests as two main paths, `serve_phi3_chunked` (256-token chunks) and
+   `serve_phi3_bucketed` (K7 at d = 96), every K1 and K7 launch at d = 96
+   on the rung 128, graphs held to the eager step, the streams to each
+   other (equal, or the tie rule), a profiled decode step.
+10. Print the seconds of each phase, the `kernels` JSON line (with the rows
+   at d = 96 and 256, "<label>@d<d>"), the card's name and power limit,
+   and, last, {"ok": true, "device": {...}}.
 
 Needs a CUDA device; exits with an error and prints no result without one.
 With --out DIR, the details of every phase also go to DIR/chip_smoke.json.
@@ -1102,11 +1120,11 @@ def check_paged_route_shapes(gen, checks):
                    dead_rows_ok=dead_ok, route=route, expected_route=want, launched=launched)
 
 
-def check_paged_combine(gen, timer, checks, cfg, n_splits, out_dtype=torch.bfloat16):
+def check_paged_combine(gen, timer, checks, cfg, n_splits, out_dtype=torch.bfloat16, tag=""):
     """The combine kernel against its plain version (combine_partials, then
     O in bf16 and LSE moved to (b, h, sq)) on f32 partials of K1 decode's
-    caller layout at the engine's shape (b = 8, sq = 1, 32 heads, d = 128)
-    and split count, with an empty partial and a row whose partials are all
+    caller layout at the engine's shape (b = 8, sq = 1, 32 heads, cfg's head
+    dim: 128 for Llama-8B) and split count, with an empty partial and a row whose partials are all
     empty, O written in out_dtype. Tolerance: O within one rounding to
     out_dtype of the f32 merge (2^-8 |O| for bf16, 2^-11 for fp16, 2^-23 for
     f32, + 1e-6 an element), LSE within 1e-5 + 1e-6 |LSE|; the empty row
@@ -1133,7 +1151,7 @@ def check_paged_combine(gen, timer, checks, cfg, n_splits, out_dtype=torch.bfloa
     same_empty = torch.equal(torch.isfinite(lse), finite)
     ok = o_excess <= 1e-6 and lse_excess <= 1e-5 and empty_ok and same_empty
     err = max_err(o, o_plain)
-    tag = "" if out_dtype == torch.bfloat16 else f"{DT_TAG[out_dtype]},"
+    tag += "" if out_dtype == torch.bfloat16 else f"{DT_TAG[out_dtype]},"
     checks.add(f"paged_attention.combine[{tag}splits={n_splits}]", ok, max_abs_err=err,
                o_excess_over_one_rounding=o_excess, lse_excess=lse_excess,
                empty_rows_ok=empty_ok)
@@ -4142,7 +4160,8 @@ def sdpa_yardstick(q, k, v, backward=False):
     """SDPA in q's dtype (causal, over the group-expanded heads; TF32 off):
     a callable of one forward (or, with backward, of the gradient of a
     forward already run), and the names of the kernels one call launches
-    (the backend that ran)."""
+    (the backend that ran; where kernel_names' traces all lost their spin,
+    a note that says so)."""
     g = q.shape[1] // k.shape[1]
     if not backward:
         kx, vx = k.repeat_interleave(g, dim=1), v.repeat_interleave(g, dim=1)
@@ -4157,7 +4176,10 @@ def sdpa_yardstick(q, k, v, backward=False):
 
         def fn():
             return torch.autograd.grad(out, (qx, kx, vx), do, retain_graph=True)
-    names = kernel_names(fn)
+    try:  # the names only label the row: a trace that lost its spin names none
+        names = kernel_names(fn)
+    except RuntimeError as e:
+        return fn, [f"not traced: {e}"]
     return fn, [n for n in names if "fmha" in n or "ttention" in n] or names[:4]
 
 
@@ -4836,23 +4858,33 @@ _F32_NAME = re.compile(r"flash_(fwd|probs|bwd_dq|bwd_dkv)_f32_kernelILi(\d+)E(?:
 
 def f32_instantiation(mangled):
     """'fwd_d128', 'probs_d64', 'dq_d128', 'dkv_d128', 'fused_d64', ... for a
-    mangled kernel name of csrc/flash_f32.cu, else None."""
+    mangled kernel name of csrc/flash_f32.cu ('fwd_d128_tail' for K7's
+    instantiation of head dims below its rung), else None."""
     m = _F32_NAME.search(mangled)
     if m is None:
         return None
-    kind = {"fwd": "fwd", "probs": "probs", "bwd_dq": "dq"}.get(m.group(1))
+    if m.group(1) == "fwd":
+        return f"fwd_d{m.group(2)}{'_tail' if m.group(3) == '1' else ''}"
+    kind = {"probs": "probs", "bwd_dq": "dq"}.get(m.group(1))
     kind = kind or ("fused" if m.group(3) == "1" else "dkv")
     return f"{kind}_d{m.group(2)}"
 
 
+K7_F32_GATED = ("fwd_d64", "fwd_d128")  # K7 f32's instantiations gated on spills
+
+
 def flash_f32_build_report(checks):
     """Registers and spill bytes of every kernel of csrc/flash_f32.cu
-    (build/flash_f32.log): ten instantiations (K7, K8, K9, K10, K11 at d =
-    64 and 128), none spilling."""
+    (build/flash_f32.log): sixteen instantiations, the ten of K7, K8, K9, K10
+    and K11 at d = 64 and 128 spilling nothing; K7 at head dims below its
+    rungs 64 and 128 and at the rungs 192 and 256 (`_tail` and not) reported
+    by wide_build_report."""
     inst = ptxas_usage("flash_f32", f32_instantiation)
     print(json.dumps({"flash_f32_build": inst}), flush=True)
+    gated = {n: r for n, r in inst.items() if n in K7_F32_GATED or not n.startswith("fwd_")}
     checks.add("flash_f32.no_spills",
-               len(inst) == 10 and all(r.get("spill_bytes") == 0 for r in inst.values()),
+               len(inst) == 16 and len(gated) == 10
+               and all(r.get("spill_bytes") == 0 for r in gated.values()),
                spill_bytes={n: r.get("spill_bytes") for n, r in inst.items()},
                registers={n: r.get("registers") for n, r in inst.items()})
     return inst
@@ -4981,8 +5013,9 @@ def paged_build_report(checks, libs):
                                               for r in kinds["f32"].values()),
                registers={n: r.get("registers") for n, r in kinds["f32"].items()},
                spill_bytes={n: r.get("spill_bytes") for n, r in kinds["f32"].items()})
-    # the decode route's split heuristic counts DECODE_BLOCKS_PER_SM blocks an
-    # SM: the occupancy calculator must agree for every instantiation
+    # the decode route's split heuristic counts DECODE_BLOCKS blocks an SM
+    # at each rung: the occupancy calculator must agree for every
+    # instantiation (the rungs 192 and 256: head_dims_phase)
     from xf_flash_attention_cutlass_tpu_torch.ops import paged
 
     occ = {f"{DT_TAG[qt]}/{str(dt).split('.')[-1]}_d{d}_n{n}{'_options' if o else ''}":
@@ -4990,10 +5023,393 @@ def paged_build_report(checks, libs):
            for qt in (torch.bfloat16, torch.float16)
            for dt in (torch.float8_e4m3fn, torch.int8, qt) for d in (64, 128)
            for n in (8, 16) for o in (False, True)}
-    checks.add("paged_attention.decode_resident_blocks",
-               all(v == paged.DECODE_BLOCKS_PER_SM for v in occ.values()),
-               blocks_per_sm=occ, expected=paged.DECODE_BLOCKS_PER_SM)
+    # (a parent tree measured by this harness may predate the rungs' table)
+    want = getattr(paged, "DECODE_BLOCKS", {}).get(128) or paged.DECODE_BLOCKS_PER_SM
+    checks.add("paged_attention.decode_resident_blocks", all(v == want for v in occ.values()),
+               blocks_per_sm=occ, expected=want)
     return inst
+
+
+# ---- phase 9: K1 and K7 at every head dim; Phi-3-mini widths served ----------
+
+# the head dims of the JAX package's K7 tests (tests/test_flash_fwd.py) and
+# its serving tests' 16; 59 and 111 (and 40 over int8 / fp8 pools) take the
+# padded copy; the options at HEAD_DIM_TIMED, where the rows are also timed
+HEAD_DIMS = (16, 32, 40, 59, 64, 80, 96, 111, 128, 160, 192, 224, 256)
+HEAD_DIM_TIMED = (96, 256)
+BF16, I8 = torch.bfloat16, torch.int8
+# K1's (query, pool) dtypes: bf16 and fp16 over their own, fp8 and int8; f32 over f32
+K1_WIDTH_DTYPES = ((BF16, BF16), (BF16, FP8), (BF16, I8), (F16, F16), (F16, FP8), (F16, I8),
+                   (F32, F32))
+
+
+def phi3_config():
+    """Phi-3-mini-4k-instruct's published widths (config.json of
+    huggingface.co/microsoft/Phi-3-mini-4k-instruct): hidden 3072,
+    intermediate 8192, 32 layers, 32 query and 32 KV heads (head dim 96),
+    vocab 32064, rope_theta 10000, rms_norm_eps 1e-5, 4096 positions. Its
+    blocks are the Llama stack's (RMSNorm, SwiGLU, NeoX rotary, no biases);
+    its fused qkv_proj and gate_up_proj are the stack's separate
+    projections concatenated. Weights are random from the seed."""
+    from xf_flash_attention_cutlass_tpu_torch.models.llama import LlamaConfig
+
+    return LlamaConfig(vocab_size=32064, dim=3072, n_layers=32, n_heads=32, n_kv_heads=32,
+                       ffn_dim=8192, max_seq_len=4096, rope_base=10000.0, rms_eps=1e-5)
+
+
+def launches_of(fn):
+    """fn's result and the launches it added: by label, and by label, head
+    dim and rung (_build.HEAD_DIM_LAUNCHES)."""
+    from collections import Counter
+
+    from xf_flash_attention_cutlass_tpu_torch import _build
+
+    l0, h0 = Counter(_build.LAUNCHES), Counter(_build.HEAD_DIM_LAUNCHES)
+    out = fn()
+    return (out, dict(Counter(_build.LAUNCHES) - l0),
+            dict(Counter(_build.HEAD_DIM_LAUNCHES) - h0))
+
+
+def k1_width_case(gen, d, q_dtype, kv_dtype, rows, page=16, b=3):
+    """K1's inputs at head dim d: two layers of pools of 40 pages (+ trash)
+    with 2 KV heads, 8 query heads (GQA 4:1), block tables of 24 pages, b
+    entries whose kv_lens are drawn below the table's keys, the last one
+    inactive. rows "decode": sq = 1 (4 rows a KV head: the decode kernel);
+    "chunk": sq = 64 (256 rows: the Hopper chunk kernel)."""
+    h, h_k, n_pages, max_pages = 8, 2, 40, 24
+    sq = 1 if rows == "decode" else 64
+    kp, vp, ks, vs = kv_pools(gen, kv_dtype, 2, n_pages, h_k, page, d)
+    bt = torch.stack([torch.randperm(n_pages, generator=gen, device="cuda")[:max_pages]
+                      for _ in range(b)]).int()
+    lens = torch.randint(sq, max_pages * page + 1, (b,), generator=gen, device="cuda").int()
+    lens[-1] = 0
+    bt[-1] = n_pages
+    q = torch.randn((b, sq, h, d), generator=gen, device="cuda").to(q_dtype)
+    return q, kp, vp, ks, vs, bt, lens
+
+
+def check_k1_width(checks, name, q, kp, vp, ks, vs, bt, lens, timer=None, library=None,
+                   **opts):
+    """check_k1_call (the 2x rule against the plain version and the oracle,
+    one launch under the route's label), and that the call launched that
+    route's kernel at the head dim and rung mapped_head_dim and
+    head_dim_rung name (the pad copy where the head dim run is not d), and
+    the combine at that head dim where it split. Timed with a timer."""
+    from xf_flash_attention_cutlass_tpu_torch import _build
+    from xf_flash_attention_cutlass_tpu_torch.ops import paged
+
+    d = q.shape[-1]
+    route, splits = paged.paged_plan(q.shape, kp.shape, kp.dtype, bt.shape[1], **opts,
+                                     q_dtype=q.dtype)
+    full = dict(causal=True, window=(-1, -1), softcap=0.0, alibi_slopes=None, cache_leftpad=None)
+    full.update(opts)
+    label = paged.route_label(route, q.shape[1] * (q.shape[2] // kp.shape[-3]),
+                              paged.has_options(**full), q.dtype)
+    dm = paged.mapped_head_dim(d, q.dtype, kp.dtype)
+    rung = paged.head_dim_rung(dm)
+    want = {_build.head_dim_key(label, dm, rung): 1}
+    if splits > 1 and route != "wmma":
+        comb = "paged_attention.combine" + _build.LABEL_SUFFIX[q.dtype]
+        want[_build.head_dim_key(comb, dm, dm if dm in (64, 128) else 0)] = 1
+    row, by_label, by_dim = launches_of(lambda: check_k1_call(
+        checks, None, name, q, kp, vp, ks, vs, bt, lens, layer_idx=1, **opts))
+    if timer is not None:  # after the counted call: the kernel, its plain version, the library
+        sc = {} if ks is None else dict(k_scales=ks, v_scales=vs)
+        sc1 = {} if ks is None else dict(k_scales=ks[1], v_scales=vs[1])
+        case = checks.cases[-1]
+        row = dict(
+            ms=timer.ms(lambda: paged.paged_attention(q, kp, vp, bt, lens, layer_idx=1, **sc,
+                                                      **opts)),
+            plain_ms=timer.ms(lambda: paged.paged_attention_ref(
+                q, kp[1], vp[1], bt, lens, num_splits=splits, **sc1, **opts), PLAIN_REPS),
+            library_ms=None if library is None else timer.ms(library),
+            bound=k1_bound(q, kp, ks, bt, lens, **opts), err=case["max_abs_err"],
+            tol=case["tolerance"], route=route, splits=splits, head_dim=dm, rung=rung)
+    pads = by_label.get("paged_attention.pad_copy", 0)
+    checks.add(f"{name}.route_and_rung", by_dim == want and pads == int(dm != d),
+               launched=by_dim, expected=want, route=route, splits=splits, head_dim_run=dm,
+               rung=rung, pad_copies=pads)
+    return row
+
+
+def check_k7_width(checks, name, q, k, v, kw):
+    """K7 (the Hopper kernel, or the f32 kernel for f32 inputs) under the 2x
+    rule (check_flash_fwd_inputs, check_f32_fwd), and that it launched once
+    at the head dim and rung k7_head_dim and k7_rung name (the pad copy
+    where that head dim is not d). Returns (error, tolerance)."""
+    from xf_flash_attention_cutlass_tpu_torch import _build
+    from xf_flash_attention_cutlass_tpu_torch.ops.flash_fwd import (
+        flash_label,
+        k7_head_dim,
+        k7_rung,
+    )
+
+    d = q.shape[-1]
+    dm = k7_head_dim(d, q.dtype)
+    want = {_build.head_dim_key(flash_label("flash_fwd", q.dtype), dm, k7_rung(dm)): 1}
+    if q.dtype == F32:
+        res, by_label, by_dim = launches_of(lambda: check_f32_fwd(checks, name, q, k, v, kw))
+    else:
+        res, by_label, by_dim = launches_of(
+            lambda: check_flash_fwd_inputs(checks, name, q, k, v, kw))
+    pads = by_label.get("flash_fwd.pad_copy", 0)
+    checks.add(f"flash_fwd.{'f32.' if q.dtype == F32 else ''}{name}.rung",
+               by_dim == want and pads == int(dm != d), launched=by_dim, expected=want,
+               head_dim_run=dm, pad_copies=pads)
+    return res
+
+
+def k1_option_sets(b, h):
+    """The options held at HEAD_DIM_TIMED on each Hopper K1 kernel: softcap,
+    ALiBi and leftpad together; a window start; a right window (non-causal)."""
+    from xf_flash_attention_cutlass_tpu_torch.utils.testing import alibi_slopes_ref
+
+    slopes = torch.from_numpy(alibi_slopes_ref(h)).cuda()
+    leftpad = torch.tensor([5, 17, 0][:b], dtype=torch.int32, device="cuda")
+    return dict(softcap_alibi_leftpad=dict(softcap=20.0, alibi_slopes=slopes,
+                                           cache_leftpad=leftpad),
+                window=dict(window=(48, 0)),
+                right_window=dict(causal=False, window=(-1, 8)))
+
+
+def check_head_dims(gen, checks):
+    """K1 and K7 at every width of HEAD_DIMS, untimed, small shapes: K1 on the
+    decode kernel (4 rows a KV head) and the Hopper chunk kernel (256 rows)
+    with every (query, pool) dtype pair of K1_WIDTH_DTYPES (f32 on the f32
+    kernel), on the WMMA kernel over pages of 12 keys (decode rows, bf16
+    over fp8; chunk rows, fp16 over int8), the combine on every split run;
+    K7 (bf16 and fp16) and its f32 kernel, causal and not. At
+    HEAD_DIM_TIMED the options on each Hopper kernel: K1's (k1_option_sets)
+    and K7's kv_lens and segments, window, softcap and ALiBi."""
+    from xf_flash_attention_cutlass_tpu_torch.utils.testing import alibi_slopes_ref
+
+    for d in HEAD_DIMS:
+        for q_dt, kv_dt in K1_WIDTH_DTYPES:
+            for rows in ("decode", "chunk"):
+                case = k1_width_case(gen, d, q_dt, kv_dt, rows)
+                check_k1_width(checks, f"head_dims.k1[{rows},{DT_TAG[q_dt]}/{DT_TAG[kv_dt]},"
+                               f"d={d}]", *case)
+        for rows, q_dt, kv_dt in (("decode", BF16, FP8), ("chunk", F16, I8)):
+            case = k1_width_case(gen, d, q_dt, kv_dt, rows, page=12)
+            check_k1_width(checks, f"head_dims.k1_odd_page[{rows},{DT_TAG[q_dt]}/"
+                           f"{DT_TAG[kv_dt]},d={d}]", *case)
+        for dt in (BF16, F16, F32):
+            for causal in (True, False):
+                (q, k, v, _), kw = flash_case(gen, 2, 4, 2, 100, 130, d,
+                                              dict(causal=causal, dtype=dt))
+                check_k7_width(checks, f"head_dims[{DT_TAG[dt]},d={d},causal={causal}]",
+                               q, k, v, kw)
+    for d in HEAD_DIM_TIMED:
+        for rows in ("decode", "chunk"):
+            q, kp, vp, ks, vs, bt, lens = k1_width_case(gen, d, BF16, FP8, rows)
+            for oname, opts in k1_option_sets(q.shape[0], q.shape[2]).items():
+                check_k1_width(checks, f"head_dims.k1_options[{rows},{oname},d={d}]", q, kp, vp,
+                               ks, vs, bt, lens, **opts)
+        for oname, opts in (("kv_lens_segments", dict(kv_lens=[100, 77], segments=True)),
+                            ("window_softcap_alibi", dict(window=(32, 0), softcap=20.0))):
+            for dt in (BF16, F16):
+                (q, k, v, _), kw = flash_case(gen, 2, 4, 2, 100, 130, d,
+                                              dict(causal=True, dtype=dt, **opts))
+                if oname == "window_softcap_alibi":
+                    kw["alibi_slopes"] = torch.from_numpy(alibi_slopes_ref(4)).cuda()
+                check_k7_width(checks, f"head_dims_options[{DT_TAG[dt]},{oname},d={d}]",
+                               q, k, v, kw)
+
+
+def head_dim_rows(gen, timer, checks):
+    """The timed rows at HEAD_DIM_TIMED, at Phi-3-mini geometry (32 query and
+    32 KV heads) with the head dim set: K1 decode (b = 8 over kv_lens of
+    200-1533 in FP8 page-256 pools; SDPA over the live keys beside it), K1's
+    chunk (sq = 256 over 1024 keys), the combine (f32 partials of that
+    decode shape at 4 splits, the Llama-8B decode's count), K1 f32 decode
+    (f32 pools), K7 at bucket 1024 (causal, SDPA beside it) and K7 f32. Each
+    row: ms, plain_ms, bound, library_ms, err, tol. Returns {name: row}."""
+    out = {}
+    for d in HEAD_DIM_TIMED:
+        cfg = dataclasses.replace(phi3_config(), head_dim_override=d)
+        for phase, q_dt, kv_dt, label in (
+                ("decode", BF16, FP8, "paged_attention.decode"),
+                ("prefill", BF16, FP8, "paged_attention.prefill.wgmma"),
+                ("decode", F32, F32, "paged_attention.decode.f32")):
+            q, kp, vp, ks, vs, bt, lens = paged_inputs(gen, kv_dt, phase, cfg, q_dtype=q_dt)
+            ksl, vsl = (None, None) if ks is None else (ks[1], vs[1])
+            t_live, library = sdpa_over_live_keys(q, kp[1], vp[1], ksl, vsl, bt, lens)
+            row = check_k1_width(checks, f"head_dims.timed[{label},d={d}]", q, kp, vp, ks, vs,
+                                 bt, lens, timer=timer, library=library)
+            row["library_keys"] = t_live
+            out[f"{label}@d{d}"] = row
+            del q, kp, vp, ks, vs
+        out[f"paged_attention.combine@d{d}"] = check_paged_combine(
+            gen, timer, checks, cfg, 4, tag=f"d={d},")
+        (q, k, v, _), kw = flash_case(gen, 1, 32, 32, 1024, 1024, d, dict(causal=True))
+        err, tol = check_k7_width(checks, f"head_dims.timed[bucket1024,d={d}]", q, k, v, kw)
+        out[f"flash_fwd@d{d}"] = time_flash_fwd(timer, q, k, v, kw, err, tol)
+        (q, k, v, _), kw = f32_case(gen, 1, 32, 32, 1024, 1024, d, dict(causal=True))
+        err, tol = check_k7_width(checks, f"head_dims.timed[bucket1024,d={d}]", q, k, v, kw)
+        out[f"flash_fwd.f32@d{d}"] = time_f32_fwd(timer, q, k, v, kw, err, tol)
+        del q, k, v
+        torch.cuda.empty_cache()
+    return out
+
+
+def head_dims_phase(gen, timer, checks, quick=False):
+    """Phase 9's kernel part: the decode kernel's and the f32 kernel's
+    resident blocks at every rung against the split plan's tables, the
+    widths (check_head_dims) and, unless quick, the timed rows."""
+    from xf_flash_attention_cutlass_tpu_torch.ops import paged
+
+    occ = {f"{DT_TAG[qt]}/{DT_TAG[dt]}_D{r}_n{n}{'_options' if o else ''}":
+           paged.decode_blocks_per_sm(dt, r, n, o, qt)
+           for qt in (BF16, F16) for dt in (FP8, I8, qt) for r in (192, 256)
+           for n in (8, 16) for o in (False, True)}
+    checks.add("head_dims.decode_resident_blocks",
+               all(v == paged.DECODE_BLOCKS[int(k.split("_D")[1].split("_")[0])]
+                   for k, v in occ.items()), blocks_per_sm=occ, expected=paged.DECODE_BLOCKS)
+    f32_occ = {(dt, r): paged.f32_blocks_per_sm(dt, r)
+               for dt in (F32, FP8, I8) for r in paged.HEAD_DIM_RUNGS}
+    checks.add("head_dims.f32_resident_blocks",
+               all(v == paged.F32_BLOCKS[k] for k, v in f32_occ.items()),
+               blocks_per_sm={f"{DT_TAG[dt]}_D{r}": v for (dt, r), v in f32_occ.items()},
+               expected={f"{DT_TAG[dt]}_D{r}": v for (dt, r), v in paged.F32_BLOCKS.items()})
+    check_head_dims(gen, checks)
+    return {} if quick else head_dim_rows(gen, timer, checks)
+
+
+def wide_build_report(checks, libs):
+    """Registers and spill bytes of the head-dim rungs 192 and 256 (K1's wide
+    libraries, K7's, K7 f32's), with the SASS counts of each: reported, not
+    gated on spills. Checks that every K1 Hopper chunk and K7 instantiation
+    there holds HGMMA and UTMALDG and no HMMA, every decode one HMMA and
+    UTMALDG, every WMMA one HMMA, the f32 ones no tensor-core instruction,
+    and the counts: 24 chunk, 48 decode, 48 WMMA and 6 f32 kernels of K1,
+    8 of K7, 6 of K7 f32 (the rungs 192 and 256, and head dims below each
+    rung)."""
+    k1 = build_usage(libs, ("paged_attention_wide", "paged_attention_f16_wide"),
+                     k1_instantiation)
+    k7 = ptxas_usage("flash_fwd_wide", k7_instantiation)
+    k7_sass = {k7_instantiation(n): c for n, c in sass_by_function(libs["flash_fwd_wide"]).items()
+               if k7_instantiation(n)}
+    f32 = {n: r for n, r in ptxas_usage("flash_f32", f32_instantiation).items()
+           if n.startswith("fwd_") and n not in K7_F32_GATED}
+    report = dict(k1=k1, k7=dict(instantiations=k7, sass=k7_sass), k7_f32=f32)
+    print(json.dumps({"wide_build": report}), flush=True)
+    kinds = {k: {n: r for n, r in k1.items() if n.startswith(k)}
+             for k in ("wgmma", "wmma", "decode", "f32")}
+    hopper = list(kinds["wgmma"].values()) + list(k7_sass.values())
+    checks.add("head_dims.wide_sass",
+               len(kinds["wgmma"]) == 24 and len(k7_sass) == 8
+               and all(r.get("HGMMA", 0) > 0 and r.get("UTMALDG", 0) > 0 and r.get("HMMA", 1) == 0
+                       for r in hopper)
+               and len(kinds["decode"]) == 48
+               and all(r.get("HMMA", 0) > 0 and r.get("UTMALDG", 0) > 0
+                       for r in kinds["decode"].values())
+               and len(kinds["wmma"]) == 48
+               and all(r.get("HMMA", 0) > 0 for r in kinds["wmma"].values())
+               and len(kinds["f32"]) == 6
+               and all(r.get("HMMA", 1) == 0 and r.get("HGMMA", 1) == 0
+                       for r in kinds["f32"].values()) and len(f32) == 6,
+               counts={k: len(v) for k, v in kinds.items()}, k7=len(k7_sass), k7_f32=len(f32))
+    return report
+
+
+def serve_phi3(gen, checks, paths, seed):
+    """Phi-3-mini-4k widths (phi3_config: head dim 96, 32 layers) with random
+    INT8 weights from the seed and an FP8 page-256 cache: the reference
+    check of its cores (2 layers) against the CPU, then the 8 serving
+    requests twice as main paths, `serve_phi3_chunked` (256-token chunks)
+    and `serve_phi3_bucketed` (K7 at d = 96), each with its graphs held to
+    the eager step, and a profiled decode step of the bucketed engine. Every
+    K1 and K7 launch of both paths must be at head dim 96 on the rung 128.
+    The streams: a chunked engine at 256-token chunks held to one at 512
+    under the tie rule; the bucketed engine's against the chunked one's
+    printed, not gated (its prompt pass reads the prompt's own K/V, the
+    chunked one the FP8 cache). Returns the report's row."""
+    from xf_flash_attention_cutlass_tpu_torch import _build
+    from xf_flash_attention_cutlass_tpu_torch.models.llama import init_params, quantize_params
+    from xf_flash_attention_cutlass_tpu_torch.serve.engine import DecodeEngine, EngineConfig
+
+    cfg = phi3_config()
+    t0 = time.perf_counter()
+    params = quantize_params(init_params(gen, cfg))
+    torch.cuda.synchronize()
+    row = dict(config=dataclasses.asdict(cfg), head_dim=cfg.head_dim,
+               init_s=time.perf_counter() - t0,
+               weight_gb=sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9)
+    row["reference_check_s"] = reference_check(params, cfg, checks, seed, name="phi3_reference")
+    checks.raise_on_failure("phi3 reference check")
+    ecfg = EngineConfig(kv_quant="fp8_e4m3", page_size=256, num_pages=256, max_seq=4096,
+                        max_batch=8, prefill_chunk=256)
+    runs = {}
+    for name, e in (("serve_phi3_chunked", ecfg),
+                    ("serve_phi3_bucketed", dataclasses.replace(ecfg, prefill_chunk=None))):
+        eng = DecodeEngine(params, cfg, e)
+        eng.add_request(-1, list(range(300)), 2)  # warm-up request, not counted
+        eng.run()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        served, paths[name] = drive(name, lambda: serve(eng, cfg, seed))
+        served["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        served["launches"] = paths[name]
+        dims = HEAD_DIM_PATHS[name]
+        served["head_dim_launches"] = dims
+        bad = [k for k in dims if not (k.endswith("@d96/D128") or k.endswith("@d96/D0"))]
+        want = [k for k in PATHS[name] if k.startswith(("paged_attention", "flash_fwd"))]
+        missing = [k for k in want if not any(x.startswith(f"{k}@d96/") for x in dims)]
+        checks.add(f"{name}.head_dim_96", not bad and not missing, off_width=bad,
+                   missing=missing, launches=dims)
+        check_graph_replay(eng, checks, name)
+        runs[name] = {rid: list(eng.results[rid]) for rid in range(8)}
+        if name == "serve_phi3_bucketed":
+            prof = profile_decode(eng, cfg, seed)
+            if prof is not None:
+                prof["busy_share_of_p50_step"] = (prof["device_ms_per_step"]
+                                                  / served["decode_step_ms"]["p50"])
+            served["decode_profile"] = prof
+        row[name] = served
+        print(json.dumps({name: served}), flush=True)
+        del eng
+        torch.cuda.empty_cache()
+        checks.raise_on_failure(name)
+    # the streams: the chunked run against a second chunked engine at
+    # 512-token chunks (the same FP8 cache bytes, another tiling of the
+    # prefill's products) under the tie rule, gated; the bucketed run
+    # against the chunked run measured only, as serve_moe's: its prompt pass
+    # attends over the prompt's own bf16 K/V where the chunked one reads
+    # the FP8 cache, which moves the logits by more than TIE_DELTA
+    chunked, bucketed = runs["serve_phi3_chunked"], runs["serve_phi3_bucketed"]
+    row["streams_equal"] = sum(bucketed[rid] == chunked[rid] for rid in chunked)
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(200, 1501, 8)
+    prompts = {100 + i: rng.integers(0, cfg.vocab_size, int(n)).tolist()
+               for i, n in enumerate(lens)}
+    rec = {}
+    for name, e in (("chunk256", ecfg), ("chunk512", dataclasses.replace(ecfg, prefill_chunk=512)),
+                    ("bucketed", dataclasses.replace(ecfg, prefill_chunk=None))):
+        eng = DecodeEngine(params, cfg, e)
+        streams, logits, _, _ = serve_recorded(eng, prompts, 32)
+        rec[name] = (streams, logits)
+        del eng
+        torch.cuda.empty_cache()
+    row["tie_rule"] = tie_rule(checks, "serve_phi3.chunk512_vs_chunk256", rec["chunk256"],
+                               rec["chunk512"])
+    row["measured_bucketed_vs_chunked"] = tie_rule(
+        Checks(), "serve_phi3.measured.bucketed_vs_chunked", rec["chunk256"], rec["bucketed"])
+    del params
+    torch.cuda.empty_cache()
+    checks.raise_on_failure("serve_phi3")
+    _build.HEAD_DIM_LAUNCHES.clear()
+    return row
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (tuple, list)):
+        for v in tree:
+            yield from _leaves(v)
+    elif isinstance(tree, torch.Tensor):
+        yield tree
 
 
 # ---- main ---------------------------------------------------------------------
@@ -5059,6 +5475,7 @@ KERNELS.update({
 _SERVE_KERNELS = ["paged_attention.decode", "paged_attention.combine", "paged_append.decode",
                   "qmm.stacked.decode", "qmm.stacked.wgmma", "qmm.single.decode"]
 _CHUNKED = ["paged_attention.prefill.wgmma", "paged_append.prefill"]
+_PHI3_SERVING = [k for k in _SERVE_KERNELS if k != "paged_attention.combine"]
 _BUCKETED = ["flash_fwd", "paged_append.prefill"]
 PATHS = {
     "serve_chunked": _SERVE_KERNELS + _CHUNKED + ["graph.decode"],
@@ -5100,6 +5517,13 @@ PATHS = {
     "train_f32": ["flash_fwd.f32", "flash_bwd.dq.f32", "flash_bwd.dkv.f32",
                   "flash_bwd.fused.f32"],
     "api_f32": ["flash_fwd.f32", "flash_probs.f32", "flash_bwd.dq.f32", "flash_bwd.dkv.f32"],
+    # phase 9: Phi-3-mini widths (head dim 96) with INT8 weights and an FP8
+    # cache. Its 32 KV heads fill the card without a split: a decode step's
+    # 256 blocks (b = 8) and a 256-row chunk's 128 (padded to the chunk)
+    # reach num_splits_heuristic's 80 % of the cores, so no combine runs
+    # here (phase 9's kernel checks hold it at d = 96)
+    "serve_phi3_chunked": _PHI3_SERVING + _CHUNKED + ["graph.decode"],
+    "serve_phi3_bucketed": _PHI3_SERVING + _BUCKETED + ["graph.decode"],
 }
 # kernels a main path must not launch: serving decodes on K1's and K3/K4's
 # decode kernels, and the api path's options take K1's Hopper kernels
@@ -5129,6 +5553,24 @@ NOT_ON_PATH.update({
     "train_f32": _FLASH16,
     "api_f32": _FLASH16,
     "api_dtypes": ["paged_attention.decode.wmma.f16", "paged_attention.prefill.wmma.f16"]})
+# the head-dim-96 paths read every operand in place: no padded copy, no WMMA kernel
+_PHI3_NOT = _NOT_SERVING + ["paged_attention.prefill.wmma", "paged_attention.pad_copy",
+                            "flash_fwd.pad_copy"]
+NOT_ON_PATH.update({"serve_phi3_chunked": _PHI3_NOT, "serve_phi3_bucketed": _PHI3_NOT})
+
+
+def head_dim_kernels():
+    """The kernels line's rows at HEAD_DIM_TIMED ("<label>@d<d>"), each
+    beside its source and the TPU kernel it replaces; their launches are
+    the head-dim-96 paths' at that label and head dim."""
+    out = {}
+    for d in HEAD_DIM_TIMED:
+        for label in ("paged_attention.decode", "paged_attention.prefill.wgmma",
+                      "paged_attention.combine", "paged_attention.decode.f32"):
+            out[f"{label}@d{d}"] = _K1
+        out[f"flash_fwd@d{d}"] = KERNELS["flash_fwd"]
+        out[f"flash_fwd.f32@d{d}"] = KERNELS["flash_fwd.f32"]
+    return out
 
 
 def nvidia_smi() -> str:
@@ -5139,19 +5581,27 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+# each main path's launches of K1 and K7 by head dim and rung, from drive
+HEAD_DIM_PATHS = {}
+
+
 def drive(path, fn):
     """Run one main path with the launch counters cleared just before and
     read just after; raise if a kernel of the path never launched or a
-    plain version ran. Returns (fn's result, the launch counts)."""
+    plain version ran. Returns (fn's result, the launch counts); the
+    counts by head dim go to HEAD_DIM_PATHS."""
     from xf_flash_attention_cutlass_tpu_torch import _build
 
     torch.cuda.synchronize()
     _build.LAUNCHES.clear()
     _build.PLAIN_CALLS.clear()
+    _build.HEAD_DIM_LAUNCHES.clear()
     result = fn()
     torch.cuda.synchronize()
     launches, plain_calls = dict(_build.LAUNCHES), dict(_build.PLAIN_CALLS)
-    print(json.dumps({path: dict(launches=launches, plain_calls=plain_calls)}), flush=True)
+    HEAD_DIM_PATHS[path] = dict(_build.HEAD_DIM_LAUNCHES)
+    print(json.dumps({path: dict(launches=launches, plain_calls=plain_calls,
+                                 head_dims=HEAD_DIM_PATHS[path])}), flush=True)
     missing = [k for k in PATHS[path] if launches.get(k, 0) == 0]
     if missing:
         raise RuntimeError(f"{path}: kernels of the path never launched: {missing}")
@@ -5200,6 +5650,7 @@ def main():
     report["paged_build"] = paged_build_report(checks, libs)
     report["flash_probs_build"] = probs_build_report(checks, libs["flash_probs"])
     report["flash_f32_build"] = flash_f32_build_report(checks)
+    report["wide_build"] = wide_build_report(checks, libs)
 
     # 2. kernels against their plain versions, at the main paths' shapes
     cfg = LlamaConfig.llama8b()
@@ -5425,13 +5876,28 @@ def main():
     report["serving_dtypes"] = serving_dtype_paths(gen, cfg, checks, paths, args.seed)
     mark("serving_dtypes")
 
-    # 9. the kernels line, the card, the result
+    # 9. K1 and K7 at every head dim from 16 to 256 against their plain
+    # versions, the rows at d = 96 and 256 timed; then Phi-3-mini widths
+    # (head dim 96) served chunked and bucketed
+    head_dim_rows = head_dims_phase(gen, Timer(), checks)
+    measured.update(head_dim_rows)
+    report["head_dim_kernels"] = head_dim_rows
+    print(json.dumps({"head_dim_kernels": head_dim_rows}), flush=True)
+    checks.raise_on_failure("head dims")
+    torch.cuda.empty_cache()
+    mark("head_dims")
+    report["serve_phi3"] = serve_phi3(gen, checks, paths, args.seed)
+    mark("serve_phi3")
+
+    # 10. the kernels line, the card, the result
     kernels = []
-    for name, (source, replaces) in KERNELS.items():
+    for name, (source, replaces) in dict(KERNELS, **head_dim_kernels()).items():
         r = measured[name]
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=sum(p.get(name, 0) for p in paths.values()),
+            launches=(sum(p.get(name, 0) for p in paths.values()) if "@d" not in name else
+                      sum(n for p in HEAD_DIM_PATHS.values() for k, n in p.items()
+                          if k.startswith(name + "/"))),
             max_abs_err=r["err"], tolerance=r["tol"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
             bound_by=r["bound"][1], library_ms=r["library_ms"],

@@ -151,7 +151,9 @@ def test_paged_attention_dtypes_2x_rule(q_dt, kv, sq, page, opts):
         lp = _t(_jax_dense(q, pools, bt, lens, jnp.float32, **jw))
         assert_close_2ref(to[live], ref[live], lp[live])
     route = paged.paged_route(sq * 2, page, 32, TDT[kv], TDT[q_dt])
-    assert route == ("f32" if q_dt == "f32" else "wmma")  # d = 32: no Hopper kernel
+    # d = 32 takes the Hopper kernels too (their rung 64); odd pages the WMMA one
+    assert route == ("f32" if q_dt == "f32" else "wmma" if page % 8
+                     else "decode" if sq * 2 <= paged.DECODE_ROWS else "wgmma")
 
 
 # ---- the append ---------------------------------------------------------------

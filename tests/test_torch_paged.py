@@ -264,7 +264,7 @@ def test_num_splits_heuristic_matches_jax():
         (1024, 24, 128, torch.bfloat16, False, "wgmma"),  # 8-key TMA boxes
         (1024, 256, 128, torch.float8_e4m3fn, True, "wgmma"),  # an option: its instantiation
         (1024, 12, 128, torch.bfloat16, False, "wmma"),  # a page of no whole box
-        (1024, 256, 96, torch.bfloat16, False, "wmma"),  # d = 96
+        (1024, 256, 96, torch.bfloat16, False, "wgmma"),  # d = 96: the rung 128
         (1024, 256, 128, torch.float16, False, "wmma"),  # bf16 queries over fp16 pools: refused
         (1024, 12, 128, torch.int8, True, "wmma"),  # an option on an odd page
         (1024, 256, 128, torch.float16, True, "wmma"),  # the same with an option

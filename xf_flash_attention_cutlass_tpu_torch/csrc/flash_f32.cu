@@ -74,13 +74,15 @@ struct Ld {
 
 constexpr int kSmallTile = kB * kLdT;  // floats of a 64 x 64 tile
 
-// Rows [r0, r0 + 64) of a (n, D) matrix with row stride `stride` (elements;
+// Rows [r0, r0 + 64) of a (n, d) matrix with row stride `stride` (elements;
 // the last dimension contiguous, rows 16-byte aligned) into dst [64][D + 4],
-// times mul; rows past n are zeros. Each thread issues its loads before it
+// times mul; rows past n and columns past d (a multiple of 4; K7 at a rung
+// D above its head dim) are zeros. Each thread issues its loads before it
 // stores them.
 template <int D>
 __device__ __forceinline__ void load_tile(float* __restrict__ dst, const float* __restrict__ src,
-                                          int64_t stride, int r0, int n, float mul = 1.f) {
+                                          int64_t stride, int r0, int n, float mul = 1.f,
+                                          int d = D) {
   constexpr int kChunks = D / 4;
   constexpr int kIters = kB * kChunks / kThreads;
   float4 buf[kIters];
@@ -89,7 +91,7 @@ __device__ __forceinline__ void load_tile(float* __restrict__ dst, const float* 
     const int c = threadIdx.x + u * kThreads;
     const int r = c / kChunks, col = (c % kChunks) * 4;
     buf[u] = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + r < n)
+    if (r0 + r < n && col < d)
       buf[u] = *reinterpret_cast<const float4*>(src + static_cast<int64_t>(r0 + r) * stride + col);
   }
 #pragma unroll
@@ -180,13 +182,16 @@ __device__ __forceinline__ void mma_nn(float (&acc)[4][D / 16], const float* __r
 }
 
 // One row of a 64 x D tile held as mma_nn leaves it (x = acc[i]), stored
-// to dst (the row's first element) as float4s.
+// to dst (the row's first element) as float4s; the columns past d (K7 at a
+// rung D above its head dim) are not stored.
 template <int D>
-__device__ __forceinline__ void store_row(float* dst, const float (&x)[D / 16], int tx) {
+__device__ __forceinline__ void store_row(float* dst, const float (&x)[D / 16], int tx,
+                                          int d = D) {
 #pragma unroll
   for (int g = 0; g < D / 64; ++g)
-    *reinterpret_cast<float4*>(dst + 64 * g + 4 * tx) =
-        make_float4(x[4 * g], x[4 * g + 1], x[4 * g + 2], x[4 * g + 3]);
+    if (64 * g + 4 * tx < d)
+      *reinterpret_cast<float4*>(dst + 64 * g + 4 * tx) =
+          make_float4(x[4 * g], x[4 * g + 1], x[4 * g + 2], x[4 * g + 3]);
 }
 
 // The sum over the 16 lanes that hold one row of a score tile, and its max.
@@ -252,6 +257,7 @@ struct FwdArgs {
   int64_t q_s[3], k_s[3], v_s[3], o_s[3];  // element strides (batch, head, row)
   const int32_t *kv_lens, *qseg, *kseg;
   int b, h, h_k, sq, sk, wl, wr, n_qt;
+  int d;  // the head dim (K7: its rung D is the kernel's; K8: D)
   float softcap, scale;
 };
 
@@ -271,9 +277,13 @@ struct FwdSmem {
 // order (heaviest first), and walks the live key tiles: S = Q K^T, the
 // online softmax (each row's max and sum over its 16 lanes), P into K's
 // place, this tile's P V summed from zero and added to O after the
-// correction. Two blocks an SM (99 KB of shared memory at d = 128).
-template <int D>
-__global__ void __launch_bounds__(kThreads, 2)
+// correction. Two blocks an SM (99 KB of shared memory at d = 128); one at
+// the rungs 192 and 256 (147 and 195 KB). kTail: the head dim p.d is below
+// the rung D (the columns past it zeros, never stored); without it the
+// loads and stores take D itself (the d = D kernels keep the registers
+// they had before the rungs).
+template <int D, bool kTail>
+__global__ void __launch_bounds__(kThreads, D >= 192 ? 1 : 2)
     flash_fwd_f32_kernel(const FwdArgs p, const XfaExtras ex) {
   using L = FwdSmem<D>;
   constexpr int LD = Ld<D>::kRow, NC = Ld<D>::kCols;
@@ -301,7 +311,8 @@ __global__ void __launch_bounds__(kThreads, 2)
   const float* qb = p.q + ib * p.q_s[0] + ih * p.q_s[1];
   const float* kb = p.k + ib * p.k_s[0] + ihk * p.k_s[1];
   const float* vb = p.v + ib * p.v_s[0] + ihk * p.v_s[1];
-  load_tile<D>(qs, qb, p.q_s[2], q0, p.sq, p.scale);
+  const int d = kTail ? p.d : D;
+  load_tile<D>(qs, qb, p.q_s[2], q0, p.sq, p.scale, d);
 
   const bool drop = ex.drop_thresh != 0;
   float m[4], l[4], acc[4][NC];
@@ -316,8 +327,8 @@ __global__ void __launch_bounds__(kThreads, 2)
   for (int k0 = (k_lo / kB) * kB; k0 < k_hi; k0 += kB) {
     if (!tiles_meet(ex, mask_of(), ib, q0, k0)) continue;
     __syncthreads();  // the last tile's P and V are read (and Q is stored)
-    load_tile<D>(ks, kb, p.k_s[2], k0, p.sk);
-    load_tile<D>(vs, vb, p.v_s[2], k0, p.sk);
+    load_tile<D>(ks, kb, p.k_s[2], k0, p.sk, 1.f, d);
+    load_tile<D>(vs, vb, p.v_s[2], k0, p.sk, 1.f, d);
     __syncthreads();
     float s[4][4];
     mma_nt<D, LD, LD>(s, qs, ks, ty, tx);
@@ -380,7 +391,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     float row[NC];
 #pragma unroll
     for (int c = 0; c < NC; ++c) row[c] = no_key ? 0.f : (acc[i][c] * inv) * drop_scale;
-    store_row<D>(ob + qi * p.o_s[2], row, tx);
+    store_row<D>(ob + qi * p.o_s[2], row, tx, d);
     if (tx == 0) p.lse[bh * p.sq + qi] = no_key ? -INFINITY : m[i] + logf(l[i]);
   }
 }
@@ -760,19 +771,22 @@ cudaError_t set_smem(Kernel* kernel, int bytes) {
 }
 
 template <int D>
-cudaError_t launch_fwd(const FwdArgs& a, const XfaExtras& ex, bool probs, cudaStream_t stream) {
+cudaError_t launch_fwd(const FwdArgs& a, const XfaExtras& ex, cudaStream_t stream) {
+  auto* kernel = a.d < D ? &flash_fwd_f32_kernel<D, true> : &flash_fwd_f32_kernel<D, false>;
+  cudaError_t err = set_smem(kernel, FwdSmem<D>::bytes);
+  if (err != cudaSuccess) return err;
   const unsigned grid = static_cast<unsigned>(a.n_qt) * a.h * a.b;
-  if (probs) {
-    auto* kernel = &flash_probs_f32_kernel<D>;
-    cudaError_t err = set_smem(kernel, ProbsSmem<D>::bytes);
-    if (err != cudaSuccess) return err;
-    kernel<<<grid, kThreads, ProbsSmem<D>::bytes, stream>>>(a, ex);
-  } else {
-    auto* kernel = &flash_fwd_f32_kernel<D>;
-    cudaError_t err = set_smem(kernel, FwdSmem<D>::bytes);
-    if (err != cudaSuccess) return err;
-    kernel<<<grid, kThreads, FwdSmem<D>::bytes, stream>>>(a, ex);
-  }
+  kernel<<<grid, kThreads, FwdSmem<D>::bytes, stream>>>(a, ex);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_probs(const FwdArgs& a, const XfaExtras& ex, cudaStream_t stream) {
+  auto* kernel = &flash_probs_f32_kernel<D>;
+  cudaError_t err = set_smem(kernel, ProbsSmem<D>::bytes);
+  if (err != cudaSuccess) return err;
+  const unsigned grid = static_cast<unsigned>(a.n_qt) * a.h * a.b;
+  kernel<<<grid, kThreads, ProbsSmem<D>::bytes, stream>>>(a, ex);
   return cudaGetLastError();
 }
 
@@ -796,9 +810,12 @@ cudaError_t launch_dkv(const BwdArgs& a, const XfaExtras& ex, cudaStream_t strea
   return cudaGetLastError();
 }
 
+// K7 takes any d up to 256 (a multiple of 4: float4 rows); K8 and K9-K11
+// d 64 or 128.
 bool valid(int dtype, int d, int h, int h_k, const void* q_seg, const void* kv_seg,
-           const XfaExtras* ex, const int64_t* strides) {
-  return dtype == XFA_F32 && (d == 64 || d == 128) && h_k > 0 && h % h_k == 0 &&
+           const XfaExtras* ex, const int64_t* strides, bool any_d = false) {
+  const bool d_ok = any_d ? d >= 1 && d <= 256 && d % 4 == 0 : d == 64 || d == 128;
+  return dtype == XFA_F32 && d_ok && h_k > 0 && h % h_k == 0 &&
          (q_seg == nullptr) == (kv_seg == nullptr) && ex != nullptr && strides != nullptr &&
          (ex->qpos == nullptr) == (ex->kpos == nullptr) &&
          (ex->qtiles == nullptr) == (ex->ktiles == nullptr);
@@ -843,7 +860,8 @@ BwdArgs make_bwd_args(const void* q, const void* k, const void* v, const void* d
 
 // The entry points take the arguments of their 16-bit counterparts
 // (xfa_flash_fwd, xfa_flash_probs, xfa_flash_bwd_dq, xfa_flash_bwd_dkv) with
-// dtype XFA_F32: f32 tensors, d 64 or 128, each with its last dimension
+// dtype XFA_F32: f32 tensors, d 64 or 128 (K7: any multiple of 4 up to 256,
+// on the rungs 64, 128, 192 and 256), each with its last dimension
 // contiguous and its (batch, head, row) element strides in `strides`
 // (multiples of 4, bases 16-byte aligned: float4 loads and stores), q not
 // pre-scaled; lse and delta (b, h, sq) f32 contiguous; kv_lens (b,), q_seg
@@ -858,7 +876,8 @@ extern "C" int xfa_flash_fwd_f32(const void* q, const void* k, const void* v, vo
                                  int sk, int d, int wl, int wr, float softcap, float scale,
                                  const int64_t* strides, const flash::XfaExtras* extras,
                                  void* stream) {
-  if (!valid(dtype, d, h, h_k, q_seg, kv_seg, extras, strides)) return cudaErrorInvalidValue;
+  if (!valid(dtype, d, h, h_k, q_seg, kv_seg, extras, strides, true))
+    return cudaErrorInvalidValue;
   if (b * h * sq == 0) return cudaSuccess;
   FwdArgs a{};
   a.q = static_cast<const float*>(q);
@@ -881,10 +900,20 @@ extern "C" int xfa_flash_fwd_f32(const void* q, const void* k, const void* v, vo
   a.wl = wl;
   a.wr = wr;
   a.n_qt = (sq + kB - 1) / kB;
+  a.d = d;
   a.softcap = softcap;
   a.scale = scale;
   auto st = static_cast<cudaStream_t>(stream);
-  return d == 128 ? launch_fwd<128>(a, *extras, false, st) : launch_fwd<64>(a, *extras, false, st);
+  switch ((d + 63) / 64) {  // the rung
+    case 1:
+      return launch_fwd<64>(a, *extras, st);
+    case 2:
+      return launch_fwd<128>(a, *extras, st);
+    case 3:
+      return launch_fwd<192>(a, *extras, st);
+    default:
+      return launch_fwd<256>(a, *extras, st);
+  }
 }
 
 // K8: strides q, k; reads lse (b, h, sq); writes out (b, h, sq, sk) contiguous.
@@ -915,7 +944,8 @@ extern "C" int xfa_flash_probs_f32(const void* q, const void* k, const void* lse
   a.softcap = softcap;
   a.scale = scale;
   auto st = static_cast<cudaStream_t>(stream);
-  return d == 128 ? launch_fwd<128>(a, *extras, true, st) : launch_fwd<64>(a, *extras, true, st);
+  a.d = d;
+  return d == 128 ? launch_probs<128>(a, *extras, st) : launch_probs<64>(a, *extras, st);
 }
 
 // K9: strides q, k, v, dout, dq, dk, dv (dk, dv unused); writes dq (b, h, sq, d).

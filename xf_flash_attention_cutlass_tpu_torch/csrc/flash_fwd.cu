@@ -49,6 +49,17 @@
 // whose positions and segment ids (from the wrapper's 64-entry tile tables)
 // cannot meet its rows'.
 //
+// Head dims: the kernel is instantiated at the rungs D = 64, 128, 192 and
+// 256 (the library built with XFA_WIDE holds 192 and 256) and serves any d
+// up to 256 with the smallest rung D >= d. The tensor maps take the real d
+// as their inner extent, so TMA fills a tile's columns from d to D with
+// zeros without reading them: they add nothing to S, give O columns that
+// are never stored, and the softmax scale stays the caller's (1 / sqrt(d)).
+// Rows must be 16-byte multiples (d % 8 == 0; ops/flash_fwd.py pads other
+// widths with a copy). At D 192 and 256 O takes 96 or 128 registers a thread
+// and the tiles 120 or 160 KB: one block an SM, with the register budget of
+// one; O += P V runs as a 128-wide product and one over the rest.
+//
 // Bound on an H100: operations. A causal tile pair costs 4 * 64 * 64 * d
 // tensor-core operations against 2 * 64 * d * 2 bytes of K and V, far above
 // the card's ~295 operations per byte. Not yet done: overlapping one tile's
@@ -97,11 +108,12 @@ struct FwdParams {
   const int32_t* qseg;
   const int32_t* kseg;
   int b, h, h_k, sq, sk, wl, wr, n_qt;
+  int d;  // the head dim: the kernel's D is its rung, columns past d are zeros
   float softcap, scale;
 };
 
 template <typename T, int D, bool kExtra>
-__global__ void __launch_bounds__(kThreadsFwd, 2)
+__global__ void __launch_bounds__(kThreadsFwd, D >= 192 ? 1 : 2)
     flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
                      const __grid_constant__ CUtensorMap tm_k,
                      const __grid_constant__ CUtensorMap tm_v, const FwdParams p,
@@ -298,10 +310,8 @@ __global__ void __launch_bounds__(kThreadsFwd, 2)
     fence_regs(acc);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      const uint64_t db = desc_sw128(v_tile(st) + kk * 16 * 128, kBK * 128, 1024);
-      Wgmma<T, D>::rs_tb(acc, pa[kk], db, 1);
-    }
+    for (int kk = 0; kk < kBK / 16; ++kk)
+      wgmma_rs_tb_rung<T, D>(acc, pa[kk], v_tile(st) + kk * 16 * 128, kBK * 128);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(acc);
@@ -326,6 +336,7 @@ __global__ void __launch_bounds__(kThreadsFwd, 2)
     T* orow = o + qi * p.o_ss;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n) {
+      if (n * 8 >= p.d) continue;  // O's rows are d wide (d % 8 == 0)
       const float x0 = no_key ? 0.f : acc[4 * n + 2 * r] * inv * drop_scale;
       const float x1 = no_key ? 0.f : acc[4 * n + 2 * r + 1] * inv * drop_scale;
       *reinterpret_cast<uint32_t*>(orow + n * 8 + col) = Mma<T>::pack(x0, x1);
@@ -348,7 +359,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int64_t* s
   const uint32_t box_rows[3] = {kBQ, kBK, kBK};
   for (int i = 0; i < 3; ++i) {
     const int64_t* st = strides + 3 * (prm.sk > 0 ? i : 0);
-    const uint64_t dims[4] = {static_cast<uint64_t>(D), static_cast<uint64_t>(rows[i]),
+    const uint64_t dims[4] = {static_cast<uint64_t>(prm.d), static_cast<uint64_t>(rows[i]),
                               static_cast<uint64_t>(heads[i]), static_cast<uint64_t>(prm.b)};
     const uint64_t bytes[3] = {static_cast<uint64_t>(st[2]) * 2, static_cast<uint64_t>(st[1]) * 2,
                                static_cast<uint64_t>(st[0]) * 2};
@@ -369,18 +380,27 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int64_t* s
   return cudaGetLastError();
 }
 
+#ifdef XFA_WIDE
+constexpr int kRungLo = 192, kRungHi = 256;
+#else
+constexpr int kRungLo = 64, kRungHi = 128;
+#endif
+
+// The instantiation at d's rung (the smallest of this library's two >= d).
 template <typename T>
-cudaError_t launch_d(int d, const void* q, const void* k, const void* v, const int64_t* strides,
+cudaError_t launch_d(const void* q, const void* k, const void* v, const int64_t* strides,
                      const FwdParams& prm, const XfaExtras& ex, cudaStream_t stream) {
-  if (d == 128) return launch<T, 128>(q, k, v, strides, prm, ex, stream);
-  if (d == 64) return launch<T, 64>(q, k, v, strides, prm, ex, stream);
+  const int rung = (prm.d + 63) / 64 * 64;
+  if (rung == kRungHi) return launch<T, kRungHi>(q, k, v, strides, prm, ex, stream);
+  if (rung == kRungLo) return launch<T, kRungLo>(q, k, v, strides, prm, ex, stream);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // q (b, h, sq, d), k and v (b, h_k, sk, d) bf16 (dtype XFA_BF16) or fp16
-// (XFA_F16), d 64 or 128, each with its last dimension contiguous and its
+// (XFA_F16), d a multiple of 8 at this library's rungs (64 and 128, or with
+// XFA_WIDE 192 and 256: up to 256), each with its last dimension contiguous and its
 // (batch, head, row) strides in elements at strides[0..2] (q), [3..5] (k),
 // [6..8] (v): multiples of 8, bases 16-byte aligned (the tensor maps' rule).
 // q is not pre-scaled: the kernel multiplies it by `scale`. Writes o (b, h,
@@ -394,7 +414,8 @@ extern "C" int xfa_flash_fwd(const void* q, const void* k, const void* v, void* 
                              int wl, int wr, float softcap, float scale,
                              const int64_t* strides, const flash::XfaExtras* extras,
                              void* stream) {
-  if (h_k <= 0 || h % h_k != 0 || extras == nullptr || strides == nullptr)
+  if (h_k <= 0 || h % h_k != 0 || extras == nullptr || strides == nullptr || d < 1 || d > 256 ||
+      d % 8)
     return cudaErrorInvalidValue;
   if ((q_seg == nullptr) != (kv_seg == nullptr)) return cudaErrorInvalidValue;
   if ((extras->qpos == nullptr) != (extras->kpos == nullptr)) return cudaErrorInvalidValue;
@@ -413,14 +434,15 @@ extern "C" int xfa_flash_fwd(const void* q, const void* k, const void* v, void* 
   prm.sk = sk;
   prm.wl = wl;
   prm.wr = wr;
+  prm.d = d;
   prm.softcap = softcap;
   prm.scale = scale;
   auto st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case XFA_BF16:
-      return launch_d<__nv_bfloat16>(d, q, k, v, strides, prm, *extras, st);
+      return launch_d<__nv_bfloat16>(q, k, v, strides, prm, *extras, st);
     case XFA_F16:
-      return launch_d<__half>(d, q, k, v, strides, prm, *extras, st);
+      return launch_d<__half>(q, k, v, strides, prm, *extras, st);
     default:
       return cudaErrorInvalidValue;
   }

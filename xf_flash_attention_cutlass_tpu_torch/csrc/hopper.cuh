@@ -715,6 +715,24 @@ struct Wgmma<__half, 256> {
   }
 };
 
+// O (64 x D, f32) += A V for a head-dim rung D (64, 128, 192 or 256): A in
+// registers (one k16 step, as rs_tb takes it), V's 16 key rows at v,
+// MN-major as D / 64 sub-tiles of 64 columns, 128-byte swizzled, sub_bytes
+// apart. D 64 and 128 take one product; 192 and 256 one 128 wide over the
+// first two sub-tiles and one over the rest, on the two parts of O.
+template <typename T, int D>
+__device__ __forceinline__ void wgmma_rs_tb_rung(float (&acc)[D / 2], const uint32_t (&a)[4],
+                                                 const unsigned char* v, uint32_t sub_bytes) {
+  if constexpr (D <= 128) {
+    Wgmma<T, D>::rs_tb(acc, a, desc_sw128(v, sub_bytes, 1024), 1);
+  } else {
+    Wgmma<T, 128>::rs_tb(*reinterpret_cast<float(*)[64]>(acc), a,
+                         desc_sw128(v, sub_bytes, 1024), 1);
+    Wgmma<T, D - 128>::rs_tb(*reinterpret_cast<float(*)[D / 2 - 64]>(acc + 64), a,
+                             desc_sw128(v + 2 * sub_bytes, sub_bytes, 1024), 1);
+  }
+}
+
 // ---- host side ---------------------------------------------------------------
 
 using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,

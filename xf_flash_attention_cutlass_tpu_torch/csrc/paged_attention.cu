@@ -26,8 +26,8 @@
 // queries over f32, int8 or fp8 pools.
 //
 // `paged_decode_kernel` (the decode route: at most 16 query rows a KV head,
-// sq * group: decode and short verify; d 64 or 128, pages of a multiple of
-// 8 keys, bf16 / int8 / fp8 pools). Decode is bound by bytes and by latency: a step reads
+// sq * group: decode and short verify; pages of a multiple of 8 keys,
+// bf16 / int8 / fp8 pools). Decode is bound by bytes and by latency: a step reads
 // each live K/V byte once for 4 * group flops, and the work of one call is a
 // few MB, so the design keeps many bytes in flight and few passes around
 // them. One block owns one (split, batch entry, KV head): all of the GQA
@@ -74,7 +74,16 @@
 // the caller's (b, sq, h, d) bf16 layout and LSE (b, h, sq); with more, f32
 // partials (splits, b, sq, h, d) and (splits, b, sq, h) for the combine kernel.
 // The producer hands its registers to the consumer (setmaxnreg); two blocks
-// an SM, one for int8 / fp8 pools at d = 128 (shared memory).
+// an SM, one for int8 / fp8 pools at d = 128 and at the rungs 192 and 256
+// (shared memory).
+//
+// Head dims: every kernel takes any d from 1 to 256. It is instantiated at
+// the rungs D = 64, 128, 192 and 256 and serves d with the smallest rung D >=
+// d (by_rung); the Hopper kernels' tensor maps take the real d as their inner
+// extent, so TMA zero-fills a tile's columns from d to D without reading
+// them, the WMMA and f32 kernels skip those chunks, and only d columns of O
+// are stored. Rows must be whole 16-byte chunks (head_dim_ok); the wrapper
+// pads other widths with a copy (ops/paged.py::paged_attention_padded).
 //
 // Both Hopper kernels have a second instantiation, kExtra, for the options
 // the API passes (the option-free one, which serving runs, compiles to the
@@ -127,6 +136,8 @@
 // row's earliest key.
 #include <mma.h>
 
+#include <type_traits>
+
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -143,6 +154,29 @@ constexpr float NEG_INF = -0.7f * 3.4028234663852886e38f;
 constexpr float M_FLOOR = -1e30f;
 
 __host__ __device__ constexpr int align128(int x) { return (x + 127) / 128 * 128; }
+
+// Head-dim rungs. Every kernel is instantiated at D = 64, 128, 192 and 256
+// and serves a head dim d with the smallest rung D >= d
+// (ops/paged.py::head_dim_rung): its tiles are D wide, the columns from d to
+// D are zeros (TMA fills them, or the loads skip them), they add nothing to
+// S and give O columns that are never stored. The library built with
+// XFA_WIDE holds the rungs 192 and 256, the one without it 64 and 128, so
+// that they compile in parallel (_build.VARIANTS).
+#ifdef XFA_WIDE
+constexpr int kRungLo = 192, kRungHi = 256;
+#else
+constexpr int kRungLo = 64, kRungHi = 128;
+#endif
+
+// Calls f(std::integral_constant<int, D>{}) with d's rung D, or returns
+// cudaErrorInvalidValue when this library does not hold it.
+template <typename F>
+cudaError_t by_rung(int d, F&& f) {
+  const int rung = (d + 63) / 64 * 64;
+  if (d < 1 || (rung != kRungLo && rung != kRungHi)) return cudaErrorInvalidValue;
+  return rung == kRungHi ? f(std::integral_constant<int, kRungHi>{})
+                         : f(std::integral_constant<int, kRungLo>{});
+}
 
 template <int D, int RT>
 struct Smem {
@@ -182,18 +216,19 @@ struct TileRegs {
   float ks, vs;
 
   // the zero byte is 0 in every KV dtype, so keys past kend load as zeros
+  // (rows of d values, d <= D and a multiple of CH: chunks past d load as zeros)
   __device__ __forceinline__ void load(const KV* k_pool, const KV* v_pool, const float* k_scales,
                                        const float* v_scales, const int32_t* bt_row, int k0,
-                                       int kend, int kvh, int h_k, int page) {
-    const size_t head_stride = static_cast<size_t>(page) * D;
+                                       int kend, int kvh, int h_k, int page, int d) {
+    const size_t head_stride = static_cast<size_t>(page) * d;
 #pragma unroll
     for (int it = 0; it < LOADS; ++it) {
       const int c = threadIdx.x + it * kThreads;
       const int kp = k0 + c / (D / CH), dc = (c % (D / CH)) * CH;
       k[it] = v[it] = make_uint4(0, 0, 0, 0);
-      if (kp < kend) {
+      if (kp < kend && dc < d) {
         const size_t off = (static_cast<size_t>(bt_row[kp / page]) * h_k + kvh) * head_stride +
-                           static_cast<size_t>(kp % page) * D + dc;
+                           static_cast<size_t>(kp % page) * d + dc;
         k[it] = *reinterpret_cast<const uint4*>(k_pool + off);
         v[it] = *reinterpret_cast<const uint4*>(v_pool + off);
       }
@@ -230,19 +265,19 @@ struct TileRegs {
 
 template <typename T, typename KV, int D, int RT, bool kExtra>
 __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
-    const T* __restrict__ q,              // (b, sq, h, D), pre-scaled
-    const KV* __restrict__ k_pool,        // (pages, h_k, page, D): one layer
+    const T* __restrict__ q,              // (b, sq, h, d), pre-scaled
+    const KV* __restrict__ k_pool,        // (pages, h_k, page, d): one layer
     const KV* __restrict__ v_pool,
     const float* __restrict__ k_scales,  // (pages, h_k, page) or null
     const float* __restrict__ v_scales,
     const int32_t* __restrict__ block_tables,  // (b, max_pages)
     const int32_t* __restrict__ kv_lens,       // (b,)
-    float* __restrict__ o_part,                // (splits, b, h_k, R, D)
+    float* __restrict__ o_part,                // (splits, b, h_k, R, d)
     float* __restrict__ lse_part,              // (splits, b, h_k, R)
     const float* __restrict__ alibi,           // (b, h) or null
     const int32_t* __restrict__ leftpad,       // (b,) or null
     int b, int sq, int h_k, int group, int page, int max_pages, int wl, int wr,
-    float softcap) {
+    float softcap, int d) {
   using L = Smem<D, RT>;
   constexpr int LDQ = L::LDQ, LDS = L::LDS, LDP = L::LDP, LDO = L::LDO;
 
@@ -288,15 +323,15 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
     kend = min(kend, kv_len - sq + t_last + 1 + wr);
   }
 
-  // Q tile (zeros past the last real row), stats and accumulator
+  // Q tile (zeros past the last real row and past d), stats and accumulator
   for (int c = threadIdx.x; c < RT * (D / 8); c += kThreads) {
     const int r = c / (D / 8), dc = (c % (D / 8)) * 8;
     const int gr = r0 + r;
     uint4 val = make_uint4(0, 0, 0, 0);
-    if (gr < R) {
+    if (gr < R && dc < d) {
       const int t = gr / group, gi = gr % group;
       val = *reinterpret_cast<const uint4*>(
-          q + ((static_cast<size_t>(ib) * sq + t) * h + kvh * group + gi) * D + dc);
+          q + ((static_cast<size_t>(ib) * sq + t) * h + kvh * group + gi) * d + dc);
     }
     *reinterpret_cast<uint4*>(qs + r * LDQ + dc) = val;
   }
@@ -309,13 +344,13 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
   const int32_t* bt_row = block_tables + static_cast<size_t>(ib) * max_pages;
   TileRegs<KV, D> regs;
   if (kstart < kend)
-    regs.load(k_pool, v_pool, k_scales, v_scales, bt_row, kstart, kend, kvh, h_k, page);
+    regs.load(k_pool, v_pool, k_scales, v_scales, bt_row, kstart, kend, kvh, h_k, page, d);
   for (int k0 = kstart; k0 < kend; k0 += TK) {
     __syncthreads();  // previous tile fully consumed
     regs.store(ks, vs, ksc, vsc, LDQ);
     __syncthreads();
     if (k0 + TK < kend)  // in flight while this tile is computed
-      regs.load(k_pool, v_pool, k_scales, v_scales, bt_row, k0 + TK, kend, kvh, h_k, page);
+      regs.load(k_pool, v_pool, k_scales, v_scales, bt_row, k0 + TK, kend, kvh, h_k, page, d);
 
     // S = Q K^T on the tensor cores
     for (int f = warp; f < (RT / 16) * (TK / 16); f += kWarps) {
@@ -406,10 +441,10 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
   const size_t base = (static_cast<size_t>(split) * b + ib) * h_k + kvh;
   for (int i = threadIdx.x; i < RT * D; i += kThreads) {
     const int r = i / D, dcol = i % D;
-    if (r0 + r >= R) continue;
+    if (r0 + r >= R || dcol >= d) continue;
     const float l = l_s[r];
     const float inv = l > 0.f ? 1.f / l : 0.f;
-    o_part[(base * R + r0 + r) * D + dcol] = os[r * LDO + dcol] * inv;
+    o_part[(base * R + r0 + r) * d + dcol] = os[r * LDO + dcol] * inv;
   }
   for (int r = threadIdx.x; r < RT; r += kThreads) {
     if (r0 + r >= R) continue;
@@ -428,6 +463,7 @@ struct Args {
   const int32_t* leftpad;
   int b, sq, h_k, group, page, max_pages, n_splits, wl, wr;
   float softcap;
+  int d;  // the head dim: the kernel's D is its rung (by_rung)
 };
 
 template <typename T, typename KV, int D, int RT, bool kExtra>
@@ -448,7 +484,7 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(a.q), static_cast<const KV*>(a.kp),
       static_cast<const KV*>(a.vp), a.ksc, a.vsc, a.bt, a.lens, a.o, a.lse, a.alibi, a.leftpad,
-      a.b, a.sq, a.h_k, a.group, a.page, a.max_pages, a.wl, a.wr, a.softcap);
+      a.b, a.sq, a.h_k, a.group, a.page, a.max_pages, a.wl, a.wr, a.softcap, a.d);
   return cudaGetLastError();
 }
 
@@ -462,16 +498,12 @@ cudaError_t launch_x(const Args& a, cudaStream_t st) {
 }
 
 template <typename T, typename KV>
-cudaError_t dispatch_d(int d, int row_tile, const Args& a, cudaStream_t st) {
+cudaError_t dispatch_d(int row_tile, const Args& a, cudaStream_t st) {
   if (row_tile != 16 && row_tile != 32) return cudaErrorInvalidValue;
-  switch (d) {
-    case 64:
-      return row_tile == 16 ? launch_x<T, KV, 64, 16>(a, st) : launch_x<T, KV, 64, 32>(a, st);
-    case 128:
-      return row_tile == 16 ? launch_x<T, KV, 128, 16>(a, st) : launch_x<T, KV, 128, 32>(a, st);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return by_rung(a.d, [&](auto rung) {
+    constexpr int D = decltype(rung)::value;
+    return row_tile == 16 ? launch_x<T, KV, D, 16>(a, st) : launch_x<T, KV, D, 32>(a, st);
+  });
 }
 
 
@@ -489,9 +521,13 @@ constexpr int kThreadsWg = 128 + 128;  // the consumer warpgroup, then the produ
 // 128 registers a thread at launch (two blocks an SM where shared memory
 // allows): the producer, which only issues TMA and converts bytes, hands
 // registers to the consumer, which holds S (32 f32), P (16 words) and O
-// (D / 2 f32).
-constexpr int kProducerRegs = 56, kConsumerRegs = 200;
-static_assert(2 * 128 * (kProducerRegs + kConsumerRegs) <= 65536, "register file");
+// (D / 2 f32). At the rungs 192 and 256 shared memory holds one block an SM,
+// and the consumer takes 232 registers (O alone is 96 or 128).
+constexpr int kProducerRegs = 56;
+template <int D>
+constexpr int kConsumerRegs = D >= 192 ? 232 : 200;
+static_assert(2 * 128 * (kProducerRegs + kConsumerRegs<128>) <= 65536, "register file");
+static_assert(128 * (kProducerRegs + kConsumerRegs<256>) <= 65536, "register file");
 constexpr float kLog2e = 1.4426950408889634f;
 
 // Shared memory of one block, from a 1024-byte aligned base: the Q tile and
@@ -499,7 +535,8 @@ constexpr float kLog2e = 1.4426950408889634f;
 // x 64 bf16 columns (128-byte swizzled); for int8 / fp8 pools the staging
 // ring of (K bytes, V bytes) tiles (64 rows of D bytes, unswizzled) and each
 // bf16 stage's 64 K and 64 V scales; then the barriers. Two blocks fit an SM
-// except for int8 / fp8 pools at d = 128 (116.8 KB, one block).
+// except for int8 / fp8 pools at D = 128 (116.8 KB, one block) and at the
+// rungs 192 and 256 (121-226 KB, one block).
 template <typename KV, int D>
 struct Layout {
   static constexpr bool kQuant = sizeof(KV) == 1;
@@ -515,15 +552,16 @@ struct Layout {
 };
 
 struct Params {
-  const void* q;             // (b, sq, h, D) of the kernel's T, not pre-scaled
+  const void* q;             // (b, sq, h, d) of the kernel's T, not pre-scaled
   int64_t q_sb, q_st, q_sh;  // its (batch, token, head) strides in elements
   const float* k_scales;     // (L * pages, h_k, page) or null (bf16 pools)
   const float* v_scales;
   const int32_t* bt;    // (b, max_pages)
   const int32_t* lens;  // (b,)
-  void* o;              // one split: (b, sq, h, D) of T; more: (splits, b, sq, h, D) f32
+  void* o;              // one split: (b, sq, h, d) of T; more: (splits, b, sq, h, d) f32
   float* lse;           // one split: (b, h, sq); more: (splits, b, sq, h)
   int b, sq, h_k, group, page, max_pages, n_splits, n_rt;
+  int d;         // the head dim: the kernel's D is its rung, columns past d are zeros
   int page0;     // the layer's first page in the tensor maps
   int box_rows;  // keys per TMA box: the largest of 64, 32, 16, 8 dividing page
   int causal;    // the option-free instantiation's right window: 1 is 0, 0 none
@@ -612,7 +650,7 @@ __device__ __forceinline__ uint32_t scaled_pair(uint32_t w, float scale) {
 }
 
 template <typename T, typename KV, int D, bool kExtra>
-__global__ void __launch_bounds__(kThreadsWg, 2)
+__global__ void __launch_bounds__(kThreadsWg, D >= 192 ? 1 : 2)
     paged_wgmma_kernel(const __grid_constant__ CUtensorMap tm_k,
                        const __grid_constant__ CUtensorMap tm_v, const Params p) {
   using L = Layout<KV, D>;
@@ -754,7 +792,7 @@ __global__ void __launch_bounds__(kThreadsWg, 2)
   }
 
   // ---- the consumer warpgroup: rows row, row + 8 of each warp's 16 ----
-  setmaxnreg_inc<kConsumerRegs>();
+  setmaxnreg_inc<kConsumerRegs<D>>();
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int row = r0 + warp * 16 + (lane >> 2);
@@ -762,14 +800,14 @@ __global__ void __launch_bounds__(kThreadsWg, 2)
 
   // the Q tile times the softmax scale (f32 products rounded to T) into
   // shared memory, 128-byte swizzled as a TMA box would write it; rows past
-  // R are zero. (With Q held as wgmma's A registers instead, ptxas gave
-  // those registers to P at d = 64, measured on the card: the second key
-  // tile's S read P.)
+  // R and columns past d are zero. (With Q held as wgmma's A registers
+  // instead, ptxas gave those registers to P at d = 64, measured on the card:
+  // the second key tile's S read P.)
   for (int c = tid; c < kBQ * (D / 8); c += 128) {
     const int r = c / (D / 8), ch = c % (D / 8);  // row, 16-byte chunk
     const int gr = r0 + r;
     uint4 w = make_uint4(0, 0, 0, 0);
-    if (gr < R) {
+    if (gr < R && ch * 8 < p.d) {
       const int t = gr / p.group, head = kvh * p.group + gr % p.group;
       w = *reinterpret_cast<const uint4*>(static_cast<const T*>(p.q) + ib * p.q_sb +
                                           t * p.q_st + head * p.q_sh + ch * 8);
@@ -927,10 +965,8 @@ __global__ void __launch_bounds__(kThreadsWg, 2)
     fence_regs(acc);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      const uint64_t db = desc_sw128(v_tile(st) + kk * 16 * 128, kBK * 128, 1024);
-      Wgmma<T, D>::rs_tb(acc, pa[kk], db, 1);
-    }
+    for (int kk = 0; kk < kBK / 16; ++kk)
+      wgmma_rs_tb_rung<T, D>(acc, pa[kk], v_tile(st) + kk * 16 * 128, kBK * 128);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(acc);
@@ -952,20 +988,23 @@ __global__ void __launch_bounds__(kThreadsWg, 2)
     const bool no_key = l <= 0.f;
     const float inv = no_key ? 0.f : 1.f / l;
     const float lse = no_key ? -INFINITY : m_row[r] + logf(l);
+    // O's rows are d wide (d a multiple of 8): column groups past d stay unstored
     if (p.n_splits == 1) {
-      T* orow = static_cast<T*>(p.o) + ((static_cast<size_t>(ib) * p.sq + t) * h + head) * D;
+      T* orow = static_cast<T*>(p.o) + ((static_cast<size_t>(ib) * p.sq + t) * h + head) * p.d;
 #pragma unroll
       for (int n = 0; n < D / 8; ++n)
-        *reinterpret_cast<uint32_t*>(orow + n * 8 + col) =
-            pack2<T>(acc[4 * n + 2 * r] * inv, acc[4 * n + 2 * r + 1] * inv);
+        if (n * 8 < p.d)
+          *reinterpret_cast<uint32_t*>(orow + n * 8 + col) =
+              pack2<T>(acc[4 * n + 2 * r] * inv, acc[4 * n + 2 * r + 1] * inv);
       if ((lane & 3) == 0) p.lse[(static_cast<size_t>(ib) * h + head) * p.sq + t] = lse;
     } else {
       const size_t ri = ((static_cast<size_t>(split) * p.b + ib) * p.sq + t) * h + head;
-      float* orow = static_cast<float*>(p.o) + ri * D;
+      float* orow = static_cast<float*>(p.o) + ri * p.d;
 #pragma unroll
       for (int n = 0; n < D / 8; ++n)
-        *reinterpret_cast<float2*>(orow + n * 8 + col) =
-            make_float2(acc[4 * n + 2 * r] * inv, acc[4 * n + 2 * r + 1] * inv);
+        if (n * 8 < p.d)
+          *reinterpret_cast<float2*>(orow + n * 8 + col) =
+              make_float2(acc[4 * n + 2 * r] * inv, acc[4 * n + 2 * r + 1] * inv);
       if ((lane & 3) == 0) p.lse[ri] = lse;
     }
   }
@@ -998,11 +1037,13 @@ cudaError_t launch(const void* k_pool, const void* v_pool, int n_pool_pages, con
   constexpr uint64_t es = sizeof(KV);
   CUtensorMap maps[2];
   const void* bases[2] = {k_pool, v_pool};
-  // (d, page, h_k, L * pages) over every layer: the layer is a page coordinate
-  const uint64_t dims[4] = {static_cast<uint64_t>(D), static_cast<uint64_t>(prm.page),
-                            static_cast<uint64_t>(prm.h_k), static_cast<uint64_t>(n_pool_pages)};
-  const uint64_t strides[3] = {D * es, static_cast<uint64_t>(prm.page) * D * es,
-                               static_cast<uint64_t>(prm.h_k) * prm.page * D * es};
+  // (d, page, h_k, L * pages) over every layer: the layer is a page
+  // coordinate; the real d, so TMA zero-fills a box's columns past it
+  const uint64_t d = static_cast<uint64_t>(prm.d);
+  const uint64_t dims[4] = {d, static_cast<uint64_t>(prm.page), static_cast<uint64_t>(prm.h_k),
+                            static_cast<uint64_t>(n_pool_pages)};
+  const uint64_t strides[3] = {d * es, static_cast<uint64_t>(prm.page) * d * es,
+                               static_cast<uint64_t>(prm.h_k) * prm.page * d * es};
   // byte pools: boxes of whole D-byte rows, unswizzled (staged); 16-bit
   // pools: 64-column boxes, 128-byte swizzled (the ring wgmma reads)
   const uint32_t box[4] = {L::kQuant ? static_cast<uint32_t>(D) : 64u,
@@ -1029,18 +1070,18 @@ cudaError_t launch(const void* k_pool, const void* v_pool, int n_pool_pages, con
 }
 
 template <typename T, typename KV, bool kExtra>
-cudaError_t launch_x(int d, const void* kp, const void* vp, int n_pool_pages, const Params& prm,
+cudaError_t launch_x(const void* kp, const void* vp, int n_pool_pages, const Params& prm,
                      cudaStream_t stream) {
-  if (d == 128) return launch<T, KV, 128, kExtra>(kp, vp, n_pool_pages, prm, stream);
-  if (d == 64) return launch<T, KV, 64, kExtra>(kp, vp, n_pool_pages, prm, stream);
-  return cudaErrorInvalidValue;
+  return by_rung(prm.d, [&](auto rung) {
+    return launch<T, KV, decltype(rung)::value, kExtra>(kp, vp, n_pool_pages, prm, stream);
+  });
 }
 
 template <typename T, typename KV>
-cudaError_t launch_d(int d, const void* kp, const void* vp, int n_pool_pages, const Params& prm,
+cudaError_t launch_d(const void* kp, const void* vp, int n_pool_pages, const Params& prm,
                      cudaStream_t stream) {
-  return has_options(prm) ? launch_x<T, KV, true>(d, kp, vp, n_pool_pages, prm, stream)
-                          : launch_x<T, KV, false>(d, kp, vp, n_pool_pages, prm, stream);
+  return has_options(prm) ? launch_x<T, KV, true>(kp, vp, n_pool_pages, prm, stream)
+                          : launch_x<T, KV, false>(kp, vp, n_pool_pages, prm, stream);
 }
 
 }  // namespace wg
@@ -1054,37 +1095,40 @@ using namespace hopper;
 constexpr int kTK = 64;     // keys per tile
 constexpr int kWarps = 4;   // consumer warps: 16 keys of every tile each
 constexpr int kThreadsDec = 32 * kWarps + 32;  // the consumers, then the producer warp
-constexpr int kBlocksPerSm = 2;  // ops/paged.py's DECODE_BLOCKS_PER_SM
 constexpr float kLog2e = 1.4426950408889634f;
 
 // Shared memory of one block, from a 1024-byte aligned base: the ring of
 // (K tile, V tile) stages as the pool stores them (64 key rows of D values
 // each, raw bytes for int8 / fp8), each tile kSub sub-tiles of 64 rows x kW
-// bytes (kW = 128: the 128-byte swizzle; 64 for 64-byte rows: the 64-byte
-// swizzle), then each stage's 64 K and 64 V scales (int8 / fp8), then the
-// barriers. The ring takes as many stages as half of an SM's 228 KB holds
-// (3 to 13), so that exactly two blocks are resident whatever the
-// instantiation (the split heuristic counts them) and a long split keeps
-// that many tiles in flight. After the loop the ring holds the warps' merge.
+// bytes (kW = 128: the 128-byte swizzle, for rows of a multiple of 128
+// bytes; else 64: the 64-byte swizzle), then each stage's 64 K and 64 V
+// scales (int8 / fp8), then the barriers. The ring takes as many stages as
+// an SM's 228 KB holds for kBlocks blocks (two, one at the rung 256, whose
+// O and Q fragments take most of a thread's registers and whose 16-bit
+// stage is 64 KB): 3 to 13, so that exactly kBlocks blocks are resident
+// whatever the instantiation (the split heuristic counts them,
+// ops/paged.py::DECODE_BLOCKS) and a long split keeps that many tiles in
+// flight. After the loop the ring holds the warps' merge.
 template <typename KV, int D>
 struct Layout {
   static constexpr bool kQuant = sizeof(KV) == 1;
+  static constexpr int kBlocks = D >= 256 ? 1 : 2;
   static constexpr int kRowBytes = D * static_cast<int>(sizeof(KV));
-  static constexpr int kW = kRowBytes >= 128 ? 128 : 64;
+  static constexpr int kW = kRowBytes % 128 == 0 ? 128 : 64;
   static constexpr int kSub = kRowBytes / kW;
   static constexpr int kTileBytes = kTK * kRowBytes;
   static constexpr int kStageBytes = 2 * kTileBytes;
   static constexpr int kSmSmem = 233472;  // an SM's shared memory, 1 KB a block reserved
   static constexpr int kStages =
-      (kSmSmem / kBlocksPerSm - 2048) / (kStageBytes + (kQuant ? 2 * kTK * 4 : 0) + 16);
+      (kSmSmem / kBlocks - 2048) / (kStageBytes + (kQuant ? 2 * kTK * 4 : 0) + 16);
   static constexpr int kScaleOffset = kStages * kStageBytes;
   static constexpr int kBarOffset = kScaleOffset + (kQuant ? kStages * 2 * kTK * 4 : 0);
   static constexpr int kBytes = kBarOffset + 8 * 2 * kStages + 1024;  // + alignment
   static constexpr int kLdr = D + 8;  // f32 row of the merge buffer
   static_assert(kWarps * 16 * kLdr * 4 + 2 * kWarps * 16 * 4 <= kScaleOffset, "merge in ring");
-  static_assert(kBlocksPerSm * (kBytes + 1024) <= kSmSmem &&
-                    (kBlocksPerSm + 1) * (kBytes + 1024) > kSmSmem,
-                "exactly two blocks an SM");
+  static_assert(kBlocks * (kBytes + 1024) <= kSmSmem && (kBlocks + 1) * (kBytes + 1024) > kSmSmem,
+                "exactly kBlocks blocks an SM");
+  static_assert(kRowBytes % kW == 0, "whole swizzle rows");
 };
 
 // byte offset of the 16-byte chunk cb (counted along the whole row) of key
@@ -1109,6 +1153,45 @@ __device__ __forceinline__ float scaled(const T* q, int i, float scale) {
   return to_float(q[i]) * scale;
 }
 
+// Q's B fragments of the decode kernel, times the softmax scale (f32
+// products rounded to T): k-step kk of bf16 K reads d 16kk + 2c, +1 and
+// 16kk + 8 + 2c, +1; of byte K, d 16kk + 4c, +2 and 16kk + 4c + 1, +3. Rows
+// past R are zero. kTail: the head dim p.d is below the rung D, and the
+// columns past it are zero (d % 8 == 0, % 16 over byte pools: each half of a
+// k-step lies all below d or all past it). Without kTail the loads are
+// unguarded: a guard on each value made the prologue, which a decode block's
+// short run waits on, and with it the d = 128 decode call 15 % slower on the
+// card.
+template <typename T, bool kQuant, int kMT, int NT, bool kTail>
+__device__ __forceinline__ void q_fragments(uint32_t (&qb)[kMT][NT][2], const wg::Params& p,
+                                            int ib, int kvh, int R, int g, int c) {
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    const int r = 8 * n + g;
+    const T* qrow = nullptr;
+    if (r < R)
+      qrow = static_cast<const T*>(p.q) + ib * p.q_sb + (r / p.group) * p.q_st +
+             (kvh * p.group + r % p.group) * p.q_sh;
+#pragma unroll
+    for (int kk = 0; kk < kMT; ++kk) {
+      if (qrow == nullptr || (kTail && 16 * kk >= p.d)) {
+        qb[kk][n][0] = qb[kk][n][1] = 0u;
+      } else if constexpr (kQuant) {
+        const int e = 16 * kk + 4 * c;
+        qb[kk][n][0] = pack2<T>(scaled(qrow, e, p.scale), scaled(qrow, e + 2, p.scale));
+        qb[kk][n][1] = pack2<T>(scaled(qrow, e + 1, p.scale), scaled(qrow, e + 3, p.scale));
+      } else {
+        const int e = 16 * kk + 2 * c;
+        qb[kk][n][0] = pack2<T>(scaled(qrow, e, p.scale), scaled(qrow, e + 1, p.scale));
+        if (kTail && 16 * kk + 8 >= p.d)
+          qb[kk][n][1] = 0u;
+        else
+          qb[kk][n][1] = pack2<T>(scaled(qrow, e + 8, p.scale), scaled(qrow, e + 9, p.scale));
+      }
+    }
+  }
+}
+
 // One block owns one (split, batch entry, KV head) and its R = sq * group
 // <= 16 query rows t * group + g; NT = 1 for R <= 8, else 2 (8 rows each).
 // Warp w of the four consumer warps takes keys 16w..16w+15 of every tile,
@@ -1122,7 +1205,7 @@ __device__ __forceinline__ float scaled(const T* q, int i, float scale) {
 // kExtra: the options (the module comment); each thread keeps its S^T
 // columns' limits and slopes beside their positions.
 template <typename T, typename KV, int D, int NT, bool kExtra>
-__global__ void __launch_bounds__(kThreadsDec, kBlocksPerSm)
+__global__ void __launch_bounds__(kThreadsDec, Layout<KV, D>::kBlocks)
     paged_decode_kernel(const __grid_constant__ CUtensorMap tm_k,
                         const __grid_constant__ CUtensorMap tm_v, const wg::Params p) {
   using L = Layout<KV, D>;
@@ -1206,32 +1289,12 @@ __global__ void __launch_bounds__(kThreadsDec, kBlocksPerSm)
   const int g = lane >> 2, c = lane & 3;
   const int kw = 16 * warp;  // the warp's keys in every tile
 
-  // Q's B fragments, times the softmax scale (f32 products rounded to T):
-  // k-step kk of bf16 K reads d 16kk + 2c, +1 and 16kk + 8 + 2c, +1; of
-  // byte K, d 16kk + 4c, +2 and 16kk + 4c + 1, +3. Rows past R are zero.
+  // Q's B fragments (q_fragments): a block's one uniform branch on the head dim
   uint32_t qb[kMT][NT][2];
-#pragma unroll
-  for (int n = 0; n < NT; ++n) {
-    const int r = 8 * n + g;
-    const T* qrow = nullptr;
-    if (r < R)
-      qrow = static_cast<const T*>(p.q) + ib * p.q_sb + (r / p.group) * p.q_st +
-             (kvh * p.group + r % p.group) * p.q_sh;
-#pragma unroll
-    for (int kk = 0; kk < kMT; ++kk) {
-      if (qrow == nullptr) {
-        qb[kk][n][0] = qb[kk][n][1] = 0u;
-      } else if constexpr (kQuant) {
-        const int e = 16 * kk + 4 * c;
-        qb[kk][n][0] = pack2<T>(scaled(qrow, e, p.scale), scaled(qrow, e + 2, p.scale));
-        qb[kk][n][1] = pack2<T>(scaled(qrow, e + 1, p.scale), scaled(qrow, e + 3, p.scale));
-      } else {
-        const int e = 16 * kk + 2 * c;
-        qb[kk][n][0] = pack2<T>(scaled(qrow, e, p.scale), scaled(qrow, e + 1, p.scale));
-        qb[kk][n][1] = pack2<T>(scaled(qrow, e + 8, p.scale), scaled(qrow, e + 9, p.scale));
-      }
-    }
-  }
+  if (p.d == D)
+    q_fragments<T, kQuant, kMT, NT, false>(qb, p, ib, kvh, R, g, c);
+  else
+    q_fragments<T, kQuant, kMT, NT, true>(qb, p, ib, kvh, R, g, c);
   // the causal limit of this thread's S^T columns: rows 8n + 2c + e
   int qpos[NT][2];
 #pragma unroll
@@ -1469,12 +1532,14 @@ __global__ void __launch_bounds__(kThreadsDec, kBlocksPerSm)
   named_barrier_sync(1, 32 * kWarps);
 
   // the sum over the warps, in the caller's layout: one split writes O
-  // (b, sq, h, D) of T and LSE (b, h, sq); more write f32 partials
-  // (splits, b, sq, h, D) and (splits, b, sq, h). Rows that saw no key give
-  // O = 0 and LSE = -inf.
+  // (b, sq, h, d) of T and LSE (b, h, sq); more write f32 partials
+  // (splits, b, sq, h, d) and (splits, b, sq, h) (d a multiple of 4: the
+  // columns past it are never stored). Rows that saw no key give O = 0 and
+  // LSE = -inf.
   const int tid = threadIdx.x;
   for (int x = tid; x < R * (D / 4); x += 32 * kWarps) {
     const int row = x / (D / 4), d4 = (x % (D / 4)) * 4;
+    if (d4 >= p.d) continue;
     float4 o = *reinterpret_cast<const float4*>(red + row * L::kLdr + d4);
 #pragma unroll
     for (int w = 1; w < kWarps; ++w) {
@@ -1487,11 +1552,11 @@ __global__ void __launch_bounds__(kThreadsDec, kBlocksPerSm)
     const int t = row / p.group, head = kvh * p.group + row % p.group;
     const size_t ri = (static_cast<size_t>(ib) * p.sq + t) * h + head;
     if (p.n_splits == 1) {
-      *reinterpret_cast<uint2*>(static_cast<T*>(p.o) + ri * D + d4) =
+      *reinterpret_cast<uint2*>(static_cast<T*>(p.o) + ri * p.d + d4) =
           make_uint2(pack2<T>(o.x, o.y), pack2<T>(o.z, o.w));
     } else {
       const size_t pi = static_cast<size_t>(split) * p.b * p.sq * h + ri;
-      *reinterpret_cast<float4*>(static_cast<float*>(p.o) + pi * D + d4) = o;
+      *reinterpret_cast<float4*>(static_cast<float*>(p.o) + pi * p.d + d4) = o;
     }
   }
   if (tid < R) {
@@ -1528,11 +1593,13 @@ cudaError_t launch(const void* k_pool, const void* v_pool, int n_pool_pages,
   constexpr uint64_t es = sizeof(KV);
   CUtensorMap maps[2];
   const void* bases[2] = {k_pool, v_pool};
-  // (d, page, h_k, L * pages) over every layer: the layer is a page coordinate
-  const uint64_t dims[4] = {static_cast<uint64_t>(D), static_cast<uint64_t>(prm.page),
-                            static_cast<uint64_t>(prm.h_k), static_cast<uint64_t>(n_pool_pages)};
-  const uint64_t strides[3] = {D * es, static_cast<uint64_t>(prm.page) * D * es,
-                               static_cast<uint64_t>(prm.h_k) * prm.page * D * es};
+  // (d, page, h_k, L * pages) over every layer: the layer is a page
+  // coordinate; the real d, so TMA zero-fills a box's columns past it
+  const uint64_t d = static_cast<uint64_t>(prm.d);
+  const uint64_t dims[4] = {d, static_cast<uint64_t>(prm.page), static_cast<uint64_t>(prm.h_k),
+                            static_cast<uint64_t>(n_pool_pages)};
+  const uint64_t strides[3] = {d * es, static_cast<uint64_t>(prm.page) * d * es,
+                               static_cast<uint64_t>(prm.h_k) * prm.page * d * es};
   const uint32_t box[4] = {static_cast<uint32_t>(L::kW / es),
                            static_cast<uint32_t>(prm.box_rows), 1, 1};
   const CUtensorMapSwizzle swizzle =
@@ -1552,27 +1619,28 @@ cudaError_t launch(const void* k_pool, const void* v_pool, int n_pool_pages,
 }
 
 template <typename T, typename KV, int NT, bool kExtra>
-cudaError_t launch_d(int d, const void* kp, const void* vp, int n_pool_pages,
-                     const wg::Params& prm, cudaStream_t stream) {
-  if (d == 128) return dec::launch<T, KV, 128, NT, kExtra>(kp, vp, n_pool_pages, prm, stream);
-  if (d == 64) return dec::launch<T, KV, 64, NT, kExtra>(kp, vp, n_pool_pages, prm, stream);
-  return cudaErrorInvalidValue;
+cudaError_t launch_d(const void* kp, const void* vp, int n_pool_pages, const wg::Params& prm,
+                     cudaStream_t stream) {
+  return by_rung(prm.d, [&](auto rung) {
+    return dec::launch<T, KV, decltype(rung)::value, NT, kExtra>(kp, vp, n_pool_pages, prm,
+                                                                  stream);
+  });
 }
 
 template <typename T, typename KV, bool kExtra>
-cudaError_t launch_x(int d, const void* kp, const void* vp, int n_pool_pages,
-                     const wg::Params& prm, cudaStream_t stream) {
+cudaError_t launch_x(const void* kp, const void* vp, int n_pool_pages, const wg::Params& prm,
+                     cudaStream_t stream) {
   return prm.sq * prm.group <= 8
-             ? dec::launch_d<T, KV, 1, kExtra>(d, kp, vp, n_pool_pages, prm, stream)
-             : dec::launch_d<T, KV, 2, kExtra>(d, kp, vp, n_pool_pages, prm, stream);
+             ? dec::launch_d<T, KV, 1, kExtra>(kp, vp, n_pool_pages, prm, stream)
+             : dec::launch_d<T, KV, 2, kExtra>(kp, vp, n_pool_pages, prm, stream);
 }
 
 template <typename T, typename KV>
-cudaError_t launch_rows(int d, const void* kp, const void* vp, int n_pool_pages,
-                        const wg::Params& prm, cudaStream_t stream) {
+cudaError_t launch_rows(const void* kp, const void* vp, int n_pool_pages, const wg::Params& prm,
+                        cudaStream_t stream) {
   if (prm.sq * prm.group > 16) return cudaErrorInvalidValue;
-  return wg::has_options(prm) ? dec::launch_x<T, KV, true>(d, kp, vp, n_pool_pages, prm, stream)
-                              : dec::launch_x<T, KV, false>(d, kp, vp, n_pool_pages, prm, stream);
+  return wg::has_options(prm) ? dec::launch_x<T, KV, true>(kp, vp, n_pool_pages, prm, stream)
+                              : dec::launch_x<T, KV, false>(kp, vp, n_pool_pages, prm, stream);
 }
 
 template <typename T, typename KV, int D, int NT, bool kExtra>
@@ -1642,6 +1710,62 @@ __global__ void __launch_bounds__(128) paged_combine_kernel(
   }
 }
 
+// The same merge at any other head dim d (a multiple of 4, at most 256):
+// lane l takes the four columns from 4 l and from 4 l + 128.
+template <typename TO>
+__global__ void __launch_bounds__(128) paged_combine_kernel_any(
+    const float* __restrict__ o_part,    // (splits, b, sq, h, d)
+    const float* __restrict__ lse_part,  // (splits, b, sq, h)
+    TO* __restrict__ o,                  // (b, sq, h, d)
+    float* __restrict__ lse,             // (b, h, sq)
+    int n_splits, int b, int sq, int h, int d) {
+  const int rows = b * sq * h;
+  const int r = blockIdx.x * 4 + (threadIdx.x >> 5), lane = threadIdx.x & 31;
+  if (r >= rows) return;
+  float m = -INFINITY;
+  for (int s = lane; s < n_splits; s += 32)
+    m = fmaxf(m, lse_part[static_cast<size_t>(s) * rows + r]);
+  for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+  const float m_safe = isfinite(m) ? m : 0.f;
+  float sumw = 0.f;
+  float4 acc[2] = {make_float4(0.f, 0.f, 0.f, 0.f), make_float4(0.f, 0.f, 0.f, 0.f)};
+  for (int s = 0; s < n_splits; ++s) {
+    const float ls = lse_part[static_cast<size_t>(s) * rows + r];
+    if (!isfinite(ls)) continue;  // an empty partial
+    const float w = expf(ls - m_safe);
+    sumw += w;
+    const float* src = o_part + (static_cast<size_t>(s) * rows + r) * d;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int c = 4 * lane + 128 * j;
+      if (c < d) {
+        const float4 x = *reinterpret_cast<const float4*>(src + c);
+        acc[j].x += w * x.x;
+        acc[j].y += w * x.y;
+        acc[j].z += w * x.z;
+        acc[j].w += w * x.w;
+      }
+    }
+  }
+  const bool has = sumw > 0.f;
+  const float inv = has ? 1.f / sumw : 0.f;
+  TO* dst = o + static_cast<size_t>(r) * d;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int c = 4 * lane + 128 * j;
+    if (c >= d) continue;
+    const float4 x = make_float4(acc[j].x * inv, acc[j].y * inv, acc[j].z * inv, acc[j].w * inv);
+    if constexpr (std::is_same<TO, float>::value)
+      *reinterpret_cast<float4*>(dst + c) = x;
+    else
+      *reinterpret_cast<uint2*>(dst + c) = make_uint2(pack2<TO>(x.x, x.y), pack2<TO>(x.z, x.w));
+  }
+  if (lane == 0) {
+    const int head = r % h, t = r / h % sq, ib = r / (h * sq);
+    lse[(static_cast<size_t>(ib) * h + head) * sq + t] = has ? m_safe + logf(sumw) : -INFINITY;
+  }
+}
+
 }  // namespace dec
 
 // ---- the f32 route: paged_f32_kernel ------------------------------------------
@@ -1673,18 +1797,20 @@ struct Smem {
 // One block owns kRT query rows (t * group + g) of one (split, batch entry,
 // KV head); the split's keys are its run of the live pages, as on the WMMA
 // route. Per 64-key tile: the K and V rows of any pool dtype are converted to
-// f32 into shared memory (exact), S = Q K^T by FMA (thread: one key, 8 rows),
-// the K scale, softcap, ALiBi and the masks, an online softmax per row (a
-// warp a row), P times the V scale, and O += P V by FMA (thread: one column
-// of D, kRT * D / 128 rows, in registers). The options are read at run time:
-// one instantiation a (pool dtype, D).
+// f32 into shared memory (exact; columns past the head dim d are zeros), S =
+// Q K^T by FMA (thread: one key, 8 rows), the K scale, softcap, ALiBi and
+// the masks, an online softmax per row (a warp a row), P times the V scale,
+// and O += P V by FMA (thread: one column of D, kRT * D / 128 rows, in
+// registers; at D 192 and 256 the columns tid and tid + 128, all kRT rows).
+// The options are read at run time: one instantiation a (pool dtype, D).
 template <typename KV, int D>
 __global__ void __launch_bounds__(kThreadsF32) paged_f32_kernel(const KV* __restrict__ k_pool,
                                                                 const KV* __restrict__ v_pool,
                                                                 const wg::Params p) {
   using L = Smem<D>;
   constexpr int CH = 16 / sizeof(KV);  // values per 16-byte chunk
-  constexpr int CPT = kThreadsF32 / D;  // threads per O column (1 or 2)
+  constexpr int NC = D > kThreadsF32 ? 2 : 1;            // O columns per thread
+  constexpr int CPT = D > kThreadsF32 ? 1 : kThreadsF32 / D;  // threads per O column (1 or 2)
   constexpr int RPT = kRT / CPT;        // O rows per thread
   extern __shared__ __align__(16) float sm[];
   float* qs = sm + L::q;
@@ -1722,7 +1848,7 @@ __global__ void __launch_bounds__(kThreadsF32) paged_f32_kernel(const KV* __rest
   for (int i = tid; i < kRT * D; i += kThreadsF32) {
     const int r = i / D, dc = i % D, gr = r0 + r;
     float x = 0.f;
-    if (gr < R) {
+    if (gr < R && dc < p.d) {
       const int t = gr / p.group, head = kvh * p.group + gr % p.group;
       x = q[ib * p.q_sb + t * p.q_st + head * p.q_sh + dc] * p.scale;
     }
@@ -1732,13 +1858,18 @@ __global__ void __launch_bounds__(kThreadsF32) paged_f32_kernel(const KV* __rest
     m_s[i] = M_FLOOR;
     l_s[i] = 0.f;
   }
-  float acc[RPT];
+  float acc[NC][RPT];
 #pragma unroll
-  for (int i = 0; i < RPT; ++i) acc[i] = 0.f;
-  const int ocol = tid % D, orow0 = tid / D;  // O rows orow0 + CPT * i
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) acc[c][i] = 0.f;
+  // O rows orow0 + CPT * i of the columns ocol (and ocol + 128 where NC = 2,
+  // read at D - 1 and never stored past D)
+  const int ocol = tid % D, orow0 = tid / D;
+  const int ocol1 = NC > 1 ? min(ocol + kThreadsF32, D - 1) : ocol;
 
   const int32_t* bt_row = p.bt + static_cast<size_t>(ib) * p.max_pages;
-  const size_t head_stride = static_cast<size_t>(p.page) * D;
+  const size_t head_stride = static_cast<size_t>(p.page) * p.d;
   for (int k0 = kstart; k0 < kend; k0 += kTK) {
     __syncthreads();  // the previous tile is consumed
     // K and V rows as f32 (keys past kend as zeros), and their scales: the
@@ -1752,10 +1883,10 @@ __global__ void __launch_bounds__(kThreadsF32) paged_f32_kernel(const KV* __rest
         const int c = tid + (it0 + u) * kThreadsF32;
         const int kp = k0 + c / (D / CH), dc = (c % (D / CH)) * CH;
         kr[u] = vr[u] = make_uint4(0, 0, 0, 0);
-        if (kp < kend) {
+        if (kp < kend && dc < p.d) {
           const size_t off =
               (static_cast<size_t>(p.page0 + bt_row[kp / p.page]) * p.h_k + kvh) * head_stride +
-              static_cast<size_t>(kp % p.page) * D + dc;
+              static_cast<size_t>(kp % p.page) * p.d + dc;
           kr[u] = *reinterpret_cast<const uint4*>(k_pool + off);
           vr[u] = *reinterpret_cast<const uint4*>(v_pool + off);
         }
@@ -1842,18 +1973,26 @@ __global__ void __launch_bounds__(kThreadsF32) paged_f32_kernel(const KV* __rest
 
     // O += P V
 #pragma unroll
-    for (int i = 0; i < RPT; ++i) acc[i] *= c_s[orow0 + CPT * i];
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) acc[c][i] *= c_s[orow0 + CPT * i];
 #pragma unroll 4
     for (int j = 0; j < kTK; ++j) {
       const float v = vs[j * D + ocol];
+      [[maybe_unused]] float v1 = 0.f;
+      if constexpr (NC > 1) v1 = vs[j * D + ocol1];
 #pragma unroll
-      for (int i = 0; i < RPT; ++i) acc[i] = fmaf(ss[(orow0 + CPT * i) * L::LDS + j], v, acc[i]);
+      for (int i = 0; i < RPT; ++i) {
+        const float pij = ss[(orow0 + CPT * i) * L::LDS + j];
+        acc[0][i] = fmaf(pij, v, acc[0][i]);
+        if constexpr (NC > 1) acc[1][i] = fmaf(pij, v1, acc[1][i]);
+      }
     }
   }
   __syncthreads();
 
-  // O and LSE in the caller's layout: one split O (b, sq, h, D) f32 and LSE
-  // (b, h, sq); more, f32 partials (splits, b, sq, h, D) and (splits, b, sq,
+  // O and LSE in the caller's layout: one split O (b, sq, h, d) f32 and LSE
+  // (b, h, sq); more, f32 partials (splits, b, sq, h, d) and (splits, b, sq,
   // h). Rows that saw no key give O = 0 and LSE = -inf.
 #pragma unroll
   for (int i = 0; i < RPT; ++i) {
@@ -1863,7 +2002,11 @@ __global__ void __launch_bounds__(kThreadsF32) paged_f32_kernel(const KV* __rest
     const int t = gr / p.group, head = kvh * p.group + gr % p.group;
     size_t ri = (static_cast<size_t>(ib) * p.sq + t) * h + head;
     if (p.n_splits > 1) ri += static_cast<size_t>(split) * p.b * p.sq * h;
-    static_cast<float*>(p.o)[ri * D + ocol] = l > 0.f ? acc[i] / l : 0.f;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int col = ocol + c * kThreadsF32;
+      if (col < p.d) static_cast<float*>(p.o)[ri * p.d + col] = l > 0.f ? acc[c][i] / l : 0.f;
+    }
   }
   for (int r = tid; r < kRT; r += kThreadsF32) {
     const int gr = r0 + r;
@@ -1893,11 +2036,22 @@ cudaError_t launch(const void* k_pool, const void* v_pool, const wg::Params& prm
 }
 
 template <typename KV>
-cudaError_t launch_d(int d, const void* kp, const void* vp, const wg::Params& prm,
-                     cudaStream_t stream) {
-  if (d == 128) return launch<KV, 128>(kp, vp, prm, stream);
-  if (d == 64) return launch<KV, 64>(kp, vp, prm, stream);
-  return cudaErrorInvalidValue;
+cudaError_t launch_d(const void* kp, const void* vp, const wg::Params& prm, cudaStream_t stream) {
+  return by_rung(prm.d, [&](auto rung) {
+    return launch<KV, decltype(rung)::value>(kp, vp, prm, stream);
+  });
+}
+
+template <typename KV, int D>
+int blocks_per_sm() {
+  int n = -1;
+  auto* kernel = &paged_f32_kernel<KV, D>;
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           Smem<D>::bytes) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, kThreadsF32, Smem<D>::bytes) !=
+          cudaSuccess)
+    return -1;
+  return n;
 }
 
 }  // namespace sim
@@ -1932,10 +2086,22 @@ cudaError_t by_dtypes(int q_dtype, int kv_dtype, F&& f) {
   }
 }
 
+// The head dims the kernels read: 1 <= d <= 256 with rows of whole 16-byte
+// chunks (the tensor maps' strides, the uint4 and float4 loads): d % 16 == 0
+// over int8 / fp8 pools, d % 8 over 16-bit pools, d % 4 for f32 queries over
+// f32 pools. ops/paged.py::head_dim_align; other widths are padded by the
+// wrapper (ops/paged.py::paged_attention_padded).
+inline bool head_dim_ok(int d, int q_dtype, int kv_dtype) {
+  const bool bytes = kv_dtype == XFA_I8 || kv_dtype == XFA_FP8_E4M3;
+  const int align = bytes ? 16 : (q_dtype == XFA_F32 ? 4 : 8);
+  return d >= 1 && d <= 256 && d % align == 0;
+}
+
 // q (b, sq, h_k * group, d) of q_dtype (bf16 or f16); pools (pages, h_k,
 // page, d) of kv_dtype (q_dtype, int8 or fp8); scales (pages, h_k, page) f32
 // or null; o_part (n_splits, b, h_k, group * sq, d) f32; lse_part (n_splits,
-// b, h_k, group * sq) f32. row_tile (16 or 32) is the query rows per block,
+// b, h_k, group * sq) f32. d takes this library's rungs (by_rung), with
+// head_dim_ok. row_tile (16 or 32) is the query rows per block,
 // chosen by the caller (ops/paged.py). wl / wr: the window, < 0 unbounded
 // (causal is wr = 0); softcap 0 is none; alibi (b, h_k * group) f32 and
 // leftpad (b,) int32 may be null.
@@ -1948,6 +2114,7 @@ extern "C" int xfa_paged_attention(const void* q, int q_dtype, const void* k_poo
                                    const void* alibi, const void* leftpad, int row_tile,
                                    void* stream) {
   if (b * sq == 0) return cudaSuccess;
+  if (!head_dim_ok(d, q_dtype, kv_dtype)) return cudaErrorInvalidValue;
   const bool quant = kv_dtype == XFA_I8 || kv_dtype == XFA_FP8_E4M3;
   const Args a{q, k_pool, v_pool,
                quant ? static_cast<const float*>(k_scales) : nullptr,
@@ -1955,24 +2122,25 @@ extern "C" int xfa_paged_attention(const void* q, int q_dtype, const void* k_poo
                static_cast<const int32_t*>(block_tables), static_cast<const int32_t*>(kv_lens),
                static_cast<float*>(o_part), static_cast<float*>(lse_part),
                static_cast<const float*>(alibi), static_cast<const int32_t*>(leftpad),
-               b, sq, h_k, group, page, max_pages, n_splits, wl, wr, softcap};
+               b, sq, h_k, group, page, max_pages, n_splits, wl, wr, softcap, d};
   auto st = static_cast<cudaStream_t>(stream);
   return by_dtypes(q_dtype, kv_dtype, [&](auto t, auto kv) {
-    return dispatch_d<decltype(t), decltype(kv)>(d, row_tile, a, st);
+    return dispatch_d<decltype(t), decltype(kv)>(row_tile, a, st);
   });
 }
 
 namespace {
 
 // The launch parameters of the Hopper, decode and f32 routes, or an error.
-cudaError_t hopper_params(wg::Params* prm, const void* q, int64_t q_sb, int64_t q_st,
-                          int64_t q_sh, int kv_dtype, const void* k_scales, const void* v_scales,
-                          const void* block_tables, const void* kv_lens, void* o, void* lse,
-                          int b, int sq, int h_k, int group, int page, int max_pages,
-                          int pool_pages, int layer, int n_splits, int wl, int wr, float scale,
-                          float softcap, const void* alibi, const void* leftpad) {
+cudaError_t hopper_params(wg::Params* prm, const void* q, int q_dtype, int64_t q_sb,
+                          int64_t q_st, int64_t q_sh, int kv_dtype, const void* k_scales,
+                          const void* v_scales, const void* block_tables, const void* kv_lens,
+                          void* o, void* lse, int b, int sq, int h_k, int group, int d, int page,
+                          int max_pages, int pool_pages, int layer, int n_splits, int wl, int wr,
+                          float scale, float softcap, const void* alibi, const void* leftpad) {
   const int box = wg::box_rows(page);
-  if (page < 1 || n_splits < 1 || group < 1) return cudaErrorInvalidValue;
+  if (page < 1 || n_splits < 1 || group < 1 || !head_dim_ok(d, q_dtype, kv_dtype))
+    return cudaErrorInvalidValue;
   const bool quant = kv_dtype == XFA_I8 || kv_dtype == XFA_FP8_E4M3;
   if (quant && (k_scales == nullptr || v_scales == nullptr)) return cudaErrorInvalidValue;
   *prm = wg::Params{};
@@ -1994,6 +2162,7 @@ cudaError_t hopper_params(wg::Params* prm, const void* q, int64_t q_sb, int64_t 
   prm->max_pages = max_pages;
   prm->n_splits = n_splits;
   prm->n_rt = (group * sq + wg::kBQ - 1) / wg::kBQ;
+  prm->d = d;
   prm->page0 = layer * pool_pages;
   prm->box_rows = box;
   prm->causal = wr == 0;
@@ -2013,7 +2182,8 @@ cudaError_t hopper_params(wg::Params* prm, const void* q, int64_t q_sb, int64_t 
 // strides (last dimension contiguous, strides multiples of 8, base 16-byte
 // aligned), not pre-scaled (the kernel multiplies it by `scale`); pools
 // (n_layers, pool_pages, h_k, page, d) of kv_dtype (q_dtype, int8 or fp8)
-// with page % 8 == 0, read at layer `layer`; scales (n_layers, pool_pages,
+// with page % 8 == 0, read at layer `layer`; d at this library's rungs
+// (by_rung), with head_dim_ok; scales (n_layers, pool_pages,
 // h_k, page) f32 or null (unquantized pools). The window (wl, wr) is counted
 // from query position kv_len - sq + t, < 0 unbounded: causal is wr = 0;
 // softcap 0 is none; alibi (b, h_k * group) f32 and leftpad (b,) int32 may
@@ -2032,21 +2202,21 @@ extern "C" int xfa_paged_attention_wgmma(const void* q, int q_dtype, int64_t q_s
                                          const void* alibi, const void* leftpad, void* stream) {
   if (b * sq == 0) return cudaSuccess;
   wg::Params prm;
-  cudaError_t err = hopper_params(&prm, q, q_sb, q_st, q_sh, kv_dtype, k_scales, v_scales,
-                                  block_tables, kv_lens, o, lse, b, sq, h_k, group, page,
-                                  max_pages, pool_pages, layer, n_splits, wl, wr, scale, softcap,
-                                  alibi, leftpad);
+  cudaError_t err = hopper_params(&prm, q, q_dtype, q_sb, q_st, q_sh, kv_dtype, k_scales,
+                                  v_scales, block_tables, kv_lens, o, lse, b, sq, h_k, group, d,
+                                  page, max_pages, pool_pages, layer, n_splits, wl, wr, scale,
+                                  softcap, alibi, leftpad);
   if (err != cudaSuccess) return err;
   if (prm.box_rows == 0) return cudaErrorInvalidValue;
   const int n_pool_pages = n_layers * pool_pages;
   auto st = static_cast<cudaStream_t>(stream);
   return by_dtypes(q_dtype, kv_dtype, [&](auto t, auto kv) {
-    return wg::launch_d<decltype(t), decltype(kv)>(d, k_pool, v_pool, n_pool_pages, prm, st);
+    return wg::launch_d<decltype(t), decltype(kv)>(k_pool, v_pool, n_pool_pages, prm, st);
   });
 }
 
-// The decode route (ops/paged.py::paged_route: sq * group <= 16 rows, d 64
-// or 128, page % 8 == 0): the arguments of xfa_paged_attention_wgmma. Each
+// The decode route (ops/paged.py::paged_route: sq * group <= 16 rows,
+// page % 8 == 0): the arguments of xfa_paged_attention_wgmma. Each
 // batch entry's live keys (from the tile of the first key any row can see)
 // are cut into n_splits runs of whole 64-key tiles; splits past them write
 // empty partials (O = 0, LSE = -inf).
@@ -2060,22 +2230,23 @@ extern "C" int xfa_paged_decode(const void* q, int q_dtype, int64_t q_sb, int64_
                                 const void* leftpad, void* stream) {
   if (b * sq == 0) return cudaSuccess;
   wg::Params prm;
-  cudaError_t err = hopper_params(&prm, q, q_sb, q_st, q_sh, kv_dtype, k_scales, v_scales,
-                                  block_tables, kv_lens, o, lse, b, sq, h_k, group, page,
-                                  max_pages, pool_pages, layer, n_splits, wl, wr, scale, softcap,
-                                  alibi, leftpad);
+  cudaError_t err = hopper_params(&prm, q, q_dtype, q_sb, q_st, q_sh, kv_dtype, k_scales,
+                                  v_scales, block_tables, kv_lens, o, lse, b, sq, h_k, group, d,
+                                  page, max_pages, pool_pages, layer, n_splits, wl, wr, scale,
+                                  softcap, alibi, leftpad);
   if (err != cudaSuccess) return err;
   if (prm.box_rows == 0) return cudaErrorInvalidValue;
   const int n_pool_pages = n_layers * pool_pages;
   auto st = static_cast<cudaStream_t>(stream);
   return by_dtypes(q_dtype, kv_dtype, [&](auto t, auto kv) {
-    return dec::launch_rows<decltype(t), decltype(kv)>(d, k_pool, v_pool, n_pool_pages, prm, st);
+    return dec::launch_rows<decltype(t), decltype(kv)>(k_pool, v_pool, n_pool_pages, prm, st);
   });
 }
 
 // The f32 route (ops/paged.py::paged_route: f32 queries, any page): the
 // arguments of xfa_paged_attention_wgmma with q f32 (read through its strides,
-// any alignment) over f32, int8 or fp8 pools, d 64 or 128; the window,
+// any alignment) over f32, int8 or fp8 pools, d at this library's rungs
+// (head_dim_ok); the window,
 // softcap, ALiBi and leftpad at run time. Each batch entry's live pages (from
 // the page of the first key any row can see) are cut into n_splits runs; one
 // split writes o (b, sq, h, d) f32 and lse (b, h, sq), more f32 partials
@@ -2094,19 +2265,19 @@ extern "C" int xfa_paged_f32(const void* q, int64_t q_sb, int64_t q_st, int64_t 
   if (b * sq == 0) return cudaSuccess;
   (void)n_layers;
   wg::Params prm;
-  cudaError_t err = hopper_params(&prm, q, q_sb, q_st, q_sh, kv_dtype, k_scales, v_scales,
-                                  block_tables, kv_lens, o, lse, b, sq, h_k, group, page,
-                                  max_pages, pool_pages, layer, n_splits, wl, wr, scale, softcap,
-                                  alibi, leftpad);
+  cudaError_t err = hopper_params(&prm, q, XFA_F32, q_sb, q_st, q_sh, kv_dtype, k_scales,
+                                  v_scales, block_tables, kv_lens, o, lse, b, sq, h_k, group, d,
+                                  page, max_pages, pool_pages, layer, n_splits, wl, wr, scale,
+                                  softcap, alibi, leftpad);
   if (err != cudaSuccess) return err;
   auto st = static_cast<cudaStream_t>(stream);
   switch (kv_dtype) {
     case XFA_F32:
-      return sim::launch_d<float>(d, k_pool, v_pool, prm, st);
+      return sim::launch_d<float>(k_pool, v_pool, prm, st);
     case XFA_I8:
-      return sim::launch_d<int8_t>(d, k_pool, v_pool, prm, st);
+      return sim::launch_d<int8_t>(k_pool, v_pool, prm, st);
     case XFA_FP8_E4M3:
-      return sim::launch_d<fp8e4m3_t>(d, k_pool, v_pool, prm, st);
+      return sim::launch_d<fp8e4m3_t>(k_pool, v_pool, prm, st);
     default:
       return cudaErrorInvalidValue;
   }
@@ -2115,27 +2286,29 @@ extern "C" int xfa_paged_f32(const void* q, int64_t q_sb, int64_t q_st, int64_t 
 
 namespace {
 
-// resident blocks an SM of decode instantiation i = (d == 128, rows > 8, options)
+// resident blocks an SM of decode instantiation i = (the higher rung, rows > 8, options)
 template <typename T, typename KV>
 int decode_occupancy(int i) {
+  constexpr int lo = kRungLo, hi = kRungHi;
   int (*const occ[8])() = {
-      dec::blocks_per_sm<T, KV, 64, 1, false>,  dec::blocks_per_sm<T, KV, 64, 1, true>,
-      dec::blocks_per_sm<T, KV, 64, 2, false>,  dec::blocks_per_sm<T, KV, 64, 2, true>,
-      dec::blocks_per_sm<T, KV, 128, 1, false>, dec::blocks_per_sm<T, KV, 128, 1, true>,
-      dec::blocks_per_sm<T, KV, 128, 2, false>, dec::blocks_per_sm<T, KV, 128, 2, true>};
+      dec::blocks_per_sm<T, KV, lo, 1, false>, dec::blocks_per_sm<T, KV, lo, 1, true>,
+      dec::blocks_per_sm<T, KV, lo, 2, false>, dec::blocks_per_sm<T, KV, lo, 2, true>,
+      dec::blocks_per_sm<T, KV, hi, 1, false>, dec::blocks_per_sm<T, KV, hi, 1, true>,
+      dec::blocks_per_sm<T, KV, hi, 2, false>, dec::blocks_per_sm<T, KV, hi, 2, true>};
   return occ[i]();
 }
 
 }  // namespace
 
-// Resident blocks an SM of the decode kernel's (q_dtype, kv_dtype, d, rows
-// <= 8 or not, options or not) instantiation, by the CUDA occupancy
-// calculator; -1 on an error. ops/paged.py's DECODE_BLOCKS_PER_SM must equal
-// it (chip_smoke.py checks).
+// Resident blocks an SM of the decode kernel's (q_dtype, kv_dtype, d's rung,
+// rows <= 8 or not, options or not) instantiation, by the CUDA occupancy
+// calculator; -1 on an error or a rung this library does not hold.
+// ops/paged.py's DECODE_BLOCKS must equal it (chip_smoke.py checks).
 extern "C" int xfa_paged_decode_blocks_per_sm(int q_dtype, int kv_dtype, int d, int rows,
                                               int options) {
-  if (d != 64 && d != 128) return -1;
-  const int i = (d == 128) * 4 + (rows > 8) * 2 + (options != 0);
+  const int rung = (d + 63) / 64 * 64;
+  if (d < 1 || (rung != kRungLo && rung != kRungHi)) return -1;
+  const int i = (rung == kRungHi) * 4 + (rows > 8) * 2 + (options != 0);
   int n = -1;
   by_dtypes(q_dtype, kv_dtype, [&](auto t, auto kv) {
     n = decode_occupancy<decltype(t), decltype(kv)>(i);
@@ -2144,19 +2317,46 @@ extern "C" int xfa_paged_decode_blocks_per_sm(int q_dtype, int kv_dtype, int d, 
   return n;
 }
 
+// Resident blocks an SM of the f32 kernel over kv_dtype pools at d's rung,
+// by the CUDA occupancy calculator; -1 on an error. ops/paged.py's
+// F32_BLOCKS must equal it (chip_smoke.py checks). (Built without XFA_HALF.)
+extern "C" int xfa_paged_f32_blocks_per_sm(int kv_dtype, int d) {
+#ifdef XFA_HALF
+  return -1;
+#else
+  const int rung = (d + 63) / 64 * 64;
+  if (d < 1 || (rung != kRungLo && rung != kRungHi)) return -1;
+  auto at = [&](auto kv) {
+    using KV = decltype(kv);
+    return rung == kRungHi ? sim::blocks_per_sm<KV, kRungHi>() : sim::blocks_per_sm<KV, kRungLo>();
+  };
+  switch (kv_dtype) {
+    case XFA_F32:
+      return at(float{});
+    case XFA_I8:
+      return at(int8_t{});
+    case XFA_FP8_E4M3:
+      return at(fp8e4m3_t{});
+    default:
+      return -1;
+  }
+#endif
+}
+
 // The merge of f32 split partials o_part (n_splits, b, sq, h, d) and
 // lse_part (n_splits, b, sq, h) into o (b, sq, h, d) of out_dtype (bf16, f16
-// or f32) and lse (b, h, sq): ops/paged.py::combine_splits_ref's arithmetic.
-// (Built without XFA_HALF only.)
+// or f32) and lse (b, h, sq): ops/paged.py::combine_splits_ref's arithmetic,
+// at any head dim d, a multiple of 4 up to 256 (64 and 128 on kernels of
+// their own). (Built without XFA_HALF and XFA_WIDE only.)
 extern "C" int xfa_paged_combine(const void* o_part, const void* lse_part, void* o, void* lse,
                                  int out_dtype, int n_splits, int b, int sq, int h, int d,
                                  void* stream) {
-#ifdef XFA_HALF
+#if defined(XFA_HALF) || defined(XFA_WIDE)
   return cudaErrorInvalidValue;
 #else
   const int rows = b * sq * h;
   if (rows == 0) return cudaSuccess;
-  if (n_splits < 1 || (d != 64 && d != 128)) return cudaErrorInvalidValue;
+  if (n_splits < 1 || d < 1 || d > 256 || d % 4) return cudaErrorInvalidValue;
   const unsigned grid = static_cast<unsigned>((rows + 3) / 4);
   auto st = static_cast<cudaStream_t>(stream);
   const auto* op = static_cast<const float*>(o_part);
@@ -2167,8 +2367,11 @@ extern "C" int xfa_paged_combine(const void* o_part, const void* lse_part, void*
     auto* oo = static_cast<TO*>(o);
     if (d == 128)
       dec::paged_combine_kernel<TO, 128><<<grid, 128, 0, st>>>(op, lp, oo, lo, n_splits, b, sq, h);
-    else
+    else if (d == 64)
       dec::paged_combine_kernel<TO, 64><<<grid, 128, 0, st>>>(op, lp, oo, lo, n_splits, b, sq, h);
+    else
+      dec::paged_combine_kernel_any<TO>
+          <<<grid, 128, 0, st>>>(op, lp, oo, lo, n_splits, b, sq, h, d);
     return cudaGetLastError();
   };
   switch (out_dtype) {

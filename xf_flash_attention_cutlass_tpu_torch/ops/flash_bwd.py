@@ -47,6 +47,7 @@ from xf_flash_attention_cutlass_tpu_torch.ops.flash_fwd import (
     alibi_bias,
     attention_mask,
     check_cuda_dtypes,
+    check_cuda_head_dim,
     check_options,
     check_shapes,
     dropout_keep_mask,
@@ -149,6 +150,7 @@ class FlashBwdLaunch:
                  q_segment_ids, kv_segment_ids, alibi_slopes=None, alibi_row_slopes=None,
                  q_positions=None, kv_positions=None, dropout_p=0.0, dropout_seed=0):
         check_cuda_dtypes("flash backward (K9-K11)", q, k, v)
+        check_cuda_head_dim("flash backward (K9-K11)", q.shape[-1])
         if do.dtype != q.dtype:
             raise TypeError(f"dO must have q's dtype {q.dtype}, got {do.dtype}")
         b, h, sq, d = q.shape

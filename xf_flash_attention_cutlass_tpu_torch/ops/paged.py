@@ -39,6 +39,15 @@ route into ``num_splits`` runs of whole 64-key tiles
 pages. The split count comes from the route's blocks
 (``paged_plan``).
 
+Head dims: every route takes any d from 1 to 256. The kernels are
+instantiated at the rungs 64, 128, 192 and 256 (``head_dim_rung``: the
+smallest rung >= d) and read the real d through their tensor maps and loads,
+so nothing is padded in memory. A row must be whole 16-byte chunks
+(``head_dim_align``); other widths (59, 111; 40 over int8 / fp8 pools) take
+``paged_attention_padded``, a zero-padded copy of q and the layer's pools to
+the next such width (``mapped_head_dim``), counted under its own label. The
+softmax scale stays 1 / sqrt(d) of the real d.
+
 The layout is the JAX package's logical contract with its TPU padding
 removed: pools are stored tight, and the kernel reads any page size.
 """
@@ -62,7 +71,40 @@ NUM_SMS = 132  # H100 SXM: the cores of the split heuristic
 MAX_SPLITS = 128
 DECODE_ROWS = 16  # query rows a KV head up to which the decode kernel takes a call
 DECODE_TILE = 64  # keys per tile of the decode kernel: its unit of splits
-DECODE_BLOCKS_PER_SM = 2  # the decode kernel's resident blocks (csrc: kBlocksPerSm)
+HEAD_DIM_RUNGS = (64, 128, 192, 256)  # the kernels' instantiated head dims (csrc: by_rung)
+# the decode kernel's resident blocks an SM at each rung (csrc: dec::Layout::kBlocks)
+DECODE_BLOCKS = {64: 2, 128: 2, 192: 2, 256: 1}
+
+
+def head_dim_rung(d: int) -> int:
+    """The instantiation that serves head dim d: the smallest rung >= d."""
+    if not 1 <= d <= HEAD_DIM_RUNGS[-1]:
+        raise ValueError(f"the CUDA kernels take head dims 1 to {HEAD_DIM_RUNGS[-1]}, got {d}")
+    return next(r for r in HEAD_DIM_RUNGS if r >= d)
+
+
+def head_dim_align(q_dtype: torch.dtype, kv_dtype: torch.dtype) -> int:
+    """Elements of a 16-byte chunk of the narrowest operand: a head dim the
+    kernels read in place is a multiple of it (the tensor maps' strides and
+    the 16-byte loads): 16 over int8 / fp8 pools, 8 over 16-bit pools, 4 for
+    f32 queries over f32 pools."""
+    if kv_dtype in QUANT_DTYPES:
+        return 16
+    return 4 if q_dtype == torch.float32 else 8
+
+
+def mapped_head_dim(d: int, q_dtype: torch.dtype, kv_dtype: torch.dtype) -> int:
+    """The head dim a CUDA call runs at: d itself where the kernels read it
+    in place, else the next multiple of head_dim_align, to which
+    paged_attention_padded copies the operands."""
+    a = head_dim_align(q_dtype, kv_dtype)
+    return -(-d // a) * a
+
+
+def _plan_rung(d: int, q_dtype: torch.dtype, kv_dtype: torch.dtype) -> int:
+    """The rung whose blocks the split plan counts (the top one past 256,
+    which only the plain version takes)."""
+    return min(cdiv(mapped_head_dim(d, q_dtype, kv_dtype), 64) * 64, HEAD_DIM_RUNGS[-1])
 
 
 def num_splits_heuristic(
@@ -117,26 +159,32 @@ def has_options(causal: bool, window: Tuple[int, int], softcap: float, alibi_slo
 
 Q16_DTYPES = (torch.bfloat16, torch.float16)  # the queries of the 16-bit kernels
 F32_ROWS = 16  # query rows per block of the f32 kernel
-F32_BLOCKS_PER_SM = 2  # the f32 kernel's blocks an SM (its shared memory), for its splits
+# the f32 kernel's resident blocks an SM by pool dtype and rung (its shared
+# memory: 41, 77, 113 and 149 KB; at the rung 64 its registers, which depend
+# on the pool dtype), for its splits; chip_smoke.py holds them to the CUDA
+# occupancy calculator
+F32_BLOCKS = {(torch.float32, 64): 3, (torch.float8_e4m3fn, 64): 5, (torch.int8, 64): 4,
+              **{(dt, r): n for r, n in ((128, 2), (192, 2), (256, 1))
+                 for dt in (torch.float32, torch.float8_e4m3fn, torch.int8)}}
 
 
 def paged_route(rows: int, page: int, d: int, kv_dtype: torch.dtype,
                 q_dtype: torch.dtype = torch.bfloat16) -> str:
     """The kernel of csrc/paged_attention.cu that takes a call, a pure
     function of its shapes and its query and pool dtypes (the options pick
-    an instantiation, not a kernel). f32 queries or pools take "f32" (the
-    f32 kernel, any page; its wrapper refuses f32 pools under 16-bit
-    queries). With d 64 or 128, a page of whole TMA boxes (a multiple of 8
-    keys) and pools of the queries' 16-bit dtype, int8 or fp8: "decode" (the
-    decode kernel) when at most 16 query rows share a KV head (rows = sq *
-    group: decode and short verify), else "wgmma" (the Hopper chunk kernel).
-    Anything else takes "wmma" (the first version: odd pages; odd d and
-    16-bit pools of the other 16-bit dtype, which its CUDA wrapper
-    refuses)."""
+    an instantiation, the head dim d a rung: every route takes any d from 1
+    to 256). f32 queries or pools take "f32" (the f32 kernel, any page; its
+    wrapper refuses f32 pools under 16-bit queries). With a page of whole
+    TMA boxes (a multiple of 8 keys) and pools of the queries' 16-bit dtype,
+    int8 or fp8: "decode" (the decode kernel) when at most 16 query rows
+    share a KV head (rows = sq * group: decode and short verify), else
+    "wgmma" (the Hopper chunk kernel). Anything else takes "wmma" (the first
+    version: odd pages; 16-bit pools of the other 16-bit dtype, which its
+    CUDA wrapper refuses)."""
+    del d  # any head dim: the rung is head_dim_rung's
     if q_dtype == torch.float32 or kv_dtype == torch.float32:
         return "f32"
-    if (d in (64, 128) and page % 8 == 0 and q_dtype in Q16_DTYPES
-            and kv_dtype in (q_dtype, *QUANT_DTYPES)):
+    if page % 8 == 0 and q_dtype in Q16_DTYPES and kv_dtype in (q_dtype, *QUANT_DTYPES):
         return "decode" if rows <= DECODE_ROWS else "wgmma"
     return "wmma"
 
@@ -192,20 +240,23 @@ def paged_plan(q_shape, k_pool_shape, kv_dtype: torch.dtype, max_pages: int, num
     """(route, splits) of a paged_attention call: the kernel paged_route
     picks and the split count resolve_num_splits gives for its blocks. On
     the decode route the cores are the H100's SMs times the decode kernel's
-    resident blocks and the splits' unit is a 64-key tile; on the f32 route
-    the SMs times two and pages; elsewhere the SMs and pages. k_pool_shape
-    is (pages, h_k, page, d), or (L, ...) with a layer axis."""
+    resident blocks at the call's rung and the splits' unit is a 64-key
+    tile; on the f32 route the SMs times the f32 kernel's blocks at the rung
+    and pages; elsewhere the SMs and pages. k_pool_shape is (pages, h_k,
+    page, d), or (L, ...) with a layer axis."""
     b, sq, h, d = q_shape
     h_k, page = k_pool_shape[-3], k_pool_shape[-2]
     rows = sq * (h // h_k)
     route = paged_route(rows, page, d, kv_dtype, q_dtype)
     if route == "decode":
+        rung = _plan_rung(d, q_dtype, kv_dtype)
         return route, resolve_num_splits(num_splits, b, h_k, rows,
                                          cdiv(max_pages * page, DECODE_TILE), DECODE_ROWS,
-                                         NUM_SMS * DECODE_BLOCKS_PER_SM)
-    if route == "f32":  # its blocks (78 KB of shared memory at d = 128) fit two an SM
+                                         NUM_SMS * DECODE_BLOCKS[rung])
+    if route == "f32":
+        rung = _plan_rung(d, q_dtype, kv_dtype)
         return route, resolve_num_splits(num_splits, b, h_k, rows, max_pages, F32_ROWS,
-                                         NUM_SMS * F32_BLOCKS_PER_SM)
+                                         NUM_SMS * F32_BLOCKS.get((kv_dtype, rung), 1))
     return route, resolve_num_splits(num_splits, b, h_k, rows, max_pages,
                                      route_row_tile(route, rows))
 
@@ -394,8 +445,9 @@ def combine_splits(o_part: torch.Tensor, lse_part: torch.Tensor,
     n_splits, b, sq, h, d = o_part.shape
     if out_dtype not in _build.LABEL_SUFFIX:
         raise TypeError(f"the combine kernel (K1) writes bf16, fp16 or f32 O, got {out_dtype}")
-    if d not in (64, 128):
-        raise ValueError(f"the combine kernel writes O of head_dim 64 or 128, got {d}")
+    if not 1 <= d <= HEAD_DIM_RUNGS[-1] or d % 4:
+        raise ValueError(f"the combine kernel (K1) merges partials of a head dim that is a "
+                         f"multiple of 4 up to {HEAD_DIM_RUNGS[-1]}, got {d}")
     if (o_part.dtype != torch.float32 or lse_part.dtype != torch.float32
             or not o_part.is_contiguous() or not lse_part.is_contiguous()
             or tuple(lse_part.shape) != (n_splits, b, sq, h)):
@@ -407,18 +459,23 @@ def combine_splits(o_part: torch.Tensor, lse_part: torch.Tensor,
                                   lse.data_ptr(), _build.dtype_code(out_dtype), n_splits, b, sq,
                                   h, d, _build.stream_handle())
     _build.check(rc, "paged_attention (combine)")
-    _build.LAUNCHES["paged_attention.combine" + _build.LABEL_SUFFIX[out_dtype]] += 1
+    # the kernels of head dims 64 and 128, else the one of any width (rung 0)
+    _build.count_launch("paged_attention.combine" + _build.LABEL_SUFFIX[out_dtype], d,
+                        d if d in (64, 128) else 0)
     return o, lse
 
 
 _lib_handles = {}
 
 
-def _lib(q_dtype: torch.dtype = torch.bfloat16):
+def _lib(q_dtype: torch.dtype = torch.bfloat16, d: int = 128):
     """The library of csrc/paged_attention.cu that holds the kernels for
-    q_dtype queries: fp16's is built apart (_build.VARIANTS); bf16's also
-    holds the f32 kernel and the combine kernel."""
+    q_dtype queries at head dim d's rung: fp16's and the rungs 192 and 256
+    are built apart (_build.VARIANTS); bf16's also holds the f32 kernel at
+    its rungs, and the one of rungs 64 and 128 the combine kernel."""
     name = "paged_attention_f16" if q_dtype == torch.float16 else "paged_attention"
+    if head_dim_rung(d) > 128:
+        name += "_wide"
     lib = _lib_handles.get(name)
     if lib is None:
         lib = _build.load(name)
@@ -438,6 +495,8 @@ def _lib(q_dtype: torch.dtype = torch.bfloat16):
         lib.xfa_paged_f32.argtypes = [ctypes.c_void_p] + tail
         lib.xfa_paged_decode_blocks_per_sm.restype = ctypes.c_int
         lib.xfa_paged_decode_blocks_per_sm.argtypes = [ctypes.c_int] * 5
+        lib.xfa_paged_f32_blocks_per_sm.restype = ctypes.c_int
+        lib.xfa_paged_f32_blocks_per_sm.argtypes = [ctypes.c_int] * 2
         lib.xfa_paged_combine.restype = ctypes.c_int
         lib.xfa_paged_combine.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
             ctypes.c_void_p]
@@ -448,11 +507,17 @@ def _lib(q_dtype: torch.dtype = torch.bfloat16):
 def decode_blocks_per_sm(kv_dtype: torch.dtype, d: int, rows: int, options: bool = False,
                         q_dtype: torch.dtype = torch.bfloat16) -> int:
     """Resident blocks an SM of the decode kernel's instantiation for these
-    queries, pools, rows and options, by the CUDA occupancy calculator (on
-    the card)."""
-    return _lib(q_dtype).xfa_paged_decode_blocks_per_sm(_build.dtype_code(q_dtype),
-                                                 _build.dtype_code(kv_dtype), d, rows,
-                                                 int(options))
+    queries, pools, rows, options and head dim d (its rung), by the CUDA
+    occupancy calculator (on the card)."""
+    return _lib(q_dtype, d).xfa_paged_decode_blocks_per_sm(_build.dtype_code(q_dtype),
+                                                           _build.dtype_code(kv_dtype), d, rows,
+                                                           int(options))
+
+
+def f32_blocks_per_sm(kv_dtype: torch.dtype, d: int) -> int:
+    """Resident blocks an SM of the f32 kernel over kv_dtype pools at head
+    dim d's rung, by the CUDA occupancy calculator (on the card)."""
+    return _lib(torch.float32, d).xfa_paged_f32_blocks_per_sm(_build.dtype_code(kv_dtype), d)
 
 
 def check_kernel_dtypes(q_dtype: torch.dtype, kv_dtype: torch.dtype) -> None:
@@ -479,8 +544,11 @@ def _check_cuda_inputs(q, k_pool, v_pool, k_scales, v_scales):
                         f"got {k_pool.dtype}/{v_pool.dtype}")
     check_kernel_dtypes(q.dtype, k_pool.dtype)
     d = q.shape[-1]
-    if d not in (64, 128):
-        raise ValueError(f"the CUDA paged-attention kernel takes head_dim 64 or 128, got {d}")
+    head_dim_rung(d)
+    if mapped_head_dim(d, q.dtype, k_pool.dtype) != d:  # paged_attention pads such widths
+        raise ValueError(f"the CUDA paged-attention kernels (K1) read head dims that are a "
+                         f"multiple of {head_dim_align(q.dtype, k_pool.dtype)} for "
+                         f"{q.dtype} queries over {k_pool.dtype} pools, got {d}")
     for t in (k_pool, v_pool) + ((k_scales, v_scales) if kv_quant else ()):
         if not t.is_contiguous():
             raise ValueError("pools and scales must be contiguous")
@@ -517,7 +585,7 @@ def _paged_attention_cuda(q, k_pool, v_pool, layer_idx, block_tables, kv_lens, s
     lens = kv_lens.to(torch.int32).contiguous()
     o_part = torch.empty((num_splits, b, h_k, rows, d), dtype=torch.float32, device=q.device)
     lse_part = torch.empty((num_splits, b, h_k, rows), dtype=torch.float32, device=q.device)
-    rc = _lib(q.dtype).xfa_paged_attention(
+    rc = _lib(q.dtype, d).xfa_paged_attention(
         qs.data_ptr(), _build.dtype_code(q.dtype), k_pool.data_ptr(), v_pool.data_ptr(),
         _build.dtype_code(k_pool.dtype),
         _build.ptr(k_scales), _build.ptr(v_scales), bt.data_ptr(), lens.data_ptr(),
@@ -526,7 +594,7 @@ def _paged_attention_cuda(q, k_pool, v_pool, layer_idx, block_tables, kv_lens, s
         _build.ptr(slopes), _build.ptr(leftpad), kernel_row_tile(rows), _build.stream_handle(),
     )
     _build.check(rc, "paged_attention")
-    _build.LAUNCHES[route_label("wmma", rows, q_dtype=q.dtype)] += 1
+    _build.count_launch(route_label("wmma", rows, q_dtype=q.dtype), d, head_dim_rung(d))
     if num_splits > 1:
         o, lse = combine_partials(o_part, lse_part)
     else:
@@ -568,7 +636,7 @@ def _paged_hopper_cuda(q, k_pool, v_pool, layer_idx, block_tables, kv_lens, scal
     else:
         o = torch.empty((num_splits, b, sq, h, d), dtype=torch.float32, device=q.device)
         lse = torch.empty((num_splits, b, sq, h), dtype=torch.float32, device=q.device)
-    lib = _lib(q.dtype)
+    lib = _lib(q.dtype, d)
     if route == "f32":
         fn, head = lib.xfa_paged_f32, (q.data_ptr(),)
     else:
@@ -584,7 +652,8 @@ def _paged_hopper_cuda(q, k_pool, v_pool, layer_idx, block_tables, kv_lens, scal
     )
     _build.check(rc, f"paged_attention ({route})")
     options = has_options(False, (wl, wr), softcap, slopes, leftpad)
-    _build.LAUNCHES[route_label(route, sq * (h // h_k), options, q.dtype)] += 1
+    _build.count_launch(route_label(route, sq * (h // h_k), options, q.dtype), d,
+                        head_dim_rung(d))
     if num_splits > 1:
         return combine_splits(o, lse, q.dtype)
     return o, lse
@@ -626,11 +695,18 @@ def paged_attention(
                          f"got {tuple(alibi_slopes.shape)}")
     if cache_leftpad is not None and tuple(cache_leftpad.shape) != (b,):
         raise ValueError(f"cache_leftpad must be ({b},), got {tuple(cache_leftpad.shape)}")
+    scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)
+    cuda = is_cuda(q, k_pool, v_pool, block_tables, kv_lens, alibi_slopes, cache_leftpad)
+    if cuda and d <= HEAD_DIM_RUNGS[-1] and mapped_head_dim(d, q.dtype, k_pool.dtype) != d:
+        return paged_attention_padded(
+            q, k_pool, v_pool, block_tables, kv_lens, mapped_head_dim(d, q.dtype, k_pool.dtype),
+            softmax_scale=scale, causal=causal, window=window, softcap=softcap,
+            alibi_slopes=alibi_slopes, cache_leftpad=cache_leftpad, num_splits=num_splits,
+            k_scales=k_scales, v_scales=v_scales, layer_idx=layer_idx)
     route, splits = paged_plan(q.shape, k_pool.shape, k_pool.dtype, block_tables.shape[1],
                                num_splits, causal, window, softcap, alibi_slopes, cache_leftpad,
                                q.dtype)
-    scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)
-    if is_cuda(q, k_pool, v_pool, block_tables, kv_lens, alibi_slopes, cache_leftpad):
+    if cuda:
         return _paged_attention_cuda(q, k_pool, v_pool, layer_idx, block_tables, kv_lens, scale,
                                      causal, window, softcap, alibi_slopes, cache_leftpad,
                                      splits, k_scales, v_scales, route)
@@ -641,3 +717,30 @@ def paged_attention(
         alibi_slopes=alibi_slopes, cache_leftpad=cache_leftpad, num_splits=splits,
         k_scales=_layer(k_scales, layer_idx), v_scales=_layer(v_scales, layer_idx),
     )
+
+
+def pad_head_dim(x: torch.Tensor, d_to: int) -> torch.Tensor:
+    """x (..., d) with zero columns appended up to d_to: a copy."""
+    return torch.nn.functional.pad(x, (0, d_to - x.shape[-1]))
+
+
+def paged_attention_padded(q, k_pool, v_pool, block_tables, kv_lens, d_to: int, *,
+                           softmax_scale: Optional[float] = None, layer_idx=None,
+                           k_scales=None, v_scales=None, **kw):
+    """paged_attention at a head dim the kernels cannot read in place (a row
+    of no whole 16-byte chunks, mapped_head_dim): q and the layer's pools
+    copied with zero columns up to d_to, the call made at d_to with the
+    softmax scale of the real d (zero columns add nothing to the scores,
+    and give O columns of zeros), O cut back to d. On CUDA tensors the copy
+    counts under "paged_attention.pad_copy"; CPU tensors run the plain
+    version on the padded operands."""
+    d = q.shape[-1]
+    scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)
+    if is_cuda(q, k_pool, v_pool):
+        _build.LAUNCHES["paged_attention.pad_copy"] += 1
+    o, lse = paged_attention(
+        pad_head_dim(q, d_to), pad_head_dim(_layer(k_pool, layer_idx), d_to),
+        pad_head_dim(_layer(v_pool, layer_idx), d_to), block_tables, kv_lens,
+        softmax_scale=scale, k_scales=_layer(k_scales, layer_idx),
+        v_scales=_layer(v_scales, layer_idx), **kw)
+    return o[..., :d], lse

@@ -404,17 +404,32 @@ def _to_device(tree, device):
     return tree
 
 
+def _take_back(counter: Counter, before: Counter) -> Counter:
+    """The counts added to `counter` since it equalled `before`, taken back
+    out of it (keys it did not hold before leave it again)."""
+    added = Counter(counter)
+    added.subtract(before)
+    added = +added
+    counter.subtract(added)
+    for k in added:
+        if not counter[k] and k not in before:
+            del counter[k]
+    return added
+
+
 @dataclasses.dataclass
 class _DecodeGraph:
     """One captured decode window: its graph, its outputs (in the engine's
     graph pool), the kernel launches one replay makes (counted on the host
-    at capture) and the label its replays are counted under."""
+    at capture; again by head dim, _build.HEAD_DIM_LAUNCHES) and the label
+    its replays are counted under."""
 
     graph: "torch.cuda.CUDAGraph"
     tokens: torch.Tensor  # (K, max_batch) int64
     logits: torch.Tensor  # (max_batch, vocab) f32, the last inner step's
     launches: Counter
     label: str
+    head_dims: Counter = dataclasses.field(default_factory=Counter)
 
 
 class DecodeEngine:
@@ -864,6 +879,7 @@ class DecodeEngine:
         g.graph.replay()
         out = g.tokens.cpu().numpy()
         _build.LAUNCHES.update(g.launches)  # a replay runs no wrapper's host code
+        _build.HEAD_DIM_LAUNCHES.update(g.head_dims)
         _build.LAUNCHES[g.label] += 1
         return out
 
@@ -904,19 +920,14 @@ class DecodeEngine:
             run()
         torch.cuda.current_stream(self.device).wait_stream(side)
         torch.cuda.synchronize(self.device)
-        before = Counter(_build.LAUNCHES)
+        before = Counter(_build.LAUNCHES), Counter(_build.HEAD_DIM_LAUNCHES)
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, pool=self._graph_pool):
             toks, logits = run()
-        launches = Counter(_build.LAUNCHES)
-        launches.subtract(before)
-        launches = +launches
-        _build.LAUNCHES.subtract(launches)
-        for k in launches:
-            if not _build.LAUNCHES[k] and k not in before:
-                del _build.LAUNCHES[k]
+        launches = _take_back(_build.LAUNCHES, before[0])
+        head_dims = _take_back(_build.HEAD_DIM_LAUNCHES, before[1])
         g = _DecodeGraph(graph, toks, logits, launches,
-                         "graph.decode_multi_step" if K > 1 else "graph.decode")
+                         "graph.decode_multi_step" if K > 1 else "graph.decode", head_dims)
         self._graphs[(K, sampling)] = g
         return g
 
