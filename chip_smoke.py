@@ -222,7 +222,26 @@ Phases, each of which raises (exit code != 0) when it fails:
    `serve_phi3_bucketed` (K7 at d = 96), every K1 and K7 launch at d = 96
    on the rung 128, graphs held to the eager step, the streams to each
    other (equal, or the tie rule), a profiled decode step.
-10. Print the seconds of each phase, the `kernels` JSON line (with the rows
+10. Every head dim in K8 and K9-K11 (`check_bwd_head_dims`,
+   `bwd_head_dim_rows`, `train_phi3`, `api_phi3`): K8, K9, K10 and K11 at
+   d = 16, 32, 40, 59, 80, 96, 111, 160, 192, 224 and 256 (bf16 and fp16
+   on the Hopper kernels, causal and not, GQA 4:1 at 96 and 256; f32 on
+   the f32 kernels) under the 3x rule (K9-K11, the f32 ones the 2x rule
+   against the f64 plain versions) and entry by entry (K8), each launch at
+   the head dim and rung the route functions name (the padded copy at 59
+   and 111 only); at 96 and 256 K9 and K10 bit-reproducible, K11's dK/dV
+   equal to K10's, and the options (ALiBi with dropout and K8's signs,
+   window with softcap, segments with kv_lens, explicit positions with
+   per-row ALiBi); rows timed at d = 96 and 256 (K9, K10, K11 and their f32
+   kernels at train_s1024's shape with 32/32 heads, SDPA's backward beside
+   them; K8 and K8 f32 at the api shape). Then two main paths at Phi-3-mini
+   widths: `train_phi3` (32 layers, bf16, three two-pass SGD steps and one
+   fused, the loss falling, every K7-K11 launch at d = 96 on the rung 128;
+   a 2-layer copy's gradient against the plain versions on the card) and
+   `api_phi3` (flash_attn_func at 32 heads, d = 96, 2048 tokens, causal,
+   ALiBi, dropout, the plane and the gradient; packed varlen's gradient;
+   checked after against the plain versions).
+11. Print the seconds of each phase, the `kernels` JSON line (with the rows
    at d = 96 and 256, "<label>@d<d>"), the card's name and power limit,
    and, last, {"ok": true, "device": {...}}.
 
@@ -303,12 +322,17 @@ class Timer:
         return sum(s.elapsed_time(e) for s, e in pairs) / reps
 
 
+DEVICE_TRACES = []  # each device_ms trace: the kernel, the launches made and those recorded
+
+
 def device_ms(fn, kernel, reps=REPS):
-    """Device time per call of fn of the kernels whose name holds `kernel`,
-    from a profiler trace of `reps` calls, each behind a read-only pass over
-    a 128 MB buffer (the L2 starts cold and clean): the kernel alone,
-    without the launch and event costs that the Timer includes. None when
-    the trace holds no such kernel."""
+    """Device time of one launch of the kernel whose name holds `kernel`
+    (fn launches it once a call), from a profiler trace of `reps` calls,
+    each behind a read-only pass over a 128 MB buffer (the L2 starts cold
+    and clean): the kernel alone, without the launch and event costs that
+    the Timer includes. The mean is over the launches the trace recorded,
+    which may be fewer than those made (DEVICE_TRACES keeps both counts).
+    None when the trace holds no such kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -321,9 +345,11 @@ def device_ms(fn, kernel, reps=REPS):
             flush.max()
             fn()
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA and kernel in e.key)
-    return us / 1e3 / reps if us > 0 else None
+    found = [e for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and kernel in e.key]
+    us, n = sum(e.self_device_time_total for e in found), sum(e.count for e in found)
+    DEVICE_TRACES.append(dict(kernel=kernel, launched=reps, recorded=n))
+    return us / 1e3 / n if us > 0 else None
 
 
 def bound(n_bytes: float, n_ops: float, peak: float = BF16_FLOPS) -> tuple:
@@ -4375,67 +4401,16 @@ def train_f32(gen, cfg, seed, checks, paths):
     steps on K7/K9/K10 in f32, one on K11, then the profiled step, the loss
     falling at each; rate 0.002: at train()'s 0.005 the fifth step's loss
     rose on an H100, 10.02 -> 10.94), a main path;
-    then the gradient of a 2-layer copy (1024 tokens) through the kernels
-    against the same model with the plain versions of K7 and K9/K10 in its
-    place, in f64 (the oracle) and in f32, on the card, under the 2x rule
-    for every parameter's gradient. Returns the report's row."""
-    from xf_flash_attention_cutlass_tpu_torch.models import llama
-    from xf_flash_attention_cutlass_tpu_torch.ops.flash_bwd import flash_bwd_ref
-    from xf_flash_attention_cutlass_tpu_torch.ops.flash_fwd import flash_fwd_ref
-
+    then the gradient of a 2-layer copy (plain_grad_check: f32 against the
+    plain versions in f64, the oracle, and in f32). Returns the report's
+    row."""
     c8 = dataclasses.replace(cfg, n_layers=8)
     torch.cuda.reset_peak_memory_stats()
     (ok, row), paths["train_f32"] = drive("train_f32",
                                           lambda: train(gen, c8, seed, lr=0.002, dtype=F32))
     checks.add("train_f32.loss_falls", ok, losses=row["losses"])
-
-    class Plain(torch.autograd.Function):  # flash_attention with the plain versions
-        @staticmethod
-        def forward(ctx, q, k, v, causal, kv_lens):
-            o, lse = flash_fwd_ref(q, k, v, causal=causal, kv_lens=kv_lens)
-            ctx.save_for_backward(q, k, v, o, lse)
-            ctx.causal, ctx.kv_lens = causal, kv_lens
-            return o, lse
-
-        @staticmethod
-        def backward(ctx, do, _dlse):
-            q, k, v, o, lse = ctx.saved_tensors
-            return (*flash_bwd_ref(q, k, v, o, lse, do, causal=ctx.causal,
-                                   kv_lens=ctx.kv_lens), None, None)
-
-    c2 = dataclasses.replace(cfg, n_layers=2)
-    base = llama.init_params(gen, c2, dtype=F32)
-    tokens = torch.from_numpy(np.random.default_rng(seed + 4).integers(
-        0, cfg.vocab_size, (1, 1025))).cuda()
-    grads = {}
-    kernels = llama.flash_attention
-    for run, dt, attention in (("card", F32, None), ("plain_f32", F32, "plain"),
-                               ("plain_f64", torch.float64, "plain")):
-        params = {n: ({m: t.to(dt) for m, t in x.items()} if isinstance(x, dict) else x.to(dt))
-                  for n, x in base.items()}
-        leaves = [params["embed"], params["final_norm"], params["lm_head"],
-                  *params["layers"].values()]
-        for t in leaves:
-            t.requires_grad_(True)
-        if attention:
-            llama.flash_attention = lambda q, k, v, causal=False, kv_lens=None, fused=None: (
-                Plain.apply(q, k, v, causal, kv_lens))
-        try:
-            grads[run] = torch.autograd.grad(llama.loss_fn(params, tokens, c2), leaves)
-        finally:
-            llama.flash_attention = kernels
-        del params, leaves
-    torch.cuda.synchronize()
-    worst = None
-    for g, g32, g64 in zip(grads["card"], grads["plain_f32"], grads["plain_f64"]):
-        r = rule_2x(g, g32, g64)
-        if worst is None or max(r[0], r[1]) / r[2] > max(worst[0], worst[1]) / worst[2]:
-            worst = r
-    checks.add("train_f32.grad_2layer_vs_f64_plain", max(worst[0], worst[1]) <= worst[2],
-               max_abs_err=worst[1], err_vs_f64=worst[0], tolerance=worst[2],
-               parameters=len(grads["card"]))
-    del grads, base
-    torch.cuda.empty_cache()
+    plain_grad_check(gen, cfg, seed, checks, "train_f32.grad_2layer_vs_f64_plain", F32,
+                     torch.float64)
     row["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
     return row
 
@@ -4853,44 +4828,46 @@ def probs_build_report(checks, lib_path):
     return report
 
 
-_F32_NAME = re.compile(r"flash_(fwd|probs|bwd_dq|bwd_dkv)_f32_kernelILi(\d+)E(?:Lb([01])E)?")
+_F32_NAME = re.compile(r"flash_(fwd|probs|bwd_dq|bwd_dkv)_f32_kernelILi(\d+)E((?:Lb[01]E)*)")
 
 
 def f32_instantiation(mangled):
     """'fwd_d128', 'probs_d64', 'dq_d128', 'dkv_d128', 'fused_d64', ... for a
-    mangled kernel name of csrc/flash_f32.cu ('fwd_d128_tail' for K7's
-    instantiation of head dims below its rung), else None."""
+    mangled kernel name of csrc/flash_f32.cu ('fwd_d128_tail', 'dkv_d64_tail',
+    ... for the instantiations of head dims below their rung), else None."""
     m = _F32_NAME.search(mangled)
     if m is None:
         return None
-    if m.group(1) == "fwd":
-        return f"fwd_d{m.group(2)}{'_tail' if m.group(3) == '1' else ''}"
-    kind = {"probs": "probs", "bwd_dq": "dq"}.get(m.group(1))
-    kind = kind or ("fused" if m.group(3) == "1" else "dkv")
-    return f"{kind}_d{m.group(2)}"
+    bools = re.findall(r"Lb([01])E", m.group(3))
+    tail = "_tail" if bools and bools[-1] == "1" else ""
+    kind = {"fwd": "fwd", "probs": "probs", "bwd_dq": "dq"}.get(m.group(1))
+    kind = kind or ("fused" if bools[0] == "1" else "dkv")
+    return f"{kind}_d{m.group(2)}{tail}"
 
 
-K7_F32_GATED = ("fwd_d64", "fwd_d128")  # K7 f32's instantiations gated on spills
+# the kernels of flash_f32.cu at d = 64 and 128 (not tail), gated on spills
+F32_GATED = tuple(f"{k}_d{d}" for k in ("fwd", "probs", "dq", "dkv", "fused") for d in (64, 128))
+K7_F32_GATED = F32_GATED[:2]  # K7 f32's
 
 
 def flash_f32_build_report(checks):
     """Registers and spill bytes of every kernel of csrc/flash_f32.cu
-    (build/flash_f32.log): sixteen instantiations, the ten of K7, K8, K9, K10
-    and K11 at d = 64 and 128 spilling nothing; K7 at head dims below its
-    rungs 64 and 128 and at the rungs 192 and 256 (`_tail` and not) reported
-    by wide_build_report."""
+    (build/flash_f32.log): forty instantiations (K7, K8, K9, K10 and K11 at
+    four rungs, each also for head dims below the rung), the ten at d = 64
+    and 128 spilling nothing; the others reported by wide_build_report (K7)
+    and bwd_wide_build_report (K8-K11)."""
     inst = ptxas_usage("flash_f32", f32_instantiation)
     print(json.dumps({"flash_f32_build": inst}), flush=True)
-    gated = {n: r for n, r in inst.items() if n in K7_F32_GATED or not n.startswith("fwd_")}
+    gated = {n: r for n, r in inst.items() if n in F32_GATED}
     checks.add("flash_f32.no_spills",
-               len(inst) == 16 and len(gated) == 10
+               len(inst) == 40 and len(gated) == 10
                and all(r.get("spill_bytes") == 0 for r in gated.values()),
                spill_bytes={n: r.get("spill_bytes") for n, r in inst.items()},
                registers={n: r.get("registers") for n, r in inst.items()})
     return inst
 
 
-_BWD_NAME = re.compile(r"flash_bwd_(dkv|dq)_kernelI(\w+?)Li(\d+)E(?:Lb([01])E)?Lb([01])E")
+_BWD_NAME = re.compile(r"flash_bwd_(dkv|dq)(?:_wide)?_kernelI(\w+?)Li(\d+)E(?:Lb([01])E)?Lb([01])E")
 
 
 def bwd_instantiation(mangled):
@@ -5135,18 +5112,18 @@ def check_k1_width(checks, name, q, kp, vp, ks, vs, bt, lens, timer=None, librar
 def check_k7_width(checks, name, q, k, v, kw):
     """K7 (the Hopper kernel, or the f32 kernel for f32 inputs) under the 2x
     rule (check_flash_fwd_inputs, check_f32_fwd), and that it launched once
-    at the head dim and rung k7_head_dim and k7_rung name (the pad copy
+    at the head dim and rung flash_head_dim and flash_rung name (the pad copy
     where that head dim is not d). Returns (error, tolerance)."""
     from xf_flash_attention_cutlass_tpu_torch import _build
     from xf_flash_attention_cutlass_tpu_torch.ops.flash_fwd import (
+        flash_head_dim,
         flash_label,
-        k7_head_dim,
-        k7_rung,
+        flash_rung,
     )
 
     d = q.shape[-1]
-    dm = k7_head_dim(d, q.dtype)
-    want = {_build.head_dim_key(flash_label("flash_fwd", q.dtype), dm, k7_rung(dm)): 1}
+    dm = flash_head_dim(d, q.dtype)
+    want = {_build.head_dim_key(flash_label("flash_fwd", q.dtype), dm, flash_rung(dm)): 1}
     if q.dtype == F32:
         res, by_label, by_dim = launches_of(lambda: check_f32_fwd(checks, name, q, k, v, kw))
     else:
@@ -5312,6 +5289,52 @@ def wide_build_report(checks, libs):
     return report
 
 
+def bwd_wide_build_report(checks, libs):
+    """Registers, spill bytes and SASS counts of K8 and K9-K11 at the
+    head-dim rungs 192 and 256 (flash_probs_wide, flash_bwd_wide: K10/K11 the
+    split by tensor) and of their f32 kernels other than d = 64 and 128
+    (flash_f32: the rungs 192 and 256, and the head dims below each rung):
+    reported, not gated on spills. Checks that each of the 8 K8, 8 K9 and 16
+    K10/K11 instantiations holds HGMMA and UTMALDG and no HMMA, and the 24
+    f32 ones no tensor-core instruction."""
+    def by_function(lib, instantiation, keep=lambda n: True):
+        return {instantiation(n): c for n, c in sass_by_function(libs[lib]).items()
+                if instantiation(n) and keep(instantiation(n))}
+
+    k8 = dict(instantiations=ptxas_usage("flash_probs_wide", probs_instantiation),
+              sass=by_function("flash_probs_wide", probs_instantiation))
+    bwd = dict(instantiations=ptxas_usage("flash_bwd_wide", bwd_instantiation),
+               sass=by_function("flash_bwd_wide", bwd_instantiation))
+    f32_keep = lambda n: not n.startswith("fwd_") and n not in F32_GATED  # noqa: E731
+    f32 = dict(instantiations={n: r for n, r in ptxas_usage("flash_f32", f32_instantiation).items()
+                               if f32_keep(n)},
+               sass=by_function("flash_f32", f32_instantiation, f32_keep))
+    report = dict(k8=k8, k9_k11=bwd, f32=f32)
+    print(json.dumps({"bwd_wide_build": report}), flush=True)
+    hopper = list(k8["sass"].values()) + list(bwd["sass"].values())
+    checks.add("head_dims.bwd_wide_sass",
+               len(k8["sass"]) == 8 and len(bwd["sass"]) == 24
+               and all(r.get("HGMMA", 0) > 0 and r.get("UTMALDG", 0) > 0 and r.get("HMMA", 1) == 0
+                       for r in hopper)
+               and len(f32["sass"]) == 24
+               and all(r.get("HMMA", 1) == 0 and r.get("HGMMA", 1) == 0
+                       for r in f32["sass"].values()),
+               counts=dict(k8=len(k8["sass"]), k9_k11=len(bwd["sass"]), f32=len(f32["sass"])))
+    return report
+
+
+def check_head_dim_96(checks, path, kernels):
+    """Check that every launch of a main path counted by head dim was at
+    d = 96 on the rung 128 (the any-width combine: rung 0) and that each of
+    `kernels` launched there. Returns the path's launches by head dim."""
+    dims = HEAD_DIM_PATHS[path]
+    bad = [k for k in dims if not (k.endswith("@d96/D128") or k.endswith("@d96/D0"))]
+    missing = [k for k in kernels if not any(x.startswith(f"{k}@d96/") for x in dims)]
+    checks.add(f"{path}.head_dim_96", not bad and not missing, off_width=bad, missing=missing,
+               launches=dims)
+    return dims
+
+
 def serve_phi3(gen, checks, paths, seed):
     """Phi-3-mini-4k widths (phi3_config: head dim 96, 32 layers) with random
     INT8 weights from the seed and an FP8 page-256 cache: the reference
@@ -5350,13 +5373,8 @@ def serve_phi3(gen, checks, paths, seed):
         served, paths[name] = drive(name, lambda: serve(eng, cfg, seed))
         served["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
         served["launches"] = paths[name]
-        dims = HEAD_DIM_PATHS[name]
-        served["head_dim_launches"] = dims
-        bad = [k for k in dims if not (k.endswith("@d96/D128") or k.endswith("@d96/D0"))]
         want = [k for k in PATHS[name] if k.startswith(("paged_attention", "flash_fwd"))]
-        missing = [k for k in want if not any(x.startswith(f"{k}@d96/") for x in dims)]
-        checks.add(f"{name}.head_dim_96", not bad and not missing, off_width=bad,
-                   missing=missing, launches=dims)
+        served["head_dim_launches"] = check_head_dim_96(checks, name, want)
         check_graph_replay(eng, checks, name)
         runs[name] = {rid: list(eng.results[rid]) for rid in range(8)}
         if name == "serve_phi3_bucketed":
@@ -5410,6 +5428,377 @@ def _leaves(tree):
             yield from _leaves(v)
     elif isinstance(tree, torch.Tensor):
         yield tree
+
+
+# ---- phase 10: K8 and K9-K11 at every head dim, Phi-3-mini trained --------------
+
+BWD_HEAD_DIMS = tuple(d for d in HEAD_DIMS if d not in (64, 128))  # beside phases 3 and 8
+_BWD = ("flash_bwd.dq", "flash_bwd.dkv", "flash_bwd.fused")
+
+
+def check_width_launches(checks, name, fn, d, dtype, kernels, pad_label, n_pads):
+    """fn's result, and a check that it launched each of `kernels` once at
+    the head dim and rung flash_head_dim and flash_rung name for d, with
+    n_pads padded copies (pad_label) where that head dim is not d, none
+    elsewhere."""
+    from xf_flash_attention_cutlass_tpu_torch import _build
+    from xf_flash_attention_cutlass_tpu_torch.ops.flash_fwd import (
+        flash_head_dim,
+        flash_label,
+        flash_rung,
+    )
+
+    dm = flash_head_dim(d, dtype)
+    want = {_build.head_dim_key(flash_label(k, dtype), dm, flash_rung(dm)): 1 for k in kernels}
+    res, by_label, by_dim = launches_of(fn)
+    pads = by_label.get(pad_label, 0)
+    checks.add(f"{name}.rung", by_dim == want and pads == (n_pads if dm != d else 0),
+               launched=by_dim, expected=want, head_dim_run=dm, pad_copies=pads)
+    return res
+
+
+def bwd_width(checks, tag, tensors, kw, oracle_kw=None):
+    """K9 + K10 and K11 (16-bit) on given inputs under the 3x rule
+    (check_flash_bwd_inputs), each launch at its head dim and rung. Returns
+    the residuals and the worst (error, tolerance) of each route."""
+    d, dt = tensors[0].shape[-1], tensors[0].dtype
+    return check_width_launches(
+        checks, f"flash_bwd.head_dims[{tag}]",
+        lambda: check_flash_bwd_inputs(checks, f"head_dims[{tag}]", tensors, kw, oracle_kw), d,
+        dt, _BWD, "flash_bwd.pad_copy", 2)
+
+
+def probs_width(checks, tag, q, k, lse, kw):
+    """K8 on given inputs (check_probs, or check_f32_probs for f32), its
+    launch at its head dim and rung. K8 takes no kv_lens: where kw has them,
+    the LSE is that of the forward without them (it depends on q and k
+    alone)."""
+    from xf_flash_attention_cutlass_tpu_torch.ops.flash_fwd import flash_fwd_ref
+
+    d, dt = q.shape[-1], q.dtype
+    kwp = {n: x for n, x in kw.items() if n != "kv_lens"}
+    if "kv_lens" in kw:
+        lse = flash_fwd_ref(q, k, k, **kwp)[1]
+    check = check_f32_probs if dt == F32 else check_probs
+    return check_width_launches(
+        checks, f"flash_probs.head_dims[{tag}]",
+        lambda: check(checks, f"head_dims[{tag}]", q, k, lse, kwp), d, dt, ("flash_probs",),
+        "flash_probs.pad_copy", 1)
+
+
+def f32_bwd_width(checks, tag, tensors, kw):
+    """K9 + K10 and K11 in f32 (check_f32_bwd: the 2x rule against the f64
+    plain version), each launch at its head dim and rung."""
+    return check_width_launches(
+        checks, f"flash_bwd.f32.head_dims[{tag}]",
+        lambda: check_f32_bwd(checks, f"head_dims[{tag}]", tensors, kw), tensors[0].shape[-1],
+        F32, _BWD, "flash_bwd.pad_copy", 2)
+
+
+def bwd_option_cases(gen, d, dtype):
+    """The options held at HEAD_DIM_TIMED: (name, (q, k, v, dO), kw,
+    oracle_kw): ALiBi with dropout (the oracle given the port's mask), a
+    window from both sides with softcap, segment ids with kv_lens, and the
+    packed case's explicit positions, segments and per-row ALiBi."""
+    from xf_flash_attention_cutlass_tpu_torch.ops.flash_fwd import dropout_keep_mask
+    from xf_flash_attention_cutlass_tpu_torch.utils.testing import alibi_slopes_ref
+
+    b, h, h_k, s = 1, 8, 2, 200
+    tensors, _ = flash_case(gen, b, h, h_k, s, s, d, dict(dtype=dtype))
+    slopes = torch.from_numpy(alibi_slopes_ref(h)).cuda()
+    kw = dict(causal=True, alibi_slopes=slopes, dropout_p=API_P, dropout_seed=API_SEED)
+    okw = dict(causal=True, alibi_slopes=slopes, dropout_p=API_P,
+               dropout_mask=dropout_keep_mask(API_SEED, API_P, b, h, s, s, "cuda"))
+    yield "alibi_dropout", tensors, kw, okw
+    tensors, kw = flash_case(gen, b, h, h_k, s, 230, d,
+                             dict(window=(48, 16), softcap=20.0, dtype=dtype))
+    yield "window_softcap", tensors, kw, None
+    tensors, kw = flash_case(gen, 2, h, h_k, 150, 150, d,
+                             dict(causal=True, segments=True, kv_lens=[150, 97], dtype=dtype))
+    yield "segments_kv_lens", tensors, kw, None
+    if dtype != F32:
+        cfg = dataclasses.replace(phi3_config(), n_heads=4, n_kv_heads=2, head_dim_override=d)
+        tensors, kw = packed_case(gen, cfg, BWD_TILING_PACKED)
+        yield "positions_row_alibi", [t.to(dtype) for t in tensors], kw, None
+
+
+def check_bwd_head_dims(gen, checks):
+    """K8, K9, K10 and K11 at every width of BWD_HEAD_DIMS, untimed, small
+    shapes (b = 2, 4 query heads over 2 KV heads, 100 rows over 130 keys;
+    GQA 4:1 at HEAD_DIM_TIMED): bf16 and fp16 on the Hopper kernels, causal
+    and not, K9-K11 under the 3x rule, K8 entry by entry against its plain
+    version; f32 on the f32 kernels under the 2x rule against the f64 plain
+    versions; every launch at the head dim and rung the route functions
+    name, padded copies at 59 and 111 only. At HEAD_DIM_TIMED: K9 and K10
+    twice bit for bit and K11's dK/dV equal to K10's (check_flash_bwd_repeat),
+    and the options (bwd_option_cases) on K8-K11 in bf16, fp16 and f32."""
+    for d in BWD_HEAD_DIMS:
+        h, h_k = (8, 2) if d in HEAD_DIM_TIMED else (4, 2)
+        for dt in (BF16, F16, F32):
+            for causal in (True, False):
+                tag = f"{DT_TAG[dt]},d={d},causal={causal}"
+                if dt == F32:
+                    tensors, kw = f32_case(gen, 2, h, h_k, 100, 130, d, dict(causal=causal))
+                    o, lse, _ = f32_bwd_width(checks, tag, tensors, kw)
+                else:
+                    tensors, kw = flash_case(gen, 2, h, h_k, 100, 130, d,
+                                             dict(causal=causal, dtype=dt))
+                    o, lse, _ = bwd_width(checks, tag, tensors, kw)
+                probs_width(checks, tag, tensors[0], tensors[1], lse, kw)
+                if d in HEAD_DIM_TIMED and causal and dt == BF16:
+                    q, k, v, do = tensors
+                    check_flash_bwd_repeat(checks, (q, k, v, o, lse, do), kw, f"d={d}")
+    for d in HEAD_DIM_TIMED:
+        for dt in (BF16, F16, F32):
+            for oname, tensors, kw, okw in bwd_option_cases(gen, d, dt):
+                tag = f"{DT_TAG[dt]},{oname},d={d}"
+                if dt == F32:
+                    o, lse, _ = f32_bwd_width(checks, tag, tensors, kw)
+                else:
+                    o, lse, _ = bwd_width(checks, tag, tensors, kw, okw)
+                probs_width(checks, tag, tensors[0], tensors[1], lse, kw)
+
+
+def bwd_head_dim_rows(gen, timer, checks):
+    """The timed rows at HEAD_DIM_TIMED, at Phi-3-mini geometry (32 query and
+    32 KV heads) with the head dim set: K9, K10 and K11 at train_s1024's
+    shape (b = 1, 1024 tokens, causal; SDPA's backward beside them) in bf16
+    and in f32, K8 at the api shape (check_api_dense: 2048 tokens, causal,
+    ALiBi, dropout; with K7 and K9-K11 held there under those options) and
+    K8 f32 there. Each row: ms, plain_ms, bound, library_ms, err, tol.
+    Returns {name: row}."""
+    from xf_flash_attention_cutlass_tpu_torch.ops.flash_fwd import (
+        attention_mask,
+        attention_probs,
+        attention_probs_ref,
+        flash_fwd_ref,
+    )
+
+    out = {}
+    for d in HEAD_DIM_TIMED:
+        cfg = dataclasses.replace(phi3_config(), head_dim_override=d)
+        (q, k, v, do), kw = flash_case(gen, 1, 32, 32, 1024, 1024, d, dict(causal=True))
+        o, lse, worst = bwd_width(checks, f"timed,s1024,d={d}", (q, k, v, do), kw)
+        for name, row in time_flash_bwd(timer, (q, k, v, o, lse, do), kw, worst).items():
+            out[f"{name}@d{d}"] = row
+        (q, k, v, do), kw = f32_case(gen, 1, 32, 32, 1024, 1024, d, dict(causal=True))
+        o, lse, worst = f32_bwd_width(checks, f"timed,s1024,d={d}", (q, k, v, do), kw)
+        for name, row in time_f32_bwd(timer, (q, k, v, o, lse, do), kw, worst).items():
+            out[f"{name}@d{d}"] = row
+        del q, k, v, do, o
+        out[f"flash_probs@d{d}"] = check_api_dense(gen, timer, checks, cfg)
+        (q, k, _, _), kw = f32_case(gen, 1, 32, 32, API_S, API_S, d,
+                                    dict(causal=True, alibi=True, dropout=True))
+        _, lse = flash_fwd_ref(q, k, k, **kw)
+        probs, err, tol = probs_width(checks, f"timed,api_s2048,d={d}", q, k, lse, kw)
+        pairs = 32 * int(attention_mask(1, API_S, API_S, "cuda", causal=True).sum())
+        out[f"flash_probs.f32@d{d}"] = dict(
+            ms=timer.ms(lambda: attention_probs(q, k, lse, **kw)),
+            plain_ms=timer.ms(lambda: attention_probs_ref(q, k, lse, **kw), PLAIN_REPS),
+            library_ms=None, bound=bound(nbytes(q, k, lse, probs), 2 * d * pairs, F32_FLOPS),
+            err=err, tol=tol)
+        del q, k, lse, probs
+        torch.cuda.empty_cache()
+    return out
+
+
+def plain_grad_check(gen, cfg, seed, checks, name, dtype, oracle_dtype):
+    """The gradient of a 2-layer copy of cfg (1024 tokens) through the
+    kernels in dtype, against the same model with the plain versions of K7
+    and K9/K10 in the kernels' place, in dtype (the low-precision reference)
+    and in oracle_dtype (the oracle), on the card: the 2x rule on every
+    parameter's gradient (the worst one reported as `name`)."""
+    from xf_flash_attention_cutlass_tpu_torch.models import llama
+    from xf_flash_attention_cutlass_tpu_torch.ops.flash_bwd import flash_bwd_ref
+    from xf_flash_attention_cutlass_tpu_torch.ops.flash_fwd import flash_fwd_ref
+
+    class Plain(torch.autograd.Function):  # flash_attention with the plain versions
+        @staticmethod
+        def forward(ctx, q, k, v, causal, kv_lens):
+            o, lse = flash_fwd_ref(q, k, v, causal=causal, kv_lens=kv_lens)
+            ctx.save_for_backward(q, k, v, o, lse)
+            ctx.causal, ctx.kv_lens = causal, kv_lens
+            return o, lse
+
+        @staticmethod
+        def backward(ctx, do, _dlse):
+            q, k, v, o, lse = ctx.saved_tensors
+            return (*flash_bwd_ref(q, k, v, o, lse, do, causal=ctx.causal,
+                                   kv_lens=ctx.kv_lens), None, None)
+
+    c2 = dataclasses.replace(cfg, n_layers=2)
+    base = llama.init_params(gen, c2, dtype=F32)
+    tokens = torch.from_numpy(np.random.default_rng(seed + 4).integers(
+        0, cfg.vocab_size, (1, 1025))).cuda()
+    grads = {}
+    kernels = llama.flash_attention
+    for run, dt, attention in (("card", dtype, None), ("plain_low", dtype, "plain"),
+                               ("plain_oracle", oracle_dtype, "plain")):
+        params = {n: ({m: t.to(dt) for m, t in x.items()} if isinstance(x, dict) else x.to(dt))
+                  for n, x in base.items()}
+        leaves = [params["embed"], params["final_norm"], params["lm_head"],
+                  *params["layers"].values()]
+        for t in leaves:
+            t.requires_grad_(True)
+        if attention:
+            llama.flash_attention = lambda q, k, v, causal=False, kv_lens=None, fused=None: (
+                Plain.apply(q, k, v, causal, kv_lens))
+        try:
+            grads[run] = torch.autograd.grad(llama.loss_fn(params, tokens, c2), leaves)
+        finally:
+            llama.flash_attention = kernels
+        del params, leaves
+    torch.cuda.synchronize()
+    worst = None
+    for g, glow, gref in zip(grads["card"], grads["plain_low"], grads["plain_oracle"]):
+        r = rule_2x(g, glow, gref)
+        if worst is None or max(r[0], r[1]) / r[2] > max(worst[0], worst[1]) / worst[2]:
+            worst = r
+    checks.add(name, max(worst[0], worst[1]) <= worst[2], max_abs_err=worst[1],
+               err_vs_oracle=worst[0], tolerance=worst[2], parameters=len(grads["card"]),
+               dtype=str(dtype), oracle_dtype=str(oracle_dtype))
+    del grads, base
+    torch.cuda.empty_cache()
+
+
+def train_phi3(gen, checks, paths, seed):
+    """Phi-3-mini-4k widths uncut (phi3_config: 32 layers, head dim 96) in
+    bf16 with random weights from the seed, one 1024-token batch through
+    train(): three two-pass SGD steps (K7, K9, K10), one fused (K11), then
+    the profiled step, every loss finite and falling; a main path whose
+    every K7-K11 launch is at head dim 96 on the rung 128, with no padded
+    copy and no plain call; then the gradient of a 2-layer copy against the
+    plain versions on the card (plain_grad_check, bf16 against f32).
+    Returns the report's row."""
+    cfg = phi3_config()
+    torch.cuda.reset_peak_memory_stats()
+    (ok, row), paths["train_phi3"] = drive("train_phi3", lambda: train(gen, cfg, seed))
+    checks.add("train_phi3.loss_falls", ok, losses=row["losses"])
+    row["head_dim_launches"] = check_head_dim_96(checks, "train_phi3", PATHS["train_phi3"])
+    row["launches"] = paths["train_phi3"]
+    plain_grad_check(gen, cfg, seed, checks, "train_phi3.grad_2layer_vs_plain", BF16, F32)
+    row["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    print(json.dumps({"train_phi3": row}), flush=True)
+    checks.raise_on_failure("train_phi3")
+    return row
+
+
+def api_phi3_calls(gen):
+    """The api's calls at Phi-3 attention width (32 heads, d = 96) through
+    the wrappers a user calls: flash_attn_func at 2048 tokens, causal, ALiBi,
+    dropout 0.1, return_attn_probs, and the gradient of sum(out * w); the
+    packed flash_attn_varlen_func over the 8 serving prompts, causal, and its
+    gradient. Returns each call's inputs and outputs (api_phi3 checks them)."""
+    import xf_flash_attention_cutlass_tpu_torch as xfa
+    from xf_flash_attention_cutlass_tpu_torch.utils.testing import alibi_slopes_ref
+
+    h, d = 32, 96
+
+    def randn(*sh):
+        return torch.randn(sh, generator=gen, device="cuda").bfloat16()
+
+    out = {}
+    xs = [randn(1, API_S, h, d).requires_grad_(True) for _ in range(3)]
+    w = randn(1, API_S, h, d)
+    slopes = torch.from_numpy(alibi_slopes_ref(h)).cuda()
+    o, lse, probs = xfa.flash_attn_func(*xs, dropout_p=API_P, causal=True, alibi_slopes=slopes,
+                                        return_attn_probs=True, dropout_seed=API_SEED)
+    grads = torch.autograd.grad((o.float() * w.float()).sum(), xs)
+    out["dense"] = dict(x=[t.detach() for t in xs], w=w, o=o.detach(), lse=lse, probs=probs,
+                        grads=grads, kw=dict(causal=True, alibi_slopes=slopes, dropout_p=API_P,
+                                             dropout_seed=API_SEED))
+    lens = serving_prompt_lens(0)
+    T = sum(lens)
+    cu = torch.tensor(np.cumsum([0] + lens), dtype=torch.int32, device="cuda")
+    xs = [randn(T, h, d).requires_grad_(True) for _ in range(3)]
+    w = randn(T, h, d)
+    o = xfa.flash_attn_varlen_func(*xs, cu, cu, max(lens), max(lens), causal=True)
+    grads = torch.autograd.grad((o.float() * w.float()).sum(), xs)
+    out["packed"] = dict(x=[t.detach() for t in xs], w=w, o=o.detach(), grads=grads, cu=cu)
+    return out
+
+
+def check_api_phi3_outputs(checks, res):
+    """api_phi3_calls' outputs against the plain versions on the card: O
+    under the 2x rule and the gradients under the 3x rule against the f32
+    oracle's (utils/testing.py, given the port's dropout mask), each also
+    within that tolerance of the plain version's; the dense plane entry by
+    entry against attention_probs_ref on the call's LSE, signs equal. The
+    packed call is held over the packed tokens with the segment ids and
+    positions the varlen entry builds."""
+    from xf_flash_attention_cutlass_tpu_torch.ops.flash_bwd import flash_bwd_ref
+    from xf_flash_attention_cutlass_tpu_torch.ops.flash_fwd import (
+        attention_probs_ref,
+        dropout_keep_mask,
+        flash_fwd_ref,
+    )
+    from xf_flash_attention_cutlass_tpu_torch.ops.varlen import _packed_positions
+    from xf_flash_attention_cutlass_tpu_torch.utils.testing import flash_attention_oracle
+
+    def bhsd(t):  # (b, s, h, d), or packed (T, h, d), as the ops take it
+        return t[None].transpose(1, 2) if t.dim() == 3 else t.transpose(1, 2)
+
+    for name, r in res.items():
+        kw = r.get("kw")
+        q, k, v, w = (bhsd(t) for t in (*r["x"], r["w"]))
+        b, h, s, _ = q.shape
+        okw = dict(kw or {})
+        if name == "packed":
+            qseg, kseg, qpos, kpos = _packed_positions(r["cu"], r["cu"], s, s)
+            kw = dict(causal=True, q_segment_ids=qseg[None], kv_segment_ids=kseg[None],
+                      q_positions=qpos[None], kv_positions=kpos[None])
+            okw = dict(kw)
+        if okw.get("dropout_p"):
+            okw["dropout_mask"] = dropout_keep_mask(okw.pop("dropout_seed"), okw["dropout_p"],
+                                                    b, h, s, s, "cuda")
+        o_plain, lse_plain = flash_fwd_ref(q, k, v, **kw)
+        g_plain = flash_bwd_ref(q, k, v, o_plain, lse_plain, w, **kw)
+
+        def oracle(upcast):
+            xs = [(t.float() if upcast else t).detach().requires_grad_(True) for t in (q, k, v)]
+            out, _ = flash_attention_oracle(*xs, upcast=upcast, **okw)
+            return out.detach(), torch.autograd.grad((out.float() * w.float()).sum(), xs)
+
+        (o32, g32), (olp, glp) = oracle(True), oracle(False)
+        got_o, got_g = bhsd(r["o"]), [bhsd(g) for g in r["grads"]]
+        res_rule = {"o": (max_err(got_o, o32), max_err(got_o, o_plain),
+                          2 * max_err(olp, o32) + 1e-5)}
+        for g, x, x32, xlp, xp in zip(("dq", "dk", "dv"), got_g, g32, glp, g_plain):
+            res_rule[g] = (max_err(x, x32), max_err(x, xp), 3 * max_err(xlp, x32) + 1e-4)
+        extra = {}
+        if "probs" in r:
+            plane = attention_probs_ref(q, k, r["lse"], **kw)
+            excess = float(((r["probs"] - plane).abs() - PROBS_RTOL * plane.abs()).max())
+            extra = dict(probs_excess_over_relative_tolerance=excess,
+                         sign_mismatches=int((torch.signbit(r["probs"])
+                                              != torch.signbit(plane)).sum()))
+            del plane
+        del o32, olp, g32, glp, o_plain, g_plain
+        finite = all(bool(torch.isfinite(t).all()) for t in (got_o, *got_g))
+        checks.add(f"api_phi3.{name}", finite and all(max(e, pe) <= t for e, pe, t in
+                                                      res_rule.values())
+                   and extra.get("sign_mismatches", 0) == 0
+                   and extra.get("probs_excess_over_relative_tolerance", 0.0) <= PROBS_ATOL,
+                   **{f"{n}_err_vs_f32_oracle": x[0] for n, x in res_rule.items()},
+                   **{f"{n}_err": x[1] for n, x in res_rule.items()},
+                   **{f"{n}_tolerance": x[2] for n, x in res_rule.items()}, **extra)
+
+
+def api_phi3(gen, checks, paths, seed):
+    """The api path at Phi-3 attention width (api_phi3_calls) as a main
+    path: K7, K8, K9 and K10, every launch at head dim 96 on the rung 128,
+    no padded copy, no plain call; then its outputs against the plain
+    versions (check_api_phi3_outputs). Returns the report's row."""
+    t0 = time.perf_counter()
+    res, paths["api_phi3"] = drive("api_phi3", lambda: api_phi3_calls(gen))
+    row = dict(first_call_s=time.perf_counter() - t0, launches=paths["api_phi3"],
+               head_dim_launches=check_head_dim_96(checks, "api_phi3", PATHS["api_phi3"]))
+    check_api_phi3_outputs(checks, res)
+    del res
+    torch.cuda.empty_cache()
+    print(json.dumps({"api_phi3": row}), flush=True)
+    checks.raise_on_failure("api_phi3")
+    return row
 
 
 # ---- main ---------------------------------------------------------------------
@@ -5557,6 +5946,12 @@ NOT_ON_PATH.update({
 _PHI3_NOT = _NOT_SERVING + ["paged_attention.prefill.wmma", "paged_attention.pad_copy",
                             "flash_fwd.pad_copy"]
 NOT_ON_PATH.update({"serve_phi3_chunked": _PHI3_NOT, "serve_phi3_bucketed": _PHI3_NOT})
+# phase 10: Phi-3-mini widths trained (K7, K9-K11 at d = 96) and the api's
+# dense calls at its attention width (K7, K8, K9, K10), no padded copy
+PATHS.update({"train_phi3": ["flash_fwd", "flash_bwd.dq", "flash_bwd.dkv", "flash_bwd.fused"],
+              "api_phi3": ["flash_fwd", "flash_probs", "flash_bwd.dq", "flash_bwd.dkv"]})
+_PADS = ["flash_fwd.pad_copy", "flash_probs.pad_copy", "flash_bwd.pad_copy"]
+NOT_ON_PATH.update({"train_phi3": _PADS + _FLASH16[1::2], "api_phi3": _PADS + _FLASH16[1::2]})
 
 
 def head_dim_kernels():
@@ -5570,6 +5965,9 @@ def head_dim_kernels():
             out[f"{label}@d{d}"] = _K1
         out[f"flash_fwd@d{d}"] = KERNELS["flash_fwd"]
         out[f"flash_fwd.f32@d{d}"] = KERNELS["flash_fwd.f32"]
+        for label in ("flash_probs", *_BWD):
+            out[f"{label}@d{d}"] = KERNELS[label]
+            out[f"{label}.f32@d{d}"] = KERNELS[f"{label}.f32"]
     return out
 
 
@@ -5651,6 +6049,7 @@ def main():
     report["flash_probs_build"] = probs_build_report(checks, libs["flash_probs"])
     report["flash_f32_build"] = flash_f32_build_report(checks)
     report["wide_build"] = wide_build_report(checks, libs)
+    report["bwd_wide_build"] = bwd_wide_build_report(checks, libs)
 
     # 2. kernels against their plain versions, at the main paths' shapes
     cfg = LlamaConfig.llama8b()
@@ -5889,7 +6288,23 @@ def main():
     report["serve_phi3"] = serve_phi3(gen, checks, paths, args.seed)
     mark("serve_phi3")
 
-    # 10. the kernels line, the card, the result
+    # 10. K8 and K9-K11 at every head dim from 16 to 256 against their plain
+    # versions, the rows at d = 96 and 256 timed; then Phi-3-mini widths
+    # trained and the api's dense calls at its attention width
+    check_bwd_head_dims(gen, checks)
+    checks.raise_on_failure("backward head dims")
+    bwd_rows = bwd_head_dim_rows(gen, Timer(), checks)
+    measured.update(bwd_rows)
+    report["bwd_head_dim_kernels"] = bwd_rows
+    print(json.dumps({"bwd_head_dim_kernels": bwd_rows}), flush=True)
+    checks.raise_on_failure("backward head-dim rows")
+    torch.cuda.empty_cache()
+    mark("bwd_head_dims")
+    report["train_phi3"] = train_phi3(gen, checks, paths, args.seed)
+    report["api_phi3"] = api_phi3(gen, checks, paths, args.seed)
+    mark("train_phi3")
+
+    # 11. the kernels line, the card, the result
     kernels = []
     for name, (source, replaces) in dict(KERNELS, **head_dim_kernels()).items():
         r = measured[name]
@@ -5918,6 +6333,9 @@ def main():
                 for shape, o in r["other_shapes"].items()}
     report["kernels"], report["checks"] = kernels, checks.cases
     report["phase_s"], report["total_s"] = phase_s, time.perf_counter() - t_start
+    report["device_traces"] = DEVICE_TRACES
+    print(json.dumps({"device_traces_short": [t for t in DEVICE_TRACES
+                                              if t["recorded"] != t["launched"]]}), flush=True)
     print(json.dumps({"phase_s": phase_s}), flush=True)
     if args.out:
         os.makedirs(args.out, exist_ok=True)

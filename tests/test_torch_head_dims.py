@@ -1,6 +1,6 @@
 """PyTorch port vs the JAX package: K1 (paged attention) and K7 (the dense
 flash forward) at head dims other than 64 and 128, and an engine at head
-dim 96.
+dim 96 (K8 and K9-K11 at every head dim: test_torch_bwd_head_dims.py).
 
 On CUDA both kernels take every head dim from 1 to 256: each is
 instantiated at the rungs 64, 128, 192 and 256 and serves d with the
@@ -104,28 +104,26 @@ def test_k1_route_rung_and_copy_for_every_head_dim(q_dt, kv_dt):
 
 @pytest.mark.parametrize("dtype", [BF16, F16, F32], ids=["bf16", "f16", "f32"])
 def test_k7_rung_and_copy_for_every_head_dim(dtype):
-    """K7 runs d itself when its rows are whole 16-byte chunks (a multiple
-    of 8 in bf16 / fp16, of 4 in f32), else the next such width, on the
-    smallest rung >= it; the wide rungs are their own library; K8 and
-    K9-K11 still take 64 and 128 only, and raise naming themselves."""
+    """K7, and since K8 and K9-K11 take every head dim too, each of them,
+    runs d itself when its rows are whole 16-byte chunks (a multiple of 8
+    in bf16 / fp16, of 4 in f32), else the next such width, on the smallest
+    rung >= it; the wide rungs of the 16-bit kernels are libraries of their
+    own; d = 0 and 257 raise naming the kernel."""
     align = 4 if dtype == F32 else 8
+    names = {"flash_fwd": "flash forward (K7)", "flash_probs": "attention probs (K8)",
+             "flash_bwd": "flash backward (K9-K11)"}
     for d in range(1, 257):
-        dm = ff.k7_head_dim(d, dtype)
-        assert dm % align == 0 and d <= dm < d + align
-        assert ff.k7_rung(dm) == paged.head_dim_rung(dm)
-        lib, name = ff.flash_entry("flash_fwd", "flash_fwd", dtype, dm)
-        assert lib == ("flash_f32" if dtype == F32 else
-                       "flash_fwd_wide" if dm > 128 else "flash_fwd")
-        assert ff.flash_entry("flash_probs", "flash_probs", dtype, dm)[0] in (
-            "flash_probs", "flash_f32")
-        for what in ("attention probs (K8)", "flash backward (K9-K11)"):
-            if d in (64, 128):
-                ff.check_cuda_head_dim(what, d)
-            else:
-                with pytest.raises(ValueError, match=what.replace("(", "\\(").replace(")", "\\)")):
-                    ff.check_cuda_head_dim(what, d)
-    with pytest.raises(ValueError, match="K7"):
-        ff.k7_head_dim(257, dtype)
+        for lib0, what in names.items():
+            dm = ff.flash_head_dim(d, dtype, what)
+            assert dm % align == 0 and d <= dm < d + align
+            assert ff.flash_rung(dm) == paged.head_dim_rung(dm)
+            lib, _ = ff.flash_entry(lib0, lib0, dtype, dm)
+            assert lib == ("flash_f32" if dtype == F32 else
+                           f"{lib0}_wide" if dm > 128 else lib0)
+    for d in (0, 257):
+        for what in names.values():
+            with pytest.raises(ValueError, match=what.replace("(", "\\(").replace(")", "\\)")):
+                ff.flash_head_dim(d, dtype, what)
 
 
 def test_padded_routes_keep_the_real_softmax_scale(monkeypatch):
@@ -269,7 +267,7 @@ def test_k7_plain_matches_jax_kernel(d):
     q, k, v = _flash_case(40 + d, d)
     jo, jl = j_flash_fwd(q, k, v, causal=True)
     to, tl = ff.flash_fwd(_t(q), _t(k), _t(v), causal=True)
-    assert ff.k7_head_dim(d, BF16) == d
+    assert ff.flash_head_dim(d, BF16) == d
     assert_close_2ref(to, _flash_reference(q, k, v, True), _t(jo).float())
     assert_close_2ref(tl, _lse_reference(q, k), _t(jl))
 
@@ -280,7 +278,7 @@ def test_k7_padded_copy_matches_jax_kernel(d):
     version, O cut back to d) against the JAX kernel, which pads to 128
     inside: the 2x rule on O and on LSE."""
     q, k, v = _flash_case(50 + d, d)
-    dm = ff.k7_head_dim(d, BF16)
+    dm = ff.flash_head_dim(d, BF16)
     assert dm > d
     to, tl = ff.flash_fwd_padded(_t(q), _t(k), _t(v), dm, causal=True)
     jo, jl = j_flash_fwd(q, k, v, causal=True)
@@ -291,11 +289,14 @@ def test_k7_padded_copy_matches_jax_kernel(d):
 
 # ---- the refusals that stay ----------------------------------------------------
 
-def test_k8_and_k9_k11_refuse_head_dim_96_by_name():
+@pytest.mark.parametrize("d", [257, 59], ids=["d257", "d59_unpadded"])
+def test_k8_and_k9_k11_refuse_head_dim_by_name(d):
     """K8's and K9-K11's CUDA wrappers check their inputs before they touch
-    the card: at d = 96 each raises ValueError naming itself (the next
-    slice's work); nothing falls back to a plain version."""
-    x = torch.zeros((1, 2, 64, 96), dtype=BF16)
+    the card: at d = 257 (past every rung), and at d = 59 handed to them
+    unpadded (rows of no whole 16-byte chunks, which attention_probs and
+    flash_bwd copy to 64 first), each raises ValueError naming itself;
+    nothing falls back to a plain version."""
+    x = torch.zeros((1, 2, 64, d), dtype=BF16)
     lse = torch.zeros((1, 2, 64))
     ex = ff.Extras(1, 2, 64, 64, "cpu")
     with pytest.raises(ValueError, match="attention probs \\(K8\\)"):

@@ -4,8 +4,9 @@ Each source in ``csrc/*.cu`` is compiled by its own ``nvcc`` process into a
 shared library with a plain C interface, and loaded with ``ctypes``;
 paged_attention.cu and qmm.cu are compiled twice, their fp16 instantiations
 (-DXFA_HALF) apart from the rest, and the head-dim rungs 192 and 256 of K1
-(paged_attention.cu, bf16 and fp16) and K7 (flash_fwd.cu) once more
-(-DXFA_WIDE) apart from the rungs 64 and 128; the dense flash family's f32
+(paged_attention.cu, bf16 and fp16), K7 (flash_fwd.cu), K8 (flash_probs.cu)
+and K9-K11 (flash_bwd.cu) once more (-DXFA_WIDE) apart from the rungs 64
+and 128; the dense flash family's f32
 kernels have a source of their own (flash_f32.cu). All
 sources are compiled together, in parallel, at first use; the libraries go
 to ``build/`` inside the package (listed in ``.gitignore``) under a name
@@ -38,14 +39,18 @@ BUILD_DIR = os.path.join(PKG_DIR, "build")
 # or, for a variant, from another source with its defines
 SOURCES = ("paged_attention", "paged_attention_f16", "paged_attention_wide",
            "paged_attention_f16_wide", "paged_append", "qmm", "qmm_f16", "flash_fwd",
-           "flash_fwd_wide", "flash_probs", "flash_bwd", "flash_f32")
+           "flash_fwd_wide", "flash_probs", "flash_probs_wide", "flash_bwd", "flash_bwd_wide",
+           "flash_f32")
 # K1's and K3/K4's fp16 instantiations, built apart from the bf16 and f32 ones
-# (XFA_HALF), and K1's and K7's head-dim rungs 192 and 256 apart from 64 and
-# 128 (XFA_WIDE), so that the parts of those sources compile in parallel
+# (XFA_HALF), and the head-dim rungs 192 and 256 of K1, K7, K8 and K9-K11
+# apart from 64 and 128 (XFA_WIDE), so that the parts of those sources
+# compile in parallel
 VARIANTS = {"paged_attention_f16": ("paged_attention", ["-DXFA_HALF"]),
             "paged_attention_wide": ("paged_attention", ["-DXFA_WIDE"]),
             "paged_attention_f16_wide": ("paged_attention", ["-DXFA_HALF", "-DXFA_WIDE"]),
             "flash_fwd_wide": ("flash_fwd", ["-DXFA_WIDE"]),
+            "flash_probs_wide": ("flash_probs", ["-DXFA_WIDE"]),
+            "flash_bwd_wide": ("flash_bwd", ["-DXFA_WIDE"]),
             "qmm_f16": ("qmm", ["-DXFA_HALF"])}
 
 NVCC_FLAGS = [
@@ -161,7 +166,7 @@ LABEL_SUFFIX = {torch.bfloat16: "", torch.float16: ".f16", torch.float32: ".f32"
 # main path and reads them after, to show which path the run took.
 LAUNCHES: Counter = Counter()
 PLAIN_CALLS: Counter = Counter()
-# The launches of the kernels that take any head dim (K1, K7), again by the
+# The launches of the kernels that take any head dim (K1, K7-K11), again by the
 # head dim d and the rung D of the instantiation that served it: key
 # "<label>@d<d>/D<D>". Kept beside LAUNCHES, whose labels are unchanged.
 HEAD_DIM_LAUNCHES: Counter = Counter()

@@ -85,6 +85,18 @@
 // replays the forward's mask) has dV's P and dS's dP zeroed, the kept ones
 // scaled by 1 / (1 - p). K10 and K11 key each group member by its own q head.
 //
+// Head dims: every kernel is instantiated at the rungs D = 64, 128, 192 and
+// 256 (the library built with XFA_WIDE holds 192 and 256) and serves any d
+// up to 256 with the smallest rung D >= d, as K7 does (flash_fwd.cu): the
+// tensor maps take the real d as their inner extent, so TMA fills a tile's
+// columns from d to D with zeros, which add nothing to S or dP and give dQ,
+// dK and dV columns that are never stored (K11 adds all D columns of dQ into
+// its f32 buffer, which the wrapper allocates D wide when d < D and cuts
+// back, so its atomic loop takes no test). Rows must be 16-byte multiples
+// (d % 8 == 0; ops/flash_bwd.py pads other widths with a copy). K9 at 192
+// and 256 runs one block an SM; K10 and K11 there split the work between
+// their warpgroups by tensor (flash_bwd_dkv_wide_kernel, below).
+//
 // Bound on an H100: operations (three 64 x 64 x d products per live tile
 // pair in K9, four in K10, five in K11, against two 64 x d tiles read a pair).
 #include <type_traits>
@@ -110,6 +122,7 @@ struct BwdArgs {
   const int32_t *kv_lens, *qseg, *kseg;
   int64_t st[kOperands][3];
   int b, h, h_k, sq, sk, wl, wr;
+  int d;  // the head dim: the kernel's D is its rung, columns past d are zeros
   float scale, softcap;
   XfaExtras ex;
 };
@@ -130,20 +143,23 @@ struct BwdParams {
   const int32_t* qseg;
   const int32_t* kseg;
   int b, h, h_k, sq, sk, wl, wr;
+  int d;
   float scale, softcap;
 };
 
-// rows krow, krow + 8 of a 64 x D accumulator (wgmma layout) as T pairs
+// rows krow, krow + 8 of a 64 x D accumulator (wgmma layout) as T pairs;
+// the rows are d wide (d % 8 == 0), the columns past d are not stored
 template <typename T, int D>
 __device__ __forceinline__ void store_rows(T* base, int64_t row_stride, const float (&x)[D / 2],
-                                           int krow, int n_rows, int col) {
+                                           int krow, int n_rows, int col, int d) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int kj = krow + 8 * r;
     if (kj >= n_rows) continue;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<uint32_t*>(base + kj * row_stride + n * 8 + col) =
+      if (n * 8 < d)
+        *reinterpret_cast<uint32_t*>(base + kj * row_stride + n * 8 + col) =
           Mma<T>::pack(x[4 * n + 2 * r], x[4 * n + 2 * r + 1]);
   }
 }
@@ -152,11 +168,18 @@ __device__ __forceinline__ void store_rows(T* base, int64_t row_stride, const fl
 
 constexpr int kStagesDq = 2;          // K/V ring depth
 constexpr int kDqThreads = 128 + 128;  // the consumer warpgroup, then the producer warpgroup
-// Two blocks an SM. ptxas budgets registers by warpgroup: with a lone
-// producer warp it left the consumer 168 registers and d = 128 spilled, so
-// the producer warpgroup hands its registers to the consumer (setmaxnreg).
+// Two blocks an SM at D 64 and 128. ptxas budgets registers by warpgroup:
+// with a lone producer warp it left the consumer 168 registers and d = 128
+// spilled, so the producer warpgroup hands its registers to the consumer
+// (setmaxnreg). At D 192 and 256 (dQ alone takes 96 or 128 registers a
+// thread, the tiles 144 or 192 KB) one block an SM, whose threads may take
+// 255 registers each without a hand-over.
 constexpr int kDqProducerRegs = 40, kDqConsumerRegs = 216;
 static_assert(2 * 128 * (kDqProducerRegs + kDqConsumerRegs) <= 65536, "register file");
+template <int D>
+__host__ __device__ constexpr int dq_blocks() {
+  return D >= 192 ? 1 : 2;
+}
 
 // Shared memory of a K9 block, from a 1024-byte aligned base: the Q and the
 // dO tile (D / 64 sub-tiles of 64 rows x 64 columns each), the ring of (K
@@ -169,7 +192,7 @@ struct DqLayout {
   static constexpr int kStageBytes = 2 * kTileBytes;
   static constexpr int kBarOffset = kRingOffset + kStagesDq * kStageBytes;
   static constexpr int kBytes = kBarOffset + 8 * (1 + 2 * kStagesDq) + 1024;  // + alignment
-  static_assert(2 * kBytes <= 232448, "two blocks an SM");
+  static_assert(dq_blocks<D>() * kBytes <= 232448, "the blocks of an SM");
 };
 
 // Dropout bits of a thread's 32 entries in the accumulator layout (bit i:
@@ -199,7 +222,7 @@ __device__ __forceinline__ uint32_t dropout_bits_q(const XfaExtras& ex, int ib, 
 }
 
 template <typename T, int D, bool kExtra>
-__global__ void __launch_bounds__(kDqThreads, 2)
+__global__ void __launch_bounds__(kDqThreads, dq_blocks<D>())
     flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
                         const __grid_constant__ CUtensorMap tm_k,
                         const __grid_constant__ CUtensorMap tm_v,
@@ -249,7 +272,7 @@ __global__ void __launch_bounds__(kDqThreads, 2)
   __syncthreads();
 
   if (threadIdx.x >= 128) {  // the producer warpgroup; one lane issues
-    setmaxnreg_dec<kDqProducerRegs>();
+    if constexpr (dq_blocks<D>() == 2) setmaxnreg_dec<kDqProducerRegs>();
     if (threadIdx.x == 128) {
       mbar_arrive_expect_tx(q_full, 2 * L::kTileBytes);
 #pragma unroll
@@ -276,7 +299,7 @@ __global__ void __launch_bounds__(kDqThreads, 2)
   }
 
   // ---- the consumer warpgroup: rows row, row + 8 of each warp's 16 ----
-  setmaxnreg_inc<kDqConsumerRegs>();
+  if constexpr (dq_blocks<D>() == 2) setmaxnreg_inc<kDqConsumerRegs>();
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int row = q0 + warp * 16 + (lane >> 2);
@@ -409,7 +432,7 @@ __global__ void __launch_bounds__(kDqThreads, 2)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk)
-      Wgmma<T, D>::rs_tb(acc, sa[kk], desc_sw128(kt + kk * 16 * 128, kBK * 128, 1024), 1);
+      wgmma_rs_tb_rung<T, D>(acc, sa[kk], kt + kk * 16 * 128, kBK * 128);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(acc);
@@ -420,7 +443,7 @@ __global__ void __launch_bounds__(kDqThreads, 2)
 
   // epilogue: dQ in T through dq's strides; rows past sq are not stored
   store_rows<T, D>(static_cast<T*>(p.dq) + ib * p.dq_s[0] + ih * p.dq_s[1], p.dq_s[2], acc, row,
-                   p.sq, col);
+                   p.sq, col, p.d);
 }
 
 // ---- K10 / K11: dK, dV (and dQ by atomics) on Hopper ---------------------------
@@ -805,13 +828,367 @@ __global__ void __launch_bounds__(kDkvThreads, 1)
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) dk[i] += red[(D / 2 + i) * 128 + tid];
     store_rows<T, D>(static_cast<T*>(p.dk) + ib * p.dk_s[0] + ihk * p.dk_s[1], p.dk_s[2], dk,
-                     krow, p.sk, col);
+                     krow, p.sk, col, p.d);
   } else {
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) dv[i] += red[i * 128 + tid];
     store_rows<T, D>(static_cast<T*>(p.dv) + ib * p.dv_s[0] + ihk * p.dv_s[1], p.dv_s[2], dv,
-                     krow, p.sk, col);
+                     krow, p.sk, col, p.d);
   }
+}
+
+// ---- K10 / K11 at the rungs 192 and 256 --------------------------------------
+
+// At D 192 and 256 a warpgroup cannot hold both dK and dV (96 + 96 or
+// 128 + 128 floats a thread, beside S^T and dP^T), and four ring stages pass
+// the shared memory. So the two consumer warpgroups split the work by
+// tensor, each over the whole D: warpgroup 0 runs S^T = K Q^T, recomputes
+// P^T and sums dV += P^T dO; warpgroup 1 runs dP^T = V dO^T, takes P^T (f32,
+// times the softcap's derivative) from warpgroup 0 through shared memory,
+// forms dS^T and sums dK += dS^T Q (K11: and dQ = dS K). Each pair costs
+// each warpgroup one 64 x 64 x D recompute product and one 64 x D x 64
+// accumulation, the narrow kernel's two warpgroups' share; each holds one
+// 64 x D accumulator, as K7 and K9 do at these rungs. Two ring stages.
+// Every pair passes through both warpgroups, so each stage is released by
+// both (empty barrier of count 2), and the epilogue is a plain store of each
+// warpgroup's sum: K10 stays bit-reproducible, and K11's dK and dV are
+// K10's.
+constexpr int kStagesWide = 2;
+constexpr int kBarPFull = 4, kBarPEmpty = 5;  // named barriers of the P^T hand-over
+
+// Shared memory of a wide K10/K11 block, from a 1024-byte aligned base: the K
+// and the V tile, the ring of (Q tile, dO tile) stages, the P^T hand-over
+// (f32, element i of thread t at i * 128 + t: the accumulator layout of both
+// warpgroups), warpgroup 1's dS^T tile (K11), each thread's dropout bits,
+// per stage the rows' LSE, Delta, ALiBi slopes and positions, the barriers.
+template <int D>
+struct DkvWideLayout {
+  static constexpr int kSub = D / 64;
+  static constexpr int kTileBytes = 64 * D * 2;
+  static constexpr int kRingOffset = 2 * kTileBytes;
+  static constexpr int kStageBytes = 2 * kTileBytes;
+  static constexpr int kPOffset = kRingOffset + kStagesWide * kStageBytes;
+  static constexpr int kPBytes = kBK * kBQ * 4;
+  static constexpr int kDsOffset = kPOffset + kPBytes;
+  static constexpr int kDsBytes = kBK * kBQ * 2;
+  static constexpr int kDropOffset = kDsOffset + kDsBytes;
+  static constexpr int kAuxOffset = kDropOffset + 128 * 4;
+  static constexpr int kAuxBytes = 4 * kBQ * 4;
+  static constexpr int kBarOffset = kAuxOffset + kStagesWide * kAuxBytes;
+  static constexpr int kBytes = kBarOffset + 8 * (1 + 2 * kStagesWide) + 1024;  // + alignment
+  static_assert(kDsOffset % 1024 == 0, "the swizzled dS^T tile");
+  static_assert(kBytes <= 232448, "shared memory of one block");
+};
+
+template <typename T, int D, bool kFused, bool kExtra>
+__global__ void __launch_bounds__(kDkvThreads, 1)
+    flash_bwd_dkv_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
+                              const __grid_constant__ CUtensorMap tm_k,
+                              const __grid_constant__ CUtensorMap tm_v,
+                              const __grid_constant__ CUtensorMap tm_do, const BwdParams p,
+                              const XfaExtras ex) {
+  using L = DkvWideLayout<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::kBarOffset);
+  uint64_t* kv_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + kStagesWide;
+  unsigned char* k_tile = smem;
+  unsigned char* v_tile = smem + L::kTileBytes;
+  auto q_tile = [&](int st) { return smem + L::kRingOffset + st * L::kStageBytes; };
+  auto do_tile = [&](int st) { return q_tile(st) + L::kTileBytes; };
+  auto aux = [&](int st) {
+    return reinterpret_cast<float*>(smem + L::kAuxOffset + st * L::kAuxBytes);
+  };
+  float* p_share = reinterpret_cast<float*>(smem + L::kPOffset);
+  uint32_t* drop_share = reinterpret_cast<uint32_t*>(smem + L::kDropOffset);
+  unsigned char* ds_tile = smem + L::kDsOffset;
+
+  // heaviest first: key tile 0 of every (batch, kv head) launches first
+  const int nbh = p.b * p.h_k;
+  const int ik = static_cast<int>(blockIdx.x) / nbh;
+  const int ihk = static_cast<int>(blockIdx.x) % nbh % p.h_k;
+  const int ib = static_cast<int>(blockIdx.x) % nbh / p.h_k;
+  const int group = p.h / p.h_k;
+  const int k0 = ik * kBK;
+  Mask mask = make_mask(ib, p.sq, p.sk, p.wl, p.wr, p.kv_lens, p.qseg, p.kseg, ex);
+  if constexpr (!kExtra) mask.qpos = mask.kpos = nullptr;
+
+  int q_lo, q_hi;
+  mask.query_range(k0, k0 + kBK, q_lo, q_hi);
+  const int q_first = (q_lo / kBQ) * kBQ;
+  auto needs = [&](int q0) {
+    if constexpr (kExtra) return tiles_meet(ex, mask, ib, q0, k0);
+    return true;
+  };
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int st = 0; st < kStagesWide; ++st) {
+      mbar_init(&full[st], 1 + 32);  // the TMA lane and the warp that writes the rows' values
+      mbar_init(&empty[st], kWG);    // both consumer warpgroups read every stage
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kWG * 128) {  // the producer warpgroup, as in the narrow kernel
+    setmaxnreg_dec<kProducerRegs>();
+    const int pt = threadIdx.x - kWG * 128;
+    if (pt == 0) {
+      mbar_arrive_expect_tx(kv_full, 2 * L::kTileBytes);
+#pragma unroll
+      for (int s = 0; s < L::kSub; ++s) {
+        tma_load_4d(k_tile + s * kBK * 128, &tm_k, kv_full, s * 64, k0, ihk, ib);
+        tma_load_4d(v_tile + s * kBK * 128, &tm_v, kv_full, s * 64, k0, ihk, ib);
+      }
+      int it = 0;
+      for (int g = 0; g < group; ++g) {
+        const int ih = ihk * group + g;
+        for (int q0 = q_first; q0 < q_hi; q0 += kBQ) {
+          if (!needs(q0)) continue;
+          const int st = it % kStagesWide;
+          const uint32_t phase = (it / kStagesWide) & 1;
+          ++it;
+          mbar_wait(&empty[st], phase ^ 1);
+          mbar_arrive_expect_tx(&full[st], 2 * L::kTileBytes);
+#pragma unroll
+          for (int s = 0; s < L::kSub; ++s) {
+            tma_load_4d(q_tile(st) + s * kBQ * 128, &tm_q, &full[st], s * 64, q0, ih, ib);
+            tma_load_4d(do_tile(st) + s * kBQ * 128, &tm_do, &full[st], s * 64, q0, ih, ib);
+          }
+        }
+      }
+    } else if (pt >= 32 && pt < 64) {
+      const int lane = pt - 32;
+      int it = 0;
+      for (int g = 0; g < group; ++g) {
+        const int ih = ihk * group + g;
+        const size_t bh = static_cast<size_t>(ib) * p.h + ih;
+        for (int q0 = q_first; q0 < q_hi; q0 += kBQ) {
+          if (!needs(q0)) continue;
+          const int st = it % kStagesWide;
+          const uint32_t phase = (it / kStagesWide) & 1;
+          ++it;
+          mbar_wait(&empty[st], phase ^ 1);
+          float* a = aux(st);
+#pragma unroll
+          for (int i = lane; i < kBQ; i += 32) {
+            const int qi = q0 + i;
+            const bool live = qi < p.sq;
+            a[i] = live ? safe_lse(p.lse[bh * p.sq + qi]) : 3.0e38f;
+            a[kBQ + i] = live ? p.delta[bh * p.sq + qi] : 0.f;
+            if constexpr (kExtra) {
+              a[2 * kBQ + i] = alibi_slope(ex, ib, ih, p.h, p.sq, qi);
+              a[3 * kBQ + i] = static_cast<float>(mask.qp(qi));
+            }
+          }
+          mbar_arrive(&full[st]);
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- the consumer warpgroups: 0 takes S^T, P^T and dV; 1 dP^T, dS^T, dK ----
+  setmaxnreg_inc<kConsumerRegs>();
+  const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int krow = k0 + warp * 16 + (lane >> 2);
+  const int col = (lane & 3) * 2;
+  const bool dropout = kExtra && ex.drop_thresh != 0;
+  const float drop_scale = kExtra ? ex.drop_scale : 1.f;
+  const bool general = kExtra || p.softcap > 0.f;
+  const bool alibi = kExtra && (ex.alibi != nullptr || ex.row_slopes != nullptr);
+  const float kpos_f[2] = {static_cast<float>(mask.kp(krow)),
+                           static_cast<float>(mask.kp(krow + 8))};
+  const float scale_log2 = p.scale * kLog2e;
+
+  float acc[D / 2];  // warpgroup 0: dV, 1: dK (64 keys x D)
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float s[kBQ / 2];  // warpgroup 0: S^T then P^T z; 1: dP^T then dS^T
+#pragma unroll
+  for (int i = 0; i < kBQ / 2; ++i) s[i] = 0.f;
+
+  mbar_wait(kv_full, 0);
+  int it = 0;
+  for (int g = 0; g < group; ++g) {
+    const int ih = ihk * group + g;
+    for (int q0 = q_first; q0 < q_hi; q0 += kBQ) {
+      if (!needs(q0)) continue;
+      const int mine = it++;
+      const int st = mine % kStagesWide;
+      mbar_wait(&full[st], (mine / kStagesWide) & 1);
+      const unsigned char* qt = q_tile(st);
+      const unsigned char* dot = do_tile(st);
+      const float* lse_s = aux(st);
+      const float* delta_s = lse_s + kBQ;
+      const float* slope_s = lse_s + 2 * kBQ;
+      const float* qpos_s = lse_s + 3 * kBQ;
+
+      // warpgroup 0: S^T = K Q^T; warpgroup 1: dP^T = V dO^T (both K-major)
+      const unsigned char* a_op = wg == 0 ? k_tile : v_tile;
+      const unsigned char* b_op = wg == 0 ? qt : dot;
+      fence_regs(s);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int off = (kk / 4) * 64 * 128 + (kk % 4) * 32;
+        Wgmma<T, kBQ>::ss(s, desc_sw128(a_op + off, 16, 1024), desc_sw128(b_op + off, 16, 1024),
+                          kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+
+      if (wg == 0) {
+        // P^T per entry: element i is key krow + 8 ((i >> 1) & 1), query
+        // q0 + 8 (i >> 2) + col + (i & 1); the mask on boundary pairs only.
+        // Warpgroup 1 takes P (times the softcap's derivative) for dS; dV
+        // takes P z (dropout)
+        const bool inner = tile_interior<kExtra>(mask, ex, ib, q0, k0);
+        uint32_t masked = 0, dropped = 0;
+        if (general) {
+          if (!inner) {
+#pragma unroll 1
+            for (int i = 0; i < kBQ / 2; ++i)
+              if (!mask.keep(q0 + 8 * (i >> 2) + col + (i & 1), krow + 8 * ((i >> 1) & 1)))
+                masked |= 1u << i;
+          }
+          if (dropout) dropped = dropout_bits_t(ex, ib, ih, q0, krow, col, lane);
+        }
+        if (mine > 0) named_barrier_sync(kBarPEmpty, 256);  // warpgroup 1 has read the last P
+        if (!general) {
+#pragma unroll
+          for (int j = 0; j < kBQ / 8; ++j) {
+            const float2 l = *reinterpret_cast<const float2*>(lse_s + 8 * j + col);
+            const float l2[2] = {l.x * kLog2e, l.y * kLog2e};
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int i = 4 * j + e;
+              float pv = exp2f(fmaf(s[i], scale_log2, -l2[e & 1]));
+              if (!inner && !mask.keep(q0 + 8 * j + col + (e & 1), krow + 8 * (e >> 1))) pv = 0.f;
+              s[i] = pv;
+              p_share[i * 128 + tid] = pv;
+            }
+          }
+        } else {
+#pragma unroll
+          for (int i = 0; i < kBQ / 2; ++i) {
+            const int qc = 8 * (i >> 2) + col + (i & 1);
+            float x = s[i] * p.scale, dtanh = 1.f;
+            if (p.softcap > 0.f) {
+              const float th = tanhf(x / p.softcap);
+              x = th * p.softcap;
+              dtanh = 1.f - th * th;
+            }
+            if (alibi) x -= slope_s[qc] * fabsf(qpos_s[qc] - kpos_f[(i >> 1) & 1]);
+            const float pv = (masked >> i) & 1 ? 0.f : expf(x - lse_s[qc]);
+            p_share[i * 128 + tid] = pv * dtanh;
+            s[i] = (dropped >> i) & 1 ? 0.f : pv * drop_scale;
+          }
+          if (dropout) drop_share[tid] = dropped;
+        }
+        named_barrier_arrive(kBarPFull, 256);
+      } else {
+        named_barrier_sync(kBarPFull, 256);
+        // dS^T = P (dP^T z - Delta) (times the softcap's derivative, in P) * scale
+        const uint32_t dropped = dropout ? drop_share[tid] : 0u;
+#pragma unroll
+        for (int j = 0; j < kBQ / 8; ++j) {
+          const float2 dl = *reinterpret_cast<const float2*>(delta_s + 8 * j + col);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = 4 * j + e;
+            const float pv = p_share[i * 128 + tid];
+            const float z = (dropped >> i) & 1 ? 0.f : drop_scale;
+            const float dpz = general ? s[i] * z : s[i];
+            s[i] = pv * (dpz - ((e & 1) ? dl.y : dl.x)) * p.scale;
+          }
+        }
+        named_barrier_arrive(kBarPEmpty, 256);
+      }
+
+      // warpgroup 0: dV += P^T dO (P rounded to dO's dtype); 1: dK += dS^T Q
+      // (dS to Q's dtype): A from registers, B MN-major from the ring
+      uint32_t pa[kBQ / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kBQ / 16; ++kk) {
+#pragma unroll
+        for (int w = 0; w < 4; ++w)
+          pa[kk][w] = Mma<T>::pack(s[8 * kk + 2 * w], s[8 * kk + 2 * w + 1]);
+      }
+      const unsigned char* b_acc = wg == 0 ? dot : qt;
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBQ / 16; ++kk)
+        wgmma_rs_tb_rung<T, D>(acc, pa[kk], b_acc + kk * 16 * 128, kBQ * 128);
+      wgmma_commit();
+      if constexpr (kFused) {
+        if (wg == 1) {  // dS^T into the swizzled tile, keys as rows (as the narrow kernel)
+#pragma unroll
+          for (int kk = 0; kk < kBQ / 16; ++kk) {
+#pragma unroll
+            for (int w = 0; w < 4; ++w) {
+              const int kr = warp * 16 + (lane >> 2) + 8 * (w & 1);
+              const int chunk = (2 * kk + (w >> 1)) ^ (lane >> 2);
+              *reinterpret_cast<uint32_t*>(ds_tile + kr * 128 + chunk * 16 + col * 2) = pa[kk][w];
+            }
+          }
+          fence_proxy_async();
+          named_barrier_sync(2, 128);
+        }
+      }
+      wgmma_wait<0>();
+      fence_regs(acc);
+#pragma unroll
+      for (int kk = 0; kk < kBQ / 16; ++kk) fence_regs(pa[kk]);
+      if (tid == 0) mbar_arrive(&empty[st]);  // this warpgroup is done with the stage
+
+      if constexpr (kFused) {
+        if (wg == 1) {  // dQ (64 queries x D) = dS K, 64 columns at a time, added by atomics
+          float* dqb = static_cast<float*>(p.dq) + ib * p.dq_s[0] + ih * p.dq_s[1];
+#pragma unroll 1
+          for (int half = 0; half < D / 64; ++half) {
+            float dq[32];
+            wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < kBK / 16; ++kk)
+              Wgmma<T, 64>::ss_tt(dq, desc_sw128(ds_tile + kk * 16 * 128, kBQ * 128, 1024),
+                                  desc_sw128(k_tile + half * kBK * 128 + kk * 16 * 128,
+                                             kBK * 128, 1024),
+                                  kk > 0);
+            wgmma_commit();
+            wgmma_wait<0>();
+            fence_regs(dq);
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              const int qi = q0 + warp * 16 + (lane >> 2) + 8 * r;
+              if (qi >= p.sq) continue;
+#pragma unroll
+              for (int n = 0; n < 8; ++n)
+                atomicAdd(
+                    reinterpret_cast<float2*>(dqb + qi * p.dq_s[2] + half * 64 + n * 8 + col),
+                    make_float2(dq[4 * n + 2 * r], dq[4 * n + 2 * r + 1]));
+            }
+          }
+        }
+      }
+    }
+  }
+  // the last P^T hand-over: warpgroup 1's final arrival
+  if (wg == 0 && it > 0) named_barrier_sync(kBarPEmpty, 256);
+
+  // epilogue: each warpgroup stores its own sum in T
+  if (wg == 0)
+    store_rows<T, D>(static_cast<T*>(p.dv) + ib * p.dv_s[0] + ihk * p.dv_s[1], p.dv_s[2], acc,
+                     krow, p.sk, col, p.d);
+  else
+    store_rows<T, D>(static_cast<T*>(p.dk) + ib * p.dk_s[0] + ihk * p.dk_s[1], p.dk_s[2], acc,
+                     krow, p.sk, col, p.d);
 }
 
 // ---- launches ----------------------------------------------------------------
@@ -829,7 +1206,7 @@ cudaError_t make_maps(const BwdArgs& a, CUtensorMap (&maps)[4]) {
   for (int i = 0; i < 4; ++i) {
     const Operand o = ops[i];
     const bool kv = o == kK || o == kV;
-    const uint64_t dims[4] = {static_cast<uint64_t>(D), static_cast<uint64_t>(kv ? a.sk : a.sq),
+    const uint64_t dims[4] = {static_cast<uint64_t>(a.d), static_cast<uint64_t>(kv ? a.sk : a.sq),
                               static_cast<uint64_t>(kv ? a.h_k : a.h),
                               static_cast<uint64_t>(a.b)};
     const uint64_t bytes[3] = {static_cast<uint64_t>(a.st[o][2]) * 2,
@@ -865,6 +1242,7 @@ BwdParams make_params(const BwdArgs& a, void* dq, void* dk, void* dv) {
   prm.sk = a.sk;
   prm.wl = a.wl;
   prm.wr = a.wr;
+  prm.d = a.d;
   prm.scale = a.scale;
   prm.softcap = a.softcap;
   return prm;
@@ -886,20 +1264,30 @@ cudaError_t launch_dq(const BwdArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// The narrow kernel at D 64 and 128, the split by tensor at 192 and 256.
 template <typename T, int D, bool kFused>
 cudaError_t launch_dkv(const BwdArgs& a, float* dq_acc, void* dk, void* dv,
                        cudaStream_t stream) {
-  using L = DkvLayout<D>;
   CUtensorMap maps[4];
   cudaError_t err = make_maps<T, D>(a, maps);
   if (err != cudaSuccess) return err;
   const BwdParams prm = make_params(a, dq_acc, dk, dv);
-  auto* kernel = has_extras(a.ex) ? &flash_bwd_dkv_kernel<T, D, kFused, true>
-                                  : &flash_bwd_dkv_kernel<T, D, kFused, false>;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
+  int kBytes;
+  void (*kernel)(const CUtensorMap, const CUtensorMap, const CUtensorMap, const CUtensorMap,
+                 const BwdParams, const XfaExtras);
+  if constexpr (D >= 192) {
+    kBytes = DkvWideLayout<D>::kBytes;
+    kernel = has_extras(a.ex) ? &flash_bwd_dkv_wide_kernel<T, D, kFused, true>
+                              : &flash_bwd_dkv_wide_kernel<T, D, kFused, false>;
+  } else {
+    kBytes = DkvLayout<D>::kBytes;
+    kernel = has_extras(a.ex) ? &flash_bwd_dkv_kernel<T, D, kFused, true>
+                              : &flash_bwd_dkv_kernel<T, D, kFused, false>;
+  }
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
   if (err != cudaSuccess) return err;
   const unsigned grid = static_cast<unsigned>((a.sk + kBK - 1) / kBK) * a.h_k * a.b;
-  kernel<<<grid, kDkvThreads, L::kBytes, stream>>>(maps[0], maps[1], maps[2], maps[3], prm, a.ex);
+  kernel<<<grid, kDkvThreads, kBytes, stream>>>(maps[0], maps[1], maps[2], maps[3], prm, a.ex);
   return cudaGetLastError();
 }
 
@@ -913,7 +1301,7 @@ cudaError_t launch_dkv_d(const BwdArgs& a, float* dq_acc, void* dk, void* dv, bo
 BwdArgs make_args(const void* q, const void* k, const void* v, const void* dout,
                   const void* lse, const void* delta, void* dq, const void* kv_lens,
                   const void* q_seg, const void* kv_seg, int b, int h, int h_k, int sq, int sk,
-                  int wl, int wr, float scale, float softcap, const XfaExtras& ex,
+                  int d, int wl, int wr, float scale, float softcap, const XfaExtras& ex,
                   const int64_t* strides) {
   BwdArgs a;
   a.q = q;
@@ -935,15 +1323,24 @@ BwdArgs make_args(const void* q, const void* k, const void* v, const void* dout,
   a.sk = sk;
   a.wl = wl;
   a.wr = wr;
+  a.d = d;
   a.scale = scale;
   a.softcap = softcap;
   a.ex = ex;
   return a;
 }
 
+#ifdef XFA_WIDE
+constexpr int kRungLo = 192, kRungHi = 256;
+#else
+constexpr int kRungLo = 64, kRungHi = 128;
+#endif
+
+// d of this library's rungs (the smallest of its two >= d): a multiple of 8
 bool valid(int dtype, int d, int h, int h_k, const void* q_seg, const void* kv_seg,
            const XfaExtras* ex, const int64_t* strides) {
-  return (dtype == XFA_BF16 || dtype == XFA_F16) && (d == 64 || d == 128) && h_k > 0 &&
+  return (dtype == XFA_BF16 || dtype == XFA_F16) && d % 8 == 0 && d > kRungLo - 64 &&
+         d <= kRungHi && h_k > 0 &&
          h % h_k == 0 && (q_seg == nullptr) == (kv_seg == nullptr) && ex != nullptr &&
          strides != nullptr && (ex->qpos == nullptr) == (ex->kpos == nullptr) &&
          (ex->qtiles == nullptr) == (ex->ktiles == nullptr);
@@ -952,7 +1349,10 @@ bool valid(int dtype, int d, int h, int h_k, const void* q_seg, const void* kv_s
 }  // namespace
 
 // Arguments of both entry points: q, dout (b, h, sq, d); k, v (b, h_k, sk, d);
-// bf16 (XFA_BF16) or fp16 (XFA_F16), d 64 or 128, each with its last
+// bf16 (XFA_BF16) or fp16 (XFA_F16), d a multiple of 8 at this library's
+// rungs (64 and 128, or with XFA_WIDE 192 and 256: up to 256; the kernels run
+// at the rung, the tensor maps read d columns and zero-fill the rest, the
+// outputs' columns past d are not stored), each with its last
 // dimension contiguous and its (batch, head, row) element strides in
 // `strides` (int64, in the order q, k, v, dout, dq, dk, dv: three each, the
 // outputs' too; the inputs' multiples of 8 with 16-byte aligned bases, the
@@ -971,16 +1371,18 @@ extern "C" int xfa_flash_bwd_dq(const void* q, const void* k, const void* v, con
   if (!valid(dtype, d, h, h_k, q_seg, kv_seg, extras, strides)) return cudaErrorInvalidValue;
   if (b * h * sq == 0) return cudaSuccess;
   const BwdArgs a = make_args(q, k, v, dout, lse, delta, dq, kv_lens, q_seg, kv_seg, b, h, h_k,
-                              sq, sk, wl, wr, scale, softcap, *extras, strides);
+                              sq, sk, d, wl, wr, scale, softcap, *extras, strides);
   auto st = static_cast<cudaStream_t>(stream);
+  const bool hi = d > kRungLo;
   if (dtype == XFA_BF16)
-    return d == 128 ? launch_dq<__nv_bfloat16, 128>(a, st) : launch_dq<__nv_bfloat16, 64>(a, st);
-  return d == 128 ? launch_dq<__half, 128>(a, st) : launch_dq<__half, 64>(a, st);
+    return hi ? launch_dq<__nv_bfloat16, kRungHi>(a, st) : launch_dq<__nv_bfloat16, kRungLo>(a, st);
+  return hi ? launch_dq<__half, kRungHi>(a, st) : launch_dq<__half, kRungLo>(a, st);
 }
 
 // K10 (fused = 0): writes dk, dv (b, h_k, sk, d) in the input dtype.
-// K11 (fused = 1): also adds dQ into dq_acc (b, h, sq, d) f32 (strides at the
-// dq slot, multiples of 2), which the caller zeroes before and casts after.
+// K11 (fused = 1): also adds dQ into dq_acc (b, h, sq, D) f32, D the rung of d
+// (strides at the dq slot, multiples of 2), which the caller zeroes before
+// and cuts to d and casts after.
 extern "C" int xfa_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                                  const void* lse, const void* delta, void* dk, void* dv,
                                  void* dq_acc, const void* kv_lens, const void* q_seg,
@@ -992,13 +1394,14 @@ extern "C" int xfa_flash_bwd_dkv(const void* q, const void* k, const void* v, co
   if (fused && dq_acc == nullptr) return cudaErrorInvalidValue;
   if (b * h_k * sk == 0) return cudaSuccess;
   const BwdArgs a = make_args(q, k, v, dout, lse, delta, nullptr, kv_lens, q_seg, kv_seg, b, h,
-                              h_k, sq, sk, wl, wr, scale, softcap, *extras, strides);
+                              h_k, sq, sk, d, wl, wr, scale, softcap, *extras, strides);
   auto st = static_cast<cudaStream_t>(stream);
   float* acc = static_cast<float*>(dq_acc);
   const bool f = fused != 0;
+  const bool hi = d > kRungLo;
   if (dtype == XFA_BF16)
-    return d == 128 ? launch_dkv_d<__nv_bfloat16, 128>(a, acc, dk, dv, f, st)
-                    : launch_dkv_d<__nv_bfloat16, 64>(a, acc, dk, dv, f, st);
-  return d == 128 ? launch_dkv_d<__half, 128>(a, acc, dk, dv, f, st)
-                  : launch_dkv_d<__half, 64>(a, acc, dk, dv, f, st);
+    return hi ? launch_dkv_d<__nv_bfloat16, kRungHi>(a, acc, dk, dv, f, st)
+              : launch_dkv_d<__nv_bfloat16, kRungLo>(a, acc, dk, dv, f, st);
+  return hi ? launch_dkv_d<__half, kRungHi>(a, acc, dk, dv, f, st)
+            : launch_dkv_d<__half, kRungLo>(a, acc, dk, dv, f, st);
 }

@@ -33,8 +33,11 @@
 // apart: each tile's part of O, dQ, dK or dV is summed from zero and then
 // added to the running sum, so no single accumulator runs over 2048 keys.
 // The options (softcap, ALiBi, explicit positions, segment ids, the tile
-// tables, dropout) are read at run time: one instantiation per head dim
-// (and K10 / K11). exp, log and tanh are the accurate expf, logf, tanhf
+// tables, dropout) are read at run time: one instantiation per kernel
+// (K10 and K11 apart) and rung, and one more for a head dim below its rung
+// (kTail). At the rungs 192 and 256 K9 and K10/K11 keep fewer 64 x D tiles
+// in shared memory (DqSmem, DkvSmem) and sum their 64 x D products 64
+// columns at a time (add_product). exp, log and tanh are the accurate expf, logf, tanhf
 // (no --use_fast_math).
 //
 // Numerics are the plain versions' (ops/flash_fwd.py flash_fwd_ref,
@@ -53,6 +56,8 @@
 // and reuse it 64 times from shared memory, so they are bound by the FMA
 // pipes and the shared-memory reads that feed them, not by device memory.
 #include <math.h>
+
+#include <type_traits>
 
 #include "flash_common.cuh"
 
@@ -257,7 +262,7 @@ struct FwdArgs {
   int64_t q_s[3], k_s[3], v_s[3], o_s[3];  // element strides (batch, head, row)
   const int32_t *kv_lens, *qseg, *kseg;
   int b, h, h_k, sq, sk, wl, wr, n_qt;
-  int d;  // the head dim (K7: its rung D is the kernel's; K8: D)
+  int d;  // the head dim (the kernel's D is its rung)
   float softcap, scale;
 };
 
@@ -409,8 +414,9 @@ struct ProbsSmem {
 // tile of its rows: S = Q K^T on live tiles, exp(S - LSE) where the mask
 // keeps the entry and the row's LSE is finite, negated where the dropout
 // dropped it; dead tiles (outside the key range, or the tile tables say no
-// pair meets) get zeros without a product.
-template <int D>
+// pair meets) get zeros without a product. kTail: the head dim p.d is below
+// the rung D (the columns past it load as zeros), as in K7.
+template <int D, bool kTail>
 __global__ void __launch_bounds__(kThreads, 2)
     flash_probs_f32_kernel(const FwdArgs p, const XfaExtras ex) {
   using L = ProbsSmem<D>;
@@ -435,7 +441,8 @@ __global__ void __launch_bounds__(kThreads, 2)
   const float* kb = p.k + ib * p.k_s[0] + ihk * p.k_s[1];
   const size_t bh = static_cast<size_t>(ib) * p.h + ih;
   float* out = p.probs + bh * p.sq * p.sk;
-  load_tile<D>(qs, qb, p.q_s[2], q0, p.sq, p.scale);
+  const int d = kTail ? p.d : D;
+  load_tile<D>(qs, qb, p.q_s[2], q0, p.sq, p.scale, d);
 
   const bool drop = ex.drop_thresh != 0;
   float lse[4];
@@ -457,7 +464,7 @@ __global__ void __launch_bounds__(kThreads, 2)
         for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
     } else {
       __syncthreads();  // the last tile's K is read (and Q is stored)
-      load_tile<D>(ks, kb, p.k_s[2], k0, p.sk);
+      load_tile<D>(ks, kb, p.k_s[2], k0, p.sk, 1.f, d);
       __syncthreads();
       mma_nt<D, LD, LD>(s, qs, ks, ty, tx);
       score_options(s, mask, ex, ib, ih, p.h, p.softcap, q0, k0, ty, tx);
@@ -494,15 +501,21 @@ struct BwdArgs {
   int64_t st[7][3];  // element strides (batch, head, row) of q, k, v, dO, dq, dk, dv
   const int32_t *kv_lens, *qseg, *kseg;
   int b, h, h_k, sq, sk, wl, wr;
+  int d;  // the head dim (the kernel's D is its rung)
   float scale, softcap;
 };
 enum Operand { kQ, kK, kV, kDO, kDQ, kDK, kDV };
 
-// Shared memory of a K9 block: Q, dO, K, and V (then dS).
+// Shared memory of a K9 block: Q, dO, K, and V (then dS). At the rungs 192
+// and 256 four 64 x D tiles pass the shared memory (266 KB at 256), so V
+// and then K take one slot in turn, and dS a tile of its own.
 template <int D>
 struct DqSmem {
-  static constexpr int q = 0, dout = Ld<D>::kTile, k = 2 * Ld<D>::kTile, v = 3 * Ld<D>::kTile;
-  static constexpr int bytes = 4 * Ld<D>::kTile * 4;
+  static constexpr bool kWide = D >= 192;
+  static constexpr int q = 0, dout = Ld<D>::kTile, k = 2 * Ld<D>::kTile,
+                       v = kWide ? 2 * Ld<D>::kTile : 3 * Ld<D>::kTile, ds = 3 * Ld<D>::kTile;
+  static constexpr int bytes = (kWide ? 3 * Ld<D>::kTile + kSmallTile : 4 * Ld<D>::kTile) * 4;
+  static_assert(bytes <= 232448, "shared memory of one block");
 };
 
 // The backward's per-entry recompute of a thread's 16 entries, rows i and
@@ -531,12 +544,41 @@ __device__ __forceinline__ void recompute_tile(float (&s)[4][4], float (&dp)[4][
     }
 }
 
+// acc[i][c] += (A B)[4 ty + i][column c of the thread] for a 64 x D product
+// with A a 64 x 64 tile (kTransA: read transposed) and B 64 x D: all D at
+// once at the rungs 64 and 128, 64 columns at a time (16 registers of
+// tile sum) at 192 and 256. Each column's tile sum is the same chain.
+template <int D, bool kTransA>
+__device__ __forceinline__ void add_product(float (&acc)[4][D / 16], const float* __restrict__ A,
+                                            const float* __restrict__ B, int ty, int tx) {
+  constexpr int LD = Ld<D>::kRow;
+  if constexpr (D <= 128) {
+    float t[4][D / 16];
+    mma_nn<D, LD, kTransA>(t, A, B, ty, tx);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < D / 16; ++c) acc[i][c] += t[i][c];
+  } else {
+#pragma unroll
+    for (int g = 0; g < D / 64; ++g) {
+      float t[4][4];
+      mma_nn<64, LD, kTransA>(t, A, B + 64 * g, ty, tx);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][4 * g + e] += t[i][e];
+    }
+  }
+}
+
 // One block owns one (batch, q head, 64-row q tile), in K7's order, and
 // walks the key tiles its rows see: S = Q K^T, dP = dO V^T, P and dS per
-// entry, dS into V's place, this tile's dS K summed from zero and added to
+// entry, dS into V's place (at 192 and 256: V first, then K in its slot,
+// dS in a tile of its own), this tile's dS K summed from zero and added to
 // dQ. One block an SM (135 KB at d = 128). dQ sums in registers: K9 is
-// bit-reproducible.
-template <int D>
+// bit-reproducible. kTail: the head dim p.d is below the rung D.
+template <int D, bool kTail>
 __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_f32_kernel(const BwdArgs p,
                                                                        const XfaExtras ex) {
   using L = DqSmem<D>;
@@ -546,7 +588,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_f32_kernel(const Bwd
   float* dos = sm + L::dout;
   float* ks = sm + L::k;
   float* vs = sm + L::v;
-  float* dss = sm + L::v;
+  float* dss = L::kWide ? sm + L::ds : sm + L::v;
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
 
   const int n_qt = (p.sq + kB - 1) / kB;
@@ -560,8 +602,10 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_f32_kernel(const Bwd
   int k_lo, k_hi;
   mask.key_range(q0, min(q0 + kB, p.sq), k_lo, k_hi);
 
-  load_tile<D>(qs, p.q + ib * p.st[kQ][0] + ih * p.st[kQ][1], p.st[kQ][2], q0, p.sq);
-  load_tile<D>(dos, p.dout + ib * p.st[kDO][0] + ih * p.st[kDO][1], p.st[kDO][2], q0, p.sq);
+  const int d = kTail ? p.d : D;
+  load_tile<D>(qs, p.q + ib * p.st[kQ][0] + ih * p.st[kQ][1], p.st[kQ][2], q0, p.sq, 1.f, d);
+  load_tile<D>(dos, p.dout + ib * p.st[kDO][0] + ih * p.st[kDO][1], p.st[kDO][2], q0, p.sq, 1.f,
+               d);
   const float* kb = p.k + ib * p.st[kK][0] + ihk * p.st[kK][1];
   const float* vb = p.v + ib * p.st[kV][0] + ihk * p.st[kV][1];
 
@@ -582,13 +626,24 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_f32_kernel(const Bwd
 
   for (int k0 = (k_lo / kB) * kB; k0 < k_hi; k0 += kB) {
     if (!tiles_meet(ex, mask, ib, q0, k0)) continue;
-    __syncthreads();  // the last tile's dS and K are read (and Q, dO are stored)
-    load_tile<D>(ks, kb, p.st[kK][2], k0, p.sk);
-    load_tile<D>(vs, vb, p.st[kV][2], k0, p.sk);
-    __syncthreads();
     float s[4][4], dp[4][4];
-    mma_nt<D, LD, LD>(s, qs, ks, ty, tx);
-    mma_nt<D, LD, LD>(dp, dos, vs, ty, tx);
+    if constexpr (L::kWide) {
+      __syncthreads();  // the last tile's dS and K are read (and Q, dO are stored)
+      load_tile<D>(vs, vb, p.st[kV][2], k0, p.sk, 1.f, d);
+      __syncthreads();
+      mma_nt<D, LD, LD>(dp, dos, vs, ty, tx);
+      __syncthreads();  // every warp is done with V before K takes its slot
+      load_tile<D>(ks, kb, p.st[kK][2], k0, p.sk, 1.f, d);
+      __syncthreads();
+      mma_nt<D, LD, LD>(s, qs, ks, ty, tx);
+    } else {
+      __syncthreads();  // the last tile's dS and K are read (and Q, dO are stored)
+      load_tile<D>(ks, kb, p.st[kK][2], k0, p.sk, 1.f, d);
+      load_tile<D>(vs, vb, p.st[kV][2], k0, p.sk, 1.f, d);
+      __syncthreads();
+      mma_nt<D, LD, LD>(s, qs, ks, ty, tx);
+      mma_nt<D, LD, LD>(dp, dos, vs, ty, tx);
+    }
     const uint32_t keep = drop ? keep_bits_rows(ex, ib, ih, q0 + 4 * ty, k0, tx) : 0xFFFFu;
     recompute_tile(
         s, dp, mask, tile_interior<true>(mask, ex, ib, q0, k0), alibi, p.scale, p.softcap,
@@ -600,36 +655,39 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_f32_kernel(const Bwd
           s_ = slope[i];
         },
         [&](int i, int j) { return ((keep >> (4 * i + j)) & 1u) != 0; });
-    __syncthreads();  // every warp is done with V before dS takes its place
+    // every warp is done with V before dS takes its place (the wide rungs: a tile apart)
+    if constexpr (!L::kWide) __syncthreads();
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) dss[(4 * ty + i) * kLdT + tx + 16 * j] = dp[i][j];
     __syncthreads();
-    float t[4][NC];
-    mma_nn<D, LD, false>(t, dss, ks, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int c = 0; c < NC; ++c) acc[i][c] += t[i][c];
+    add_product<D, false>(acc, dss, ks, ty, tx);
   }
 
   float* dqb = p.dq + ib * p.st[kDQ][0] + ih * p.st[kDQ][1];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int qi = q0 + 4 * ty + i;
-    if (qi < p.sq) store_row<D>(dqb + qi * p.st[kDQ][2], acc[i], tx);
+    if (qi < p.sq) store_row<D>(dqb + qi * p.st[kDQ][2], acc[i], tx, d);
   }
 }
 
 // Shared memory of a K10 / K11 block: K and V of its keys, the Q and dO
-// tiles of the current pair, P^T and dS^T.
+// tiles of the current pair, P^T and dS^T. At the rungs 192 and 256 four
+// 64 x D tiles pass the shared memory, so the block keeps three slots and
+// loads K and V again for each pair (K, Q for S^T; V, dO for dP^T into
+// K's slot; K11: K again for dQ), and P^T and dS^T take one tile in turn.
 template <int D>
 struct DkvSmem {
-  static constexpr int k = 0, v = Ld<D>::kTile, q = 2 * Ld<D>::kTile,
-                       dout = 3 * Ld<D>::kTile, pt = 4 * Ld<D>::kTile,
-                       dst = 4 * Ld<D>::kTile + kSmallTile;
-  static constexpr int bytes = (4 * Ld<D>::kTile + 2 * kSmallTile) * 4;
+  static constexpr bool kWide = D >= 192;
+  static constexpr int k = 0, v = kWide ? 0 : Ld<D>::kTile, q = 2 * Ld<D>::kTile,
+                       dout = kWide ? Ld<D>::kTile : 3 * Ld<D>::kTile,
+                       pt = kWide ? 3 * Ld<D>::kTile : 4 * Ld<D>::kTile,
+                       dst = kWide ? pt : 4 * Ld<D>::kTile + kSmallTile;
+  static constexpr int bytes =
+      (kWide ? 3 * Ld<D>::kTile + kSmallTile : 4 * Ld<D>::kTile + 2 * kSmallTile) * 4;
+  static_assert(bytes <= 232448, "shared memory of one block");
 };
 
 // One block owns one (batch, kv head, 64-key tile), in K10's order (key
@@ -639,8 +697,9 @@ struct DkvSmem {
 // dS^T Q, each summed from zero and added to dV and dK. K11 (kFused) also
 // adds the pair's dQ = dS K (from dS^T) into the f32 buffer with atomics.
 // dK and dV sum in registers in a fixed order: K10 is bit-reproducible.
-// One block an SM (166 KB at d = 128).
-template <int D, bool kFused>
+// One block an SM (166 KB at d = 128). kTail: the head dim p.d is below
+// the rung D.
+template <int D, bool kFused, bool kTail>
 __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_f32_kernel(const BwdArgs p,
                                                                         const XfaExtras ex) {
   using L = DkvSmem<D>;
@@ -664,8 +723,13 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_f32_kernel(const Bw
   int q_lo, q_hi;
   mask.query_range(k0, k0 + kB, q_lo, q_hi);
 
-  load_tile<D>(ks, p.k + ib * p.st[kK][0] + ihk * p.st[kK][1], p.st[kK][2], k0, p.sk);
-  load_tile<D>(vs, p.v + ib * p.st[kV][0] + ihk * p.st[kV][1], p.st[kV][2], k0, p.sk);
+  const int d = kTail ? p.d : D;
+  const float* kb = p.k + ib * p.st[kK][0] + ihk * p.st[kK][1];
+  const float* vb = p.v + ib * p.st[kV][0] + ihk * p.st[kV][1];
+  if constexpr (!L::kWide) {
+    load_tile<D>(ks, kb, p.st[kK][2], k0, p.sk, 1.f, d);
+    load_tile<D>(vs, vb, p.st[kV][2], k0, p.sk, 1.f, d);
+  }
 
   const bool alibi = ex.alibi != nullptr || ex.row_slopes != nullptr;
   const bool drop = ex.drop_thresh != 0;
@@ -682,13 +746,26 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_f32_kernel(const Bw
     const float* dob = p.dout + ib * p.st[kDO][0] + ih * p.st[kDO][1];
     for (int q0 = (q_lo / kB) * kB; q0 < q_hi; q0 += kB) {
       if (!tiles_meet(ex, mask, ib, q0, k0)) continue;
-      __syncthreads();  // the last pair's tiles are read (and K, V are stored)
-      load_tile<D>(qs, qb, p.st[kQ][2], q0, p.sq);
-      load_tile<D>(dos, dob, p.st[kDO][2], q0, p.sq);
-      __syncthreads();
       float s[4][4], dp[4][4];  // rows: keys k0 + 4 ty + i; columns: queries q0 + tx + 16 j
-      mma_nt<D, LD, LD>(s, ks, qs, ty, tx);
-      mma_nt<D, LD, LD>(dp, vs, dos, ty, tx);
+      if constexpr (L::kWide) {
+        __syncthreads();  // the last pair's tiles are read
+        load_tile<D>(ks, kb, p.st[kK][2], k0, p.sk, 1.f, d);
+        load_tile<D>(qs, qb, p.st[kQ][2], q0, p.sq, 1.f, d);
+        __syncthreads();
+        mma_nt<D, LD, LD>(s, ks, qs, ty, tx);
+        __syncthreads();  // every warp is done with K before V takes its slot
+        load_tile<D>(vs, vb, p.st[kV][2], k0, p.sk, 1.f, d);
+        load_tile<D>(dos, dob, p.st[kDO][2], q0, p.sq, 1.f, d);
+        __syncthreads();
+        mma_nt<D, LD, LD>(dp, vs, dos, ty, tx);
+      } else {
+        __syncthreads();  // the last pair's tiles are read (and K, V are stored)
+        load_tile<D>(qs, qb, p.st[kQ][2], q0, p.sq, 1.f, d);
+        load_tile<D>(dos, dob, p.st[kDO][2], q0, p.sq, 1.f, d);
+        __syncthreads();
+        mma_nt<D, LD, LD>(s, ks, qs, ty, tx);
+        mma_nt<D, LD, LD>(dp, vs, dos, ty, tx);
+      }
       float lse[4], delta[4], slope[4];
       uint32_t keep = 0xFFFFu;
 #pragma unroll
@@ -723,32 +800,50 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_f32_kernel(const Bw
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           pts[(4 * ty + i) * kLdT + tx + 16 * j] = s[i][j];
-          dsts[(4 * ty + i) * kLdT + tx + 16 * j] = dp[i][j];
+          if constexpr (!L::kWide) dsts[(4 * ty + i) * kLdT + tx + 16 * j] = dp[i][j];
         }
       __syncthreads();
-      float t[4][NC];
-      mma_nn<D, LD, false>(t, pts, dos, ty, tx);
+      if constexpr (L::kWide) {
+        add_product<D, false>(dv, pts, dos, ty, tx);
+        __syncthreads();  // every warp is done with P^T before dS^T takes its place
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int c = 0; c < NC; ++c) dv[i][c] += t[i][c];
-      mma_nn<D, LD, false>(t, dsts, qs, ty, tx);
+          for (int j = 0; j < 4; ++j) dsts[(4 * ty + i) * kLdT + tx + 16 * j] = dp[i][j];
+        if constexpr (kFused) load_tile<D>(ks, kb, p.st[kK][2], k0, p.sk, 1.f, d);
+        __syncthreads();
+        add_product<D, false>(dk, dsts, qs, ty, tx);
+      } else {
+        float t[4][NC];
+        mma_nn<D, LD, false>(t, pts, dos, ty, tx);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int c = 0; c < NC; ++c) dk[i][c] += t[i][c];
+          for (int c = 0; c < NC; ++c) dv[i][c] += t[i][c];
+        mma_nn<D, LD, false>(t, dsts, qs, ty, tx);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int c = 0; c < NC; ++c) dk[i][c] += t[i][c];
+      }
       if constexpr (kFused) {  // dQ of the pair's rows = dS K, dS^T read transposed
-        mma_nn<D, LD, true>(t, dsts, ks, ty, tx);
         float* dqb = p.dq + ib * p.st[kDQ][0] + ih * p.st[kDQ][1];
+        constexpr int G = L::kWide ? 64 : D;  // columns of one product
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int qi = q0 + 4 * ty + i;
-          if (qi >= p.sq) continue;
-          float* row = dqb + qi * p.st[kDQ][2];
+        for (int g0 = 0; g0 < D; g0 += G) {
+          float t[4][G / 16];
+          mma_nn<G, LD, true>(t, dsts, ks + g0, ty, tx);
 #pragma unroll
-          for (int gi = 0; gi < D / 64; ++gi)
+          for (int i = 0; i < 4; ++i) {
+            const int qi = q0 + 4 * ty + i;
+            if (qi >= p.sq) continue;
+            float* row = dqb + qi * p.st[kDQ][2] + g0;
 #pragma unroll
-            for (int e = 0; e < 4; ++e) atomicAdd(row + 64 * gi + 4 * tx + e, t[i][4 * gi + e]);
+            for (int gi = 0; gi < G / 64; ++gi)
+              if (g0 + 64 * gi + 4 * tx < d)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) atomicAdd(row + 64 * gi + 4 * tx + e, t[i][4 * gi + e]);
+          }
         }
       }
     }
@@ -760,8 +855,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_f32_kernel(const Bw
   for (int i = 0; i < 4; ++i) {
     const int kj = k0 + 4 * ty + i;
     if (kj >= p.sk) continue;
-    store_row<D>(dkb + kj * p.st[kDK][2], dk[i], tx);
-    store_row<D>(dvb + kj * p.st[kDV][2], dv[i], tx);
+    store_row<D>(dkb + kj * p.st[kDK][2], dk[i], tx, d);
+    store_row<D>(dvb + kj * p.st[kDV][2], dv[i], tx, d);
   }
 }
 
@@ -782,7 +877,7 @@ cudaError_t launch_fwd(const FwdArgs& a, const XfaExtras& ex, cudaStream_t strea
 
 template <int D>
 cudaError_t launch_probs(const FwdArgs& a, const XfaExtras& ex, cudaStream_t stream) {
-  auto* kernel = &flash_probs_f32_kernel<D>;
+  auto* kernel = a.d < D ? &flash_probs_f32_kernel<D, true> : &flash_probs_f32_kernel<D, false>;
   cudaError_t err = set_smem(kernel, ProbsSmem<D>::bytes);
   if (err != cudaSuccess) return err;
   const unsigned grid = static_cast<unsigned>(a.n_qt) * a.h * a.b;
@@ -792,7 +887,7 @@ cudaError_t launch_probs(const FwdArgs& a, const XfaExtras& ex, cudaStream_t str
 
 template <int D>
 cudaError_t launch_dq(const BwdArgs& a, const XfaExtras& ex, cudaStream_t stream) {
-  auto* kernel = &flash_bwd_dq_f32_kernel<D>;
+  auto* kernel = a.d < D ? &flash_bwd_dq_f32_kernel<D, true> : &flash_bwd_dq_f32_kernel<D, false>;
   cudaError_t err = set_smem(kernel, DqSmem<D>::bytes);
   if (err != cudaSuccess) return err;
   const unsigned grid = static_cast<unsigned>((a.sq + kB - 1) / kB) * a.h * a.b;
@@ -802,7 +897,8 @@ cudaError_t launch_dq(const BwdArgs& a, const XfaExtras& ex, cudaStream_t stream
 
 template <int D, bool kFused>
 cudaError_t launch_dkv(const BwdArgs& a, const XfaExtras& ex, cudaStream_t stream) {
-  auto* kernel = &flash_bwd_dkv_f32_kernel<D, kFused>;
+  auto* kernel = a.d < D ? &flash_bwd_dkv_f32_kernel<D, kFused, true>
+                         : &flash_bwd_dkv_f32_kernel<D, kFused, false>;
   cudaError_t err = set_smem(kernel, DkvSmem<D>::bytes);
   if (err != cudaSuccess) return err;
   const unsigned grid = static_cast<unsigned>((a.sk + kB - 1) / kB) * a.h_k * a.b;
@@ -810,12 +906,11 @@ cudaError_t launch_dkv(const BwdArgs& a, const XfaExtras& ex, cudaStream_t strea
   return cudaGetLastError();
 }
 
-// K7 takes any d up to 256 (a multiple of 4: float4 rows); K8 and K9-K11
-// d 64 or 128.
+// Every kernel takes any d up to 256, a multiple of 4 (float4 rows), on
+// the rungs 64, 128, 192 and 256.
 bool valid(int dtype, int d, int h, int h_k, const void* q_seg, const void* kv_seg,
-           const XfaExtras* ex, const int64_t* strides, bool any_d = false) {
-  const bool d_ok = any_d ? d >= 1 && d <= 256 && d % 4 == 0 : d == 64 || d == 128;
-  return dtype == XFA_F32 && d_ok && h_k > 0 && h % h_k == 0 &&
+           const XfaExtras* ex, const int64_t* strides) {
+  return dtype == XFA_F32 && d >= 1 && d <= 256 && d % 4 == 0 && h_k > 0 && h % h_k == 0 &&
          (q_seg == nullptr) == (kv_seg == nullptr) && ex != nullptr && strides != nullptr &&
          (ex->qpos == nullptr) == (ex->kpos == nullptr) &&
          (ex->qtiles == nullptr) == (ex->ktiles == nullptr);
@@ -828,8 +923,8 @@ void copy_strides(int64_t (&dst)[3], const int64_t* src) {
 BwdArgs make_bwd_args(const void* q, const void* k, const void* v, const void* dout,
                       const void* lse, const void* delta, void* dq, void* dk, void* dv,
                       const void* kv_lens, const void* q_seg, const void* kv_seg, int b, int h,
-                      int h_k, int sq, int sk, int wl, int wr, float scale, float softcap,
-                      const int64_t* strides) {
+                      int h_k, int sq, int sk, int d, int wl, int wr, float scale,
+                      float softcap, const int64_t* strides) {
   BwdArgs a{};
   a.q = static_cast<const float*>(q);
   a.k = static_cast<const float*>(k);
@@ -851,6 +946,7 @@ BwdArgs make_bwd_args(const void* q, const void* k, const void* v, const void* d
   a.sk = sk;
   a.wl = wl;
   a.wr = wr;
+  a.d = d;
   a.scale = scale;
   a.softcap = softcap;
   return a;
@@ -860,8 +956,9 @@ BwdArgs make_bwd_args(const void* q, const void* k, const void* v, const void* d
 
 // The entry points take the arguments of their 16-bit counterparts
 // (xfa_flash_fwd, xfa_flash_probs, xfa_flash_bwd_dq, xfa_flash_bwd_dkv) with
-// dtype XFA_F32: f32 tensors, d 64 or 128 (K7: any multiple of 4 up to 256,
-// on the rungs 64, 128, 192 and 256), each with its last dimension
+// dtype XFA_F32: f32 tensors, d any multiple of 4 up to 256 (on the rungs
+// 64, 128, 192 and 256; the columns past d load as zeros and are not
+// stored), each with its last dimension
 // contiguous and its (batch, head, row) element strides in `strides`
 // (multiples of 4, bases 16-byte aligned: float4 loads and stores), q not
 // pre-scaled; lse and delta (b, h, sq) f32 contiguous; kv_lens (b,), q_seg
@@ -876,8 +973,7 @@ extern "C" int xfa_flash_fwd_f32(const void* q, const void* k, const void* v, vo
                                  int sk, int d, int wl, int wr, float softcap, float scale,
                                  const int64_t* strides, const flash::XfaExtras* extras,
                                  void* stream) {
-  if (!valid(dtype, d, h, h_k, q_seg, kv_seg, extras, strides, true))
-    return cudaErrorInvalidValue;
+  if (!valid(dtype, d, h, h_k, q_seg, kv_seg, extras, strides)) return cudaErrorInvalidValue;
   if (b * h * sq == 0) return cudaSuccess;
   FwdArgs a{};
   a.q = static_cast<const float*>(q);
@@ -916,6 +1012,21 @@ extern "C" int xfa_flash_fwd_f32(const void* q, const void* k, const void* v, vo
   }
 }
 
+// The instantiation of a kernel at d's rung.
+template <class Launch>
+cudaError_t at_rung(int d, Launch launch) {
+  switch ((d + 63) / 64) {
+    case 1:
+      return launch(std::integral_constant<int, 64>{});
+    case 2:
+      return launch(std::integral_constant<int, 128>{});
+    case 3:
+      return launch(std::integral_constant<int, 192>{});
+    default:
+      return launch(std::integral_constant<int, 256>{});
+  }
+}
+
 // K8: strides q, k; reads lse (b, h, sq); writes out (b, h, sq, sk) contiguous.
 extern "C" int xfa_flash_probs_f32(const void* q, const void* k, const void* lse, void* out,
                                    const void* q_seg, const void* kv_seg, int dtype, int b,
@@ -945,7 +1056,7 @@ extern "C" int xfa_flash_probs_f32(const void* q, const void* k, const void* lse
   a.scale = scale;
   auto st = static_cast<cudaStream_t>(stream);
   a.d = d;
-  return d == 128 ? launch_probs<128>(a, *extras, st) : launch_probs<64>(a, *extras, st);
+  return at_rung(d, [&](auto r) { return launch_probs<decltype(r)::value>(a, *extras, st); });
 }
 
 // K9: strides q, k, v, dout, dq, dk, dv (dk, dv unused); writes dq (b, h, sq, d).
@@ -959,15 +1070,15 @@ extern "C" int xfa_flash_bwd_dq_f32(const void* q, const void* k, const void* v,
   if (!valid(dtype, d, h, h_k, q_seg, kv_seg, extras, strides)) return cudaErrorInvalidValue;
   if (b * h * sq == 0) return cudaSuccess;
   const BwdArgs a = make_bwd_args(q, k, v, dout, lse, delta, dq, nullptr, nullptr, kv_lens,
-                                  q_seg, kv_seg, b, h, h_k, sq, sk, wl, wr, scale, softcap,
+                                  q_seg, kv_seg, b, h, h_k, sq, sk, d, wl, wr, scale, softcap,
                                   strides);
   auto st = static_cast<cudaStream_t>(stream);
-  return d == 128 ? launch_dq<128>(a, *extras, st) : launch_dq<64>(a, *extras, st);
+  return at_rung(d, [&](auto r) { return launch_dq<decltype(r)::value>(a, *extras, st); });
 }
 
 // K10 (fused = 0): writes dk, dv (b, h_k, sk, d). K11 (fused = 1): also adds
-// dQ into dq_acc (b, h, sq, d) f32 (strides at the dq slot), which the
-// caller zeroes before.
+// dQ into the first d columns of dq_acc (b, h, sq, d or wider) f32 (strides
+// at the dq slot), which the caller zeroes before.
 extern "C" int xfa_flash_bwd_dkv_f32(const void* q, const void* k, const void* v,
                                      const void* dout, const void* lse, const void* delta,
                                      void* dk, void* dv, void* dq_acc, const void* kv_lens,
@@ -979,9 +1090,11 @@ extern "C" int xfa_flash_bwd_dkv_f32(const void* q, const void* k, const void* v
   if (fused && dq_acc == nullptr) return cudaErrorInvalidValue;
   if (b * h_k * sk == 0) return cudaSuccess;
   const BwdArgs a = make_bwd_args(q, k, v, dout, lse, delta, dq_acc, dk, dv, kv_lens, q_seg,
-                                  kv_seg, b, h, h_k, sq, sk, wl, wr, scale, softcap, strides);
+                                  kv_seg, b, h, h_k, sq, sk, d, wl, wr, scale, softcap,
+                                  strides);
   auto st = static_cast<cudaStream_t>(stream);
-  if (fused)
-    return d == 128 ? launch_dkv<128, true>(a, *extras, st) : launch_dkv<64, true>(a, *extras, st);
-  return d == 128 ? launch_dkv<128, false>(a, *extras, st) : launch_dkv<64, false>(a, *extras, st);
+  return at_rung(d, [&](auto r) {
+    return fused ? launch_dkv<decltype(r)::value, true>(a, *extras, st)
+                 : launch_dkv<decltype(r)::value, false>(a, *extras, st);
+  });
 }

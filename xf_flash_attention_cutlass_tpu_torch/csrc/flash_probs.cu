@@ -45,6 +45,13 @@
 //   and the consumer warps once their live tiles are done. (Measured on the
 //   card: TMA stores of a zeroed box, zeros interleaved one behind each live
 //   tile, or all of them after the live tiles, were slower.)
+// - Head dims: instantiated at the rungs D = 64, 128, 192 and 256 (the
+//   library built with XFA_WIDE holds 192 and 256), serving any d up to 256
+//   with the smallest rung D >= d, as K7: the tensor maps take the real d as
+//   their inner extent, so TMA fills the tile's columns from d to D with
+//   zeros, which add nothing to S. Rows must be 16-byte multiples (d % 8 ==
+//   0; ops/flash_fwd.py pads other widths with a copy). At D = 256 the block
+//   holds Q (32 KB), two K stages (64 KB) and the output boxes (32 KB).
 // - sk % 4 != 0 breaks TMA's 16-byte row stride: the kTmaStore = false
 //   instantiation copies the same staged tile out itself, 16 bytes a store
 //   from each row's first aligned key on, single floats around them.
@@ -421,7 +428,7 @@ cudaError_t launch_kernel(const CUtensorMap (&maps)[3], const ProbsParams& prm,
 
 // strides: q and k, each (batch, head, row) in elements
 template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const int64_t* strides, ProbsParams prm,
+cudaError_t launch(int d, const void* q, const void* k, const int64_t* strides, ProbsParams prm,
                    const XfaExtras& ex, cudaStream_t stream) {
   const bool f16 = std::is_same<T, __half>::value;
   CUtensorMap maps[3] = {};
@@ -431,7 +438,7 @@ cudaError_t launch(const void* q, const void* k, const int64_t* strides, ProbsPa
   const uint32_t box_rows[2] = {kBQ, kBK};
   for (int i = 0; i < 2; ++i) {
     const int64_t* st = strides + 3 * i;
-    const uint64_t dims[4] = {static_cast<uint64_t>(D), static_cast<uint64_t>(rows[i]),
+    const uint64_t dims[4] = {static_cast<uint64_t>(d), static_cast<uint64_t>(rows[i]),
                               static_cast<uint64_t>(heads[i]), static_cast<uint64_t>(prm.b)};
     const uint64_t bytes[3] = {static_cast<uint64_t>(st[2]) * 2, static_cast<uint64_t>(st[1]) * 2,
                                static_cast<uint64_t>(st[0]) * 2};
@@ -453,18 +460,27 @@ cudaError_t launch(const void* q, const void* k, const int64_t* strides, ProbsPa
   return launch_kernel<T, D, true>(maps, prm, ex, stream);
 }
 
+#ifdef XFA_WIDE
+constexpr int kRungLo = 192, kRungHi = 256;
+#else
+constexpr int kRungLo = 64, kRungHi = 128;
+#endif
+
+// The instantiation at d's rung (the smallest of this library's two >= d).
 template <typename T>
 cudaError_t launch_d(int d, const void* q, const void* k, const int64_t* strides,
                      const ProbsParams& prm, const XfaExtras& ex, cudaStream_t stream) {
-  if (d == 128) return launch<T, 128>(q, k, strides, prm, ex, stream);
-  if (d == 64) return launch<T, 64>(q, k, strides, prm, ex, stream);
+  const int rung = (d + 63) / 64 * 64;
+  if (rung == kRungHi) return launch<T, kRungHi>(d, q, k, strides, prm, ex, stream);
+  if (rung == kRungLo) return launch<T, kRungLo>(d, q, k, strides, prm, ex, stream);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// q (b, h, sq, d), k (b, h_k, sk, d) bf16 (XFA_BF16) or fp16 (XFA_F16), d 64
-// or 128, each with its last dimension contiguous and its (batch, head, row)
+// q (b, h, sq, d), k (b, h_k, sk, d) bf16 (XFA_BF16) or fp16 (XFA_F16), d a
+// multiple of 8 at this library's rungs (64 and 128, or with XFA_WIDE 192
+// and 256: up to 256), each with its last dimension contiguous and its (batch, head, row)
 // strides in elements at strides[0..2] (q) and [3..5] (k): multiples of 8,
 // bases 16-byte aligned (the tensor maps' rule). q is not pre-scaled: the
 // kernel multiplies it by `scale`. lse (b, h, sq) f32 contiguous, from the
@@ -476,7 +492,8 @@ extern "C" int xfa_flash_probs(const void* q, const void* k, const void* lse, vo
                                int h_k, int sq, int sk, int d, int wl, int wr, float softcap,
                                float scale, const int64_t* strides,
                                const flash::XfaExtras* extras, void* stream) {
-  if (h_k <= 0 || h % h_k != 0 || extras == nullptr || strides == nullptr)
+  if (h_k <= 0 || h % h_k != 0 || extras == nullptr || strides == nullptr || d < 1 || d > 256 ||
+      d % 8)
     return cudaErrorInvalidValue;
   if ((q_seg == nullptr) != (kv_seg == nullptr)) return cudaErrorInvalidValue;
   if ((extras->qpos == nullptr) != (extras->kpos == nullptr)) return cudaErrorInvalidValue;

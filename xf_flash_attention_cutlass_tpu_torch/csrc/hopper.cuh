@@ -250,6 +250,14 @@ __device__ __forceinline__ void named_barrier_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
+// bar.arrive on named barrier `id` for `threads`: counts this thread's
+// arrival without waiting, and orders its earlier memory accesses before
+// those of the threads that wait on the barrier (bar.sync) after it
+// completes. A producer arrives, its consumer syncs.
+__device__ __forceinline__ void named_barrier_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 // ---- wgmma -------------------------------------------------------------------
 
 // Descriptor of a 128-byte swizzled operand at shared address `p` (1024-byte

@@ -16,7 +16,11 @@ keyed by each q head). Returns (dq, dk, dv) in the input dtypes. The masks,
 ALiBi and positions are flash_fwd's.
 
 CUDA tensors run csrc/flash_bwd.cu (bf16, fp16) or its f32 kernels in
-csrc/flash_f32.cu: by default the two-pass split, K9 (dQ) then K10 (dK/dV);
+csrc/flash_f32.cu, at any head dim from 1 to 256, as K7 (ops/flash_fwd.py
+``flash_head_dim``, ``flash_rung``; the rungs 192 and 256 of the 16-bit
+kernels are the library flash_bwd_wide): a width of no whole 16-byte row
+takes ``flash_bwd_padded``, a zero-padded copy counted as
+"flash_bwd.pad_copy". By default the two-pass split, K9 (dQ) then K10 (dK/dV);
 ``fused=True`` runs K11, one pass whose dQ is summed with f32 atomics into a
 buffer the wrapper allocates and then casts (atomics sum in an order that
 changes from run to run). Launches count under ``flash_label``
@@ -47,13 +51,14 @@ from xf_flash_attention_cutlass_tpu_torch.ops.flash_fwd import (
     alibi_bias,
     attention_mask,
     check_cuda_dtypes,
-    check_cuda_head_dim,
     check_options,
     check_shapes,
     dropout_keep_mask,
     expand_kv,
     flash_entry,
+    flash_head_dim,
     flash_label,
+    flash_rung,
     int32_or_none,
     resolve_window,
     tma_operands,
@@ -116,11 +121,12 @@ def flash_bwd_ref(q, k, v, o, lse, do, *, causal=False, window=(-1, -1), softcap
 _fns = {}
 
 
-def _fn(name: str, dtype: torch.dtype):
+def _fn(name: str, dtype: torch.dtype, d: int):
     """The entry point of K9 (name "flash_bwd_dq") or K10/K11
-    ("flash_bwd_dkv") for the inputs' dtype, its argument types set."""
-    lib, fn_name = flash_entry("flash_bwd", name, dtype)
-    if fn_name not in _fns:
+    ("flash_bwd_dkv") for the inputs' dtype and head dim, its argument types
+    set."""
+    lib, fn_name = flash_entry("flash_bwd", name, dtype, d)
+    if (lib, fn_name) not in _fns:
         fn = getattr(_build.load(lib), fn_name)
         common = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + [ctypes.c_float] * 2
                   + [ctypes.POINTER(XfaExtras)])
@@ -128,8 +134,8 @@ def _fn(name: str, dtype: torch.dtype):
         fn.argtypes = ([ctypes.c_void_p] * 7 + common + [ctypes.c_void_p] * 2
                        if name == "flash_bwd_dq" else
                        [ctypes.c_void_p] * 9 + common + [ctypes.c_int] + [ctypes.c_void_p] * 2)
-        _fns[fn_name] = fn
-    return _fns[fn_name]
+        _fns[lib, fn_name] = fn
+    return _fns[lib, fn_name]
 
 
 def bwd_block_order(n_kt: int, h_k: int, b: int):
@@ -142,18 +148,22 @@ def bwd_block_order(n_kt: int, h_k: int, b: int):
 
 
 class FlashBwdLaunch:
-    """The CUDA backward of one set of residuals: checks and prepares the
-    inputs once; ``dq()`` launches K9, ``dkv()`` K10 and ``fused()`` K11.
-    ``flash_bwd`` runs dq() and dkv(), or fused(); chip_smoke.py times each."""
+    """The CUDA backward of one set of residuals, d a multiple of 8 (f32: 4)
+    up to 256: checks and prepares the inputs once; ``dq()`` launches K9,
+    ``dkv()`` K10 and ``fused()`` K11. ``flash_bwd`` runs dq() and dkv(), or
+    fused(); chip_smoke.py times each."""
 
     def __init__(self, q, k, v, o, lse, do, *, scale, causal, window, softcap, kv_lens,
                  q_segment_ids, kv_segment_ids, alibi_slopes=None, alibi_row_slopes=None,
                  q_positions=None, kv_positions=None, dropout_p=0.0, dropout_seed=0):
         check_cuda_dtypes("flash backward (K9-K11)", q, k, v)
-        check_cuda_head_dim("flash backward (K9-K11)", q.shape[-1])
+        b, h, sq, d = q.shape
+        if flash_head_dim(d, q.dtype, "flash backward (K9-K11)") != d:  # flash_bwd pads them
+            raise ValueError(f"the CUDA flash backward (K9-K11) kernel reads rows of whole "
+                             f"16-byte chunks, got head_dim {d} of {q.dtype}")
         if do.dtype != q.dtype:
             raise TypeError(f"dO must have q's dtype {q.dtype}, got {do.dtype}")
-        b, h, sq, d = q.shape
+        self.d, self.rung = d, flash_rung(d)
         h_k, sk = k.shape[1], k.shape[2]
         wl, wr = resolve_window(causal, window)
         (self.q, self.k, self.v, self.do), self.in_strides = tma_operands(q, k, v, do)
@@ -183,33 +193,40 @@ class FlashBwdLaunch:
     def dq(self) -> torch.Tensor:
         dq = torch.empty_like(self.q)  # q's memory layout
         strides = self._strides(dq, self.k, self.v)
-        rc = _fn("flash_bwd_dq", self.q.dtype)(*self.ins, dq.data_ptr(), *self.tail,
-                                               ctypes.cast(strides, ctypes.c_void_p),
-                                               _build.stream_handle())
+        rc = _fn("flash_bwd_dq", self.q.dtype, self.d)(*self.ins, dq.data_ptr(), *self.tail,
+                                                       ctypes.cast(strides, ctypes.c_void_p),
+                                                       _build.stream_handle())
         _build.check(rc, "flash_bwd (dq)")
-        _build.LAUNCHES[flash_label("flash_bwd.dq", self.q.dtype)] += 1
+        self._count("flash_bwd.dq")
         return dq
+
+    def _count(self, kernel: str) -> None:
+        _build.count_launch(flash_label(kernel, self.q.dtype), self.d, self.rung)
 
     def dkv(self) -> Tuple[torch.Tensor, torch.Tensor]:
         dk, dv = torch.empty_like(self.k), torch.empty_like(self.v)
         strides = self._strides(self.q, dk, dv)
-        rc = _fn("flash_bwd_dkv", self.q.dtype)(
+        rc = _fn("flash_bwd_dkv", self.q.dtype, self.d)(
             *self.ins, dk.data_ptr(), dv.data_ptr(), None, *self.tail, 0,
             ctypes.cast(strides, ctypes.c_void_p), _build.stream_handle())
         _build.check(rc, "flash_bwd (dkv)")
-        _build.LAUNCHES[flash_label("flash_bwd.dkv", self.q.dtype)] += 1
+        self._count("flash_bwd.dkv")
         return dk, dv
 
     def fused(self) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         dk, dv = torch.empty_like(self.k), torch.empty_like(self.v)
-        dq_acc = torch.zeros_like(self.q, dtype=torch.float32)  # q's memory layout
+        if self.d == self.rung:
+            dq_acc = torch.zeros_like(self.q, dtype=torch.float32)  # q's memory layout
+        else:  # K11 adds all of its rung's columns (zeros past d); cut back below
+            dq_acc = torch.zeros((*self.q.shape[:3], self.rung), dtype=torch.float32,
+                                 device=self.q.device)
         strides = self._strides(dq_acc, dk, dv)
-        rc = _fn("flash_bwd_dkv", self.q.dtype)(
+        rc = _fn("flash_bwd_dkv", self.q.dtype, self.d)(
             *self.ins, dk.data_ptr(), dv.data_ptr(), dq_acc.data_ptr(), *self.tail, 1,
             ctypes.cast(strides, ctypes.c_void_p), _build.stream_handle())
         _build.check(rc, "flash_bwd (fused)")
-        _build.LAUNCHES[flash_label("flash_bwd.fused", self.q.dtype)] += 1
-        return dq_acc.to(self.q.dtype), dk, dv
+        self._count("flash_bwd.fused")
+        return dq_acc[..., :self.d].to(self.q.dtype), dk, dv
 
 
 def flash_bwd(
@@ -245,6 +262,15 @@ def flash_bwd(
     check_options(*q.shape[:3], k.shape[2], dropout_p=dropout_p, **opts)
     scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(q.shape[-1])
     if is_cuda(q, k, v, o, lse, do, kv_lens, q_segment_ids, kv_segment_ids, *opts.values()):
+        check_cuda_dtypes("flash backward (K9-K11)", q, k, v)
+        d = q.shape[-1]
+        if flash_head_dim(d, q.dtype, "flash backward (K9-K11)") != d:
+            return flash_bwd_padded(q, k, v, o, lse, do, flash_head_dim(d, q.dtype),
+                                    causal=causal, window=window, softcap=softcap,
+                                    softmax_scale=scale, kv_lens=kv_lens,
+                                    q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
+                                    dropout_p=dropout_p, dropout_seed=dropout_seed, fused=fused,
+                                    **opts)
         run = FlashBwdLaunch(q, k, v, o, lse, do, scale=scale, causal=causal, window=window,
                              softcap=softcap, kv_lens=kv_lens, q_segment_ids=q_segment_ids,
                              kv_segment_ids=kv_segment_ids, dropout_p=dropout_p,
@@ -257,3 +283,22 @@ def flash_bwd(
                          softmax_scale=scale, kv_lens=kv_lens, q_segment_ids=q_segment_ids,
                          kv_segment_ids=kv_segment_ids, dropout_p=dropout_p,
                          dropout_seed=dropout_seed, **opts)
+
+
+def flash_bwd_padded(q, k, v, o, lse, do, d_to: int, *, softmax_scale: Optional[float] = None,
+                     **kw):
+    """flash_bwd at a head dim K9-K11 cannot read in place (a row of no
+    whole 16-byte chunks, flash_head_dim): q, k, v, O and dO copied with
+    zero columns up to d_to, the call made at d_to with the softmax scale of
+    the real d, dq, dk and dv cut back to d. Exact: zero columns add nothing
+    to S, dP or Delta = rowsum(dO O), and give zero columns of dQ = dS K,
+    dK = dS^T Q and dV = P^T dO. On CUDA tensors the copy counts under
+    "flash_bwd.pad_copy"; CPU tensors run the plain version on the padded
+    operands."""
+    d = q.shape[-1]
+    scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)
+    if is_cuda(q, k, v, o, do):
+        _build.LAUNCHES["flash_bwd.pad_copy"] += 1
+    qp, kp, vp, op, dop = (torch.nn.functional.pad(t, (0, d_to - d)) for t in (q, k, v, o, do))
+    grads = flash_bwd(qp, kp, vp, op, lse, dop, softmax_scale=scale, **kw)
+    return tuple(g[..., :d] for g in grads)

@@ -23,11 +23,13 @@ a forward with the same options: masked entries and rows with LSE = -inf are
 
 CUDA tensors run the hand-written kernels csrc/flash_fwd.cu (K7) and
 csrc/flash_probs.cu (K8) for bf16 or fp16, and their f32 kernels in
-csrc/flash_f32.cu (f32 FMA): K7 at any head dim from 1 to 256 (instantiated
-at the rungs 64, 128, 192 and 256, the real d read through the tensor maps;
-widths of no whole 16-byte row take ``flash_fwd_padded``, a zero-padded
-copy counted as "flash_fwd.pad_copy"), K8 at head_dim 64 or 128 (as K9-K11,
-``check_cuda_head_dim``); CPU tensors run
+csrc/flash_f32.cu (f32 FMA), at any head dim from 1 to 256, as K9-K11
+(ops/flash_bwd.py): each kernel is instantiated at the rungs 64, 128, 192
+and 256 (``flash_rung``; the rungs 192 and 256 of the 16-bit kernels are
+libraries of their own, ``flash_entry``) and reads the real d through its
+tensor maps; widths of no whole 16-byte row (``flash_head_dim``) take
+``flash_fwd_padded`` / ``attention_probs_padded``, a zero-padded copy
+counted as "flash_fwd.pad_copy" / "flash_probs.pad_copy"; CPU tensors run
 ``flash_fwd_ref`` and ``attention_probs_ref``, the plain versions, with the
 kernels' numerics: the softmax scale folded into q in f32 and rounded to q's
 dtype, f32 scores, the tanh softcap on the scaled scores, P rounded to V's
@@ -55,8 +57,7 @@ from xf_flash_attention_cutlass_tpu_torch.utils import acc_dtype, is_cuda
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 M_FLOOR = -1e30  # running-max floor: exp(NEG_INF - M_FLOOR) == 0
 CUDA_DTYPES = (torch.bfloat16, torch.float16, torch.float32)
-CUDA_HEAD_DIMS = (64, 128)  # K8's and K9-K11's; K7 takes any d up to K7_MAX_HEAD_DIM
-K7_MAX_HEAD_DIM = 256
+FLASH_MAX_HEAD_DIM = 256  # K7-K11 take every head dim from 1 to this
 TILE = 64  # rows / keys of one entry of the kernels' tile tables (kTile)
 MASK32 = 0xFFFFFFFF
 INT32_MAX, INT32_MIN = 2**31 - 1, -(2**31)
@@ -278,27 +279,22 @@ def check_cuda_dtypes(what: str, q, k, v) -> None:
                         f"got {q.dtype}/{k.dtype}/{v.dtype}")
 
 
-def check_cuda_head_dim(what: str, d: int) -> None:
-    """Raise on the head dims K8 and K9-K11 do not take on CUDA (64 and 128
-    only; K7 takes any d up to 256)."""
-    if d not in CUDA_HEAD_DIMS:
-        raise ValueError(f"the CUDA {what} kernel takes head_dim 64 or 128, got {d}")
-
-
-def k7_head_dim(d: int, dtype: torch.dtype) -> int:
-    """The head dim a CUDA K7 call runs at: d itself where its rows are
-    whole 16-byte chunks (a multiple of 8 for bf16 / fp16, 4 for f32), else
-    the next such width, to which flash_fwd_padded copies q, k and v."""
-    if not 1 <= d <= K7_MAX_HEAD_DIM:
-        raise ValueError(f"the CUDA flash forward (K7) kernel takes head dims 1 to "
-                         f"{K7_MAX_HEAD_DIM}, got {d}")
+def flash_head_dim(d: int, dtype: torch.dtype, what: str = "flash forward (K7)") -> int:
+    """The head dim a CUDA call of the dense flash family (K7, K8, K9-K11;
+    `what` names the kernel in the error) runs at: d itself where its rows
+    are whole 16-byte chunks (a multiple of 8 for bf16 / fp16, 4 for f32),
+    else the next such width, to which the padded routes copy their
+    operands. Raises ValueError outside 1 to 256."""
+    if not 1 <= d <= FLASH_MAX_HEAD_DIM:
+        raise ValueError(f"the CUDA {what} kernel takes head dims 1 to "
+                         f"{FLASH_MAX_HEAD_DIM}, got {d}")
     a = 4 if dtype == torch.float32 else 8
     return -(-d // a) * a
 
 
-def k7_rung(d: int) -> int:
-    """K7's instantiation for head dim d: the smallest of 64, 128, 192 and
-    256 that is >= d."""
+def flash_rung(d: int) -> int:
+    """The instantiation of K7-K11 for head dim d: the smallest of 64, 128,
+    192 and 256 that is >= d."""
     return -(-d // 64) * 64
 
 
@@ -375,14 +371,13 @@ def flash_label(kernel: str, dtype: torch.dtype) -> str:
 
 def flash_entry(lib: str, name: str, dtype: torch.dtype, d: int = 128):
     """The library and entry-point name of a dense flash kernel for inputs of
-    dtype: lib (csrc/<lib>.cu) and xfa_<name> for bf16 and fp16 (K7 at a head
-    dim d above 128: the library of its wide rungs, lib + "_wide"), the f32
-    kernel xfa_<name>_f32 of csrc/flash_f32.cu for f32 (same arguments)."""
+    dtype and head dim d: lib (csrc/<lib>.cu) and xfa_<name> for bf16 and
+    fp16 (at a head dim above 128: the library of the rungs 192 and 256, lib +
+    "_wide"), the f32 kernel xfa_<name>_f32 of csrc/flash_f32.cu for f32
+    (same arguments, every rung)."""
     if dtype == torch.float32:
         return "flash_f32", f"xfa_{name}_f32"
-    if lib == "flash_fwd" and d > 128:
-        return "flash_fwd_wide", f"xfa_{name}"
-    return lib, f"xfa_{name}"
+    return (lib + "_wide" if d > 128 else lib), f"xfa_{name}"
 
 
 _fns = {}
@@ -448,7 +443,7 @@ def _flash_fwd_cuda(q, k, v, scale, causal, window, softcap, kv_lens, q_seg, kv_
     memory layout."""
     check_cuda_dtypes("flash forward (K7)", q, k, v)
     b, h, sq, d = q.shape
-    if k7_head_dim(d, q.dtype) != d:  # flash_fwd pads such widths
+    if flash_head_dim(d, q.dtype) != d:  # flash_fwd pads such widths
         raise ValueError(f"the CUDA flash forward (K7) kernel reads rows of whole 16-byte "
                          f"chunks, got head_dim {d} of {q.dtype}")
     h_k, sk = k.shape[1], k.shape[2]
@@ -465,7 +460,7 @@ def _flash_fwd_cuda(q, k, v, scale, causal, window, softcap, kv_lens, q_seg, kv_
         ctypes.cast(strides, ctypes.c_void_p), ex.ref(), _build.stream_handle(),
     )
     _build.check(rc, "flash_fwd")
-    _build.count_launch(flash_label("flash_fwd", q.dtype), d, k7_rung(d))
+    _build.count_launch(flash_label("flash_fwd", q.dtype), d, flash_rung(d))
     return o, lse
 
 
@@ -498,8 +493,8 @@ def flash_fwd(
     scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)
     if is_cuda(q, k, v, kv_lens, q_segment_ids, kv_segment_ids, *opts.values()):
         check_cuda_dtypes("flash forward (K7)", q, k, v)
-        if k7_head_dim(d, q.dtype) != d:
-            return flash_fwd_padded(q, k, v, k7_head_dim(d, q.dtype), causal=causal,
+        if flash_head_dim(d, q.dtype) != d:
+            return flash_fwd_padded(q, k, v, flash_head_dim(d, q.dtype), causal=causal,
                                     window=window, softcap=softcap, softmax_scale=scale,
                                     kv_lens=kv_lens, q_segment_ids=q_segment_ids,
                                     kv_segment_ids=kv_segment_ids, dropout_p=dropout_p,
@@ -518,7 +513,7 @@ def flash_fwd(
 
 def flash_fwd_padded(q, k, v, d_to: int, *, softmax_scale: Optional[float] = None, **kw):
     """flash_fwd at a head dim K7 cannot read in place (a row of no whole
-    16-byte chunks, k7_head_dim): q, k and v copied with zero columns up to
+    16-byte chunks, flash_head_dim): q, k and v copied with zero columns up to
     d_to, the call made at d_to with the softmax scale of the real d (zero
     columns add nothing to the scores and give O columns of zeros), O cut
     back to d. On CUDA tensors the copy counts under "flash_fwd.pad_copy";
@@ -559,12 +554,14 @@ def attention_probs_ref(q, k, lse, *, causal=False, window=(-1, -1), softcap=0.0
 
 
 def _attention_probs_cuda(q, k, lse, scale, causal, window, softcap, q_seg, kv_seg, ex):
-    """K8 on CUDA tensors. q and k are read through their strides where TMA
-    can (tma_strides) and copied otherwise; q is not pre-scaled (the kernel
-    scales it)."""
+    """K8 on CUDA tensors, d a multiple of 8 (f32: 4) up to 256. q and k are
+    read through their strides where TMA can (tma_strides) and copied
+    otherwise; q is not pre-scaled (the kernel scales it)."""
     check_cuda_dtypes("attention probs (K8)", q, k, k)
-    check_cuda_head_dim("attention probs (K8)", q.shape[-1])
     b, h, sq, d = q.shape
+    if flash_head_dim(d, q.dtype, "attention probs (K8)") != d:  # attention_probs pads them
+        raise ValueError(f"the CUDA attention probs (K8) kernel reads rows of whole 16-byte "
+                         f"chunks, got head_dim {d} of {q.dtype}")
     h_k, sk = k.shape[1], k.shape[2]
     wl, wr = resolve_window(causal, window)
     (q, k), in_strides = tma_operands(q, k)
@@ -572,14 +569,14 @@ def _attention_probs_cuda(q, k, lse, scale, causal, window, softcap, q_seg, kv_s
     lse = lse.float().contiguous()
     qseg, kseg = int32_or_none(q_seg), int32_or_none(kv_seg)
     out = torch.empty((b, h, sq, sk), dtype=torch.float32, device=q.device)
-    rc = _fn("flash_probs", q.dtype)(
+    rc = _fn("flash_probs", q.dtype, d)(
         q.data_ptr(), k.data_ptr(), lse.data_ptr(), out.data_ptr(), _build.ptr(qseg),
         _build.ptr(kseg), _build.dtype_code(q.dtype), b, h, h_k, sq, sk, d, wl, wr,
         float(softcap), float(scale), ctypes.cast(strides, ctypes.c_void_p), ex.ref(),
         _build.stream_handle(),
     )
     _build.check(rc, "flash_probs")
-    _build.LAUNCHES[flash_label("flash_probs", q.dtype)] += 1
+    _build.count_launch(flash_label("flash_probs", q.dtype), d, flash_rung(d))
     return out
 
 
@@ -613,6 +610,13 @@ def attention_probs(
     check_options(b, h, sq, k.shape[2], dropout_p=dropout_p, **opts)
     scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)
     if is_cuda(q, k, lse, q_segment_ids, kv_segment_ids, *opts.values()):
+        check_cuda_dtypes("attention probs (K8)", q, k, k)
+        if flash_head_dim(d, q.dtype, "attention probs (K8)") != d:
+            return attention_probs_padded(
+                q, k, lse, flash_head_dim(d, q.dtype), causal=causal, window=window,
+                softcap=softcap, softmax_scale=scale, q_segment_ids=q_segment_ids,
+                kv_segment_ids=kv_segment_ids, dropout_p=dropout_p, dropout_seed=dropout_seed,
+                **opts)
         ex = Extras(b, h, sq, k.shape[2], q.device, q_segment_ids=q_segment_ids,
                     kv_segment_ids=kv_segment_ids, dropout_p=dropout_p,
                     dropout_seed=dropout_seed, **opts)
@@ -623,3 +627,19 @@ def attention_probs(
                                softmax_scale=scale, q_segment_ids=q_segment_ids,
                                kv_segment_ids=kv_segment_ids, dropout_p=dropout_p,
                                dropout_seed=dropout_seed, **opts)
+
+
+def attention_probs_padded(q, k, lse, d_to: int, *, softmax_scale: Optional[float] = None,
+                           **kw):
+    """attention_probs at a head dim K8 cannot read in place (a row of no
+    whole 16-byte chunks, flash_head_dim): q and k copied with zero columns
+    up to d_to, the call made at d_to with the softmax scale of the real d
+    (zero columns add nothing to the scores). On CUDA tensors the copy counts
+    under "flash_probs.pad_copy"; CPU tensors run the plain version on the
+    padded operands."""
+    d = q.shape[-1]
+    scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)
+    if is_cuda(q, k):
+        _build.LAUNCHES["flash_probs.pad_copy"] += 1
+    qp, kp = (torch.nn.functional.pad(t, (0, d_to - d)) for t in (q, k))
+    return attention_probs(qp, kp, lse, softmax_scale=scale, **kw)
