@@ -241,7 +241,21 @@ Phases, each of which raises (exit code != 0) when it fails:
    `api_phi3` (flash_attn_func at 32 heads, d = 96, 2048 tokens, causal,
    ALiBi, dropout, the plane and the gradient; packed varlen's gradient;
    checked after against the plain versions).
-11. Print the seconds of each phase, the `kernels` JSON line (with the rows
+11. The parallel layers (`serve_mesh`, run beside phase 4's chunked
+   engine and its params): Llama-8B served as in phase 4 on a tp = 1 mesh
+   over a one-rank NCCL group (`serve_mesh_tp1`: its streams equal to the
+   single-device engine's token for token, its graphs to their eager runs,
+   each decode graph holding the reduce-scatter + all-gather structure's
+   130 collectives; both engines' decode graphs replayed under a profiler
+   trace, in turns); `tp_loss_and_grad` on that mesh at Llama-8B widths
+   cut to 2 layers against the single-device loss and gradient under the
+   3x rule (`train_mesh_tp1`); K1, K3 and K4 at the tp = 2 and 4 shard
+   shapes against their plain versions, with their routes; and, when the
+   card's compute mode allows it, dp = 2 x tp = 1 in two processes sharing
+   the card (`serve_mesh_dp2`: 4 layers, a one-rank NCCL tp group each, the
+   replicas' exchange over gloo), held to a single-device engine's streams
+   by the tie rule. Otherwise it prints why it skipped that step.
+12. Print the seconds of each phase, the `kernels` JSON line (with the rows
    at d = 96 and 256, "<label>@d<d>"), the card's name and power limit,
    and, last, {"ok": true, "device": {...}}.
 
@@ -256,11 +270,14 @@ import dataclasses
 import json
 import math
 import os
+import pickle
 import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
+from collections import Counter
 
 import numpy as np
 import torch
@@ -2916,7 +2933,10 @@ def serve_recorded(eng, prompts, n_new, prefix_id=None):
     chosen from: a prefill's (the engine's _sample_first), a graphed
     per-step decode's (the graph's logits output) or a speculative verify
     position's (verify_core wrapped for the run, its calls over more than
-    one token). Returns (streams,
+    one token). On a data-parallel mesh the engine's graph and verify
+    logits hold its replica's rows only, and it samples only its own lanes'
+    first tokens: the logits kept are those of its replica's requests.
+    Returns (streams,
     {(rid, index): logits (V,)}, the decode or verify steps' ms on CUDA
     events, the tokens they emitted)."""
     from xf_flash_attention_cutlass_tpu_torch.serve import engine as engine_mod
@@ -2956,13 +2976,16 @@ def serve_recorded(eng, prompts, n_new, prefix_id=None):
                 step_ms.append(start.elapsed_time(end))
                 step_tokens += sum(len(v) for v in emitted.values())
             graph = eng._graphs.get((1, False))
+            lo = eng._replica * eng.mb_local  # the replica's first row
             for slot, st in eng.active.items():
+                if not lo <= slot < lo + eng.mb_local:
+                    continue
                 n0 = before.get(st["id"], 1)  # admitted in this step: index 0 came from prefill
                 for i in range(len(st["generated"]) - n0):
                     if verified:
-                        logits[(st["id"], n0 + i)] = verified[0][slot, i].clone()
+                        logits[(st["id"], n0 + i)] = verified[0][slot - lo, i].clone()
                     else:
-                        logits[(st["id"], n0 + i)] = graph.logits[slot].clone()
+                        logits[(st["id"], n0 + i)] = graph.logits[slot - lo].clone()
     finally:
         del eng._sample_first  # the class's method again (no engine-method cycle)
         engine_mod.verify_core = verify_core
@@ -5803,6 +5826,358 @@ def api_phi3(gen, checks, paths, seed):
 
 # ---- main ---------------------------------------------------------------------
 
+# ---- phase 11: serving and training on a dp x tp mesh --------------------------
+
+MESH_TP = (2, 4)  # the tp widths at whose Llama-8B shard shapes K1, K3 and K4 are checked
+MESH_TIMEOUT_S = 300  # a mesh rank's process group and the wait for its result
+
+
+def mesh_store() -> str:
+    """A process group's rendezvous: a FileStore in a fresh temporary directory."""
+    return "file://" + os.path.join(tempfile.mkdtemp(prefix="xfa_mesh_"), "store")
+
+
+def replay_profile(eng, n_steps=3):
+    """Device time of a replay of the engine's per-step decode graph on its
+    static buffers (its last decode step's inputs), from a profiler trace,
+    with NCCL's kernels and K1's and K3's by route."""
+    g = eng._graphs[(1, False)]
+
+    def replay():
+        g.graph.replay()
+        torch.cuda.synchronize()
+
+    return profiled(replay, n_steps, groups=dict(nccl="nccl", memcpy="Memcpy", **K1_GROUPS,
+                                                 **K3_GROUPS))
+
+
+def collective_host_us(mesh, rows=8, dim=4096, calls=200):
+    """Host microseconds a call of each eager collective takes on the tp
+    group (a (rows, dim) bf16 tensor, the decode step's residual rows),
+    `calls` calls ended by one synchronize: what a step that is not
+    captured in a graph (a prefill chunk: 2 all-reduces a layer and an
+    all-gather) pays on the host for each."""
+    from xf_flash_attention_cutlass_tpu_torch.utils.collectives import (
+        all_gather,
+        all_reduce_,
+        reduce_scatter,
+    )
+
+    group = mesh.get_group("tp")
+    x = torch.zeros((rows, dim), dtype=torch.bfloat16, device="cuda")
+    out = {}
+    for name, op in (("all_reduce", all_reduce_), ("all_gather", all_gather),
+                     ("reduce_scatter", reduce_scatter)):
+        op(x, group)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            op(x, group)
+        torch.cuda.synchronize()
+        out[name] = 1e6 * (time.perf_counter() - t0) / calls
+    return out
+
+
+def mesh_serve_tp1(params, cfg, ecfg, single, want, seed, checks, paths):
+    """Llama-8B (32 layers, INT8 weights, FP8 cache, chunked prefill) served
+    on a tp = 1 mesh over a one-rank NCCL group, through the same requests
+    as the single-device chunked engine `single`: the streams must equal
+    its `want` token for token (at tp = 1 every collective is a copy or a
+    sum of one term, so the arithmetic is the same), every graph replay
+    must equal its eager run, and each decode graph must hold the
+    reduce-scatter + all-gather structure's 4 collectives a layer and 2
+    more. Then both engines' per-step decode graphs are replayed under a
+    profiler trace, in turns (single, mesh, mesh, single)."""
+    from xf_flash_attention_cutlass_tpu_torch.parallel import make_mesh
+    from xf_flash_attention_cutlass_tpu_torch.serve.engine import DecodeEngine
+
+    mesh = make_mesh(tp=1)
+    eng = DecodeEngine(params, cfg, ecfg, mesh=mesh)
+    eng.add_request(-1, list(range(300)), 2)  # warm-up request, not counted
+    eng.run()
+    torch.cuda.synchronize()
+    serving, paths["serve_mesh_tp1"] = drive("serve_mesh_tp1", lambda: serve(eng, cfg, seed))
+    got = {rid: list(eng.results[rid]) for rid in want}
+    checks.add("serve_mesh.tp1_token_identical", got == want,
+               differing=[rid for rid in want if got[rid] != want[rid]])
+    check_graph_replay(eng, checks, "serve_mesh_tp1")
+    coll = {k: v for k, v in eng._graphs[(1, False)].launches.items()
+            if k.startswith("collective.")}
+    per_step = sum(coll.values())
+    checks.add("serve_mesh.tp1_collectives_in_graph", per_step == 4 * cfg.n_layers + 2,
+               collectives_per_replay=coll, expected=4 * cfg.n_layers + 2)
+    profiles = dict(single=replay_profile(single), mesh=replay_profile(eng))
+    profiles.update(mesh_2=replay_profile(eng), single_2=replay_profile(single))
+    dev = {k: None if p is None else p["device_ms_per_step"] for k, p in profiles.items()}
+    nccl = {k: None if p is None else p["groups_ms_per_step"]["nccl"]
+            for k, p in profiles.items()}
+    out = dict(serving=serving, collectives_per_step=coll, replay_device_ms=dev,
+               replay_nccl_ms=nccl, replay_launches={
+                   k: None if p is None else p["launches_per_step"] for k, p in profiles.items()},
+               decode_step_ms_p50=serving["decode_step_ms"]["p50"],
+               collective_host_us=collective_host_us(mesh))
+    print(json.dumps({"serve_mesh_tp1_report": out}), flush=True)
+    out["replay_profiles"] = profiles  # the kernels of each trace, in the report
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_train_tp1(gen, cfg, seed, checks, paths):
+    """tp_loss_and_grad on a tp = 1 mesh at Llama-8B widths cut to 2 layers,
+    bf16, one 1024-token batch, against loss_fn and its gradient on one
+    device: the 3x rule on the loss and on every parameter's gradient, the
+    single-device bf16 step the low-precision reference and the f32 step
+    (the f32 kernels) the oracle."""
+    from xf_flash_attention_cutlass_tpu_torch.models.llama import init_params, loss_fn
+    from xf_flash_attention_cutlass_tpu_torch.parallel import (
+        make_mesh,
+        shard_params,
+        tp_loss_and_grad,
+    )
+
+    mesh = make_mesh(tp=1)
+    c2 = dataclasses.replace(cfg, n_layers=2)
+    base = init_params(gen, c2, dtype=torch.float32)
+    tokens = torch.from_numpy(np.random.default_rng(seed + 5).integers(
+        0, cfg.vocab_size, (1, 1025))).cuda()
+
+    def cast(dt):
+        return {n: ({m: t.to(dt) for m, t in x.items()} if isinstance(x, dict) else x.to(dt))
+                for n, x in base.items()}
+
+    def single(dt):
+        params = cast(dt)
+        names = [("embed",), ("final_norm",), ("lm_head",),
+                 *[("layers", n) for n in params["layers"]]]
+        leaves = [params[p[0]] if len(p) == 1 else params["layers"][p[1]] for p in names]
+        for t in leaves:
+            t.requires_grad_(True)
+        loss = loss_fn(params, tokens, c2)
+        grads = torch.autograd.grad(loss, leaves)
+        return float(loss.detach()), dict(zip(names, grads))
+
+    ref_loss, ref = single(torch.float32)
+    low_loss, low = single(torch.bfloat16)
+    bf16 = cast(torch.bfloat16)
+    (loss, grads), paths["train_mesh_tp1"] = drive(
+        "train_mesh_tp1", lambda: tp_loss_and_grad(shard_params(bf16, mesh), tokens, c2, mesh))
+    worst, rows = 0.0, {}
+    for name, g_ref in ref.items():
+        g = grads[name[0]] if len(name) == 1 else grads["layers"][name[1]]
+        err, lp = max_err(g, g_ref), max_err(low[name], g_ref)
+        tol = 3 * lp + 1e-5
+        rows["/".join(name)] = dict(err=err, tolerance=tol)
+        worst = max(worst, err / tol)
+    loss_err, loss_tol = abs(float(loss) - ref_loss), 3 * abs(low_loss - ref_loss) + 1e-5
+    checks.add("serve_mesh.train_tp1_3x_rule", worst <= 1.0 and loss_err <= loss_tol,
+               worst_err_over_tolerance=worst, loss=float(loss), loss_f32=ref_loss,
+               loss_err=loss_err, loss_tolerance=loss_tol, grads=rows)
+    del base, bf16, ref, low, grads
+    torch.cuda.empty_cache()
+    return dict(loss=float(loss), loss_f32=ref_loss, loss_bf16_single=low_loss,
+                worst_err_over_tolerance=worst, launches=paths["train_mesh_tp1"])
+
+
+def mesh_shard_kernels(gen, timer, checks, cfg):
+    """K1, K3 and K4 at the shard shapes of Llama-8B at tp = 2 and 4 (the
+    shapes the card never runs otherwise), each against its plain version:
+    K1 over an FP8 cache at decode (8 rows) and a 256-token chunk with the
+    shard's heads, K3 over one layer's shard projections at m = 8 (timed)
+    and 256, K4 over the lm_head's vocab shard at m = 8 (timed) and 1.
+    Returns each width's rows and routes."""
+    from xf_flash_attention_cutlass_tpu_torch.ops.paged import paged_route
+    from xf_flash_attention_cutlass_tpu_torch.quant.linear import qmm_route
+
+    out = {}
+    d, hd = cfg.dim, cfg.head_dim
+    for tp in MESH_TP:
+        scfg = dataclasses.replace(cfg, n_heads=cfg.n_heads // tp,
+                                   n_kv_heads=cfg.n_kv_heads // tp, head_dim_override=hd)
+        q_cols, kv_cols, f = scfg.n_heads * hd, scfg.n_kv_heads * hd, cfg.ffn_dim // tp
+        layer = [(d, q_cols), (d, kv_cols), (d, kv_cols), (q_cols, d), (d, f), (d, f), (f, d)]
+        head = [(d, cfg.vocab_size // tp)]
+        n0 = len(checks.cases)
+        row = dict(
+            k1_decode=check_paged_attention(gen, timer, checks, torch.float8_e4m3fn, "decode",
+                                            scfg),
+            k1_chunk=check_paged_attention(gen, timer, checks, torch.float8_e4m3fn, "prefill",
+                                           scfg),
+            k3_layer_m8=check_qmm(gen, timer, checks, torch.int8, 8, layer, True),
+            k4_lm_head_m8=check_qmm(gen, timer, checks, torch.int8, 8, head, False))
+        check_qmm(gen, timer, checks, torch.int8, 256, layer, True, timed=False)
+        check_qmm(gen, timer, checks, torch.int8, 1, head, False, timed=False)
+        group = scfg.n_heads // scfg.n_kv_heads
+        row["routes"] = dict(
+            paged=dict(decode=paged_route(group, 256, hd, torch.float8_e4m3fn),
+                       chunk=paged_route(256 * group, 256, hd, torch.float8_e4m3fn)),
+            qmm={f"{K}x{N}": dict(m8=qmm_route(8, K, N, torch.int8),
+                                  m256=qmm_route(256, K, N, torch.int8))
+                 for K, N in dict.fromkeys(layer + head)})
+        cases = checks.cases[n0:]
+        checks.add(f"serve_mesh.shard_kernels[tp={tp}]", all(c["ok"] for c in cases),
+                   cases=len(cases), heads=(scfg.n_heads, scfg.n_kv_heads), routes=row["routes"])
+        out[f"tp{tp}"] = row
+    print(json.dumps({"mesh_shard_kernels": out}), flush=True)
+    return out
+
+
+# dp = 2 x tp = 1 in two processes sharing the card: Llama-8B widths cut to 4
+# layers, INT8 weights from seed + 7, an FP8 cache, one prefill lane a replica
+DP2_LAYERS = 4
+DP2_ECFG = dict(kv_quant="fp8_e4m3", page_size=256, num_pages=64, max_seq=2048, max_batch=8,
+                prefill_chunk=256, prefill_lanes=2)
+DP2_NEW = 16
+
+
+def dp2_model(seed):
+    from xf_flash_attention_cutlass_tpu_torch.models.llama import (
+        LlamaConfig,
+        init_params,
+        quantize_params,
+    )
+
+    cfg = dataclasses.replace(LlamaConfig.llama8b(), n_layers=DP2_LAYERS)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 7)
+    return cfg, quantize_params(init_params(gen, cfg))
+
+
+def dp2_prompts(cfg, seed):
+    rng = np.random.default_rng(seed + 8)
+    return {i: rng.integers(0, cfg.vocab_size, int(n)).tolist()
+            for i, n in enumerate(rng.integers(200, 601, 8))}
+
+
+def dp2_rank(rank, store, seed, conn):
+    """One rank of the dp = 2 x tp = 1 mesh (a spawned process): a
+    one-rank NCCL tp group of its own, the replicas' exchange over gloo.
+    Sends back its replica's streams and recorded logits and the launches
+    its run made (cleared just before it)."""
+    import torch.distributed as dist
+    from datetime import timedelta
+
+    from xf_flash_attention_cutlass_tpu_torch import _build
+    from xf_flash_attention_cutlass_tpu_torch.parallel import make_mesh
+    from xf_flash_attention_cutlass_tpu_torch.serve.engine import DecodeEngine, EngineConfig
+
+    try:
+        torch.cuda.set_device(0)
+        dist.init_process_group("cpu:gloo,cuda:nccl", init_method=store, rank=rank,
+                                world_size=2, timeout=timedelta(seconds=MESH_TIMEOUT_S))
+        try:
+            cfg, params = dp2_model(seed)
+            eng = DecodeEngine(params, cfg, EngineConfig(**DP2_ECFG), mesh=make_mesh(dp=2))
+            torch.cuda.synchronize()
+            _build.LAUNCHES.clear()
+            _build.PLAIN_CALLS.clear()
+            streams, logits, step_ms, _ = serve_recorded(eng, dp2_prompts(cfg, seed), DP2_NEW)
+            torch.cuda.synchronize()
+            out = dict(rank=rank, streams=streams, launches=dict(_build.LAUNCHES),
+                       plain_calls=dict(_build.PLAIN_CALLS),
+                       logits={k: v.float().cpu() for k, v in logits.items()},
+                       decode_step_ms_p50=percentile(step_ms, 50))
+        finally:
+            dist.destroy_process_group()
+    except Exception as e:  # reported to the parent, which fails the phase
+        out = dict(rank=rank, error=repr(e))
+    # plain pickle: the tensors travel by value, not as shared memory that
+    # would outlive this process
+    conn.send_bytes(pickle.dumps(out))
+    conn.close()
+
+
+def mesh_dp2_two_processes(seed, checks, paths):
+    """dp = 2 x tp = 1 in two processes on the one card, when its compute
+    mode lets two processes hold it: the replicas' streams joined against a
+    single-device engine's on the same 4-layer model (the tie rule where
+    they part: each replica's decode runs 4 rows where the single engine's
+    runs 8, so K3's rounding may differ)."""
+    import multiprocessing
+
+    from xf_flash_attention_cutlass_tpu_torch.serve.engine import DecodeEngine, EngineConfig
+
+    mode = subprocess.run(["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60).stdout.strip()
+    if mode != "Default":
+        print(f"serve_mesh.dp2: skipped: the card's compute mode is {mode!r}, which does not "
+              "let two processes hold it", flush=True)
+        return dict(skipped=f"compute mode {mode}")
+    cfg, params = dp2_model(seed)
+    eng = DecodeEngine(params, cfg, EngineConfig(**DP2_ECFG))
+    ref_s, ref_l, ref_ms, _ = serve_recorded(eng, dp2_prompts(cfg, seed), DP2_NEW)
+    del eng, params
+    torch.cuda.empty_cache()
+    ctx = multiprocessing.get_context("spawn")
+    store, procs, conns = mesh_store(), [], []
+    for rank in range(2):
+        parent, child = ctx.Pipe()
+        p = ctx.Process(target=dp2_rank, args=(rank, store, seed, child))
+        p.start()
+        child.close()
+        procs.append(p)
+        conns.append(parent)
+    try:
+        outs = []
+        for rank, c in enumerate(conns):
+            if not c.poll(MESH_TIMEOUT_S):
+                raise RuntimeError(f"serve_mesh.dp2: rank {rank} sent nothing in "
+                                   f"{MESH_TIMEOUT_S} s")
+            outs.append(pickle.loads(c.recv_bytes()))
+    finally:
+        for p in procs:
+            p.join(30)
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+        shutil.rmtree(os.path.dirname(store[len("file://"):]), ignore_errors=True)
+    errors = [o["error"] for o in outs if "error" in o]
+    if errors:
+        raise RuntimeError(f"serve_mesh.dp2: {errors}")
+    for o in outs:
+        print(json.dumps({f"serve_mesh_dp2.rank{o['rank']}": dict(
+            launches=o["launches"], plain_calls=o["plain_calls"])}), flush=True)
+        missing = [k for k in PATHS["serve_mesh_dp2"] if not o["launches"].get(k)]
+        checks.add(f"serve_mesh.dp2_rank{o['rank']}_path", not missing and not any(
+            o["plain_calls"].values()), missing=missing)
+    checks.add("serve_mesh.dp2_ranks_agree", outs[0]["streams"] == outs[1]["streams"])
+    run_l = {**outs[0]["logits"], **outs[1]["logits"]}
+    ref_l = {k: v.float().cpu() for k, v in ref_l.items()}
+    rule = tie_rule(checks, "serve_mesh.dp2", (ref_s, ref_l), (outs[0]["streams"], run_l))
+    paths["serve_mesh_dp2"] = dict(Counter(outs[0]["launches"]) + Counter(outs[1]["launches"]))
+    return dict(compute_mode=mode, layers=DP2_LAYERS, tie_rule=rule,
+                decode_step_ms_p50=dict(single=percentile(ref_ms, 50),
+                                        **{f"rank{o['rank']}": o["decode_step_ms_p50"]
+                                           for o in outs}))
+
+
+def serve_mesh(gen, timer, params, cfg, ecfg, single, want, seed, checks, paths):
+    """Phase 11: the engine and the training step on a mesh (see the module
+    docstring). Returns the report's row, with the phase's seconds."""
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    out = {}
+    torch.cuda.set_device(0)
+    store = mesh_store()
+    dist.init_process_group("nccl", init_method=store, rank=0, world_size=1)
+    try:
+        out["tp1"] = mesh_serve_tp1(params, cfg, ecfg, single, want, seed, checks, paths)
+        checks.raise_on_failure("serve_mesh tp1")
+        out["train_tp1"] = mesh_train_tp1(gen, cfg, seed, checks, paths)
+        checks.raise_on_failure("serve_mesh training")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(os.path.dirname(store[len("file://"):]), ignore_errors=True)
+    out["shard_kernels"] = mesh_shard_kernels(gen, timer, checks, cfg)
+    checks.raise_on_failure("serve_mesh shard kernels")
+    out["dp2"] = mesh_dp2_two_processes(seed, checks, paths)
+    checks.raise_on_failure("serve_mesh dp2")
+    out["phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"serve_mesh": dict(phase_s=out["phase_s"], dp2=out["dp2"],
+                                         train_tp1=out["train_tp1"])}), flush=True)
+    return out
+
+
 _PKG = "xf_flash_attention_cutlass_tpu_torch/csrc/"
 _TPU = "xf_flash_attention_cutlass_tpu/"
 KERNELS = {  # launch-counter name: (source, TPU kernel it replaces)
@@ -5952,6 +6327,18 @@ PATHS.update({"train_phi3": ["flash_fwd", "flash_bwd.dq", "flash_bwd.dkv", "flas
               "api_phi3": ["flash_fwd", "flash_probs", "flash_bwd.dq", "flash_bwd.dkv"]})
 _PADS = ["flash_fwd.pad_copy", "flash_probs.pad_copy", "flash_bwd.pad_copy"]
 NOT_ON_PATH.update({"train_phi3": _PADS + _FLASH16[1::2], "api_phi3": _PADS + _FLASH16[1::2]})
+# phase 11: the mesh paths. Every decode graph holds the reduce-scatter +
+# all-gather structure's collectives and each prefill chunk the all-reduces,
+# issued at a group of one rank too; the training step all-reduces and
+# gathers; the dp = 2 ranks (4 rows a replica) also exchange their tokens
+_COLLECTIVES = ["collective.all_gather", "collective.reduce_scatter", "collective.all_reduce"]
+PATHS.update({
+    "serve_mesh_tp1": _SERVE_KERNELS + _CHUNKED + ["graph.decode"] + _COLLECTIVES,
+    "train_mesh_tp1": ["flash_fwd", "flash_bwd.dq", "flash_bwd.dkv"] + _COLLECTIVES,
+    "serve_mesh_dp2": [k for k in _SERVE_KERNELS if k != "paged_attention.combine"] + _CHUNKED
+    + ["graph.decode"] + _COLLECTIVES,
+})
+NOT_ON_PATH.update({"serve_mesh_tp1": _NOT_SERVING})
 
 
 def head_dim_kernels():
@@ -6189,10 +6576,17 @@ def main():
     check_graph_replay(eng, checks, "serve_chunked")
     report["chunked_prefill_profile"] = profile_chunked_prefill(eng, cfg, args.seed)
     print(json.dumps({"chunked_prefill_profile": report["chunked_prefill_profile"]}), flush=True)
-    del eng
-    torch.cuda.empty_cache()
     checks.raise_on_failure("chunked serving")
     mark("serve_chunked")
+
+    # 11 (here, beside the chunked engine and its params): serving and
+    # training on a mesh, the shard-shape kernels, dp = 2 in two processes
+    mesh_gen = torch.Generator(device="cuda").manual_seed(args.seed + 11)
+    report["serve_mesh"] = serve_mesh(mesh_gen, Timer(), params, cfg, ecfg, eng,
+                                      per_step_chunked, args.seed, checks, paths)
+    del eng
+    torch.cuda.empty_cache()
+    mark("serve_mesh")
 
     # the engine's features: windows, sampling, speculative verify, prefixes
     report["serve_features"] = serve_features(params, cfg, ecfg, args.seed, checks, paths,

@@ -13,6 +13,15 @@ matmul reads one layer of a stack in place.
 ``fused=True``), so ``loss_fn`` has a gradient through the kernels; padded
 batches are masked with ``kv_lens`` (the same mask the JAX package builds
 from segment ids).
+
+Tensor parallelism (``parallel/tp.py``): ``attn_qkv``, ``attention_block``
+and ``mlp_block`` take a ``group`` (the JAX package's ``axis_name``), a
+``torch.distributed`` process group over which the heads and the ffn dim
+are sharded. Megatron's f and g mark the sharded regions: ``tp_region_in``
+(identity forward, all-reduce backward) where a replicated activation
+enters one, ``tp_region_out`` (all-reduce forward, identity backward) where
+its partial sums leave; ``gather_vocab`` and ``scale_grad`` join a
+vocab-sharded lm_head's logits.
 """
 
 from __future__ import annotations
@@ -23,12 +32,18 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from xf_flash_attention_cutlass_tpu_torch.ops.flash import flash_attention
 from xf_flash_attention_cutlass_tpu_torch.ops.rotary import apply_rotary, rotary_frequencies
 from xf_flash_attention_cutlass_tpu_torch.quant.linear import quantize_weight, quantized_matmul
 from xf_flash_attention_cutlass_tpu_torch.utils import acc_dtype
+from xf_flash_attention_cutlass_tpu_torch.utils.collectives import (
+    all_gather,
+    all_reduce_,
+    reduce_scatter,
+)
 
 PROJ_NAMES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 
@@ -102,6 +117,86 @@ def init_params(generator: torch.Generator, cfg: LlamaConfig,
     )
 
 
+# ---- Megatron-style TP region markers (parallel/tp.py) -------------------
+
+
+class _RegionIn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return all_reduce_(ct.clone(), ctx.group), None
+
+
+class _RegionOut(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce_(x.clone(), group)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return ct, None
+
+
+class _ScaleGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, s):
+        ctx.s = s
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return ct * ctx.s, None
+
+
+class _GatherLast(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_gather(x, group, dim=-1)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return reduce_scatter(ct, ctx.group, dim=-1), None
+
+
+def _differentiable(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def tp_region_in(x: torch.Tensor, group) -> torch.Tensor:
+    """f: identity forward, all-reduce backward. Placed where a replicated
+    activation enters head- or ffn-sharded compute, so that upstream (norms,
+    the embedding) receives the full, replicated cotangent."""
+    return _RegionIn.apply(x, group) if _differentiable(x) else x
+
+
+def tp_region_out(x: torch.Tensor, group) -> torch.Tensor:
+    """g: all-reduce forward, identity backward: the sharded region's
+    partial sums reduced. Without a gradient the sum is taken in place."""
+    return _RegionOut.apply(x, group) if _differentiable(x) else all_reduce_(x, group)
+
+
+def scale_grad(x: torch.Tensor, s: float) -> torch.Tensor:
+    """Identity forward, cotangent scaled by s. Used after the vocab
+    all-gather: the loss is computed redundantly on every tp rank, so the
+    gather's transpose (a reduce-scatter) would overcount the cotangent
+    tp-fold."""
+    return _ScaleGrad.apply(x, s) if _differentiable(x) else x
+
+
+def gather_vocab(logits_local: torch.Tensor, group) -> torch.Tensor:
+    """A vocab-sharded lm_head's logits (..., V / tp) gathered to (..., V)
+    on every rank; the backward reduce-scatters the cotangent, scaled by
+    1 / tp (scale_grad)."""
+    if not _differentiable(logits_local):
+        return all_gather(logits_local, group, dim=-1)
+    return scale_grad(_GatherLast.apply(logits_local, group), 1.0 / dist.get_world_size(group))
+
+
 def layer_view(layers: Dict[str, Any], l: int) -> Dict[str, Any]:
     """One layer's params: plain stacks (or lists of per-layer views)
     indexed, projection tuples given the layer index so the matmul reads the
@@ -131,19 +226,31 @@ def _proj(x: torch.Tensor, w) -> torch.Tensor:
     return x @ w
 
 
-def mlp_block(layer: Dict[str, Any], x: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
+def mlp_block(layer: Dict[str, Any], x: torch.Tensor, cfg: LlamaConfig,
+              group=None) -> torch.Tensor:
+    """The SwiGLU MLP with its residual; under a tp `group` the ffn dim is
+    sharded and the down projection's partial sums are all-reduced."""
     h = rms_norm(x, layer["mlp_norm"], cfg.rms_eps)
+    if group is not None:
+        h = tp_region_in(h, group)
     gate = _proj(h, layer["w_gate"])
     up = _proj(h, layer["w_up"])
-    return x + _proj(F.silu(gate) * up, layer["w_down"])
+    partial = _proj(F.silu(gate) * up, layer["w_down"])
+    if group is not None:
+        partial = tp_region_out(partial, group)
+    return x + partial
 
 
-def attn_qkv(layer: Dict[str, Any], x: torch.Tensor, cfg: LlamaConfig, cos, sin, positions):
+def attn_qkv(layer: Dict[str, Any], x: torch.Tensor, cfg: LlamaConfig, cos, sin, positions,
+             group=None):
     """norm -> q/k/v projections -> rotary, (b, s, heads, head_dim) each;
-    shared by the full forward and the engine's prefill and decode."""
+    shared by the full forward and the engine's prefill and decode. Under a
+    tp `group`, cfg holds the local head counts (parallel/tp.py _local_cfg)."""
     b, s, _ = x.shape
     hd = cfg.head_dim
     h = rms_norm(x, layer["attn_norm"], cfg.rms_eps)
+    if group is not None:
+        h = tp_region_in(h, group)
     q = _proj(h, layer["wq"]).reshape(b, s, cfg.n_heads, hd)
     k = _proj(h, layer["wk"]).reshape(b, s, cfg.n_kv_heads, hd)
     v = _proj(h, layer["wv"]).reshape(b, s, cfg.n_kv_heads, hd)
@@ -161,16 +268,20 @@ def attention_block(
     positions: torch.Tensor,  # (b, s)
     kv_lens: Optional[torch.Tensor] = None,  # (b,) mask for padded batches
     fused: Optional[bool] = None,  # the attention backward's schedule (ops/flash_bwd.py)
+    group=None,  # tp group: local heads, the O projection's partial sums all-reduced
 ) -> torch.Tensor:
     b, s, _ = x.shape
-    q, k, v = attn_qkv(layer, x, cfg, cos, sin, positions)
+    q, k, v = attn_qkv(layer, x, cfg, cos, sin, positions, group)
     # padded batches: keys at or past kv_lens are masked. The JAX package
     # builds the same mask from segment ids, because its custom VJP takes no
     # kv_lens; here the kernels take kv_lens and skip the masked key tiles.
     o, _ = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                            causal=True, kv_lens=kv_lens, fused=fused)
     o = o.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.head_dim)
-    return x + _proj(o, layer["wo"])
+    partial = _proj(o, layer["wo"])
+    if group is not None:
+        partial = tp_region_out(partial, group)
+    return x + partial
 
 
 def forward(

@@ -17,9 +17,11 @@ model family, on the same attention stack as the Llama one.
   the dispatch/combine einsums are torch.einsum, as the JAX package computes
   them outside any Pallas kernel.
 
-Expert and tensor parallelism (the JAX package's ``ep_fn`` and
-``axis_name`` arguments of ``moe_mlp_block``) are not ported yet: they come
-with the parallel layers.
+Tensor parallelism: ``moe_mlp_block`` takes a tp ``group`` (the JAX
+package's ``axis_name``); the experts' ffn dim is then sharded like the
+dense MLP's (``parallel/tp.py``), the router and the dispatch are computed
+on every rank, and the combined output's partial sums are all-reduced.
+Expert parallelism (the JAX package's ``ep_fn``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -38,6 +40,8 @@ from xf_flash_attention_cutlass_tpu_torch.models.llama import (
     attention_block,
     layer_view,
     rms_norm,
+    tp_region_in,
+    tp_region_out,
 )
 from xf_flash_attention_cutlass_tpu_torch.ops.rotary import rotary_frequencies
 from xf_flash_attention_cutlass_tpu_torch.quant.linear import quantize_weight, quantized_matmul
@@ -253,9 +257,12 @@ def moe_mlp_block(
     x: torch.Tensor,  # (b, s, d)
     cfg: MoEConfig,
     capacity: Optional[int] = None,
+    group=None,  # tp group: the experts' ffn dim sharded, the output all-reduced
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Sparse MoE MLP over every (b, s) row: (residual output, aux loss).
-    Every row competes for the experts' capacity, in row order."""
+    Every row competes for the experts' capacity, in row order. Under a tp
+    `group` each rank's down projections are partial sums, reduced before
+    the residual add."""
     b, s, d = x.shape
     n = b * s
     if capacity is None:
@@ -264,10 +271,14 @@ def moe_mlp_block(
     flat = h.reshape(n, d)
     probs = torch.softmax(flat.float() @ layer["router"], dim=-1)
     dispatch, combine, aux = top_k_dispatch(probs, cfg.top_k, capacity)
+    if group is not None:
+        flat = tp_region_in(flat, group)
     # (n, E, C) x (n, d) -> (E, C, d): a gather as one product
     expert_in = torch.einsum("nec,nd->ecd", dispatch.to(flat.dtype), flat)
     expert_out = expert_ffn(layer["w_gate"], layer["w_up"], layer["w_down"], expert_in)
     y = torch.einsum("nec,ecd->nd", combine.to(expert_out.dtype), expert_out)
+    if group is not None:
+        y = tp_region_out(y, group)
     return x + y.reshape(b, s, d).to(x.dtype), aux
 
 

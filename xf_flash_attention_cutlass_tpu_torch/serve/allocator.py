@@ -327,3 +327,114 @@ class PagePool:
             sl[s] = ent[1]
             n += 1
         return bt, sl, n
+
+
+class DpPagePools:
+    """dp independent PagePools behind one global-slot interface: the
+    allocator of a data-parallel engine (serve/engine.py with a dp > 1
+    mesh). Each replica owns a disjoint slice of the batch slots and of the
+    page pool: global slot r * mb_local + s is local slot s of replica r,
+    and every page id handed out is LOCAL to its replica's pool shard. Every
+    rank runs the same operations on its own copy, so all ranks hold the
+    same state. Admission goes to the replica with the most free pages
+    first."""
+
+    def __init__(self, dp: int, num_pages_local: int, page_size: int,
+                 max_requests_local: int, backend: str = "native"):
+        self.dp = dp
+        self.mb_local = max_requests_local
+        self.pools = [PagePool(num_pages_local, page_size, max_requests_local, backend)
+                      for _ in range(dp)]
+
+    @property
+    def native(self) -> bool:
+        return all(p.native for p in self.pools)
+
+    def _split(self, slot: int):
+        return self.pools[slot // self.mb_local], slot % self.mb_local
+
+    def free_pages(self) -> int:
+        return sum(p.free_pages() for p in self.pools)
+
+    def admit_replica(self, replica: int, request_id: int, prompt_len: int,
+                      target_len: int) -> int:
+        s = self.pools[replica].admit(request_id, prompt_len, target_len)
+        return -1 if s < 0 else replica * self.mb_local + s
+
+    def admit(self, request_id: int, prompt_len: int, target_len: int) -> int:
+        # the least-loaded replica first (a stable sort: ties go to the lower one)
+        for r in sorted(range(self.dp), key=lambda r: -self.pools[r].free_pages()):
+            s = self.admit_replica(r, request_id, prompt_len, target_len)
+            if s >= 0:
+                return s
+        return -1
+
+    def admit_prefixed_replica(self, replica: int, request_id: int, shared_pages: int,
+                               prompt_len: int, target_len: int) -> int:
+        s = self.pools[replica].admit_prefixed(request_id, shared_pages, prompt_len, target_len)
+        return -1 if s < 0 else replica * self.mb_local + s
+
+    def prefix_alloc_all(self, n_pages: int) -> Optional[List[List[int]]]:
+        """Reserve n_pages prefix pages in EVERY replica's pool (the prefix
+        KV is replicated into each replica, so any replica's requests read
+        it through local page ids). Returns dp lists of page ids, or None
+        when a replica lacks room; all or nothing: the reservations made
+        before the failure are returned."""
+        out = []
+        for p in self.pools:
+            pages = p.prefix_alloc(n_pages)
+            if pages is None:
+                for q, done in zip(self.pools, out):
+                    q.prefix_free(done)
+                return None
+            out.append(pages)
+        return out
+
+    def prefix_free_all(self, pages_by_replica) -> None:
+        for p, pages in zip(self.pools, pages_by_replica):
+            if pages:
+                p.prefix_free(pages)
+
+    def extend(self, slot: int, n_tokens: int = 1) -> int:
+        p, s = self._split(slot)
+        return p.extend(s, n_tokens)
+
+    def truncate(self, slot: int, new_len: int) -> int:
+        p, s = self._split(slot)
+        return p.truncate(s, new_len)
+
+    def retire(self, slot: int) -> None:
+        p, s = self._split(slot)
+        p.retire(s)
+
+    def seq_len(self, slot: int) -> int:
+        p, s = self._split(slot)
+        return p.seq_len(s)
+
+    def build_block_tables(self, max_pages: int):
+        """Global (dp * mb_local, max_pages) tables of replica-local page
+        ids, the lengths and the number of active requests."""
+        bts, lens, n_active = [], [], 0
+        for p in self.pools:
+            bt, kv, n = p.build_block_tables(max_pages)
+            bts.append(bt)
+            lens.append(kv)
+            n_active += int(n)
+        return np.concatenate(bts), np.concatenate(lens), n_active
+
+    def snapshot(self) -> np.ndarray:
+        """The replicas' snapshots in the JAX package's words: a (dp, n + 1)
+        int64 array, row r holding replica r's word count and its words
+        (zero-padded to the longest), flattened."""
+        parts = [p.snapshot() for p in self.pools]
+        n = max(len(x) for x in parts)
+        out = np.zeros((self.dp, n + 1), np.int64)
+        for r, x in enumerate(parts):
+            out[r, 0] = len(x)
+            out[r, 1 : 1 + len(x)] = x
+        return out.reshape(-1)
+
+    def restore(self, words: np.ndarray) -> None:
+        words = np.asarray(words, np.int64).reshape(self.dp, -1)
+        for r, row in enumerate(words):
+            self.pools[r].restore(row[1 : 1 + int(row[0])])

@@ -29,6 +29,11 @@ port pads its tight pools so on save and crops them on load.
 
 Model params are not saved by default (pass ``include_params=True`` for a
 self-contained file); they are saved in the caller's form.
+
+Checkpoints of a mesh engine are not ported yet: ``save_engine`` of an
+engine on a mesh and ``load_engine(..., mesh=...)`` raise
+NotImplementedError, and so does loading a file whose shared prefixes lie
+in more than one data-parallel replica.
 """
 
 from __future__ import annotations
@@ -135,7 +140,10 @@ def _param_template(cfg: LlamaConfig, quantized: bool) -> Dict[str, Any]:
 
 def save_engine(engine: DecodeEngine, path: str, include_params: bool = False) -> None:
     """Checkpoint a DecodeEngine: KV pools, allocator, request state (and
-    params with include_params=True) into the .npz at `path`."""
+    params with include_params=True) into the .npz at `path`. Raises
+    NotImplementedError for an engine on a mesh."""
+    if engine.mesh is not None:
+        raise NotImplementedError("not ported yet: checkpoints of a mesh engine (save_engine)")
     ecfg = engine.ecfg
     pool_keys = sorted(engine.pools)
     pools = dict(engine.pools)
@@ -147,10 +155,6 @@ def save_engine(engine: DecodeEngine, path: str, include_params: bool = False) -
     packed = {k: _to_bytes(pools[k]) for k in pool_keys}
     params = _caller_params(engine.params)
     wq = params["layers"]["wq"]
-    prefixes = {
-        pid: dict({k: v for k, v in pf.items() if k != "pages"},
-                  pages_by_replica=[list(pf["pages"])])
-        for pid, pf in engine._prefixes.items()}
     state = dict(
         cfg=dataclasses.asdict(engine.cfg),
         cfg_class=type(engine.cfg).__name__,
@@ -164,7 +168,7 @@ def save_engine(engine: DecodeEngine, path: str, include_params: bool = False) -
         trash_page=engine.trash_page,
         include_params=include_params,
         params_quantized=isinstance(wq, tuple),
-        prefixes=prefixes,
+        prefixes=engine._prefixes,
         slot_prefix={str(k): v for k, v in engine._slot_prefix.items()},
         prefills=engine._prefills,
         preempt_emitted={str(k): v for k, v in engine._preempt_emitted.items()},
@@ -200,7 +204,7 @@ def load_engine(
     pack_small_pages (written before that field existed) is refused. The
     engine's CUDA graphs are captured at its first decode step."""
     if mesh is not None:
-        raise NotImplementedError("not ported yet: meshes")
+        raise NotImplementedError("not ported yet: checkpoints of a mesh engine (load_engine)")
     with np.load(path, allow_pickle=False) as z:
         state = json.loads(bytes(z["state"].tobytes()).decode())
         cls = _CONFIGS[state.get("cfg_class", "LlamaConfig")]
@@ -244,14 +248,11 @@ def load_engine(
     engine.results = {int(k): v for k, v in state["results"].items()}
     engine._step_count = state["step_count"]
     engine.trash_page = state["trash_page"]
-    engine._prefixes = {}
-    for pid, pf in state.get("prefixes", {}).items():
-        pages = pf.pop("pages_by_replica", None)
-        if pages is not None:
-            if len(pages) != 1:
-                raise NotImplementedError("not ported yet: data-parallel prefix pages")
-            pf["pages"] = pages[0]
-        engine._prefixes[pid] = pf
+    engine._prefixes = state.get("prefixes", {})
+    for pf in engine._prefixes.values():
+        if len(pf["pages_by_replica"]) != 1:
+            raise NotImplementedError("not ported yet: checkpoints of a data-parallel mesh "
+                                      "engine (prefix pages in more than one replica)")
     engine._slot_prefix = {int(k): v for k, v in state.get("slot_prefix", {}).items()}
     engine._preempt_emitted = {int(k): v for k, v in state.get("preempt_emitted", {}).items()}
     engine._prefills = [None] * ecfg.prefill_lanes

@@ -1,5 +1,5 @@
 """Continuous-batching decode engine over the paged KV cache, with bucketed
-or chunked prefill, on one device.
+or chunked prefill, on one device or on a dp x tp mesh.
 
 Host-side scheduling (admission, per-step page growth, retirement, OOM
 preemption, multi-step windows, speculative verify, shared prefixes)
@@ -48,7 +48,23 @@ sparse MoE MLP (``models/moe.py``) where a Llama layer runs its SwiGLU MLP
 lanes and dead decode rows included, competes for the experts' capacity in
 row order, as in the JAX engine, which feeds the same rows.
 
-What the port does not serve yet raises NotImplementedError: meshes.
+On a mesh (``DecodeEngine(..., mesh=make_mesh(dp=, tp=))``, one process a
+rank, ``parallel/``) the engine serves as the JAX engine's mesh mode does:
+prefill through chunks only; the weights and the kv heads sharded over
+"tp"; with dp > 1 the batch slots, prefill lanes and pages split among the
+replicas (``DpPagePools``, replica-local page ids, one trash page each,
+shared prefixes copied into every replica); the decode and verify steps
+with the reduce-scatter + all-gather structure (sp_batch) where the batch
+divides by tp and the model is dense, all-reduces elsewhere; the logits
+gathered over the vocabulary before sampling, so that every rank draws the
+same tokens. Every rank runs the same host bookkeeping for all replicas
+and computes its replica's rows; the replicas exchange their sampled
+tokens on host tensors. On CUDA the decode window is a graph replay with
+its collectives captured in it.
+
+What the port does not serve yet raises NotImplementedError: a mesh with
+ep, pp or cp > 1 (expert, pipeline and context parallelism), and
+checkpoints of a mesh engine (serve/checkpoint.py).
 """
 
 from __future__ import annotations
@@ -61,6 +77,8 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+import torch.nn.functional as F
 
 from xf_flash_attention_cutlass_tpu_torch import _build
 from xf_flash_attention_cutlass_tpu_torch.models.llama import (
@@ -78,8 +96,13 @@ from xf_flash_attention_cutlass_tpu_torch.ops.paged import paged_attention
 from xf_flash_attention_cutlass_tpu_torch.ops.paged_append import paged_append
 from xf_flash_attention_cutlass_tpu_torch.ops.rotary import rotary_frequencies
 from xf_flash_attention_cutlass_tpu_torch.quant.kv import resolve_quant
-from xf_flash_attention_cutlass_tpu_torch.serve.allocator import PagePool
+from xf_flash_attention_cutlass_tpu_torch.serve.allocator import DpPagePools, PagePool
 from xf_flash_attention_cutlass_tpu_torch.utils import cdiv, resolve_device
+from xf_flash_attention_cutlass_tpu_torch.utils.collectives import (
+    all_gather,
+    all_reduce_,
+    reduce_scatter,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -90,7 +113,9 @@ class EngineConfig:
     every field on one device: bucketed (prefill_chunk None or 0) or
     chunked prefill over prefill_lanes, speculate_k > 1 (greedy requests),
     multi_step > 1, and sampling with top_k / top_p / approx_top_k under
-    sample_seed. DecodeEngine raises NotImplementedError for meshes.
+    sample_seed; on a dp x tp mesh every field but bucketed prefill (as in
+    the JAX engine). DecodeEngine raises NotImplementedError for a mesh
+    with ep, pp or cp > 1.
 
     The speculative verify step runs eagerly on CUDA (no graph yet): on an
     H100 80GB HBM3 (700 W) at Llama-8B width with random weights,
@@ -150,15 +175,16 @@ DECODE_LANE, PREFILL_LANE = 0, 1
 
 
 def philox_uniform(rows: int, cols: int, step, lane: int, seed: int,
-                   device) -> torch.Tensor:
+                   device, row0: int = 0) -> torch.Tensor:
     """(rows, cols) f32 u in (0, 1): entry (r, c) is the top 23 bits of the
-    first word of Philox4x32-10 on counter (c, r, step, lane) under the key
-    `seed`. `step` is an int or an int tensor of shape () or (rows,), on the
-    device (a graph replays it)."""
+    first word of Philox4x32-10 on counter (c, row0 + r, step, lane) under
+    the key `seed`. `step` is an int or an int tensor of shape () or
+    (rows,), on the device (a graph replays it); row0 is the first row's
+    index in the engine's batch (a data-parallel replica's offset)."""
     seed &= (1 << 64) - 1
     shape = (rows, cols)
     col = torch.arange(cols, dtype=torch.int64, device=device)[None].expand(shape)
-    row = torch.arange(rows, dtype=torch.int64, device=device)[:, None].expand(shape)
+    row = torch.arange(row0, row0 + rows, dtype=torch.int64, device=device)[:, None].expand(shape)
     st = torch.as_tensor(step, dtype=torch.int64, device=device).reshape(-1, 1) & MASK32
     word, _, _, _ = philox4x32_10(col, row, st.expand(shape), torch.full_like(col, lane),
                                   seed & MASK32, seed >> 32)
@@ -166,9 +192,9 @@ def philox_uniform(rows: int, cols: int, step, lane: int, seed: int,
 
 
 def gumbel_noise(rows: int, cols: int, step, lane: int, seed: int,
-                 device) -> torch.Tensor:
+                 device, row0: int = 0) -> torch.Tensor:
     """(rows, cols) f32 Gumbel noise, -log(-log(u)) of philox_uniform."""
-    return -torch.log(-torch.log(philox_uniform(rows, cols, step, lane, seed, device)))
+    return -torch.log(-torch.log(philox_uniform(rows, cols, step, lane, seed, device, row0)))
 
 
 def _nucleus(vals: torch.Tensor, top_p: float) -> torch.Tensor:
@@ -189,6 +215,7 @@ def sample_tokens(
     top_p: float = 0.0,  # nucleus: the smallest set with cumulative prob >= p
     approx_top_k: bool = True,
     lane: int = DECODE_LANE,
+    row0: int = 0,  # the first row's index in the engine's batch (its noise counter)
 ) -> torch.Tensor:
     """Batched next-token selection, the JAX package's sample_tokens: rows
     with temperature <= 0 take the argmax (the first index on ties), the
@@ -213,7 +240,8 @@ def sample_tokens(
         vals, idx = torch.topk(scaled, k, dim=-1)  # sorted, descending
         if top_p and top_p > 0.0:
             vals = _nucleus(vals, top_p)
-        pos = torch.argmax(vals + gumbel_noise(b, k, step, lane, seed, logits.device), dim=-1)
+        pos = torch.argmax(vals + gumbel_noise(b, k, step, lane, seed, logits.device, row0),
+                           dim=-1)
         sampled = idx.gather(-1, pos[:, None])[:, 0]
     else:
         masked = scaled
@@ -222,7 +250,7 @@ def sample_tokens(
             drop = torch.isneginf(_nucleus(vals, top_p))
             masked = scaled.masked_fill(torch.zeros_like(drop).scatter(-1, order, drop),
                                         float("-inf"))
-        sampled = torch.argmax(masked + gumbel_noise(b, V, step, lane, seed, logits.device),
+        sampled = torch.argmax(masked + gumbel_noise(b, V, step, lane, seed, logits.device, row0),
                                dim=-1)
     return torch.where(t > 0.0, sampled, greedy)
 
@@ -235,33 +263,68 @@ def _rope(cfg: LlamaConfig, device, rope=None):
     return rotary_frequencies(cfg.head_dim, cfg.max_seq_len, cfg.rope_base, device=device)
 
 
-def _mlp(layer, x: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
+def _mlp(layer, x: torch.Tensor, cfg: LlamaConfig, group=None) -> torch.Tensor:
     """The dense SwiGLU MLP, or the sparse MoE MLP for a layer that holds
-    a router (models/moe.py), as the JAX engine's _mlp chooses."""
+    a router (models/moe.py), as the JAX engine's _mlp chooses; under a tp
+    `group` either one's ffn dim is sharded and its output all-reduced."""
     if "router" in layer:
-        out, _ = moe_mlp_block(layer, x, cfg)
+        out, _ = moe_mlp_block(layer, x, cfg, group=group)
         return out
-    return mlp_block(layer, x, cfg)
+    return mlp_block(layer, x, cfg, group=group)
 
 
-def _attention_layers(params, x, pools, bt, kv_lens, append_pos, positions, cfg, rope=None):
+def _attention_layers(params, x, pools, bt, kv_lens, append_pos, positions, cfg, rope=None,
+                      group=None, sp: bool = False):
     """The layer loop shared by verify/decode and chunked prefill: per
     layer, append the new tokens' KV into the pools in place, then attend
     over the paged cache (causal from the bottom right), project and run
-    the MLP. Returns the final-normed hidden states."""
+    the MLP. Returns the final-normed hidden states.
+
+    Under a tp `group` (cfg the local shard's, parallel/tp.py _local_cfg)
+    the pools hold the rank's kv heads, and the O projection's and the
+    MLP's partial sums are all-reduced. With `sp` (the JAX engine's
+    sp_batch) each all-reduce is split into a reduce-scatter and an
+    all-gather over the batch: the residual stream lives batch-sharded
+    between the sharded regions, each of which starts with an all-gather
+    of its input rows, and the stream is gathered once after the last
+    layer (4 collectives a layer and 1, where the all-reduces issue 2 a
+    layer). The same sums; b must divide by the group's size."""
     b, s, _ = x.shape
     cos, sin = _rope(cfg, x.device, rope)
     quant = "k_s" in pools
     scales = dict(k_scales=pools["k_s"], v_scales=pools["v_s"]) if quant else {}
+    if sp:
+        n = b // dist.get_world_size(group)
+        x = x[dist.get_rank(group) * n : (dist.get_rank(group) + 1) * n]
     for l in range(pools["k"].shape[0]):
         layer = layer_view(params["layers"], l)
-        q, k_new, v_new = attn_qkv(layer, x, cfg, cos, sin, positions)
+        x_full = all_gather(x, group) if sp else x
+        q, k_new, v_new = attn_qkv(layer, x_full, cfg, cos, sin, positions)
         paged_append(pools["k"], pools["v"], k_new, v_new, bt, append_pos, layer_idx=l, **scales)
         o, _ = paged_attention(q, pools["k"], pools["v"], bt, kv_lens, causal=True,
                                layer_idx=l, **scales)
-        x = x + _proj(o.reshape(b, s, cfg.n_heads * cfg.head_dim), layer["wo"])
-        x = _mlp(layer, x, cfg)
+        partial = _proj(o.reshape(b, s, cfg.n_heads * cfg.head_dim), layer["wo"])
+        if sp:
+            x = x + reduce_scatter(partial, group)
+            h = all_gather(rms_norm(x, layer["mlp_norm"], cfg.rms_eps), group)
+            mlp_partial = _proj(F.silu(_proj(h, layer["w_gate"])) * _proj(h, layer["w_up"]),
+                                layer["w_down"])
+            x = x + reduce_scatter(mlp_partial, group)
+        else:
+            if group is not None:
+                partial = all_reduce_(partial, group)
+            x = x + partial
+            x = _mlp(layer, x, cfg, group)
+    if sp:
+        x = all_gather(x, group)
     return rms_norm(x, params["final_norm"], cfg.rms_eps)
+
+
+def _lm_head(x: torch.Tensor, params, group) -> torch.Tensor:
+    """The lm_head's f32 logits; a vocab-sharded head's gathered over the tp
+    group, so that every rank samples the same tokens."""
+    logits = _proj(x, params["lm_head"]).float()
+    return logits if group is None else all_gather(logits, group, dim=-1)
 
 
 def verify_core(
@@ -272,37 +335,46 @@ def verify_core(
     kv_lens: torch.Tensor,  # (b,) — seq length AFTER this step (cur + L)
     cfg: LlamaConfig,
     rope=None,  # (cos, sin); None builds them
+    group=None,  # tp group (parallel/tp_serve.py); cfg then the local shard's
+    sp_batch: bool = False,  # the reduce-scatter + all-gather structure (_attention_layers)
 ) -> torch.Tensor:
     """One batched multi-token step: appends all L input tokens' KV (in
     place) and returns logits at every position, (b, L, vocab) f32.
 
     Inactive slots (kv_len 0) must have block-table rows pointing at the
     trash page, so that their clamped write position 0 cannot corrupt live
-    pages."""
+    pages. sp_batch runs only where it can, as in the JAX engine: under a
+    tp group, for a dense model, with b divisible by the group's size;
+    elsewhere the plain all-reduces run."""
     b, L = tokens.shape
     x = params["embed"][tokens.clamp(0, cfg.vocab_size - 1)]
     append_pos = (kv_lens - L).clamp_min(0)
     positions = append_pos[:, None] + torch.arange(L, device=tokens.device)[None]
+    sp = (sp_batch and group is not None and "router" not in params["layers"]
+          and b % dist.get_world_size(group) == 0)
     x = _attention_layers(params, x, pools, block_tables, kv_lens, append_pos, positions, cfg,
-                          rope)
-    logits = _proj(x.reshape(b * L, -1), params["lm_head"])
-    return logits.reshape(b, L, -1).float()
+                          rope, group, sp)
+    return _lm_head(x.reshape(b * L, -1), params, group).reshape(b, L, -1)
 
 
 def decode_core(params, tokens, pools, block_tables, kv_lens, cfg: LlamaConfig,
                 temperature=None, step=None, seed: int = 0, top_k: int = 0,
-                top_p: float = 0.0, approx_top_k: bool = True, rope=None):
+                top_p: float = 0.0, approx_top_k: bool = True, rope=None, group=None,
+                sp_batch: bool = False, row0: int = 0):
     """One batched decode step = the L = 1 case of verify_core, plus
-    sampling (sample_tokens; greedy when temperature is None). Returns
-    (next_tokens (b,), logits (b, vocab))."""
-    logits = verify_core(params, tokens, pools, block_tables, kv_lens, cfg, rope)[:, 0]
-    return sample_tokens(logits, temperature, step, seed, top_k, top_p, approx_top_k), logits
+    sampling (sample_tokens; greedy when temperature is None; row0 the first
+    row's index in the engine's batch). Returns (next_tokens (b,), logits
+    (b, vocab))."""
+    logits = verify_core(params, tokens, pools, block_tables, kv_lens, cfg, rope, group,
+                         sp_batch)[:, 0]
+    return sample_tokens(logits, temperature, step, seed, top_k, top_p, approx_top_k,
+                         row0=row0), logits
 
 
 def decode_multi_step(params, tokens, pools, block_tables, kv_lens, cfg: LlamaConfig,
                       temperature=None, step0=None, seed: int = 0, top_k: int = 0,
                       top_p: float = 0.0, approx_top_k: bool = True, n_steps: int = 2,
-                      rope=None):
+                      rope=None, group=None, sp_batch: bool = False, row0: int = 0):
     """`n_steps` autoregressive decode steps, each fed the previous one's
     tokens on the device. Contract (the JAX package's): `kv_lens` is the
     length after the FIRST step (the engine pre-extends pages by n_steps);
@@ -313,7 +385,8 @@ def decode_multi_step(params, tokens, pools, block_tables, kv_lens, cfg: LlamaCo
     toks, logits = [], None
     for i in range(n_steps):
         nt, logits = decode_core(params, tokens, pools, block_tables, kv_lens + i, cfg,
-                                 temperature, step0 + i, seed, top_k, top_p, approx_top_k, rope)
+                                 temperature, step0 + i, seed, top_k, top_p, approx_top_k, rope,
+                                 group, sp_batch, row0)
         toks.append(nt)
         tokens = nt[:, None]
     return torch.stack(toks), logits
@@ -379,6 +452,7 @@ def prefill_chunk_core(
     bt: torch.Tensor,  # (P, max_pages) per-lane block table incl. trash tail
     cfg: LlamaConfig,
     rope=None,
+    group=None,  # tp group (parallel/tp_serve.py); cfg then the local shard's
 ) -> torch.Tensor:
     """One step of incremental prefill for P prompts: append each lane's
     chunk KV into its pages (in place), then paged attention of the chunk
@@ -388,10 +462,9 @@ def prefill_chunk_core(
     P, C = tokens.shape
     x = params["embed"][tokens.clamp(0, cfg.vocab_size - 1)]
     positions = n_prior[:, None] + torch.arange(C, device=tokens.device)[None]
-    x = _attention_layers(params, x, pools, bt, n_prior + C, n_prior, positions, cfg, rope)
+    x = _attention_layers(params, x, pools, bt, n_prior + C, n_prior, positions, cfg, rope, group)
     last = (n_valid - 1).clamp_min(0)
-    x_last = x[torch.arange(P, device=x.device), last]
-    return _proj(x_last, params["lm_head"]).float()
+    return _lm_head(x[torch.arange(P, device=x.device), last], params, group)
 
 
 def _to_device(tree, device):
@@ -425,8 +498,8 @@ class _DecodeGraph:
     its replays are counted under."""
 
     graph: "torch.cuda.CUDAGraph"
-    tokens: torch.Tensor  # (K, max_batch) int64
-    logits: torch.Tensor  # (max_batch, vocab) f32, the last inner step's
+    tokens: torch.Tensor  # (K, rows) int64: every row, or on a mesh the replica's
+    logits: torch.Tensor  # (rows, vocab) f32, the last inner step's
     launches: Counter
     label: str
     head_dims: Counter = dataclasses.field(default_factory=Counter)
@@ -443,18 +516,40 @@ class DecodeEngine:
         ecfg: EngineConfig,
         dtype: torch.dtype = torch.bfloat16,
         device=None,  # None: CUDA, raising when it is absent
-        mesh=None,
+        mesh=None,  # a DeviceMesh (parallel/mesh.py make_mesh) to serve on
     ):
-        _check_served(mesh)
         self.device = resolve_device(device)
-        # decode and prefill read every projection through the stacked
-        # matmul (the same buffers, no copies)
-        self.params = pack_params_for_decode(_to_device(params, self.device))
         self.cfg = cfg
         ecfg = effective_engine_config(ecfg)
         self.ecfg = ecfg
-        self.pool = PagePool(ecfg.num_pages, ecfg.page_size, ecfg.max_batch)
-        self.trash_page = ecfg.num_pages
+        self.mesh = mesh
+        dp, tp = _check_mesh(mesh, cfg, ecfg, self.device)
+        # a dp x tp mesh: each data-parallel replica owns a disjoint slice of
+        # the batch slots and of the page pool, and every page id the host
+        # hands out is replica-local. Every rank runs this bookkeeping for
+        # all replicas (the same requests on every rank give the same
+        # state); it computes its replica's rows on its kv heads, and the
+        # replicas exchange the tokens they sample.
+        self.n_replicas = dp
+        num_pages_local = ecfg.num_pages // self.n_replicas
+        self.mb_local = ecfg.max_batch // self.n_replicas
+        if self.n_replicas > 1:
+            self.pool = DpPagePools(self.n_replicas, num_pages_local, ecfg.page_size,
+                                    self.mb_local)
+        else:
+            self.pool = PagePool(ecfg.num_pages, ecfg.page_size, ecfg.max_batch)
+        # one trash page per replica: local id num_pages_local in each shard
+        self.trash_page = num_pages_local
+        self._replica = 0  # this rank's replica
+        if mesh is not None:
+            from xf_flash_attention_cutlass_tpu_torch.parallel.mesh import DP, axis_index
+            from xf_flash_attention_cutlass_tpu_torch.parallel.tp import shard_params
+
+            params = shard_params(params, mesh)
+            self._replica = axis_index(mesh, DP)
+        # decode and prefill read every projection through the stacked
+        # matmul (the same buffers, no copies)
+        self.params = pack_params_for_decode(_to_device(params, self.device))
         if (
             ecfg.kv_quant
             and ecfg.prefill_chunk
@@ -469,7 +564,9 @@ class DecodeEngine:
                 f"{ecfg.prefill_chunk}): quantized prefill appends "
                 "write 128-lane-aligned scale windows"
             )
-        shape = (cfg.n_layers, ecfg.num_pages + 1, cfg.n_kv_heads, ecfg.page_size, cfg.head_dim)
+        # this rank's pools: its replica's pages and its kv heads
+        shape = (cfg.n_layers, num_pages_local + 1, cfg.n_kv_heads // tp, ecfg.page_size,
+                 cfg.head_dim)
         if ecfg.kv_quant:
             vdt, _ = resolve_quant(ecfg.kv_quant)
             self.pools = dict(
@@ -496,8 +593,8 @@ class DecodeEngine:
         # in-flight chunked prefills: one per lane; each engine step
         # advances every busy lane by one chunk in a single batched call
         self._prefills: List[Optional[dict]] = [None] * ecfg.prefill_lanes
-        # shared-prefix cache: prefix_id -> dict(pages, n_pages, shared_len,
-        # tokens, remainder); slot -> prefix_id for live requests
+        # shared-prefix cache: prefix_id -> dict(pages_by_replica, n_pages,
+        # shared_len, tokens, remainder); slot -> prefix_id for live requests
         self._prefixes: Dict[str, dict] = {}
         self._slot_prefix: Dict[int, str] = {}
         # tokens emitted by requests that were later preempted (a preempted
@@ -546,24 +643,39 @@ class DecodeEngine:
         page, C = self.ecfg.page_size, self.ecfg.prefill_chunk
         n_pages = len(tokens) // page
         shared_len = n_pages * page
-        pages = self.pool.prefix_alloc(n_pages) if n_pages else []
-        if pages is None:
+        R = self.n_replicas
+        if R > 1:
+            # the prefix is replicated into every replica's pages, so that any
+            # replica's requests read it through local page ids
+            pages_by_replica = (self.pool.prefix_alloc_all(n_pages) if n_pages
+                                else [[] for _ in range(R)])
+        else:
+            one = self.pool.prefix_alloc(n_pages) if n_pages else []
+            pages_by_replica = None if one is None else [one]
+        if pages_by_replica is None:
             raise RuntimeError("page pool cannot hold the prefix")
-        bt_row = np.full((1, self.ecfg.max_pages_per_seq), self.trash_page, np.int32)
-        bt_row[0, :n_pages] = pages
+        # one lane a replica (the first of its lanes; one lane without
+        # replicas): every replica prefills the same chunks into its own
+        # prefix pages, the other lanes idle on the trash page
+        P = self.ecfg.prefill_lanes if R > 1 else 1
+        lanes = [r * (P // R) for r in range(R)]
+        bt = np.full((P, self.ecfg.max_pages_per_seq), self.trash_page, np.int32)
+        for lane, pages in zip(lanes, pages_by_replica):
+            bt[lane, :n_pages] = pages
         pos = 0
         while pos < shared_len:
             chunk = tokens[pos : pos + C]
-            buf = np.zeros((1, C), np.int64)
-            buf[0, : len(chunk)] = chunk
-            prefill_chunk_core(
-                self.params, self._tensor(buf), self._tensor(np.array([pos], np.int64)),
-                self._tensor(np.array([len(chunk)], np.int64)), self.pools,
-                self._tensor(bt_row), self.cfg, self.rope,
-            )
+            buf = np.zeros((P, C), np.int64)
+            n_prior = np.zeros((P,), np.int64)
+            n_valid = np.zeros((P,), np.int64)
+            buf[lanes, : len(chunk)] = chunk
+            n_prior[lanes] = pos
+            n_valid[lanes] = len(chunk)
+            self._run_prefill_chunk(buf, n_prior, n_valid, bt)
             pos += len(chunk)
-        self._prefixes[prefix_id] = dict(pages=list(pages), n_pages=n_pages,
-                                         shared_len=shared_len, tokens=list(tokens),
+        self._prefixes[prefix_id] = dict(pages_by_replica=[list(p) for p in pages_by_replica],
+                                         n_pages=n_pages, shared_len=shared_len,
+                                         tokens=list(tokens),
                                          remainder=list(tokens[shared_len:]))
 
     def release_prefix(self, prefix_id: str) -> None:
@@ -573,11 +685,42 @@ class DecodeEngine:
             raise RuntimeError(f"prefix {prefix_id!r} still in use")
         pf = self._prefixes.pop(prefix_id)
         if pf["n_pages"]:
-            self.pool.prefix_free(pf["pages"])
+            if self.n_replicas > 1:
+                self.pool.prefix_free_all(pf["pages_by_replica"])
+            else:
+                self.pool.prefix_free(pf["pages_by_replica"][0])
 
     # ---- internals -------------------------------------------------------
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
+
+    def _exchange(self, local: torch.Tensor) -> np.ndarray:
+        """The replicas' rows of a host result (dim 0: this replica's rows)
+        joined in replica order over the dp group, on host tensors; the
+        result itself without replicas."""
+        local = local.cpu()
+        if self.n_replicas > 1:
+            from xf_flash_attention_cutlass_tpu_torch.parallel.tp_serve import gather_rows
+
+            local = gather_rows(local, self.mesh)
+        return local.numpy()
+
+    def _run_prefill_chunk(self, tokens, n_prior, n_valid, bt) -> torch.Tensor:
+        """prefill_chunk_core over host arrays of every lane, on the mesh
+        when there is one (this replica's lanes). Returns the logits of the
+        lanes this rank computed, (P_local, vocab)."""
+        args = [self._tensor(a) for a in (tokens, n_prior, n_valid)]
+        if self.mesh is not None:
+            from xf_flash_attention_cutlass_tpu_torch.parallel.tp_serve import (
+                tp_prefill_chunk_step,
+            )
+
+            logits, _ = tp_prefill_chunk_step(self.params, *args, self.pools, self._tensor(bt),
+                                              self.cfg, self.mesh, dp_axis=self.n_replicas > 1,
+                                              rope=self.rope)
+            return logits
+        return prefill_chunk_core(self.params, *args, self.pools, self._tensor(bt), self.cfg,
+                                  self.rope)
 
     def _bucket(self, n: int) -> int:
         """The padded prefill length of an n-token prompt: the smallest
@@ -631,15 +774,24 @@ class DecodeEngine:
 
     def _start_chunked_prefill(self, lane: int) -> bool:
         rid, prompt, max_new, temp, prefix_id = self.queue[0]
+        todo, base = prompt, 0
         if prefix_id is not None:
             pf = self._prefixes[prefix_id]
             todo = pf["remainder"] + prompt  # the tokens this request computes
             base = pf["shared_len"]
-            total = base + len(todo)
+        total = base + len(todo)
+        if self.n_replicas > 1:
+            # lane l prefills into replica l // lanes_local's pages
+            replica = lane // (self.ecfg.prefill_lanes // self.n_replicas)
+            if prefix_id is not None:
+                slot = self.pool.admit_prefixed_replica(replica, rid, pf["n_pages"], total,
+                                                        total + max_new)
+            else:
+                slot = self.pool.admit_replica(replica, rid, total, total + max_new)
+        elif prefix_id is not None:
             slot = self.pool.admit_prefixed(rid, pf["n_pages"], total, total + max_new)
         else:
-            todo, base = prompt, 0
-            slot = self.pool.admit(rid, len(todo), len(todo) + max_new)
+            slot = self.pool.admit(rid, total, total + max_new)
         if slot < 0:
             return False
         self.queue.popleft()
@@ -651,8 +803,12 @@ class DecodeEngine:
         return True
 
     def _prefix_pages(self, slot: int) -> List[int]:
+        """The shared-prefix pages `slot` reads: its replica's copy."""
         pid = self._slot_prefix.get(slot)
-        return [] if pid is None else self._prefixes[pid]["pages"]
+        if pid is None:
+            return []
+        pbr = self._prefixes[pid]["pages_by_replica"]
+        return pbr[0] if len(pbr) == 1 else pbr[slot // self.mb_local]
 
     def _bt_row(self, slot: int) -> np.ndarray:
         """This slot's block-table row: its own pages (after the shared
@@ -682,19 +838,31 @@ class DecodeEngine:
             n_prior[lane] = st["base"] + st["done"]
             n_valid[lane] = len(chunk)
             bt[lane] = self._bt_row(st["slot"])
-        logits = prefill_chunk_core(
-            self.params, self._tensor(tokens), self._tensor(n_prior), self._tensor(n_valid),
-            self.pools, self._tensor(bt), self.cfg, self.rope,
-        )
+        logits = self._run_prefill_chunk(tokens, n_prior, n_valid, bt)
+        done = []
         for lane, st in enumerate(self._prefills):
             if st is None:
                 continue
             st["done"] += int(n_valid[lane])
             self.stats["prefill_chunks"] += 1
-            if st["done"] < len(st["todo"]):
-                continue
-            first = self._sample_first(logits[lane], st["id"], st["temperature"])
-            self._activate(st["slot"], st["id"], st["prompt"], first, st["max_new"],
+            if st["done"] >= len(st["todo"]):
+                done.append(lane)
+        if not done:
+            return
+        # each replica samples its own lanes' first tokens, then the replicas
+        # exchange them (every rank knows which lanes completed)
+        P_local = P // self.n_replicas
+        lane0 = self._replica * P_local
+        firsts = torch.full((P_local,), -1, dtype=torch.int64)
+        for lane in done:
+            if lane0 <= lane < lane0 + P_local:
+                st = self._prefills[lane]
+                firsts[lane - lane0] = self._sample_first(logits[lane - lane0], st["id"],
+                                                          st["temperature"])
+        firsts = self._exchange(firsts)
+        for lane in done:
+            st = self._prefills[lane]
+            self._activate(st["slot"], st["id"], st["prompt"], int(firsts[lane]), st["max_new"],
                            st["temperature"], st["prefix_id"])
             self._prefills[lane] = None
 
@@ -831,9 +999,16 @@ class DecodeEngine:
                                          self.ecfg.spec_ngram)
             tokens[slot] = [st["last_token"]] + drafts
         self._step_count += 1
-        logits = verify_core(self.params, self._tensor(tokens), self.pools, self._tensor(bt),
-                             self._tensor(kv_lens), self.cfg, self.rope)
-        greedy = torch.argmax(logits, dim=-1).cpu().numpy()  # (b, L)
+        args = (self.params, self._tensor(tokens), self.pools, self._tensor(bt),
+                self._tensor(kv_lens), self.cfg)
+        if self.mesh is not None:
+            from xf_flash_attention_cutlass_tpu_torch.parallel.tp_serve import tp_verify_step
+
+            logits, _ = tp_verify_step(*args, self.mesh, dp_axis=self.n_replicas > 1,
+                                       sp_batch=True, rope=self.rope)
+        else:
+            logits = verify_core(*args, self.rope)
+        greedy = self._exchange(torch.argmax(logits, dim=-1))  # (b, L)
         for slot, st in self.active.items():
             g, drafts = greedy[slot], tokens[slot, 1:]
             a = 0
@@ -853,7 +1028,21 @@ class DecodeEngine:
 
     # ---- the decode window: a plain loop on the CPU, a graph on CUDA ------
     def _window_fn(self, K: int, sampling: bool, tokens, bt, lens, temps, step0):
+        """The K-step window over the whole batch's buffers; on a mesh, this
+        replica's rows, with the reduce-scatter + all-gather structure (the
+        JAX engine's sp_batch, which it runs where it can)."""
         e = self.ecfg
+        if self.mesh is not None:
+            from xf_flash_attention_cutlass_tpu_torch.parallel.tp_serve import (
+                tp_decode_multi_step,
+            )
+
+            toks, logits, _ = tp_decode_multi_step(
+                self.params, tokens, self.pools, bt, lens, self.cfg, self.mesh,
+                temperature=temps if sampling else None, step0=step0, seed=e.sample_seed,
+                top_k=e.top_k, top_p=e.top_p, approx_top_k=e.approx_top_k, sp_batch=True,
+                dp_axis=self.n_replicas > 1, n_steps=K, rope=self.rope)
+            return toks, logits
         return decode_multi_step(
             self.params, tokens, self.pools, bt, lens, self.cfg,
             temperature=temps if sampling else None, step0=step0, seed=e.sample_seed,
@@ -864,24 +1053,26 @@ class DecodeEngine:
     def _decode_window(self, tokens, bt, lens, temps, step0: int, K: int) -> np.ndarray:
         """K decode steps from host arrays (tokens (b, 1), block tables,
         lengths after the first step, temperatures, the first step's
-        count); returns the (K, b) tokens on the host: one read a window."""
+        count); returns the (K, b) tokens on the host: one read a window (on
+        a mesh, then the replicas' exchange of their rows)."""
         sampling = bool(temps.any())
         if self.device.type != "cuda":
             toks, _ = self._window_fn(K, sampling, self._tensor(tokens), self._tensor(bt),
                                       self._tensor(lens), self._tensor(temps),
                                       torch.tensor(step0, dtype=torch.int64))
-            return toks.numpy()
+            return self._exchange(toks.T).T
         g = self._graphs.get((K, sampling)) or self._capture(K, sampling)
         s = self._static
         for name, a in (("tokens", tokens), ("bt", bt), ("lens", lens), ("temps", temps)):
             s[name].copy_(torch.from_numpy(a))
         s["step"].fill_(step0)
         g.graph.replay()
-        out = g.tokens.cpu().numpy()
-        _build.LAUNCHES.update(g.launches)  # a replay runs no wrapper's host code
+        # a replay runs no wrapper's host code: the launches and collectives
+        # its capture counted are added here
+        _build.LAUNCHES.update(g.launches)
         _build.HEAD_DIM_LAUNCHES.update(g.head_dims)
         _build.LAUNCHES[g.label] += 1
-        return out
+        return self._exchange(g.tokens.T).T
 
     def _capture(self, K: int, sampling: bool) -> _DecodeGraph:
         """Capture the K-step window (sampling on or off) as a CUDA graph.
@@ -957,8 +1148,50 @@ class DecodeEngine:
         )
 
 
-def _check_served(mesh) -> None:
-    """Raise NotImplementedError for what the port does not serve yet
-    (meshes); nothing is silently served another way."""
-    if mesh is not None:
-        raise NotImplementedError("not ported yet: meshes")
+_NOT_PORTED_AXES = (
+    ("ep", "expert parallelism (the JAX package's parallel/ep.py and ep_serve.py)"),
+    ("pp", "pipeline parallelism (the JAX package's parallel/pp.py and pp_serve.py)"),
+    ("cp", "context parallelism (the JAX package's parallel/ring.py and ulysses.py)"),
+)
+
+
+def _check_mesh(mesh, cfg: LlamaConfig, ecfg: EngineConfig, device: torch.device):
+    """(dp, tp) of the mesh to serve on; (1, 1) without one. Raises
+    NotImplementedError for a mesh axis the port does not serve yet (ep, pp
+    or cp > 1: nothing is served another way) and ValueError for what the
+    JAX engine refuses too."""
+    if mesh is None:
+        return 1, 1
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from xf_flash_attention_cutlass_tpu_torch.parallel.mesh import AXES, DP, TP, axis_size
+
+    if not (isinstance(mesh, DeviceMesh) and mesh.mesh_dim_names == AXES):
+        raise NotImplementedError(
+            f"not served: a mesh other than a DeviceMesh with the axes {AXES} "
+            f"(parallel/mesh.py make_mesh), got {type(mesh).__name__}")
+    for axis, what in _NOT_PORTED_AXES:
+        if axis_size(mesh, axis) > 1:
+            raise NotImplementedError(f"not ported yet: {what}; the mesh has {axis} = "
+                                      f"{axis_size(mesh, axis)}")
+    if mesh.device_type != device.type:
+        raise ValueError(f"the mesh is on {mesh.device_type}, the engine on {device.type}")
+    if not ecfg.prefill_chunk:
+        raise ValueError("mesh mode serves prefill through the chunked path: set "
+                         "EngineConfig.prefill_chunk")
+    dp, tp = axis_size(mesh, DP), axis_size(mesh, TP)
+    for name, n in (("n_heads", cfg.n_heads), ("n_kv_heads", cfg.n_kv_heads),
+                    ("vocab_size", cfg.vocab_size)):
+        if n % tp:
+            raise ValueError(f"{name} {n} must divide by tp={tp}")
+    if dp > 1:
+        for name, val in (("max_batch", ecfg.max_batch), ("num_pages", ecfg.num_pages),
+                          ("prefill_lanes", ecfg.prefill_lanes)):
+            if val % dp:
+                raise ValueError(f"{name} ({val}) must divide by dp={dp}")
+        # the replicas exchange their sampled tokens as host tensors
+        backends = str(dist.get_backend_config(mesh.get_group(DP)))
+        if "cpu:" not in backends:
+            raise ValueError(f"dp={dp} needs a CPU backend in the process group (e.g. "
+                             f"'cpu:gloo,cuda:nccl'); it has {backends!r}")
+    return dp, tp
