@@ -254,8 +254,28 @@ Phases, each of which raises (exit code != 0) when it fails:
    card's compute mode allows it, dp = 2 x tp = 1 in two processes sharing
    the card (`serve_mesh_dp2`: 4 layers, a one-rank NCCL tp group each, the
    replicas' exchange over gloo), held to a single-device engine's streams
-   by the tie rule. Otherwise it prints why it skipped that step.
-12. Print the seconds of each phase, the `kernels` JSON line (with the rows
+   by the tie rule. Otherwise it prints why it skipped that step. The
+   tp = 1 mesh engine is also saved mid-stream (`save_engine` on a mesh:
+   each pool's blocks sent to rank 0's host one leaf at a time, rank 0
+   writing, no device memory added), loaded onto the mesh and run on: its
+   streams equal the uninterrupted run's.
+12. Expert parallelism (`serve_mesh_ep`, run inside phase 6 beside its
+   Mixtral-geometry INT8 params, which the mesh engine shares: one rank's
+   shard of each expert stack is the stack itself): the 8 serving requests
+   on an ep = 1 mesh over a one-rank NCCL group, through the ep prefill
+   chunks and decode steps (the dispatched blocks exchanged by an
+   all-to-all each way a layer, the identity at one rank), a main path;
+   its streams equal to phase 6's chunked engine's token for token, its
+   decode graph equal to the eager step and to `ep_decode_step` run
+   eagerly on the same buffers, the collectives in the graph counted (2
+   all-to-alls a layer), and its replay profiled beside the bucketed
+   single-device engine's, in turns; then, once phase 6's INT8 params are
+   freed, `moe_ep_loss_and_grad` at Mixtral widths cut to 2 layers against
+   moe_loss_fn's gradients under the 3x rule (`train_mesh_ep`, a main
+   path); and a probe of two processes exchanging CUDA tensors over NCCL
+   on the one card (`nccl_two_process_probe`), which says whether an
+   ep = 2 mesh can run on it.
+13. Print the seconds of each phase, the `kernels` JSON line (with the rows
    at d = 96 and 256, "<label>@d<d>"), the card's name and power limit,
    and, last, {"ok": true, "device": {...}}.
 
@@ -266,6 +286,7 @@ With --out DIR, the details of every phase also go to DIR/chip_smoke.json.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -3547,6 +3568,13 @@ def serve_moe(gen, checks, paths, seed):
     del runs
     checks.raise_on_failure("moe serving")
 
+    # 12. expert parallelism on these params (the chunked engine is gone)
+    t12 = time.perf_counter()
+    report["serve_mesh_ep"] = serve_mesh_ep(params, cfg, ecfg, prompts, n_new, want, eng, checks,
+                                            paths)
+    checks.raise_on_failure("serve_mesh_ep")
+    phase12_s = time.perf_counter() - t12
+
     report["checkpoint"] = moe_checkpoint(params, cfg, ecfg, prompts, want, checks)
     print(json.dumps({"serve_moe_checkpoint": report["checkpoint"]}), flush=True)
     report["decode_profile"] = moe_profile(eng, cfg, seed, checks)
@@ -3566,6 +3594,15 @@ def serve_moe(gen, checks, paths, seed):
     del trained
     torch.cuda.empty_cache()
     checks.raise_on_failure("moe training and the bf16 engine")
+
+    # 12, continued: ep training at 2 layers, then the two-process NCCL probe
+    t12 = time.perf_counter()
+    report["train_mesh_ep"] = mesh_train_ep(gen, cfg, seed, checks, paths)
+    print(json.dumps({"train_mesh_ep": report["train_mesh_ep"]}), flush=True)
+    checks.raise_on_failure("train_mesh_ep")
+    report["nccl_two_process_probe"] = nccl_two_process_probe()
+    print(json.dumps({"nccl_two_process_probe": report["nccl_two_process_probe"]}), flush=True)
+    report["phase12_s"] = phase12_s + time.perf_counter() - t12
     return report
 
 
@@ -6022,6 +6059,79 @@ def mesh_shard_kernels(gen, timer, checks, cfg):
     return out
 
 
+@contextlib.contextmanager
+def one_rank_group():
+    """The default process group as one NCCL rank on the card, for a mesh of
+    one rank (make_mesh()); destroyed on exit."""
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    store = mesh_store()
+    dist.init_process_group("nccl", init_method=store, rank=0, world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(os.path.dirname(store[len("file://"):]), ignore_errors=True)
+
+
+def mesh_checkpoint_tp1(params, cfg, ecfg, want, seed, checks, n_new=32):
+    """A tp = 1 mesh engine (after phase 4's warm-up request) over serve()'s
+    8 prompts in a pool of 64 pages (which holds them), saved once its
+    prefills are done and 4 decode steps later (save_engine on a mesh: each
+    pool's blocks to rank 0's host one leaf at a time, rank 0 writing; the
+    save may add no more than 1 MiB to the device's peak), loaded onto
+    the mesh (load_engine(..., mesh=)) in a fresh engine and run to the
+    end: its streams must equal the uninterrupted single-device run's
+    `want`, token for token. Returns the file's size and the save and load
+    seconds."""
+    from xf_flash_attention_cutlass_tpu_torch.parallel import make_mesh
+    from xf_flash_attention_cutlass_tpu_torch.serve import DecodeEngine, load_engine, save_engine
+
+    mesh = make_mesh(tp=1)
+    ecfg = dataclasses.replace(ecfg, num_pages=64)
+    eng = DecodeEngine(params, cfg, ecfg, mesh=mesh)
+    eng.add_request(-1, list(range(300)), 2)  # the warm-up request phase 4 ran first
+    eng.run()
+    rng = np.random.default_rng(seed)  # serve()'s prompts
+    lens = rng.integers(200, 1501, 8)
+    for i, n in enumerate(lens):
+        eng.add_request(i, rng.integers(0, cfg.vocab_size, int(n)).tolist(), n_new)
+    while eng.queue or any(st is not None for st in eng._prefills):
+        eng.step()
+    for _ in range(4):
+        eng.step()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "mesh.npz")
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        save_engine(eng, path)
+        out["save_s"] = time.perf_counter() - t0
+        out["file_bytes"] = os.path.getsize(path)
+        # the save moves each leaf to the host one at a time: no device copy
+        out["save_device_bytes_added"] = torch.cuda.max_memory_allocated() - before
+        checks.add("serve_mesh.checkpoint_tp1.save_adds_no_device_memory",
+                   out["save_device_bytes_added"] <= 1 << 20,
+                   device_bytes_added=out["save_device_bytes_added"],
+                   pool_bytes=sum(t.nbytes for t in eng.pools.values()))
+        del eng
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        resumed = load_engine(path, params=params, mesh=mesh)
+        torch.cuda.synchronize()
+        out["load_s"] = time.perf_counter() - t0
+    streams = resumed.run()
+    del resumed
+    torch.cuda.empty_cache()
+    same = {rid: list(streams[rid]) == want[rid] for rid in want}
+    checks.add("serve_mesh.checkpoint_tp1.resumed_streams_equal", all(same.values()),
+               per_request=same)
+    return out
+
+
 # dp = 2 x tp = 1 in two processes sharing the card: Llama-8B widths cut to 4
 # layers, INT8 weights from seed + 7, an FP8 cache, one prefill lane a replica
 DP2_LAYERS = 4
@@ -6153,21 +6263,16 @@ def mesh_dp2_two_processes(seed, checks, paths):
 def serve_mesh(gen, timer, params, cfg, ecfg, single, want, seed, checks, paths):
     """Phase 11: the engine and the training step on a mesh (see the module
     docstring). Returns the report's row, with the phase's seconds."""
-    import torch.distributed as dist
-
     t0 = time.perf_counter()
     out = {}
-    torch.cuda.set_device(0)
-    store = mesh_store()
-    dist.init_process_group("nccl", init_method=store, rank=0, world_size=1)
-    try:
+    with one_rank_group():
         out["tp1"] = mesh_serve_tp1(params, cfg, ecfg, single, want, seed, checks, paths)
         checks.raise_on_failure("serve_mesh tp1")
+        out["checkpoint_tp1"] = mesh_checkpoint_tp1(params, cfg, ecfg, want, seed, checks)
+        print(json.dumps({"serve_mesh_checkpoint_tp1": out["checkpoint_tp1"]}), flush=True)
+        checks.raise_on_failure("serve_mesh checkpoint")
         out["train_tp1"] = mesh_train_tp1(gen, cfg, seed, checks, paths)
         checks.raise_on_failure("serve_mesh training")
-    finally:
-        dist.destroy_process_group()
-        shutil.rmtree(os.path.dirname(store[len("file://"):]), ignore_errors=True)
     out["shard_kernels"] = mesh_shard_kernels(gen, timer, checks, cfg)
     checks.raise_on_failure("serve_mesh shard kernels")
     out["dp2"] = mesh_dp2_two_processes(seed, checks, paths)
@@ -6176,6 +6281,201 @@ def serve_mesh(gen, timer, params, cfg, ecfg, single, want, seed, checks, paths)
     print(json.dumps({"serve_mesh": dict(phase_s=out["phase_s"], dp2=out["dp2"],
                                          train_tp1=out["train_tp1"])}), flush=True)
     return out
+
+
+# ---- phase 12: expert parallelism -------------------------------------------
+
+def serve_mesh_ep(params, cfg, ecfg, prompts, n_new, want, single, checks, paths):
+    """The Mixtral-geometry INT8 params (phase 6's, shared: at one rank each
+    expert stack's shard is the stack itself) served on an ep = 1 mesh over
+    a one-rank NCCL group, through the ep prefill chunks and decode steps
+    (an all-to-all each way a layer, the identity at one rank), over phase
+    6's prompts: a main path, its streams held to phase 6's chunked engine
+    (`want`) token for token, its graphs to the eager step, its per-step
+    graph also to ep_decode_step run eagerly on the same buffers, the
+    collectives in that graph counted (2 all-to-alls a layer). Then the
+    decode graphs of this engine and of the single-device bucketed engine
+    `single` replayed on the same inputs (single's last decode step's) under
+    a profiler trace, in turns (single, ep, ep, single). Returns the
+    report's row."""
+    from xf_flash_attention_cutlass_tpu_torch.models.moe import EXPERT_NAMES
+    from xf_flash_attention_cutlass_tpu_torch.parallel import ep_decode_step, make_mesh
+    from xf_flash_attention_cutlass_tpu_torch.serve import DecodeEngine
+
+    out = {}
+    with one_rank_group():
+        mesh = make_mesh(ep=1)
+        eng = DecodeEngine(params, cfg, ecfg, mesh=mesh)
+        shared = {n: eng.params["layers"][n][0].data_ptr() == params["layers"][n][0].data_ptr()
+                  for n in EXPERT_NAMES}
+        checks.add("serve_mesh_ep.experts_not_copied", all(shared.values()), shared=shared)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        (streams, _, step_ms, step_tok), paths["serve_mesh_ep"] = drive(
+            "serve_mesh_ep", lambda: serve_recorded(eng, prompts, n_new))
+        checks.add("serve_mesh_ep.token_identical", streams == want,
+                   differing=[rid for rid in want if streams[rid] != want[rid]])
+        check_graph_replay(eng, checks, "serve_mesh_ep")
+        g, s = eng._graphs[(1, False)], eng._static
+        coll = {k: v for k, v in g.launches.items() if k.startswith("collective.")}
+        checks.add("serve_mesh_ep.all_to_alls_in_graph",
+                   coll.get("collective.all_to_all") == 2 * cfg.n_layers,
+                   collectives_per_replay=coll, expected_all_to_alls=2 * cfg.n_layers)
+        g.graph.replay()
+        toks_g, logits_g = g.tokens[0].clone(), g.logits.clone()
+        toks_e, logits_e, _ = ep_decode_step(eng.params, s["tokens"], eng.pools, s["bt"],
+                                             s["lens"], cfg, mesh, rope=eng.rope)
+        checks.add("serve_mesh_ep.graph_equals_ep_decode_step",
+                   torch.equal(toks_g, toks_e)
+                   and torch.equal(logits_g.view(torch.int32), logits_e.view(torch.int32)),
+                   max_abs_err=max_err(logits_g, logits_e))
+        # both graphs on the single engine's last decode inputs (its pages are
+        # valid ids of this pool too): the same work, for the A/B below
+        for name, t in single._static.items():
+            s[name].copy_(t)
+        profiles = dict(single=replay_profile(single), ep=replay_profile(eng))
+        profiles.update(ep_2=replay_profile(eng), single_2=replay_profile(single))
+        dev = {k: None if p is None else p["device_ms_per_step"] for k, p in profiles.items()}
+        nccl = {k: None if p is None else p["groups_ms_per_step"]["nccl"]
+                for k, p in profiles.items()}
+        out = dict(collectives_per_step=coll, replay_device_ms=dev, replay_nccl_ms=nccl,
+                   replay_launches={k: None if p is None else p["launches_per_step"]
+                                    for k, p in profiles.items()},
+                   active_rows=int((s["lens"] > 0).sum()),
+                   decode_step_ms=dict(p50=percentile(step_ms, 50), p90=percentile(step_ms, 90)),
+                   decode_tok_s=step_tok / (sum(step_ms) / 1e3) if step_ms else None,
+                   peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   launches=paths["serve_mesh_ep"], stats=dict(eng.stats))
+        if dev["single"] is not None and dev["ep"] is not None:
+            out["ep_minus_single_device_ms"] = (
+                (dev["ep"] + dev["ep_2"]) - (dev["single"] + dev["single_2"])) / 2
+        print(json.dumps({"serve_mesh_ep": out}), flush=True)
+        out["replay_profiles"] = profiles
+        del eng
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_train_ep(gen, cfg, seed, checks, paths):
+    """moe_ep_loss_and_grad on an ep = 1 mesh at Mixtral widths cut to 2
+    layers, bf16, one 512-token batch, against moe_loss_fn and its gradient
+    on one device: the 3x rule on the loss and on every parameter's
+    gradient, the single-device bf16 step the low-precision reference and
+    the f32 step (the f32 kernels) the oracle."""
+    from xf_flash_attention_cutlass_tpu_torch.models.moe import init_moe_params, moe_loss_fn
+    from xf_flash_attention_cutlass_tpu_torch.parallel import (
+        make_mesh,
+        moe_ep_loss_and_grad,
+        shard_moe_params,
+    )
+
+    c2 = dataclasses.replace(cfg, n_layers=2)
+    base = init_moe_params(gen, c2, dtype=torch.float32)
+    tokens = torch.from_numpy(np.random.default_rng(seed + 9).integers(
+        0, cfg.vocab_size, (1, 513))).cuda()
+
+    def cast(dt):
+        return {n: ({m: t.to(dt) for m, t in x.items()} if isinstance(x, dict) else x.to(dt))
+                for n, x in base.items()}
+
+    names = [("embed",), ("final_norm",), ("lm_head",),
+             *[("layers", n) for n in base["layers"]]]
+
+    def leaf(tree, name):
+        return tree[name[0]] if len(name) == 1 else tree["layers"][name[1]]
+
+    def single(dt):
+        params = cast(dt)
+        if dt != torch.float32:  # the router stays f32, as init_moe_params makes it
+            params["layers"]["router"] = base["layers"]["router"].clone()
+        leaves = [leaf(params, n) for n in names]
+        for t in leaves:
+            t.requires_grad_(True)
+        loss = moe_loss_fn(params, tokens, c2)
+        grads = torch.autograd.grad(loss, leaves)
+        return float(loss.detach()), dict(zip(names, grads))
+
+    ref_loss, ref = single(torch.float32)
+    low_loss, low = single(torch.bfloat16)
+    bf16 = cast(torch.bfloat16)
+    bf16["layers"]["router"] = base["layers"]["router"].clone()
+    del base
+    with one_rank_group():
+        mesh = make_mesh(ep=1)
+        (loss, grads), paths["train_mesh_ep"] = drive(
+            "train_mesh_ep",
+            lambda: moe_ep_loss_and_grad(shard_moe_params(bf16, mesh), tokens, c2, mesh))
+    worst, rows = 0.0, {}
+    for name, g_ref in ref.items():
+        err, lp = max_err(leaf(grads, name), g_ref), max_err(low[name], g_ref)
+        tol = 3 * lp + 1e-5
+        rows["/".join(name)] = dict(err=err, tolerance=tol)
+        worst = max(worst, err / tol)
+    loss_err, loss_tol = abs(float(loss) - ref_loss), 3 * abs(low_loss - ref_loss) + 1e-5
+    checks.add("serve_mesh_ep.train_3x_rule", worst <= 1.0 and loss_err <= loss_tol,
+               worst_err_over_tolerance=worst, loss=float(loss), loss_f32=ref_loss,
+               loss_err=loss_err, loss_tolerance=loss_tol, grads=rows)
+    del bf16, ref, low, grads
+    torch.cuda.empty_cache()
+    return dict(layers=2, tokens=512, loss=float(loss), loss_f32=ref_loss,
+                loss_bf16_single=low_loss, worst_err_over_tolerance=worst,
+                launches=paths["train_mesh_ep"])
+
+
+def nccl_probe_rank(rank, store, conn):
+    """One of two processes on the one card: a two-rank NCCL group and one
+    all_to_all_single of a CUDA tensor. Sends back what it received or the
+    error."""
+    import torch.distributed as dist
+    from datetime import timedelta
+
+    try:
+        torch.cuda.set_device(0)
+        dist.init_process_group("nccl", init_method=store, rank=rank, world_size=2,
+                                timeout=timedelta(seconds=60))
+        try:
+            x = torch.full((2, 4), float(rank), device="cuda")
+            y = torch.empty_like(x)
+            dist.all_to_all_single(y, x)
+            torch.cuda.synchronize()
+            out = dict(rank=rank, received=y.cpu().tolist())
+        finally:
+            dist.destroy_process_group()
+    except Exception as e:  # the probe's finding, reported to the parent
+        out = dict(rank=rank, error=repr(e)[:2000])
+    conn.send_bytes(pickle.dumps(out))
+    conn.close()
+
+
+def nccl_two_process_probe(wait_s=120):
+    """Whether two processes can exchange CUDA tensors over NCCL on the one
+    card (what an ep = 2 mesh on it needs): each sends a row of its rank to
+    the other. Returns the outcome; never raises for NCCL's refusal."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    store, procs, conns = mesh_store(), [], []
+    for rank in range(2):
+        parent, child = ctx.Pipe()
+        p = ctx.Process(target=nccl_probe_rank, args=(rank, store, child))
+        p.start()
+        child.close()
+        procs.append(p)
+        conns.append(parent)
+    outs = []
+    try:
+        for rank, c in enumerate(conns):
+            outs.append(pickle.loads(c.recv_bytes()) if c.poll(wait_s)
+                        else dict(rank=rank, error=f"no answer in {wait_s} s"))
+    finally:
+        for p in procs:
+            p.join(10)
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+        shutil.rmtree(os.path.dirname(store[len("file://"):]), ignore_errors=True)
+    ok = all(o.get("received") == [[0.0] * 4, [1.0] * 4] for o in outs)
+    return dict(ok=ok, ranks=outs)
 
 
 _PKG = "xf_flash_attention_cutlass_tpu_torch/csrc/"
@@ -6339,6 +6639,18 @@ PATHS.update({
     + ["graph.decode"] + _COLLECTIVES,
 })
 NOT_ON_PATH.update({"serve_mesh_tp1": _NOT_SERVING})
+# phase 12: expert parallelism. The MoE engine on an ep mesh exchanges the
+# dispatched blocks by 2 all-to-alls a layer, all-reduces twice a layer
+# (no reduce-scatter structure for MoE) and gathers the logits; the
+# training step all-reduces and exchanges
+PATHS.update({
+    "serve_mesh_ep": _SERVE_KERNELS + _CHUNKED + ["graph.decode", "collective.all_to_all",
+                                                  "collective.all_reduce",
+                                                  "collective.all_gather"],
+    "train_mesh_ep": ["flash_fwd", "flash_bwd.dq", "flash_bwd.dkv", "collective.all_reduce",
+                      "collective.all_to_all"],
+})
+NOT_ON_PATH.update({"serve_mesh_ep": _NOT_SERVING + _MOE_NOT_SERVING})
 
 
 def head_dim_kernels():
@@ -6642,6 +6954,7 @@ def main():
     # 6. the MoE family: Mixtral-8x7B geometry served, saved and resumed, trained
     report["serve_moe"] = serve_moe(gen, checks, paths, args.seed)
     mark("serve_moe")
+    phase_s["serve_mesh_ep_inside_serve_moe"] = report["serve_moe"]["phase12_s"]
 
     # 7. fp16 and f32: the new instantiations against their plain versions,
     # the refusals that stay, the api's calls over fp16 and f32 caches, then

@@ -8,7 +8,8 @@ own, builds the mesh with ``make_mesh(**axes, device_type="cpu")``, runs a
 function of this module on every rank and destroys the group. Results
 come back pickled, one per rank, in rank order. The process group and
 every wait have a timeout of seconds, so a rank that fails or hangs fails
-the test.
+the test. The ranks run at a lower CPU priority (``RANK_NICE``), so that
+they take the CPUs the other test workers leave idle.
 
 This module imports torch and the port only, never JAX: the ranks import it
 to unpickle their jobs.
@@ -19,15 +20,25 @@ from __future__ import annotations
 import multiprocessing
 import os
 import pickle
+import time
 import traceback
 from datetime import timedelta
 
 import torch
 import torch.distributed as dist
+from torch.multiprocessing.reductions import StorageWeakRef
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
 
 from xf_flash_attention_cutlass_tpu_torch import _build
 from xf_flash_attention_cutlass_tpu_torch.parallel import (
+    ep_decode_step,
+    ep_prefill_chunk_step,
     make_mesh,
+    moe_ep_forward,
+    moe_ep_loss_and_grad,
+    shard_ep,
+    shard_moe_params,
     shard_pools,
     tp_decode_step,
     tp_dp_decode_step,
@@ -35,14 +46,21 @@ from xf_flash_attention_cutlass_tpu_torch.parallel import (
     tp_loss_and_grad,
     tp_verify_step,
 )
-from xf_flash_attention_cutlass_tpu_torch.parallel.tp import shard_params
+from xf_flash_attention_cutlass_tpu_torch.parallel.tp import _leaves, gather_to_rank0, shard_params
 from xf_flash_attention_cutlass_tpu_torch.serve import DecodeEngine, load_engine, save_engine
 
-GROUP_TIMEOUT_S = 60  # a collective that waits longer fails its job
-JOB_TIMEOUT_S = 150  # the parent's wait for one job's result
+GROUP_TIMEOUT_S = 120  # a collective that waits longer fails its job
+JOB_TIMEOUT_S = 240  # the parent's wait for one job's result
+# a file that Ranks.run appends "<job> <seconds>" to for every job it runs
+# (the longest job bounds the longest wait of a collective in it)
+TIMES_ENV = "MESH_RANKS_TIMES"
+
+
+RANK_NICE = 10  # the ranks yield the CPU to the other test workers' processes
 
 
 def _rank_main(rank: int, conn) -> None:
+    os.nice(RANK_NICE)
     torch.set_num_threads(1)
     while True:
         try:
@@ -92,6 +110,7 @@ class Ranks:
         store = os.path.join(self.workdir, f"store{self.jobs}")
         self.jobs += 1
         msg = pickle.dumps((fn, args, world, store, axes))
+        t0 = time.perf_counter()
         for c in self.conns[:world]:
             c.send_bytes(msg)
         outs = []
@@ -99,6 +118,9 @@ class Ranks:
             if not c.poll(JOB_TIMEOUT_S):
                 raise TimeoutError(f"rank {r} gave no result in {JOB_TIMEOUT_S} s")
             outs.append(pickle.loads(c.recv_bytes()))
+        if os.environ.get(TIMES_ENV):
+            with open(os.environ[TIMES_ENV], "a") as f:
+                f.write(f"{fn.__name__} {time.perf_counter() - t0:.3f}\n")
         errors = [v for status, v in outs if status != "ok"]
         if errors:
             raise RuntimeError("\n".join(errors))
@@ -197,15 +219,118 @@ def engine_raises(mesh, params, cfg, ecfg):
     return None
 
 
-def checkpoint_raises(mesh, params, cfg, ecfg, path):
-    """save_engine of a mesh engine and load_engine onto a mesh: the
-    messages of the NotImplementedErrors they raise."""
+def ep_shards(mesh, train_params, engine_params):
+    """This rank's shard_moe_params of the training params and shard_ep of
+    the engine's params."""
+    return shard_moe_params(train_params, mesh), shard_ep(engine_params, {}, mesh)[0]
+
+
+def ep_forward(mesh, params, tokens, cfg):
+    return moe_ep_forward(shard_moe_params(params, mesh), tokens, cfg, mesh)
+
+
+def ep_loss_and_grad(mesh, params, tokens, cfg):
+    return moe_ep_loss_and_grad(shard_moe_params(params, mesh), tokens, cfg, mesh)
+
+
+def ep_decode(mesh, params, tokens, pools, bt, kv_lens, cfg):
+    """ep_decode_step on this rank's shard_ep shards: (tokens, logits,
+    pools, collectives issued)."""
+    sp, spools = shard_ep(params, pools, mesh)
+    (tok, logits, out), coll = _step_launches(
+        lambda: ep_decode_step(sp, tokens, spools, bt, kv_lens, cfg, mesh))
+    return tok, logits, out, coll
+
+
+def ep_prefill(mesh, params, tokens, n_prior, n_valid, pools, bt, cfg):
+    """ep_prefill_chunk_step on this rank's shard_ep shards: (logits, pools)."""
+    sp, spools = shard_ep(params, pools, mesh)
+    return ep_prefill_chunk_step(sp, tokens, n_prior, n_valid, spools, bt, cfg, mesh)
+
+
+def live_rows(eng):
+    """The (page, row) positions of the KV the engine's requests hold, pages
+    in the whole pool's numbering (replica r's local page p at r * (pages
+    a replica holds + 1) + p): the decoding requests' cached tokens and the
+    in-flight prefills' prefilled ones."""
+    page, per_replica = eng.ecfg.page_size, eng.trash_page + 1
+    lens = {slot: eng.pool.seq_len(slot) for slot in eng.active}
+    for st in eng._prefills:
+        if st is not None:
+            lens[st["slot"]] = st["base"] + st["done"]
+    out = set()
+    for slot, n in lens.items():
+        row, r = eng._bt_row(slot), slot // eng.mb_local
+        out.update((r * per_replica + int(row[t // page]), t % page) for t in range(n))
+    return sorted(out)
+
+
+def save_and_resume(mesh, params, cfg, ecfg, requests, n_steps, save_path, load_path,
+                    prefix=None):
+    """A mesh engine over `requests` (a prefix registered as "sys" first and
+    every request on it, when given) saved after n_steps steps to
+    save_path; then the file at load_path loaded onto the mesh and run to
+    its end. Returns (the live rows at the save, the loaded engine's whole
+    pools as loaded (gathered on rank 0, each a (..., itemsize) uint8
+    array; None on the other ranks), its results)."""
     eng = DecodeEngine(params, cfg, ecfg, dtype=torch.float32, device="cpu", mesh=mesh)
-    out = []
-    for call in (lambda: save_engine(eng, path),
-                 lambda: load_engine(path, params=params, device="cpu", mesh=mesh)):
-        try:
-            call()
-        except NotImplementedError as e:
-            out.append(str(e))
-    return out
+    if prefix is not None:
+        eng.register_prefix("sys", prefix)
+    for rid, (prompt, max_new, temp) in requests.items():
+        eng.add_request(rid, prompt, max_new, temperature=temp,
+                        prefix_id="sys" if prefix is not None else None)
+    for _ in range(n_steps):
+        eng.step()
+    save_engine(eng, save_path)
+    rows = live_rows(eng)
+    loaded = load_engine(load_path, params=params, dtype=torch.float32, device="cpu", mesh=mesh)
+    kspecs = loaded.mesh_specs({}, loaded.pools)[1]
+    whole = {k: gather_to_rank0(t, kspecs[k], mesh) for k, t in loaded.pools.items()}
+    pools = (None if dist.get_rank() else
+             {k: t.unsqueeze(-1).view(torch.uint8).numpy() for k, t in whole.items()})
+    return rows, pools, loaded.run(max_steps=400)
+
+
+class PeakBytes(TorchDispatchMode):
+    """The most bytes that tensors made by torch ops while the mode is on
+    held at one time: a storage counts from the op that made it (one whose
+    inputs do not hold it) until no tensor refers to it; an op's frees are
+    seen at the next op."""
+
+    def __init__(self):
+        super().__init__()
+        self.live, self.now, self.peak = {}, 0, 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        for key, (ref, n) in list(self.live.items()):
+            if ref.expired():
+                del self.live[key]
+                self.now -= n
+        inputs = {StorageWeakRef(t.untyped_storage()).cdata
+                  for t in tree_leaves((args, kwargs)) if isinstance(t, torch.Tensor)}
+        out = func(*args, **(kwargs or {}))
+        for t in tree_leaves(out):
+            if isinstance(t, torch.Tensor):
+                ref = StorageWeakRef(t.untyped_storage())
+                if ref.cdata not in inputs and ref.cdata not in self.live:
+                    n = t.untyped_storage().nbytes()
+                    self.live[ref.cdata] = ref, n
+                    self.now += n
+        self.peak = max(self.peak, self.now)
+        return out
+
+
+def save_peak(mesh, params, cfg, ecfg, requests, n_steps, path):
+    """A mesh engine over `requests` saved with its params after n_steps
+    steps, under PeakBytes. Returns (the save's peak bytes, the bytes of
+    this rank's shards (pools and params), its largest shard's bytes)."""
+    eng = DecodeEngine(params, cfg, ecfg, dtype=torch.float32, device="cpu", mesh=mesh)
+    for rid, (prompt, max_new, temp) in requests.items():
+        eng.add_request(rid, prompt, max_new, temperature=temp)
+    for _ in range(n_steps):
+        eng.step()
+    shards = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+              for t in list(eng.pools.values()) + _leaves(eng.params)}
+    with PeakBytes() as mode:
+        save_engine(eng, path, include_params=True)
+    return mode.peak, sum(shards.values()), max(shards.values())

@@ -237,22 +237,12 @@ def test_mesh_requires_chunked_prefill(ranks, llama):
         assert out[0] == "ValueError" and "prefill_chunk" in out[1]
 
 
-@pytest.mark.parametrize("axis,what", [("ep", "expert parallelism"),
-                                       ("pp", "pipeline parallelism"),
+@pytest.mark.parametrize("axis,what", [("pp", "pipeline parallelism"),
                                        ("cp", "context parallelism")])
 def test_mesh_axes_not_ported_raise(ranks, moe, axis, what):
-    """A mesh with ep, pp or cp > 1 raises NotImplementedError naming what
-    is not ported; nothing is served another way."""
+    """A mesh with pp or cp > 1 raises NotImplementedError naming what is
+    not ported; nothing is served another way."""
     _, _, cfg, params = moe
     for out in ranks.run(mesh_ranks.engine_raises, params, cfg, EngineConfig(**BASE),
                          **{axis: 2}):
         assert out[0] == "NotImplementedError" and what in out[1]
-
-
-def test_mesh_checkpoint_raises(ranks, llama, tmp_path):
-    """save_engine of a mesh engine and load_engine onto a mesh raise."""
-    _, _, cfg, params = llama
-    path = str(tmp_path / "ckpt.npz")
-    for out in ranks.run(mesh_ranks.checkpoint_raises, params, cfg, EngineConfig(**BASE), path,
-                         tp=2):
-        assert len(out) == 2 and all("mesh" in m for m in out)

@@ -21,7 +21,10 @@ Tensor parallelism: ``moe_mlp_block`` takes a tp ``group`` (the JAX
 package's ``axis_name``); the experts' ffn dim is then sharded like the
 dense MLP's (``parallel/tp.py``), the router and the dispatch are computed
 on every rank, and the combined output's partial sums are all-reduced.
-Expert parallelism (the JAX package's ``ep_fn``) is not ported yet.
+Expert parallelism: ``ep_fn`` (the JAX package's hook) replaces the expert
+FFN over the dispatched (E, C, d) blocks; ``parallel/ep.py``'s
+``ep_expert_apply`` sends each block to the rank that holds its expert and
+back (an all-to-all each way).
 """
 
 from __future__ import annotations
@@ -73,9 +76,11 @@ class MoEConfig(LlamaConfig):
         )
 
 
-def expert_capacity(cfg: MoEConfig, n_tokens: int) -> int:
-    """Static per-expert capacity of a dispatch over n_tokens, rounded up to
-    a multiple of 8 (at least 8), as the JAX package computes it."""
+def expert_capacity(cfg: MoEConfig, n_tokens: int, ep: int = 1) -> int:
+    """Static per-expert capacity of a dispatch over n_tokens (one shard's
+    tokens under expert parallelism), rounded up to a multiple of 8 (at
+    least 8), as the JAX package computes it. `ep` is accepted for the JAX
+    signature and, as there, does not enter the count."""
     c = math.ceil(n_tokens * cfg.top_k / cfg.n_experts * cfg.capacity_factor)
     return max(8, -(-c // 8) * 8)
 
@@ -258,11 +263,12 @@ def moe_mlp_block(
     cfg: MoEConfig,
     capacity: Optional[int] = None,
     group=None,  # tp group: the experts' ffn dim sharded, the output all-reduced
+    ep_fn=None,  # parallel/ep.py's expert apply: (layer, (E, C, d)) -> (E, C, d)
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Sparse MoE MLP over every (b, s) row: (residual output, aux loss).
     Every row competes for the experts' capacity, in row order. Under a tp
     `group` each rank's down projections are partial sums, reduced before
-    the residual add."""
+    the residual add. `ep_fn` runs the experts in place of expert_ffn."""
     b, s, d = x.shape
     n = b * s
     if capacity is None:
@@ -275,7 +281,10 @@ def moe_mlp_block(
         flat = tp_region_in(flat, group)
     # (n, E, C) x (n, d) -> (E, C, d): a gather as one product
     expert_in = torch.einsum("nec,nd->ecd", dispatch.to(flat.dtype), flat)
-    expert_out = expert_ffn(layer["w_gate"], layer["w_up"], layer["w_down"], expert_in)
+    if ep_fn is not None:
+        expert_out = ep_fn(layer, expert_in)
+    else:
+        expert_out = expert_ffn(layer["w_gate"], layer["w_up"], layer["w_down"], expert_in)
     y = torch.einsum("nec,ecd->nd", combine.to(expert_out.dtype), expert_out)
     if group is not None:
         y = tp_region_out(y, group)
@@ -309,10 +318,11 @@ def moe_forward(
     tokens: torch.Tensor,  # (b, s)
     cfg: MoEConfig,
     capacity: Optional[int] = None,
+    ep_fn=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Causal forward: (logits (b, s, vocab) f32, the layers' mean aux
     loss). Attention runs through the differentiable dense flash attention
-    (K7 forward, K9/K10 backward on CUDA)."""
+    (K7 forward, K9/K10 backward on CUDA); `ep_fn` as in moe_mlp_block."""
     b, s = tokens.shape
     x = params["embed"][tokens]
     positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
@@ -324,7 +334,7 @@ def moe_forward(
     for l in range(cfg.n_layers):
         layer = layer_view(layers, l)
         x = attention_block(layer, x, cfg, cos, sin, positions)
-        x, aux = moe_mlp_block(layer, x, cfg, capacity=capacity)
+        x, aux = moe_mlp_block(layer, x, cfg, capacity=capacity, ep_fn=ep_fn)
         auxes.append(aux)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
     logits = _proj(x, params["lm_head"]).float()
@@ -332,9 +342,9 @@ def moe_forward(
 
 
 def moe_loss_fn(params: Dict[str, Any], tokens: torch.Tensor, cfg: MoEConfig,
-                capacity: Optional[int] = None) -> torch.Tensor:
+                capacity: Optional[int] = None, ep_fn=None) -> torch.Tensor:
     """Next-token cross entropy plus router_aux_weight times the aux loss."""
-    logits, aux = moe_forward(params, tokens[:, :-1], cfg, capacity=capacity)
+    logits, aux = moe_forward(params, tokens[:, :-1], cfg, capacity=capacity, ep_fn=ep_fn)
     targets = tokens[:, 1:].long()
     logp = torch.log_softmax(logits, dim=-1)
     nll = -logp.gather(-1, targets[..., None])[..., 0]

@@ -1,9 +1,9 @@
-"""The parallel layers on ``torch.distributed``: the dp x tp mesh
+"""The parallel layers on ``torch.distributed``: the device mesh
 (``mesh.py``), tensor- and data-parallel training (``tp.py``) and serving
-(``tp_serve.py``; the engine's ``mesh=`` mode). Expert, pipeline and
-sequence parallelism (the JAX package's ``ep.py``, ``ep_serve.py``,
-``pp.py``, ``pp_serve.py``, ``ring.py`` and ``ulysses.py``) are not ported
-yet."""
+(``tp_serve.py``; the engine's ``mesh=`` mode), and expert parallelism for
+the MoE family, training (``ep.py``) and serving (``ep_serve.py``).
+Pipeline and sequence parallelism (the JAX package's ``pp.py``,
+``pp_serve.py``, ``ring.py`` and ``ulysses.py``) are not ported yet."""
 
 from xf_flash_attention_cutlass_tpu_torch.parallel.mesh import make_mesh  # noqa: F401
 from xf_flash_attention_cutlass_tpu_torch.parallel.tp import (  # noqa: F401
@@ -22,4 +22,14 @@ from xf_flash_attention_cutlass_tpu_torch.parallel.tp_serve import (  # noqa: F4
     tp_dp_decode_step,
     tp_prefill_chunk_step,
     tp_verify_step,
+)
+from xf_flash_attention_cutlass_tpu_torch.parallel.ep import (  # noqa: F401
+    moe_ep_forward,
+    moe_ep_loss_and_grad,
+    shard_moe_params,
+)
+from xf_flash_attention_cutlass_tpu_torch.parallel.ep_serve import (  # noqa: F401
+    ep_decode_step,
+    ep_prefill_chunk_step,
+    shard_ep,
 )

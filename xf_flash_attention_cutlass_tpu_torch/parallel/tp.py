@@ -19,7 +19,7 @@ replicas' rows (``parallel/tp_serve.py`` ``gather_rows``).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -35,7 +35,7 @@ from xf_flash_attention_cutlass_tpu_torch.models.llama import (
     tp_region_in,
 )
 from xf_flash_attention_cutlass_tpu_torch.ops.rotary import rotary_frequencies
-from xf_flash_attention_cutlass_tpu_torch.parallel.mesh import DP, TP, axis_index, axis_size
+from xf_flash_attention_cutlass_tpu_torch.parallel.mesh import DP, EP, TP, axis_index, axis_size
 from xf_flash_attention_cutlass_tpu_torch.utils.collectives import all_reduce_
 
 _OUT_SHARDED = ("wq", "wk", "wv", "w_gate", "w_up")
@@ -110,16 +110,83 @@ def param_partition_specs(params: Dict[str, Any]) -> Dict[str, Any]:
     return _map_with_path(spec_for, params)
 
 
-def _shard(x: torch.Tensor, spec, axis: str, n: int, i: int) -> torch.Tensor:
-    """Rank i's block of x along the dim that `spec` shards over `axis`, as
-    a contiguous tensor (x itself where the dim is whole)."""
-    if axis not in spec:
-        return x
-    dim = spec.index(axis)
-    if x.shape[dim] % n:
-        raise ValueError(f"dim {dim} of a {tuple(x.shape)} leaf does not divide by {axis}={n}")
-    k = x.shape[dim] // n
-    return x.narrow(dim, i * k, k).contiguous()
+def shard_leaf(x: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """This rank's block of x under `spec` (one entry a dim: None where
+    the dim is whole, an axis name, or a tuple of axes sharding it over
+    their replicas, row-major), as a contiguous tensor; x itself where
+    every sharding axis has one rank."""
+    whole = x
+    for dim, axes in enumerate(spec):
+        if axes is None:
+            continue
+        n, i = replica(mesh, axes if isinstance(axes, tuple) else (axes,))
+        if n == 1:
+            continue
+        if x.shape[dim] % n:
+            raise ValueError(f"dim {dim} of a {tuple(x.shape)} leaf does not divide by "
+                             f"{axes}={n}")
+        k = x.shape[dim] // n
+        x = x.narrow(dim, i * k, k)
+    return whole if x is whole else x.contiguous()
+
+
+def _block(mesh, rank: int, spec) -> Tuple[int, ...]:
+    """rank's block index on each dim of a leaf under `spec` (0 where the
+    dim is whole): its replica over the dim's axes, as shard_leaf takes it."""
+    names, ranks = mesh.mesh_dim_names, mesh.mesh
+    coord = (ranks == rank).nonzero()[0].tolist()
+    out = []
+    for axes in spec:
+        i = 0
+        for axis in (axes if isinstance(axes, tuple) else (axes,)) if axes else ():
+            k = names.index(axis)
+            i = i * ranks.shape[k] + coord[k]
+        out.append(i)
+    return tuple(out)
+
+
+def gather_to_rank0(x: torch.Tensor, spec, mesh, pad: Optional[Dict[int, int]] = None
+                    ) -> Optional[torch.Tensor]:
+    """The whole tensor of which x is this rank's shard_leaf under `spec`,
+    on rank 0's host; None on the other ranks (every rank of the mesh calls
+    it; mesh None: x is whole). Each block goes to rank 0 once, as host
+    bytes over the default group's CPU backend, from the lowest rank that
+    holds it: no rank holds more than its block and a host copy of it, and
+    rank 0 besides the whole tensor and one received block. `pad` {dim: n}:
+    rank 0's tensor zero-padded to n entries on those dims, the whole one
+    in its leading corner."""
+    if mesh is None:
+        blocks, me, spec = {(0,) * x.dim(): 0}, 0, (None,) * x.dim()
+    else:
+        me, blocks = dist.get_rank(), {}
+        for q in sorted(mesh.mesh.flatten().tolist()):
+            blocks.setdefault(_block(mesh, q, spec), q)
+        if len(blocks) > 1 and "cpu:" not in str(dist.get_backend_config()):
+            raise ValueError("gathering a sharded leaf needs a CPU backend in the default "
+                             "process group (e.g. 'cpu:gloo,cuda:nccl')")
+    if me != 0:
+        if blocks[_block(mesh, me, spec)] == me:
+            dist.send(x.detach().contiguous().cpu().reshape(-1).view(torch.uint8), dst=0)
+        return None
+    shape = [n * (replica(mesh, a if isinstance(a, tuple) else (a,))[0] if a else 1)
+             for n, a in zip(x.shape, spec)]
+    for dim, n in (pad or {}).items():
+        shape[dim % x.dim()] = n
+    out = torch.zeros(shape, dtype=x.dtype)
+    buf = None
+    for key, q in blocks.items():
+        if q == 0:
+            src = x.detach()
+        else:
+            if buf is None:
+                buf = torch.empty(x.shape, dtype=x.dtype)
+            dist.recv(buf.reshape(-1).view(torch.uint8), src=q)
+            src = buf
+        region = out
+        for dim, i in enumerate(key):
+            region = region.narrow(dim, i * x.shape[dim], x.shape[dim])
+        region.copy_(src)
+    return out
 
 
 def shard_params(params: Dict[str, Any], mesh) -> Dict[str, Any]:
@@ -127,8 +194,7 @@ def shard_params(params: Dict[str, Any], mesh) -> Dict[str, Any]:
     mesh's tp axis), each a contiguous tensor: the weight-only matmul's
     Hopper routes read row strides of n * itemsize, and a strided column
     view would take its WMMA route. Replicated leaves are kept as given."""
-    n, i = axis_size(mesh, TP), axis_index(mesh, TP)
-    return _map2(lambda x, s: _shard(x, s, TP, n, i), params, param_partition_specs(params))
+    return _map2(lambda x, s: shard_leaf(x, s, mesh), params, param_partition_specs(params))
 
 
 def _local_cfg(cfg: LlamaConfig, tp_size: int) -> LlamaConfig:
@@ -141,13 +207,25 @@ def _local_cfg(cfg: LlamaConfig, tp_size: int) -> LlamaConfig:
                                head_dim_override=cfg.head_dim)
 
 
-def replica_rows(mesh, n: int) -> slice:
-    """The rows of an n-row global batch that this rank's dp replica owns."""
-    dp = axis_size(mesh, DP)
-    if n % dp:
-        raise ValueError(f"a batch of {n} rows does not divide by dp={dp}")
-    k = n // dp
-    r = axis_index(mesh, DP)
+def replica(mesh, axes=(DP, EP)) -> Tuple[int, int]:
+    """(the number of replicas, this rank's replica) over the batch axes
+    `axes`: a replica is one coordinate on each, numbered row-major, so on
+    (dp, ep) replica r = dp_idx * ep + ep_idx (the JAX package's order of
+    the (dp, ep) batch sharding and of the engine's replicas)."""
+    n, r = 1, 0
+    for axis in axes:
+        k = axis_size(mesh, axis)
+        n, r = n * k, r * k + axis_index(mesh, axis)
+    return n, r
+
+
+def replica_rows(mesh, n: int, axes=(DP, EP)) -> slice:
+    """The rows of an n-row global batch that this rank's replica owns (a
+    replica: one (dp, ep) pair, or the axes given)."""
+    R, r = replica(mesh, axes)
+    if n % R:
+        raise ValueError(f"a batch of {n} rows does not divide by the {R} replicas of {axes}")
+    k = n // R
     return slice(r * k, (r + 1) * k)
 
 
@@ -175,7 +253,7 @@ def tp_forward(params, tokens: torch.Tensor, cfg: LlamaConfig, mesh) -> torch.Te
     (shard_params); tokens: the global (b, s) batch, the same on every rank.
     Returns the logits of this rank's replica's rows, (b / dp, s, vocab)
     f32, the same on every tp rank of the replica."""
-    return _tp_forward_local(params, tokens[replica_rows(mesh, tokens.shape[0])], cfg,
+    return _tp_forward_local(params, tokens[replica_rows(mesh, tokens.shape[0], (DP,))], cfg,
                              mesh.get_group(TP))
 
 
@@ -191,7 +269,7 @@ def tp_loss_and_grad(params, tokens: torch.Tensor, cfg: LlamaConfig,
     cotangents where they leave the sharded regions (Megatron's f and g)."""
     group, dp_group = mesh.get_group(TP), mesh.get_group(DP)
     dp = axis_size(mesh, DP)
-    rows = tokens[replica_rows(mesh, tokens.shape[0])]
+    rows = tokens[replica_rows(mesh, tokens.shape[0], (DP,))]
     local = _map_with_path(
         lambda _, x: x.detach().requires_grad_(True) if x.is_floating_point() else x, params)
     leaves = [x for x in _leaves(local) if x.requires_grad]

@@ -30,24 +30,39 @@ port pads its tight pools so on save and crops them on load.
 Model params are not saved by default (pass ``include_params=True`` for a
 self-contained file); they are saved in the caller's form.
 
-Checkpoints of a mesh engine are not ported yet: ``save_engine`` of an
-engine on a mesh and ``load_engine(..., mesh=...)`` raise
-NotImplementedError, and so does loading a file whose shared prefixes lie
-in more than one data-parallel replica.
+A mesh engine (dp x ep x tp, one process a rank) saves the whole pools in
+the JAX mesh engine's layout, ``(L, R * (pages_local + 1), h_k, page, d)``
+with R = dp * ep replicas, replica r's pages (its trash page last) at
+``r * (pages_local + 1)``, and with ``include_params=True`` the whole
+params. Every rank calls ``save_engine``; the file is written one leaf at
+a time: each leaf's blocks (kv heads over tp, pages over the replicas,
+experts over ep) go to rank 0's host, which writes the leaf before it
+gathers the next, so no rank holds more than its own shards and rank 0 one
+whole leaf besides; the other ranks then wait at a barrier. The layout is
+the engine's (``DecodeEngine.mesh_specs``). ``load_engine(..., mesh=)``
+reads the file on every rank and keeps this rank's shard of each pool, one
+pool at a time. So a file moves between meshes of the same replica count,
+and between the packages.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
+import os
+import zipfile
 from collections import deque
+from types import SimpleNamespace
 from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from xf_flash_attention_cutlass_tpu_torch.models.llama import PROJ_NAMES, LlamaConfig
 from xf_flash_attention_cutlass_tpu_torch.models.moe import MoEConfig
+from xf_flash_attention_cutlass_tpu_torch.parallel.tp import _map2, gather_to_rank0, shard_leaf
 from xf_flash_attention_cutlass_tpu_torch.serve.engine import (
     DecodeEngine,
     EngineConfig,
@@ -108,18 +123,6 @@ def _stored_rows(ecfg: EngineConfig):
     return rows, -(-rows // 128) * 128
 
 
-def _pad_to(t: torch.Tensor, dim: int, n: int) -> torch.Tensor:
-    """t, zero-padded along `dim` to n entries (on the host when padded)."""
-    if t.shape[dim] == n:
-        return t
-    t = t.detach().cpu()
-    shape = list(t.shape)
-    shape[dim] = n
-    out = torch.zeros(shape, dtype=t.dtype)
-    out.narrow(dim, 0, t.shape[dim]).copy_(t)
-    return out
-
-
 def _caller_params(params: Dict[str, Any]) -> Dict[str, Any]:
     """The engine's params with pack_params_for_decode's (w, None) wrappers
     taken off: the form the caller gave."""
@@ -138,28 +141,85 @@ def _param_template(cfg: LlamaConfig, quantized: bool) -> Dict[str, Any]:
     return dict(embed=0, layers=layers, final_norm=0, lm_head=q)
 
 
+class _Npz:
+    """An .npz written one array at a time, in np.savez's layout (a stored
+    ``<key>.npy`` member a key, ``.npz`` added to a path without it): no
+    more than one array is held to write the file."""
+
+    def __init__(self, path):
+        path = os.fspath(path)
+        self.zf = zipfile.ZipFile(path if path.endswith(".npz") else path + ".npz", "w",
+                                  compression=zipfile.ZIP_STORED, allowZip64=True)
+
+    def add(self, key: str, array: np.ndarray) -> None:
+        with self.zf.open(key + ".npy", "w", force_zip64=True) as f:
+            np.lib.format.write_array(f, np.asanyarray(array), allow_pickle=False)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.zf.close()
+
+
+def _with_specs(params, pspecs):
+    """(leaf, spec) pairs of params in _flatten order; the spec None off a
+    mesh."""
+    if pspecs is None:
+        return [(t, None) for t in _flatten(params)]
+    return [(b.t, b.spec) for b in
+            _flatten(_map2(lambda t, sp: SimpleNamespace(t=t, spec=sp), params, pspecs))]
+
+
 def save_engine(engine: DecodeEngine, path: str, include_params: bool = False) -> None:
     """Checkpoint a DecodeEngine: KV pools, allocator, request state (and
-    params with include_params=True) into the .npz at `path`. Raises
-    NotImplementedError for an engine on a mesh."""
-    if engine.mesh is not None:
-        raise NotImplementedError("not ported yet: checkpoints of a mesh engine (save_engine)")
-    ecfg = engine.ecfg
-    pool_keys = sorted(engine.pools)
-    pools = dict(engine.pools)
-    if ecfg.kv_quant:  # the JAX engine's padded layout of quantized pages
-        rows, lanes = _stored_rows(ecfg)
-        for k in ("k", "v"):
-            pools[k] = _pad_to(pools[k], -2, rows)
-            pools[k + "_s"] = _pad_to(pools[k + "_s"], -1, lanes)
-    packed = {k: _to_bytes(pools[k]) for k in pool_keys}
+    params with include_params=True) into the .npz at `path`. A mesh
+    engine's ranks all call it; rank 0 writes. Tensors go to the file one
+    leaf at a time, each gathered whole on rank 0's host only (parallel/tp.py
+    gather_to_rank0): no rank holds more on its device than its shards."""
+    mesh = engine.mesh
     params = _caller_params(engine.params)
+    pspecs, kspecs = engine.mesh_specs(params, engine.pools) if mesh is not None else (None, {})
+    writer = mesh is None or dist.get_rank() == 0
+    with _Npz(path) if writer else contextlib.nullcontext() as out:
+        _write(engine, out, params, pspecs, kspecs, include_params)
+    if mesh is not None:
+        dist.barrier()
+
+
+def _write(engine: DecodeEngine, out: Optional[_Npz], params, pspecs, kspecs,
+           include_params: bool) -> None:
+    """save_engine's body: every rank gathers each leaf in turn; the writer
+    (out given) adds it to the file, then the state."""
+    ecfg, mesh = engine.ecfg, engine.mesh
+    pool_keys = sorted(engine.pools)
+    pad = {}
+    if ecfg.kv_quant:  # the JAX engine's padded layout of quantized pages (dim 3: rows)
+        rows, lanes = _stored_rows(ecfg)
+        pad = dict(k=rows, v=rows, k_s=lanes, v_s=lanes)
+    pools_spec, leaf_specs = [], []
+    for k in pool_keys:
+        t = gather_to_rank0(engine.pools[k], kspecs.get(k), mesh,
+                            {3: pad[k]} if k in pad else None)
+        if out is not None:
+            raw, spec = _to_bytes(t)
+            out.add(f"pool_{k}", raw)
+            pools_spec.append(spec)
+    if include_params:
+        for i, (leaf, spec) in enumerate(_with_specs(params, pspecs)):
+            t = gather_to_rank0(leaf, spec, mesh)
+            if out is not None:
+                raw, spec = _to_bytes(t)
+                out.add(f"param_leaf_{i}", raw)
+                leaf_specs.append(spec)
+    if out is None:
+        return
     wq = params["layers"]["wq"]
     state = dict(
         cfg=dataclasses.asdict(engine.cfg),
         cfg_class=type(engine.cfg).__name__,
         ecfg=dataclasses.asdict(ecfg),
-        pools_spec=[packed[k][1] for k in pool_keys],
+        pools_spec=pools_spec,
         pool_keys=pool_keys,
         queue=[list(entry) for entry in engine.queue],
         active={str(k): v for k, v in engine.active.items()},
@@ -174,18 +234,11 @@ def save_engine(engine: DecodeEngine, path: str, include_params: bool = False) -
         preempt_emitted={str(k): v for k, v in engine._preempt_emitted.items()},
     )
     seed = ecfg.sample_seed
-    payload = dict(
-        state=np.frombuffer(json.dumps(state).encode(), np.uint8),
-        allocator=engine.pool.snapshot(),
-        sample_base=np.asarray([(seed >> 32) & _MASK32, seed & _MASK32], np.uint32),
-        **{f"pool_{k}": packed[k][0] for k in pool_keys},
-    )
+    out.add("state", np.frombuffer(json.dumps(state).encode(), np.uint8))
+    out.add("allocator", engine.pool.snapshot())
+    out.add("sample_base", np.asarray([(seed >> 32) & _MASK32, seed & _MASK32], np.uint32))
     if include_params:
-        leaves = [_to_bytes(t) for t in _flatten(params)]
-        payload["params_spec"] = np.frombuffer(
-            json.dumps([spec for _, spec in leaves]).encode(), np.uint8)
-        payload.update({f"param_leaf_{i}": raw for i, (raw, _) in enumerate(leaves)})
-    np.savez(path, **payload)
+        out.add("params_spec", np.frombuffer(json.dumps(leaf_specs).encode(), np.uint8))
 
 
 def load_engine(
@@ -195,16 +248,17 @@ def load_engine(
     ecfg: Optional[EngineConfig] = None,
     dtype: torch.dtype = torch.bfloat16,
     device=None,  # None: CUDA, raising when it is absent
-    mesh=None,
+    mesh=None,  # a mesh (parallel/mesh.py): every rank loads and keeps its shards
 ) -> DecodeEngine:
     """Rebuild a DecodeEngine from a checkpoint of either package. `params`
-    must be given unless the file holds them (include_params=True). cfg and
-    ecfg come from the file; given, they must match it (ecfg after
+    must be given unless the file holds them (include_params=True); on a
+    mesh, the whole params, which the engine shards. cfg and ecfg come from
+    the file; given, they must match it (ecfg after
     effective_engine_config). A file whose ecfg does not hold a resolved
     pack_small_pages (written before that field existed) is refused. The
-    engine's CUDA graphs are captured at its first decode step."""
-    if mesh is not None:
-        raise NotImplementedError("not ported yet: checkpoints of a mesh engine (load_engine)")
+    prefill lanes keep their places (a lane prefills into its replica's
+    pages). The engine's CUDA graphs are captured at its first decode
+    step."""
     with np.load(path, allow_pickle=False) as z:
         state = json.loads(bytes(z["state"].tobytes()).decode())
         cls = _CONFIGS[state.get("cfg_class", "LlamaConfig")]
@@ -233,14 +287,15 @@ def load_engine(
                     f"{state.get('params_quantized', 'unrecorded')})")
             params = _unflatten(template, iter(
                 _from_bytes(z[f"param_leaf_{i}"], s, "cpu") for i, s in enumerate(spec)))
-        engine = DecodeEngine(params, cfg, ecfg, dtype=dtype, device=device)
-        pools = {k: _from_bytes(z[f"pool_{k}"], s, engine.device)
-                 for k, s in zip(state["pool_keys"], state["pools_spec"])}
-        if ecfg.kv_quant:  # crop the JAX engine's padding to the tight layout
-            page = ecfg.page_size
-            for k in ("k", "v"):
-                pools[k] = pools[k][..., :page, :].contiguous()
-                pools[k + "_s"] = pools[k + "_s"][..., :page].contiguous()
+        engine = DecodeEngine(params, cfg, ecfg, dtype=dtype, device=device, mesh=mesh)
+        pools = {}
+        for k, s in zip(state["pool_keys"], state["pools_spec"]):  # one leaf at a time
+            t = _from_bytes(z[f"pool_{k}"], s, "cpu")
+            if ecfg.kv_quant:  # crop the JAX engine's padding to the tight layout
+                t = t.narrow(3, 0, ecfg.page_size)
+            if mesh is not None:  # this rank's shard
+                t = shard_leaf(t, engine.mesh_specs({}, {k: t})[1][k], mesh)
+            pools[k] = t.contiguous().to(engine.device)
         engine.pools = pools
         engine.pool.restore(z["allocator"])
     engine.queue = deque(tuple(e) for e in state["queue"])
@@ -249,13 +304,9 @@ def load_engine(
     engine._step_count = state["step_count"]
     engine.trash_page = state["trash_page"]
     engine._prefixes = state.get("prefixes", {})
-    for pf in engine._prefixes.values():
-        if len(pf["pages_by_replica"]) != 1:
-            raise NotImplementedError("not ported yet: checkpoints of a data-parallel mesh "
-                                      "engine (prefix pages in more than one replica)")
     engine._slot_prefix = {int(k): v for k, v in state.get("slot_prefix", {}).items()}
     engine._preempt_emitted = {int(k): v for k, v in state.get("preempt_emitted", {}).items()}
     engine._prefills = [None] * ecfg.prefill_lanes
-    for i, st in enumerate(x for x in state.get("prefills", []) if x is not None):
-        engine._prefills[i] = st
+    for lane, st in enumerate(state.get("prefills", [])):
+        engine._prefills[lane] = st
     return engine

@@ -1,5 +1,5 @@
 """Continuous-batching decode engine over the paged KV cache, with bucketed
-or chunked prefill, on one device or on a dp x tp mesh.
+or chunked prefill, on one device or on a dp x ep x tp mesh.
 
 Host-side scheduling (admission, per-step page growth, retirement, OOM
 preemption, multi-step windows, speculative verify, shared prefixes)
@@ -48,12 +48,15 @@ sparse MoE MLP (``models/moe.py``) where a Llama layer runs its SwiGLU MLP
 lanes and dead decode rows included, competes for the experts' capacity in
 row order, as in the JAX engine, which feeds the same rows.
 
-On a mesh (``DecodeEngine(..., mesh=make_mesh(dp=, tp=))``, one process a
-rank, ``parallel/``) the engine serves as the JAX engine's mesh mode does:
-prefill through chunks only; the weights and the kv heads sharded over
-"tp"; with dp > 1 the batch slots, prefill lanes and pages split among the
-replicas (``DpPagePools``, replica-local page ids, one trash page each,
-shared prefixes copied into every replica); the decode and verify steps
+On a mesh (``DecodeEngine(..., mesh=make_mesh(dp=, ep=, tp=))``, one
+process a rank, ``parallel/``) the engine serves as the JAX engine's mesh
+mode does: prefill through chunks only; the weights and the kv heads
+sharded over "tp"; a MoE model's experts sharded on their expert axis over
+"ep", the dispatched blocks exchanged by an all-to-all each way a layer
+(``parallel/ep_serve.py``); with dp * ep > 1 the batch slots, prefill lanes
+and pages split among the replicas, one a (dp, ep) pair (``DpPagePools``,
+replica-local page ids, one trash page each, shared prefixes copied into
+every replica); the decode and verify steps
 with the reduce-scatter + all-gather structure (sp_batch) where the batch
 divides by tp and the model is dense, all-reduces elsewhere; the logits
 gathered over the vocabulary before sampling, so that every rank draws the
@@ -63,13 +66,13 @@ tokens on host tensors. On CUDA the decode window is a graph replay with
 its collectives captured in it.
 
 What the port does not serve yet raises NotImplementedError: a mesh with
-ep, pp or cp > 1 (expert, pipeline and context parallelism), and
-checkpoints of a mesh engine (serve/checkpoint.py).
+pp or cp > 1 (pipeline and context parallelism).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import logging
 import time
 from collections import Counter, deque
@@ -113,9 +116,9 @@ class EngineConfig:
     every field on one device: bucketed (prefill_chunk None or 0) or
     chunked prefill over prefill_lanes, speculate_k > 1 (greedy requests),
     multi_step > 1, and sampling with top_k / top_p / approx_top_k under
-    sample_seed; on a dp x tp mesh every field but bucketed prefill (as in
+    sample_seed; on a dp x ep x tp mesh every field but bucketed prefill (as in
     the JAX engine). DecodeEngine raises NotImplementedError for a mesh
-    with ep, pp or cp > 1.
+    with pp or cp > 1.
 
     The speculative verify step runs eagerly on CUDA (no graph yet): on an
     H100 80GB HBM3 (700 W) at Llama-8B width with random weights,
@@ -263,18 +266,25 @@ def _rope(cfg: LlamaConfig, device, rope=None):
     return rotary_frequencies(cfg.head_dim, cfg.max_seq_len, cfg.rope_base, device=device)
 
 
-def _mlp(layer, x: torch.Tensor, cfg: LlamaConfig, group=None) -> torch.Tensor:
+def _mlp(layer, x: torch.Tensor, cfg: LlamaConfig, group=None, ep_group=None) -> torch.Tensor:
     """The dense SwiGLU MLP, or the sparse MoE MLP for a layer that holds
     a router (models/moe.py), as the JAX engine's _mlp chooses; under a tp
-    `group` either one's ffn dim is sharded and its output all-reduced."""
+    `group` either one's ffn dim is sharded and its output all-reduced.
+    Under an `ep_group` the layer holds its ep rank's experts and the
+    dispatched blocks are exchanged with the group (parallel/ep.py)."""
     if "router" in layer:
-        out, _ = moe_mlp_block(layer, x, cfg, group=group)
+        ep_fn = None
+        if ep_group is not None:
+            from xf_flash_attention_cutlass_tpu_torch.parallel.ep import ep_expert_apply
+
+            ep_fn = functools.partial(ep_expert_apply, group=ep_group)
+        out, _ = moe_mlp_block(layer, x, cfg, group=group, ep_fn=ep_fn)
         return out
     return mlp_block(layer, x, cfg, group=group)
 
 
 def _attention_layers(params, x, pools, bt, kv_lens, append_pos, positions, cfg, rope=None,
-                      group=None, sp: bool = False):
+                      group=None, sp: bool = False, ep_group=None):
     """The layer loop shared by verify/decode and chunked prefill: per
     layer, append the new tokens' KV into the pools in place, then attend
     over the paged cache (causal from the bottom right), project and run
@@ -288,7 +298,8 @@ def _attention_layers(params, x, pools, bt, kv_lens, append_pos, positions, cfg,
     between the sharded regions, each of which starts with an all-gather
     of its input rows, and the stream is gathered once after the last
     layer (4 collectives a layer and 1, where the all-reduces issue 2 a
-    layer). The same sums; b must divide by the group's size."""
+    layer). The same sums; b must divide by the group's size. `ep_group`:
+    the MoE layers' expert exchange (_mlp)."""
     b, s, _ = x.shape
     cos, sin = _rope(cfg, x.device, rope)
     quant = "k_s" in pools
@@ -314,7 +325,7 @@ def _attention_layers(params, x, pools, bt, kv_lens, append_pos, positions, cfg,
             if group is not None:
                 partial = all_reduce_(partial, group)
             x = x + partial
-            x = _mlp(layer, x, cfg, group)
+            x = _mlp(layer, x, cfg, group, ep_group)
     if sp:
         x = all_gather(x, group)
     return rms_norm(x, params["final_norm"], cfg.rms_eps)
@@ -337,6 +348,7 @@ def verify_core(
     rope=None,  # (cos, sin); None builds them
     group=None,  # tp group (parallel/tp_serve.py); cfg then the local shard's
     sp_batch: bool = False,  # the reduce-scatter + all-gather structure (_attention_layers)
+    ep_group=None,  # ep group (parallel/ep_serve.py): the MoE layers' expert exchange
 ) -> torch.Tensor:
     """One batched multi-token step: appends all L input tokens' KV (in
     place) and returns logits at every position, (b, L, vocab) f32.
@@ -353,20 +365,20 @@ def verify_core(
     sp = (sp_batch and group is not None and "router" not in params["layers"]
           and b % dist.get_world_size(group) == 0)
     x = _attention_layers(params, x, pools, block_tables, kv_lens, append_pos, positions, cfg,
-                          rope, group, sp)
+                          rope, group, sp, ep_group)
     return _lm_head(x.reshape(b * L, -1), params, group).reshape(b, L, -1)
 
 
 def decode_core(params, tokens, pools, block_tables, kv_lens, cfg: LlamaConfig,
                 temperature=None, step=None, seed: int = 0, top_k: int = 0,
                 top_p: float = 0.0, approx_top_k: bool = True, rope=None, group=None,
-                sp_batch: bool = False, row0: int = 0):
+                sp_batch: bool = False, row0: int = 0, ep_group=None):
     """One batched decode step = the L = 1 case of verify_core, plus
     sampling (sample_tokens; greedy when temperature is None; row0 the first
     row's index in the engine's batch). Returns (next_tokens (b,), logits
     (b, vocab))."""
     logits = verify_core(params, tokens, pools, block_tables, kv_lens, cfg, rope, group,
-                         sp_batch)[:, 0]
+                         sp_batch, ep_group)[:, 0]
     return sample_tokens(logits, temperature, step, seed, top_k, top_p, approx_top_k,
                          row0=row0), logits
 
@@ -374,7 +386,8 @@ def decode_core(params, tokens, pools, block_tables, kv_lens, cfg: LlamaConfig,
 def decode_multi_step(params, tokens, pools, block_tables, kv_lens, cfg: LlamaConfig,
                       temperature=None, step0=None, seed: int = 0, top_k: int = 0,
                       top_p: float = 0.0, approx_top_k: bool = True, n_steps: int = 2,
-                      rope=None, group=None, sp_batch: bool = False, row0: int = 0):
+                      rope=None, group=None, sp_batch: bool = False, row0: int = 0,
+                      ep_group=None):
     """`n_steps` autoregressive decode steps, each fed the previous one's
     tokens on the device. Contract (the JAX package's): `kv_lens` is the
     length after the FIRST step (the engine pre-extends pages by n_steps);
@@ -386,7 +399,7 @@ def decode_multi_step(params, tokens, pools, block_tables, kv_lens, cfg: LlamaCo
     for i in range(n_steps):
         nt, logits = decode_core(params, tokens, pools, block_tables, kv_lens + i, cfg,
                                  temperature, step0 + i, seed, top_k, top_p, approx_top_k, rope,
-                                 group, sp_batch, row0)
+                                 group, sp_batch, row0, ep_group)
         toks.append(nt)
         tokens = nt[:, None]
     return torch.stack(toks), logits
@@ -453,6 +466,7 @@ def prefill_chunk_core(
     cfg: LlamaConfig,
     rope=None,
     group=None,  # tp group (parallel/tp_serve.py); cfg then the local shard's
+    ep_group=None,  # ep group (parallel/ep_serve.py): the MoE layers' expert exchange
 ) -> torch.Tensor:
     """One step of incremental prefill for P prompts: append each lane's
     chunk KV into its pages (in place), then paged attention of the chunk
@@ -462,7 +476,8 @@ def prefill_chunk_core(
     P, C = tokens.shape
     x = params["embed"][tokens.clamp(0, cfg.vocab_size - 1)]
     positions = n_prior[:, None] + torch.arange(C, device=tokens.device)[None]
-    x = _attention_layers(params, x, pools, bt, n_prior + C, n_prior, positions, cfg, rope, group)
+    x = _attention_layers(params, x, pools, bt, n_prior + C, n_prior, positions, cfg, rope, group,
+                          ep_group=ep_group)
     last = (n_valid - 1).clamp_min(0)
     return _lm_head(x[torch.arange(P, device=x.device), last], params, group)
 
@@ -523,14 +538,20 @@ class DecodeEngine:
         ecfg = effective_engine_config(ecfg)
         self.ecfg = ecfg
         self.mesh = mesh
-        dp, tp = _check_mesh(mesh, cfg, ecfg, self.device)
-        # a dp x tp mesh: each data-parallel replica owns a disjoint slice of
-        # the batch slots and of the page pool, and every page id the host
-        # hands out is replica-local. Every rank runs this bookkeeping for
-        # all replicas (the same requests on every rank give the same
-        # state); it computes its replica's rows on its kv heads, and the
-        # replicas exchange the tokens they sample.
-        self.n_replicas = dp
+        dp, ep, tp = _check_mesh(mesh, params, cfg, ecfg, self.device)
+        # a mesh: each replica, one (dp, ep) pair (r = dp_idx * ep + ep_idx,
+        # the JAX engine's order), owns a disjoint slice of the batch slots
+        # and of the page pool, and every page id the host hands out is
+        # replica-local: an ep rank is a replica for every tensor but the
+        # experts. Every rank runs this bookkeeping for all replicas (the
+        # same requests on every rank give the same state); it computes its
+        # replica's rows on its kv heads, and the replicas exchange the
+        # tokens they sample.
+        self.n_replicas = dp * ep
+        # a MoE model on a mesh runs the expert exchange (parallel/ep.py) at
+        # every ep, a group of one rank included, where it is the identity:
+        # every collective is issued at every group size
+        self.ep_axis = mesh is not None and "router" in params["layers"]
         num_pages_local = ecfg.num_pages // self.n_replicas
         self.mb_local = ecfg.max_batch // self.n_replicas
         if self.n_replicas > 1:
@@ -542,11 +563,15 @@ class DecodeEngine:
         self.trash_page = num_pages_local
         self._replica = 0  # this rank's replica
         if mesh is not None:
-            from xf_flash_attention_cutlass_tpu_torch.parallel.mesh import DP, axis_index
-            from xf_flash_attention_cutlass_tpu_torch.parallel.tp import shard_params
+            from xf_flash_attention_cutlass_tpu_torch.parallel.tp import (
+                _map2,
+                replica,
+                shard_leaf,
+            )
 
-            params = shard_params(params, mesh)
-            self._replica = axis_index(mesh, DP)
+            params = _map2(lambda x, s: shard_leaf(x, s, mesh), params,
+                           self.mesh_specs(params, {})[0])
+            self._replica = replica(mesh)[1]
         # decode and prefill read every projection through the stacked
         # matmul (the same buffers, no copies)
         self.params = pack_params_for_decode(_to_device(params, self.device))
@@ -613,6 +638,23 @@ class DecodeEngine:
             tokens_emitted=0, drafts_proposed=0, drafts_accepted=0,
             requests_admitted=0, requests_finished=0, preemptions=0,
         )
+
+    def mesh_specs(self, params, pools):
+        """(param specs, pool specs): the layout of the caller's form of the
+        params and of the pools on the engine's mesh, one spec a leaf
+        (parallel/tp.py shard_leaf). A MoE model's expert leaves shard on
+        their expert axis over ep and the rest as tp shards it
+        (parallel/ep_serve.py), a dense model's as parallel/tp.py; the
+        pools' pages over the (dp, ep) replicas, their kv heads over tp.
+        The engine shards with it, and checkpoints save and load with it."""
+        from xf_flash_attention_cutlass_tpu_torch.parallel.ep_serve import (
+            ep_param_partition_specs,
+        )
+        from xf_flash_attention_cutlass_tpu_torch.parallel.tp import param_partition_specs
+        from xf_flash_attention_cutlass_tpu_torch.parallel.tp_serve import pool_partition_specs
+
+        pspecs = ep_param_partition_specs(params) if self.ep_axis else param_partition_specs(params)
+        return pspecs, pool_partition_specs(pools, dp_axis=True, ep_axis=True)
 
     def add_request(
         self,
@@ -696,8 +738,8 @@ class DecodeEngine:
 
     def _exchange(self, local: torch.Tensor) -> np.ndarray:
         """The replicas' rows of a host result (dim 0: this replica's rows)
-        joined in replica order over the dp group, on host tensors; the
-        result itself without replicas."""
+        joined in replica order (over the ep and dp groups), on host
+        tensors; the result itself without replicas."""
         local = local.cpu()
         if self.n_replicas > 1:
             from xf_flash_attention_cutlass_tpu_torch.parallel.tp_serve import gather_rows
@@ -717,7 +759,7 @@ class DecodeEngine:
 
             logits, _ = tp_prefill_chunk_step(self.params, *args, self.pools, self._tensor(bt),
                                               self.cfg, self.mesh, dp_axis=self.n_replicas > 1,
-                                              rope=self.rope)
+                                              ep_axis=self.ep_axis, rope=self.rope)
             return logits
         return prefill_chunk_core(self.params, *args, self.pools, self._tensor(bt), self.cfg,
                                   self.rope)
@@ -1005,6 +1047,7 @@ class DecodeEngine:
             from xf_flash_attention_cutlass_tpu_torch.parallel.tp_serve import tp_verify_step
 
             logits, _ = tp_verify_step(*args, self.mesh, dp_axis=self.n_replicas > 1,
+                                       ep_axis=self.ep_axis,
                                        sp_batch=True, rope=self.rope)
         else:
             logits = verify_core(*args, self.rope)
@@ -1041,7 +1084,7 @@ class DecodeEngine:
                 self.params, tokens, self.pools, bt, lens, self.cfg, self.mesh,
                 temperature=temps if sampling else None, step0=step0, seed=e.sample_seed,
                 top_k=e.top_k, top_p=e.top_p, approx_top_k=e.approx_top_k, sp_batch=True,
-                dp_axis=self.n_replicas > 1, n_steps=K, rope=self.rope)
+                dp_axis=self.n_replicas > 1, ep_axis=self.ep_axis, n_steps=K, rope=self.rope)
             return toks, logits
         return decode_multi_step(
             self.params, tokens, self.pools, bt, lens, self.cfg,
@@ -1149,22 +1192,21 @@ class DecodeEngine:
 
 
 _NOT_PORTED_AXES = (
-    ("ep", "expert parallelism (the JAX package's parallel/ep.py and ep_serve.py)"),
     ("pp", "pipeline parallelism (the JAX package's parallel/pp.py and pp_serve.py)"),
     ("cp", "context parallelism (the JAX package's parallel/ring.py and ulysses.py)"),
 )
 
 
-def _check_mesh(mesh, cfg: LlamaConfig, ecfg: EngineConfig, device: torch.device):
-    """(dp, tp) of the mesh to serve on; (1, 1) without one. Raises
-    NotImplementedError for a mesh axis the port does not serve yet (ep, pp
-    or cp > 1: nothing is served another way) and ValueError for what the
-    JAX engine refuses too."""
+def _check_mesh(mesh, params, cfg: LlamaConfig, ecfg: EngineConfig, device: torch.device):
+    """(dp, ep, tp) of the mesh to serve on; (1, 1, 1) without one. Raises
+    NotImplementedError for a mesh axis the port does not serve yet (pp or
+    cp > 1: nothing is served another way) and ValueError for what the JAX
+    engine refuses too."""
     if mesh is None:
-        return 1, 1
+        return 1, 1, 1
     from torch.distributed.device_mesh import DeviceMesh
 
-    from xf_flash_attention_cutlass_tpu_torch.parallel.mesh import AXES, DP, TP, axis_size
+    from xf_flash_attention_cutlass_tpu_torch.parallel.mesh import AXES, DP, EP, TP, axis_size
 
     if not (isinstance(mesh, DeviceMesh) and mesh.mesh_dim_names == AXES):
         raise NotImplementedError(
@@ -1174,24 +1216,29 @@ def _check_mesh(mesh, cfg: LlamaConfig, ecfg: EngineConfig, device: torch.device
         if axis_size(mesh, axis) > 1:
             raise NotImplementedError(f"not ported yet: {what}; the mesh has {axis} = "
                                       f"{axis_size(mesh, axis)}")
+    dp, ep, tp = axis_size(mesh, DP), axis_size(mesh, EP), axis_size(mesh, TP)
+    if ep > 1 and "router" not in params["layers"]:
+        raise ValueError("mesh has ep>1 but params are not a MoE model (no router); expert "
+                         "parallelism shards the expert axis of MoE FFNs")
+    if ep > 1 and cfg.n_experts % ep:
+        raise ValueError(f"n_experts {cfg.n_experts} must be divisible by ep={ep}")
     if mesh.device_type != device.type:
         raise ValueError(f"the mesh is on {mesh.device_type}, the engine on {device.type}")
     if not ecfg.prefill_chunk:
         raise ValueError("mesh mode serves prefill through the chunked path: set "
                          "EngineConfig.prefill_chunk")
-    dp, tp = axis_size(mesh, DP), axis_size(mesh, TP)
     for name, n in (("n_heads", cfg.n_heads), ("n_kv_heads", cfg.n_kv_heads),
                     ("vocab_size", cfg.vocab_size)):
         if n % tp:
             raise ValueError(f"{name} {n} must divide by tp={tp}")
-    if dp > 1:
+    if dp * ep > 1:
         for name, val in (("max_batch", ecfg.max_batch), ("num_pages", ecfg.num_pages),
                           ("prefill_lanes", ecfg.prefill_lanes)):
-            if val % dp:
-                raise ValueError(f"{name} ({val}) must divide by dp={dp}")
+            if val % (dp * ep):
+                raise ValueError(f"{name} ({val}) must divide dp*ep={dp * ep}")
         # the replicas exchange their sampled tokens as host tensors
-        backends = str(dist.get_backend_config(mesh.get_group(DP)))
+        backends = str(dist.get_backend_config(mesh.get_group(DP if dp > 1 else EP)))
         if "cpu:" not in backends:
-            raise ValueError(f"dp={dp} needs a CPU backend in the process group (e.g. "
-                             f"'cpu:gloo,cuda:nccl'); it has {backends!r}")
-    return dp, tp
+            raise ValueError(f"dp*ep={dp * ep} needs a CPU backend in the process group "
+                             f"(e.g. 'cpu:gloo,cuda:nccl'); it has {backends!r}")
+    return dp, ep, tp

@@ -8,10 +8,11 @@ records its collectives at capture and re-adds them on every replay
 group of one rank included: NCCL then captures them into the graph like any
 kernel, and the path the card runs at tp = 1 is the path of a wider mesh.
 
-Gathers and the reduce-scatter act on dim 0 of a contiguous buffer (the
-layout of ``all_gather_into_tensor`` and ``reduce_scatter_tensor``); other
-dims are moved to the front and back. The sums follow the backend's order
-(gloo or NCCL), not the JAX package's psum order.
+Gathers, the reduce-scatter and the all-to-all act on dim 0 of a
+contiguous buffer (the layout of ``all_gather_into_tensor``,
+``reduce_scatter_tensor`` and ``all_to_all_single``); other dims are moved
+to the front and back. The sums follow the backend's order (gloo or NCCL),
+not the JAX package's psum order.
 """
 
 from __future__ import annotations
@@ -73,3 +74,45 @@ def reduce_scatter(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     _reduce_scatter_base(out, blocks.view(n * out.shape[0], *out.shape[1:]),
                          op=dist.ReduceOp.SUM, group=group)
     return out
+
+
+def _all_to_all(x: torch.Tensor, group, split_dim: int, concat_dim: int) -> torch.Tensor:
+    n = dist.get_world_size(group)
+    if x.shape[split_dim] % n:
+        raise ValueError(
+            f"all_to_all: dim {split_dim} of {tuple(x.shape)} does not divide by {n}")
+    _count("all_to_all")
+    shape = list(x.shape)
+    shape[split_dim] //= n
+    # block i of split_dim (for rank i) as the contiguous slab i of dim 0
+    blocks = x.reshape(*shape[:split_dim], n, *shape[split_dim:]).movedim(split_dim, 0)
+    blocks = blocks.contiguous()
+    out = torch.empty_like(blocks)
+    dist.all_to_all_single(out, blocks, group=group)
+    # slab j came from rank j: it goes to offset j of concat_dim
+    shape[concat_dim] *= n
+    return out.movedim(0, concat_dim).reshape(shape)
+
+
+class _AllToAll(torch.autograd.Function):
+    """The exchange; its backward is the inverse exchange (split and concat
+    dims swapped), as the transpose of JAX's tiled all_to_all."""
+
+    @staticmethod
+    def forward(ctx, x, group, split_dim, concat_dim):
+        ctx.args = group, split_dim, concat_dim
+        return _all_to_all(x, group, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, split_dim, concat_dim = ctx.args
+        return _all_to_all(g, group, concat_dim, split_dim), None, None, None
+
+
+def all_to_all(x: torch.Tensor, group, split_dim: int, concat_dim: int) -> torch.Tensor:
+    """JAX's tiled all_to_all(x, split_axis=split_dim, concat_axis=concat_dim):
+    x is cut into n blocks along split_dim, block i goes to rank i, and the
+    blocks received are concatenated along concat_dim in source-rank order
+    (rank j's at offset j). Differentiable."""
+    dim = x.dim()
+    return _AllToAll.apply(x, group, split_dim % dim, concat_dim % dim)
