@@ -275,7 +275,19 @@ Phases, each of which raises (exit code != 0) when it fails:
    path); and a probe of two processes exchanging CUDA tensors over NCCL
    on the one card (`nccl_two_process_probe`), which says whether an
    ep = 2 mesh can run on it.
-13. Print the seconds of each phase, the `kernels` JSON line (with the rows
+13. Pipeline parallelism (`serve_pp`, run inside phase 11's one-rank NCCL
+   group, beside phase 4's INT8 params, which it shares): on a pp = 1 mesh,
+   8 requests' state after a single-device chunked prefill, then 16 greedy
+   `pp_decode_step` calls at n_micro = 4 (`serve_pp1`, a main path: every
+   microbatch through K2, K1 and its combine, K3 and K4, one stage shift a
+   schedule step, a send to self at one rank); its tokens, logits and every
+   pool page equal to 16 `decode_core` runs on each microbatch's rows bit for
+   bit, its streams held to the whole-batch step by the tie rule; one step
+   of each profiled in turns (whole, pp, pp, whole). Then
+   `pp_loss_and_grad` at Llama-8B widths cut to 2 layers, tokens (2, 1025),
+   n_micro = 2, under the 3x rule (`train_pp1`, a main path). No pp > 1
+   runs on one card.
+14. Print the seconds of each phase, the `kernels` JSON line (with the rows
    at d = 96 and 256, "<label>@d<d>"), the card's name and power limit,
    and, last, {"ok": true, "device": {...}}.
 
@@ -5960,24 +5972,19 @@ def mesh_serve_tp1(params, cfg, ecfg, single, want, seed, checks, paths):
     return out
 
 
-def mesh_train_tp1(gen, cfg, seed, checks, paths):
-    """tp_loss_and_grad on a tp = 1 mesh at Llama-8B widths cut to 2 layers,
-    bf16, one 1024-token batch, against loss_fn and its gradient on one
-    device: the 3x rule on the loss and on every parameter's gradient, the
-    single-device bf16 step the low-precision reference and the f32 step
-    (the f32 kernels) the oracle."""
+def mesh_train_check(gen, cfg, seed, checks, paths, name, check, rows, step):
+    """step(bf16 params, tokens, 2-layer cfg) on a one-rank mesh at Llama-8B
+    widths cut to 2 layers, bf16, `rows` batches of 1024 tokens, against
+    loss_fn and its gradient on one device: the 3x rule on the loss and on
+    every parameter's gradient, the single-device bf16 step the
+    low-precision reference and the f32 step (the f32 kernels) the oracle.
+    The main path `name` is the step alone."""
     from xf_flash_attention_cutlass_tpu_torch.models.llama import init_params, loss_fn
-    from xf_flash_attention_cutlass_tpu_torch.parallel import (
-        make_mesh,
-        shard_params,
-        tp_loss_and_grad,
-    )
 
-    mesh = make_mesh(tp=1)
     c2 = dataclasses.replace(cfg, n_layers=2)
     base = init_params(gen, c2, dtype=torch.float32)
     tokens = torch.from_numpy(np.random.default_rng(seed + 5).integers(
-        0, cfg.vocab_size, (1, 1025))).cuda()
+        0, cfg.vocab_size, (rows, 1025))).cuda()
 
     def cast(dt):
         return {n: ({m: t.to(dt) for m, t in x.items()} if isinstance(x, dict) else x.to(dt))
@@ -5997,23 +6004,38 @@ def mesh_train_tp1(gen, cfg, seed, checks, paths):
     ref_loss, ref = single(torch.float32)
     low_loss, low = single(torch.bfloat16)
     bf16 = cast(torch.bfloat16)
-    (loss, grads), paths["train_mesh_tp1"] = drive(
-        "train_mesh_tp1", lambda: tp_loss_and_grad(shard_params(bf16, mesh), tokens, c2, mesh))
-    worst, rows = 0.0, {}
-    for name, g_ref in ref.items():
-        g = grads[name[0]] if len(name) == 1 else grads["layers"][name[1]]
-        err, lp = max_err(g, g_ref), max_err(low[name], g_ref)
+    (loss, grads), paths[name] = drive(name, lambda: step(bf16, tokens, c2))
+    worst, errs = 0.0, {}
+    for leaf, g_ref in ref.items():
+        g = grads[leaf[0]] if len(leaf) == 1 else grads["layers"][leaf[1]]
+        err, lp = max_err(g, g_ref), max_err(low[leaf], g_ref)
         tol = 3 * lp + 1e-5
-        rows["/".join(name)] = dict(err=err, tolerance=tol)
+        errs["/".join(leaf)] = dict(err=err, tolerance=tol)
         worst = max(worst, err / tol)
     loss_err, loss_tol = abs(float(loss) - ref_loss), 3 * abs(low_loss - ref_loss) + 1e-5
-    checks.add("serve_mesh.train_tp1_3x_rule", worst <= 1.0 and loss_err <= loss_tol,
+    checks.add(check, worst <= 1.0 and loss_err <= loss_tol,
                worst_err_over_tolerance=worst, loss=float(loss), loss_f32=ref_loss,
-               loss_err=loss_err, loss_tolerance=loss_tol, grads=rows)
+               loss_err=loss_err, loss_tolerance=loss_tol, grads=errs)
     del base, bf16, ref, low, grads
     torch.cuda.empty_cache()
     return dict(loss=float(loss), loss_f32=ref_loss, loss_bf16_single=low_loss,
-                worst_err_over_tolerance=worst, launches=paths["train_mesh_tp1"])
+                worst_err_over_tolerance=worst, launches=paths[name])
+
+
+def mesh_train_tp1(gen, cfg, seed, checks, paths):
+    """tp_loss_and_grad on a tp = 1 mesh, one 1024-token batch, under the 3x
+    rule (mesh_train_check)."""
+    from xf_flash_attention_cutlass_tpu_torch.parallel import (
+        make_mesh,
+        shard_params,
+        tp_loss_and_grad,
+    )
+
+    mesh = make_mesh(tp=1)
+    return mesh_train_check(
+        gen, cfg, seed, checks, paths, "train_mesh_tp1", "serve_mesh.train_tp1_3x_rule", 1,
+        lambda params, tokens, c2: tp_loss_and_grad(shard_params(params, mesh), tokens, c2,
+                                                    mesh))
 
 
 def mesh_shard_kernels(gen, timer, checks, cfg):
@@ -6273,6 +6295,7 @@ def serve_mesh(gen, timer, params, cfg, ecfg, single, want, seed, checks, paths)
         checks.raise_on_failure("serve_mesh checkpoint")
         out["train_tp1"] = mesh_train_tp1(gen, cfg, seed, checks, paths)
         checks.raise_on_failure("serve_mesh training")
+        out["pp"] = serve_pp(gen, params, cfg, ecfg, seed, checks, paths)
     out["shard_kernels"] = mesh_shard_kernels(gen, timer, checks, cfg)
     checks.raise_on_failure("serve_mesh shard kernels")
     out["dp2"] = mesh_dp2_two_processes(seed, checks, paths)
@@ -6478,6 +6501,188 @@ def nccl_two_process_probe(wait_s=120):
     return dict(ok=ok, ranks=outs)
 
 
+# ---- phase 13: pipeline parallelism ------------------------------------------
+
+PP_MICRO = 4  # serve_pp1's microbatches (2 rows each)
+PP_STEPS = 16  # serve_pp1's decode steps
+
+
+def pp_decode_state(params, cfg, ecfg, seed):
+    """8 requests' decode state after the single-device chunked prefill: a
+    chunked engine over 8 prompts of 200-1500 tokens (from seed + 13),
+    stepped until every request decodes, its pages grown for PP_STEPS
+    tokens. Returns (the engine, tokens (8, 1), block tables, the lengths
+    after the first step) on the card; the engine's pools hold the state."""
+    from xf_flash_attention_cutlass_tpu_torch.serve.engine import DecodeEngine
+
+    eng = DecodeEngine(params, cfg, ecfg)
+    rng = np.random.default_rng(seed + 13)
+    for i, n in enumerate(rng.integers(200, 1501, ecfg.max_batch)):
+        eng.add_request(i, rng.integers(0, cfg.vocab_size, int(n)).tolist(), 8 * PP_STEPS)
+    while len(eng.active) < ecfg.max_batch or any(st is not None for st in eng._prefills):
+        eng.step()
+    eng._grow(PP_STEPS)
+    bt, lens = eng._batch_tables()
+    tokens = [[eng.active[slot]["last_token"]] for slot in range(ecfg.max_batch)]
+    return (eng, torch.tensor(tokens, device="cuda"), torch.from_numpy(bt).cuda(),
+            torch.from_numpy(lens - (PP_STEPS - 1)).cuda())
+
+
+def host_ms(fn, n=5):
+    """p50 host milliseconds of fn() ended by a synchronize, after one
+    warm call."""
+    fn()
+    torch.cuda.synchronize()
+    t = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        t.append(1e3 * (time.perf_counter() - t0))
+    return percentile(t, 50)
+
+
+def mesh_serve_pp1(params, cfg, ecfg, seed, checks, paths):
+    """Llama-8B (32 layers, phase 4's INT8 params shared, FP8 cache, page
+    256) from 8 requests' state after the chunked prefill, through
+    PP_STEPS greedy pp_decode_step calls at n_micro = PP_MICRO on a pp = 1
+    mesh over a one-rank NCCL group (a main path). Against PP_STEPS
+    decode_core runs on each microbatch's rows (the same kernels at the
+    same widths): tokens, logits and every pool page bit for bit; against
+    the whole-batch decode_core step by the tie rule (K1 splits a 2-row
+    microbatch's keys otherwise than an 8-row batch's). Then one step of
+    each is profiled, in turns (whole, pp, pp, whole)."""
+    from xf_flash_attention_cutlass_tpu_torch.parallel import (
+        make_mesh,
+        pp_decode_step,
+        shard_pp_params,
+        shard_pp_pools,
+    )
+    from xf_flash_attention_cutlass_tpu_torch.serve.engine import decode_core
+
+    mesh = make_mesh(pp=1)
+    eng, tokens0, bt, lens0 = pp_decode_state(params, cfg, ecfg, seed)
+    pools, trash = eng.pools, eng.trash_page
+    mb_pools = {k: v.clone() for k, v in pools.items()}
+    whole_pools = {k: v.clone() for k, v in pools.items()}
+    sp, spools = shard_pp_params(params, mesh), shard_pp_pools(pools, mesh)
+    checks.add("serve_pp1.shards_share_the_params",
+               all(a is b for a, b in zip(_leaves(sp), _leaves(params)))
+               and all(spools[k] is pools[k] for k in pools))
+    b = tokens0.shape[0]
+    mb = b // PP_MICRO
+    micro = [slice(m * mb, (m + 1) * mb) for m in range(PP_MICRO)]
+
+    def run(step):
+        toks, logits, tok = [], [], tokens0
+        for i in range(PP_STEPS):
+            nt, lg = step(tok, lens0 + i)
+            toks.append(nt)
+            logits.append(lg)
+            tok = nt[:, None]
+        return torch.stack(toks), torch.stack(logits)
+
+    def pp_step(tok, lens):
+        return pp_decode_step(sp, tok, spools, bt, lens, cfg, mesh, trash, n_micro=PP_MICRO,
+                              quant=ecfg.kv_quant)[:2]
+
+    def micro_step(tok, lens):
+        outs = [decode_core(params, tok[r], mb_pools, bt[r], lens[r], cfg) for r in micro]
+        return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])
+
+    def whole_step(tok, lens):
+        return decode_core(params, tok, whole_pools, bt, lens, cfg)
+
+    (pp_toks, pp_logits), paths["serve_pp1"] = drive("serve_pp1", lambda: run(pp_step))
+    mb_toks, mb_logits = run(micro_step)
+    whole_toks, whole_logits = run(whole_step)
+    checks.add("serve_pp1.tokens_equal_per_microbatch_decode_core",
+               torch.equal(pp_toks, mb_toks), steps=PP_STEPS, n_micro=PP_MICRO)
+    logits_equal = torch.equal(pp_logits.view(torch.uint8), mb_logits.view(torch.uint8))
+    differing = [k for k in pools
+                 if not torch.equal(pools[k].view(torch.uint8), mb_pools[k].view(torch.uint8))]
+    checks.add("serve_pp1.pools_equal_per_microbatch_decode_core", not differing,
+               differing=differing, pages=pools["k"].shape[1], trash_page=trash)
+    streams = {}
+    for name, t in (("pp", pp_toks), ("whole", whole_toks)):
+        streams[name] = {rid: t[:, rid].tolist() for rid in range(b)}
+    rule = tie_rule(checks, "serve_pp1.whole_batch", (
+        streams["whole"], {(rid, i): whole_logits[i, rid].float().cpu()
+                           for rid in range(b) for i in range(PP_STEPS)}), (
+        streams["pp"], {(rid, i): pp_logits[i, rid].float().cpu()
+                        for rid in range(b) for i in range(PP_STEPS)}))
+    launches = paths["serve_pp1"]
+    shifts = PP_STEPS * PP_MICRO  # n_micro + pp - 1 schedule steps a decode step
+    checks.add("serve_pp1.collectives", launches.get("collective.ppermute") == shifts
+               and launches.get("collective.all_reduce") == PP_STEPS,
+               ppermute=launches.get("collective.ppermute"), expected_ppermute=shifts,
+               all_reduce=launches.get("collective.all_reduce"))
+    # one step of each on its own pools, the last step's inputs again
+    tok, lens = pp_toks[-2][:, None], lens0 + PP_STEPS - 1
+    groups = dict(nccl="nccl", **K1_GROUPS, **K3_GROUPS, append=APPEND_KERNEL)
+    fns = dict(whole=lambda: whole_step(tok, lens), pp=lambda: pp_step(tok, lens))
+    profiles = {}
+    for key in ("whole", "pp", "pp_2", "whole_2"):
+        profiles[key] = profiled(fns[key.split("_")[0]], 3, groups=groups)
+    host = {key: host_ms(fns[key.split("_")[0]]) for key in ("whole", "pp", "pp_2", "whole_2")}
+
+    def field(key, *path):
+        p = profiles[key]
+        for k in path:
+            p = None if p is None else p[k]
+        return p
+
+    out = dict(layers=cfg.n_layers, batch=b, n_micro=PP_MICRO, steps=PP_STEPS,
+               kv_lens_first_step=lens0.tolist(), logits_bit_equal_per_microbatch=logits_equal,
+               tie_rule=rule, launches=launches,
+               device_ms_per_step={k: field(k, "device_ms_per_step") for k in profiles},
+               k3_k4_ms_per_step={k: field(k, "groups_ms_per_step", "k3_decode")
+                                  for k in profiles},
+               k1_ms_per_step={k: None if profiles[k] is None else
+                               profiles[k]["groups_ms_per_step"]["k1_decode"]
+                               + profiles[k]["groups_ms_per_step"]["k1_combine"]
+                               for k in profiles},
+               launches_per_step={k: field(k, "launches_per_step") for k in profiles},
+               host_ms_p50=host)
+    print(json.dumps({"serve_pp1_report": out}), flush=True)
+    out["profiles"] = profiles
+    del eng, pools, mb_pools, whole_pools, spools
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_train_pp1(gen, cfg, seed, checks, paths):
+    """pp_loss_and_grad on a pp = 1 mesh, two 1024-token batches in
+    n_micro = 2 microbatches through the written-out GPipe schedule (the
+    stage shift forward, the reverse shift backward), under the 3x rule
+    (mesh_train_check)."""
+    from xf_flash_attention_cutlass_tpu_torch.parallel import (
+        make_mesh,
+        pp_loss_and_grad,
+        shard_pp_params,
+    )
+
+    mesh = make_mesh(pp=1)
+    return mesh_train_check(
+        gen, cfg, seed, checks, paths, "train_pp1", "serve_pp.train_pp1_3x_rule", 2,
+        lambda params, tokens, c2: pp_loss_and_grad(shard_pp_params(params, mesh), tokens, c2,
+                                                    mesh, n_micro=2))
+
+
+def serve_pp(gen, params, cfg, ecfg, seed, checks, paths):
+    """Phase 13, inside phase 11's one-rank NCCL group (see the module
+    docstring). Returns the report's row, with the phase's seconds."""
+    t0 = time.perf_counter()
+    out = dict(serve_pp1=mesh_serve_pp1(params, cfg, ecfg, seed, checks, paths))
+    checks.raise_on_failure("serve_pp1")
+    out["train_pp1"] = mesh_train_pp1(gen, cfg, seed, checks, paths)
+    checks.raise_on_failure("train_pp1")
+    out["phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"serve_pp": dict(phase_s=out["phase_s"], train_pp1=out["train_pp1"])}),
+          flush=True)
+    return out
+
+
 _PKG = "xf_flash_attention_cutlass_tpu_torch/csrc/"
 _TPU = "xf_flash_attention_cutlass_tpu/"
 KERNELS = {  # launch-counter name: (source, TPU kernel it replaces)
@@ -6651,6 +6856,17 @@ PATHS.update({
                       "collective.all_to_all"],
 })
 NOT_ON_PATH.update({"serve_mesh_ep": _NOT_SERVING + _MOE_NOT_SERVING})
+# phase 13: pipeline parallelism at pp = 1. The decode step's microbatches
+# run the decode kernels eagerly (no prefill kernel, no graph), with one
+# stage shift a schedule step and the all-reduce that replicates the last
+# stage's rows; the training step shifts forward and back
+PATHS.update({
+    "serve_pp1": [k for k in _SERVE_KERNELS if k != "qmm.stacked.wgmma"]
+    + ["collective.ppermute", "collective.all_reduce"],
+    "train_pp1": ["flash_fwd", "flash_bwd.dq", "flash_bwd.dkv", "collective.ppermute"],
+})
+NOT_ON_PATH.update({"serve_pp1": _NOT_SERVING + _CHUNKED + ["qmm.stacked.wgmma",
+                                                            "graph.decode"]})
 
 
 def head_dim_kernels():
@@ -6899,6 +7115,7 @@ def main():
     del eng
     torch.cuda.empty_cache()
     mark("serve_mesh")
+    phase_s["serve_pp_inside_serve_mesh"] = report["serve_mesh"]["pp"]["phase_s"]
 
     # the engine's features: windows, sampling, speculative verify, prefixes
     report["serve_features"] = serve_features(params, cfg, ecfg, args.seed, checks, paths,

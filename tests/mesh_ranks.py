@@ -37,17 +37,24 @@ from xf_flash_attention_cutlass_tpu_torch.parallel import (
     make_mesh,
     moe_ep_forward,
     moe_ep_loss_and_grad,
+    pp_decode_step,
+    pp_forward,
+    pp_loss_and_grad,
     shard_ep,
     shard_moe_params,
     shard_pools,
+    shard_pp_params,
+    shard_pp_pools,
     tp_decode_step,
     tp_dp_decode_step,
     tp_forward,
     tp_loss_and_grad,
     tp_verify_step,
 )
+from xf_flash_attention_cutlass_tpu_torch.parallel.mesh import PP
 from xf_flash_attention_cutlass_tpu_torch.parallel.tp import _leaves, gather_to_rank0, shard_params
 from xf_flash_attention_cutlass_tpu_torch.serve import DecodeEngine, load_engine, save_engine
+from xf_flash_attention_cutlass_tpu_torch.utils.collectives import ppermute
 
 GROUP_TIMEOUT_S = 120  # a collective that waits longer fails its job
 JOB_TIMEOUT_S = 240  # the parent's wait for one job's result
@@ -246,6 +253,52 @@ def ep_prefill(mesh, params, tokens, n_prior, n_valid, pools, bt, cfg):
     """ep_prefill_chunk_step on this rank's shard_ep shards: (logits, pools)."""
     sp, spools = shard_ep(params, pools, mesh)
     return ep_prefill_chunk_step(sp, tokens, n_prior, n_valid, spools, bt, cfg, mesh)
+
+
+def pp_fwd(mesh, params, tokens, cfg, n_micro):
+    return pp_forward(shard_pp_params(params, mesh), tokens, cfg, mesh, n_micro)
+
+
+def pp_grad(mesh, params, tokens, cfg, n_micro):
+    return pp_loss_and_grad(shard_pp_params(params, mesh), tokens, cfg, mesh, n_micro)
+
+
+def pp_decode(mesh, params, tokens, pools, bt, kv_lens, cfg, trash, n_micro=None, quant=None):
+    """pp_decode_step on this rank's shards: (tokens, logits, pools,
+    collectives issued)."""
+    sp, spools = shard_pp_params(params, mesh), shard_pp_pools(pools, mesh)
+    (tok, logits, out), coll = _step_launches(lambda: pp_decode_step(
+        sp, tokens, spools, bt, kv_lens, cfg, mesh, trash, n_micro, quant))
+    return tok, logits, out, coll
+
+
+def pp_errors(mesh, params, cfg, bad_cfg, tokens, pools, bt, kv_lens):
+    """The ValueError messages of pp_forward and pp_loss_and_grad at an
+    n_micro that does not divide the batch, and of pp_decode_step at such
+    an n_micro and at a bad_cfg whose layers do not divide by pp."""
+    sp = shard_pp_params(params, mesh)
+    calls = (lambda: pp_forward(sp, tokens, cfg, mesh, 3),
+             lambda: pp_loss_and_grad(sp, tokens, cfg, mesh, 3),
+             lambda: pp_decode_step(sp, tokens[:, :1], pools, bt, kv_lens, cfg, mesh, 0, 3),
+             lambda: pp_decode_step(sp, tokens[:, :1], pools, bt, kv_lens, bad_cfg, mesh, 0))
+    out = []
+    for call in calls:
+        try:
+            call()
+        except ValueError as e:
+            out.append(str(e))
+        else:
+            out.append(None)
+    return out
+
+
+def pp_shift(mesh):
+    """Each rank's global rank as a tensor, through ppermute over the pp
+    group forward and in reverse: (forward, reverse, collectives issued)."""
+    x = torch.full((2, 3), float(dist.get_rank()))
+    group = mesh.get_group(PP)
+    (fwd, rev), coll = _step_launches(lambda: (ppermute(x, group), ppermute(x, group, -1)))
+    return fwd, rev, coll
 
 
 def live_rows(eng):

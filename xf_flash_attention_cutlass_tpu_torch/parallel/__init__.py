@@ -1,9 +1,12 @@
 """The parallel layers on ``torch.distributed``: the device mesh
 (``mesh.py``), tensor- and data-parallel training (``tp.py``) and serving
-(``tp_serve.py``; the engine's ``mesh=`` mode), and expert parallelism for
-the MoE family, training (``ep.py``) and serving (``ep_serve.py``).
-Pipeline and sequence parallelism (the JAX package's ``pp.py``,
-``pp_serve.py``, ``ring.py`` and ``ulysses.py``) are not ported yet."""
+(``tp_serve.py``; the engine's ``mesh=`` mode), expert parallelism for the
+MoE family, training (``ep.py``) and serving (``ep_serve.py``), and
+pipeline parallelism, training (``pp.py``: GPipe microbatches, the
+backward pipeline written out) and serving (``pp_serve.py``:
+``pp_decode_step``, which the engine does not call, as in the JAX package).
+Sequence parallelism (the JAX package's ``ring.py`` and ``ulysses.py``) is
+not ported yet."""
 
 from xf_flash_attention_cutlass_tpu_torch.parallel.mesh import make_mesh  # noqa: F401
 from xf_flash_attention_cutlass_tpu_torch.parallel.tp import (  # noqa: F401
@@ -32,4 +35,15 @@ from xf_flash_attention_cutlass_tpu_torch.parallel.ep_serve import (  # noqa: F4
     ep_decode_step,
     ep_prefill_chunk_step,
     shard_ep,
+)
+from xf_flash_attention_cutlass_tpu_torch.parallel.pp import (  # noqa: F401
+    pp_forward,
+    pp_loss_and_grad,
+    pp_param_partition_specs,
+    shard_pp_params,
+)
+from xf_flash_attention_cutlass_tpu_torch.parallel.pp_serve import (  # noqa: F401
+    pp_decode_step,
+    pp_pool_specs,
+    shard_pp_pools,
 )

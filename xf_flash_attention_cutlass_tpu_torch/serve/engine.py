@@ -65,8 +65,10 @@ and computes its replica's rows; the replicas exchange their sampled
 tokens on host tensors. On CUDA the decode window is a graph replay with
 its collectives captured in it.
 
-What the port does not serve yet raises NotImplementedError: a mesh with
-pp or cp > 1 (pipeline and context parallelism).
+A mesh with pp > 1 raises NotImplementedError: as in the JAX package, the
+engine serves no pipeline stages, and a pipeline-parallel decode step is
+``parallel/pp_serve.py``'s ``pp_decode_step``. A mesh with cp > 1 (context
+parallelism, not ported yet) raises it too.
 """
 
 from __future__ import annotations
@@ -285,10 +287,22 @@ def _mlp(layer, x: torch.Tensor, cfg: LlamaConfig, group=None, ep_group=None) ->
 
 def _attention_layers(params, x, pools, bt, kv_lens, append_pos, positions, cfg, rope=None,
                       group=None, sp: bool = False, ep_group=None):
-    """The layer loop shared by verify/decode and chunked prefill: per
-    layer, append the new tokens' KV into the pools in place, then attend
-    over the paged cache (causal from the bottom right), project and run
-    the MLP. Returns the final-normed hidden states.
+    """The layer loop shared by verify/decode and chunked prefill
+    (_layer_stack over every layer), then the final norm. Returns the
+    final-normed hidden states."""
+    x = _layer_stack(params["layers"], x, pools, bt, kv_lens, append_pos, positions, cfg, rope,
+                     group, sp, ep_group)
+    return rms_norm(x, params["final_norm"], cfg.rms_eps)
+
+
+def _layer_stack(layers, x, pools, bt, kv_lens, append_pos, positions, cfg, rope=None,
+                 group=None, sp: bool = False, ep_group=None):
+    """The layers of `layers` ((L, ...) stacks) over the pools' layer axis
+    of the same L, layer_idx counted from the stack's first layer (a
+    pipeline stage's shard: parallel/pp_serve.py): per layer, append the new
+    tokens' KV into the pools in place, then attend over the paged cache
+    (causal from the bottom right), project and run the MLP. Returns the
+    hidden states after the last layer, without the final norm.
 
     Under a tp `group` (cfg the local shard's, parallel/tp.py _local_cfg)
     the pools hold the rank's kv heads, and the O projection's and the
@@ -308,7 +322,7 @@ def _attention_layers(params, x, pools, bt, kv_lens, append_pos, positions, cfg,
         n = b // dist.get_world_size(group)
         x = x[dist.get_rank(group) * n : (dist.get_rank(group) + 1) * n]
     for l in range(pools["k"].shape[0]):
-        layer = layer_view(params["layers"], l)
+        layer = layer_view(layers, l)
         x_full = all_gather(x, group) if sp else x
         q, k_new, v_new = attn_qkv(layer, x_full, cfg, cos, sin, positions)
         paged_append(pools["k"], pools["v"], k_new, v_new, bt, append_pos, layer_idx=l, **scales)
@@ -328,7 +342,7 @@ def _attention_layers(params, x, pools, bt, kv_lens, append_pos, positions, cfg,
             x = _mlp(layer, x, cfg, group, ep_group)
     if sp:
         x = all_gather(x, group)
-    return rms_norm(x, params["final_norm"], cfg.rms_eps)
+    return x
 
 
 def _lm_head(x: torch.Tensor, params, group) -> torch.Tensor:
@@ -1191,17 +1205,23 @@ class DecodeEngine:
         )
 
 
-_NOT_PORTED_AXES = (
-    ("pp", "pipeline parallelism (the JAX package's parallel/pp.py and pp_serve.py)"),
-    ("cp", "context parallelism (the JAX package's parallel/ring.py and ulysses.py)"),
+# the mesh axes the engine refuses: what it does not serve (pp: the JAX
+# engine reads only dp and ep from a mesh and serves no pipeline stages) and
+# what is not ported yet (cp)
+_REFUSED_AXES = (
+    ("pp", "not served by the engine: pipeline parallelism serves one decode step at a "
+           "time through parallel.pp_decode_step (parallel/pp_serve.py), as in the JAX "
+           "package, whose engine reads only dp and ep from a mesh"),
+    ("cp", "not ported yet: context parallelism (the JAX package's parallel/ring.py and "
+           "ulysses.py)"),
 )
 
 
 def _check_mesh(mesh, params, cfg: LlamaConfig, ecfg: EngineConfig, device: torch.device):
     """(dp, ep, tp) of the mesh to serve on; (1, 1, 1) without one. Raises
-    NotImplementedError for a mesh axis the port does not serve yet (pp or
-    cp > 1: nothing is served another way) and ValueError for what the JAX
-    engine refuses too."""
+    NotImplementedError for a mesh axis the engine does not serve (pp or
+    cp > 1: _REFUSED_AXES) and ValueError for what the JAX engine refuses
+    too."""
     if mesh is None:
         return 1, 1, 1
     from torch.distributed.device_mesh import DeviceMesh
@@ -1212,10 +1232,9 @@ def _check_mesh(mesh, params, cfg: LlamaConfig, ecfg: EngineConfig, device: torc
         raise NotImplementedError(
             f"not served: a mesh other than a DeviceMesh with the axes {AXES} "
             f"(parallel/mesh.py make_mesh), got {type(mesh).__name__}")
-    for axis, what in _NOT_PORTED_AXES:
+    for axis, what in _REFUSED_AXES:
         if axis_size(mesh, axis) > 1:
-            raise NotImplementedError(f"not ported yet: {what}; the mesh has {axis} = "
-                                      f"{axis_size(mesh, axis)}")
+            raise NotImplementedError(f"{what}; the mesh has {axis} = {axis_size(mesh, axis)}")
     dp, ep, tp = axis_size(mesh, DP), axis_size(mesh, EP), axis_size(mesh, TP)
     if ep > 1 and "router" not in params["layers"]:
         raise ValueError("mesh has ep>1 but params are not a MoE model (no router); expert "

@@ -12,7 +12,8 @@ Gathers, the reduce-scatter and the all-to-all act on dim 0 of a
 contiguous buffer (the layout of ``all_gather_into_tensor``,
 ``reduce_scatter_tensor`` and ``all_to_all_single``); other dims are moved
 to the front and back. The sums follow the backend's order (gloo or NCCL),
-not the JAX package's psum order.
+not the JAX package's psum order. ``ppermute`` is the pipeline's stage
+shift, a ring of paired point-to-point calls.
 """
 
 from __future__ import annotations
@@ -116,3 +117,30 @@ def all_to_all(x: torch.Tensor, group, split_dim: int, concat_dim: int) -> torch
     (rank j's at offset j). Differentiable."""
     dim = x.dim()
     return _AllToAll.apply(x, group, split_dim % dim, concat_dim % dim)
+
+
+def ppermute(x: torch.Tensor, group, shift: int = 1) -> torch.Tensor:
+    """JAX's ppermute over the group's ring i -> (i + shift) % n: x goes to
+    rank (i + shift) % n, and the result is what rank (i - shift) % n sent.
+    shift 1 is the pipeline's stage shift, -1 the reverse shift that carries
+    the gradients back. One isend / irecv pair in one batch
+    (``batch_isend_irecv``).
+
+    On one rank the ring is a send to self. NCCL takes that inside the batch,
+    so a one-rank NCCL group issues it like any other. gloo's transport has
+    no pair from a rank to itself (its send fails "Pair is not connected"),
+    so on a CPU tensor a group of one returns a copy of x, issues nothing and
+    counts nothing."""
+    n = dist.get_world_size(group)
+    if n == 1 and x.device.type == "cpu":
+        return x.clone()
+    me = dist.get_rank(group)
+    send = x.contiguous()
+    out = torch.empty_like(send)
+    _count("ppermute")
+    reqs = dist.batch_isend_irecv([
+        dist.P2POp(dist.isend, send, dist.get_global_rank(group, (me + shift) % n), group),
+        dist.P2POp(dist.irecv, out, dist.get_global_rank(group, (me - shift) % n), group)])
+    for req in reqs:
+        req.wait()
+    return out
