@@ -287,7 +287,24 @@ Phases, each of which raises (exit code != 0) when it fails:
    `pp_loss_and_grad` at Llama-8B widths cut to 2 layers, tokens (2, 1025),
    n_micro = 2, under the 3x rule (`train_pp1`, a main path). No pp > 1
    runs on one card.
-14. Print the seconds of each phase, the `kernels` JSON line (with the rows
+14. Sequence parallelism (`serve_cp`, run inside phase 11's one-rank NCCL
+   group after phase 13), at Llama-8B attention width (32 q / 8 kv heads,
+   d = 128, bf16, b = 1), forward and backward. At cp = 1, 8192 tokens
+   through `ring_attention` (causal and not), `ring_attention_zigzag` and
+   `ulysses_attention` (main paths `train_cp1_ring`, `_zigzag`,
+   `_ulysses`): the ring and Ulysses equal to `flash_attention` with the
+   hop's masks bit for bit, the zigzag ring under the 2x / 3x rule against
+   an f32 oracle computed head by head, the collectives counted (the
+   ring's backward 4 a hop and 2 to deliver), and a CUDA tensor on a gloo
+   group refused. Then the cp = 4 schedule in one process, 16384 tokens
+   (`train_cp4_schedule`, a main path): every rank's hops of the ring and
+   the zigzag ring through `parallel/ring.py`'s schedules in lockstep, and
+   each rank's Ulysses head slice (8 q / 2 kv heads over the whole
+   sequence), under the 2x / 3x rule with the dense K7/K9/K10 over the
+   whole sequence as the low-precision run; each hop kind's times, each
+   rank's device time and the dense kernels' times beside them. No cp > 1
+   runs across processes on one card.
+15. Print the seconds of each phase, the `kernels` JSON line (with the rows
    at d = 96 and 256, "<label>@d<d>"), the card's name and power limit,
    and, last, {"ok": true, "device": {...}}.
 
@@ -300,6 +317,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -6296,6 +6314,7 @@ def serve_mesh(gen, timer, params, cfg, ecfg, single, want, seed, checks, paths)
         out["train_tp1"] = mesh_train_tp1(gen, cfg, seed, checks, paths)
         checks.raise_on_failure("serve_mesh training")
         out["pp"] = serve_pp(gen, params, cfg, ecfg, seed, checks, paths)
+        out["cp"] = serve_cp(gen, cfg, checks, paths)
     out["shard_kernels"] = mesh_shard_kernels(gen, timer, checks, cfg)
     checks.raise_on_failure("serve_mesh shard kernels")
     out["dp2"] = mesh_dp2_two_processes(seed, checks, paths)
@@ -6683,6 +6702,343 @@ def serve_pp(gen, params, cfg, ecfg, seed, checks, paths):
     return out
 
 
+# ---- phase 14: sequence parallelism ------------------------------------------
+
+CP_TOKENS = 8192  # cp = 1: the sequence through the real transport
+CP4_TOKENS = 16384  # the cp = 4 schedule in one process: 4096 tokens a rank
+CP_N = 4
+
+
+def cp_inputs(gen, cfg, s):
+    """q, dO (1, 32, s, 128) and k, v (1, 8, s, 128) in bf16: Llama-8B's
+    attention at full width."""
+    hq, hk, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q, k, v, do = (torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+                   for shape in ((1, hq, s, d), (1, hk, s, d), (1, hk, s, d), (1, hq, s, d)))
+    return q, k, v, do
+
+
+def with_grads(fn, q, k, v, do):
+    """fn(q, k, v) -> (O, LSE) and its gradient against dO: (O, LSE, dq,
+    dk, dv), and the collectives issued by the forward and by the
+    backward."""
+    from xf_flash_attention_cutlass_tpu_torch import _build
+
+    def issued(before):
+        return {n: c - before.get(n, 0) for n, c in _build.LAUNCHES.items()
+                if n.startswith("collective.") and c != before.get(n, 0)}
+
+    xs = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    before = dict(_build.LAUNCHES)
+    o, lse = fn(*xs)
+    fwd, before = issued(before), dict(_build.LAUNCHES)
+    grads = torch.autograd.grad(o, xs, do)
+    torch.cuda.synchronize()
+    return (o.detach(), lse, *grads), fwd, issued(before)
+
+
+def cp_oracle(q, k, v, do, causal=True):
+    """The f32 oracle (utils/testing.py flash_attention_oracle) head by
+    head: O, LSE, dQ, dK, dV in f32 (dK and dV summed over each kv head's
+    group)."""
+    from xf_flash_attention_cutlass_tpu_torch.utils.testing import flash_attention_oracle
+
+    g = q.shape[1] // k.shape[1]
+    f32 = dict(dtype=torch.float32, device=q.device)
+    o, dq = torch.empty(q.shape, **f32), torch.empty(q.shape, **f32)
+    lse = torch.empty(q.shape[:3], **f32)
+    dk, dv = torch.zeros(k.shape, **f32), torch.zeros(k.shape, **f32)
+    for hq in range(q.shape[1]):
+        kv = hq // g
+        xs = [t[:, i:i + 1].float().requires_grad_(True) for t, i in ((q, hq), (k, kv), (v, kv))]
+        oh, lh = flash_attention_oracle(*xs, causal=causal)
+        gq, gk, gv = torch.autograd.grad(oh, xs, do[:, hq:hq + 1].float())
+        o[:, hq], lse[:, hq], dq[:, hq] = oh[:, 0].detach(), lh[:, 0].detach(), gq[:, 0]
+        dk[:, kv] += gk[:, 0]
+        dv[:, kv] += gv[:, 0]
+    return o, lse, dq, dk, dv
+
+
+CP_PARTS = ("o", "lse", "dq", "dk", "dv")
+
+
+def cp_rule(checks, name, got, low, oracle):
+    """The 2x rule on O and LSE (twice the low-precision run's error
+    against the f32 oracle, plus 1e-5) and the 3x rule on the gradients
+    (plus 1e-4), as check_flash_fwd_inputs and check_flash_bwd_inputs
+    hold K7 and K9-K11. Returns each part's (error, tolerance)."""
+    res = {}
+    for part, x, lp, ref in zip(CP_PARTS, got, low, oracle):
+        mult, atol = (2, 1e-5) if part in ("o", "lse") else (3, 1e-4)
+        res[part] = (max_err(x, ref), mult * max_err(lp, ref) + atol)
+    checks.add(name, all(bool(torch.isfinite(x).all()) for x in got)
+               and all(e <= t for e, t in res.values()),
+               **{f"{p}_err": e for p, (e, _) in res.items()},
+               **{f"{p}_tolerance": t for p, (_, t) in res.items()})
+    return res
+
+
+def cp1_calls(group):
+    """The entry points at cp = 1 over `group`, each as fn(q, k, v) -> (O,
+    LSE), beside the dense flash_attention call with the masks its hop
+    uses (None for the zigzag ring, whose halves merge in f32)."""
+    from xf_flash_attention_cutlass_tpu_torch.ops.flash import flash_attention
+    from xf_flash_attention_cutlass_tpu_torch.parallel import (
+        ring_attention,
+        ring_attention_zigzag,
+        ulysses_attention,
+        zigzag_permute,
+        zigzag_unpermute,
+    )
+
+    def zigzag(q, k, v):
+        o, lse = ring_attention_zigzag(*(zigzag_permute(x, 1, 2) for x in (q, k, v)), group)
+        return zigzag_unpermute(o, 1, 2), zigzag_unpermute(lse, 1, 2)
+
+    return {
+        "ring_causal": (lambda q, k, v: ring_attention(q, k, v, group, causal=True),
+                        lambda q, k, v: flash_attention(q, k, v, causal=True)),
+        "ring": (lambda q, k, v: ring_attention(q, k, v, group, causal=False),
+                 lambda q, k, v: flash_attention(q, k, v, causal=False)),
+        "ulysses": (lambda q, k, v: ulysses_attention(q, k, v, group, causal=True),
+                    lambda q, k, v: flash_attention(q, k, v, causal=True)),
+        "zigzag": (zigzag, None),
+    }
+
+
+# the collectives each entry point issues at cp = 1: the forward rotates
+# n - 1 = 0 times, the backward 4 tensors a hop and 2 to deliver; Ulysses
+# exchanges q, k, v, O and LSE, and back the cotangents of O, q, k, v
+CP1_COLLECTIVES = {
+    "ring": ({}, {"collective.ppermute": 6}),
+    "ulysses": ({"collective.all_to_all": 5}, {"collective.all_to_all": 4}),
+}
+
+
+def mesh_cp1(gen, cfg, checks, paths):
+    """The three entry points on a cp = 1 mesh over the one-rank NCCL group
+    at Llama-8B attention width, CP_TOKENS tokens, forward and backward
+    (main paths train_cp1_ring, _zigzag, _ulysses): the ring (causal and
+    not) and Ulysses equal to flash_attention over the same tensors with
+    the same masks bit for bit (one hop, identity exchanges); the zigzag
+    ring under the 2x / 3x rule against the f32 oracle, the dense
+    flash_attention the low-precision run; the collectives counted. Then a
+    CUDA tensor on a gloo group must raise, naming the backend."""
+    import torch.distributed as dist
+
+    from xf_flash_attention_cutlass_tpu_torch.parallel import make_mesh, ring_attention
+
+    group = make_mesh(cp=1).get_group("cp")
+    q, k, v, do = cp_inputs(gen, cfg, CP_TOKENS)
+    calls, runs = cp1_calls(group), {}
+    for path, names in (("train_cp1_ring", ("ring_causal", "ring")),
+                        ("train_cp1_zigzag", ("zigzag",)), ("train_cp1_ulysses", ("ulysses",))):
+        out, paths[path] = drive(path, lambda: {n: with_grads(calls[n][0], q, k, v, do)
+                                                for n in names})
+        runs.update(out)
+    out = {}
+    for name, (got, fwd, bwd) in runs.items():
+        dense = calls[name][1]
+        want = CP1_COLLECTIVES.get(name.split("_")[0], CP1_COLLECTIVES["ring"])
+        checks.add(f"serve_cp.cp1_{name}_collectives", (fwd, bwd) == want, forward=fwd,
+                   backward=bwd, expected=want)
+        if dense is not None:
+            ref = with_grads(dense, q, k, v, do)[0]
+            same = {p: bool(torch.equal(x, y)) for p, x, y in zip(CP_PARTS, got, ref)}
+            checks.add(f"serve_cp.cp1_{name}_bit_equal_flash_attention", all(same.values()),
+                       **same, max_abs_err=max(max_err(x, y) for x, y in zip(got, ref)))
+            out[name] = dict(bit_equal=same, forward=fwd, backward=bwd)
+        else:
+            low = with_grads(calls["ring_causal"][1], q, k, v, do)[0]
+            rule = cp_rule(checks, f"serve_cp.cp1_{name}_2x_3x_rule", got, low,
+                           cp_oracle(q, k, v, do))
+            out[name] = dict(rule=rule, forward=fwd, backward=bwd)
+    gloo = dist.new_group(backend="gloo")
+    try:
+        ring_attention(q[:, :, :64], k[:, :, :64], v[:, :, :64], gloo)
+        raised = None
+    except ValueError as e:
+        raised = str(e)
+    finally:
+        dist.destroy_process_group(gloo)
+    checks.add("serve_cp.cuda_on_gloo_raises", raised is not None and "gloo" in raised,
+               message=raised)
+    del q, k, v, do, runs
+    torch.cuda.empty_cache()
+    return out
+
+
+def timed_schedule(schedule, spans):
+    """A schedule (parallel/ring.py) passed through, with a CUDA event pair
+    appended to `spans` around each part it runs between two rotations:
+    one rank's share of the stream in ring.lockstep."""
+    handle = None
+    while True:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        try:
+            out = schedule.send(handle)
+        except StopIteration as stop:
+            end.record()
+            spans.append((start, end))
+            return stop.value
+        end.record()
+        spans.append((start, end))
+        handle = yield out
+
+
+def cp4_rings(q, k, v, do, causal=True, zigzag=False, spans=None):
+    """Every rank's forward and backward schedule of a cp = 4 ring in one
+    process (ring.lockstep), through the module's hops, merges and dK/dV
+    accumulators. Returns the global (O, LSE, dq, dk, dv); with `spans`,
+    each rank's event pairs go to spans[rank]."""
+    from xf_flash_attention_cutlass_tpu_torch.parallel import ring
+
+    n = CP_N
+    if zigzag:
+        q, k, v, do = (ring.zigzag_permute(x, n, 2) for x in (q, k, v, do))
+        fwd = functools.partial(ring.zigzag_hop_fwd, softmax_scale=None)
+        bwd = functools.partial(ring.zigzag_hop_bwd, softmax_scale=None)
+    else:
+        fwd = functools.partial(ring.ring_hop_fwd, causal=causal, softmax_scale=None)
+        bwd = functools.partial(ring.ring_hop_bwd, causal=causal, softmax_scale=None)
+    cq, ck, cv, cdo = (x.chunk(n, dim=2) for x in (q, k, v, do))
+
+    def run(schedules):
+        if spans is None:
+            return ring.lockstep(schedules)
+        return ring.lockstep([timed_schedule(s, spans[i]) for i, s in enumerate(schedules)])
+
+    outs = run([ring.fwd_schedule(fwd, cq[i], ck[i], cv[i], i, n) for i in range(n)])
+    grads = run([ring.bwd_schedule(bwd, cq[i], ck[i], cv[i], *outs[i], cdo[i], i, n)
+                 for i in range(n)])
+    res = [torch.cat([x[j] for x in outs], dim=2) for j in range(2)]
+    res += [torch.cat([g[j] for g in grads], dim=2) for j in range(3)]
+    return [ring.zigzag_unpermute(x, n, 2) for x in res] if zigzag else res
+
+
+def cp4_ulysses(group, q, k, v, do):
+    """Each rank's head slice of a cp = 4 Ulysses (8 q / 2 kv heads over the
+    whole sequence, what the exchanges hand rank i), through
+    ulysses_attention on a one-rank group. Returns the global (O, LSE, dq,
+    dk, dv)."""
+    from xf_flash_attention_cutlass_tpu_torch.parallel import ulysses_attention
+
+    hq, hk = q.shape[1] // CP_N, k.shape[1] // CP_N
+    parts = [with_grads(lambda a, b, c: ulysses_attention(a, b, c, group, causal=True),
+                        q[:, i * hq:(i + 1) * hq], k[:, i * hk:(i + 1) * hk],
+                        v[:, i * hk:(i + 1) * hk], do[:, i * hq:(i + 1) * hq])[0]
+             for i in range(CP_N)]
+    return [torch.cat([p[j] for p in parts], dim=1) for j in range(5)]
+
+
+def cp_hop_times(timer, q, k, v, do, o, lse):
+    """Timer ms of each hop kind's forward and backward (parallel/ring.py's
+    hop functions) at the cp = 4 shapes, with its operations bound: the
+    plain ring's diagonal and full hops (rank 3 over its own chunk and over
+    rank 0's) and the zigzag ring's diag, lo and hi (rank 0 own, rank 3 over
+    rank 0's, rank 0 over rank 3's). The backward takes the global O and
+    LSE's chunks. The bound counts 4 d operations a visible pair forward, 14
+    d backward (K9's three products and K10's four)."""
+    from xf_flash_attention_cutlass_tpu_torch.parallel import ring
+
+    n, (h, d) = CP_N, (q.shape[1], q.shape[3])
+    zz = [ring.zigzag_permute(x, n, 2).chunk(n, dim=2) for x in (q, k, v, do, o, lse)]
+    pl = [x.chunk(n, dim=2) for x in (q, k, v, do, o, lse)]
+    s = q.shape[2] // n
+    sh = s // 2
+    pairs = dict(diag=s * (s + 1) // 2, full=s * s, zz_diag=sh * (sh + 1) + sh * sh,
+                 zz_lo=2 * sh * sh, zz_hi=2 * sh * sh)
+    cases = dict(diag=(pl, 3, 3, "ring", dict(causal=True)),
+                 full=(pl, 3, 0, "ring", dict(causal=True)),
+                 zz_diag=(zz, 0, 0, "zigzag", {}), zz_lo=(zz, 3, 0, "zigzag", {}),
+                 zz_hi=(zz, 0, 3, "zigzag", {}))
+    out = {}
+    for kind, (xs, i, src, family, kw) in cases.items():
+        cq, ck, cv, cdo, co, cl = xs
+        fwd = getattr(ring, f"{family}_hop_fwd")
+        bwd = getattr(ring, f"{family}_hop_bwd")
+        out[kind] = dict(
+            fwd_ms=timer.ms(lambda: fwd(cq[i], ck[src], cv[src], i, src, softmax_scale=None,
+                                        **kw)),
+            bwd_ms=timer.ms(lambda: bwd(cq[i], ck[src], cv[src], co[i], cl[i], cdo[i], i, src,
+                                        softmax_scale=None, **kw)),
+            fwd_bound_ms=bound(0, 4 * d * h * pairs[kind])[0],
+            bwd_bound_ms=bound(0, 14 * d * h * pairs[kind])[0], pairs_per_head=pairs[kind])
+    return out
+
+
+def cp4_rank_times(q, k, v, do, reps=3):
+    """Device ms of each rank's share of the cp = 4 ring and zigzag ring
+    (forward and backward, timed_schedule), the mean of `reps` runs after a
+    warm one; the card spins first, so that the host queues ahead."""
+    out = {}
+    for name, kw in (("ring", {}), ("zigzag", dict(zigzag=True))):
+        cp4_rings(q, k, v, do, **kw)
+        runs = []
+        for _ in range(reps):
+            spans = [[] for _ in range(CP_N)]
+            torch.cuda._sleep(SLEEP_CYCLES)
+            cp4_rings(q, k, v, do, spans=spans, **kw)
+            torch.cuda.synchronize()
+            runs.append([sum(s.elapsed_time(e) for s, e in r) for r in spans])
+        ranks = [sum(r[i] for r in runs) / reps for i in range(CP_N)]
+        out[name] = dict(rank_ms=ranks, slowest_ms=max(ranks), sum_ms=sum(ranks))
+    out["slowest_ring_over_zigzag"] = out["ring"]["slowest_ms"] / out["zigzag"]["slowest_ms"]
+    return out
+
+
+def mesh_cp4(gen, cfg, checks, paths):
+    """The cp = 4 schedule in one process at CP4_TOKENS tokens (main path
+    train_cp4_schedule): the ring and the zigzag ring, every rank's hops
+    through the module's schedules in lockstep, and each rank's head slice
+    of Ulysses; O, LSE and the gradients under the 2x / 3x rule against the
+    f32 oracle, the dense flash_attention over the whole sequence (K7,
+    K9/K10) the low-precision run. Then each hop kind's times, each rank's
+    device time and the dense kernels' over the whole sequence."""
+    from xf_flash_attention_cutlass_tpu_torch.ops.flash import flash_attention
+    from xf_flash_attention_cutlass_tpu_torch.ops.flash_bwd import flash_bwd
+    from xf_flash_attention_cutlass_tpu_torch.ops.flash_fwd import flash_fwd
+    from xf_flash_attention_cutlass_tpu_torch.parallel import make_mesh
+
+    group = make_mesh(cp=1).get_group("cp")
+    q, k, v, do = cp_inputs(gen, cfg, CP4_TOKENS)
+    got, paths["train_cp4_schedule"] = drive("train_cp4_schedule", lambda: dict(
+        ring=cp4_rings(q, k, v, do), zigzag=cp4_rings(q, k, v, do, zigzag=True),
+        ulysses=cp4_ulysses(group, q, k, v, do)))
+    low = with_grads(lambda a, b, c: flash_attention(a, b, c, causal=True), q, k, v, do)[0]
+    oracle = cp_oracle(q, k, v, do)
+    out = {name: cp_rule(checks, f"serve_cp.cp4_{name}_2x_3x_rule", x, low, oracle)
+           for name, x in got.items()}
+    del got, oracle
+    torch.cuda.empty_cache()
+    timer = Timer()
+    out["hops"] = cp_hop_times(timer, q, k, v, do, low[0], low[1])
+    out["ranks"] = cp4_rank_times(q, k, v, do)
+    out["dense"] = dict(fwd_ms=timer.ms(lambda: flash_fwd(q, k, v, causal=True)),
+                        bwd_ms=timer.ms(lambda: flash_bwd(q, k, v, low[0], low[1], do,
+                                                          causal=True)))
+    dense = out["dense"]["fwd_ms"] + out["dense"]["bwd_ms"]
+    out["sum_over_ranks_over_dense"] = {n: out["ranks"][n]["sum_ms"] / dense
+                                        for n in ("ring", "zigzag")}
+    del q, k, v, do, low, timer
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_cp(gen, cfg, checks, paths):
+    """Phase 14, inside phase 11's one-rank NCCL group (see the module
+    docstring). Returns the report's row, with the phase's seconds."""
+    t0 = time.perf_counter()
+    out = dict(cp1=mesh_cp1(gen, cfg, checks, paths))
+    checks.raise_on_failure("serve_cp cp1")
+    out["cp4"] = mesh_cp4(gen, cfg, checks, paths)
+    checks.raise_on_failure("serve_cp cp4")
+    out["phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"serve_cp": out}), flush=True)
+    return out
+
+
 _PKG = "xf_flash_attention_cutlass_tpu_torch/csrc/"
 _TPU = "xf_flash_attention_cutlass_tpu/"
 KERNELS = {  # launch-counter name: (source, TPU kernel it replaces)
@@ -6867,6 +7223,21 @@ PATHS.update({
 })
 NOT_ON_PATH.update({"serve_pp1": _NOT_SERVING + _CHUNKED + ["qmm.stacked.wgmma",
                                                             "graph.decode"]})
+# phase 14: sequence parallelism. At cp = 1 the ring's forward rotates
+# nothing and its backward sends to self; Ulysses' exchanges are the
+# identity at one rank, and the cp = 4 schedule runs Ulysses' head slices
+# on a one-rank group (the rings' rotations there are in-process hand-overs,
+# ring.lockstep). Every hop on the two-pass backward, no padded copy
+_CP_KERNELS = ["flash_fwd", "flash_bwd.dq", "flash_bwd.dkv"]
+PATHS.update({
+    "train_cp1_ring": _CP_KERNELS + ["collective.ppermute"],
+    "train_cp1_zigzag": _CP_KERNELS + ["collective.ppermute"],
+    "train_cp1_ulysses": _CP_KERNELS + ["collective.all_to_all"],
+    "train_cp4_schedule": _CP_KERNELS + ["collective.all_to_all"],
+})
+NOT_ON_PATH.update({p: _PADS + _FLASH16[1::2] + ["flash_bwd.fused", "flash_fwd.f32"]
+                    for p in ("train_cp1_ring", "train_cp1_zigzag", "train_cp1_ulysses",
+                              "train_cp4_schedule")})
 
 
 def head_dim_kernels():
@@ -7116,6 +7487,7 @@ def main():
     torch.cuda.empty_cache()
     mark("serve_mesh")
     phase_s["serve_pp_inside_serve_mesh"] = report["serve_mesh"]["pp"]["phase_s"]
+    phase_s["serve_cp_inside_serve_mesh"] = report["serve_mesh"]["cp"]["phase_s"]
 
     # the engine's features: windows, sampling, speculative verify, prefixes
     report["serve_features"] = serve_features(params, cfg, ecfg, args.seed, checks, paths,
@@ -7228,7 +7600,7 @@ def main():
     report["api_phi3"] = api_phi3(gen, checks, paths, args.seed)
     mark("train_phi3")
 
-    # 11. the kernels line, the card, the result
+    # 15. the kernels line, the card, the result
     kernels = []
     for name, (source, replaces) in dict(KERNELS, **head_dim_kernels()).items():
         r = measured[name]

@@ -17,6 +17,7 @@ to unpickle their jobs.
 
 from __future__ import annotations
 
+import logging
 import multiprocessing
 import os
 import pickle
@@ -51,7 +52,7 @@ from xf_flash_attention_cutlass_tpu_torch.parallel import (
     tp_loss_and_grad,
     tp_verify_step,
 )
-from xf_flash_attention_cutlass_tpu_torch.parallel.mesh import PP
+from xf_flash_attention_cutlass_tpu_torch.parallel.mesh import CP, PP
 from xf_flash_attention_cutlass_tpu_torch.parallel.tp import _leaves, gather_to_rank0, shard_params
 from xf_flash_attention_cutlass_tpu_torch.serve import DecodeEngine, load_engine, save_engine
 from xf_flash_attention_cutlass_tpu_torch.utils.collectives import ppermute
@@ -387,3 +388,51 @@ def save_peak(mesh, params, cfg, ecfg, requests, n_steps, path):
     with PeakBytes() as mode:
         save_engine(eng, path, include_params=True)
     return mode.peak, sum(shards.values()), max(shards.values())
+
+
+class _Records(logging.Handler):
+    """(level name, message) of every record a logger emits."""
+
+    def __init__(self):
+        super().__init__(logging.DEBUG)
+        self.records = []
+
+    def emit(self, record):
+        self.records.append((record.levelname, record.getMessage()))
+
+
+def cp_attention(mesh, fn, q, k, v, kw):
+    """fn (ring_attention, ring_attention_zigzag or ulysses_attention) over
+    the cp group on this rank's chunk of the global q, k, v (sequence on dim
+    2, chunk i on cp rank i), and the gradient of sum(sin(O)) on it: (O,
+    LSE, the local loss, (dq, dk, dv), the collectives issued by the
+    forward and by the backward, the records parallel/ulysses.py logged)."""
+    i, n = mesh.get_local_rank(CP), mesh.size(mesh.mesh_dim_names.index(CP))
+    xs = [t.chunk(n, dim=2)[i].clone().requires_grad_(True) for t in (q, k, v)]
+    logger = logging.getLogger("xf_flash_attention_cutlass_tpu_torch.parallel.ulysses")
+    handler, level = _Records(), logger.level
+    logger.setLevel(logging.DEBUG)
+    logger.addHandler(handler)
+    try:
+        (o, lse), fwd = _step_launches(lambda: fn(*xs, mesh.get_group(CP), **kw))
+        loss = torch.sin(o.float()).sum()
+        _, bwd = _step_launches(loss.backward)
+    finally:
+        logger.removeHandler(handler)
+        logger.setLevel(level)
+    return (o.detach(), lse, float(loss), tuple(x.grad for x in xs), fwd, bwd,
+            handler.records)
+
+
+def cp_errors(mesh, calls):
+    """The ValueError message of fn(q, k, v, cp group, **kwargs) for each
+    (fn, (q, k, v), kwargs) of `calls`, None where it raised none."""
+    out = []
+    for fn, qkv, kwargs in calls:
+        try:
+            fn(*qkv, mesh.get_group(CP), **kwargs)
+        except ValueError as e:
+            out.append(str(e))
+        else:
+            out.append(None)
+    return out

@@ -240,8 +240,10 @@ def test_mesh_requires_chunked_prefill(ranks, llama):
 @pytest.mark.parametrize("axis,what", [("pp", "pipeline parallelism"),
                                        ("cp", "context parallelism")])
 def test_mesh_axes_not_ported_raise(ranks, moe, axis, what):
-    """A mesh with pp or cp > 1 raises NotImplementedError naming what is
-    not ported; nothing is served another way."""
+    """A mesh with pp or cp > 1 raises NotImplementedError naming the
+    parallelism the engine does not serve (tests/test_torch_parallel_cp.py
+    holds the functions the cp message names); nothing is served another
+    way."""
     _, _, cfg, params = moe
     for out in ranks.run(mesh_ranks.engine_raises, params, cfg, EngineConfig(**BASE),
                          **{axis: 2}):

@@ -42,7 +42,6 @@ from xf_flash_attention_cutlass_tpu_torch.utils import acc_dtype
 from xf_flash_attention_cutlass_tpu_torch.utils.collectives import (
     all_gather,
     all_reduce_,
-    reduce_scatter,
 )
 
 PROJ_NAMES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
@@ -152,17 +151,6 @@ class _ScaleGrad(torch.autograd.Function):
         return ct * ctx.s, None
 
 
-class _GatherLast(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return all_gather(x, group, dim=-1)
-
-    @staticmethod
-    def backward(ctx, ct):
-        return reduce_scatter(ct, ctx.group, dim=-1), None
-
-
 def _differentiable(x: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and x.requires_grad
 
@@ -192,9 +180,7 @@ def gather_vocab(logits_local: torch.Tensor, group) -> torch.Tensor:
     """A vocab-sharded lm_head's logits (..., V / tp) gathered to (..., V)
     on every rank; the backward reduce-scatters the cotangent, scaled by
     1 / tp (scale_grad)."""
-    if not _differentiable(logits_local):
-        return all_gather(logits_local, group, dim=-1)
-    return scale_grad(_GatherLast.apply(logits_local, group), 1.0 / dist.get_world_size(group))
+    return scale_grad(all_gather(logits_local, group, dim=-1), 1.0 / dist.get_world_size(group))
 
 
 def layer_view(layers: Dict[str, Any], l: int) -> Dict[str, Any]:

@@ -1,12 +1,14 @@
 """The parallel layers on ``torch.distributed``: the device mesh
 (``mesh.py``), tensor- and data-parallel training (``tp.py``) and serving
 (``tp_serve.py``; the engine's ``mesh=`` mode), expert parallelism for the
-MoE family, training (``ep.py``) and serving (``ep_serve.py``), and
+MoE family, training (``ep.py``) and serving (``ep_serve.py``),
 pipeline parallelism, training (``pp.py``: GPipe microbatches, the
 backward pipeline written out) and serving (``pp_serve.py``:
-``pp_decode_step``, which the engine does not call, as in the JAX package).
-Sequence parallelism (the JAX package's ``ring.py`` and ``ulysses.py``) is
-not ported yet."""
+``pp_decode_step``, which the engine does not call, as in the JAX package),
+and sequence parallelism over the mesh's "cp" group, differentiable: the
+ring and the balanced zigzag ring (``ring.py``, on K7 and K9/K10 at every
+hop) and all-to-all Ulysses (``ulysses.py``), which the engine does not
+serve, as in the JAX package."""
 
 from xf_flash_attention_cutlass_tpu_torch.parallel.mesh import make_mesh  # noqa: F401
 from xf_flash_attention_cutlass_tpu_torch.parallel.tp import (  # noqa: F401
@@ -47,3 +49,10 @@ from xf_flash_attention_cutlass_tpu_torch.parallel.pp_serve import (  # noqa: F4
     pp_pool_specs,
     shard_pp_pools,
 )
+from xf_flash_attention_cutlass_tpu_torch.parallel.ring import (  # noqa: F401
+    ring_attention,
+    ring_attention_zigzag,
+    zigzag_permute,
+    zigzag_unpermute,
+)
+from xf_flash_attention_cutlass_tpu_torch.parallel.ulysses import ulysses_attention  # noqa: F401

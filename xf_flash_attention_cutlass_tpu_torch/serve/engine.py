@@ -65,10 +65,12 @@ and computes its replica's rows; the replicas exchange their sampled
 tokens on host tensors. On CUDA the decode window is a graph replay with
 its collectives captured in it.
 
-A mesh with pp > 1 raises NotImplementedError: as in the JAX package, the
-engine serves no pipeline stages, and a pipeline-parallel decode step is
-``parallel/pp_serve.py``'s ``pp_decode_step``. A mesh with cp > 1 (context
-parallelism, not ported yet) raises it too.
+A mesh with pp or cp > 1 raises NotImplementedError: as in the JAX
+package, the engine reads only dp and ep from a mesh, so it serves no
+pipeline stages (a pipeline-parallel decode step is
+``parallel/pp_serve.py``'s ``pp_decode_step``) and no sequence shards
+(context parallelism is ``parallel.ring_attention``,
+``ring_attention_zigzag`` and ``ulysses_attention``).
 """
 
 from __future__ import annotations
@@ -1205,15 +1207,17 @@ class DecodeEngine:
         )
 
 
-# the mesh axes the engine refuses: what it does not serve (pp: the JAX
-# engine reads only dp and ep from a mesh and serves no pipeline stages) and
-# what is not ported yet (cp)
+# the mesh axes the engine does not serve: the JAX engine reads only dp and
+# ep from a mesh, so it serves no pipeline stages (pp) and no sequence shards
+# (cp)
 _REFUSED_AXES = (
     ("pp", "not served by the engine: pipeline parallelism serves one decode step at a "
            "time through parallel.pp_decode_step (parallel/pp_serve.py), as in the JAX "
            "package, whose engine reads only dp and ep from a mesh"),
-    ("cp", "not ported yet: context parallelism (the JAX package's parallel/ring.py and "
-           "ulysses.py)"),
+    ("cp", "not served by the engine: context parallelism is attention over sequence "
+           "shards through parallel.ring_attention, ring_attention_zigzag and "
+           "ulysses_attention (parallel/ring.py, ulysses.py), as in the JAX package, whose "
+           "engine reads only dp and ep from a mesh"),
 )
 
 

@@ -13,7 +13,8 @@ contiguous buffer (the layout of ``all_gather_into_tensor``,
 ``reduce_scatter_tensor`` and ``all_to_all_single``); other dims are moved
 to the front and back. The sums follow the backend's order (gloo or NCCL),
 not the JAX package's psum order. ``ppermute`` is the pipeline's stage
-shift, a ring of paired point-to-point calls.
+shift, a ring of paired point-to-point calls; ``ppermute_start`` issues the
+ring attention's rotations without waiting for them.
 """
 
 from __future__ import annotations
@@ -40,9 +41,16 @@ def all_reduce_(x: torch.Tensor, group) -> torch.Tensor:
     return x
 
 
-def all_gather(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
-    """The ranks' x concatenated along `dim`, in rank order (JAX's tiled
-    all_gather)."""
+def check_transport(x: torch.Tensor, group) -> None:
+    """Raise unless the group's backend moves tensors of x's device: CUDA
+    tensors need NCCL (a group of "gloo" alone has no CUDA transport)."""
+    backend = str(dist.get_backend(group))
+    if x.device.type == "cuda" and "nccl" not in backend:
+        raise ValueError(f"CUDA tensors on a process group of backend {backend!r}, which has "
+                         f"no CUDA transport: initialise it with NCCL (\"cpu:gloo,cuda:nccl\")")
+
+
+def _all_gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     n = dist.get_world_size(group)
     _count("all_gather")
     out = x.new_empty((n * x.shape[0], *x.shape[1:]))
@@ -53,6 +61,29 @@ def all_gather(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     shape = list(x.shape)
     shape[dim] *= n
     return out.view(n, *x.shape).movedim(0, dim).reshape(shape)
+
+
+class _AllGather(torch.autograd.Function):
+    """The gather; its backward is the reduce-scatter, unscaled, as the
+    transpose of JAX's tiled all_gather."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.args = group, dim
+        return _all_gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, dim = ctx.args
+        return reduce_scatter(g, group, dim), None, None
+
+
+def all_gather(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """The ranks' x concatenated along `dim`, in rank order (JAX's tiled
+    all_gather). Differentiable."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _AllGather.apply(x, group, dim % x.dim())
+    return _all_gather(x, group, dim)
 
 
 def reduce_scatter(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
@@ -119,28 +150,50 @@ def all_to_all(x: torch.Tensor, group, split_dim: int, concat_dim: int) -> torch
     return _AllToAll.apply(x, group, split_dim % dim, concat_dim % dim)
 
 
+class Pending:
+    """The tensors a started ppermute receives; ``wait()`` returns them once
+    the transfers are done (on CUDA, once the current stream waits for
+    them)."""
+
+    def __init__(self, outs, reqs=()):
+        self.outs, self.reqs = tuple(outs), reqs
+
+    def wait(self):
+        for req in self.reqs:
+            req.wait()
+        return self.outs
+
+
+def ppermute_start(xs, group, shift: int = 1) -> Pending:
+    """ppermute of each tensor of xs, all issued at once in one batch
+    (``batch_isend_irecv``) and not waited for: the caller runs other work,
+    then ``wait()``. Counts one ppermute a tensor. See ``ppermute``."""
+    n = dist.get_world_size(group)
+    if n == 1 and all(x.device.type == "cpu" for x in xs):
+        return Pending(x.clone() for x in xs)
+    me = dist.get_rank(group)
+    to = dist.get_global_rank(group, (me + shift) % n)
+    frm = dist.get_global_rank(group, (me - shift) % n)
+    ops, outs = [], []
+    for x in xs:
+        send = x.contiguous()
+        out = torch.empty_like(send)
+        _count("ppermute")
+        ops += [dist.P2POp(dist.isend, send, to, group), dist.P2POp(dist.irecv, out, frm, group)]
+        outs.append(out)
+    return Pending(outs, dist.batch_isend_irecv(ops))
+
+
 def ppermute(x: torch.Tensor, group, shift: int = 1) -> torch.Tensor:
     """JAX's ppermute over the group's ring i -> (i + shift) % n: x goes to
     rank (i + shift) % n, and the result is what rank (i - shift) % n sent.
     shift 1 is the pipeline's stage shift, -1 the reverse shift that carries
     the gradients back. One isend / irecv pair in one batch
-    (``batch_isend_irecv``).
+    (``batch_isend_irecv``), waited for.
 
     On one rank the ring is a send to self. NCCL takes that inside the batch,
     so a one-rank NCCL group issues it like any other. gloo's transport has
     no pair from a rank to itself (its send fails "Pair is not connected"),
     so on a CPU tensor a group of one returns a copy of x, issues nothing and
     counts nothing."""
-    n = dist.get_world_size(group)
-    if n == 1 and x.device.type == "cpu":
-        return x.clone()
-    me = dist.get_rank(group)
-    send = x.contiguous()
-    out = torch.empty_like(send)
-    _count("ppermute")
-    reqs = dist.batch_isend_irecv([
-        dist.P2POp(dist.isend, send, dist.get_global_rank(group, (me + shift) % n), group),
-        dist.P2POp(dist.irecv, out, dist.get_global_rank(group, (me - shift) % n), group)])
-    for req in reqs:
-        req.wait()
-    return out
+    return ppermute_start((x,), group, shift).wait()[0]
